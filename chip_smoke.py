@@ -1,0 +1,577 @@
+#!/usr/bin/env python3
+"""Chip smoke test of the PyTorch/CUDA port (``src/repro_torch``) on one GPU.
+
+Run from the root of a checkout, on a machine with one NVIDIA H100 and the
+CUDA toolkit:
+
+    python3 chip_smoke.py
+
+Phases, in order (each prints its wall time; any failure exits non-zero):
+
+1. device: the card's name and power limit (``nvidia-smi``), torch and
+   CUDA versions; the photonic GEMM kernels are built from
+   ``src/repro_torch/kernels/photonic_gemm/csrc`` with ``nvcc``.
+2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
+   the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
+   sites) under the ideal, SMWA and ASMW channels, plus f32-prologue cases
+   with bias and gelu/silu.  Per case: median kernel time (CUDA graph of
+   10 launches, CUDA events), twin time, ``torch._int_mm`` time for the
+   ideal int core (a yardstick only; the port never calls it), the
+   roofline bound of the logical GEMM (live rows, real K and C; the tile
+   padding is the kernel's overhead, not work), and whether the outputs
+   agree, with the kernel launches the case made (its check, the graph's
+   warm-up and capture).  Per channel and row count, the sums over one
+   decoder layer.
+3. int_gemm path: ``PhotonicEngine.int_gemm`` (the integer entry point,
+   kernel ``photonic_gemm``) at the six sites, launch counts reset before.
+4. serve: qwen2-0.5b at full width (24 layers, bf16, seeded random weights
+   from ``init_params``) answers 4 greedy requests through the port's
+   paged ``Scheduler`` with every weight GEMM on the fused kernel, in the
+   ideal and the SMWA-analog mode; launch counts are reset before each run
+   and must equal 6 x 24 x forward calls; ideal-mode tokens must equal the
+   same server's on the ``ref`` backend.  In each run, once every request
+   is prefilled, two decode steps are set apart and left out of the rates
+   printed; on the kernel backend they run under the torch profiler:
+   device busy share, top kernels and top host ops (full tables in
+   ``chiprun_out/profile_*.txt``) and the profiler's own cost.
+
+The last lines are the kernels JSON, the card's ``name, power.limit`` and
+``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
+or when the port's sources are not beside this script.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+import numpy as np
+
+ROOT = Path(__file__).resolve().parent
+PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
+PEAK_INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor cores
+SITES = [  # (site, K, C, bias) — one decoder layer of qwen2-0.5b
+    ("attn.wq", 896, 896, True),
+    ("attn.wk", 896, 128, True),
+    ("attn.wv", 896, 128, True),
+    ("attn.wo", 896, 896, False),
+    ("ffn.wi", 896, 9728, False),
+    ("ffn.wo", 4864, 896, False),
+]
+FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True, timeout=60,
+    )
+    return out.stdout.strip().splitlines()[0]
+
+
+class Phase:
+    def __init__(self, name: str):
+        self.name = name
+
+    def __enter__(self):
+        log(f"== phase {self.name}")
+        self.t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if exc[0] is None:
+            log(f"== phase {self.name} done in {time.perf_counter() - self.t0:.3f} s")
+        return False
+
+
+def graph_ms(fn, calls: int = 10, replays: int = 5) -> float:
+    """Median device time of one ``fn()`` from a CUDA graph of ``calls``
+    back-to-back calls (no host overhead between launches)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        for _ in range(2):
+            fn()
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(replays):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        graph.replay()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / calls)
+    return statistics.median(times)
+
+
+def eager_ms(fn, reps: int = 3) -> float:
+    """Median of ``reps`` host-timed calls, each ending in a synchronize."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def bound_ms(r, k, c, x_bytes, passes, xtalk_dots, with_bias, fused) -> tuple:
+    """(bytes ms, operations ms) for one call of the logical GEMM: ``r``
+    live rows and the real K and C, not the tile padding the kernel pays.
+    Inputs are read once and the output written once at the HBM rate,
+    against the int8 ops of every pass the channel needs (one exact pass
+    when ideal) at the dense int8 peak.  The bound is the larger of the
+    two."""
+    nbytes = r * k * x_bytes + k * c + r * c * 4
+    if fused:
+        nbytes += 4 + c * 4 + (c * 4 if with_bias else 0)
+    ops = 2.0 * r * k * c * passes * (1 + xtalk_dots)
+    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS_PER_S * 1e3
+
+
+def bound_of(parts) -> tuple:
+    """(bound ms, "bytes" | "operations") of one or more summed calls."""
+    tb = sum(p[0] for p in parts)
+    to = sum(p[1] for p in parts)
+    return max(tb, to), ("bytes" if tb >= to else "operations")
+
+
+def dpu_for(org: str):
+    """The operating point of a channel name: "ideal" (SMWA, calibrated N,
+    no analog stage) or an organization's full analog channel at its
+    calibrated N with ``noise_seed=0``."""
+    from repro_torch.core.dpu import DPUConfig
+    from repro_torch.noise.channel import build_channel_model
+
+    if org == "ideal":
+        return DPUConfig(organization="SMWA", bits=4, datarate_gs=5.0)
+    n = DPUConfig(organization=org, bits=4, datarate_gs=5.0).n
+    ch = build_channel_model(org, n=n, bits=4, datarate_gs=5.0)
+    return DPUConfig(organization=org, bits=4, datarate_gs=5.0, channel=ch, noise_seed=0)
+
+
+def operands(torch, gen, r, k, c, rp, kp, cp, x_f32):
+    """Seeded operands of an (r, k) x (k, c) GEMM, zero-padded to the
+    kernel's (rp, kp) x (kp, cp) as the engine pads them."""
+    dev = torch.device("cuda")
+    w = torch.zeros((kp, cp), dtype=torch.int8, device=dev)
+    w[:k, :c] = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+    if x_f32:
+        x = torch.zeros((rp, kp), dtype=torch.float32, device=dev)
+        x[:r, :k] = torch.randn((r, k), generator=gen, device=dev)
+    else:
+        x = torch.zeros((rp, kp), dtype=torch.int8, device=dev)
+        x[:r, :k] = torch.randint(-127, 128, (r, k), generator=gen, device=dev, dtype=torch.int8)
+    return x, w
+
+
+def passes_of(dpu, stages) -> tuple:
+    """(slice passes, crosstalk dots per pass) the channel makes the
+    kernel run: one exact pass when ideal, num_slices^2 otherwise."""
+    ch = dpu.effective_channel()
+    analog = ch is not None and ch.analog
+    passes = 1 if not analog and stages["adc_bits"] is None else dpu.num_slices**2
+    return passes, int(stages["intermod_eps"] > 0) + int(stages["crossweight_eps"] > 0)
+
+
+def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_out):
+    """One kernel-vs-twin case at the stage arguments and padding the
+    engine gives an (r, k) x (k, c) GEMM; appends a result dict to
+    ``rows_out``."""
+    from repro_torch.photonic.engine import kernel_stages
+
+    dev = torch.device("cuda")
+    stages, (rp, kp, cp) = kernel_stages(dpu, r, k, c)
+    ch = dpu.effective_channel()
+    analog = ch is not None and ch.analog
+    noisy = stages["noise_sigma"] > 0.0
+    x, w = operands(torch, gen, r, k, c, rp, kp, cp, x_f32)
+    if x_f32:
+        xs = (x.abs().max() * (1.0 / 127.0)).reshape(1)
+    else:
+        xs = torch.rand((1,), generator=gen, device=dev) * 0.01 + 1e-3
+    ws = torch.rand((cp,), generator=gen, device=dev) * 0.01 + 1e-3
+    bias = torch.randn((cp,), generator=gen, device=dev) if with_bias else None
+    seed = torch.randint(0, 2**32, (), generator=gen, device=dev, dtype=torch.int64)
+    args = (x, w, xs, ws, bias, seed)
+    kw = dict(operand_bits=8, activation=activation, **stages)
+
+    n0 = K.LAUNCHES["photonic_gemm_fused"]
+
+    def run_kernel():
+        return K.photonic_gemm_fused(*args, **kw)
+
+    def run_twin():
+        return K.photonic_gemm_fused_twin(*args, **kw)
+
+    y_k = run_kernel()
+    y_t = run_twin()
+    torch.cuda.synchronize()
+    # Agreement: bitwise for deterministic channels; with detector noise the
+    # f32 log/cos may round apart, so psums may differ by one LSB at a few
+    # elements: in accumulator units (|diff| / (x_scale * w_scale)) at most
+    # two top-pass LSBs (2 * 2^(2B)) on at most 0.1% of elements.  Bias and
+    # activation add float tolerance (1e-5 relative).
+    unit = (xs * ws[None, :]).to(torch.float64)
+    diff = (y_k.to(torch.float64) - y_t.to(torch.float64)).abs()
+    err = float(diff.max())
+    finite = bool(torch.isfinite(y_k).all())
+    lsb = diff / unit
+    if activation is None and bias is None:
+        if noisy:
+            frac = float((lsb > 0.5).to(torch.float64).mean())
+            ok = finite and frac <= 1e-3 and float(lsb.max()) <= 2 * 2 ** (2 * dpu.bits)
+            tol = "noisy: <=0.1% elements off, <= 2 top-pass LSB"
+        else:
+            ok = finite and err == 0.0
+            tol = "bitwise"
+    else:
+        rel_ok = diff <= 1e-5 * y_t.to(torch.float64).abs() + 1e-5
+        if noisy:
+            ok = finite and float((~rel_ok).to(torch.float64).mean()) <= 1e-3 and float(lsb.max()) <= 2 * 2 ** (2 * dpu.bits) + 1
+        else:
+            ok = finite and bool(rel_ok.all())
+        tol = "float 1e-5 rel (bias/activation tail)"
+    k_ms = graph_ms(run_kernel)
+    launched = K.LAUNCHES["photonic_gemm_fused"] - n0
+    t_ms = eager_ms(run_twin)
+    lib_ms = None
+    if not analog and stages["adc_bits"] is None and r > 16:
+        xi = x if not x_f32 else torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
+        xi, wl = xi[:r, :k].contiguous(), w[:k, :c].contiguous()
+        lib_ms = graph_ms(lambda: torch._int_mm(xi, wl))
+    parts = bound_ms(r, k, c, 4 if x_f32 else 1, *passes_of(dpu, stages), with_bias, True)
+    b_ms, b_by = bound_of([parts])
+    rows_out.append(dict(
+        R_live=r, R=rp, K=k, C=c, Kp=kp, Cp=cp, channel=dpu.organization if analog else "ideal",
+        x="f32" if x_f32 else "int8", bias=with_bias, activation=activation,
+        ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, parts=parts,
+        max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
+    ))
+    log(f"  R={r:3d}/{rp:3d} K={k:4d}/{kp:4d} C={c:5d} {rows_out[-1]['channel']:5s} x={rows_out[-1]['x']:4s} "
+        f"bias={int(with_bias)} act={activation}: kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
+        f"_int_mm {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms "
+        f"({b_by}), {launched} launches, max_abs_err {err:.3g} [{tol}] -> {'ok' if ok else 'MISMATCH'}")
+    return ok
+
+
+def int_case(torch, K, dpu, r, k, c, gen):
+    """photonic_gemm (int core) against its twin at the engine's stage
+    arguments; returns (ok, err, ms, twin_ms, lib_ms, bound parts)."""
+    from repro_torch.photonic.engine import kernel_stages
+
+    stages, (rp, kp, cp) = kernel_stages(dpu, r, k, c)
+    ch = dpu.effective_channel()
+    analog = ch is not None and ch.analog
+    noisy = stages["noise_sigma"] > 0.0
+    x, w = operands(torch, gen, r, k, c, rp, kp, cp, False)
+    seed = torch.randint(0, 2**32, (), generator=gen, device="cuda", dtype=torch.int64)
+    n0 = K.LAUNCHES["photonic_gemm"]
+    y_k = K.photonic_gemm(x, w, seed, **stages)
+    y_t = K.photonic_gemm_twin(x, w, seed, **stages)
+    d = (y_k.to(torch.int64) - y_t.to(torch.int64)).abs()
+    err = float(d.max())
+    if noisy:
+        ok = float((d > 0).to(torch.float64).mean()) <= 1e-3 and err <= 2 * 2 ** (2 * dpu.bits)
+    else:
+        ok = err == 0.0
+    k_ms = graph_ms(lambda: K.photonic_gemm(x, w, seed, **stages))
+    launched = K.LAUNCHES["photonic_gemm"] - n0
+    t_ms = eager_ms(lambda: K.photonic_gemm_twin(x, w, seed, **stages))
+    lib_ms = None
+    if not analog and stages["adc_bits"] is None and r > 16:
+        xl, wl = x[:r, :k].contiguous(), w[:k, :c].contiguous()
+        lib_ms = graph_ms(lambda: torch._int_mm(xl, wl))
+    b = bound_ms(r, k, c, 1, *passes_of(dpu, stages), False, False)
+    bm, bb = bound_of([b])
+    log(f"  int core R={r} K={k} C={c} {'ideal' if not analog else dpu.organization}: kernel "
+        f"{k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm {lib_ms} ms, bound {bm:.5f} ms ({bb}), "
+        f"{launched} launches, max_abs_err {err} -> {'ok' if ok else 'MISMATCH'}")
+    return ok, err, k_ms, t_ms, lib_ms, b
+
+
+def profiled(torch, fn, label):
+    """Run ``fn()`` under the torch profiler (CPU + CUDA) and log the device
+    busy share and the top kernels and host ops; the full table goes to
+    ``chiprun_out/profile_<label>.txt``."""
+    from torch.profiler import ProfilerActivity, profile
+
+    t_enter = time.perf_counter()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    t_exit = time.perf_counter()
+    wall_ms = (t1 - t0) * 1e3
+    ka = prof.key_averages()
+    t_avg = time.perf_counter()
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+
+    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
+    share = f"{busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
+    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
+    log(f"  profile {label}: wall {wall_ms:.1f} ms under the profiler, device busy "
+        f"{busy_ms:.1f} ms ({share}), {sum(e.count for e in kernels)} device events, "
+        f"{launches} cudaLaunchKernel calls")
+    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
+        log(f"    device {dev_us(e) / 1e3:9.2f} ms x{e.count:<6d} {e.key[:70]}")
+    host = [e for e in ka if e.device_type != torch.autograd.DeviceType.CUDA]
+    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
+        log(f"    host   {e.self_cpu_time_total / 1e3:9.2f} ms x{e.count:<6d} {e.key[:70]}")
+    out = ROOT / "chiprun_out"
+    out.mkdir(exist_ok=True)
+    (out / f"profile_{label}.txt").write_text(ka.table(sort_by="self_cpu_time_total", row_limit=60))
+    cost = dict(start_s=t0 - t_enter, stop_s=t_exit - t1, key_averages_s=t_avg - t_exit,
+                report_s=time.perf_counter() - t_avg)
+    log(f"  profiler cost {label}: " + ", ".join(f"{k} {v:.3f}" for k, v in cost.items()))
+    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launch_calls=launches, cost=cost)
+
+
+def serve(torch, arch, params, dpu, backend, prompts, card, label):
+    """Serve ``prompts`` greedily through the port's Scheduler.  Once every
+    request is prefilled, two steady decode steps run apart (under the
+    profiler on the kernel backend) and are left out of the rates."""
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.serving import Request, Scheduler, ServingConfig
+
+    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend)
+    sch = Scheduler(
+        arch, cfg, params,
+        ServingConfig(batch_size=4, max_seq=128, block_size=16, chunk_tokens=64, record_logits=True),
+    )
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sch.submit(r)
+    while not all(r.output for r in reqs):
+        sch.step()
+    before_s, before_toks = sch.stats["decode_s"], sum(len(r.output) for r in reqs)
+    tp = time.perf_counter()
+    prof = None
+    if backend == "kernel":
+        prof = profiled(torch, lambda: [sch.step() for _ in range(2)], label)
+    else:
+        sch.step()
+        sch.step()
+    prof_wall = time.perf_counter() - tp
+    prof_s = sch.stats["decode_s"] - before_s
+    prof_toks = sum(len(r.output) for r in reqs) - before_toks
+    sch.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES)
+    st = sch.stats
+    forwards = st["prefill_chunks"] + st["decode_steps"]
+    toks = sum(len(r.output) for r in reqs)
+    finite = all(bool(np.isfinite(row).all()) for r in reqs for row in r.logits)
+    # Rates without the two steps set apart.
+    run_s = dt - prof_wall
+    decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
+    log(f"  {backend} backend, channel={sch.photonic.describe().channel}: {toks} tokens in "
+        f"{dt:.3f} s, {toks - prof_toks} tokens in {run_s:.3f} s outside the two set-apart steps = "
+        f"{(toks - prof_toks) / run_s:.2f} tok/s; prefill {st['prefill_s']:.3f} s over "
+        f"{st['prefill_chunks']} chunks, decode {decode_ms:.2f} ms/step over "
+        f"{st['decode_steps'] - 2} other steps; fused launches "
+        f"{launches['photonic_gemm_fused']} for {forwards} forwards [{card}]")
+    done = all(r.done and len(r.output) == 8 for r in reqs)
+    st = dict(st, seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
+              decode_ms_per_step=decode_ms, profile=prof)
+    return reqs, launches, forwards, done, finite, st
+
+
+def main() -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+
+    card = card_line()
+    all_ok = True
+    with Phase("device"):
+        log(f"  card: {card}")
+        log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
+            f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        t0 = time.perf_counter()
+        lib = K.build_library(verbose=True)
+        log(f"  built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
+        K.load_library()
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    rows = []
+    with Phase("kernels"):
+        chans = {name: dpu_for(name) for name in ("ideal", "SMWA", "ASMW")}
+        for name, dpu in chans.items():
+            for r in (4, 64):
+                for site, k, c, b in SITES:
+                    all_ok &= kernel_case(torch, K, dpu, r, k, c, b, False, None, gen, rows)
+        # f32 prologue with bias + gelu / silu, and without the tail
+        for name in ("ideal", "SMWA"):
+            for act, b in ((None, False), ("gelu", True), ("silu", True)):
+                all_ok &= kernel_case(torch, K, chans[name], 64, 896, 896, b, True, act, gen, rows)
+        int_rows = []
+        for name in ("ideal", "SMWA", "ASMW"):
+            for site, k, c, b in SITES:
+                res = int_case(torch, K, chans[name], 64, k, c, gen)
+                all_ok &= res[0]
+                int_rows.append((name, k, c) + res)
+        for name in chans:
+            for r in (4, 64):
+                layer = [x for x in rows if x["channel"] == name and x["R_live"] == r and x["x"] == "int8"]
+                bm, bb = bound_of([x["parts"] for x in layer])
+                log(f"  layer sum {name} R={r}: kernel {sum(x['ms'] for x in layer):.4f} ms, "
+                    f"twin {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}) [{card}]")
+    if not all_ok:
+        log("kernel phase: MISMATCH")
+        return 1
+    arch = registry.get("qwen2-0.5b")
+    from repro_torch.core.dpu import DPUConfig
+    from repro_torch.noise.channel import build_channel_model
+    from repro_torch.photonic.engine import PhotonicEngine
+    from repro_torch.photonic.packing import pack_dense
+
+    smwa = DPUConfig(
+        organization="SMWA", bits=4, datarate_gs=5.0,
+        channel=build_channel_model("SMWA", n=42, bits=4, datarate_gs=5.0), noise_seed=0,
+    )
+    with Phase("int_gemm path"):
+        eng = PhotonicEngine(dpu=smwa, backend="kernel")
+        packs = []
+        for site, k, c, b in SITES:
+            w = torch.randn((k, c), generator=gen, device="cuda").to(torch.bfloat16)
+            packs.append((site, pack_dense({"w": w}, eng)["w"]))
+        xq = torch.randint(-127, 128, (64, 896), generator=gen, device="cuda", dtype=torch.int8)
+        xq2 = torch.randint(-127, 128, (64, 4864), generator=gen, device="cuda", dtype=torch.int8)
+        K.reset_launches()
+        outs = []
+        for site, pk in packs:
+            outs.append(eng.int_gemm(
+                xq if pk.k == 896 else xq2, pk.wq, site=site, fold=0,
+                logical_kc=(pk.k, pk.c), tiling=pk.tiling, w_word=pk.w_word,
+            ))
+        torch.cuda.synchronize()
+        int_path_launches = K.LAUNCHES["photonic_gemm"]
+        int_ok = int_path_launches == len(SITES) and all(
+            o.dtype == torch.int32 and tuple(o.shape) == (64, pk.c)
+            for o, (_, pk) in zip(outs, packs)
+        )
+        log(f"  int_gemm over the six sites: photonic_gemm launches {int_path_launches}, "
+            f"shapes ok {int_ok}")
+        all_ok &= int_ok
+
+    with Phase("serve"):
+        t0 = time.perf_counter()
+        params = init_params(arch.config, 0, device="cuda")
+        torch.cuda.synchronize()
+        log(f"  init_params (qwen2-0.5b full width, bf16) {time.perf_counter() - t0:.2f} s")
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, arch.config.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
+        ideal = DPUConfig(organization="SMWA", bits=4, datarate_gs=5.0)
+        n_layers = arch.config.num_layers
+        results = {}
+        for label, dpu, backend in (
+            ("ideal", ideal, "kernel"), ("smwa", smwa, "kernel"), ("ideal_ref", ideal, "ref"),
+        ):
+            reqs, launches, forwards, done, finite, st = serve(
+                torch, arch, params, dpu, backend, prompts, card, label
+            )
+            expect = 6 * n_layers * forwards if backend == "kernel" else 0
+            ok = done and finite and launches["photonic_gemm_fused"] == expect and launches["photonic_gemm"] == 0
+            log(f"  {label}: all done {done}, logits finite {finite}, fused launches "
+                f"{launches['photonic_gemm_fused']} == {expect}: {ok}")
+            results[label] = (reqs, launches, st)
+            all_ok &= ok
+            torch.cuda.empty_cache()
+        same = all(a.output == b.output for a, b in zip(results["ideal"][0], results["ideal_ref"][0]))
+        log(f"  ideal kernel tokens == ideal ref tokens: {same}")
+        for a, b in zip(results["ideal"][0], results["ideal_ref"][0]):
+            log(f"    uid {a.uid}: kernel {a.output} ref {b.output}")
+        for r in results["smwa"][0]:
+            log(f"    smwa uid {r.uid}: {r.output}")
+        all_ok &= same
+
+    if not all_ok:
+        log("chip_smoke: FAILED")
+        return 1
+
+    # The kernels line: each kernel's numbers summed over one decoder
+    # layer's six GEMMs at R=64 under the ideal channel (where _int_mm is a
+    # like-for-like yardstick); launches from the serve / int_gemm paths.
+    def layer_sum(rs, key):
+        vals = [x[key] for x in rs]
+        return None if any(v is None for v in vals) else sum(vals)
+
+    fused_rows = [x for x in rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["x"] == "int8"]
+    int_ideal = [x for x in int_rows if x[0] == "ideal"]
+    fused_bound = bound_of([x["parts"] for x in fused_rows])
+    int_bound = bound_of([x[8] for x in int_ideal])
+    kernels = [
+        dict(
+            name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:412",
+            launches=results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"],
+            max_abs_err=max(x["max_abs_err"] for x in fused_rows),
+            ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
+            bound_ms=fused_bound[0], bound_by=fused_bound[1],
+            library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x",
+        ),
+        dict(
+            name="photonic_gemm", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:319",
+            launches=int_path_launches,
+            max_abs_err=max(x[4] for x in int_ideal),
+            ms=sum(x[5] for x in int_ideal), plain_ms=sum(x[6] for x in int_ideal),
+            bound_ms=int_bound[0], bound_by=int_bound[1],
+            library_ms=sum(x[7] for x in int_ideal),
+            case="six qwen2-0.5b sites, R=64, ideal channel; launches from the int_gemm path",
+        ),
+    ]
+    out_dir = ROOT / "chiprun_out"
+    out_dir.mkdir(exist_ok=True)
+    (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
+        {"card": card, "kernel_rows": rows,
+         "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
+         "serve": {k: v[2] for k, v in results.items()}}, indent=1))
+    print(json.dumps({"kernels": kernels}))
+    print(card)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0), "count": torch.cuda.device_count(),
+    }}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,165 @@
+"""Operating point and quantization of the photonic DPU, in PyTorch.
+
+Port of ``repro.core.dpu`` (the config and the quantizers; the oracle
+datapath ``dpu_int_gemm`` and the STE wrappers wait for a later slice).
+The quantizers keep the reference's reciprocal-multiply spelling exactly:
+``scale = max(amax, 1e-12) * (1/qmax)`` computed in the input dtype (each
+constant cast to that dtype first, as JAX's weak-typed scalars are), then
+true division ``x / scale``, round half-to-even, clip, cast.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+from repro_torch import platforms as _platforms
+from repro_torch.core import scalability
+from repro_torch.noise.channel import ChannelModel
+from repro_torch.orgs import OrgSpec, resolve
+
+
+@dataclasses.dataclass(frozen=True)
+class DPUConfig:
+    """Operating point of a photonic DPU.  Reference:
+    ``repro.core.dpu:DPUConfig`` (same fields, validation and defaults)."""
+
+    organization: "str | OrgSpec" = "SMWA"
+    bits: int = 4
+    operand_bits: int = 8
+    datarate_gs: float = 5.0
+    dpe_size: Optional[int] = None
+    dpu_fanout: Optional[int] = None
+    noise_sigma_lsb: float = 0.0
+    adc_bits: Optional[int] = None
+    channel: Optional[ChannelModel] = None
+    noise_seed: Optional[int] = None
+    platform: "str | _platforms.PlatformSpec" = "SOI"
+
+    def __post_init__(self):
+        object.__setattr__(self, "organization", resolve(self.organization).name)
+        object.__setattr__(self, "platform", _platforms.resolve(self.platform).name)
+
+    @property
+    def org_spec(self) -> OrgSpec:
+        return resolve(self.organization)
+
+    @property
+    def platform_spec(self) -> _platforms.PlatformSpec:
+        return _platforms.resolve(self.platform)
+
+    @property
+    def n(self) -> int:
+        if self.dpe_size is not None:
+            return self.dpe_size
+        n = scalability.calibrated_max_n(
+            self.organization, self.bits, self.datarate_gs, platform=self.platform
+        )
+        if n <= 0:
+            raise ValueError(
+                f"infeasible operating point: {self.organization} B={self.bits} "
+                f"DR={self.datarate_gs} GS/s"
+            )
+        return n
+
+    @property
+    def m(self) -> int:
+        return self.dpu_fanout if self.dpu_fanout is not None else self.n
+
+    @property
+    def num_slices(self) -> int:
+        return -(-self.operand_bits // self.bits)
+
+    @property
+    def passes(self) -> int:
+        return self.num_slices * self.num_slices
+
+    def num_chunks(self, k: int) -> int:
+        return -(-k // self.n)
+
+    def effective_channel(self) -> Optional[ChannelModel]:
+        """The channel model this config implies (None = ideal datapath).
+        Reference: ``repro.core.dpu:DPUConfig.effective_channel``."""
+        if self.channel is not None:
+            ch = self.channel
+            if ch.adc_bits is None and self.adc_bits is not None:
+                ch = dataclasses.replace(ch, adc_bits=self.adc_bits)
+            return ch
+        if self.noise_sigma_lsb > 0.0:
+            return ChannelModel(
+                organization=self.organization,
+                bits=self.bits,
+                datarate_gs=self.datarate_gs,
+                detector_sigma_lsb=self.noise_sigma_lsb,
+                adc_bits=self.adc_bits,
+                platform=self.platform,
+            )
+        return None
+
+    def noise_seed_value(self) -> int:
+        """uint32 stream seed from ``noise_seed``.  Reference:
+        ``repro.core.dpu:DPUConfig.noise_seed_array`` without a ``prng_key``
+        (key streams are not ported; the engine raises for them)."""
+        if self.noise_seed is not None:
+            return self.noise_seed & 0xFFFFFFFF
+        raise ValueError(
+            "noise requires a randomness source: set DPUConfig.noise_seed "
+            "(deterministic; same seed => bitwise-equal results)"
+        )
+
+
+def _const(v: float, like: torch.Tensor) -> torch.Tensor:
+    """A Python constant in ``like``'s dtype (JAX's weak-type rule), made by
+    a fill kernel rather than a synchronizing host-to-device copy."""
+    return torch.full((), v, dtype=like.dtype, device=like.device)
+
+
+def _amax(x: torch.Tensor, axis: Optional[int]) -> torch.Tensor:
+    if axis is None:
+        return torch.max(torch.abs(x))
+    return torch.amax(torch.abs(x), dim=axis, keepdim=True)
+
+
+def quant_scale(
+    x: torch.Tensor,
+    bits: int,
+    axis: Optional[int] = None,
+    *,
+    amax: Optional[torch.Tensor] = None,
+) -> torch.Tensor:
+    """The symmetric quantization scale alone (f32).  Reference:
+    ``repro.core.dpu:quant_scale``."""
+    qmax = float(2 ** (bits - 1) - 1)
+    if amax is None:
+        amax = _amax(x, axis)
+    scale = torch.maximum(amax, _const(1e-12, amax)) * _const(1.0 / qmax, amax)
+    return scale.to(torch.float32)
+
+
+def quantize_with_scale(x: torch.Tensor, scale: torch.Tensor, bits: int) -> torch.Tensor:
+    """Round/clip ``x`` against a precomputed scale.  Reference:
+    ``repro.core.dpu:quantize_with_scale``."""
+    qmax = float(2 ** (bits - 1) - 1)
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax)
+    return q.to(torch.int8 if bits <= 8 else torch.int32)
+
+
+def quantize_symmetric(
+    x: torch.Tensor,
+    bits: int,
+    axis: Optional[int] = None,
+    *,
+    amax: Optional[torch.Tensor] = None,
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric linear quantization to signed ``bits`` integers; returns
+    ``(q, scale_f32)``.  Reference: ``repro.core.dpu:quantize_symmetric``.
+    The division runs in ``x``'s own dtype against the raw-dtype scale,
+    which is why bf16 activations quantize up front (not in-kernel)."""
+    qmax = float(2 ** (bits - 1) - 1)
+    if amax is None:
+        amax = _amax(x, axis)
+    scale = torch.maximum(amax, _const(1e-12, amax)) * _const(1.0 / qmax, amax)
+    q = torch.clamp(torch.round(x / scale), -qmax, qmax)
+    return q.to(torch.int8 if bits <= 8 else torch.int32), scale.to(torch.float32)

@@ -1,0 +1,486 @@
+"""The photonic GEMM kernels: CUDA C++ for Hopper, their plain twin, the loader.
+
+Ports of the reference's two Pallas TPU kernels,
+``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas`` (the fused
+hot path: optional f32 quantize prologue, bit-sliced psum-chunked analog
+datapath, rescale/bias/activation epilogue) and
+``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas`` (the int8 ->
+int32 core).  Both run one CUDA template, ``csrc/photonic_gemm.cu``; its
+source note says what bounds it on the card.
+
+* :func:`photonic_gemm_fused` / :func:`photonic_gemm` are the wrappers.  A
+  CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
+  raises — there is no fallback.  Each launch adds one to
+  :data:`LAUNCHES` under the kernel's name.
+* :func:`photonic_gemm_fused_twin` / :func:`photonic_gemm_twin` are the
+  plain PyTorch versions.  They mirror the reference's *logical* Pallas
+  tiling and noise-stream ids (tile seed ``fold_seed(seed, i, j, kk)``,
+  chunk seed ``fold_seed(tile_seed, pass, g)``, element counter
+  ``row_in_tile * tile_c + col_in_tile``, ``valid_chunks`` masking), as
+  Pallas interpret mode does for the reference, vectorized over tiles.
+* :func:`load_library` builds the CUDA source with ``nvcc`` at first use
+  into ``build/repro_torch/`` (keyed by a hash of the source and flags)
+  and binds its plain C entry point with ``ctypes``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import tempfile
+import threading
+from pathlib import Path
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels.photonic_gemm.epilogue import (
+    EpilogueSpec,
+    apply_epilogue,
+    quantize_tile,
+)
+from repro_torch.kernels.photonic_gemm.ref import slice_decompose
+from repro_torch.noise.channel import int_dot
+from repro_torch.noise.stages import (
+    UInt,
+    f32,
+    fold_seed,
+    gaussian_from_ctr,
+    neighbor_sum,
+)
+
+SOURCE = Path(__file__).resolve().parent / "csrc" / "photonic_gemm.cu"
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+)
+ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2}
+TILE_C = 128  # the logical tile_c the CUDA kernel supports
+CTA_ROWS = 8  # rows per CTA; tile_r must be a multiple
+MAX_CHUNK = 256  # longest n_chunk the kernel stages in shared memory
+
+# Launches per kernel since the last reset_launches(); only the CUDA path
+# counts (the twin is not a launch).
+LAUNCHES = {"photonic_gemm_fused": 0, "photonic_gemm": 0}
+
+
+def reset_launches() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+def _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps) -> bool:
+    return (
+        noise_sigma > 0.0
+        or filter_alpha > 0.0
+        or intermod_eps > 0.0
+        or crossweight_eps > 0.0
+    )
+
+
+# ---------------------------------------------------------------------------
+# The plain twin
+# ---------------------------------------------------------------------------
+def _accumulate_twin(
+    x: torch.Tensor,  # (R, K) int
+    w: torch.Tensor,  # (K, C) int
+    seed: Optional[UInt],
+    *,
+    slice_bits: int,
+    num_slices: int,
+    n_chunk: int,
+    adc_bits: Optional[int],
+    noise_sigma: float,
+    filter_alpha: float,
+    intermod_eps: float,
+    crossweight_eps: float,
+    valid_chunks: Optional[int],
+    tile_r: int,
+    tile_c: int,
+    tile_k: int,
+) -> torch.Tensor:
+    """The reference ``_accumulate`` summed over the whole K grid axis, for
+    every logical tile at once; int64 ``(R, C)``."""
+    analog = _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps)
+    if not analog and adc_bits is None:
+        # Ideal ADC: the shift-added slice passes equal the exact product.
+        return int_dot(x, w)
+    r, k = x.shape
+    c = w.shape[1]
+    dev = x.device
+    chunks = tile_k // n_chunk
+    g_tot = k // n_chunk
+    lim = 2 ** (adc_bits - 1) - 1 if adc_bits is not None else None
+    x_sl = slice_decompose(x, slice_bits, num_slices)
+    w_sl = slice_decompose(w, slice_bits, num_slices)
+
+    if noise_sigma > 0.0:
+        rows = torch.arange(r, device=dev)
+        cols = torch.arange(c, device=dev)
+        g = torch.arange(g_tot, device=dev)
+        ii = torch.arange(r // tile_r, device=dev)[:, None, None]
+        jj = torch.arange(c // tile_c, device=dev)[None, :, None]
+        kk = torch.arange(k // tile_k, device=dev)[None, None, :]
+        tile_seed = fold_seed(seed, ii, jj, kk)  # (I, J, KK)
+        # Each global chunk g sits in K-tile g // chunks, at g % chunks there.
+        chunk_tile = tile_seed[:, :, g // chunks].permute(2, 0, 1)  # (G, I, J)
+        g_local = (g % chunks)[:, None, None]
+        ctr = ((rows % tile_r)[:, None] * tile_c + (cols % tile_c)[None, :])[None]
+        live = None
+        if valid_chunks is not None:
+            live = (g < valid_chunks).to(torch.float32)[:, None, None]
+        sigma = f32(noise_sigma, dev)
+
+    acc = torch.zeros((r, c), dtype=torch.int64, device=dev)
+    for si in range(num_slices):
+        xs = x_sl[si].reshape(r, g_tot, n_chunk).permute(1, 0, 2)  # (G, R, N)
+        for t in range(num_slices):
+            ws = w_sl[t].reshape(g_tot, n_chunk, c)  # (G, N, C)
+            psum = int_dot(xs, ws)  # (G, R, C)
+            if analog:
+                a = psum.to(torch.float32)
+                if intermod_eps > 0.0:
+                    im = int_dot(neighbor_sum(xs, axis=2), ws).to(torch.float32)
+                    a = a + f32(intermod_eps, dev) * im
+                if crossweight_eps > 0.0:
+                    cw = int_dot(xs, neighbor_sum(ws, axis=1)).to(torch.float32)
+                    a = a + f32(crossweight_eps, dev) * cw
+                if filter_alpha > 0.0:
+                    a = a * f32(1.0 - filter_alpha, dev)
+                if noise_sigma > 0.0:
+                    base = fold_seed(chunk_tile, si * num_slices + t, g_local)
+                    base = base.index_select(1, rows // tile_r)  # (G, R, J)
+                    base = base.index_select(2, cols // tile_c)  # (G, R, C)
+                    z = gaussian_from_ctr(base, ctr)
+                    if live is not None:
+                        z = z * live
+                    a = a + sigma * z
+                psum = torch.round(a).to(torch.int64)
+            if lim is not None:
+                psum = torch.clamp(psum, -lim, lim)
+            acc = acc + (psum.sum(dim=0) << (slice_bits * (si + t)))
+    return acc
+
+
+def _check_tiles(r, k, c, tile_r, tile_c, tile_k, n_chunk):
+    if r % tile_r or c % tile_c or k % tile_k:
+        raise ValueError(
+            f"shapes (R, K, C)=({r}, {k}, {c}) are not multiples of the tiles "
+            f"(tile_r, tile_k, tile_c)=({tile_r}, {tile_k}, {tile_c})"
+        )
+    if tile_k % n_chunk:
+        raise ValueError(f"tile_k={tile_k} is not a multiple of n_chunk={n_chunk}")
+
+
+def photonic_gemm_twin(
+    xq: torch.Tensor,
+    wq: torch.Tensor,
+    seed: Optional[UInt] = None,
+    *,
+    slice_bits: int = 4,
+    num_slices: int = 2,
+    n_chunk: int = 128,
+    adc_bits: Optional[int] = None,
+    noise_sigma: float = 0.0,
+    filter_alpha: float = 0.0,
+    intermod_eps: float = 0.0,
+    crossweight_eps: float = 0.0,
+    valid_chunks: Optional[int] = None,
+    tile_r: int = 128,
+    tile_c: int = 128,
+    tile_k: int = 512,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`photonic_gemm`; int32 ``(R, C)``.
+    Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``."""
+    r, k = xq.shape
+    c = wq.shape[1]
+    _check_tiles(r, k, c, tile_r, tile_c, tile_k, n_chunk)
+    if noise_sigma > 0.0 and seed is None:
+        raise ValueError("noise_sigma > 0 requires a seed")
+    acc = _accumulate_twin(
+        xq, wq, seed, slice_bits=slice_bits, num_slices=num_slices,
+        n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
+        filter_alpha=filter_alpha, intermod_eps=intermod_eps,
+        crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+    )
+    return acc.to(torch.int32)
+
+
+def photonic_gemm_fused_twin(
+    x: torch.Tensor,
+    wq: torch.Tensor,
+    x_scale: torch.Tensor,
+    w_scale: torch.Tensor,
+    bias: Optional[torch.Tensor] = None,
+    seed: Optional[UInt] = None,
+    *,
+    operand_bits: int = 8,
+    activation: Optional[str] = None,
+    slice_bits: int = 4,
+    num_slices: int = 2,
+    n_chunk: int = 128,
+    adc_bits: Optional[int] = None,
+    noise_sigma: float = 0.0,
+    filter_alpha: float = 0.0,
+    intermod_eps: float = 0.0,
+    crossweight_eps: float = 0.0,
+    valid_chunks: Optional[int] = None,
+    tile_r: int = 128,
+    tile_c: int = 128,
+    tile_k: int = 512,
+) -> torch.Tensor:
+    """Plain PyTorch version of :func:`photonic_gemm_fused`; f32 ``(R, C)``.
+    Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``."""
+    r, k = x.shape
+    c = wq.shape[1]
+    _check_tiles(r, k, c, tile_r, tile_c, tile_k, n_chunk)
+    if noise_sigma > 0.0 and seed is None:
+        raise ValueError("noise_sigma > 0 requires a seed")
+    xs = x_scale.to(torch.float32).reshape(())
+    if x.is_floating_point():
+        xi = quantize_tile(x, xs, float(2 ** (operand_bits - 1) - 1))
+    else:
+        xi = x
+    acc = _accumulate_twin(
+        xi, wq, seed, slice_bits=slice_bits, num_slices=num_slices,
+        n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
+        filter_alpha=filter_alpha, intermod_eps=intermod_eps,
+        crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+    ).to(torch.int32)
+    spec = EpilogueSpec(bias=bias is not None, activation=activation)
+    return apply_epilogue(acc, xs, w_scale.reshape(-1), bias, spec)
+
+
+# ---------------------------------------------------------------------------
+# Build and bind the CUDA source
+# ---------------------------------------------------------------------------
+_LIB = None
+_LIB_LOCK = threading.Lock()
+
+
+def build_dir() -> Path:
+    """``<checkout>/build/repro_torch`` (``build/`` is git-ignored)."""
+    return SOURCE.parents[5] / "build" / "repro_torch"
+
+
+def _nvcc() -> str:
+    for cand in (
+        shutil.which("nvcc"),
+        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
+    ):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
+
+
+def library_path() -> Path:
+    """Where the built library for the current source and flags lives."""
+    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return build_dir() / f"photonic_gemm_{key}.so"
+
+
+def build_library(verbose: bool = False) -> Path:
+    """Compile the source with ``nvcc`` unless this exact build exists.
+    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
+    out = library_path()
+    if out.exists():
+        return out
+    out.parent.mkdir(parents=True, exist_ok=True)
+    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
+    os.close(fd)
+    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, str(SOURCE)]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    if proc.returncode != 0:
+        os.unlink(tmp)
+        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
+    if verbose:
+        print(proc.stdout + proc.stderr)
+    os.replace(tmp, out)
+    return out
+
+
+def load_library():
+    """The bound library, building it at first use."""
+    global _LIB
+    with _LIB_LOCK:
+        if _LIB is None:
+            lib = ctypes.CDLL(str(build_library()))
+            fn = lib.photonic_gemm_launch
+            vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            fn.argtypes = [
+                vp, i, vp, vp, vp, vp, vp, vp, i,  # x, x_f32, w, x_scale, w_scale, bias, seed, out, fused
+                i, i, i, i, i, i, i,  # R, K, C, tile_r, tile_c, tile_k, n_chunk
+                i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
+                f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
+                i, i, vp,  # valid_chunks, activation, stream
+            ]
+            fn.restype = ctypes.c_int
+            _LIB = lib
+    return _LIB
+
+
+# ---------------------------------------------------------------------------
+# Wrappers: twin on CPU tensors, kernel on CUDA tensors, nothing else
+# ---------------------------------------------------------------------------
+def _seed_tensor(seed: UInt, device) -> torch.Tensor:
+    """A uint32 seed as the kernel's one-element int32 device buffer (the
+    bit pattern is what the kernel reads)."""
+    if isinstance(seed, torch.Tensor):
+        s = (seed.to(device=device, dtype=torch.int64) & 0xFFFFFFFF).reshape(1)
+    else:
+        s = torch.full((1,), int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device)
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
+def _data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
+
+
+def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, *, operand_bits,
+            activation, slice_bits, num_slices, n_chunk, adc_bits, noise_sigma,
+            filter_alpha, intermod_eps, crossweight_eps, valid_chunks, tile_r,
+            tile_c, tile_k):
+    r, k = x.shape
+    c = wq.shape[1]
+    if tile_c != TILE_C:
+        raise ValueError(f"the CUDA kernel takes tile_c={TILE_C}, got {tile_c}")
+    if tile_r % CTA_ROWS:
+        raise ValueError(f"the CUDA kernel takes tile_r a multiple of {CTA_ROWS}, got {tile_r}")
+    if n_chunk > MAX_CHUNK:
+        raise ValueError(f"the CUDA kernel takes n_chunk <= {MAX_CHUNK}, got {n_chunk}")
+    for t, nm in ((x, "x"), (wq, "wq"), (out, "out")):
+        if t.data_ptr() % 16:
+            raise ValueError(f"{nm} must be 16-byte aligned")
+    seed_t = None if seed is None else _seed_tensor(seed, x.device)
+    rc = load_library().photonic_gemm_launch(
+        _data_ptr(x), int(x.is_floating_point()), _data_ptr(wq), _data_ptr(x_scale),
+        _data_ptr(w_scale), _data_ptr(bias), _data_ptr(seed_t), _data_ptr(out), int(fused),
+        r, k, c, tile_r, tile_c, tile_k, n_chunk,
+        slice_bits, num_slices, operand_bits, -1 if adc_bits is None else adc_bits,
+        float(noise_sigma), int(filter_alpha > 0.0), float(1.0 - filter_alpha),
+        float(intermod_eps), float(crossweight_eps),
+        -1 if valid_chunks is None else valid_chunks, ACTIVATION_CODES[activation],
+        torch.cuda.current_stream(x.device).cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"{name} launch failed with code {rc}")
+    LAUNCHES[name] += 1
+    return out
+
+
+def photonic_gemm(
+    xq: torch.Tensor,  # (R, K) int8
+    wq: torch.Tensor,  # (K, C) int8
+    seed: Optional[UInt] = None,
+    *,
+    slice_bits: int = 4,
+    num_slices: int = 2,
+    n_chunk: int = 128,
+    adc_bits: Optional[int] = None,
+    noise_sigma: float = 0.0,
+    filter_alpha: float = 0.0,
+    intermod_eps: float = 0.0,
+    crossweight_eps: float = 0.0,
+    valid_chunks: Optional[int] = None,
+    tile_r: int = 128,
+    tile_c: int = 128,
+    tile_k: int = 512,
+) -> torch.Tensor:
+    """Integer photonic GEMM, int8 x int8 -> int32 ``(R, C)``.  Reference:
+    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``."""
+    stages = dict(
+        slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
+        adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
+        intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
+        valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+    )
+    if xq.device.type == "cpu":
+        return photonic_gemm_twin(xq, wq, seed, **stages)
+    if xq.device.type != "cuda":
+        raise ValueError(f"photonic_gemm runs on CPU (twin) or CUDA, not {xq.device}")
+    r, k = xq.shape
+    c = wq.shape[1]
+    _check_tiles(r, k, c, tile_r, tile_c, tile_k, n_chunk)
+    if noise_sigma > 0.0 and seed is None:
+        raise ValueError("noise_sigma > 0 requires a seed")
+    _require(xq, "xq", torch.int8, (r, k), xq.device)
+    _require(wq, "wq", torch.int8, (k, c), xq.device)
+    out = torch.empty((r, c), dtype=torch.int32, device=xq.device)
+    return _launch("photonic_gemm", False, xq, wq, None, None, None, seed, out,
+                   operand_bits=8, activation=None, **stages)
+
+
+def photonic_gemm_fused(
+    x: torch.Tensor,  # (R, K) f32 activations, or pre-quantized int8
+    wq: torch.Tensor,  # (K, C) int8
+    x_scale: torch.Tensor,  # (1,) or () f32
+    w_scale: torch.Tensor,  # (C,) f32
+    bias: Optional[torch.Tensor] = None,  # (C,) f32
+    seed: Optional[UInt] = None,
+    *,
+    operand_bits: int = 8,
+    activation: Optional[str] = None,
+    slice_bits: int = 4,
+    num_slices: int = 2,
+    n_chunk: int = 128,
+    adc_bits: Optional[int] = None,
+    noise_sigma: float = 0.0,
+    filter_alpha: float = 0.0,
+    intermod_eps: float = 0.0,
+    crossweight_eps: float = 0.0,
+    valid_chunks: Optional[int] = None,
+    tile_r: int = 128,
+    tile_c: int = 128,
+    tile_k: int = 512,
+) -> torch.Tensor:
+    """The fused hot path, [quantize] -> integer GEMM -> epilogue, f32
+    ``(R, C)``.  Reference:
+    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``."""
+    stages = dict(
+        slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
+        adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
+        intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
+        valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+    )
+    if x.device.type == "cpu":
+        return photonic_gemm_fused_twin(
+            x, wq, x_scale, w_scale, bias, seed,
+            operand_bits=operand_bits, activation=activation, **stages,
+        )
+    if x.device.type != "cuda":
+        raise ValueError(f"photonic_gemm_fused runs on CPU (twin) or CUDA, not {x.device}")
+    r, k = x.shape
+    c = wq.shape[1]
+    _check_tiles(r, k, c, tile_r, tile_c, tile_k, n_chunk)
+    if noise_sigma > 0.0 and seed is None:
+        raise ValueError("noise_sigma > 0 requires a seed")
+    if activation not in ACTIVATION_CODES:
+        raise ValueError(f"unknown activation {activation!r}")
+    if operand_bits > 8:
+        raise ValueError("the CUDA kernel takes operand_bits <= 8")
+    dev = x.device
+    _require(x, "x", (torch.float32, torch.int8), (r, k), dev)
+    _require(wq, "wq", torch.int8, (k, c), dev)
+    _require(x_scale.reshape(-1), "x_scale", torch.float32, (1,), dev)
+    _require(w_scale, "w_scale", torch.float32, (c,), dev)
+    if bias is not None:
+        _require(bias, "bias", torch.float32, (c,), dev)
+    out = torch.empty((r, c), dtype=torch.float32, device=dev)
+    return _launch("photonic_gemm_fused", True, x, wq, x_scale, w_scale, bias, seed,
+                   out, operand_bits=operand_bits, activation=activation, **stages)

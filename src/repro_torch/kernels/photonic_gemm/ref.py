@@ -1,0 +1,83 @@
+"""Untiled oracle of the photonic GEMM, in PyTorch (the port's ``ref`` and
+``exact`` backends).
+
+Port of ``repro.kernels.photonic_gemm.ref``: signed-magnitude bit slices,
+DPE-size psum chunks, the analog channel per slice-pair pass with the
+oracle's flat noise stream (``fold_seed(seed, pass)`` over the whole
+``(R, G, C)`` psum array), shift-add recombination.  Integer products run
+through :func:`repro_torch.noise.channel.int_dot` (float64, exact), so the
+oracle runs on CUDA tensors too.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional
+
+import torch
+
+from repro_torch.noise.channel import ChannelModel, analog_pass_psums, int_dot
+from repro_torch.noise.stages import UInt, fold_seed
+
+
+def slice_decompose(q: torch.Tensor, slice_bits: int, num_slices: int) -> List[torch.Tensor]:
+    """Signed-magnitude slices (int32): ``sum_s out[s] << (slice_bits*s) == q``.
+    Reference: ``repro.kernels.photonic_gemm.ref:slice_decompose``."""
+    qi = q.to(torch.int32)
+    sgn = torch.sign(qi)
+    mag = torch.abs(qi)
+    mask = (1 << slice_bits) - 1
+    return [sgn * ((mag >> (slice_bits * s)) & mask) for s in range(num_slices)]
+
+
+def photonic_gemm_ref(
+    xq: torch.Tensor,  # (R, K) int
+    wq: torch.Tensor,  # (K, C) int
+    *,
+    slice_bits: int = 4,
+    num_slices: int = 2,
+    n_chunk: int = 128,
+    adc_bits: Optional[int] = None,
+    channel: Optional[ChannelModel] = None,
+    seed: Optional[UInt] = None,
+) -> torch.Tensor:
+    """Reference int32 GEMM through the DPU datapath.  Reference:
+    ``repro.kernels.photonic_gemm.ref:photonic_gemm_ref``."""
+    r, k = xq.shape
+    _, c = wq.shape
+    analog = channel is not None and channel.analog
+    if analog and channel.detector_sigma_lsb > 0.0 and seed is None:
+        raise ValueError("channel with detector noise requires a seed")
+    if channel is not None and channel.adc_bits is not None:
+        adc_bits = channel.adc_bits
+    pad = (-k) % n_chunk
+    if pad:
+        xq = torch.nn.functional.pad(xq, (0, pad))
+        wq = torch.nn.functional.pad(wq, (0, 0, 0, pad))
+    kp = k + pad
+    chunks = kp // n_chunk
+
+    x_sl = slice_decompose(xq, slice_bits, num_slices)
+    w_sl = slice_decompose(wq, slice_bits, num_slices)
+
+    out = torch.zeros((r, c), dtype=torch.int64, device=xq.device)
+    for si in range(num_slices):
+        xs = x_sl[si].reshape(r, chunks, n_chunk)
+        for ti in range(num_slices):
+            ws = w_sl[ti].reshape(chunks, n_chunk, c)
+            shift = slice_bits * (si + ti)
+            if analog:
+                pass_seed = fold_seed(seed if seed is not None else 0, si * num_slices + ti)
+                psum = analog_pass_psums(xs, ws, channel, pass_seed)
+            else:
+                psum = int_dot(xs.permute(1, 0, 2), ws).permute(1, 0, 2)
+                if adc_bits is not None:
+                    lim = 2 ** (adc_bits - 1) - 1
+                    psum = torch.clamp(psum, -lim, lim)
+            out = out + (psum.to(torch.int64).sum(dim=1) << shift)
+    return out.to(torch.int32)
+
+
+def exact_int_gemm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:
+    """The ideal integer GEMM.  Reference:
+    ``repro.kernels.photonic_gemm.ref:exact_int_gemm``."""
+    return int_dot(xq, wq).to(torch.int32)

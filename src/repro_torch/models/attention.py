@@ -1,0 +1,205 @@
+"""GQA self-attention (RoPE, QKV bias) over the paged KV pool, in PyTorch.
+
+Port of the GQA part of ``repro.models.attention``.  The reference's
+``lax.scan`` over KV blocks becomes a Python loop with the same online
+softmax; masks stay ``-1e30`` (not ``-inf``), and the GQA head map is
+``repeat_interleave`` (``jnp.repeat``'s element order).  MLA and
+cross-attention wait for their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+
+from repro_torch.models.common import ModelConfig, apply_rope, dense, qdense_def
+from repro_torch.serving import kv_cache as kvc
+
+NEG = -1e30
+
+
+def gqa_def(cfg: ModelConfig) -> Dict[str, Any]:
+    """Reference: ``repro.models.attention:gqa_def``."""
+    d, h, kv, hd = cfg.d_model, cfg.n_q_heads, cfg.num_kv_heads, cfg.hd
+    return {
+        "wq": qdense_def(cfg, d, h * hd, (None, "heads"), bias=cfg.qkv_bias),
+        "wk": qdense_def(cfg, d, kv * hd, (None, "kv_heads"), bias=cfg.qkv_bias),
+        "wv": qdense_def(cfg, d, kv * hd, (None, "kv_heads"), bias=cfg.qkv_bias),
+        "wo": qdense_def(cfg, h * hd, d, ("heads", None)),
+    }
+
+
+def gqa_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str, Any]:
+    """Reference: ``repro.models.attention:gqa_cache_def`` (float KV only)."""
+    shape = (batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    axes = ("batch", "kv_seq", "kv_heads", None)
+    return {"k": (shape, axes, dtype), "v": (shape, axes, dtype)}
+
+
+def _repeat_kv(k: torch.Tensor, n_rep: int) -> torch.Tensor:
+    return k if n_rep == 1 else torch.repeat_interleave(k, n_rep, dim=2)
+
+
+def chunked_attention(
+    q: torch.Tensor,  # (B, Tq, H, hd)
+    k: torch.Tensor,  # (B, Tk, KV, hd)
+    v: torch.Tensor,  # (B, Tk, KV, hd_v)
+    *,
+    causal: bool,
+    q_offset=0,
+    chunk: int = 512,
+    scale: Optional[float] = None,
+    acc_dtype=torch.float32,
+) -> torch.Tensor:
+    """Online-softmax attention over KV blocks of ``chunk`` rows.  Reference:
+    ``repro.models.attention:chunked_attention``."""
+    b, tq, h, hd = q.shape
+    _, tk, kvh, hdv = v.shape
+    n_rep = h // kvh
+    scale = scale if scale is not None else hd**-0.5
+    chunk = min(chunk, tk)
+    kv_valid = tk
+    if tk % chunk:
+        pad = (-tk) % chunk
+        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
+        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+        tk = tk + pad
+    n_chunks = tk // chunk
+    dev = q.device
+
+    qf = (q.to(acc_dtype) * scale).transpose(1, 2)  # (B, H, Tq, hd)
+    q_pos = q_offset + torch.arange(tq, device=dev)
+    m = torch.full((b, h, tq), NEG, dtype=acc_dtype, device=dev)
+    l_sum = torch.zeros((b, h, tq), dtype=acc_dtype, device=dev)
+    acc = torch.zeros((b, h, tq, hdv), dtype=acc_dtype, device=dev)
+    for c_idx in range(n_chunks):
+        sl = slice(c_idx * chunk, (c_idx + 1) * chunk)
+        kb = _repeat_kv(k[:, sl], n_rep).permute(0, 2, 3, 1)  # (B, H, hd, chunk)
+        vb = _repeat_kv(v[:, sl], n_rep).permute(0, 2, 1, 3)  # (B, H, chunk, hdv)
+        s = torch.matmul(qf, kb.to(acc_dtype))  # (B, H, Tq, chunk)
+        kv_pos = c_idx * chunk + torch.arange(chunk, device=dev)
+        valid = (kv_pos[None, :] < kv_valid).expand(tq, chunk)
+        if causal:
+            valid = valid & (kv_pos[None, :] <= q_pos[:, None])
+        s = s.masked_fill(~valid[None, None], NEG)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        p = torch.exp(s - m_new[..., None])
+        corr = torch.exp(m - m_new)
+        l_sum = l_sum * corr + p.sum(dim=-1)
+        acc = acc * corr[..., None] + torch.matmul(p, vb.to(acc_dtype))
+        m = m_new
+    out = acc / torch.clamp(l_sum[..., None], min=1e-30)
+    return out.transpose(1, 2).to(q.dtype)  # (B, Tq, H, hdv)
+
+
+def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+    b, t, _ = x.shape
+    return x.reshape(b, t, n, -1)
+
+
+def _qkv_proj(params, x, cfg: ModelConfig, *, layer=None):
+    """Q/K/V projections, head-split, RoPE not yet applied.  Reference:
+    ``repro.models.attention:_qkv_proj`` (three sites; the fused ``wqkv``
+    bank waits for ``fuse_qkv_params``)."""
+    h, kv = cfg.n_q_heads, cfg.num_kv_heads
+    yq = dense(params["wq"], x, cfg, site="attn.wq", layer=layer)
+    yk = dense(params["wk"], x, cfg, site="attn.wk", layer=layer)
+    yv = dense(params["wv"], x, cfg, site="attn.wv", layer=layer)
+    return _split_heads(yq, h), _split_heads(yk, kv), _split_heads(yv, kv)
+
+
+def _check_supported(cfg: ModelConfig) -> None:
+    if cfg.attn_impl != "chunked":
+        raise NotImplementedError(
+            "attn_impl='flash' needs the flash-attention kernel, not ported yet "
+            "(ROADMAP.md Queue 2, flash_attention_pallas)"
+        )
+    if cfg.kv_cache_int8:
+        raise NotImplementedError(
+            "int8 KV caches are not ported yet (ROADMAP.md Queue 1, 'Dense decoder')"
+        )
+
+
+def _acc_dtype(cfg: ModelConfig):
+    return torch.float32 if cfg.attn_f32 else torch.bfloat16
+
+
+def gqa_prefill_chunk(
+    params,
+    x: torch.Tensor,  # (1, tc, D)
+    kv_pool: Dict[str, torch.Tensor],  # this layer's pool leaves (num_blocks, bs, kv, hd)
+    block_table: torch.Tensor,  # (W,) int
+    t0: int,
+    cfg: ModelConfig,
+    *,
+    t_full: int,
+    block_size: int,
+    positions: torch.Tensor,  # (tc,)
+    layer=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One chunk of a chunked prefill: this chunk's K/V scatter into the
+    pool (in place), then attention over cache rows ``[0, t_full)``.
+    Reference: ``repro.models.attention:gqa_prefill_chunk``."""
+    _check_supported(cfg)
+    tc = x.shape[1]
+    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+
+    blocks, offsets = kvc.chunk_dest(block_table, t0, tc, block_size)
+    kvc.scatter_kv(kv_pool, blocks, offsets, {"k": k[0], "v": v[0]})
+
+    if t_full == tc:
+        kf, vf = k, v
+        q_offset = 0
+    else:
+        g = kvc.gather_kv(kv_pool, block_table[None], t_full)
+        kf, vf = g["k"].to(torch.float32), g["v"].to(torch.float32)
+        q_offset = t0
+    out = chunked_attention(
+        q, kf, vf, causal=True, q_offset=q_offset,
+        chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg),
+    )
+    out = dense(params["wo"], out.reshape(1, tc, -1), cfg, site="attn.wo", layer=layer)
+    return out, kv_pool
+
+
+def gqa_decode_paged(
+    params,
+    x: torch.Tensor,  # (B, 1, D)
+    kv_pool: Dict[str, torch.Tensor],
+    block_table: torch.Tensor,  # (B, W)
+    pos: torch.Tensor,  # (B,)
+    blocks: torch.Tensor,  # (B,)
+    offsets: torch.Tensor,  # (B,)
+    cfg: ModelConfig,
+    *,
+    gather_len: int,
+    layer=None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode token per row against the paged pool, per-row causal mask
+    ``kv_pos <= pos[b]``.  Reference:
+    ``repro.models.attention:gqa_decode_paged``."""
+    _check_supported(cfg)
+    h, kv = cfg.n_q_heads, cfg.num_kv_heads
+    b = x.shape[0]
+    q, k1, v1 = _qkv_proj(params, x, cfg, layer=layer)
+    q = apply_rope(q, pos[:, None], cfg.rope_theta)
+    k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
+
+    kvc.scatter_kv(kv_pool, blocks, offsets, {"k": k1[:, 0], "v": v1[:, 0]})
+    g = kvc.gather_kv(kv_pool, block_table, gather_len)
+    kf = _repeat_kv(g["k"].to(torch.float32), h // kv)
+    vf = _repeat_kv(g["v"].to(torch.float32), h // kv)
+    qf = q.to(torch.float32) * (cfg.hd**-0.5)
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kf)
+    kv_pos = torch.arange(gather_len, device=x.device)
+    mask = (kv_pos[None, :] <= pos[:, None])[:, None, None, :]
+    s = s.masked_fill(~mask, NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p, vf)
+    out = dense(
+        params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
+    )
+    return out, kv_pool

@@ -1,0 +1,346 @@
+"""Shared model substrate: config, parameter definitions, core layers.
+
+Port of ``repro.models.common``.  Models are plain functions over nested
+dicts of tensors; a *definition tree* (nested dicts / per-layer lists of
+:class:`P`) carries each parameter's shape and init rule, and
+:func:`init_params` materializes it from a ``torch.Generator`` (the card
+has no JAX, so the port initializes its own weights; parity tests instead
+carry the reference's weights over with ``repro_torch.weights``).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Dict, Optional, Tuple, Union
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core.dpu import DPUConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class ModelConfig:
+    """Reference: ``repro.models.common:ModelConfig`` (same fields and
+    validation; dtypes are torch dtypes, and the photonic backends are the
+    port's ``ref | kernel | exact``, defaulting to ``kernel`` so a photonic
+    config runs its GEMMs on the CUDA kernels; ``ref`` and ``exact`` are
+    asked for by name)."""
+
+    arch_id: str = "custom"
+    family: str = "dense"
+
+    num_layers: int = 2
+    d_model: int = 128
+    num_heads: int = 2
+    num_kv_heads: int = 2
+    d_ff: int = 256
+    vocab_size: int = 256
+    head_dim: Optional[int] = None
+    qkv_bias: bool = False
+    rope_theta: float = 10000.0
+    norm_eps: float = 1e-5
+    tie_embeddings: bool = False
+    ffn_act: str = "swiglu"
+
+    num_experts: int = 0
+    num_experts_per_tok: int = 2
+    num_shared_experts: int = 0
+    moe_d_ff: Optional[int] = None
+    capacity_factor: float = 1.25
+
+    mla: bool = False
+    kv_lora_rank: int = 512
+    qk_nope_head_dim: int = 128
+    qk_rope_head_dim: int = 64
+    v_head_dim: int = 128
+
+    cross_attn_every: int = 0
+    vision_seq: int = 1024
+
+    ssm_state_size: int = 64
+    ssm_expand: int = 2
+    ssm_head_dim: int = 64
+    ssm_conv_width: int = 4
+    ssm_chunk: int = 256
+    attn_every: int = 0
+    slstm_every: int = 0
+
+    encoder_decoder: bool = False
+    encoder_layers: int = 0
+    decoder_ratio: int = 4
+
+    param_dtype: Any = torch.float32
+    compute_dtype: Any = torch.float32
+    remat: bool = True
+    remat_policy: str = "full"
+    attn_f32: bool = True
+    attn_chunk: int = 512
+    attn_impl: str = "chunked"
+    unroll_scans: bool = False
+    logical_rules: Any = None
+    kv_cache_int8: bool = False
+    mla_absorb: bool = False
+    seq_shard_residual: bool = True
+    photonic: Optional[DPUConfig] = None
+    photonic_backend: str = "kernel"
+    photonic_scope: str = "weights"
+    photonic_include: Tuple[str, ...] = ("*",)
+    photonic_exclude: Tuple[str, ...] = ("router",)
+    photonic_slicing: Any = None
+
+    padded_heads: Optional[int] = None
+    padded_vocab: Optional[int] = None
+
+    def __post_init__(self):
+        from repro_torch.photonic.engine import BACKENDS, NOT_PORTED_SLICING
+
+        scopes = ("none", "weights", "weights_int8")
+        if self.photonic_scope not in scopes:
+            raise ValueError(
+                f"photonic_scope={self.photonic_scope!r} is not one of {scopes}"
+            )
+        if self.photonic_backend not in BACKENDS:
+            raise ValueError(
+                f"photonic_backend={self.photonic_backend!r} is not one of "
+                f"{BACKENDS}"
+            )
+        impls = ("chunked", "flash")
+        if self.attn_impl not in impls:
+            raise ValueError(f"attn_impl={self.attn_impl!r} is not one of {impls}")
+        if self.photonic_slicing is not None:
+            raise NotImplementedError(NOT_PORTED_SLICING)
+
+    @property
+    def hd(self) -> int:
+        return self.head_dim if self.head_dim is not None else self.d_model // self.num_heads
+
+    @property
+    def n_q_heads(self) -> int:
+        return self.padded_heads if self.padded_heads is not None else self.num_heads
+
+    @property
+    def n_vocab(self) -> int:
+        return self.padded_vocab if self.padded_vocab is not None else self.vocab_size
+
+
+# ---------------------------------------------------------------------------
+# Parameter definitions
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class P:
+    """A parameter definition.  Reference: ``repro.models.common:P``."""
+
+    shape: Tuple[int, ...]
+    axes: Tuple[Optional[str], ...]
+    init: str = "fan_in"  # fan_in | zeros | ones | embed | normal
+    fan_axis: int = 0
+    dtype: Optional[str] = None  # override param_dtype ("int8", "float32")
+
+    def __post_init__(self):
+        if len(self.shape) != len(self.axes):
+            raise ValueError(f"shape {self.shape} and axes {self.axes} disagree")
+
+
+_DTYPES = {"int8": torch.int8, "float32": torch.float32}
+
+
+def init_params(
+    cfg: ModelConfig,
+    generator: Union[int, torch.Generator],
+    device=None,
+    defs: Any = None,
+) -> Any:
+    """Materialize ``defs`` (default: the registry's defs for ``cfg``) from a
+    seeded generator on ``device`` (``cuda`` unless asked otherwise).
+
+    Same init rules as ``repro.models.common:init_tree`` (fan-in-scaled
+    normals, 0.02 normals for embeddings, zeros, ones, uniform int8), drawn
+    from a torch stream: a different draw than ``jax.random``'s, so parity
+    tests carry reference weights over instead."""
+    dev = resolve_device(device)
+    if not isinstance(generator, torch.Generator):
+        seed = int(generator)
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(seed)
+    if defs is None:
+        from repro_torch.models import lm
+
+        defs = lm.lm_def(cfg)
+
+    def make(p: P) -> torch.Tensor:
+        dt = _DTYPES[p.dtype] if p.dtype is not None else cfg.param_dtype
+        if dt == torch.int8:
+            return torch.randint(-127, 128, p.shape, generator=generator, device=dev).to(dt)
+        if p.init == "zeros":
+            return torch.zeros(p.shape, dtype=dt, device=dev)
+        if p.init == "ones":
+            return torch.ones(p.shape, dtype=dt, device=dev)
+        z = torch.randn(p.shape, generator=generator, device=dev, dtype=torch.float32)
+        if p.init in ("embed", "normal"):
+            return (z * 0.02).to(dt)
+        fan = max(p.shape[p.fan_axis], 1)
+        return (z * (1.0 / math.sqrt(fan))).to(dt)
+
+    def walk(node):
+        if isinstance(node, P):
+            return make(node)
+        if isinstance(node, dict):
+            return {k: walk(node[k]) for k in sorted(node)}
+        if isinstance(node, list):
+            return [walk(n) for n in node]
+        raise TypeError(f"bad param def: {type(node)}")
+
+    return walk(defs)
+
+
+def dense_def(
+    d_in: int,
+    d_out: int,
+    axes: Tuple[Optional[str], Optional[str]],
+    bias: bool = False,
+    init: str = "fan_in",
+    quantized: bool = False,
+) -> Dict[str, P]:
+    """Reference: ``repro.models.common:dense_def``."""
+    if quantized:
+        d: Dict[str, P] = {
+            "w": P((d_in, d_out), axes, init=init, dtype="int8"),
+            "w_scale": P((d_out,), (axes[1],), init="ones", dtype="float32"),
+        }
+    else:
+        d = {"w": P((d_in, d_out), axes, init=init)}
+    if bias:
+        d["b"] = P((d_out,), (axes[1],), init="zeros")
+    return d
+
+
+def qdense_def(cfg: ModelConfig, d_in, d_out, axes, bias=False, init="fan_in"):
+    """Reference: ``repro.models.common:qdense_def``."""
+    quantized = cfg.photonic is not None and cfg.photonic_scope == "weights_int8"
+    return dense_def(d_in, d_out, axes, bias=bias, init=init, quantized=quantized)
+
+
+def engine_from_model_config(cfg: ModelConfig):
+    """The engine a model config implies, or None.  Reference:
+    ``repro.models.common:engine_from_model_config``."""
+    from repro_torch.photonic.engine import engine_for
+
+    if cfg.photonic is None or cfg.photonic_scope == "none":
+        return None
+    return engine_for(
+        cfg.photonic,
+        cfg.photonic_backend,
+        tuple(cfg.photonic_include),
+        tuple(cfg.photonic_exclude),
+    )
+
+
+def dense(
+    params: Dict[str, Any],
+    x: torch.Tensor,
+    cfg: ModelConfig,
+    *,
+    site: Optional[str] = None,
+    layer: Optional[int] = None,
+    epilogue: Any = None,
+    activation: Optional[str] = None,
+) -> torch.Tensor:
+    """Linear layer; routes through the photonic engine when enabled.
+    Reference: ``repro.models.common:dense`` (single-device branch; the
+    tensor-parallel branch waits for its slice).  Bias and activation ride
+    the engine's fused epilogue."""
+    from repro_torch.photonic import Epilogue, EpilogueSpec
+
+    if epilogue is not None:
+        if activation is not None:
+            raise TypeError(
+                "pass either epilogue= or the legacy activation= keyword, not both"
+            )
+        if not isinstance(epilogue, EpilogueSpec) or epilogue.bias:
+            raise TypeError("dense() takes a bias-free EpilogueSpec")
+        activation = epilogue.activation
+    bias = params.get("b")
+    ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
+    eng = engine_from_model_config(cfg)
+    return _single_device_matmul(eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep)
+
+
+def _digital_epilogue(y, ep):
+    if ep.bias is not None:
+        y = y + ep.bias.to(y.dtype)
+    if ep.spec.activation is not None:
+        from repro_torch.photonic import ACTIVATIONS
+
+        y = ACTIVATIONS[ep.spec.activation](y)
+    return y
+
+
+def _single_device_matmul(eng, params, w, x, cfg, *, site, layer, epilogue):
+    """Reference: ``repro.models.common:_single_device_matmul``."""
+    from repro_torch.photonic.packing import PackedDense
+
+    if isinstance(w, PackedDense):
+        if eng is None:
+            return _digital_epilogue(x @ w.dequant().to(x.dtype), epilogue)
+        return eng.matmul(x, w, site=site, fold=layer, epilogue=epilogue)
+    if "w_scale" in params:
+        if eng is None:
+            from repro_torch.photonic.engine import engine_for
+
+            eng = engine_for(DPUConfig(), cfg.photonic_backend)
+        packed = PackedDense(w, params["w_scale"], w.shape[-2], w.shape[-1], tiling=None)
+        return eng.matmul(x, packed, site=site, fold=layer, epilogue=epilogue)
+    if eng is not None and cfg.photonic_scope == "weights":
+        return eng.matmul_float(x, w, site=site, fold=layer, epilogue=epilogue)
+    return _digital_epilogue(x @ w.to(x.dtype), epilogue)
+
+
+def rmsnorm_def(d: int) -> Dict[str, P]:
+    return {"scale": P((d,), (None,), init="ones")}
+
+
+def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
+    """Reference: ``repro.models.common:rmsnorm``."""
+    dt = x.dtype
+    x32 = x.to(torch.float32)
+    var = torch.mean(x32 * x32, dim=-1, keepdim=True)
+    y = x32 * torch.rsqrt(var + eps)
+    return (y * params["scale"].to(torch.float32)).to(dt)
+
+
+def embed_def(vocab: int, d: int) -> Dict[str, P]:
+    return {"table": P((vocab, d), ("vocab", None), init="embed")}
+
+
+def embed(params, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Reference: ``repro.models.common:embed``."""
+    return params["table"].to(cfg.compute_dtype)[ids]
+
+
+def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Logits head, tied to the embedding table or not (digital, as in the
+    reference).  Reference: ``repro.models.common:unembed``."""
+    if "table" in params:
+        return x @ params["table"].to(x.dtype).T
+    return x @ params["w"].to(x.dtype)
+
+
+def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
+    """Reference: ``repro.models.common:rope_freqs``."""
+    exps = torch.arange(0, head_dim, 2, dtype=torch.float32, device=device) / head_dim
+    return 1.0 / (theta**exps)
+
+
+def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions: (..., seq).  Reference:
+    ``repro.models.common:apply_rope``."""
+    hd = x.shape[-1]
+    freqs = rope_freqs(hd, theta, device=x.device)
+    angles = positions[..., :, None].to(torch.float32) * freqs
+    cos = torch.cos(angles)[..., None, :]
+    sin = torch.sin(angles)[..., None, :]
+    x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,56 @@
+"""Architecture registry (dense family).
+
+Port of ``repro.models.registry``: each arch exposes its config, a smoke
+config, ``param_defs(cfg)`` and ``cache_def(cfg, batch, max_seq, meta,
+dtype)``.  Only the dense decoder family is ported; the other families,
+the one-shot prefill/decode adapters and the training loss wait for their
+slices (ROADMAP.md Queue 1).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict
+
+from repro_torch.models import lm
+from repro_torch.models.common import ModelConfig
+
+
+@dataclasses.dataclass(frozen=True)
+class Arch:
+    name: str
+    family: str
+    config: ModelConfig
+    smoke_config: ModelConfig
+    param_defs: Callable[[ModelConfig], Any]
+    cache_def: Callable[..., Any]
+    notes: str = ""
+
+
+def _lm_cache_def(cfg, batch, max_seq, meta, dtype):
+    return lm.lm_cache_def(cfg, batch, max_seq, dtype)
+
+
+FAMILY_FNS = {"dense": (lm.lm_def, _lm_cache_def)}
+
+_REGISTRY: Dict[str, Arch] = {}
+
+
+def make_arch(name: str, family: str, config: ModelConfig, smoke_config: ModelConfig,
+              notes: str = "") -> Arch:
+    """Reference: ``repro.models.registry:make_arch``."""
+    if family not in FAMILY_FNS:
+        raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md Queue 1)")
+    defs, cache_def = FAMILY_FNS[family]
+    arch = Arch(name, family, config, smoke_config, defs, cache_def, notes)
+    _REGISTRY[name] = arch
+    return arch
+
+
+def get(name: str) -> Arch:
+    """Reference: ``repro.models.registry:get``."""
+    if not _REGISTRY:
+        import repro_torch.configs  # noqa: F401  (registers the ported archs)
+    if name not in _REGISTRY:
+        raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
+    return _REGISTRY[name]

@@ -1,0 +1,266 @@
+"""Organization-aware analog channel model (paper Tables II–IV).
+
+Port of ``repro.noise.channel``.  :class:`ChannelModel` and
+:func:`build_channel_model` are pure Python and reproduce the reference
+field for field; :func:`analog_pass_psums` is the oracle-side analog pass
+in PyTorch.  ``shard_local_channel`` and ``sliced_channel`` wait for the
+tensor-parallel and bit-slicing slices of the port.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Dict, Optional
+
+import torch
+
+from repro_torch import platforms as _platforms
+from repro_torch.core import scalability
+from repro_torch.core.params import (
+    K_BOLTZMANN,
+    Q_ELECTRON,
+    PhotonicParams,
+    dbm_to_watts,
+)
+from repro_torch.noise import stages
+from repro_torch.orgs import EFFECT_BUDGET_DB, OrgSpec, resolve
+
+
+@dataclasses.dataclass(frozen=True)
+class ChannelModel:
+    """Signal-chain model of one DPU channel.  Reference:
+    ``repro.noise.channel:ChannelModel`` (same fields, same defaults)."""
+
+    organization: str = "SMWA"
+    n: int = 1
+    m: int = 1
+    bits: int = 4
+    num_wavelengths: int = 1
+    datarate_gs: float = 5.0
+
+    intermod_eps: float = 0.0
+    crossweight_eps: float = 0.0
+    filter_alpha: float = 0.0
+    detector_sigma_lsb: float = 0.0
+    adc_bits: Optional[int] = None
+
+    through_loss_db: float = 0.0
+    propagation_loss_db: float = 0.0
+    splitter_loss_db: float = 0.0
+    insertion_loss_db: float = 0.0
+    fanout_split_db: float = 0.0
+    penalty_db: float = 0.0
+    delivered_dbm: float = 0.0
+    snr_db: float = math.inf
+
+    platform: str = "SOI"
+    builder: Optional[tuple] = None
+
+    @property
+    def analog(self) -> bool:
+        return (
+            self.intermod_eps > 0.0
+            or self.crossweight_eps > 0.0
+            or self.filter_alpha > 0.0
+            or self.detector_sigma_lsb > 0.0
+        )
+
+    @property
+    def is_ideal(self) -> bool:
+        return not self.analog and self.adc_bits is None
+
+    def total_loss_db(self) -> float:
+        return (
+            self.through_loss_db
+            + self.propagation_loss_db
+            + self.splitter_loss_db
+            + self.insertion_loss_db
+            + self.fanout_split_db
+            + self.penalty_db
+        )
+
+    def disable(self, *stage_names: str) -> "ChannelModel":
+        """A copy with the named stages off (``intermod``, ``crossweight``,
+        ``filter``, ``detector``, ``adc``, ``crosstalk``, ``all``)."""
+        off = {
+            "intermod": {"intermod_eps": 0.0},
+            "crossweight": {"crossweight_eps": 0.0},
+            "filter": {"filter_alpha": 0.0},
+            "detector": {"detector_sigma_lsb": 0.0},
+            "adc": {"adc_bits": None},
+        }
+        groups = {
+            "crosstalk": ("intermod", "crossweight", "filter"),
+            "all": tuple(off),
+        }
+        updates: Dict[str, object] = {}
+        for s in stage_names:
+            for name in groups.get(s, (s,)):
+                if name not in off:
+                    raise ValueError(f"unknown stage {s!r}")
+                updates.update(off[name])
+        return dataclasses.replace(self, **updates)
+
+
+def _budget_to_coupling(budget_db: float) -> float:
+    return (1.0 - 10.0 ** (-budget_db / 20.0)) / 2.0
+
+
+def build_channel_model(
+    organization: "str | OrgSpec",
+    params: Optional[PhotonicParams] = None,
+    *,
+    n: Optional[int] = None,
+    m: Optional[int] = None,
+    bits: int = 4,
+    datarate_gs: float = 5.0,
+    adc_bits: Optional[int] = None,
+    enable_loss: bool = True,
+    enable_crosstalk: bool = True,
+    enable_detector_noise: bool = True,
+    enable_adc: bool = True,
+    platform: "str | _platforms.PlatformSpec" = "SOI",
+) -> ChannelModel:
+    """Derive the quantitative channel model for one organization.
+    Reference: ``repro.noise.channel:build_channel_model`` (same arguments,
+    same arithmetic in the same order, so every field matches)."""
+    spec = resolve(organization)
+    org = spec.name
+    m_given = m
+    platform_spec = _platforms.resolve(platform)
+    params_given = params
+    params = platform_spec.apply(params or scalability.CALIBRATED)
+    if n is None:
+        n = scalability.calibrated_max_n(
+            spec, bits, datarate_gs, platform=platform_spec
+        )
+        if n <= 0:
+            raise ValueError(
+                f"infeasible operating point {org} B={bits} DR={datarate_gs}"
+            )
+    if m is None:
+        m = n
+
+    through_db = spec.through_device_count(n) * params.p_mrm_obl_db
+    prop_db = (
+        params.p_si_att_db_per_mm
+        * spec.waveguide_length_factor
+        * n
+        * params.d_mrr_mm
+        + params.p_smf_att_db
+    )
+    split_db = params.p_splitter_il_db * math.log2(max(m, 2))
+    il_db = params.p_ec_il_db + params.p_mrm_il_db + params.p_mrr_w_il_db
+    fanout_db = 10.0 * math.log10(max(m, 1))
+    penalty_db = params.penalty_db(spec)
+
+    if enable_loss:
+        delivered_dbm = scalability.output_power_dbm(n, m, spec, params)
+    else:
+        delivered_dbm = params.p_laser_dbm
+    p_ch = dbm_to_watts(delivered_dbm)
+    bw = datarate_gs * 1e9 / params.bw_divisor
+    snr_amp = params.responsivity * p_ch / (
+        scalability.noise_beta(p_ch, params) * math.sqrt(bw)
+    )
+    snr_db = 20.0 * math.log10(snr_amp) if snr_amp > 0 else -math.inf
+
+    sigma = 0.0
+    if enable_detector_noise:
+        r_s = params.responsivity
+        shot = 2.0 * Q_ELECTRON * (r_s * n * p_ch + params.i_dark)
+        thermal = 4.0 * K_BOLTZMANN * params.temperature / params.r_load
+        rin = n * (r_s * p_ch) ** 2 * params.rin_linear_per_hz
+        dark_branch = 2.0 * Q_ELECTRON * params.i_dark + thermal
+        noise_amp = (
+            math.sqrt(shot + thermal + rin) + math.sqrt(dark_branch)
+        ) * math.sqrt(bw)
+        fullscale = float((2**bits - 1) ** 2)
+        sigma = fullscale * noise_amp / max(r_s * p_ch, 1e-30)
+
+    eps_im = eps_cw = alpha = 0.0
+    if enable_crosstalk:
+        if spec.inter_modulation:
+            eps_im = _budget_to_coupling(EFFECT_BUDGET_DB["inter_modulation"])
+        if spec.cross_weight:
+            eps_cw = _budget_to_coupling(EFFECT_BUDGET_DB["cross_weight"])
+        if spec.filter_truncation:
+            alpha = 1.0 - 10.0 ** (-EFFECT_BUDGET_DB["filter_truncation"] / 20.0)
+
+    builder = (
+        org,
+        params_given,
+        m_given,
+        bits,
+        datarate_gs,
+        adc_bits,
+        enable_loss,
+        enable_crosstalk,
+        enable_detector_noise,
+        enable_adc,
+        platform_spec.name,
+    )
+    return ChannelModel(
+        organization=org,
+        platform=platform_spec.name,
+        n=n,
+        m=m,
+        bits=bits,
+        num_wavelengths=n,
+        datarate_gs=datarate_gs,
+        intermod_eps=eps_im,
+        crossweight_eps=eps_cw,
+        filter_alpha=alpha,
+        detector_sigma_lsb=sigma,
+        adc_bits=adc_bits if enable_adc else None,
+        through_loss_db=through_db,
+        propagation_loss_db=prop_db,
+        splitter_loss_db=split_db,
+        insertion_loss_db=il_db,
+        fanout_split_db=fanout_db,
+        penalty_db=penalty_db,
+        delivered_dbm=delivered_dbm,
+        snr_db=snr_db,
+        builder=builder,
+    )
+
+
+def int_dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """Exact product of integer-valued operands, as int64.
+
+    Runs in float64, which is exact while every partial sum stays below
+    2^53 (int8 operands need K < 2^38) and works on both CPU and CUDA
+    (CUDA has no integer matmul)."""
+    return torch.matmul(a.to(torch.float64), b.to(torch.float64)).to(torch.int64)
+
+
+def analog_pass_psums(
+    x_chunks: torch.Tensor,  # (R, G, N) int — one operand slice, chunked
+    w_chunks: torch.Tensor,  # (G, N, C) int — one weight slice, chunked
+    channel: ChannelModel,
+    seed: stages.UInt,  # uint32 stream seed (stages.fold_seed output)
+) -> torch.Tensor:
+    """One slice-pair optical pass through the full signal chain; int32
+    per-chunk psums ``(R, G, C)``.  Reference:
+    ``repro.noise.channel:analog_pass_psums`` (crosstalk -> filter ->
+    detector noise -> ADC, each stage one f32 op as there)."""
+    dev = x_chunks.device
+    xs = x_chunks.permute(1, 0, 2)  # (G, R, N)
+    psum = int_dot(xs, w_chunks).permute(1, 0, 2)  # (R, G, C)
+    a = psum.to(torch.float32)
+    if channel.intermod_eps > 0.0:
+        x_nb = stages.neighbor_sum(xs, axis=-1)
+        im = int_dot(x_nb, w_chunks).permute(1, 0, 2).to(torch.float32)
+        a = a + stages.f32(channel.intermod_eps, dev) * im
+    if channel.crossweight_eps > 0.0:
+        w_nb = stages.neighbor_sum(w_chunks, axis=1)
+        cw = int_dot(xs, w_nb).permute(1, 0, 2).to(torch.float32)
+        a = a + stages.f32(channel.crossweight_eps, dev) * cw
+    if channel.filter_alpha > 0.0:
+        a = a * stages.f32(1.0 - channel.filter_alpha, dev)
+    if channel.detector_sigma_lsb > 0.0:
+        z = stages.gaussian_from_counter(seed, tuple(a.shape), device=dev)
+        sigma = stages.f32(channel.detector_sigma_lsb, dev)
+        a = a + sigma * z
+    return stages.adc_quantize(a, channel.adc_bits)

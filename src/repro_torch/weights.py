@@ -1,0 +1,58 @@
+"""Carry the reference's parameters into the port.
+
+``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
+so parity tests build parameters with the reference and hand them over as
+numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
+included) into the port's layout, where ``layers`` is a per-layer list.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+
+
+def _tensor(a, dtype, device) -> torch.Tensor:
+    a = np.asarray(a)
+    if a.dtype.kind not in "iub" and a.dtype != np.float32 and a.dtype != np.float64:
+        a = a.astype(np.float32)  # e.g. ml_dtypes bfloat16, which torch cannot read
+    t = torch.from_numpy(np.array(a, copy=True, order="C"))
+    if t.is_floating_point() and dtype is not None:
+        t = t.to(dtype)
+    return t.to(device)
+
+
+def params_from_jax(tree: Any, cfg, device=None) -> Any:
+    """The reference's parameter tree (nested dicts of numpy arrays, layer
+    leaves stacked on axis 0) as the port's parameters on ``device``.
+    Float leaves take ``cfg.param_dtype``; integer leaves keep theirs."""
+    dev = resolve_device(device)
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        return _tensor(node, cfg.param_dtype, dev)
+
+    def unstack(node, i):
+        if isinstance(node, dict):
+            return {k: unstack(v, i) for k, v in node.items()}
+        return np.asarray(node)[i]
+
+    out = {}
+    for key, sub in tree.items():
+        if key == "layers":
+            n = len(np.asarray(_first_leaf(sub)))
+            out[key] = [conv(unstack(sub, i)) for i in range(n)]
+        else:
+            out[key] = conv(sub)
+    return out
+
+
+def _first_leaf(node):
+    while isinstance(node, dict):
+        node = node[sorted(node)[0]]
+    return node
