@@ -9,8 +9,9 @@ CUDA toolkit:
 Phases, in order (each prints its wall time; any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions; the photonic GEMM kernels are built from
-   ``src/repro_torch/kernels/photonic_gemm/csrc`` with ``nvcc``.
+   CUDA versions; the kernels are built from
+   ``src/repro_torch/kernels/{photonic_gemm,flash_attention}/csrc``, one
+   ``nvcc`` per source, all started together.
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
    sites) under the ideal, SMWA and ASMW channels, plus f32-prologue cases
@@ -22,9 +23,19 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    agree, with the kernel launches the case made (its check, the graph's
    warm-up and capture).  Per channel and row count, the sums over one
    decoder layer.
-3. int_gemm path: ``PhotonicEngine.int_gemm`` (the integer entry point,
+3. flash kernels: the flash-attention kernel against its twin on the card
+   (qwen2-0.5b heads unless noted): B=4 at the four serve prompt lengths,
+   B=2 T=1000 (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936,
+   non-causal B=2 T=1000 kv_valid=900, hd=128 (H=12, KV=2, T=1024) and one
+   f32 case.  Per case: median kernel time (CUDA graph), twin time,
+   ``scaled_dot_product_attention`` time for the causal q_offset=0 cases (a
+   yardstick only; the port never calls it), the bound (q, k, v, out
+   bytes at the HBM rate against 4 hd flops per live score entry at the
+   input type's peak) and agreement: f32 max abs err <= 2e-5, bf16 within
+   one bf16 ulp.
+4. int_gemm path: ``PhotonicEngine.int_gemm`` (the integer entry point,
    kernel ``photonic_gemm``) at the six sites, launch counts reset before.
-4. serve: qwen2-0.5b at full width (24 layers, bf16, seeded random weights
+5. serve: qwen2-0.5b at full width (24 layers, bf16, seeded random weights
    from ``init_params``) answers 4 greedy requests through the port's
    paged ``Scheduler`` with every weight GEMM on the fused kernel, in the
    ideal and the SMWA-analog mode; launch counts are reset before each run
@@ -34,6 +45,23 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    printed; on the kernel backend they run under the torch profiler:
    device busy share, top kernels and top host ops (full tables in
    ``chiprun_out/profile_*.txt``) and the profiler's own cost.
+   The paged path runs chunked attention, so its flash count must stay 0.
+6. oneshot serve: ``lm_logits`` at full width (B=2, T=1000) with
+   ``attn_impl="flash"``, ``"chunked"`` and, as a witness of how far the
+   model carries a rounding difference of its attention core, ``"chunked"``
+   at the flash kernel's key block (``attn_chunk=128``), in three
+   numerics: bf16 on the ideal channel and kernel backend, bf16 with
+   digital GEMMs, and f32 with digital GEMMs; flash launches 24 and 0,
+   fused launches 6 x 24 on the photonic run.  Max |dlogit| / max |logit|
+   and argmax agreement over the 2,000 positions, flash vs chunked and
+   witness vs chunked, gated: f32 <= 1e-4 and every argmax equal; bf16
+   <= max(2e-2, 2 x witness) and disagreement <= max(1%, 2 x witness).
+   Then the one-shot ``LegacyEngine`` (batch 4, max_seq 128, the same 4
+   prompts and 8 greedy tokens) with flash on the kernel and the ``ref``
+   backends and chunked on the kernel backend: flash launches 24 x
+   prefills (0 when chunked), fused launches 6 x 24 x forwards on the
+   kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
+   step, prefill seconds and tokens/s.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -64,6 +92,24 @@ SITES = [  # (site, K, C, bias) — one decoder layer of qwen2-0.5b
     ("ffn.wo", 4864, 896, False),
 ]
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
+FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
+# Attention's least time counts its 4 * hd flops per live score entry at
+# the tensor-core rate of its input type: bf16 inputs at the dense bf16
+# peak (what a Hopper flash kernel runs, with f32 accumulation); f32 inputs
+# at the f32 CUDA-core peak.  That is a CUDA-core bound, not the card's
+# best rate for f32-grade products: TF32 keeps 10 mantissa bits, and three
+# TF32 products per product (3xTF32) would run near 495 / 3 TFLOP/s.
+PEAK_FLOPS = {"bf16": 989e12, "f32": 67e12}
+# (label, B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, dtype)
+FLASH_CASES = [
+    *(("serve prompt", 4, t, t, 14, 2, 64, True, 0, None, "bf16") for t in (16, 40, 64, 24)),
+    ("lm_logits", 2, 1000, 1000, 14, 2, 64, True, 0, None, "bf16"),
+    ("long", 1, 4096, 4096, 14, 2, 64, True, 0, None, "bf16"),
+    ("offset", 1, 64, 1000, 14, 2, 64, True, 936, None, "bf16"),
+    ("kv_valid", 2, 1000, 1000, 14, 2, 64, False, 0, 900, "bf16"),
+    ("hd128", 2, 1024, 1024, 12, 2, 128, True, 0, None, "bf16"),
+    ("f32", 2, 1000, 1000, 14, 2, 64, True, 0, None, "f32"),
+]
 
 
 def log(msg: str) -> None:
@@ -312,6 +358,88 @@ def int_case(torch, K, dpu, r, k, c, gen):
     return ok, err, k_ms, t_ms, lib_ms, b
 
 
+def build_kernels(libs) -> None:
+    """Build every kernel source at once (one ``nvcc`` each, started
+    together) with ``-Xptxas -v``, and log each build's seconds."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    def one(lib):
+        t0 = time.perf_counter()
+        return lib.build(verbose=True), time.perf_counter() - t0
+
+    t0 = time.perf_counter()
+    with ThreadPoolExecutor(len(libs)) as ex:
+        done = [(lib, ex.submit(one, lib)) for lib in libs]
+    for lib, fut in done:
+        path, secs = fut.result()
+        log(f"  built {path.relative_to(ROOT)} in {secs:.2f} s")
+        lib.load()
+    log(f"  all {len(libs)} kernel sources built in {time.perf_counter() - t0:.2f} s")
+
+
+def bf16_ulp(torch, x):
+    """One bf16 ulp at each element of ``x`` (f32): 2^(floor(log2|x|) - 7),
+    and the smallest normal's ulp at zero."""
+    _, e = torch.frexp(x.abs().clamp(min=2.0**-126))
+    return torch.ldexp(torch.ones_like(x), (e - 8).to(torch.int32))
+
+
+def flash_case(torch, F, case, gen, rows_out, card):
+    """One flash-attention kernel-vs-twin case at the block sizes
+    ``ops.flash_attention`` picks; appends a result dict to ``rows_out``."""
+    label, b, tq, tk, h, kvh, hd, causal, q_offset, kv_valid, dt = case
+    dtype = torch.bfloat16 if dt == "bf16" else torch.float32
+    dev = torch.device("cuda")
+    q, k, v = (torch.randn(shape, generator=gen, device=dev).to(dtype)
+               for shape in ((b, tq, h, hd), (b, tk, kvh, hd), (b, tk, kvh, hd)))
+    valid = tk if kv_valid is None else min(kv_valid, tk)
+    args = dict(scale=hd**-0.5, causal=causal, q_offset=q_offset, kv_valid=valid, n_rep=h // kvh,
+                bq=min(128, -(-tq // 8) * 8), bk=min(128, -(-tk // 8) * 8))
+    n0 = F.LAUNCHES["flash_attention"]
+    y_k = F.flash_attention_fwd(q, k, v, **args)
+    y_t = F.flash_attention_fwd_twin(q, k, v, **args)
+    torch.cuda.synchronize()
+    yk, yt = y_k.to(torch.float32), y_t.to(torch.float32)
+    diff = (yk - yt).abs()
+    err = float(diff.max())
+    finite = bool(torch.isfinite(yk).all())
+    if dt == "f32":
+        ok, tol = finite and err <= 2e-5, "f32: max abs err <= 2e-5"
+    else:  # both round an f32 result to bf16; a last-ulp flip is the most a sum order can do
+        ulp = torch.maximum(bf16_ulp(torch, yt), bf16_ulp(torch, yk))
+        ok, tol = finite and bool((diff <= ulp).all()), "bf16: within one bf16 ulp"
+    k_ms = graph_ms(lambda: F.flash_attention_fwd(q, k, v, **args))
+    launched = F.LAUNCHES["flash_attention"] - n0
+    t_ms = eager_ms(lambda: F.flash_attention_fwd_twin(q, k, v, **args))
+    lib_ms = None
+    if causal and q_offset == 0 and tq == tk:
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        lib_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    # Live score entries per (b, h): keys below kv_valid and, when causal,
+    # at or before the row's position.
+    rows = torch.arange(tq, dtype=torch.int64)
+    per_row = torch.full((tq,), valid, dtype=torch.int64)
+    if causal:
+        per_row = torch.clamp(torch.minimum(per_row, q_offset + rows + 1), min=0)
+    live = int(per_row.sum())
+    es = 2 if dt == "bf16" else 4
+    nbytes = (2 * b * tq * h * hd + 2 * b * tk * kvh * hd) * es
+    parts = (nbytes / PEAK_BYTES_PER_S * 1e3, 4.0 * b * h * hd * live / PEAK_FLOPS[dt] * 1e3)
+    b_ms, b_by = bound_of([parts])
+    rows_out.append(dict(
+        case=label, B=b, Tq=tq, Tk=tk, H=h, KV=kvh, hd=hd, causal=causal, q_offset=q_offset,
+        kv_valid=valid, dtype=dt, bq=args["bq"], bk=args["bk"], ms=k_ms, plain_ms=t_ms,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, tolerance=tol, ok=ok,
+        launches=launched,
+    ))
+    log(f"  {label:12s} B={b} Tq={tq:4d} Tk={tk:4d} H={h} KV={kvh} hd={hd} causal={int(causal)} "
+        f"q_offset={q_offset} kv_valid={valid} {dt}: kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
+        f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms ({b_by}), "
+        f"{launched} launches, max_abs_err {err:.3g} [{tol}] -> {'ok' if ok else 'MISMATCH'} [{card}]")
+    return ok
+
+
 def profiled(torch, fn, label):
     """Run ``fn()`` under the torch profiler (CPU + CUDA) and log the device
     busy share and the top kernels and host ops; the full table goes to
@@ -357,6 +485,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label):
     """Serve ``prompts`` greedily through the port's Scheduler.  Once every
     request is prefilled, two steady decode steps run apart (under the
     profiler on the kernel backend) and are left out of the rates."""
+    from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.serving import Request, Scheduler, ServingConfig
 
@@ -368,6 +497,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label):
     reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     K.reset_launches()
+    F.reset_launches()
     t0 = time.perf_counter()
     for r in reqs:
         sch.submit(r)
@@ -387,7 +517,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label):
     sch.run()
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
-    launches = dict(K.LAUNCHES)
+    launches = dict(K.LAUNCHES, **F.LAUNCHES)
     st = sch.stats
     forwards = st["prefill_chunks"] + st["decode_steps"]
     toks = sum(len(r.output) for r in reqs)
@@ -407,6 +537,158 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label):
     return reqs, launches, forwards, done, finite, st
 
 
+def legacy_serve(torch, arch, params, dpu, backend, impl, prompts, card):
+    """Serve ``prompts`` greedily through the port's one-shot
+    ``LegacyEngine`` with ``attn_impl=impl``; counts reset just before."""
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.runtime.serve import LegacyEngine, ServeConfig
+    from repro_torch.serving import Request
+
+    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend, attn_impl=impl)
+    eng = LegacyEngine(arch, cfg, params, ServeConfig(batch_size=4, max_seq=128))
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    F.reset_launches()
+    t0 = time.perf_counter()
+    eng.run(reqs)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES, **F.LAUNCHES)
+    st = dict(eng.stats)
+    toks = sum(len(r.output) for r in reqs)
+    st.update(seconds=dt, tokens=toks, tok_per_s=toks / dt,
+              decode_ms_per_step=st["decode_s"] / max(st["decode_steps"], 1) * 1e3)
+    log(f"  LegacyEngine {backend} backend, attn_impl={impl}: {toks} tokens in {dt:.3f} s = "
+        f"{st['tok_per_s']:.2f} tok/s; prefill {st['prefill_s']:.3f} s over {st['prefills']} "
+        f"prefills (batch 4), decode {st['decode_ms_per_step']:.2f} ms/step over "
+        f"{st['decode_steps']} steps; flash launches {launches['flash_attention']}, fused launches "
+        f"{launches['photonic_gemm_fused']} [{card}]")
+    done = all(r.done and len(r.output) == 8 for r in reqs)
+    return reqs, launches, st, done
+
+
+def _cast(tree, dtype):
+    """The parameter tree with every float leaf cast to ``dtype``."""
+    if isinstance(tree, dict):
+        return {k: _cast(v, dtype) for k, v in tree.items()}
+    if isinstance(tree, list):
+        return [_cast(v, dtype) for v in tree]
+    return tree.to(dtype) if tree.is_floating_point() else tree
+
+
+def oneshot_phase(torch, arch, params, ideal, prompts, card):
+    """The one-shot path: ``lm_logits`` at full width (B=2, T=1000) with
+    the flash and the chunked attention core, then ``LegacyEngine`` runs
+    (flash on the kernel and ``ref`` backends, chunked on the kernel
+    backend).  Gates: launch counts, finite logits, flash-vs-chunked
+    logits, and kernel-vs-ref tokens.
+
+    ``lm_logits`` runs in three numerics.  bf16 on the ideal channel and
+    kernel backend is the served model; bf16 with digital GEMMs drops the
+    int8 activation quantization; f32 with digital GEMMs has no rounding
+    step at all.  Each also runs chunked attention with the flash
+    kernel's key block (``attn_chunk=128``): the same maths as chunked
+    at its own chunk, summed in other blocks, with no kernel involved.
+    That witness measures how far the model carries a float-rounding
+    difference of its attention core.  In f32 the cores must agree
+    (<= 1e-4 of max |logit|, every argmax equal).  In bf16 flash may be
+    no further from chunked than the witness allows: relative error
+    <= max(2e-2, 2 x the witness's), disagreeing argmaxes <= max(1%,
+    2 x the witness's), which is the 2e-2 / 99% gate wherever the model
+    does not amplify rounding."""
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import lm
+    from repro_torch.serving import prepack_serving_params
+
+    n_layers = arch.config.num_layers
+    ok = True
+    res = {"flash_launches": 0, "lm_logits": {}}
+    rng = np.random.default_rng(1)
+    tokens = torch.as_tensor(rng.integers(0, arch.config.vocab_size, (2, 1000)), device="cuda")
+    f32 = torch.float32
+
+    def compare(a, b):
+        a, b = a.float(), b.float()
+        return float((a - b).abs().max() / b.abs().max()), float((a.argmax(-1) == b.argmax(-1)).float().mean())
+
+    for label, kw in (
+        ("bf16, ideal channel, kernel backend", dict(photonic=ideal, photonic_backend="kernel")),
+        ("bf16, digital GEMMs", {}),
+        ("f32, digital GEMMs", dict(param_dtype=f32, compute_dtype=f32)),
+    ):
+        base = dataclasses.replace(arch.config, **kw)
+        photonic = base.photonic is not None
+        with torch.no_grad():
+            run_params = _cast(params, f32) if base.compute_dtype == f32 else params
+            _, packed = prepack_serving_params(arch, base, run_params)
+            logits = {}
+            for name, impl, chunk in (("flash", "flash", base.attn_chunk),
+                                      ("chunked", "chunked", base.attn_chunk),
+                                      ("chunked_128", "chunked", 128)):
+                torch.cuda.synchronize()
+                K.reset_launches()
+                F.reset_launches()
+                t0 = time.perf_counter()
+                logits[name], _ = lm.lm_logits(
+                    packed, tokens, dataclasses.replace(base, attn_impl=impl, attn_chunk=chunk))
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                want, want_fused = (n_layers if impl == "flash" else 0), (6 * n_layers if photonic else 0)
+                finite = bool(torch.isfinite(logits[name].float()).all())
+                good = (finite and F.LAUNCHES["flash_attention"] == want
+                        and K.LAUNCHES["photonic_gemm_fused"] == want_fused)
+                res["flash_launches"] += F.LAUNCHES["flash_attention"]
+                log(f"  lm_logits {label}, attn_impl={impl} attn_chunk={chunk}: {dt:.3f} s; flash "
+                    f"launches {F.LAUNCHES['flash_attention']} == {want}, fused launches "
+                    f"{K.LAUNCHES['photonic_gemm_fused']} == {want_fused}, finite {finite}: {good} [{card}]")
+                ok &= good
+            rel, agree = compare(logits["flash"], logits["chunked"])
+            w_rel, w_agree = compare(logits["chunked_128"], logits["chunked"])
+            del logits, packed, run_params
+        torch.cuda.empty_cache()
+        if base.compute_dtype == f32:
+            max_rel, min_agree = 1e-4, 1.0
+        else:
+            max_rel, min_agree = max(2e-2, 2 * w_rel), 1.0 - max(0.01, 2 * (1.0 - w_agree))
+        good = rel <= max_rel and agree >= min_agree
+        log(f"  lm_logits {label}, over 2 x 1000 positions, max |dlogit| / max |logit| and argmax "
+            f"agreement: flash vs chunked {rel:.4g}, {agree:.4f}; witness chunked at 128 vs chunked at "
+            f"{base.attn_chunk} {w_rel:.4g}, {w_agree:.4f} (gate: flash vs chunked <= {max_rel:.4g} and "
+            f">= {min_agree:.4f}): {good} [{card}]")
+        ok &= good
+        res["lm_logits"][label] = dict(rel_err=rel, argmax_agreement=agree, witness_rel_err=w_rel,
+                                       witness_argmax_agreement=w_agree, max_rel_err=max_rel,
+                                       min_argmax_agreement=min_agree)
+
+    runs = {}
+    for label, backend, impl in (("flash", "kernel", "flash"), ("flash_ref", "ref", "flash"),
+                                 ("chunked", "kernel", "chunked")):
+        reqs, launches, st, done = legacy_serve(torch, arch, params, ideal, backend, impl, prompts, card)
+        forwards = st["prefills"] + st["decode_steps"]
+        want_flash = n_layers * st["prefills"] if impl == "flash" else 0
+        want_fused = 6 * n_layers * forwards if backend == "kernel" else 0
+        good = (done and launches["flash_attention"] == want_flash
+                and launches["photonic_gemm_fused"] == want_fused and launches["photonic_gemm"] == 0)
+        log(f"  {label}: all done {done}, flash launches {launches['flash_attention']} == {want_flash}, "
+            f"fused launches {launches['photonic_gemm_fused']} == {want_fused}: {good}")
+        ok &= good
+        if impl == "flash":
+            res["flash_launches"] += launches["flash_attention"]
+        runs[label] = reqs
+        res[f"legacy_{label}"] = st
+        torch.cuda.empty_cache()
+    same = all(a.output == b.output for a, b in zip(runs["flash"], runs["flash_ref"]))
+    log(f"  LegacyEngine flash: ideal kernel tokens == ideal ref tokens: {same}")
+    for a, b, c in zip(runs["flash"], runs["flash_ref"], runs["chunked"]):
+        log(f"    uid {a.uid}: kernel {a.output} ref {b.output} chunked {c.output}")
+    ok &= same
+    res["ok"] = ok
+    return res
+
+
 def main() -> int:
     import torch
 
@@ -414,20 +696,22 @@ def main() -> int:
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     sys.path.insert(0, str(ROOT / "src"))
+    from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.models import registry
     from repro_torch.models.common import init_params
 
+    # f32 matrix products in full f32 (no TF32) for the twins and the
+    # digital GEMMs; both are PyTorch's defaults, stated here.
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     all_ok = True
     with Phase("device"):
         log(f"  card: {card}")
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-        t0 = time.perf_counter()
-        lib = K.build_library(verbose=True)
-        log(f"  built {lib.relative_to(ROOT)} in {time.perf_counter() - t0:.2f} s")
-        K.load_library()
+        build_kernels([K.LIBRARY, F.LIBRARY])
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -454,6 +738,10 @@ def main() -> int:
                 bm, bb = bound_of([x["parts"] for x in layer])
                 log(f"  layer sum {name} R={r}: kernel {sum(x['ms'] for x in layer):.4f} ms, "
                     f"twin {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}) [{card}]")
+    flash_rows = []
+    with Phase("flash kernels"):
+        for case in FLASH_CASES:
+            all_ok &= flash_case(torch, F, case, gen, flash_rows, card)
     if not all_ok:
         log("kernel phase: MISMATCH")
         return 1
@@ -509,9 +797,11 @@ def main() -> int:
                 torch, arch, params, dpu, backend, prompts, card, label
             )
             expect = 6 * n_layers * forwards if backend == "kernel" else 0
-            ok = done and finite and launches["photonic_gemm_fused"] == expect and launches["photonic_gemm"] == 0
+            ok = (done and finite and launches["photonic_gemm_fused"] == expect
+                  and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
             log(f"  {label}: all done {done}, logits finite {finite}, fused launches "
-                f"{launches['photonic_gemm_fused']} == {expect}: {ok}")
+                f"{launches['photonic_gemm_fused']} == {expect}, flash launches "
+                f"{launches['flash_attention']} == 0 (chunked attention): {ok}")
             results[label] = (reqs, launches, st)
             all_ok &= ok
             torch.cuda.empty_cache()
@@ -522,6 +812,10 @@ def main() -> int:
         for r in results["smwa"][0]:
             log(f"    smwa uid {r.uid}: {r.output}")
         all_ok &= same
+
+    with Phase("oneshot serve"):
+        oneshot = oneshot_phase(torch, arch, params, ideal, prompts, card)
+        all_ok &= oneshot["ok"]
 
     if not all_ok:
         log("chip_smoke: FAILED")
@@ -559,10 +853,21 @@ def main() -> int:
             case="six qwen2-0.5b sites, R=64, ideal channel; launches from the int_gemm path",
         ),
     ]
+    fl = next(x for x in flash_rows if x["case"] == "lm_logits")
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SRC,
+        replaces="src/repro/kernels/flash_attention/kernel.py:91",
+        launches=oneshot["flash_launches"], max_abs_err=fl["max_abs_err"],
+        ms=fl["ms"], plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
+        library_ms=fl["library_ms"],
+        case="B=2, T=1000, 14 heads / 2 KV heads, hd=64, causal, bf16 (the lm_logits shape); "
+             "launches from the one-shot flash runs",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
-        {"card": card, "kernel_rows": rows,
+        {"card": card, "kernel_rows": rows, "flash_rows": flash_rows,
+         "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
          "serve": {k: v[2] for k, v in results.items()}}, indent=1))
     print(json.dumps({"kernels": kernels}))

@@ -18,25 +18,21 @@ source note says what bounds it on the card.
   chunk seed ``fold_seed(tile_seed, pass, g)``, element counter
   ``row_in_tile * tile_c + col_in_tile``, ``valid_chunks`` masking), as
   Pallas interpret mode does for the reference, vectorized over tiles.
-* :func:`load_library` builds the CUDA source with ``nvcc`` at first use
-  into ``build/repro_torch/`` (keyed by a hash of the source and flags)
-  and binds its plain C entry point with ``ctypes``.
+* :data:`LIBRARY` builds the CUDA source with ``nvcc`` at first use into
+  ``build/repro_torch/`` (keyed by a hash of the source and flags) and
+  binds its plain C entry point with ``ctypes``
+  (:mod:`repro_torch.kernels._build`).
 """
 
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import tempfile
-import threading
 from pathlib import Path
 from typing import Optional
 
 import torch
 
+from repro_torch.kernels._build import CudaLibrary
 from repro_torch.kernels.photonic_gemm.epilogue import (
     EpilogueSpec,
     apply_epilogue,
@@ -53,10 +49,6 @@ from repro_torch.noise.stages import (
 )
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "photonic_gemm.cu"
-NVCC_FLAGS = (
-    "-gencode", "arch=compute_90a,code=sm_90a",
-    "-O3", "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
-)
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2}
 TILE_C = 128  # the logical tile_c the CUDA kernel supports
 CTA_ROWS = 8  # rows per CTA; tile_r must be a multiple
@@ -259,69 +251,20 @@ def photonic_gemm_fused_twin(
 # ---------------------------------------------------------------------------
 # Build and bind the CUDA source
 # ---------------------------------------------------------------------------
-_LIB = None
-_LIB_LOCK = threading.Lock()
+def _bind(lib) -> None:
+    fn = lib.photonic_gemm_launch
+    vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    fn.argtypes = [
+        vp, i, vp, vp, vp, vp, vp, vp, i,  # x, x_f32, w, x_scale, w_scale, bias, seed, out, fused
+        i, i, i, i, i, i, i,  # R, K, C, tile_r, tile_c, tile_k, n_chunk
+        i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
+        f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
+        i, i, vp,  # valid_chunks, activation, stream
+    ]
+    fn.restype = ctypes.c_int
 
 
-def build_dir() -> Path:
-    """``<checkout>/build/repro_torch`` (``build/`` is git-ignored)."""
-    return SOURCE.parents[5] / "build" / "repro_torch"
-
-
-def _nvcc() -> str:
-    for cand in (
-        shutil.which("nvcc"),
-        os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"), "bin", "nvcc"),
-    ):
-        if cand and os.path.exists(cand):
-            return cand
-    raise RuntimeError("nvcc not found: the CUDA kernels build on a machine with the CUDA toolkit")
-
-
-def library_path() -> Path:
-    """Where the built library for the current source and flags lives."""
-    key = hashlib.sha256(SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
-    return build_dir() / f"photonic_gemm_{key}.so"
-
-
-def build_library(verbose: bool = False) -> Path:
-    """Compile the source with ``nvcc`` unless this exact build exists.
-    ``verbose`` adds ``-Xptxas -v`` and prints the compiler's report."""
-    out = library_path()
-    if out.exists():
-        return out
-    out.parent.mkdir(parents=True, exist_ok=True)
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=out.parent)
-    os.close(fd)
-    cmd = [_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        os.unlink(tmp)
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stdout}\n{proc.stderr}")
-    if verbose:
-        print(proc.stdout + proc.stderr)
-    os.replace(tmp, out)
-    return out
-
-
-def load_library():
-    """The bound library, building it at first use."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is None:
-            lib = ctypes.CDLL(str(build_library()))
-            fn = lib.photonic_gemm_launch
-            vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            fn.argtypes = [
-                vp, i, vp, vp, vp, vp, vp, vp, i,  # x, x_f32, w, x_scale, w_scale, bias, seed, out, fused
-                i, i, i, i, i, i, i,  # R, K, C, tile_r, tile_c, tile_k, n_chunk
-                i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
-                f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
-                i, i, vp,  # valid_chunks, activation, stream
-            ]
-            fn.restype = ctypes.c_int
-            _LIB = lib
-    return _LIB
+LIBRARY = CudaLibrary(SOURCE, _bind)
 
 
 # ---------------------------------------------------------------------------
@@ -368,7 +311,7 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, *, operand_bi
         if t.data_ptr() % 16:
             raise ValueError(f"{nm} must be 16-byte aligned")
     seed_t = None if seed is None else _seed_tensor(seed, x.device)
-    rc = load_library().photonic_gemm_launch(
+    rc = LIBRARY.load().photonic_gemm_launch(
         _data_ptr(x), int(x.is_floating_point()), _data_ptr(wq), _data_ptr(x_scale),
         _data_ptr(w_scale), _data_ptr(bias), _data_ptr(seed_t), _data_ptr(out), int(fused),
         r, k, c, tile_r, tile_c, tile_k, n_chunk,

@@ -1,10 +1,14 @@
-"""GQA self-attention (RoPE, QKV bias) over the paged KV pool, in PyTorch.
+"""GQA self-attention (RoPE, QKV bias), in PyTorch: the full-sequence
+forward, the one-shot prefill/decode over a dense cache, and the paged
+prefill/decode over the block pool.
 
 Port of the GQA part of ``repro.models.attention``.  The reference's
 ``lax.scan`` over KV blocks becomes a Python loop with the same online
 softmax; masks stay ``-1e30`` (not ``-inf``), and the GQA head map is
-``repeat_interleave`` (``jnp.repeat``'s element order).  MLA and
-cross-attention wait for their slices.
+``repeat_interleave`` (``jnp.repeat``'s element order).  ``attn_impl =
+"flash"`` sends the prefill/forward attention core to the flash kernel
+(:func:`_attend`); the paged and decode cores stay as the reference has
+them.  MLA and cross-attention wait for their slices.
 """
 
 from __future__ import annotations
@@ -110,11 +114,6 @@ def _qkv_proj(params, x, cfg: ModelConfig, *, layer=None):
 
 
 def _check_supported(cfg: ModelConfig) -> None:
-    if cfg.attn_impl != "chunked":
-        raise NotImplementedError(
-            "attn_impl='flash' needs the flash-attention kernel, not ported yet "
-            "(ROADMAP.md Queue 2, flash_attention_pallas)"
-        )
     if cfg.kv_cache_int8:
         raise NotImplementedError(
             "int8 KV caches are not ported yet (ROADMAP.md Queue 1, 'Dense decoder')"
@@ -123,6 +122,101 @@ def _check_supported(cfg: ModelConfig) -> None:
 
 def _acc_dtype(cfg: ModelConfig):
     return torch.float32 if cfg.attn_f32 else torch.bfloat16
+
+
+def _attend(q, k, v, cfg: ModelConfig, *, causal: bool, q_offset: int = 0):
+    """The prefill/forward attention core behind ``cfg.attn_impl``:
+    "chunked" is the online-softmax loop, "flash" the flash-attention
+    kernel through the ``repro_torch.photonic`` surface.  Reference:
+    ``repro.models.attention:_attend``."""
+    if cfg.attn_impl == "flash":
+        from repro_torch.photonic.flash import flash_attention
+
+        return flash_attention(q, k, v, causal=causal, q_offset=q_offset)
+    return chunked_attention(
+        q, k, v, causal=causal, q_offset=q_offset,
+        chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg),
+    )
+
+
+def gqa_attention(
+    params: Dict[str, Any],
+    x: torch.Tensor,  # (B, T, D)
+    cfg: ModelConfig,
+    *,
+    positions: torch.Tensor,  # (T,)
+    causal: bool = True,
+    q_offset: int = 0,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Full-sequence self-attention.  Reference:
+    ``repro.models.attention:gqa_attention``."""
+    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, cfg, causal=causal, q_offset=q_offset)
+    out = out.reshape(*x.shape[:2], -1)
+    return dense(params["wo"], out, cfg, site="attn.wo", layer=layer)
+
+
+def gqa_prefill(
+    params, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor, max_seq: int, layer=None
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Self-attention over the prompt; returns the output and a dense KV
+    cache padded to ``max_seq`` rows.  Reference:
+    ``repro.models.attention:gqa_prefill`` (float KV)."""
+    _check_supported(cfg)
+    b, t, _ = x.shape
+    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
+    q = apply_rope(q, positions, cfg.rope_theta)
+    k = apply_rope(k, positions, cfg.rope_theta)
+    out = _attend(q, k, v, cfg, causal=True)
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    pad = (0, 0, 0, 0, 0, max_seq - t)
+    cache = {"k": torch.nn.functional.pad(k, pad), "v": torch.nn.functional.pad(v, pad)}
+    return out, cache
+
+
+def gqa_decode(
+    params,
+    x: torch.Tensor,  # (B, 1, D)
+    cache: Dict[str, torch.Tensor],  # leaves (B, max_seq, kv, hd)
+    pos,  # int or 0-d tensor: the current length
+    cfg: ModelConfig,
+    *,
+    layer: Optional[int] = None,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One decode token per row against the dense cache, mask ``kv_pos <=
+    pos``.  Reference: ``repro.models.attention:gqa_decode`` (float KV).
+    The new K/V row is written into ``cache`` in place (the reference
+    returns an updated copy), at ``pos`` clamped into the cache as
+    ``dynamic_update_slice`` clamps it; the returned dict holds the same
+    tensors."""
+    _check_supported(cfg)
+    h, kv = cfg.n_q_heads, cfg.num_kv_heads
+    b = x.shape[0]
+    pos = int(pos)
+    q, k1, v1 = _qkv_proj(params, x, cfg, layer=layer)
+    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q = apply_rope(q, posv, cfg.rope_theta)
+    k1 = apply_rope(k1, posv, cfg.rope_theta)
+    ck, cv = cache["k"], cache["v"]
+    s_max = ck.shape[1]
+    at = min(max(pos, 0), s_max - 1)
+    ck[:, at] = k1[:, 0].to(ck.dtype)
+    cv[:, at] = v1[:, 0].to(cv.dtype)
+    kf = _repeat_kv(ck.to(torch.float32), h // kv)
+    vf = _repeat_kv(cv.to(torch.float32), h // kv)
+    qf = q.to(torch.float32) * (cfg.hd**-0.5)
+    s = torch.einsum("bqhd,bshd->bhqs", qf, kf)
+    kv_pos = torch.arange(s_max, device=x.device)
+    s = s.masked_fill(~(kv_pos <= pos)[None, None, None, :], NEG)
+    p = torch.softmax(s, dim=-1)
+    out = torch.einsum("bhqs,bshd->bqhd", p, vf)
+    out = dense(
+        params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
+    )
+    return out, {"k": ck, "v": cv}
 
 
 def gqa_prefill_chunk(

@@ -1,0 +1,180 @@
+"""The port's flash-attention kernel module against the JAX reference.
+
+* the plain twin and ``ops.flash_attention`` against the reference's
+  ``flash_attention`` (its Pallas kernel in interpret mode on the CPU) and
+  against the exact-softmax oracles, over GQA ratios 1, 2 and 7, causal and
+  not, ``q_offset > 0``, ``kv_valid < Tk`` and lengths off the blocks;
+* the CPU route takes the twin and counts no launch;
+* on a card, the CUDA kernel against its twin (skips without one).
+
+JAX is imported by the tests that compare with it (the ``jx`` fixture), so
+the ``cuda``-marked test also runs where JAX is not installed, as on the
+machine with the card: ``python -m pytest -m cuda
+tests/test_torch_flash_attention.py``.
+
+f32 is held at ``rtol = atol = 2e-5``, the reference's own tolerance for
+its flash core (``tests/test_fused_hotpath.py``): both sides run the same
+online softmax over the same key blocks, and only the order of the sums
+inside a block differs.  bf16 outputs are held within one bf16 ulp: both
+round an f32 result that agrees to ~1e-7, which can flip a last bit.
+"""
+
+import types
+import zlib
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels.flash_attention import kernel as F  # noqa: E402
+from repro_torch.kernels.flash_attention.ops import flash_attention  # noqa: E402
+from repro_torch.kernels.flash_attention.ref import attention_ref  # noqa: E402
+from repro_torch.photonic.flash import flash_attention as surface_flash  # noqa: E402
+
+CASES = [
+    # (B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, bq, bk)
+    (2, 37, 37, 4, 4, 16, True, 0, None, 16, 16),  # n_rep 1, ragged edge
+    (1, 9, 53, 14, 2, 16, True, 44, None, 8, 16),  # n_rep 7, q_offset
+    (2, 20, 40, 4, 2, 8, False, 0, 29, 8, 16),  # n_rep 2, kv_valid < Tk
+    (1, 64, 64, 7, 1, 16, True, 0, None, 32, 32),  # n_rep 7, exact blocks
+    (2, 30, 50, 4, 2, 16, False, 0, None, 128, 128),  # default blocks (cut to T)
+    (1, 24, 100, 6, 3, 16, True, 76, 90, 8, 32),  # n_rep 2, offset and kv_valid
+]
+IDS = [f"B{c[0]}-Tq{c[1]}-Tk{c[2]}-H{c[3]}-KV{c[4]}-{'causal' if c[6] else 'full'}-qo{c[7]}-kv{c[8]}" for c in CASES]
+
+
+@pytest.fixture(scope="module")
+def jx():
+    """The reference's flash core and oracle (JAX on the CPU)."""
+    pytest.importorskip("jax")
+    import jax.numpy as jnp
+
+    from repro.kernels.flash_attention.ops import flash_attention
+    from repro.kernels.flash_attention.ref import attention_ref
+
+    return types.SimpleNamespace(jnp=jnp, flash=flash_attention, ref=attention_ref)
+
+
+def _inputs(case, dtype, jnp):
+    b, tq, tk, h, kv, hd = case[:6]
+    rng = np.random.default_rng(zlib.crc32(repr(case).encode()))
+    arrs = [rng.normal(size=s).astype(np.float32) for s in ((b, tq, h, hd), (b, tk, kv, hd), (b, tk, kv, hd))]
+    if dtype == "bf16":
+        j = [jnp.asarray(a, jnp.bfloat16) for a in arrs]
+        t = [torch.from_numpy(a).to(torch.bfloat16) for a in arrs]
+        # the same bf16 values on both sides
+        assert all(np.array_equal(np.asarray(x, np.float32), y.float().numpy()) for x, y in zip(j, t))
+    else:
+        j = [jnp.asarray(a) for a in arrs]
+        t = [torch.from_numpy(a) for a in arrs]
+    return j, t
+
+
+def _kw(case):
+    _, _, _, _, _, _, causal, q_offset, kv_valid, bq, bk = case
+    return dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid, bq=bq, bk=bk)
+
+
+def _bf16_ulp(x: np.ndarray) -> np.ndarray:
+    _, e = np.frexp(np.maximum(np.abs(x), 2.0**-126))
+    return np.ldexp(1.0, e - 8)
+
+
+def _assert_bf16_within_one_ulp(got: np.ndarray, want: np.ndarray):
+    ulp = np.maximum(_bf16_ulp(want), _bf16_ulp(got))
+    assert np.all(np.abs(got - want) <= ulp), float(np.max(np.abs(got - want) / ulp))
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+@pytest.mark.parametrize("dtype", ["f32", "bf16"])
+def test_ops_flash_attention_matches_reference_flash(jx, case, dtype):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, dtype, jx.jnp)
+    want = np.asarray(jx.flash(jq, jk, jv, **_kw(case)).astype(jx.jnp.float32))
+    got = flash_attention(tq, tk, tv, **_kw(case))
+    assert got.dtype == tq.dtype and tuple(got.shape) == tuple(tq.shape)
+    got = got.float().numpy()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    else:
+        _assert_bf16_within_one_ulp(got, want)
+
+
+@pytest.mark.parametrize("case", CASES, ids=IDS)
+def test_twin_matches_exact_softmax_oracles(jx, case):
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, "f32", jx.jnp)
+    b, t_q, t_k, h, kv, hd, causal, q_offset, kv_valid, bq, bk = case
+    twin = F.flash_attention_fwd_twin(
+        tq, tk, tv, scale=hd**-0.5, causal=causal, q_offset=q_offset,
+        kv_valid=t_k if kv_valid is None else kv_valid, n_rep=h // kv, bq=bq, bk=bk,
+    ).numpy()
+    oracle_kw = dict(causal=causal, q_offset=q_offset, kv_valid=kv_valid)
+    port_ref = attention_ref(tq, tk, tv, **oracle_kw).numpy()
+    jax_ref = np.asarray(jx.ref(jq, jk, jv, **oracle_kw))
+    np.testing.assert_allclose(port_ref, jax_ref, rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(twin, port_ref, rtol=2e-5, atol=2e-5)
+
+
+def test_fully_masked_rows_follow_the_reference_kernel(jx):
+    """kv_valid = 0 masks every key: the reference's online softmax then
+    averages V over every key of every block it walks, zero padding
+    included (not the exact oracle's uniform softmax over Tk)."""
+    case = (1, 5, 13, 4, 2, 16, False, 0, 0, 8, 8)
+    (jq, jk, jv), (tq, tk, tv) = _inputs(case, "f32", jx.jnp)
+    want = np.asarray(jx.flash(jq, jk, jv, **_kw(case)))
+    got = flash_attention(tq, tk, tv, **_kw(case)).numpy()
+    np.testing.assert_allclose(got, want, rtol=2e-5, atol=2e-5)
+    padded = np.pad(tv.numpy(), ((0, 0), (0, 3), (0, 0), (0, 0))).mean(axis=1)  # 16 keys, 13 real
+    np.testing.assert_allclose(got[:, 0], np.repeat(padded, 2, axis=1), rtol=2e-5, atol=2e-5)
+
+
+def test_cpu_route_takes_the_twin_and_counts_no_launch():
+    b, t_q, t_k, h, kv, hd = CASES[1][:6]
+    rng = np.random.default_rng(0)
+    tq, tk, tv = (torch.from_numpy(rng.normal(size=s).astype(np.float32))
+                  for s in ((b, t_q, h, hd), (b, t_k, kv, hd), (b, t_k, kv, hd)))
+    args = dict(scale=16**-0.5, causal=True, q_offset=44, kv_valid=53, n_rep=7, bq=8, bk=16)
+    F.reset_launches()
+    got = F.flash_attention_fwd(tq, tk, tv, **args)
+    assert torch.equal(got, F.flash_attention_fwd_twin(tq, tk, tv, **args))
+    assert torch.equal(surface_flash(tq, tk, tv, causal=True, q_offset=44, bq=8, bk=16), got)
+    assert F.LAUNCHES == {"flash_attention": 0}  # the twin is no launch
+    with pytest.raises(ValueError, match="CPU \\(twin\\) or CUDA"):
+        F.flash_attention_fwd(tq.to("meta"), tk.to("meta"), tv.to("meta"), **args)
+    with pytest.raises(ValueError, match="n_rep"):
+        F.flash_attention_fwd(tq, tk, tv, **dict(args, n_rep=2))
+
+
+def test_library_is_keyed_by_source_in_the_build_dir():
+    from repro_torch.kernels import _build
+
+    path = F.LIBRARY.path()
+    assert path.parent == _build.build_dir() and path.name.startswith("flash_attention_")
+    assert F.SOURCE.exists() and F.SOURCE.suffix == ".cu"
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("hd,dtype", [(64, "bf16"), (128, "bf16"), (64, "f32")])
+def test_cuda_kernel_matches_twin(hd, dtype):
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(0)
+    for b, tq, tk, h, kv, causal, q_offset, kv_valid in (
+        (2, 100, 100, 14, 2, True, 0, 100), (1, 16, 300, 6, 3, True, 284, 300),
+        (2, 77, 77, 4, 4, False, 0, 50),
+    ):
+        q = torch.randn((b, tq, h, hd), generator=gen, device="cuda").to(dt)
+        k = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dt)
+        v = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dt)
+        args = dict(scale=hd**-0.5, causal=causal, q_offset=q_offset, kv_valid=kv_valid,
+                    n_rep=h // kv, bq=min(128, -(-tq // 8) * 8), bk=min(128, -(-tk // 8) * 8))
+        n0 = F.LAUNCHES["flash_attention"]
+        got = F.flash_attention_fwd(q, k, v, **args).float().cpu().numpy()
+        want = F.flash_attention_fwd_twin(q, k, v, **args).float().cpu().numpy()
+        assert F.LAUNCHES["flash_attention"] == n0 + 1
+        if dtype == "f32":
+            np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+        else:
+            _assert_bf16_within_one_ulp(got, want)

@@ -114,7 +114,27 @@ def test_wrappers_reject_shapes_off_the_tiling():
 
 
 def test_build_dir_is_git_ignored_and_keyed_by_source():
-    bd = K.build_dir()
+    from repro_torch.kernels._build import build_dir
+    from repro_torch.kernels.flash_attention import kernel as F
+
+    bd = build_dir()
     assert bd == ROOT / "build" / "repro_torch"
     assert "build/" in (ROOT / ".gitignore").read_text().split()
-    assert K.library_path().parent == bd and K.library_path().suffix == ".so"
+    paths = {lib.path() for lib in (K.LIBRARY, F.LIBRARY)}
+    assert len(paths) == 2 and all(p.parent == bd and p.suffix == ".so" for p in paths)
+
+
+def test_serving_entry_point_and_flash_surface_load_no_jax_alone():
+    code = (
+        "import sys\n"
+        "import repro_torch.runtime.serve, repro_torch.photonic.flash\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+        "or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        timeout=120, check=True,
+    )
+    assert "BAD []" in out.stdout, out.stdout + out.stderr
