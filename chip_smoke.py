@@ -11,18 +11,25 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; the kernels are built from
    ``src/repro_torch/kernels/{photonic_gemm,flash_attention}/csrc``, one
-   ``nvcc`` per source, all started together.
+   ``nvcc`` per source, all started together; each build's SASS counts of
+   tensor-core and asynchronous-copy instructions, and the SASS
+   instructions of one Box-Muller draw (a probe built from the photonic
+   kernel's own ``gaussian``) for the bound of noisy rows.
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
-   sites) under the ideal, SMWA and ASMW channels, plus f32-prologue cases
-   with bias and gelu/silu.  Per case: median kernel time (CUDA graph of
-   10 launches, CUDA events), twin time, ``torch._int_mm`` time for the
-   ideal int core (a yardstick only; the port never calls it), the
-   roofline bound of the logical GEMM (live rows, real K and C; the tile
-   padding is the kernel's overhead, not work), and whether the outputs
-   agree, with the kernel launches the case made (its check, the graph's
-   warm-up and capture).  Per channel and row count, the sums over one
-   decoder layer.
+   sites) under the ideal, SMWA and ASMW channels, at the ``lm_logits``
+   shape (R = 2000; the six sites under the ideal channel and ``attn.wq``
+   under SMWA, whose twin is timed once), plus f32-prologue cases with
+   bias and gelu/silu.  The kernel is called as the engine calls it, with
+   the live row count (``rows=R``): it computes and writes only those rows,
+   so the comparison with the twin covers the live rows.  Per case: median
+   kernel time (CUDA graph of 10 launches, CUDA events), twin time,
+   ``torch._int_mm`` time for the ideal int core (a yardstick only; the port
+   never calls it), the bound of the logical GEMM (live rows, real K and C;
+   the tile padding is the kernel's overhead, not work) and which of its
+   terms binds, and whether the outputs agree, with the kernel launches the
+   case made (its check, the graph's warm-up and capture).  Per channel and
+   row count, the sums over one decoder layer.
 3. flash kernels: the flash-attention kernel against its twin on the card
    (qwen2-0.5b heads unless noted): B=4 at the four serve prompt lengths,
    B=2 T=1000 (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936,
@@ -83,6 +90,7 @@ import numpy as np
 ROOT = Path(__file__).resolve().parent
 PEAK_BYTES_PER_S = 3.35e12  # H100 SXM HBM3
 PEAK_INT8_OPS_PER_S = 1.979e15  # H100 SXM dense int8 tensor cores
+LANES = 4 * 32  # CUDA-core lanes per SM issuing one instruction per clock: 4 schedulers x 32
 SITES = [  # (site, K, C, bias) — one decoder layer of qwen2-0.5b
     ("attn.wq", 896, 896, True),
     ("attn.wk", 896, 128, True),
@@ -183,25 +191,98 @@ def eager_ms(fn, reps: int = 3) -> float:
     return statistics.median(times)
 
 
-def bound_ms(r, k, c, x_bytes, passes, xtalk_dots, with_bias, fused) -> tuple:
-    """(bytes ms, operations ms) for one call of the logical GEMM: ``r``
+# Filled in by the device phase: CUDA-core instructions per Box-Muller draw
+# (from the SASS of a probe built from the kernel's own gaussian()) and the
+# card's SM count and maximum SM clock.
+DRAW = {"instructions": None, "sms": None, "clock_hz": None}
+
+
+def bound_ms(r, k, c, x_bytes, passes, xtalk_dots, with_bias, fused, draws=0) -> tuple:
+    """(bytes ms, int8 ms, draws ms) for one call of the logical GEMM: ``r``
     live rows and the real K and C, not the tile padding the kernel pays.
-    Inputs are read once and the output written once at the HBM rate,
-    against the int8 ops of every pass the channel needs (one exact pass
-    when ideal) at the dense int8 peak.  The bound is the larger of the
-    two."""
+    Inputs are read once and the output written once at the HBM rate; the
+    int8 ops of every pass the channel needs (one exact pass when ideal) at
+    the dense int8 peak; and under detector noise the ``draws`` Box-Muller
+    draws (live rows x C x live chunks x passes), each taking the probe's
+    SASS instruction count, at the CUDA cores' issue rate (SMs x 4 x 32
+    lanes x the maximum SM clock).  The bound is the largest of the three."""
     nbytes = r * k * x_bytes + k * c + r * c * 4
     if fused:
         nbytes += 4 + c * 4 + (c * 4 if with_bias else 0)
     ops = 2.0 * r * k * c * passes * (1 + xtalk_dots)
-    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS_PER_S * 1e3
+    draw_ms = 0.0
+    if draws:
+        draw_ms = draws * DRAW["instructions"] / (DRAW["sms"] * LANES * DRAW["clock_hz"]) * 1e3
+    return nbytes / PEAK_BYTES_PER_S * 1e3, ops / PEAK_INT8_OPS_PER_S * 1e3, draw_ms
 
 
 def bound_of(parts) -> tuple:
-    """(bound ms, "bytes" | "operations") of one or more summed calls."""
-    tb = sum(p[0] for p in parts)
-    to = sum(p[1] for p in parts)
-    return max(tb, to), ("bytes" if tb >= to else "operations")
+    """(bound ms, "bytes" | "operations" | "draws") of one or more summed
+    calls: the largest of the summed terms."""
+    sums = [sum(p[i] for p in parts) for i in range(3)]
+    best = max(range(3), key=lambda i: sums[i])
+    return sums[best], ("bytes", "operations", "draws")[best]
+
+
+def op_or_bytes(bound_by: str) -> str:
+    """The kernels line's ``bound_by``: Box-Muller draws are operations."""
+    return "bytes" if bound_by == "bytes" else "operations"
+
+
+def draw_instructions(nvcc_flags) -> int:
+    """CUDA-core instructions of one Box-Muller draw: the kernel source's
+    mix32 / gaussian, built into two probe kernels with the kernel's flags
+    (one draw per thread, and the same kernel storing its counter instead),
+    counted in SASS from the entry to the first EXIT (the fast path: the
+    cold branches of logf / cosf lie past it), the difference of the two."""
+    import re
+    import shutil
+
+    from repro_torch.kernels._build import _nvcc, build_dir
+
+    src = (ROOT / FUSED_SRC).read_text()
+    body = src[src.index("__device__ __forceinline__ uint32_t mix32"):src.index("__device__ __forceinline__ float gelu_tanh")]
+    probe = ("#include <cuda_runtime.h>\n#include <stdint.h>\n" + body +
+             'extern "C" __global__ void probe_draw(float* o, uint32_t b) {\n'
+             "  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = gaussian(b, i); }\n"
+             'extern "C" __global__ void probe_base(float* o, uint32_t b) {\n'
+             "  const uint32_t i = blockIdx.x * blockDim.x + threadIdx.x; o[i] = __uint2float_rn(b ^ i); }\n")
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    (out / "draw_probe.cu").write_text(probe)
+    flags = [f for f in nvcc_flags if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    subprocess.run([_nvcc(), *flags, "-cubin", "-o", str(out / "draw_probe.cubin"), str(out / "draw_probe.cu")],
+                   check=True, capture_output=True, timeout=300)
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(out / "draw_probe.cubin")], check=True,
+                          capture_output=True, text=True, timeout=120).stdout
+    counts = {}
+    for name in ("probe_draw", "probe_base"):
+        text = sass[sass.index(f"Function : {name}"):]
+        n = 0
+        for line in text.splitlines()[1:]:
+            m = re.match(r"\s*/\*[0-9a-f]{4}\*/\s+(.*?);", line)
+            if m is None:
+                continue
+            n += 1
+            if re.search(r"\bEXIT\b", m.group(1)):
+                break
+        counts[name] = n
+    return counts["probe_draw"] - counts["probe_base"]
+
+
+def sass_counts(path) -> dict:
+    """Tensor-core and asynchronous-copy instructions in a built library's
+    SASS (``cuobjdump -sass``)."""
+    import re
+    import shutil
+
+    from repro_torch.kernels._build import _nvcc
+
+    cuobjdump = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
+    sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True, capture_output=True, text=True,
+                          timeout=120).stdout
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA", "LDGSTS", "UTMALDG")}
 
 
 def dpu_for(org: str):
@@ -267,15 +348,19 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     n0 = K.LAUNCHES["photonic_gemm_fused"]
 
     def run_kernel():
-        return K.photonic_gemm_fused(*args, **kw)
+        return K.photonic_gemm_fused(*args, rows=r, **kw)
 
     def run_twin():
         return K.photonic_gemm_fused_twin(*args, **kw)
 
-    y_k = run_kernel()
-    y_t = run_twin()
+    y_k = run_kernel()[:r]
     torch.cuda.synchronize()
-    # Agreement: bitwise for deterministic channels; with detector noise the
+    t0 = time.perf_counter()
+    y_t = run_twin()[:r]
+    torch.cuda.synchronize()
+    t_once = (time.perf_counter() - t0) * 1e3
+    # Agreement, over the r live rows (the kernel leaves the padding rows
+    # unwritten): bitwise for deterministic channels; with detector noise the
     # f32 log/cos may round apart, so psums may differ by one LSB at a few
     # elements: in accumulator units (|diff| / (x_scale * w_scale)) at most
     # two top-pass LSBs (2 * 2^(2B)) on at most 0.1% of elements.  Bias and
@@ -302,19 +387,22 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
         tol = "float 1e-5 rel (bias/activation tail)"
     k_ms = graph_ms(run_kernel)
     launched = K.LAUNCHES["photonic_gemm_fused"] - n0
-    t_ms = eager_ms(run_twin)
+    del y_k, y_t, diff, lsb
+    t_ms = t_once if r >= 1000 else eager_ms(run_twin)  # the twin at R = 2000 is slow: timed once
     lib_ms = None
     if not analog and stages["adc_bits"] is None and r > 16:
         xi = x if not x_f32 else torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
         xi, wl = xi[:r, :k].contiguous(), w[:k, :c].contiguous()
         lib_ms = graph_ms(lambda: torch._int_mm(xi, wl))
-    parts = bound_ms(r, k, c, 4 if x_f32 else 1, *passes_of(dpu, stages), with_bias, True)
+    passes, xdots = passes_of(dpu, stages)
+    draws = r * c * -(-k // stages["n_chunk"]) * passes if noisy else 0
+    parts = bound_ms(r, k, c, 4 if x_f32 else 1, passes, xdots, with_bias, True, draws)
     b_ms, b_by = bound_of([parts])
     rows_out.append(dict(
         R_live=r, R=rp, K=k, C=c, Kp=kp, Cp=cp, channel=dpu.organization if analog else "ideal",
         x="f32" if x_f32 else "int8", bias=with_bias, activation=activation,
         ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, parts=parts,
-        max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
+        draws=draws, max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
     ))
     log(f"  R={r:3d}/{rp:3d} K={k:4d}/{kp:4d} C={c:5d} {rows_out[-1]['channel']:5s} x={rows_out[-1]['x']:4s} "
         f"bias={int(with_bias)} act={activation}: kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
@@ -335,22 +423,23 @@ def int_case(torch, K, dpu, r, k, c, gen):
     x, w = operands(torch, gen, r, k, c, rp, kp, cp, False)
     seed = torch.randint(0, 2**32, (), generator=gen, device="cuda", dtype=torch.int64)
     n0 = K.LAUNCHES["photonic_gemm"]
-    y_k = K.photonic_gemm(x, w, seed, **stages)
-    y_t = K.photonic_gemm_twin(x, w, seed, **stages)
+    y_k = K.photonic_gemm(x, w, seed, rows=r, **stages)[:r]  # live rows, as the engine calls it
+    y_t = K.photonic_gemm_twin(x, w, seed, **stages)[:r]
     d = (y_k.to(torch.int64) - y_t.to(torch.int64)).abs()
     err = float(d.max())
     if noisy:
         ok = float((d > 0).to(torch.float64).mean()) <= 1e-3 and err <= 2 * 2 ** (2 * dpu.bits)
     else:
         ok = err == 0.0
-    k_ms = graph_ms(lambda: K.photonic_gemm(x, w, seed, **stages))
+    k_ms = graph_ms(lambda: K.photonic_gemm(x, w, seed, rows=r, **stages))
     launched = K.LAUNCHES["photonic_gemm"] - n0
     t_ms = eager_ms(lambda: K.photonic_gemm_twin(x, w, seed, **stages))
     lib_ms = None
     if not analog and stages["adc_bits"] is None and r > 16:
         xl, wl = x[:r, :k].contiguous(), w[:k, :c].contiguous()
         lib_ms = graph_ms(lambda: torch._int_mm(xl, wl))
-    b = bound_ms(r, k, c, 1, *passes_of(dpu, stages), False, False)
+    passes, xdots = passes_of(dpu, stages)
+    b = bound_ms(r, k, c, 1, passes, xdots, False, False, r * c * -(-k // stages["n_chunk"]) * passes if noisy else 0)
     bm, bb = bound_of([b])
     log(f"  int core R={r} K={k} C={c} {'ideal' if not analog else dpu.organization}: kernel "
         f"{k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm {lib_ms} ms, bound {bm:.5f} ms ({bb}), "
@@ -372,7 +461,7 @@ def build_kernels(libs) -> None:
         done = [(lib, ex.submit(one, lib)) for lib in libs]
     for lib, fut in done:
         path, secs = fut.result()
-        log(f"  built {path.relative_to(ROOT)} in {secs:.2f} s")
+        log(f"  built {path.relative_to(ROOT)} in {secs:.2f} s; SASS {sass_counts(path)}")
         lib.load()
     log(f"  all {len(libs)} kernel sources built in {time.perf_counter() - t0:.2f} s")
 
@@ -425,7 +514,7 @@ def flash_case(torch, F, case, gen, rows_out, card):
     live = int(per_row.sum())
     es = 2 if dt == "bf16" else 4
     nbytes = (2 * b * tq * h * hd + 2 * b * tk * kvh * hd) * es
-    parts = (nbytes / PEAK_BYTES_PER_S * 1e3, 4.0 * b * h * hd * live / PEAK_FLOPS[dt] * 1e3)
+    parts = (nbytes / PEAK_BYTES_PER_S * 1e3, 4.0 * b * h * hd * live / PEAK_FLOPS[dt] * 1e3, 0.0)
     b_ms, b_by = bound_of([parts])
     rows_out.append(dict(
         case=label, B=b, Tq=tq, Tk=tk, H=h, KV=kvh, hd=hd, causal=causal, q_offset=q_offset,
@@ -712,6 +801,15 @@ def main() -> int:
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         build_kernels([K.LIBRARY, F.LIBRARY])
+        from repro_torch.kernels._build import NVCC_FLAGS
+
+        DRAW["instructions"] = draw_instructions(NVCC_FLAGS)
+        DRAW["sms"] = torch.cuda.get_device_properties(0).multi_processor_count
+        DRAW["clock_hz"] = float(subprocess.run(
+            ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader,nounits"],
+            capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]) * 1e6
+        log(f"  Box-Muller draw: {DRAW['instructions']} SASS instructions; {DRAW['sms']} SMs x {LANES} lanes "
+            f"at {DRAW['clock_hz'] / 1e6:.0f} MHz (max SM clock)")
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -722,6 +820,10 @@ def main() -> int:
             for r in (4, 64):
                 for site, k, c, b in SITES:
                     all_ok &= kernel_case(torch, K, dpu, r, k, c, b, False, None, gen, rows)
+        # The lm_logits shape: B=2 x T=1000 rows.
+        for site, k, c, b in SITES:
+            all_ok &= kernel_case(torch, K, chans["ideal"], 2000, k, c, b, False, None, gen, rows)
+        all_ok &= kernel_case(torch, K, chans["SMWA"], 2000, *SITES[0][1:], False, None, gen, rows)
         # f32 prologue with bias + gelu / silu, and without the tail
         for name in ("ideal", "SMWA"):
             for act, b in ((None, False), ("gelu", True), ("silu", True)):
@@ -733,8 +835,10 @@ def main() -> int:
                 all_ok &= res[0]
                 int_rows.append((name, k, c) + res)
         for name in chans:
-            for r in (4, 64):
+            for r in (4, 64, 2000):
                 layer = [x for x in rows if x["channel"] == name and x["R_live"] == r and x["x"] == "int8"]
+                if len(layer) != len(SITES):
+                    continue
                 bm, bb = bound_of([x["parts"] for x in layer])
                 log(f"  layer sum {name} R={r}: kernel {sum(x['ms'] for x in layer):.4f} ms, "
                     f"twin {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}) [{card}]")
@@ -839,7 +943,7 @@ def main() -> int:
             launches=results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"],
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
-            bound_ms=fused_bound[0], bound_by=fused_bound[1],
+            bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
             library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x",
         ),
         dict(
@@ -848,7 +952,7 @@ def main() -> int:
             launches=int_path_launches,
             max_abs_err=max(x[4] for x in int_ideal),
             ms=sum(x[5] for x in int_ideal), plain_ms=sum(x[6] for x in int_ideal),
-            bound_ms=int_bound[0], bound_by=int_bound[1],
+            bound_ms=int_bound[0], bound_by=op_or_bytes(int_bound[1]),
             library_ms=sum(x[7] for x in int_ideal),
             case="six qwen2-0.5b sites, R=64, ideal channel; launches from the int_gemm path",
         ),

@@ -5,7 +5,7 @@
 //     (body _fused_kernel :218, datapath _accumulate :69)  -> fused = 1
 //   src/repro/kernels/photonic_gemm/kernel.py:319 photonic_gemm_pallas
 //     (body _kernel :164, same _accumulate)                -> fused = 0
-// Both are one template, photonic_gemm_kernel<FUSED>, so the integer core
+// Both are one template, photonic_gemm_kernel<BN, WN, IDEAL>, so the integer core
 // and the fused hot path can never drift apart.
 //
 // What it computes, per output element (row, col), over K in N-sized chunks:
@@ -31,24 +31,63 @@
 // and element counter row_in_tile * tile_c + col_in_tile; chunks at or past
 // valid_chunks (pure K padding) draw no noise.
 //
-// Bound on this card: at the server's decode shapes (R <= 64 rows) the call
-// is bound by bytes (the int8 weight, read once, dominates: K*C bytes against
-// 2*R*K*C int8 ops per pass).  This first version is a simple CUDA-core
-// kernel: one CTA per 8 rows x 128 columns (one warp per row, four columns a
-// thread, int32 accumulators in registers), the weight chunk staged through
-// shared memory with 16-byte loads and read once per CTA, the K loop inside
-// the block.  Its analog passes are integer multiply-adds on CUDA cores; the
-// tensor-core (wgmma int8), TMA and multi-stage pipelining work comes later.
+// Bound on this card: at decode (R = 4 live rows) the call is bound by bytes
+// (the int8 weight, read once); under a noisy channel by the Box-Muller
+// draws, R * C * chunks * passes of them, on the CUDA cores; at R = 2000 by
+// the int8 products.  What held the first version back, and what this one
+// does instead:
+//   * The grid was C/128 x Rp/8 CTAs, each walking the whole K: 7 CTAs for
+//     attn.wq at decode on 132 SMs.  Here the contraction is split across
+//     CTAs.  Each chunk's psum is clipped and shifted on its own and its
+//     noise id is fixed by the logical tiling, so any partition of the
+//     chunks over CTAs gives the same int32 sum, bitwise.  The partial sums
+//     meet in an int32 workspace by atomics, and the last CTA of each output
+//     tile (an atomic ticket) runs the epilogue and zeroes its workspace
+//     rows and ticket, so a GEMM stays one launch and a CUDA graph can
+//     replay it.  The wrapper picks the split (plan_launch) so that the
+//     grid covers the SMs when there are that many chunk-tiles.
+//   * Half the warps computed padding rows at R = 4.  Here rows past the
+//     live count are neither drawn for nor written; the wrapper passes it.
+//   * Every chunk was staged synchronously between two __syncthreads.  Here
+//     the weight chunks come in through a cp.async ring, read once per CTA.
+//   * The MACs were scalar int32 on CUDA cores.  Here they run on the
+//     integer tensor cores, mma.sync m16n8k32 s8 x s8 -> s32, exact.
+//   * slice_of ran for x, w and both neighbours inside the innermost loop.
+//     Here each chunk's slice tiles are built once in shared memory, four
+//     bytes at a time.
+//
+// Layout.  The product is taken as out^T = w^T . x^T: the 128 weight columns
+// of a CTA fill the 16-row side of the mma, its rows (8 at decode, 64
+// otherwise) the 8-wide side.  Integer mma.sync takes only .row.col, so both
+// operands must be contiguous in K, and the (K, C) int8 weight is not.  The
+// ideal path transposes it in registers: a lane reads four K rows of four
+// adjacent columns from the swizzled stage and four byte permutes give it
+// the four columns' K quads, which are its A fragments when the mma's rows
+// are mapped to columns 4g, 4g + 1 (tile 0) and 4g + 2, 4g + 3 (tile 1).
+// The slice path writes its slice tiles transposed, [col][k].
+//
+// The ideal channel is one exact pass over the full int8 operands in
+// 64-wide K steps.  Every other channel takes the slice path: per chunk,
+// the x slices and, per weight slice, w_s and nbr(w_s) are built in shared
+// memory (slices lie in +-(2^B - 1), neighbour sums in +-2(2^B - 1), so
+// both fit int8 for B <= 6), zero-padded to the mma depth; the padding is
+// exact and supplies the reference's zero neighbour at the chunk edges.
+// dot(nbr(x_c), w_c) and dot(x_c, nbr(w_c)) are the same integer (both are
+// x^T (S + S^T) w for the shift S within the chunk), so one mma gives both
+// crosstalk terms.  The psum tiles then go through shared memory to a
+// layout where every lane holds a live element, and the float chain and
+// the Box-Muller draw run there, the counter from the element's (row, col).
 
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kTileC = 128;   // logical tile_c this kernel supports
-constexpr int kRows = 8;      // rows per CTA: one warp per row
-constexpr int kThreads = 256; // 8 warps
-constexpr int kMaxN = 256;    // longest chunk staged in shared memory
+constexpr int kTileC = 128;   // logical tile_c; a CTA covers one column tile
+constexpr int kMaxN = 256;    // longest chunk
+constexpr int kKStep = 64;    // K step of the ideal path (its split unit)
+constexpr int kStages = 4;    // cp.async ring depth, ideal path
+constexpr int kAccStride = kTileC + 4;  // int32 row stride of the psum / acc tiles
 
 struct Params {
   const void* x;
@@ -59,7 +98,11 @@ struct Params {
   const float* bias;
   const uint32_t* seed;
   void* out;
-  int R, K, C;
+  int fused;
+  int* ws_acc;   // split workspace, int32 [tiles][BN][128]; zero on entry and exit
+  int* tickets;  // one per output tile; zero on entry and exit
+  int K, C;      // padded contraction and column counts
+  int live_rows; // rows computed and written: [0, live_rows)
   int tile_r, tile_c, tile_k, n_chunk;
   int slice_bits, num_slices, qmax;
   int adc_lim;  // < 0: no ADC saturation
@@ -70,6 +113,10 @@ struct Params {
   float eps_im, eps_cw;
   int valid_chunks;  // < 0: no noise mask
   int activation;    // 0 none, 1 gelu (tanh form), 2 silu
+  int ideal;         // one exact pass in kKStep steps
+  int n_units;       // K steps (ideal) or chunks (slice path)
+  int n_split;       // CTAs per output tile along K
+  int npad;          // slice path: chunk padded to the mma depth
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -98,11 +145,6 @@ __device__ __forceinline__ float gaussian(uint32_t base, uint32_t ctr) {
   return __fmul_rn(r, cosf(__fmul_rn(6.28318548202514648f, f2)));  // f32(2*pi)
 }
 
-__device__ __forceinline__ int slice_of(int v, int shift, int mask) {
-  const int s = ((v < 0 ? -v : v) >> shift) & mask;
-  return v < 0 ? -s : s;
-}
-
 __device__ __forceinline__ float gelu_tanh(float x) {
   const float x3 = __fmul_rn(__fmul_rn(x, x), x);
   const float inner = __fmul_rn(0.7978845608028654f, __fadd_rn(x, __fmul_rn(0.044715f, x3)));
@@ -113,166 +155,557 @@ __device__ __forceinline__ float silu(float x) {
   return __fdiv_rn(x, __fadd_rn(1.0f, expf(-x)));
 }
 
-template <bool FUSED>
-__global__ void __launch_bounds__(kThreads) photonic_gemm_kernel(Params p) {
-  // Quantized activations and weight slices of one chunk, with a zero guard
-  // entry on both sides so the neighbour sums need no edge branches (the
-  // guards are the reference's zero padding at chunk boundaries).
-  __shared__ int xs[kRows][kMaxN + 2];
-  __shared__ __align__(16) int8_t ws[kMaxN + 2][kTileC];
+__device__ __forceinline__ int quantize(float x, float x_scale, float qmax) {
+  const float q = rintf(__fdiv_rn(x, x_scale));
+  return (int)fminf(fmaxf(q, -qmax), qmax);
+}
 
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int n = p.n_chunk;
-  const int row = blockIdx.y * kRows + warp;
-  const int col0 = blockIdx.x * kTileC + lane * 4;
-  const uint32_t i_tile = row / p.tile_r;
-  const uint32_t r_in = row % p.tile_r;
-  const uint32_t j_tile = blockIdx.x;  // tile_c == kTileC
-  const uint32_t c_in0 = lane * 4;
+// Four signed bytes' slices sign(v) * ((|v| >> shift) & mask), bytewise.
+// `mask` is replicated into each byte and already cut to 8 - shift bits.
+__device__ __forceinline__ uint32_t slice4(uint32_t v, int shift, uint32_t mask) {
+  const uint32_t neg = __vcmplts4(v, 0u);             // 0xff where v < 0
+  const uint32_t mag = __vsub4(v ^ neg, neg);         // |v| as unsigned bytes (128 for -128)
+  const uint32_t s = (mag >> shift) & mask;
+  return __vsub4(s ^ neg, neg);                       // re-signed
+}
 
-  for (int e = threadIdx.x; e < kRows * 2; e += kThreads) {
-    xs[e >> 1][(e & 1) ? n + 1 : 0] = 0;
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return (uint32_t)__cvta_generic_to_shared(p);
+}
+__device__ __forceinline__ void cp_async16(uint32_t dst, const void* src, bool live) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(dst), "l"(src), "r"(live ? 16 : 0));
+}
+__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::); }
+template <int N>
+__device__ __forceinline__ void cp_async_wait() { asm volatile("cp.async.wait_group %0;\n" ::"n"(N)); }
+
+// d += a . b, m16n8k32, s8 x s8 -> s32 (exact).
+__device__ __forceinline__ void mma_s8(int* d, const uint32_t* a, uint32_t b0, uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 {%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, "
+      "{%0,%1,%2,%3};\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// 4 x 4 byte transpose: r[i] holds byte j of row i; o[j] gets byte i of row j.
+__device__ __forceinline__ void transpose4(const uint32_t* r, uint32_t* o) {
+  const uint32_t lo01 = __byte_perm(r[0], r[1], 0x5140), hi01 = __byte_perm(r[0], r[1], 0x7362);
+  const uint32_t lo23 = __byte_perm(r[2], r[3], 0x5140), hi23 = __byte_perm(r[2], r[3], 0x7362);
+  o[0] = __byte_perm(lo01, lo23, 0x5410);
+  o[1] = __byte_perm(lo01, lo23, 0x7632);
+  o[2] = __byte_perm(hi01, hi23, 0x5410);
+  o[3] = __byte_perm(hi01, hi23, 0x7632);
+}
+
+// Ideal path stage layout: the weight rows of one K step, 128 bytes each,
+// 16-byte chunks XOR-swizzled by K quad so the transposing reads are free of
+// bank conflicts; then x, int8 rows of kXStrideI8 bytes or f32 rows of
+// kXStrideF32 bytes (strides chosen for conflict-free fragment reads).
+constexpr int kWStage = kKStep * kTileC;
+constexpr int kXStrideI8 = kKStep + 16;
+constexpr int kXStrideF32 = kKStep * 4 + 64;
+
+__device__ __forceinline__ int wswz(int k, int chunk) {
+  return k * kTileC + ((chunk ^ (((k >> 2) & 3) << 1)) << 4);
+}
+
+__host__ __device__ constexpr int ideal_stage_bytes(int bn, int x_f32) {
+  return kWStage + bn * (x_f32 ? kXStrideF32 : kXStrideI8);
+}
+
+// Slice path shared memory: the raw weight ring (2 stages of n x 128
+// bytes), w_s and nbr(w_s) as [128][npad + 4] bytes, the x slices as
+// [S][BN][npad + 16] bytes (row strides of 1 and 4 words mod 8: fragment
+// reads free of bank conflicts).  8-row CTAs add the int32 psum and
+// crosstalk tiles, [BN][kAccStride], through which the float chain moves to
+// the compact layout (the last one holds the CTA's sums at the end); 64-row
+// CTAs run the chain in the fragment layout and put their sums over the
+// start of the buffer at the end.
+__host__ __device__ constexpr int slice_smem_bytes(int bn, int n, int npad, int S, int xtalk) {
+  return bn == 8 ? 2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16) +
+                       (1 + xtalk) * bn * kAccStride * 4
+                 : (2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16) >
+                            bn * kAccStride * 4
+                        ? 2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16)
+                        : bn * kAccStride * 4);
+}
+
+template <int BN, int WN>
+struct Shape {
+  static constexpr int kWarps = 4 * WN;          // 4 warps along the columns, WN along the rows
+  static constexpr int kThreads = 32 * kWarps;
+  static constexpr int kNT = BN / WN / 8;         // n8 tiles per warp
+  static constexpr int kEPT = BN * kTileC / kThreads;  // elements per thread, compact layout
+};
+
+// The output element of accumulator register e of m-tile mt, n-tile nt for
+// lane (g, t) of warp (wm, wn): the mma's rows are columns, its columns rows.
+template <int BN, int WN>
+__device__ __forceinline__ void frag_pos(int wm, int wn, int g, int t, int mt, int nt, int e, int& row, int& col) {
+  col = wm * 32 + 4 * g + 2 * mt + (e >> 1);
+  row = wn * (BN / WN) + nt * 8 + 2 * t + (e & 1);
+}
+
+// The CTA's partial sums (acc, [BN][kAccStride] int32 in shared memory) to
+// the output: directly when the CTA owns the whole K, else through the
+// workspace, the last CTA of the tile (by ticket) finishing it.
+template <int BN, int WN>
+__device__ void finish(const Params& p, const int* acc, int tile, int row0, int col0, int live) {
+  using S = Shape<BN, WN>;
+  __shared__ int last;
+  const int tid = threadIdx.x;
+  const float x_scale = p.fused ? *p.x_scale : 0.0f;
+  auto store = [&](int rr, int c, int v) {
+    const size_t off = (size_t)(row0 + rr) * p.C + col0 + c;
+    if (p.fused) {
+      float y = __fmul_rn(__fmul_rn(__int2float_rn(v), x_scale), p.w_scale[col0 + c]);
+      if (p.bias != nullptr) y = __fadd_rn(y, p.bias[col0 + c]);
+      if (p.activation == 1) y = gelu_tanh(y);
+      else if (p.activation == 2) y = silu(y);
+      static_cast<float*>(p.out)[off] = y;
+    } else {
+      static_cast<int32_t*>(p.out)[off] = v;
+    }
+  };
+  if (p.n_split == 1) {
+    for (int e = tid; e < live * kTileC; e += S::kThreads) store(e / kTileC, e % kTileC, acc[(e / kTileC) * kAccStride + e % kTileC]);
+    return;
   }
-  for (int e = threadIdx.x; e < 2 * kTileC; e += kThreads) {
-    ws[(e < kTileC) ? 0 : n + 1][e % kTileC] = 0;
+  int* ws = p.ws_acc + (size_t)tile * BN * kTileC;
+  for (int e = tid; e < live * kTileC; e += S::kThreads) atomicAdd(ws + e, acc[(e / kTileC) * kAccStride + e % kTileC]);
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) last = atomicAdd(p.tickets + tile, 1) == p.n_split - 1;
+  __syncthreads();
+  if (!last) return;
+  __threadfence();
+  for (int e = tid; e < live * kTileC; e += S::kThreads) {
+    const int v = __ldcg(ws + e);
+    __stcg(ws + e, 0);
+    store(e / kTileC, e % kTileC, v);
   }
+  if (tid == 0) p.tickets[tile] = 0;
+}
 
-  const float x_scale = FUSED ? *p.x_scale : 0.0f;
+// The ideal channel: one exact int8 pass over this CTA's K steps.
+template <int BN, int WN>
+__device__ void ideal_path(const Params& p, unsigned char* smem, int row0, int col0, int live, int u0, int u1) {
+  using S = Shape<BN, WN>;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int stage_bytes = ideal_stage_bytes(BN, p.x_f32);
+  const uint32_t s0 = smem_addr(smem);
+  const float x_scale = p.x_f32 ? *p.x_scale : 1.0f;
   const float qmax = (float)p.qmax;
-  const bool ideal = !p.analog && p.adc_lim < 0;
-  const int chunks = p.tile_k / n;
-  const int num_kk = p.K / p.tile_k;
-  const int mask = (1 << p.slice_bits) - 1;
-  const uint32_t seed = p.seed != nullptr ? *p.seed : 0u;
-  const int8_t* xi8 = static_cast<const int8_t*>(p.x);
-  const float* xf32 = static_cast<const float*>(p.x);
 
-  int acc[4] = {0, 0, 0, 0};
-  for (int kk = 0; kk < num_kk; ++kk) {
-    const uint32_t tile_seed = fold1(fold1(fold1(seed, i_tile, 0u), j_tile, 1u), (uint32_t)kk, 2u);
-    for (int g = 0; g < chunks; ++g) {
-      const int k0 = kk * p.tile_k + g * n;
-      __syncthreads();  // the previous chunk is fully consumed
-      for (int e = threadIdx.x; e < kRows * n; e += kThreads) {
-        const int rr = e / n;
-        const int nn = e - rr * n;
-        const size_t off = (size_t)(blockIdx.y * kRows + rr) * p.K + k0 + nn;
-        int v;
-        if (FUSED && p.x_f32) {
-          const float q = rintf(__fdiv_rn(xf32[off], x_scale));
-          v = (int)fminf(fmaxf(q, -qmax), qmax);
-        } else {
-          v = xi8[off];
-        }
-        xs[rr][nn + 1] = v;
+  auto load = [&](int u, int stage) {
+    const uint32_t sw = s0 + stage * stage_bytes, sx = sw + kWStage;
+    const int k0 = u * kKStep;
+    for (int e = tid; e < kKStep * 8; e += S::kThreads) {  // 8 chunks of 16 bytes per weight row
+      const int k = e >> 3, c = e & 7;
+      cp_async16(sw + wswz(k, c), p.w + (size_t)(k0 + k) * p.C + col0 + c * 16, true);
+    }
+    if (p.x_f32) {
+      const float* xg = static_cast<const float*>(p.x);
+      for (int e = tid; e < BN * 16; e += S::kThreads) {
+        const int r = e >> 4, c = e & 15;
+        const bool ok = r < live;
+        cp_async16(sx + r * kXStrideF32 + c * 16, xg + (ok ? (size_t)(row0 + r) * p.K + k0 + c * 4 : 0), ok);
       }
-      constexpr int kVec = kTileC / 16;
-      for (int e = threadIdx.x; e < n * kVec; e += kThreads) {
-        const int nn = e / kVec;
-        const int v16 = e - nn * kVec;
-        const int4* src = reinterpret_cast<const int4*>(
-            p.w + (size_t)(k0 + nn) * p.C + (size_t)blockIdx.x * kTileC);
-        reinterpret_cast<int4*>(&ws[nn + 1][0])[v16] = src[v16];
+    } else {
+      const int8_t* xg = static_cast<const int8_t*>(p.x);
+      for (int e = tid; e < BN * 4; e += S::kThreads) {
+        const int r = e >> 2, c = e & 3;
+        const bool ok = r < live;
+        cp_async16(sx + r * kXStrideI8 + c * 16, xg + (ok ? (size_t)(row0 + r) * p.K + k0 + c * 16 : 0), ok);
+      }
+    }
+  };
+
+  int acc[2][S::kNT][4];
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < S::kNT; ++nt) acc[mt][nt][0] = acc[mt][nt][1] = acc[mt][nt][2] = acc[mt][nt][3] = 0;
+
+#pragma unroll
+  for (int i = 0; i < kStages - 1; ++i) {
+    if (u0 + i < u1) load(u0 + i, i);
+    cp_async_commit();
+  }
+  const int chunk = 2 * wm + (g >> 2);  // the lane's 16-byte weight chunk
+  for (int u = u0; u < u1; ++u) {
+    const int stage = (u - u0) % kStages;
+    cp_async_wait<kStages - 2>();
+    __syncthreads();  // step u has landed; every warp is done with step u - 1
+    if (u + kStages - 1 < u1) load(u + kStages - 1, (u - u0 + kStages - 1) % kStages);
+    cp_async_commit();
+    const unsigned char* sw = smem + stage * stage_bytes;
+    const unsigned char* sx = sw + kWStage;
+#pragma unroll
+    for (int ks = 0; ks < kKStep / 32; ++ks) {
+      uint32_t r[4], lo[4], hi[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const uint32_t*>(sw + wswz(ks * 32 + 4 * t + i, chunk) + (g & 3) * 4);
+      transpose4(r, lo);
+#pragma unroll
+      for (int i = 0; i < 4; ++i) r[i] = *reinterpret_cast<const uint32_t*>(sw + wswz(ks * 32 + 16 + 4 * t + i, chunk) + (g & 3) * 4);
+      transpose4(r, hi);
+      const uint32_t a0[4] = {lo[0], lo[1], hi[0], hi[1]};  // columns 4g, 4g + 1
+      const uint32_t a1[4] = {lo[2], lo[3], hi[2], hi[3]};  // columns 4g + 2, 4g + 3
+#pragma unroll
+      for (int nt = 0; nt < S::kNT; ++nt) {
+        const int rr = wn * (BN / WN) + nt * 8 + g;
+        uint32_t b0, b1;
+        if (p.x_f32) {
+          const float4 v0 = *reinterpret_cast<const float4*>(sx + rr * kXStrideF32 + (ks * 32 + 4 * t) * 4);
+          const float4 v1 = *reinterpret_cast<const float4*>(sx + rr * kXStrideF32 + (ks * 32 + 16 + 4 * t) * 4);
+          b0 = (quantize(v0.x, x_scale, qmax) & 0xff) | (quantize(v0.y, x_scale, qmax) & 0xff) << 8 |
+               (quantize(v0.z, x_scale, qmax) & 0xff) << 16 | (uint32_t)(quantize(v0.w, x_scale, qmax) & 0xff) << 24;
+          b1 = (quantize(v1.x, x_scale, qmax) & 0xff) | (quantize(v1.y, x_scale, qmax) & 0xff) << 8 |
+               (quantize(v1.z, x_scale, qmax) & 0xff) << 16 | (uint32_t)(quantize(v1.w, x_scale, qmax) & 0xff) << 24;
+        } else {
+          b0 = *reinterpret_cast<const uint32_t*>(sx + rr * kXStrideI8 + ks * 32 + 4 * t);
+          b1 = *reinterpret_cast<const uint32_t*>(sx + rr * kXStrideI8 + ks * 32 + 16 + 4 * t);
+        }
+        mma_s8(acc[0][nt], a0, b0, b1);
+        mma_s8(acc[1][nt], a1, b0, b1);
+      }
+    }
+  }
+  cp_async_wait<0>();
+  __syncthreads();  // the ring is free: the acc tile reuses it
+  int* tile = reinterpret_cast<int*>(smem);
+#pragma unroll
+  for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < S::kNT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        int row, col;
+        frag_pos<BN, WN>(wm, wn, g, t, mt, nt, e, row, col);
+        tile[row * kAccStride + col] = acc[mt][nt][e];
+      }
+}
+
+// Every other channel: per chunk and slice pair, the psum and crosstalk dots
+// on the tensor cores, then the float chain, noise and ADC per element.
+// Returns the [BN][kAccStride] tile of the CTA's sums in shared memory.
+template <int BN, int WN>
+__device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int col0, int live, int u0, int u1,
+                           uint32_t i_tile, uint32_t j_tile) {
+  using S = Shape<BN, WN>;
+  constexpr bool kCompact = BN == 8;  // decode: half the fragment rows are dead
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int wm = warp & 3, wn = warp >> 2, g = lane >> 2, t = lane & 3;
+  const int n = p.n_chunk, npad = p.npad, nq = npad / 4;
+  const int ns = p.num_slices;
+  const bool xtalk = p.eps_im > 0.0f || p.eps_cw > 0.0f;
+  const int sws = npad + 4, sxs = npad + 16;  // byte strides of the w and x slice rows
+  unsigned char* raw = smem;                                    // [2][n][128]
+  unsigned char* wsl = raw + 2 * n * kTileC;                    // [128][sws]
+  unsigned char* wnb = wsl + kTileC * sws;                      // [128][sws] if xtalk
+  unsigned char* xsl = wnb + (xtalk ? kTileC * sws : 0);        // [S][BN][sxs]
+  int* ptile = reinterpret_cast<int*>(xsl + ns * BN * sxs);    // [BN][kAccStride], compact only
+  int* xtile = ptile + BN * kAccStride;                         // [BN][kAccStride], compact with xtalk
+  const uint32_t raw0 = smem_addr(raw);
+  const float x_scale = p.x_f32 ? *p.x_scale : 1.0f;
+  const float qmax = (float)p.qmax;
+  const int chunks = p.tile_k / n;
+  const uint32_t seed = p.seed != nullptr ? *p.seed : 0u;
+  const int live_elems = live * kTileC;
+
+  auto load = [&](int u, int stage) {
+    const uint32_t dst = raw0 + stage * n * kTileC;
+    for (int e = tid; e < n * 8; e += S::kThreads) {
+      const int k = e >> 3, c = e & 7;
+      cp_async16(dst + k * kTileC + c * 16, p.w + (size_t)(u * n + k) * p.C + col0 + c * 16, true);
+    }
+  };
+
+  int acc[S::kEPT];  // compact: element tid + i * threads; else fragment (mt, nt, e)
+#pragma unroll
+  for (int i = 0; i < S::kEPT; ++i) acc[i] = 0;
+
+  load(u0, 0);
+  cp_async_commit();
+  for (int u = u0; u < u1; ++u) {
+    const int stage = (u - u0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // chunk u has landed; the previous chunk's tiles are consumed
+    if (u + 1 < u1) load(u + 1, stage ^ 1);
+    cp_async_commit();
+    const int k0 = u * n;
+    const int kk = u / chunks, gl = u % chunks;
+    const unsigned char* rw = raw + stage * n * kTileC;
+
+    // x slices, [si][row][k], four K values per word (zero past n and for dead rows).
+    for (int e = tid; e < BN * nq; e += S::kThreads) {
+      const int rr = e / nq, q = e % nq;
+      uint32_t v = 0;
+      if (rr < live) {
+#pragma unroll
+        for (int b = 0; b < 4; ++b) {
+          const int k = 4 * q + b;
+          if (k < n) {
+            const size_t off = (size_t)(row0 + rr) * p.K + k0 + k;
+            const int xv = p.x_f32 ? quantize(static_cast<const float*>(p.x)[off], x_scale, qmax)
+                                   : (int)static_cast<const int8_t*>(p.x)[off];
+            v |= (uint32_t)(xv & 0xff) << (8 * b);
+          }
+        }
+      }
+      for (int si = 0; si < ns; ++si) {
+        const int sh = p.slice_bits * si;
+        const uint32_t m = ((1u << p.slice_bits) - 1u) & (0xffu >> min(sh, 8));
+        *reinterpret_cast<uint32_t*>(xsl + (si * BN + rr) * sxs + 4 * q) = slice4(v, sh, m * 0x01010101u);
+      }
+    }
+
+    for (int ti = 0; ti < ns; ++ti) {
+      const int wsh = p.slice_bits * ti;
+      const uint32_t wmask = (((1u << p.slice_bits) - 1u) & (0xffu >> min(wsh, 8))) * 0x01010101u;
+      // w_s and nbr(w_s) for slice ti, transposed to [col][k].
+      for (int c = tid; c < kTileC; c += S::kThreads) {
+        auto word = [&](int q) -> uint32_t {
+          if (q < 0 || q >= nq) return 0u;
+          uint32_t v = 0;
+#pragma unroll
+          for (int b = 0; b < 4; ++b) {
+            const int k = 4 * q + b;
+            if (k < n) v |= (uint32_t)rw[k * kTileC + c] << (8 * b);
+          }
+          return slice4(v, wsh, wmask);
+        };
+        uint32_t prev = 0, cur = word(0);
+        for (int q = 0; q < nq; ++q) {
+          const uint32_t next = word(q + 1);
+          *reinterpret_cast<uint32_t*>(wsl + c * sws + 4 * q) = cur;
+          if (xtalk) {
+            const uint32_t left = __funnelshift_l(prev, cur, 8);   // byte b: s[k - 1]
+            const uint32_t right = __funnelshift_r(cur, next, 8);  // byte b: s[k + 1]
+            *reinterpret_cast<uint32_t*>(wnb + c * sws + 4 * q) = __vadd4(left, right);
+          }
+          prev = cur;
+          cur = next;
+        }
       }
       __syncthreads();
 
-      if (ideal) {
-        for (int nn = 1; nn <= n; ++nn) {
-          const int xv = xs[warp][nn];
-          const char4 w4 = *reinterpret_cast<const char4*>(&ws[nn][lane * 4]);
-          acc[0] += xv * w4.x;
-          acc[1] += xv * w4.y;
-          acc[2] += xv * w4.z;
-          acc[3] += xv * w4.w;
-        }
-        continue;
-      }
-
-      for (int si = 0; si < p.num_slices; ++si) {
-        const int xsh = p.slice_bits * si;
-        for (int ti = 0; ti < p.num_slices; ++ti) {
-          const int wsh = p.slice_bits * ti;
-          int ps[4] = {0, 0, 0, 0}, im[4] = {0, 0, 0, 0}, cw[4] = {0, 0, 0, 0};
-          for (int nn = 1; nn <= n; ++nn) {
-            const int xv = slice_of(xs[warp][nn], xsh, mask);
-            const char4 w4 = *reinterpret_cast<const char4*>(&ws[nn][lane * 4]);
-            const int wv[4] = {slice_of(w4.x, wsh, mask), slice_of(w4.y, wsh, mask),
-                               slice_of(w4.z, wsh, mask), slice_of(w4.w, wsh, mask)};
-#pragma unroll
-            for (int q = 0; q < 4; ++q) ps[q] += xv * wv[q];
-            if (p.eps_im > 0.0f) {
-              const int xn = slice_of(xs[warp][nn - 1], xsh, mask) + slice_of(xs[warp][nn + 1], xsh, mask);
-#pragma unroll
-              for (int q = 0; q < 4; ++q) im[q] += xn * wv[q];
+      for (int si = 0; si < ns; ++si) {
+        const int pass = si * ns + ti;
+        const unsigned char* xs = xsl + si * BN * sxs;
+        const bool noisy = p.sigma > 0.0f && (p.valid_chunks < 0 || u < p.valid_chunks);
+        const uint32_t base = noisy
+            ? fold1(fold1(fold1(fold1(fold1(seed, i_tile, 0u), j_tile, 1u), (uint32_t)kk, 2u), (uint32_t)pass, 0u), (uint32_t)gl, 1u)
+            : 0u;
+        const int shift = p.slice_bits * (si + ti);
+        // psum -> float chain (crosstalk, filter, noise) -> rint -> ADC -> shifted into acc.
+        auto chain = [&](int psum, int xdot, int row, int col) -> int {
+          if (p.analog) {
+            float a = __int2float_rn(psum);
+            if (xtalk) {
+              const float xd = __int2float_rn(xdot);
+              if (p.eps_im > 0.0f) a = __fadd_rn(a, __fmul_rn(p.eps_im, xd));
+              if (p.eps_cw > 0.0f) a = __fadd_rn(a, __fmul_rn(p.eps_cw, xd));
             }
-            if (p.eps_cw > 0.0f) {
-              const char4 wl = *reinterpret_cast<const char4*>(&ws[nn - 1][lane * 4]);
-              const char4 wr = *reinterpret_cast<const char4*>(&ws[nn + 1][lane * 4]);
-              cw[0] += xv * (slice_of(wl.x, wsh, mask) + slice_of(wr.x, wsh, mask));
-              cw[1] += xv * (slice_of(wl.y, wsh, mask) + slice_of(wr.y, wsh, mask));
-              cw[2] += xv * (slice_of(wl.z, wsh, mask) + slice_of(wr.z, wsh, mask));
-              cw[3] += xv * (slice_of(wl.w, wsh, mask) + slice_of(wr.w, wsh, mask));
+            if (p.use_filter) a = __fmul_rn(a, p.filter_scale);
+            if (noisy) {
+              const uint32_t ctr = (uint32_t)((row0 + row) % p.tile_r) * (uint32_t)p.tile_c + (uint32_t)((col0 + col) % p.tile_c);
+              a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(base, ctr)));
+            }
+            psum = (int)rintf(a);
+          }
+          if (p.adc_lim >= 0) psum = min(max(psum, -p.adc_lim), p.adc_lim);
+          return psum * (1 << shift);
+        };
+        // The A fragments of one K step: w_s (and nbr(w_s)) for the lane's columns.
+        auto load_a = [&](int ks, uint32_t (*a)[4], uint32_t (*an)[4]) {
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt) {
+            const int c0 = wm * 32 + 4 * g + 2 * mt;
+            const int w0 = 4 * (ks * 8 + t);
+            a[mt][0] = *reinterpret_cast<const uint32_t*>(wsl + c0 * sws + w0);
+            a[mt][1] = *reinterpret_cast<const uint32_t*>(wsl + (c0 + 1) * sws + w0);
+            a[mt][2] = *reinterpret_cast<const uint32_t*>(wsl + c0 * sws + w0 + 16);
+            a[mt][3] = *reinterpret_cast<const uint32_t*>(wsl + (c0 + 1) * sws + w0 + 16);
+            if (xtalk) {
+              an[mt][0] = *reinterpret_cast<const uint32_t*>(wnb + c0 * sws + w0);
+              an[mt][1] = *reinterpret_cast<const uint32_t*>(wnb + (c0 + 1) * sws + w0);
+              an[mt][2] = *reinterpret_cast<const uint32_t*>(wnb + c0 * sws + w0 + 16);
+              an[mt][3] = *reinterpret_cast<const uint32_t*>(wnb + (c0 + 1) * sws + w0 + 16);
             }
           }
-          const bool noisy = p.sigma > 0.0f && (p.valid_chunks < 0 || kk * chunks + g < p.valid_chunks);
-          const uint32_t base = noisy ? fold1(fold1(tile_seed, (uint32_t)(si * p.num_slices + ti), 0u), (uint32_t)g, 1u) : 0u;
+        };
+
+        if constexpr (kCompact) {
+          // All n tiles' dots, then through shared memory to the compact layout,
+          // where every lane holds a live element.
+          int ps[2][S::kNT][4], xt[2][S::kNT][4];
 #pragma unroll
-          for (int q = 0; q < 4; ++q) {
-            int psum = ps[q];
-            if (p.analog) {
-              float a = __int2float_rn(psum);
-              if (p.eps_im > 0.0f) a = __fadd_rn(a, __fmul_rn(p.eps_im, __int2float_rn(im[q])));
-              if (p.eps_cw > 0.0f) a = __fadd_rn(a, __fmul_rn(p.eps_cw, __int2float_rn(cw[q])));
-              if (p.use_filter) a = __fmul_rn(a, p.filter_scale);
-              if (noisy) {
-                const uint32_t ctr = r_in * (uint32_t)p.tile_c + c_in0 + q;
-                a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(base, ctr)));
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < S::kNT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) ps[mt][nt][e] = xt[mt][nt][e] = 0;
+          for (int ks = 0; ks < npad / 32; ++ks) {
+            uint32_t a[2][4], an[2][4];
+            load_a(ks, a, an);
+#pragma unroll
+            for (int nt = 0; nt < S::kNT; ++nt) {
+              const int rr = wn * (BN / WN) + nt * 8 + g;
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + t));
+              const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + 4 + t));
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_s8(ps[mt][nt], a[mt], b0, b1);
+                if (xtalk) mma_s8(xt[mt][nt], an[mt], b0, b1);
               }
-              psum = (int)rintf(a);
             }
-            if (p.adc_lim >= 0) psum = min(max(psum, -p.adc_lim), p.adc_lim);
-            acc[q] += psum * (1 << (xsh + wsh));
+          }
+#pragma unroll
+          for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+            for (int nt = 0; nt < S::kNT; ++nt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                int row, col;
+                frag_pos<BN, WN>(wm, wn, g, t, mt, nt, e, row, col);
+                ptile[row * kAccStride + col] = ps[mt][nt][e];
+                if (xtalk) xtile[row * kAccStride + col] = xt[mt][nt][e];
+              }
+          __syncthreads();
+#pragma unroll
+          for (int i = 0; i < S::kEPT; ++i) {
+            const int e = tid + i * S::kThreads;
+            if (e < live_elems) {
+              const int rr = e / kTileC, c = e % kTileC;
+              acc[i] += chain(ptile[rr * kAccStride + c], xtalk ? xtile[rr * kAccStride + c] : 0, rr, c);
+            }
+          }
+          __syncthreads();  // the psum tiles are consumed
+        } else {
+          // One n tile at a time, the chain on the accumulator fragments.
+#pragma unroll
+          for (int nt = 0; nt < S::kNT; ++nt) {
+            int ps[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}}, xt[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
+            const int rr = wn * (BN / WN) + nt * 8 + g;
+            for (int ks = 0; ks < npad / 32; ++ks) {
+              uint32_t a[2][4], an[2][4];
+              load_a(ks, a, an);
+              const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + t));
+              const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + 4 + t));
+#pragma unroll
+              for (int mt = 0; mt < 2; ++mt) {
+                mma_s8(ps[mt], a[mt], b0, b1);
+                if (xtalk) mma_s8(xt[mt], an[mt], b0, b1);
+              }
+            }
+#pragma unroll
+            for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+              for (int e = 0; e < 4; ++e) {
+                int row, col;
+                frag_pos<BN, WN>(wm, wn, g, t, mt, nt, e, row, col);
+                if (row < live) acc[mt * S::kNT * 4 + nt * 4 + e] += chain(ps[mt][e], xt[mt][e], row, col);
+              }
           }
         }
       }
     }
   }
-
-  const size_t out_off = (size_t)row * p.C + col0;
-  if (FUSED) {
-    float y[4];
+  cp_async_wait<0>();
+  if constexpr (kCompact) {
 #pragma unroll
-    for (int q = 0; q < 4; ++q) {
-      float v = __fmul_rn(__fmul_rn(__int2float_rn(acc[q]), x_scale), p.w_scale[col0 + q]);
-      if (p.bias != nullptr) v = __fadd_rn(v, p.bias[col0 + q]);
-      if (p.activation == 1) v = gelu_tanh(v);
-      else if (p.activation == 2) v = silu(v);
-      y[q] = v;
+    for (int i = 0; i < S::kEPT; ++i) {
+      const int e = tid + i * S::kThreads;
+      ptile[(e / kTileC) * kAccStride + e % kTileC] = acc[i];
     }
-    *reinterpret_cast<float4*>(static_cast<float*>(p.out) + out_off) = make_float4(y[0], y[1], y[2], y[3]);
+    return ptile;
   } else {
-    *reinterpret_cast<int4*>(static_cast<int32_t*>(p.out) + out_off) = make_int4(acc[0], acc[1], acc[2], acc[3]);
+    __syncthreads();  // every warp is done with the slice tiles: the sums go over them
+    int* tile = reinterpret_cast<int*>(smem);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int nt = 0; nt < S::kNT; ++nt)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          int row, col;
+          frag_pos<BN, WN>(wm, wn, g, t, mt, nt, e, row, col);
+          tile[row * kAccStride + col] = acc[mt * S::kNT * 4 + nt * 4 + e];
+        }
+    return tile;
   }
+}
+
+template <int BN, int WN, bool IDEAL>
+__global__ void __launch_bounds__(Shape<BN, WN>::kThreads) photonic_gemm_kernel(Params p) {
+  extern __shared__ __align__(128) unsigned char smem[];
+  const int j = blockIdx.x, rt = blockIdx.y, s = blockIdx.z;
+  const int col0 = j * kTileC, row0 = rt * BN;
+  const int live = min(BN, p.live_rows - row0);
+  const int u0 = (int)((long long)s * p.n_units / p.n_split);
+  const int u1 = (int)((long long)(s + 1) * p.n_units / p.n_split);
+  const int tile = rt * gridDim.x + j;
+  const int* acc;
+  if constexpr (IDEAL) {
+    ideal_path<BN, WN>(p, smem, row0, col0, live, u0, u1);
+    acc = reinterpret_cast<const int*>(smem);
+  } else {
+    // BN divides tile_r, so the CTA's rows lie in one logical row tile.
+    acc = slice_path<BN, WN>(p, smem, row0, col0, live, u0, u1, (uint32_t)(row0 / p.tile_r), (uint32_t)(col0 / p.tile_c));
+  }
+  __syncthreads();
+  finish<BN, WN>(p, acc, tile, row0, col0, live);
+}
+
+template <int BN, int WN, bool IDEAL>
+int launch(const Params& p, int row_tiles, int bytes, cudaStream_t stream) {
+  static int configured = 0;
+  if (bytes > configured) {
+    cudaError_t err = cudaFuncSetAttribute(photonic_gemm_kernel<BN, WN, IDEAL>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+    if (err != cudaSuccess) return (int)err;
+    configured = bytes;
+  }
+  const dim3 grid(p.C / kTileC, row_tiles, p.n_split);
+  photonic_gemm_kernel<BN, WN, IDEAL><<<grid, Shape<BN, WN>::kThreads, bytes, stream>>>(p);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
-// Plain C entry point (bound with ctypes).  Returns 0 on a clean launch,
-// a negative code for arguments the kernel does not take, or the value of
+// Plain C entry point (bound with ctypes).  `bn` (8 or 64) is the CTA's row
+// count and `n_split` the CTAs per output tile along K, both chosen by the
+// wrapper's plan_launch; `ws_acc` (int32, bn * 128 per output tile) and
+// `tickets` (one int32 per output tile) must be zero and are left zero;
+// they may be null when n_split == 1.  Returns 0 on a clean launch, a
+// negative code for arguments the kernel does not take, or the value of
 // cudaGetLastError() after the launch.
 extern "C" int photonic_gemm_launch(
     const void* x, int x_f32, const void* w, const void* x_scale, const void* w_scale,
     const void* bias, const void* seed, void* out, int fused,
-    int R, int K, int C, int tile_r, int tile_c, int tile_k, int n_chunk,
+    int R, int K, int C, int live_rows, int tile_r, int tile_c, int tile_k, int n_chunk,
     int slice_bits, int num_slices, int operand_bits, int adc_bits,
     float sigma, int use_filter, float filter_scale, float eps_im, float eps_cw,
-    int valid_chunks, int activation, void* stream) {
+    int valid_chunks, int activation, int bn, int ideal, int n_split,
+    void* ws_acc, void* tickets, void* stream) {
   if (tile_c != kTileC || C % kTileC != 0) return -1;
-  if (tile_r % kRows != 0 || R % tile_r != 0) return -2;
+  if (tile_r % 8 != 0 || R % tile_r != 0 || live_rows < 1 || live_rows > R) return -2;
   if (n_chunk < 1 || n_chunk > kMaxN || tile_k % n_chunk != 0 || K % tile_k != 0) return -3;
   if (x_f32 && !fused) return -4;
   if (slice_bits < 1 || num_slices < 1 || slice_bits * num_slices > 16) return -5;
+  const int xtalk = (eps_im > 0.0f || eps_cw > 0.0f) ? 1 : 0;
+  if (!ideal && (slice_bits > 8 || (xtalk && slice_bits > 6))) return -6;  // slices or neighbour sums overflow int8
+  if (bn != 8 && bn != 64) return -7;
+  if (R % bn != 0 || (!ideal && tile_r % bn != 0)) return -8;
+  const int analog = (sigma > 0.0f || use_filter || eps_im > 0.0f || eps_cw > 0.0f) ? 1 : 0;
+  if (ideal && (analog || adc_bits > 0 || K % kKStep != 0)) return -9;
+  const int n_units = ideal ? K / kKStep : K / n_chunk;
+  if (n_split < 1 || n_split > n_units) return -10;
+  if (n_split > 1 && (ws_acc == nullptr || tickets == nullptr)) return -11;
   Params p;
   p.x = x;
   p.x_f32 = x_f32;
@@ -282,9 +715,12 @@ extern "C" int photonic_gemm_launch(
   p.bias = static_cast<const float*>(bias);
   p.seed = static_cast<const uint32_t*>(seed);
   p.out = out;
-  p.R = R;
+  p.fused = fused;
+  p.ws_acc = static_cast<int*>(ws_acc);
+  p.tickets = static_cast<int*>(tickets);
   p.K = K;
   p.C = C;
+  p.live_rows = live_rows;
   p.tile_r = tile_r;
   p.tile_c = tile_c;
   p.tile_k = tile_k;
@@ -293,20 +729,29 @@ extern "C" int photonic_gemm_launch(
   p.num_slices = num_slices;
   p.qmax = (1 << (operand_bits - 1)) - 1;
   p.adc_lim = adc_bits > 0 ? (1 << (adc_bits - 1)) - 1 : -1;
+  p.analog = analog;
   p.sigma = sigma;
   p.use_filter = use_filter;
   p.filter_scale = filter_scale;
   p.eps_im = eps_im;
   p.eps_cw = eps_cw;
-  p.analog = (sigma > 0.0f || use_filter || eps_im > 0.0f || eps_cw > 0.0f) ? 1 : 0;
   p.valid_chunks = valid_chunks;
   p.activation = activation;
-  const dim3 grid(C / kTileC, R / kRows);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (fused) {
-    photonic_gemm_kernel<true><<<grid, kThreads, 0, s>>>(p);
+  p.ideal = ideal;
+  p.n_units = n_units;
+  p.n_split = n_split;
+  p.npad = (n_chunk + 31) & ~31;
+  const int row_tiles = (live_rows + bn - 1) / bn;
+  int bytes;
+  if (ideal) {
+    bytes = kStages * ideal_stage_bytes(bn, x_f32);
+    const int acc_bytes = bn * kAccStride * 4;
+    if (acc_bytes > bytes) bytes = acc_bytes;
   } else {
-    photonic_gemm_kernel<false><<<grid, kThreads, 0, s>>>(p);
+    bytes = slice_smem_bytes(bn, n_chunk, p.npad, num_slices, xtalk);
   }
-  return (int)cudaGetLastError();
+  if (bytes > 227 * 1024 - 128) return -12;  // the static `last` flag shares the SM's 227 KB
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (ideal) return bn == 8 ? launch<8, 1, true>(p, row_tiles, bytes, s) : launch<64, 2, true>(p, row_tiles, bytes, s);
+  return bn == 8 ? launch<8, 1, false>(p, row_tiles, bytes, s) : launch<64, 2, false>(p, row_tiles, bytes, s);
 }

@@ -11,7 +11,14 @@ source note says what bounds it on the card.
 * :func:`photonic_gemm_fused` / :func:`photonic_gemm` are the wrappers.  A
   CPU tensor takes the plain twin; a CUDA tensor launches the kernel or
   raises — there is no fallback.  Each launch adds one to
-  :data:`LAUNCHES` under the kernel's name.
+  :data:`LAUNCHES` under the kernel's name.  ``rows`` is the live row
+  count: the kernel computes and writes rows ``[0, rows)`` and leaves the
+  padding rows of its output unwritten (the twin computes every row).
+* :func:`plan_launch` is the host-side launch plan: the CTA's row count
+  and how many CTAs split each output tile's contraction, so that the
+  grid covers the card's SMs when there are that many chunk-tiles.  The
+  split CTAs meet in a cached int32 workspace that the kernel leaves
+  zeroed (:func:`_workspace`).
 * :func:`photonic_gemm_fused_twin` / :func:`photonic_gemm_twin` are the
   plain PyTorch versions.  They mirror the reference's *logical* Pallas
   tiling and noise-stream ids (tile seed ``fold_seed(seed, i, j, kk)``,
@@ -27,6 +34,8 @@ source note says what bounds it on the card.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
+import functools
 from pathlib import Path
 from typing import Optional
 
@@ -51,8 +60,10 @@ from repro_torch.noise.stages import (
 SOURCE = Path(__file__).resolve().parent / "csrc" / "photonic_gemm.cu"
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2}
 TILE_C = 128  # the logical tile_c the CUDA kernel supports
-CTA_ROWS = 8  # rows per CTA; tile_r must be a multiple
+CTA_ROWS = (8, 64)  # the kernel's CTA row counts; tile_r must be a multiple of 8
 MAX_CHUNK = 256  # longest n_chunk the kernel stages in shared memory
+K_STEP = 64  # the ideal path's K step, its unit of the contraction split
+SMEM_LIMIT = 227 * 1024 - 128  # dynamic shared memory a CTA may take (H100)
 
 # Launches per kernel since the last reset_launches(); only the CUDA path
 # counts (the twin is not a launch).
@@ -249,6 +260,106 @@ def photonic_gemm_fused_twin(
 
 
 # ---------------------------------------------------------------------------
+# The launch plan (host side; the kernel mirrors unit_range)
+# ---------------------------------------------------------------------------
+SPLIT_WAVES = {True: 1, False: 8}  # CTAs per SM the split aims for: ideal path, slice path
+
+
+def slice_smem_bytes(bn: int, n_chunk: int, num_slices: int, xtalk: bool) -> int:
+    """Shared memory of the kernel's slice path (``slice_smem_bytes`` in the
+    CUDA source): the raw weight ring, the weight slice and neighbour tiles
+    and the x slices; 8-row CTAs add the int32 psum tiles, 64-row CTAs need
+    room for their int32 sums at the end."""
+    npad = -(-n_chunk // 32) * 32
+    base = 2 * n_chunk * TILE_C + (1 + xtalk) * TILE_C * (npad + 4) + num_slices * bn * (npad + 16)
+    acc = bn * (TILE_C + 4) * 4
+    return base + (1 + xtalk) * acc if bn == 8 else max(base, acc)
+
+
+@dataclasses.dataclass(frozen=True)
+class LaunchPlan:
+    """How one call is cut into CTAs.  A CTA covers ``bn`` rows by one
+    128-column tile and the units ``unit_range(s)`` of the contraction:
+    64-wide K steps on the ideal path, the logical ``(kk, g)`` chunks (in K
+    order, ``kk * chunks + g``) on the slice path."""
+
+    ideal: bool
+    bn: int
+    units: int
+    row_tiles: int
+    col_tiles: int
+    n_split: int
+
+    @property
+    def ctas(self) -> int:
+        return self.row_tiles * self.col_tiles * self.n_split
+
+    def unit_range(self, s: int) -> range:
+        return range(s * self.units // self.n_split, (s + 1) * self.units // self.n_split)
+
+
+def plan_launch(
+    rows: int,
+    rp: int,
+    kp: int,
+    cp: int,
+    *,
+    tile_r: int,
+    n_chunk: int,
+    num_slices: int,
+    ideal: bool,
+    xtalk: bool = False,
+    sms: int = 132,
+) -> LaunchPlan:
+    """The launch plan of a ``(rp, kp) x (kp, cp)`` call with ``rows`` live
+    rows.  64-row CTAs where the rows allow (more than 8 live, and on the
+    slice path a logical row tile they divide and shared memory to hold
+    them), else 8.  When the output tiles are fewer than ``waves * sms``
+    (``SPLIT_WAVES``: one CTA per SM on the byte-bound ideal path, eight
+    on the draw-bound slice path), each is split along the contraction into
+    ``ceil(waves * sms / tiles)`` CTAs (at most one per unit), so the grid
+    covers the SMs wherever there are that many unit-tiles."""
+    units = kp // K_STEP if ideal else kp // n_chunk
+    wide = rows > 8 and rp % 64 == 0 and (
+        ideal or (tile_r % 64 == 0 and slice_smem_bytes(64, n_chunk, num_slices, xtalk) <= SMEM_LIMIT))
+    bn = 64 if wide else 8
+    row_tiles = -(-rows // bn)
+    col_tiles = cp // TILE_C
+    tiles = row_tiles * col_tiles
+    target = SPLIT_WAVES[ideal] * sms
+    n_split = 1 if tiles >= target else min(units, -(-target // tiles))
+    return LaunchPlan(ideal, bn, units, row_tiles, col_tiles, n_split)
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+_WORKSPACES: dict = {}
+
+
+def _workspace(device: torch.device, sms: int):
+    """The split-K workspace (int32, 64 x 128 per output tile for up to
+    ``waves * sms`` tiles: the plan splits only when there are fewer) and tickets of
+    one device.  Zeroed once here; the kernel leaves them zero, so replays of
+    a captured CUDA graph find them clean.  Calls that share them must not
+    run at the same time: the port issues its GEMMs on one stream (or one
+    graph) in order."""
+    key = device.index
+    ws = _WORKSPACES.get(key)
+    if ws is None:
+        if torch.cuda.is_current_stream_capturing():
+            raise RuntimeError("photonic_gemm: call once on this device before capturing a CUDA graph "
+                               "(the split workspace is allocated at first use)")
+        tiles = max(SPLIT_WAVES.values()) * sms
+        ws = (torch.zeros(tiles * 64 * TILE_C, dtype=torch.int32, device=device),
+              torch.zeros(tiles, dtype=torch.int32, device=device))
+        _WORKSPACES[key] = ws
+    return ws
+
+
+# ---------------------------------------------------------------------------
 # Build and bind the CUDA source
 # ---------------------------------------------------------------------------
 def _bind(lib) -> None:
@@ -256,10 +367,11 @@ def _bind(lib) -> None:
     vp, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     fn.argtypes = [
         vp, i, vp, vp, vp, vp, vp, vp, i,  # x, x_f32, w, x_scale, w_scale, bias, seed, out, fused
-        i, i, i, i, i, i, i,  # R, K, C, tile_r, tile_c, tile_k, n_chunk
+        i, i, i, i, i, i, i, i,  # R, K, C, live_rows, tile_r, tile_c, tile_k, n_chunk
         i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
         f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
-        i, i, vp,  # valid_chunks, activation, stream
+        i, i, i, i, i,  # valid_chunks, activation, bn, ideal, n_split
+        vp, vp, vp,  # ws_acc, tickets, stream
     ]
     fn.restype = ctypes.c_int
 
@@ -295,31 +407,48 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name} must be contiguous")
 
 
-def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, *, operand_bits,
+def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, operand_bits,
             activation, slice_bits, num_slices, n_chunk, adc_bits, noise_sigma,
             filter_alpha, intermod_eps, crossweight_eps, valid_chunks, tile_r,
             tile_c, tile_k):
     r, k = x.shape
     c = wq.shape[1]
+    rows = r if rows is None else int(rows)
     if tile_c != TILE_C:
         raise ValueError(f"the CUDA kernel takes tile_c={TILE_C}, got {tile_c}")
-    if tile_r % CTA_ROWS:
-        raise ValueError(f"the CUDA kernel takes tile_r a multiple of {CTA_ROWS}, got {tile_r}")
+    if tile_r % CTA_ROWS[0]:
+        raise ValueError(f"the CUDA kernel takes tile_r a multiple of {CTA_ROWS[0]}, got {tile_r}")
     if n_chunk > MAX_CHUNK:
         raise ValueError(f"the CUDA kernel takes n_chunk <= {MAX_CHUNK}, got {n_chunk}")
+    if not 1 <= rows <= r:
+        raise ValueError(f"rows={rows} live rows outside [1, {r}]")
     for t, nm in ((x, "x"), (wq, "wq"), (out, "out")):
         if t.data_ptr() % 16:
             raise ValueError(f"{nm} must be 16-byte aligned")
-    seed_t = None if seed is None else _seed_tensor(seed, x.device)
+    xtalk = intermod_eps > 0.0 or crossweight_eps > 0.0
+    ideal = (not _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps)
+             and adc_bits is None and k % K_STEP == 0)
+    if not ideal and (slice_bits > 8 or (xtalk and slice_bits > 6)):
+        raise ValueError(f"the CUDA kernel's slice path takes slice_bits <= 6 with crosstalk "
+                         f"(<= 8 without), got {slice_bits}: its slices and neighbour sums are int8")
+    dev = x.device if x.device.index is not None else torch.device("cuda", torch.cuda.current_device())
+    sms = _sm_count(dev.index)
+    plan = plan_launch(rows, r, k, c, tile_r=tile_r, n_chunk=n_chunk, num_slices=num_slices,
+                       ideal=ideal, xtalk=xtalk, sms=sms)
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    ws_acc = tickets = None
+    if plan.n_split > 1:
+        ws_acc, tickets = _workspace(dev, sms)
+    seed_t = None if seed is None else _seed_tensor(seed, dev)
     rc = LIBRARY.load().photonic_gemm_launch(
         _data_ptr(x), int(x.is_floating_point()), _data_ptr(wq), _data_ptr(x_scale),
         _data_ptr(w_scale), _data_ptr(bias), _data_ptr(seed_t), _data_ptr(out), int(fused),
-        r, k, c, tile_r, tile_c, tile_k, n_chunk,
+        r, k, c, rows, tile_r, tile_c, tile_k, n_chunk,
         slice_bits, num_slices, operand_bits, -1 if adc_bits is None else adc_bits,
         float(noise_sigma), int(filter_alpha > 0.0), float(1.0 - filter_alpha),
         float(intermod_eps), float(crossweight_eps),
         -1 if valid_chunks is None else valid_chunks, ACTIVATION_CODES[activation],
-        torch.cuda.current_stream(x.device).cuda_stream,
+        plan.bn, int(plan.ideal), plan.n_split, _data_ptr(ws_acc), _data_ptr(tickets), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with code {rc}")
@@ -344,9 +473,11 @@ def photonic_gemm(
     tile_r: int = 128,
     tile_c: int = 128,
     tile_k: int = 512,
+    rows: Optional[int] = None,
 ) -> torch.Tensor:
     """Integer photonic GEMM, int8 x int8 -> int32 ``(R, C)``.  Reference:
-    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``."""
+    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``.  ``rows``:
+    the live rows the CUDA kernel computes (default all)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
@@ -365,7 +496,7 @@ def photonic_gemm(
     _require(xq, "xq", torch.int8, (r, k), xq.device)
     _require(wq, "wq", torch.int8, (k, c), xq.device)
     out = torch.empty((r, c), dtype=torch.int32, device=xq.device)
-    return _launch("photonic_gemm", False, xq, wq, None, None, None, seed, out,
+    return _launch("photonic_gemm", False, xq, wq, None, None, None, seed, out, rows,
                    operand_bits=8, activation=None, **stages)
 
 
@@ -391,10 +522,12 @@ def photonic_gemm_fused(
     tile_r: int = 128,
     tile_c: int = 128,
     tile_k: int = 512,
+    rows: Optional[int] = None,
 ) -> torch.Tensor:
     """The fused hot path, [quantize] -> integer GEMM -> epilogue, f32
     ``(R, C)``.  Reference:
-    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``."""
+    ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``.
+    ``rows``: the live rows the CUDA kernel computes (default all)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
@@ -426,4 +559,4 @@ def photonic_gemm_fused(
         _require(bias, "bias", torch.float32, (c,), dev)
     out = torch.empty((r, c), dtype=torch.float32, device=dev)
     return _launch("photonic_gemm_fused", True, x, wq, x_scale, w_scale, bias, seed,
-                   out, operand_bits=operand_bits, activation=activation, **stages)
+                   out, rows, operand_bits=operand_bits, activation=activation, **stages)

@@ -344,7 +344,7 @@ class PhotonicEngine:
         if tuple(wq.shape) != (kp, cp):
             wq = F.pad(wq[:k, :c], (0, cp - c, 0, kp - k)).contiguous()
         if epilogue is None:
-            return photonic_gemm(xp, wq, seed, **stages)[:r, :c]
+            return photonic_gemm(xp, wq, seed, rows=r, **stages)[:r, :c]
         ws = F.pad(epilogue.w_scale.to(torch.float32).reshape(-1), (0, cp - c))
         bias = epilogue.bias
         if bias is not None:
@@ -358,6 +358,7 @@ class PhotonicEngine:
             seed,
             operand_bits=cfg.operand_bits,
             activation=epilogue.spec.activation,
+            rows=r,
             **stages,
         )
         return out[:r, :c]

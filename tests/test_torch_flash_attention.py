@@ -5,7 +5,9 @@
   against the exact-softmax oracles, over GQA ratios 1, 2 and 7, causal and
   not, ``q_offset > 0``, ``kv_valid < Tk`` and lengths off the blocks;
 * the CPU route takes the twin and counts no launch;
-* on a card, the CUDA kernel against its twin (skips without one).
+* on a card, the CUDA kernel against its twin (skips without one): the
+  served shapes, hd=128, every key masked, one query and key, a query
+  offset, lengths off the CTA's 32 rows and key blocks off 16.
 
 JAX is imported by the tests that compare with it (the ``jx`` fixture), so
 the ``cuda``-marked test also runs where JAX is not installed, as on the
@@ -178,3 +180,42 @@ def test_cuda_kernel_matches_twin(hd, dtype):
             np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
         else:
             _assert_bf16_within_one_ulp(got, want)
+
+
+# (label, B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, bk)
+CARD_EDGE_CASES = [
+    ("hd128 ragged", 1, 70, 70, 4, 2, 128, True, 0, 70, 72),
+    ("kv_valid=0", 1, 40, 56, 4, 2, 64, False, 0, 0, 56),
+    ("Tq=Tk=1", 2, 1, 1, 14, 2, 64, True, 0, 1, 8),
+    ("q_offset", 1, 16, 300, 6, 3, 64, True, 284, 300, 128),
+    ("T=130 (not a multiple of the CTA rows)", 2, 130, 130, 14, 2, 64, True, 0, 130, 128),
+    ("bk=40, three blocks", 1, 100, 100, 2, 1, 64, True, 0, 100, 40),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", CARD_EDGE_CASES, ids=[c[0] for c in CARD_EDGE_CASES])
+@pytest.mark.parametrize("dtype", ["bf16", "f32"])
+def test_cuda_kernel_edge_cases(case, dtype):
+    """The kernel against its twin at the edges of its tiling: hd=128, every
+    key masked (kv_valid = 0), a single query and key, a query offset, a
+    length that is not a multiple of the CTA's 32 rows, and logical key
+    blocks that are not a multiple of 16 keys."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU and nvcc: the CUDA kernel has no CPU mode")
+    label, b, tq, tk, h, kv, hd, causal, q_offset, kv_valid, bk = case
+    dt = torch.bfloat16 if dtype == "bf16" else torch.float32
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(len(label))
+    q = torch.randn((b, tq, h, hd), generator=gen, device="cuda").to(dt)
+    k = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dt)
+    v = torch.randn((b, tk, kv, hd), generator=gen, device="cuda").to(dt)
+    args = dict(scale=hd**-0.5, causal=causal, q_offset=q_offset, kv_valid=kv_valid,
+                n_rep=h // kv, bq=min(128, -(-tq // 8) * 8), bk=bk)
+    got = F.flash_attention_fwd(q, k, v, **args).float().cpu().numpy()
+    want = F.flash_attention_fwd_twin(q, k, v, **args).float().cpu().numpy()
+    assert np.isfinite(got).all()
+    if dtype == "f32":
+        np.testing.assert_allclose(got, want, rtol=0, atol=2e-5)
+    else:
+        _assert_bf16_within_one_ulp(got, want)
