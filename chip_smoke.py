@@ -10,11 +10,14 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
 
 1. device: the card's name and power limit (``nvidia-smi``), torch and
    CUDA versions; the kernels are built from
-   ``src/repro_torch/kernels/{photonic_gemm,flash_attention}/csrc``, one
-   ``nvcc`` per source, all started together; each build's SASS counts of
-   tensor-core and asynchronous-copy instructions, and the SASS
-   instructions of one Box-Muller draw (a probe built from the photonic
-   kernel's own ``gaussian``) for the bound of noisy rows.
+   ``src/repro_torch/kernels/{photonic_gemm,flash_attention}/csrc``, with
+   two variants of the flash source that split P into the other counts of
+   bf16 terms (one to three; the shipped source uses two), one ``nvcc``
+   per source, all started together;
+   each build's SASS counts of tensor-core (``HMMA``, ``IMMA``, ``HGMMA``)
+   and asynchronous-copy (``LDGSTS``, ``UTMALDG``) instructions, and the
+   SASS instructions of one Box-Muller draw (a probe built from the
+   photonic kernel's own ``gaussian``) for the bound of noisy rows.
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
    sites) under the ideal, SMWA and ASMW channels, at the ``lm_logits``
@@ -30,16 +33,24 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    terms binds, and whether the outputs agree, with the kernel launches the
    case made (its check, the graph's warm-up and capture).  Per channel and
    row count, the sums over one decoder layer.
-3. flash kernels: the flash-attention kernel against its twin on the card
-   (qwen2-0.5b heads unless noted): B=4 at the four serve prompt lengths,
-   B=2 T=1000 (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936,
-   non-causal B=2 T=1000 kv_valid=900, hd=128 (H=12, KV=2, T=1024) and one
-   f32 case.  Per case: median kernel time (CUDA graph), twin time,
-   ``scaled_dot_product_attention`` time for the causal q_offset=0 cases (a
-   yardstick only; the port never calls it), the bound (q, k, v, out
-   bytes at the HBM rate against 4 hd flops per live score entry at the
-   input type's peak) and agreement: f32 max abs err <= 2e-5, bf16 within
-   one bf16 ulp.
+3. flash kernels: the flash-attention kernel on the card (qwen2-0.5b
+   heads unless noted): B=4 at the four serve prompt lengths, B=2 T=1000
+   (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936, non-causal
+   B=2 T=1000 kv_valid=900, hd=128 (H=12, KV=2, T=1024) and one f32 case.
+   Per case: median kernel time (CUDA graph), twin time,
+   ``scaled_dot_product_attention`` time (``is_causal`` where the mask is
+   plain causal, else an explicit boolean mask; a yardstick only, the port
+   never calls it), the bound (q, k, v, out bytes at the HBM rate against
+   4 hd flops per live score entry at the input type's peak) and
+   agreement.  f32: max abs err to the twin <= 2e-5.  bf16 (the
+   tensor-core kernel, which sums in another order than the twin): every
+   element within the f64 bound of ``ref.oracle_and_bound``, |got - o| <=
+   max(ulp(o), ulp(got)) + 2^-22 (n S + (hd + 16) A (S + |o|)); the worst
+   |got - o| / bound is printed for the kernel, the twin and SDPA (SDPA for
+   information only).  Then P's bf16 terms at the ``lm_logits`` shape and
+   at the 16-token serve prompt: the twin with P in one bf16 term and the
+   kernel built with one term must fail the bound at ``lm_logits``, the
+   shipped kernel must hold it, and each build is reported with its time.
 4. int_gemm path: ``PhotonicEngine.int_gemm`` (the integer entry point,
    kernel ``photonic_gemm``) at the six sites, launch counts reset before.
 5. serve: qwen2-0.5b at full width (24 layers, bf16, seeded random weights
@@ -282,7 +293,7 @@ def sass_counts(path) -> dict:
     cuobjdump = shutil.which("cuobjdump") or str(Path(_nvcc()).parent / "cuobjdump")
     sass = subprocess.run([cuobjdump, "-sass", str(path)], check=True, capture_output=True, text=True,
                           timeout=120).stdout
-    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA", "LDGSTS", "UTMALDG")}
+    return {op: len(re.findall(rf"\b{op}\b", sass)) for op in ("HMMA", "IMMA", "HGMMA", "LDGSTS", "UTMALDG")}
 
 
 def dpu_for(org: str):
@@ -466,16 +477,12 @@ def build_kernels(libs) -> None:
     log(f"  all {len(libs)} kernel sources built in {time.perf_counter() - t0:.2f} s")
 
 
-def bf16_ulp(torch, x):
-    """One bf16 ulp at each element of ``x`` (f32): 2^(floor(log2|x|) - 7),
-    and the smallest normal's ulp at zero."""
-    _, e = torch.frexp(x.abs().clamp(min=2.0**-126))
-    return torch.ldexp(torch.ones_like(x), (e - 8).to(torch.int32))
-
-
 def flash_case(torch, F, case, gen, rows_out, card):
-    """One flash-attention kernel-vs-twin case at the block sizes
-    ``ops.flash_attention`` picks; appends a result dict to ``rows_out``."""
+    """One flash-attention case at the block sizes ``ops.flash_attention``
+    picks: f32 against the twin, bf16 against the f64 bound; appends a
+    result dict to ``rows_out``."""
+    from repro_torch.kernels.flash_attention.ref import gate_ratio, oracle_and_bound
+
     label, b, tq, tk, h, kvh, hd, causal, q_offset, kv_valid, dt = case
     dtype = torch.bfloat16 if dt == "bf16" else torch.float32
     dev = torch.device("cuda")
@@ -484,27 +491,42 @@ def flash_case(torch, F, case, gen, rows_out, card):
     valid = tk if kv_valid is None else min(kv_valid, tk)
     args = dict(scale=hd**-0.5, causal=causal, q_offset=q_offset, kv_valid=valid, n_rep=h // kvh,
                 bq=min(128, -(-tq // 8) * 8), bk=min(128, -(-tk // 8) * 8))
+    # SDPA's mask: plain causal where it can say so, else explicit (True = the key takes part).
+    qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+    plain_causal = causal and q_offset == 0 and tq == tk and valid == tk
+    mask = None
+    if not plain_causal:
+        kv_pos = torch.arange(tk, device=dev)
+        mask = (kv_pos < valid)[None, :].expand(tq, tk)
+        if causal:
+            mask = mask & (kv_pos[None, :] <= (q_offset + torch.arange(tq, device=dev))[:, None])
+    sdpa = torch.nn.functional.scaled_dot_product_attention
+
+    def run_sdpa():
+        return sdpa(qt, kt, vt, attn_mask=mask, is_causal=plain_causal, enable_gqa=True)
+
     n0 = F.LAUNCHES["flash_attention"]
     y_k = F.flash_attention_fwd(q, k, v, **args)
     y_t = F.flash_attention_fwd_twin(q, k, v, **args)
     torch.cuda.synchronize()
-    yk, yt = y_k.to(torch.float32), y_t.to(torch.float32)
-    diff = (yk - yt).abs()
-    err = float(diff.max())
-    finite = bool(torch.isfinite(yk).all())
+    err = float((y_k.to(torch.float32) - y_t.to(torch.float32)).abs().max())
+    finite = bool(torch.isfinite(y_k.to(torch.float32)).all())
+    ratios = {}
     if dt == "f32":
-        ok, tol = finite and err <= 2e-5, "f32: max abs err <= 2e-5"
-    else:  # both round an f32 result to bf16; a last-ulp flip is the most a sum order can do
-        ulp = torch.maximum(bf16_ulp(torch, yt), bf16_ulp(torch, yk))
-        ok, tol = finite and bool((diff <= ulp).all()), "bf16: within one bf16 ulp"
+        ok, tol = finite and err <= 2e-5, "f32: max abs err to the twin <= 2e-5"
+    else:
+        o, bound = oracle_and_bound(q, k, v, scale=args["scale"], causal=causal, q_offset=q_offset,
+                                    kv_valid=valid, bk=args["bk"])
+        for name, y in (("kernel", y_k), ("twin", y_t), ("sdpa", run_sdpa().transpose(1, 2))):
+            r = gate_ratio(y, o, bound)
+            ratios[name] = (float(r.max()), int((r > 1).sum()))
+        del o, bound
+        ok = finite and ratios["kernel"][1] == 0
+        tol = "bf16: within the f64 bound (worst |got - o| / bound <= 1)"
     k_ms = graph_ms(lambda: F.flash_attention_fwd(q, k, v, **args))
     launched = F.LAUNCHES["flash_attention"] - n0
     t_ms = eager_ms(lambda: F.flash_attention_fwd_twin(q, k, v, **args))
-    lib_ms = None
-    if causal and q_offset == 0 and tq == tk:
-        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        sdpa = torch.nn.functional.scaled_dot_product_attention
-        lib_ms = graph_ms(lambda: sdpa(qt, kt, vt, is_causal=True, enable_gqa=True))
+    lib_ms = graph_ms(run_sdpa)
     # Live score entries per (b, h): keys below kv_valid and, when causal,
     # at or before the row's position.
     rows = torch.arange(tq, dtype=torch.int64)
@@ -519,14 +541,84 @@ def flash_case(torch, F, case, gen, rows_out, card):
     rows_out.append(dict(
         case=label, B=b, Tq=tq, Tk=tk, H=h, KV=kvh, hd=hd, causal=causal, q_offset=q_offset,
         kv_valid=valid, dtype=dt, bq=args["bq"], bk=args["bk"], ms=k_ms, plain_ms=t_ms,
-        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, tolerance=tol, ok=ok,
-        launches=launched,
+        library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, max_abs_err=err, bound_ratio=ratios,
+        tolerance=tol, ok=ok, launches=launched,
     ))
+    gate = " ".join(f"{n} {r[0]:.3f} ({r[1]} over)" for n, r in ratios.items())
     log(f"  {label:12s} B={b} Tq={tq:4d} Tk={tk:4d} H={h} KV={kvh} hd={hd} causal={int(causal)} "
         f"q_offset={q_offset} kv_valid={valid} {dt}: kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
-        f"sdpa {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms ({b_by}), "
-        f"{launched} launches, max_abs_err {err:.3g} [{tol}] -> {'ok' if ok else 'MISMATCH'} [{card}]")
+        f"sdpa {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), {launched} launches, max |kernel - twin| "
+        f"{err:.3g}{'; |got - o| / bound: ' + gate if gate else ''} [{tol}] -> {'ok' if ok else 'MISMATCH'} [{card}]")
     return ok
+
+
+def p_term_libraries():
+    """The flash source rebuilt with P in each other count of bf16 terms
+    (``kPTerms``) from one to three, as ``{terms: CudaLibrary}``, and the
+    shipped count."""
+    import re
+
+    from repro_torch.kernels._build import CudaLibrary, build_dir
+    from repro_torch.kernels.flash_attention import kernel as F
+
+    src = (ROOT / FLASH_SRC).read_text()
+    found = re.search(r"constexpr int kPTerms = (\d);", src)
+    if found is None:
+        raise RuntimeError(f"{FLASH_SRC} has no 'constexpr int kPTerms = <n>;'")
+    shipped = int(found.group(1))
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    libs = {}
+    for n in {1, 2, 3} - {shipped}:
+        path = out / f"flash_attention_p{n}.cu"
+        path.write_text(src.replace(found.group(0), f"constexpr int kPTerms = {n};"))
+        libs[n] = CudaLibrary(path, F._bind)
+    return libs, shipped
+
+
+def p_terms_phase(torch, F, variants, shipped, gen, card):
+    """The bound against the bf16 terms of P, at the ``lm_logits`` shape
+    and at the 16-token serve prompt (rows with 1..16 live keys): the twin
+    with P rounded to one term, and the kernel built with 1, 2 and 3 terms
+    (``shipped`` of them in the shipped source).  Gate, at ``lm_logits``:
+    both one-term versions fail the bound and the shipped kernel holds it.
+    Returns (ok, rows)."""
+    from repro_torch.kernels.flash_attention.ref import gate_ratio, oracle_and_bound
+
+    ok, out = True, []
+    libs = {**variants, shipped: F.LIBRARY}
+    for label, b, t in (("lm_logits", 2, 1000), ("serve prompt", 4, 16)):
+        h, kvh, hd = 14, 2, 64
+        q, k, v = (torch.randn(shape, generator=gen, device="cuda").to(torch.bfloat16)
+                   for shape in ((b, t, h, hd), (b, t, kvh, hd), (b, t, kvh, hd)))
+        args = dict(scale=hd**-0.5, causal=True, q_offset=0, kv_valid=t, n_rep=h // kvh,
+                    bq=min(128, -(-t // 8) * 8), bk=min(128, -(-t // 8) * 8))
+        o, bound = oracle_and_bound(q, k, v, scale=args["scale"], causal=True, q_offset=0, kv_valid=t,
+                                    bk=args["bk"])
+
+        def worst(y):
+            r = gate_ratio(y, o, bound)
+            return float(r.max()), int((r > 1).sum())
+
+        row = {"case": label, "twin, 1 term": worst(F.flash_attention_fwd_twin(q, k, v, **args, round_p=True))}
+        for n in sorted(libs):
+            F.LIBRARY = libs[n]
+            try:
+                y = F.flash_attention_fwd(q, k, v, **args)
+                row[f"kernel, {n} terms"] = worst(y) + (graph_ms(lambda: F.flash_attention_fwd(q, k, v, **args)),)
+            finally:
+                F.LIBRARY = libs[shipped]
+        good = True
+        if label == "lm_logits":
+            good = (row["twin, 1 term"][1] > 0 and row["kernel, 1 terms"][1] > 0
+                    and row[f"kernel, {shipped} terms"][1] == 0)
+        ok &= good
+        out.append(row)
+        log(f"  P terms, {label} (B={b} T={t}): worst |got - o| / bound (elements over, ms): "
+            + "; ".join(f"{k_} {v_[0]:.3f} ({v_[1]}" + (f", {v_[2]:.4f} ms)" if len(v_) > 2 else ")")
+                        for k_, v_ in row.items() if k_ != "case")
+            + f" -> {'ok' if good else 'MISMATCH'} [{card}]")
+    return ok, out
 
 
 def profiled(torch, fn, label):
@@ -800,7 +892,8 @@ def main() -> int:
         log(f"  card: {card}")
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
-        build_kernels([K.LIBRARY, F.LIBRARY])
+        variants, shipped_terms = p_term_libraries()
+        build_kernels([K.LIBRARY, F.LIBRARY, *variants.values()])
         from repro_torch.kernels._build import NVCC_FLAGS
 
         DRAW["instructions"] = draw_instructions(NVCC_FLAGS)
@@ -846,6 +939,8 @@ def main() -> int:
     with Phase("flash kernels"):
         for case in FLASH_CASES:
             all_ok &= flash_case(torch, F, case, gen, flash_rows, card)
+        p_ok, p_rows = p_terms_phase(torch, F, variants, shipped_terms, gen, card)
+        all_ok &= p_ok
     if not all_ok:
         log("kernel phase: MISMATCH")
         return 1
@@ -962,6 +1057,7 @@ def main() -> int:
         name="flash_attention", route="cuda", source=FLASH_SRC,
         replaces="src/repro/kernels/flash_attention/kernel.py:91",
         launches=oneshot["flash_launches"], max_abs_err=fl["max_abs_err"],
+        bound_ratio=fl["bound_ratio"]["kernel"][0],
         ms=fl["ms"], plain_ms=fl["plain_ms"], bound_ms=fl["bound_ms"], bound_by=fl["bound_by"],
         library_ms=fl["library_ms"],
         case="B=2, T=1000, 14 heads / 2 KV heads, hd=64, causal, bf16 (the lm_logits shape); "
@@ -970,7 +1066,7 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
-        {"card": card, "kernel_rows": rows, "flash_rows": flash_rows,
+        {"card": card, "kernel_rows": rows, "flash_rows": flash_rows, "p_term_rows": p_rows,
          "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
          "serve": {k: v[2] for k, v in results.items()}}, indent=1))

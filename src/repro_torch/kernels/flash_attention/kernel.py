@@ -3,7 +3,9 @@
 Port of the reference's Pallas TPU kernel
 ``repro.kernels.flash_attention.kernel:flash_attention_pallas``; the CUDA
 source is ``csrc/flash_attention.cu``, whose note says what it computes,
-what bounds it on the card and how it is laid out.
+what bounds it on the card and how it is laid out: bf16 on the tensor
+cores, held to the f64 bound of ``ref.oracle_and_bound``; f32 on CUDA
+cores, held to the twin.
 
 * :func:`flash_attention_fwd` is the wrapper.  It takes ``q`` as ``(B, Tq,
   H, hd)`` and ``k``, ``v`` as ``(B, Tk, KV, hd)``, the reference's public
@@ -62,10 +64,13 @@ def flash_attention_fwd_twin(
     n_rep: int,
     bq: int,
     bk: int,
+    round_p: bool = False,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention_fwd`; ``(B, Tq, H,
     hd)`` in ``q.dtype``.  Reference:
-    ``repro.kernels.flash_attention.kernel:_kernel`` over its grid."""
+    ``repro.kernels.flash_attention.kernel:_kernel`` over its grid.
+    ``round_p`` rounds P to one bf16 term before P.V: the negative control
+    of the bf16 gate (``ref.oracle_and_bound``), not a served path."""
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     _check_args(h, kvh, n_rep, bq, bk)
@@ -94,7 +99,8 @@ def flash_attention_fwd_twin(
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l_sum = l_sum * corr + p.sum(dim=-1)
-        acc = acc * corr[..., None] + torch.matmul(p, vf[:, :, sl])
+        pv = p.to(torch.bfloat16).to(f32) if round_p else p
+        acc = acc * corr[..., None] + torch.matmul(pv, vf[:, :, sl])
         m = m_new
     out = (acc / torch.clamp(l_sum, min=1e-30)[..., None]).to(q.dtype)
     return out[:, :, :tq].transpose(1, 2)
@@ -145,7 +151,10 @@ def flash_attention_fwd(
     ``repro.kernels.flash_attention.kernel:flash_attention_pallas`` (which
     takes the padded ``(B, H, T, hd)`` layout; here the kernel masks the
     ragged edge).  ``bq`` is the logical query block: rows do not interact,
-    so the kernel's CTA covers its own 32-row tiles."""
+    so the kernels' CTAs cover their own row tiles (32 query rows of one
+    head in f32; 64 rows of one KV head's packed query heads in bf16).
+    The bf16 kernel reads k and v by TMA, so their views must be 16-byte
+    aligned with 16-byte strides (the C entry point's code -7 otherwise)."""
     args = dict(scale=scale, causal=causal, q_offset=q_offset, kv_valid=kv_valid,
                 n_rep=n_rep, bq=bq, bk=bk)
     if q.device.type == "cpu":
