@@ -22,8 +22,12 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
    sites) under the ideal, SMWA and ASMW channels, at the ``lm_logits``
    shape (R = 2000; the six sites under the ideal channel and ``attn.wq``
-   under SMWA, whose twin is timed once), plus f32-prologue cases with
-   bias and gelu/silu.  The kernel is called as the engine calls it, with
+   under SMWA, whose twin is timed once), at the training shape (R = 4096
+   = 4 x 1024 tokens; the six sites under the ideal channel and ``attn.wq``
+   under SMWA, twins timed once; the row also times the engine's whole
+   forward of the site, ``matmul_float`` on bf16 operands, which quantizes
+   and pads the float weight per call as a training step does), plus
+   f32-prologue cases with bias and gelu/silu.  The kernel is called as the engine calls it, with
    the live row count (``rows=R``): it computes and writes only those rows,
    so the comparison with the twin covers the live rows.  Per case: median
    kernel time (CUDA graph of 10 launches, CUDA events), twin time,
@@ -80,6 +84,24 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    prefills (0 when chunked), fused launches 6 x 24 x forwards on the
    kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
    step, prefill seconds and tokens/s.
+7. train: qwen2-0.5b at full width (24 layers, bf16, ``remat`` "full",
+   weights from ``init_params`` seed 0) trains 3 steps of 4 x 1024
+   synthetic tokens (``DataConfig(vocab_size=151936, seq_len=1024,
+   global_batch=4, seed=0)``, ``AdamWConfig(lr=3e-4, warmup_steps=1,
+   total_steps=3)``) with ``torch.use_deterministic_algorithms(True)``
+   (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts), in four modes:
+   (a) ideal channel, kernel backend, through ``runtime.train_loop.train``
+   into a temporary checkpoint directory (the end-of-run checkpoint is
+   timed, its size printed, and the directory removed): fused launches
+   6 x 24 x 2 = 288 per step (forward and the recompute), flash 0; (b) the
+   same on the ``exact`` backend: losses and final parameters bitwise equal
+   to (a)'s; (c) SMWA analog, ``noise_seed=0``: losses and grad norms
+   finite, the gap to (a) printed; (d) (a) with ``remat=False``: step-1
+   loss bitwise equal to (a)'s, 144 launches per step.  (b)-(d) call
+   ``build_train_step`` on the same batches.  Per mode: seconds per step
+   (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``;
+   for (a) also one more step under the torch profiler (device busy share,
+   top kernels and host ops).
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -90,9 +112,12 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import os
+import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -110,6 +135,8 @@ SITES = [  # (site, K, C, bias) — one decoder layer of qwen2-0.5b
     ("ffn.wi", 896, 9728, False),
     ("ffn.wo", 4864, 896, False),
 ]
+TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
+TRAIN_STEPS = 3
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 # Attention's least time counts its 4 * hd flops per live score entry at
@@ -129,6 +156,12 @@ FLASH_CASES = [
     ("hd128", 2, 1024, 1024, 12, 2, 128, True, 0, None, "bf16"),
     ("f32", 2, 1000, 1000, 14, 2, 64, True, 0, None, "f32"),
 ]
+
+
+def layer_sum(rs, key):
+    """The sum of ``key`` over case rows, or None where a row has none."""
+    vals = [x[key] for x in rs]
+    return None if any(v is None for v in vals) else sum(vals)
 
 
 def log(msg: str) -> None:
@@ -456,6 +489,22 @@ def int_case(torch, K, dpu, r, k, c, gen):
         f"{k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm {lib_ms} ms, bound {bm:.5f} ms ({bb}), "
         f"{launched} launches, max_abs_err {err} -> {'ok' if ok else 'MISMATCH'}")
     return ok, err, k_ms, t_ms, lib_ms, b
+
+
+def engine_forward_ms(torch, dpu, r, k, c, with_bias, site, gen) -> float:
+    """Host-timed median of the engine's whole forward of one routed GEMM
+    on float weights, as a training step runs it: ``matmul_float`` on bf16
+    ``(r, k)`` activations and a bf16 ``(k, c)`` weight, which quantizes the
+    activations and the weight, pads the weight to the kernel's tiles,
+    launches the fused kernel and casts back."""
+    from repro_torch.photonic.engine import PhotonicEngine
+
+    eng = PhotonicEngine(dpu=dpu, backend="kernel")
+    x = torch.randn((r, k), generator=gen, device="cuda").to(torch.bfloat16)
+    w = (torch.randn((k, c), generator=gen, device="cuda") * k**-0.5).to(torch.bfloat16)
+    b = torch.randn((c,), generator=gen, device="cuda").to(torch.bfloat16) if with_bias else None
+    with torch.no_grad():
+        return eager_ms(lambda: eng.matmul_float(x, w, site=site, fold=0, bias=b))
 
 
 def build_kernels(libs) -> None:
@@ -870,12 +919,154 @@ def oneshot_phase(torch, arch, params, ideal, prompts, card):
     return res
 
 
+def _fingerprint(tree) -> str:
+    """A sha256 of every leaf's bytes in the tree's walk order."""
+    import hashlib
+
+    import torch
+
+    from repro_torch._tree import tree_leaves
+
+    h = hashlib.sha256()
+    for t in tree_leaves(tree):
+        h.update(t.detach().contiguous().view(torch.uint8).reshape(-1).cpu().numpy().tobytes())
+    return h.hexdigest()[:16]
+
+
+def train_phase(torch, arch, ideal, smwa, card):
+    """Full-width training in four modes (module docstring, phase 7).
+    Returns (ok, result dict, fused launches of the main-path run (a))."""
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, build_train_step, train
+
+    n_layers = arch.config.num_layers
+    data = DataConfig(vocab_size=arch.config.vocab_size, seq_len=1024, global_batch=4, seed=0)
+    tokens = data.global_batch * data.seq_len
+    opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+    stream = SyntheticTokens(data)
+    ok, res = True, {}
+
+    def rates(label, secs, launches, extra=""):
+        per = statistics.median(secs[1:])
+        peak = torch.cuda.max_memory_allocated()
+        res[label].update(s_per_step=per, tokens_per_s=tokens / per, max_memory_allocated=peak,
+                          step_seconds=secs, launches=launches)
+        log(f"  train {label}: {per:.4f} s/step (median of steps 2-{TRAIN_STEPS}; all {[round(x, 4) for x in secs]}), "
+            f"{tokens / per:.1f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB, fused launches "
+            f"{launches['photonic_gemm_fused']} ({launches['photonic_gemm_fused'] / len(secs):.0f}/step), "
+            f"flash {launches['flash_attention']}{extra} [{card}]")
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        F.reset_launches()
+
+    def steps(cfg):
+        """(params, losses, grad norms, seconds, launches): TRAIN_STEPS steps
+        of build_train_step from init_params(seed 0); counts reset first."""
+        params = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
+        state = adamw.init(params)
+        step = build_train_step(lambda p, b: arch.loss(p, b, cfg), opt)
+        reset()
+        losses, norms, secs = [], [], []
+        for i in range(TRAIN_STEPS):
+            t0 = time.time()
+            params, state, m = step(params, state, make_global_batch(stream, i, "cuda"))
+            losses.append(float(m["loss"]))
+            secs.append(time.time() - t0)
+            norms.append(float(m["grad_norm"]))
+        torch.cuda.synchronize()
+        return params, losses, norms, secs, dict(K.LAUNCHES, **F.LAUNCHES)
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        # (a) the entry point: train() into a temporary checkpoint directory.
+        cfg_a = dataclasses.replace(arch.config, photonic=ideal, photonic_backend="kernel")
+        ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+        try:
+            reset()
+            t0 = time.perf_counter()
+            out = train(arch=arch, model_cfg=cfg_a, data_cfg=data,
+                        train_cfg=TrainConfig(steps=TRAIN_STEPS, ckpt_every=1000, ckpt_dir=ckpt_dir, log_every=1),
+                        opt_cfg=opt, log=lambda m: log(f"    {m}"), device="cuda")
+            wall = time.perf_counter() - t0
+            main_launches = dict(K.LAUNCHES, **F.LAUNCHES)
+            step_dir = Path(ckpt_dir) / f"step_{TRAIN_STEPS:08d}"
+            saved = ckpt.latest_step(ckpt_dir) == TRAIN_STEPS
+            size = sum(f.stat().st_size for f in step_dir.iterdir()) if saved else 0
+        finally:
+            shutil.rmtree(ckpt_dir, ignore_errors=True)
+        res["a"] = dict(losses=out["losses"], wall_s=wall, checkpoint_s=out["checkpoint_seconds"],
+                        checkpoint_bytes=size)
+        rates("a", out["step_seconds"], main_launches)
+        log(f"  train a: train() wall {wall:.3f} s; end-of-run checkpoint (step {TRAIN_STEPS}, "
+            f"{size / 1e9:.3f} GB) saved: {saved}, loop blocked on it {out['checkpoint_seconds']:.3f} s [{card}]")
+        good = (saved and all(np.isfinite(out["losses"]))
+                and main_launches["photonic_gemm_fused"] == 6 * n_layers * 2 * TRAIN_STEPS
+                and main_launches["photonic_gemm"] == 0 and main_launches["flash_attention"] == 0)
+        log(f"  train a: losses {out['losses']}, fused launches {main_launches['photonic_gemm_fused']} == "
+            f"{6 * n_layers * 2 * TRAIN_STEPS}, flash 0, checkpoint saved: {good}")
+        ok &= good
+        params_a, fp_a = out["params"], _fingerprint(out["params"])
+        # One more step of (a) under the profiler (not part of the gates above).
+        step = build_train_step(lambda p, b: arch.loss(p, b, cfg_a), opt)
+        batch = make_global_batch(stream, TRAIN_STEPS, "cuda")
+        K.reset_launches()
+        res["a"]["profile"] = profiled(torch, lambda: step(params_a, out["opt_state"], batch), "train_a")
+        log(f"  train a: profiled step fused launches {K.LAUNCHES['photonic_gemm_fused']}")
+        del out, step, batch
+
+        # (b) exact backend, (c) SMWA analog, (d) no remat: build_train_step on the same batches.
+        for label, cfg in (
+            ("b", dataclasses.replace(cfg_a, photonic_backend="exact")),
+            ("c", dataclasses.replace(cfg_a, photonic=smwa)),
+            ("d", dataclasses.replace(cfg_a, remat=False)),
+        ):
+            params, losses, norms, secs, launches = steps(cfg)
+            res[label] = dict(losses=losses, grad_norms=norms)
+            gap = [abs(a - b) for a, b in zip(losses, res["a"]["losses"])]
+            rates(label, secs, launches, f"; losses {losses}, grad norms {norms}, |loss - loss_a| {gap}")
+            if label == "b":
+                same = losses == res["a"]["losses"]
+                fp = _fingerprint(params)
+                good = same and fp == fp_a and launches["photonic_gemm_fused"] == 0
+                log(f"  train b: losses bitwise equal to (a)'s: {same}; final params sha256 {fp} vs (a) "
+                    f"{fp_a}: {good}")
+            elif label == "c":
+                good = (all(np.isfinite(losses)) and all(np.isfinite(norms))
+                        and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * TRAIN_STEPS)
+                log(f"  train c: losses and grad norms finite, {launches['photonic_gemm_fused']} fused "
+                    f"launches: {good}")
+            else:
+                good = (losses[0] == res["a"]["losses"][0]
+                        and launches["photonic_gemm_fused"] == 6 * n_layers * TRAIN_STEPS)
+                log(f"  train d: step-1 loss bitwise equal to (a)'s, {launches['photonic_gemm_fused']} == "
+                    f"{6 * n_layers * TRAIN_STEPS} fused launches: {good}")
+            ok &= good
+            del params
+        del params_a
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+    return ok, res, main_launches
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
+    # cuBLAS reproducibility for the train phase's deterministic mode: set
+    # before the first cuBLAS handle exists.
+    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
     sys.path.insert(0, str(ROOT / "src"))
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
@@ -917,6 +1108,14 @@ def main() -> int:
         for site, k, c, b in SITES:
             all_ok &= kernel_case(torch, K, chans["ideal"], 2000, k, c, b, False, None, gen, rows)
         all_ok &= kernel_case(torch, K, chans["SMWA"], 2000, *SITES[0][1:], False, None, gen, rows)
+        # The training shape: B=4 x T=1024 rows; the engine's forward of the
+        # site also quantizes and pads the float weight, as every step does.
+        for name, sites in (("ideal", SITES), ("SMWA", SITES[:1])):
+            for site, k, c, b in sites:
+                all_ok &= kernel_case(torch, K, chans[name], TRAIN_ROWS, k, c, b, False, None, gen, rows)
+                rows[-1]["engine_ms"] = engine_forward_ms(torch, chans[name], TRAIN_ROWS, k, c, b, site, gen)
+                log(f"    engine matmul_float {site} (bf16 x and w, weight quantized per call): "
+                    f"{rows[-1]['engine_ms']:.4f} ms host-timed [{card}]")
         # f32 prologue with bias + gelu / silu, and without the tail
         for name in ("ideal", "SMWA"):
             for act, b in ((None, False), ("gelu", True), ("silu", True)):
@@ -928,13 +1127,17 @@ def main() -> int:
                 all_ok &= res[0]
                 int_rows.append((name, k, c) + res)
         for name in chans:
-            for r in (4, 64, 2000):
+            for r in (4, 64, 2000, TRAIN_ROWS):
                 layer = [x for x in rows if x["channel"] == name and x["R_live"] == r and x["x"] == "int8"]
                 if len(layer) != len(SITES):
                     continue
                 bm, bb = bound_of([x["parts"] for x in layer])
+                lib = layer_sum(layer, "library_ms")
                 log(f"  layer sum {name} R={r}: kernel {sum(x['ms'] for x in layer):.4f} ms, "
-                    f"twin {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}) [{card}]")
+                    f"twin {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}), _int_mm "
+                    f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
+                    + (f", engine forward {layer_sum(layer, 'engine_ms'):.4f} ms" if "engine_ms" in layer[0] else "")
+                    + f" [{card}]")
     flash_rows = []
     with Phase("flash kernels"):
         for case in FLASH_CASES:
@@ -1015,6 +1218,12 @@ def main() -> int:
     with Phase("oneshot serve"):
         oneshot = oneshot_phase(torch, arch, params, ideal, prompts, card)
         all_ok &= oneshot["ok"]
+    del params
+    torch.cuda.empty_cache()
+
+    with Phase("train"):
+        train_ok, train_res, train_launches = train_phase(torch, arch, ideal, smwa, card)
+        all_ok &= train_ok
 
     if not all_ok:
         log("chip_smoke: FAILED")
@@ -1023,10 +1232,6 @@ def main() -> int:
     # The kernels line: each kernel's numbers summed over one decoder
     # layer's six GEMMs at R=64 under the ideal channel (where _int_mm is a
     # like-for-like yardstick); launches from the serve / int_gemm paths.
-    def layer_sum(rs, key):
-        vals = [x[key] for x in rs]
-        return None if any(v is None for v in vals) else sum(vals)
-
     fused_rows = [x for x in rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["x"] == "int8"]
     int_ideal = [x for x in int_rows if x[0] == "ideal"]
     fused_bound = bound_of([x["parts"] for x in fused_rows])
@@ -1035,11 +1240,13 @@ def main() -> int:
         dict(
             name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
             replaces="src/repro/kernels/photonic_gemm/kernel.py:412",
-            launches=results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"],
+            launches=(results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"]
+                      + train_launches["photonic_gemm_fused"]),
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
             bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
-            library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x",
+            library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x; launches from "
+                                  "the ideal and SMWA serve runs and the train() run",
         ),
         dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,
@@ -1069,7 +1276,7 @@ def main() -> int:
         {"card": card, "kernel_rows": rows, "flash_rows": flash_rows, "p_term_rows": p_rows,
          "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
-         "serve": {k: v[2] for k, v in results.items()}}, indent=1))
+         "serve": {k: v[2] for k, v in results.items()}, "train": train_res}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

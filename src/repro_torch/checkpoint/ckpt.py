@@ -1,0 +1,124 @@
+"""Asynchronous, atomic checkpoints of a tensor tree.
+
+Port of ``repro.checkpoint.ckpt``, with its on-disk layout: one directory
+``step_%08d`` holding ``leaves.npz`` (every leaf under its ``/``-joined
+path) and ``manifest.json`` (step, keys, shapes, dtypes), written under a
+``.tmp_step_%08d`` name and published by one atomic rename, so a killed
+save never corrupts the latest complete checkpoint.  ``save`` copies the
+leaves to the host synchronously and, unless ``blocking``, writes the
+files on a thread while training goes on.  numpy has no bfloat16, so a
+bf16 leaf is stored as its raw 16-bit pattern (int16) and the manifest
+records ``bfloat16``; ``restore`` reads it back bit for bit.  Elastic
+restore onto a mesh waits for the tensor-parallel slice.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import shutil
+import threading
+from pathlib import Path
+from typing import Any, Optional
+
+import numpy as np
+import torch
+
+from repro_torch._tree import tree_items, tree_unflatten
+
+
+def _dtype_name(t: torch.Tensor) -> str:
+    return str(t.dtype).removeprefix("torch.")
+
+
+def _to_host(t: torch.Tensor) -> np.ndarray:
+    t = t.detach()
+    if t.dtype == torch.bfloat16:
+        t = t.view(torch.int16)
+    return t.cpu().numpy()
+
+
+def save(
+    ckpt_dir: str | Path,
+    step: int,
+    tree: Any,
+    *,
+    blocking: bool = True,
+) -> Optional[threading.Thread]:
+    """Write the checkpoint of ``step``.  Reference:
+    ``repro.checkpoint.ckpt:save``: the leaves go to host now; with
+    ``blocking=False`` the files are written on a daemon thread, which is
+    returned for the caller to join."""
+    ckpt_dir = Path(ckpt_dir)
+    ckpt_dir.mkdir(parents=True, exist_ok=True)
+    flat = tree_items(tree)
+    host = {k: _to_host(v) for k, v in flat.items()}
+    manifest = {
+        "step": step,
+        "keys": sorted(host),
+        "shapes": {k: list(v.shape) for k, v in flat.items()},
+        "dtypes": {k: _dtype_name(v) for k, v in flat.items()},
+    }
+
+    def _write():
+        tmp = ckpt_dir / f".tmp_step_{step:08d}"
+        final = ckpt_dir / f"step_{step:08d}"
+        if tmp.exists():
+            shutil.rmtree(tmp)
+        tmp.mkdir(parents=True)
+        np.savez(tmp / "leaves.npz", **host)
+        (tmp / "manifest.json").write_text(json.dumps(manifest))
+        if final.exists():
+            shutil.rmtree(final)
+        os.replace(tmp, final)  # atomic publish
+
+    if blocking:
+        _write()
+        return None
+    t = threading.Thread(target=_write, daemon=True)
+    t.start()
+    return t
+
+
+def _steps(ckpt_dir: Path, complete: bool):
+    if not ckpt_dir.exists():
+        return []
+    return sorted(
+        int(p.name.split("_")[1])
+        for p in ckpt_dir.iterdir()
+        if p.name.startswith("step_") and (not complete or (p / "manifest.json").exists())
+    )
+
+
+def latest_step(ckpt_dir: str | Path) -> Optional[int]:
+    """The newest complete checkpoint's step, or None.  Reference:
+    ``repro.checkpoint.ckpt:latest_step``."""
+    steps = _steps(Path(ckpt_dir), complete=True)
+    return steps[-1] if steps else None
+
+
+def restore(ckpt_dir: str | Path, step: int, target_tree: Any) -> Any:
+    """Rebuild a tree shaped like ``target_tree`` from the checkpoint of
+    ``step``, each leaf in its target's dtype and on its target's device.
+    Reference: ``repro.checkpoint.ckpt:restore`` (without ``shardings``)."""
+    d = Path(ckpt_dir) / f"step_{step:08d}"
+    manifest = json.loads((d / "manifest.json").read_text())
+    out = []
+    with np.load(d / "leaves.npz") as data:
+        for key, tgt in tree_items(target_tree).items():
+            arr = data[key]
+            if tuple(arr.shape) != tuple(tgt.shape):
+                raise ValueError(f"{key}: checkpoint shape {arr.shape}, target {tuple(tgt.shape)}")
+            t = torch.from_numpy(arr)
+            if manifest["dtypes"][key] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            out.append(t.to(device=tgt.device, dtype=tgt.dtype))
+    return tree_unflatten(target_tree, out)
+
+
+def cleanup(ckpt_dir: str | Path, keep: int = 3) -> None:
+    """Keep the newest ``keep`` checkpoints.  Reference:
+    ``repro.checkpoint.ckpt:cleanup``."""
+    ckpt_dir = Path(ckpt_dir)
+    for s in _steps(ckpt_dir, complete=False)[:-keep]:
+        shutil.rmtree(ckpt_dir / f"step_{s:08d}", ignore_errors=True)

@@ -1,8 +1,9 @@
 """Operating point and quantization of the photonic DPU, in PyTorch.
 
-Port of ``repro.core.dpu`` (the config and the quantizers; the oracle
-datapath ``dpu_int_gemm`` and the STE wrappers wait for a later slice).
-The quantizers keep the reference's reciprocal-multiply spelling exactly:
+Port of ``repro.core.dpu``: the config, the quantizers, the oracle
+datapath ``dpu_int_gemm`` and the straight-through estimator (STE) used to
+train through it (bit slicing as a separate helper waits for the slicing
+slice; the oracle's slices come from ``photonic_gemm.ref``).  The quantizers keep the reference's reciprocal-multiply spelling exactly:
 ``scale = max(amax, 1e-12) * (1/qmax)`` computed in the input dtype (each
 constant cast to that dtype first, as JAX's weak-typed scalars are), then
 true division ``x / scale``, round half-to-even, clip, cast.
@@ -17,8 +18,15 @@ import torch
 
 from repro_torch import platforms as _platforms
 from repro_torch.core import scalability
+from repro_torch.kernels.photonic_gemm.ref import photonic_gemm_ref
 from repro_torch.noise.channel import ChannelModel
+from repro_torch.noise.stages import data_tweak
 from repro_torch.orgs import OrgSpec, resolve
+
+NOT_PORTED_KEYS = (
+    "prng_key stream folding (jax.random.fold_in) is not ported; use "
+    "DPUConfig.noise_seed"
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -163,3 +171,87 @@ def quantize_symmetric(
     scale = torch.maximum(amax, _const(1e-12, amax)) * _const(1.0 / qmax, amax)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax)
     return q.to(torch.int8 if bits <= 8 else torch.int32), scale.to(torch.float32)
+
+
+# ---------------------------------------------------------------------------
+# The DPU integer GEMM and the float entry points through it
+# ---------------------------------------------------------------------------
+def dpu_int_gemm(
+    xq: torch.Tensor,  # (R, K) int8
+    wq: torch.Tensor,  # (K, C) int8
+    cfg: DPUConfig,
+    *,
+    prng_key=None,
+) -> torch.Tensor:
+    """Integer GEMM through the DPU datapath; int32 ``(R, C)``.  Reference:
+    ``repro.core.dpu:dpu_int_gemm``: exact when the channel is ideal; an
+    analog channel runs every slice-pair pass through the signal chain,
+    its noise stream ``data_tweak(noise_seed, xq, wq)`` folded per pass."""
+    if prng_key is not None:
+        raise NotImplementedError(NOT_PORTED_KEYS)
+    channel = cfg.effective_channel()
+    seed = None
+    if channel is not None and channel.analog and channel.detector_sigma_lsb > 0.0:
+        seed = data_tweak(cfg.noise_seed_value(), xq, wq)
+    return photonic_gemm_ref(
+        xq,
+        wq,
+        slice_bits=cfg.bits,
+        num_slices=cfg.num_slices,
+        n_chunk=cfg.n,
+        adc_bits=channel.adc_bits if channel is not None else cfg.adc_bits,
+        channel=channel,
+        seed=seed,
+    )
+
+
+def photonic_matmul(
+    x: torch.Tensor,  # (..., K) float
+    w: torch.Tensor,  # (K, C) float
+    cfg: DPUConfig = DPUConfig(),
+    *,
+    prng_key=None,
+    w_scale_axis: Optional[int] = 0,
+    channel: Optional[ChannelModel] = None,
+) -> torch.Tensor:
+    """Float-in / float-out GEMM through the DPU model (forward only; see
+    :func:`photonic_matmul_ste` to train through it).  ``channel``
+    overrides ``cfg.channel`` for this call.  Reference:
+    ``repro.core.dpu:photonic_matmul``."""
+    if channel is not None:
+        cfg = dataclasses.replace(cfg, channel=channel)
+    lead = x.shape[:-1]
+    xr = x.reshape(-1, x.shape[-1])
+    xq, sx = quantize_symmetric(xr, cfg.operand_bits)
+    wq, sw = quantize_symmetric(w, cfg.operand_bits, axis=w_scale_axis)
+    out = dpu_int_gemm(xq, wq, cfg, prng_key=prng_key)
+    y = out.to(torch.float32) * sx * sw
+    return y.reshape(*lead, w.shape[1]).to(x.dtype)
+
+
+class _PhotonicMatmulSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, w, cfg):
+        ctx.save_for_backward(x, w)
+        return photonic_matmul(x, w, cfg)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w = ctx.saved_tensors
+        g2 = g.reshape(-1, g.shape[-1])
+        x2 = x.reshape(-1, x.shape[-1])
+        dx = (g2 @ w.T.to(g2.dtype)).reshape(x.shape).to(x.dtype)
+        dw = (x2.T.to(g2.dtype) @ g2).to(w.dtype)
+        return dx, dw, None
+
+
+def photonic_matmul_ste(
+    x: torch.Tensor, w: torch.Tensor, cfg: DPUConfig, prng_key=None
+) -> torch.Tensor:
+    """QAT forward through the (optionally noisy) photonic datapath; the
+    backward is the straight-through dense-matmul gradient
+    ``dx = g @ w.T``, ``dw = x.T @ g`` (the noise source gets none).
+    Reference: ``repro.core.dpu:photonic_matmul_ste``."""
+    if prng_key is not None:
+        raise NotImplementedError(NOT_PORTED_KEYS)
+    return _PhotonicMatmulSTE.apply(x, w, cfg)

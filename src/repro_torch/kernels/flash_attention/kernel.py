@@ -14,6 +14,8 @@ cores, held to the twin.
   transpose the reference makes for the TPU are not copied here.  A CPU
   tensor takes the twin; a CUDA tensor launches the kernel or raises, with
   no fallback.  Each launch adds one to ``LAUNCHES["flash_attention"]``.
+  It has no backward (the reference's kernel has none either), so it
+  raises when autograd would have to differentiate it.
 * :func:`flash_attention_fwd_twin` is the plain PyTorch version: the
   reference's online softmax in f32 over the same logical ``bk`` key
   blocks, one block at a time, every ``bq`` query block at once (query
@@ -157,6 +159,11 @@ def flash_attention_fwd(
     aligned with 16-byte strides (the C entry point's code -7 otherwise)."""
     args = dict(scale=scale, causal=causal, q_offset=q_offset, kv_valid=kv_valid,
                 n_rep=n_rep, bq=bq, bk=bk)
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        raise RuntimeError(
+            "flash_attention has no backward (neither has the reference's "
+            "kernel); train with attn_impl='chunked' or run under torch.no_grad()"
+        )
     if q.device.type == "cpu":
         return flash_attention_fwd_twin(q, k, v, **args)
     if q.device.type != "cuda":

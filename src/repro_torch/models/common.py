@@ -15,6 +15,7 @@ import math
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
+import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.dpu import DPUConfig
@@ -344,3 +345,46 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Loss and rematerialization
+# ---------------------------------------------------------------------------
+def softmax_cross_entropy(
+    logits: torch.Tensor,  # (B, T, V_padded)
+    labels: torch.Tensor,  # (B, T) int
+    true_vocab: int,
+) -> torch.Tensor:
+    """Mean cross-entropy in f32, padded vocab columns masked to ``-1e30``.
+    Reference: ``repro.models.common:softmax_cross_entropy``."""
+    v = logits.shape[-1]
+    logits = logits.to(torch.float32)
+    if v > true_vocab:
+        col = torch.arange(v, device=logits.device)
+        logits = torch.where(col < true_vocab, logits, torch.full((), -1e30, device=logits.device))
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - gold)
+
+
+def apply_remat(fn, cfg: ModelConfig):
+    """``fn`` under activation checkpointing when ``cfg.remat``: policy
+    "full" saves nothing and recomputes the whole call in the backward
+    (``torch.utils.checkpoint``, non-reentrant).  Without autograd (no grad
+    mode) the call runs as it is, as ``jax.checkpoint`` outside a
+    differentiation does.  Reference: ``repro.models.common:apply_remat``.
+    The "dots" policy (save the matmul outputs) is not ported."""
+    if not cfg.remat:
+        return fn
+    if cfg.remat_policy == "dots":
+        raise NotImplementedError(
+            'remat_policy="dots" is not ported (ROADMAP.md Queue 1, "Dense '
+            'decoder"); use remat_policy="full" or remat=False'
+        )
+
+    def remat(*args):
+        if not torch.is_grad_enabled():
+            return fn(*args)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+
+    return remat

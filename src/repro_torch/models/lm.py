@@ -4,7 +4,8 @@ forward, one-shot prefill/decode over a dense cache, and the paged path.
 Port of ``repro.models.lm``'s dense family.  The reference scans a stacked
 layer tree; here ``params["layers"]`` is a per-layer list walked by a
 Python loop, and the layer index is folded into every GEMM's noise stream
-exactly as the scan counter is there.  Caches keep the reference's stacked
+exactly as the scan counter is there (so a block recomputed under
+``remat`` draws the same noise stream).  Caches keep the reference's stacked
 layout, one tensor per leaf with the layer axis first: the one-shot cache
 ``(layers, batch, max_seq, kv, hd)`` plus a batchless ``pos``, the paged
 pool ``(layers, num_blocks, block_size, kv, hd)``.  Both are updated in
@@ -101,19 +102,33 @@ def self_block(params, x: torch.Tensor, cfg: ModelConfig, positions, layer=None)
     return x, torch.zeros((), dtype=torch.float32, device=x.device)
 
 
+def _remat_body(p, idx, x, positions, cfg):
+    return self_block(p, x, cfg, positions, layer=idx)
+
+
 def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
     """Logits of every position, ``(B, T, V)``, and the MoE aux loss (0
-    here).  Reference: ``repro.models.lm:lm_logits`` (dense stack, forward
-    only)."""
+    here); differentiable, each block under :func:`~repro_torch.models.
+    common.apply_remat` as the reference's scanned body is.  Reference:
+    ``repro.models.lm:lm_logits`` (dense stack) and ``_scan_blocks``."""
     _check_dense_family(cfg)
     t = tokens.shape[1]
     x = cm.embed(params["embed"], tokens, cfg)
     positions = torch.arange(t, device=tokens.device)
     aux = torch.zeros((), dtype=torch.float32, device=tokens.device)
+    block = cm.apply_remat(_remat_body, cfg)
     for idx, p in enumerate(params["layers"]):
-        x, a = self_block(p, x, cfg, positions, layer=idx)
+        x, a = block(p, idx, x, positions, cfg)
         aux = aux + a
     return _head(params, x, cfg), aux
+
+
+def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
+    """Mean next-token cross-entropy plus ``0.01 x`` the aux loss.
+    Reference: ``repro.models.lm:lm_loss``."""
+    logits, aux = lm_logits(params, batch["tokens"], cfg)
+    ce = cm.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
+    return ce + 0.01 * aux
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Architecture registry (dense family).
 
 Port of ``repro.models.registry``: each arch exposes its config, a smoke
-config, ``param_defs(cfg)``, ``prefill(params, batch, cfg, max_seq)``,
-``decode(params, token, cache, cfg)`` and ``cache_def(cfg, batch, max_seq,
-meta, dtype)``.  Only the dense decoder family is ported; the other
-families and the training loss wait for their slices (ROADMAP.md Queue 1).
+config, ``param_defs(cfg)``, ``loss(params, batch, cfg)``,
+``prefill(params, batch, cfg, max_seq)``, ``decode(params, token, cache,
+cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  Only the dense
+decoder family is ported; the other families wait for their slices
+(ROADMAP.md Queue 1).
 """
 
 from __future__ import annotations
@@ -23,10 +24,15 @@ class Arch:
     config: ModelConfig
     smoke_config: ModelConfig
     param_defs: Callable[[ModelConfig], Any]
+    loss: Callable[..., Any]
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     cache_def: Callable[..., Any]
     notes: str = ""
+
+
+def _lm_loss(params, batch, cfg):
+    return lm.lm_loss(params, batch, cfg)
 
 
 def _lm_prefill(params, batch, cfg, max_seq):
@@ -41,7 +47,7 @@ def _lm_cache_def(cfg, batch, max_seq, meta, dtype):
     return lm.lm_cache_def(cfg, batch, max_seq, dtype)
 
 
-FAMILY_FNS = {"dense": (lm.lm_def, _lm_prefill, _lm_decode, _lm_cache_def)}
+FAMILY_FNS = {"dense": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def)}
 
 _REGISTRY: Dict[str, Arch] = {}
 
@@ -51,8 +57,8 @@ def make_arch(name: str, family: str, config: ModelConfig, smoke_config: ModelCo
     """Reference: ``repro.models.registry:make_arch``."""
     if family not in FAMILY_FNS:
         raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md Queue 1)")
-    defs, prefill, decode, cache_def = FAMILY_FNS[family]
-    arch = Arch(name, family, config, smoke_config, defs, prefill, decode, cache_def, notes)
+    defs, loss, prefill, decode, cache_def = FAMILY_FNS[family]
+    arch = Arch(name, family, config, smoke_config, defs, loss, prefill, decode, cache_def, notes)
     _REGISTRY[name] = arch
     return arch
 

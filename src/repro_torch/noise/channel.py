@@ -257,10 +257,22 @@ def analog_pass_psums(
         w_nb = stages.neighbor_sum(w_chunks, axis=1)
         cw = int_dot(xs, w_nb).permute(1, 0, 2).to(torch.float32)
         a = a + stages.f32(channel.crossweight_eps, dev) * cw
+    return apply_channel_psum(a, channel, seed, differentiable=False)
+
+
+def apply_channel_psum(
+    a: torch.Tensor,
+    channel: ChannelModel,
+    seed: stages.UInt,
+    *,
+    differentiable: bool = True,
+) -> torch.Tensor:
+    """The post-accumulation stages alone (filter -> detector noise -> ADC)
+    on a float psum array: differentiable by default (the ADC rounds
+    straight through), the int32 ADC output with ``differentiable=False``.
+    Reference: ``repro.noise.channel:apply_channel_psum``."""
     if channel.filter_alpha > 0.0:
-        a = a * stages.f32(1.0 - channel.filter_alpha, dev)
+        a = stages.filter_truncation(a, channel.filter_alpha)
     if channel.detector_sigma_lsb > 0.0:
-        z = stages.gaussian_from_counter(seed, tuple(a.shape), device=dev)
-        sigma = stages.f32(channel.detector_sigma_lsb, dev)
-        a = a + sigma * z
-    return stages.adc_quantize(a, channel.adc_bits)
+        a = stages.detector_noise(a, channel.detector_sigma_lsb, seed)
+    return stages.adc_quantize(a, channel.adc_bits, differentiable=differentiable)

@@ -146,11 +146,49 @@ def neighbor_sum(x: torch.Tensor, axis: int) -> torch.Tensor:
     return up + dn
 
 
-def adc_quantize(a: torch.Tensor, adc_bits: Optional[int]) -> torch.Tensor:
-    """ADC: round half-to-even to psum LSBs, saturate to ``adc_bits``; int32.
-    Reference: ``repro.noise.stages:adc_quantize`` (integer path)."""
-    q = torch.round(a)
+class _RoundSTE(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        return torch.round(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g
+
+
+def round_ste(x: torch.Tensor) -> torch.Tensor:
+    """``torch.round`` (half to even) with an identity (straight-through)
+    gradient.  Reference: ``repro.noise.stages:round_ste``."""
+    return _RoundSTE.apply(x)
+
+
+def adc_quantize(
+    a: torch.Tensor, adc_bits: Optional[int], *, differentiable: bool = False
+) -> torch.Tensor:
+    """ADC: round half-to-even to psum LSBs, saturate to ``adc_bits``.
+    The default is the integer datapath's int32; ``differentiable=True``
+    keeps the float dtype and rounds through :func:`round_ste` (the clip
+    keeps its usual subgradient).  Reference:
+    ``repro.noise.stages:adc_quantize``."""
+    q = round_ste(a) if differentiable else torch.round(a)
     if adc_bits is not None:
         lim = 2 ** (adc_bits - 1) - 1
         q = torch.clamp(q, -lim, lim)
-    return q.to(torch.int32)
+    return q if differentiable else q.to(torch.int32)
+
+
+def filter_truncation(a: torch.Tensor, alpha: float) -> torch.Tensor:
+    """Aggregation-filter truncation, the amplitude compression ``1 - alpha``
+    (one f32 multiply).  Reference: ``repro.noise.stages:filter_truncation``."""
+    return a * f32(1.0 - alpha, a.device)
+
+
+def detector_noise(a: torch.Tensor, sigma: float, base: UInt) -> torch.Tensor:
+    """Additive detector noise, ``sigma`` psum LSBs of the counter-based
+    normal stream ``base`` over ``a``'s row-major index.  The draw does not
+    depend on ``a``, so the gradient passes through exactly.  Reference:
+    ``repro.noise.stages:detector_noise``."""
+    if sigma <= 0.0:
+        return a
+    z = gaussian_from_counter(base, tuple(a.shape), device=a.device)
+    return a + f32(sigma, a.device) * z

@@ -13,6 +13,12 @@ counterpart of the reference's ``pallas`` backend, whose interpret mode
 plays the twin's role on CPU), ``ref`` (the untiled oracle) and ``exact``
 (the ideal integer GEMM).
 
+The float entry points train: :meth:`PhotonicEngine.matmul_float` and
+:meth:`PhotonicEngine.matmul` are ``torch.autograd.Function``s around the
+whole forward (quantization and the kernel inside), with the reference's
+straight-through backward: dense f32 products of the float operands, the
+activation's derivative taken at the dense pre-activation.
+
 Contracts carried over: with an ideal channel every backend equals
 ``exact_int_gemm`` bitwise; deterministic analog stages are bitwise across
 backends; noisy calls derive their stream from ``DPUConfig.noise_seed``
@@ -34,6 +40,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dpu import (
+    NOT_PORTED_KEYS,
     DPUConfig,
     quant_scale,
     quantize_symmetric,
@@ -58,10 +65,6 @@ BACKENDS = ("ref", "kernel", "exact")
 NOT_PORTED_SLICING = (
     "bit-sliced execution (repro.photonic.slicing, _sliced_int_gemm) is not "
     "ported yet: ROADMAP.md Queue 1, 'Engine, epilogue, packing and slicing'"
-)
-NOT_PORTED_KEYS = (
-    "prng_key stream folding (jax.random.fold_in) is not ported; use "
-    "DPUConfig.noise_seed (ROADMAP.md Queue 1, 'Training')"
 )
 
 
@@ -375,14 +378,13 @@ class PhotonicEngine:
         bias: Optional[torch.Tensor] = None,
         activation: Optional[str] = None,
     ) -> torch.Tensor:
-        """Float GEMM quantizing both operands per call (forward only; the
-        STE backward comes with the training slice).  Reference:
-        ``repro.photonic.engine:PhotonicEngine.matmul_float``."""
+        """Float GEMM quantizing both operands per call (the training
+        path; differentiable by the straight-through estimator).
+        Reference: ``repro.photonic.engine:PhotonicEngine.matmul_float``."""
         spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
         if not self.routes(site):
             return _digital_reference(x, w.to(x.dtype), bias, spec)
-        wq, sw = quantize_symmetric(w, self.dpu.operand_bits, axis=0)
-        return _stream_gemm(self, site, spec, x, wq, sw, bias, fold)
+        return _FloatMatmul.apply(self, site, spec, fold, x, w, bias)
 
     def matmul(
         self,
@@ -396,15 +398,13 @@ class PhotonicEngine:
         activation: Optional[str] = None,
     ) -> torch.Tensor:
         """Float GEMM against a prepacked weight — the weight-stationary hot
-        path.  Reference: ``repro.photonic.engine:PhotonicEngine.matmul``."""
+        path; differentiable in ``x`` and the bias (the int8 bank is frozen
+        and its scale gets a zero gradient).  Reference:
+        ``repro.photonic.engine:PhotonicEngine.matmul``."""
         spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
         if not self.routes(site):
             return _digital_reference(x, packed.dequant().to(x.dtype), bias, spec)
-        return _stream_gemm(
-            self, site, spec, x, packed.wq, packed.w_scale, bias, fold,
-            logical_kc=(packed.k, packed.c), tiling=packed.tiling,
-            w_word=packed.w_word,
-        )
+        return _PackedMatmul.apply(self, site, spec, fold, packed, x, packed.w_scale, bias)
 
 
 @functools.lru_cache(maxsize=None)
@@ -462,3 +462,73 @@ def _stream_gemm(
         epilogue=EpilogueArgs(spec, sx, w_scale, bias),
     )
     return y.reshape(*lead, cols).to(x.dtype)
+
+
+def _epilogue_bwd(spec: EpilogueSpec, g2, x2, wf, bias):
+    """Backward of the epilogue under the STE convention: straight through
+    the quantized GEMM, exact through bias and activation, the activation's
+    derivative taken at the dense f32 pre-activation ``x2 @ wf (+ bias)``.
+    Returns the gradient at the GEMM output and the bias gradient (``None``
+    without a bias).  Reference: ``repro.photonic.engine:_epilogue_bwd``."""
+    if spec.activation is not None:
+        pre = x2 @ wf
+        if bias is not None:
+            pre = pre + bias.to(torch.float32)
+        with torch.enable_grad():
+            pre = pre.detach().requires_grad_(True)
+            (g2,) = torch.autograd.grad(ACTIVATIONS[spec.activation](pre), pre, g2)
+    db = None if bias is None else g2.sum(dim=0).to(bias.dtype)
+    return g2, db
+
+
+def _ste_grads(spec, g, x, wf, bias):
+    """``(dx, g2, x2, db)`` of one straight-through backward in f32."""
+    g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    g2, db = _epilogue_bwd(spec, g2, x2, wf, bias)
+    dx = (g2 @ wf.T).reshape(x.shape).to(x.dtype)
+    return dx, g2, x2, db
+
+
+class _FloatMatmul(torch.autograd.Function):
+    """Reference: ``repro.photonic.engine:_float_matmul`` (custom VJP): the
+    weight is quantized per call inside the forward; ``dx``, ``dw`` and
+    ``db`` are f32 products cast back to the operand dtypes."""
+
+    @staticmethod
+    def forward(ctx, eng, site, spec, fold, x, w, bias):
+        ctx.spec = spec
+        ctx.save_for_backward(x, w, bias)
+        wq, sw = quantize_symmetric(w, eng.dpu.operand_bits, axis=0)
+        return _stream_gemm(eng, site, spec, x, wq, sw, bias, fold)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        wf = w.to(torch.float32)
+        dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        dw = (x2.T @ g2).to(w.dtype)
+        return None, None, None, None, dx, dw, db
+
+
+class _PackedMatmul(torch.autograd.Function):
+    """Reference: ``repro.photonic.engine:_packed_matmul`` (custom VJP):
+    ``dx`` against the dequantized bank and ``db``; the int8 bank is
+    frozen serving state and ``w_scale`` gets zeros."""
+
+    @staticmethod
+    def forward(ctx, eng, site, spec, fold, packed, x, w_scale, bias):
+        ctx.spec, ctx.packed = spec, packed
+        ctx.save_for_backward(x, w_scale, bias)
+        return _stream_gemm(
+            eng, site, spec, x, packed.wq, w_scale, bias, fold,
+            logical_kc=(packed.k, packed.c), tiling=packed.tiling, w_word=packed.w_word,
+        )
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_scale, bias = ctx.saved_tensors
+        p = ctx.packed
+        wf = p.wq[: p.k, : p.c].to(torch.float32) * w_scale.to(torch.float32)[None, :]
+        dx, _, _, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        return None, None, None, None, None, dx, torch.zeros_like(w_scale), db

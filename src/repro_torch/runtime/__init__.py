@@ -1,2 +1,2 @@
 """`repro_torch.runtime` — port of `repro.runtime`: the serving entry point
-(``serve``)."""
+(``serve``) and the single-device training loop (``train_loop``)."""

@@ -1,0 +1,241 @@
+"""Fault-tolerant single-device training loop.
+
+Port of ``repro.runtime.train_loop``:
+
+* **checkpoint/restart** — periodic (by default asynchronous) checkpoints
+  of params, optimizer state and step; a start resumes from the latest
+  complete checkpoint, and the stateless data pipeline replays the exact
+  batch sequence;
+* **preemption** — SIGTERM/SIGINT end the run after the current step with
+  a final checkpoint;
+* **straggler watchdog** — per-step wall times feed an EWMA; steps slower
+  than ``straggler_factor`` x the EWMA are logged and recorded;
+* **microbatching** — gradient accumulation over ``microbatches``
+  sequential chunks of the global batch.
+
+The step is eager PyTorch: ``loss_fn`` runs forward, ``torch.autograd``
+takes the gradient (through the photonic engine's straight-through
+functions), and ``adamw.update`` applies it.  The mesh (``mesh=``,
+``tp_axis=``) waits for the tensor-parallel slice.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import signal
+import tempfile
+import time
+from pathlib import Path
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch._tree import tree_items, tree_map, tree_unflatten
+from repro_torch.checkpoint import ckpt
+from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
+from repro_torch.models.common import engine_from_model_config, init_params
+from repro_torch.optim import adamw
+
+NOT_PORTED_MESH = (
+    "training on a mesh (mesh=, tp_axis=) is not ported yet: ROADMAP.md "
+    "Queue 1, item 8 (tensor parallel)"
+)
+
+
+@dataclasses.dataclass
+class TrainConfig:
+    """Reference: ``repro.runtime.train_loop:TrainConfig`` (same fields;
+    the default ``ckpt_dir`` lies under the temporary directory)."""
+
+    steps: int = 100
+    ckpt_every: int = 20
+    ckpt_dir: str = dataclasses.field(
+        default_factory=lambda: str(Path(tempfile.gettempdir()) / "repro_torch_ckpt")
+    )
+    log_every: int = 10
+    microbatches: int = 1
+    straggler_factor: float = 3.0
+    async_checkpoint: bool = True
+    keep_checkpoints: int = 3
+    seed: int = 0
+
+
+@dataclasses.dataclass
+class TrainState:
+    """Reference: ``repro.runtime.train_loop:TrainState``."""
+
+    params: Any
+    opt_state: adamw.OptState
+    step: int
+
+
+def _value_and_grad(loss_fn: Callable, params: Any, batch: Any):
+    """``(loss, grads)`` of ``loss_fn(params, batch)``: every float leaf
+    gets its gradient (zeros where the loss does not reach it)."""
+    flat = tree_items(params)
+    leaves = [p.detach().requires_grad_(p.is_floating_point()) for p in flat.values()]
+    loss = loss_fn(tree_unflatten(params, leaves), batch)
+    wrt = [p for p in leaves if p.requires_grad]
+    got = iter(torch.autograd.grad(loss, wrt, allow_unused=True))
+    grads = []
+    for p in leaves:
+        g = next(got) if p.requires_grad else None
+        grads.append(torch.zeros_like(p) if g is None else g)
+    return loss.detach(), tree_unflatten(params, grads)
+
+
+def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
+    """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
+    Reference: ``repro.runtime.train_loop:build_train_step``: with
+    ``microbatches > 1`` the batch splits on its leading axis, the f32
+    gradient sum is divided by the count, and the loss reported is the
+    last microbatch's (the reference's scan carry)."""
+
+    def step(params, opt_state, batch):
+        if microbatches == 1:
+            loss, grads = _value_and_grad(loss_fn, params, batch)
+        else:
+            mbs = {k: v.reshape(microbatches, -1, *v.shape[1:]) for k, v in batch.items()}
+            gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
+            for i in range(microbatches):
+                loss, g = _value_and_grad(loss_fn, params, {k: v[i] for k, v in mbs.items()})
+                gsum = tree_map(torch.add, gsum, g)
+            grads = tree_map(lambda g: g / microbatches, gsum)
+        params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return step
+
+
+class StragglerWatchdog:
+    """Reference: ``repro.runtime.train_loop:StragglerWatchdog``."""
+
+    def __init__(self, factor: float):
+        self.factor = factor
+        self.ewma: Optional[float] = None
+        self.events: list = []
+
+    def observe(self, step: int, dt: float) -> bool:
+        straggled = self.ewma is not None and dt > self.factor * self.ewma
+        if straggled:
+            self.events.append((step, dt, self.ewma))
+        # the EWMA leaves straggler samples out, so one hiccup doesn't mask the next
+        if not straggled:
+            self.ewma = dt if self.ewma is None else 0.9 * self.ewma + 0.1 * dt
+        return straggled
+
+
+def train(
+    *,
+    arch,
+    model_cfg,
+    data_cfg: DataConfig,
+    train_cfg: TrainConfig,
+    opt_cfg: Optional[adamw.AdamWConfig] = None,
+    mesh=None,
+    tp_axis: Optional[str] = None,
+    fail_at_step: Optional[int] = None,  # test hook: a simulated crash
+    log: Callable[[str], None] = print,
+    device=None,
+) -> Dict[str, Any]:
+    """Run (or resume) a training job on ``device`` (``cuda`` unless asked
+    otherwise).  Reference: ``repro.runtime.train_loop:train``.  Returns
+    the final params and optimizer state, the losses, the straggler events,
+    the final step and whether the run was preempted, as the reference
+    does, plus each step's seconds (``step_seconds``) and the seconds the
+    loop spent blocked in checkpointing (``checkpoint_seconds``)."""
+    if mesh is not None or tp_axis is not None:
+        raise NotImplementedError(NOT_PORTED_MESH)
+    dev = resolve_device(device)
+    opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=train_cfg.steps)
+    stream = SyntheticTokens(data_cfg)
+    # Build the engine up front, so a bad operating point fails here and
+    # the log shows which sites run photonically.
+    photonic_engine = engine_from_model_config(model_cfg)
+    if photonic_engine is not None:
+        log(f"[train] photonic engine: {photonic_engine.describe()}")
+
+    def loss_fn(p, b):
+        return arch.loss(p, b, model_cfg)
+
+    step_fn = build_train_step(loss_fn, opt_cfg, train_cfg.microbatches)
+
+    # ---- init or resume ----------------------------------------------------
+    start = ckpt.latest_step(train_cfg.ckpt_dir)
+    params = init_params(model_cfg, train_cfg.seed, dev, defs=arch.param_defs(model_cfg))
+    opt_state = adamw.init(params)
+    step0 = 0
+    if start is not None:
+        restored = ckpt.restore(train_cfg.ckpt_dir, start, {"params": params, "opt": opt_state})
+        params, opt_state = restored["params"], restored["opt"]
+        step0 = start
+        log(f"[train] resumed from checkpoint step {start}")
+
+    # ---- preemption handling -------------------------------------------------
+    preempted = {"flag": False}
+
+    def _handler(signum, frame):
+        preempted["flag"] = True
+
+    old_handlers = {}
+    for sig in (signal.SIGTERM, signal.SIGINT):
+        try:
+            old_handlers[sig] = signal.signal(sig, _handler)
+        except ValueError:
+            pass  # not the main thread
+
+    watchdog = StragglerWatchdog(train_cfg.straggler_factor)
+    losses, step_seconds = [], []
+    ckpt_seconds = 0.0
+    pending_save = None
+    try:
+        for step in range(step0, train_cfg.steps):
+            if fail_at_step is not None and step == fail_at_step:
+                raise RuntimeError(f"simulated node failure at step {step}")
+            t0 = time.time()
+            batch = make_global_batch(stream, step, dev)
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            loss = float(metrics["loss"])
+            dt = time.time() - t0
+            losses.append(loss)
+            step_seconds.append(dt)
+            if watchdog.observe(step, dt):
+                log(f"[train] straggler at step {step}: {dt:.3f}s (ewma {watchdog.ewma:.3f}s)")
+            if step % train_cfg.log_every == 0:
+                log(f"[train] step {step} loss {loss:.4f} ({dt:.3f}s)")
+            is_last = step == train_cfg.steps - 1
+            if (step + 1) % train_cfg.ckpt_every == 0 or is_last or preempted["flag"]:
+                t1 = time.time()
+                if pending_save is not None:
+                    pending_save.join()
+                pending_save = ckpt.save(
+                    train_cfg.ckpt_dir,
+                    step + 1,
+                    {"params": params, "opt": opt_state},
+                    blocking=not train_cfg.async_checkpoint,
+                )
+                ckpt.cleanup(train_cfg.ckpt_dir, train_cfg.keep_checkpoints)
+                ckpt_seconds += time.time() - t1
+            if preempted["flag"]:
+                log(f"[train] preempted at step {step}; checkpointed and exiting")
+                break
+    finally:
+        t1 = time.time()
+        if pending_save is not None:
+            pending_save.join()
+        ckpt_seconds += time.time() - t1
+        for sig, h in old_handlers.items():
+            signal.signal(sig, h)
+
+    return {
+        "params": params,
+        "opt_state": opt_state,
+        "losses": losses,
+        "straggler_events": watchdog.events,
+        "final_step": step0 + len(losses),
+        "preempted": preempted["flag"],
+        "step_seconds": step_seconds,
+        "checkpoint_seconds": ckpt_seconds,
+    }

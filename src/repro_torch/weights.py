@@ -3,7 +3,10 @@
 ``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
 so parity tests build parameters with the reference and hand them over as
 numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
-included) into the port's layout, where ``layers`` is a per-layer list.
+included) into the port's layout, where ``layers`` is a per-layer list, and
+:func:`train_state_from_jax` does the same for a training state (params
+plus the AdamW moments and step), so a test can continue a reference run in
+the port.
 """
 
 from __future__ import annotations
@@ -30,12 +33,34 @@ def params_from_jax(tree: Any, cfg, device=None) -> Any:
     """The reference's parameter tree (nested dicts of numpy arrays, layer
     leaves stacked on axis 0) as the port's parameters on ``device``.
     Float leaves take ``cfg.param_dtype``; integer leaves keep theirs."""
-    dev = resolve_device(device)
+    return _unstacked(tree, cfg.param_dtype, resolve_device(device))
 
+
+def train_state_from_jax(params: Any, opt_state: Any, cfg, device=None):
+    """The reference's training state (its params and ``OptState(step, mu,
+    nu)``, as numpy trees) as the port's
+    :class:`~repro_torch.runtime.train_loop.TrainState` on ``device``: the
+    params as :func:`params_from_jax` makes them, the moments f32 with the
+    same layer unstacking, the step a 0-dim int32 tensor."""
+    from repro_torch.optim.adamw import OptState
+    from repro_torch.runtime.train_loop import TrainState
+
+    dev = resolve_device(device)
+    step, mu, nu = opt_state
+    step = int(np.asarray(step))
+    opt = OptState(
+        torch.tensor(step, dtype=torch.int32, device=dev),
+        _unstacked(mu, torch.float32, dev),
+        _unstacked(nu, torch.float32, dev),
+    )
+    return TrainState(params_from_jax(params, cfg, dev), opt, step)
+
+
+def _unstacked(tree: Any, dtype, dev) -> Any:
     def conv(node):
         if isinstance(node, dict):
             return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, cfg.param_dtype, dev)
+        return _tensor(node, dtype, dev)
 
     def unstack(node, i):
         if isinstance(node, dict):

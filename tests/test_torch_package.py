@@ -138,3 +138,36 @@ def test_serving_entry_point_and_flash_surface_load_no_jax_alone():
         timeout=120, check=True,
     )
     assert "BAD []" in out.stdout, out.stdout + out.stderr
+
+
+def test_training_entry_point_loads_no_jax_alone():
+    code = (
+        "import sys\n"
+        "import repro_torch.runtime.train_loop, repro_torch.weights\n"
+        "bad = sorted(m for m in sys.modules if m in ('jax', 'repro') "
+        "or m.startswith(('jax.', 'jaxlib', 'repro.')))\n"
+        "print('BAD', bad)\n"
+    )
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run(
+        [sys.executable, "-c", code], capture_output=True, text=True, env=env,
+        timeout=120, check=True,
+    )
+    assert "BAD []" in out.stdout, out.stdout + out.stderr
+
+
+def test_training_entry_points_default_to_cuda_and_raise_without_it(tmp_path):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour; this machine has a CUDA device")
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
+    from repro_torch.models import registry
+    from repro_torch.runtime.train_loop import TrainConfig, train
+
+    arch = registry.get("qwen2-0.5b")
+    data = DataConfig(vocab_size=arch.smoke_config.vocab_size, seq_len=8, global_batch=2)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        make_global_batch(SyntheticTokens(data), 0)
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        train(arch=arch, model_cfg=arch.smoke_config, data_cfg=data,
+              train_cfg=TrainConfig(steps=1, ckpt_dir=str(tmp_path)), log=lambda m: None)
+    assert not any(tmp_path.iterdir())
