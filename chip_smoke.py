@@ -36,7 +36,19 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    the tile padding is the kernel's overhead, not work) and which of its
    terms binds, and whether the outputs agree, with the kernel launches the
    case made (its check, the graph's warm-up and capture).  Per channel and
-   row count, the sums over one decoder layer.
+   row count, the sums over one decoder layer.  Then bit-sliced GEMMs:
+   ``PhotonicEngine.int_gemm(slicing=p)`` on CUDA operands (P^2 unfused
+   ``photonic_gemm`` plane passes) at the six sites, R in {4, 64}, p = 2,
+   and ``attn.wq`` at R = 64 for p in {1, 4, 8} (p = 8 under ASMW takes the
+   kernel's split-neighbour crosstalk path), under the three channels,
+   against the same call with every pass through the twin on the card
+   (bitwise; under noise one-LSB roundings at <= 0.1% of elements per
+   pass); ideal rows also equal ``exact_int_gemm``, and under SMWA the
+   sliced ``attn.wq`` at R = 64, p = 2 must land closer to exact than the
+   unsliced GEMM.  Per row: the P^2 kernel launches alone (CUDA graph),
+   the engine's whole sliced call (CUDA graph), the twin passes,
+   ``torch._int_mm`` (ideal), and the bound (bytes, and int8 ops and
+   draws of all P^2 passes).
 3. flash kernels: the flash-attention kernel on the card (qwen2-0.5b
    heads unless noted): B=4 at the four serve prompt lengths, B=2 T=1000
    (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936, non-causal
@@ -68,6 +80,16 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    device busy share, top kernels and top host ops (full tables in
    ``chiprun_out/profile_*.txt``) and the profiler's own cost.
    The paged path runs chunked attention, so its flash count must stay 0.
+5b. sliced serve: the same server, prompts and tokens with
+   ``photonic_slicing=2`` in the ideal and SMWA modes: ``photonic_gemm``
+   launches 16 x 6 x 24 x forwards, fused launches 0; ideal tokens equal
+   the unsliced ideal tokens; SMWA logits finite.
+5c. int8 serve: the seed-0 weights converted by ``quantize_params`` to
+   ``photonic_scope="weights_int8"``, with ``kv_cache_int8`` and every
+   layer's Q/K/V fused by ``fuse_qkv_params`` after the scheduler prepacks
+   them, ideal channel: kernel tokens equal ``ref`` tokens, fused tokens
+   equal the same server's with three sites, fused launches 4 x 24 x
+   forwards with ``wqkv`` (6 x 24 x forwards without).
 6. oneshot serve: ``lm_logits`` at full width (B=2, T=1000) with
    ``attn_impl="flash"``, ``"chunked"`` and, as a witness of how far the
    model carries a rounding difference of its attention core, ``"chunked"``
@@ -84,12 +106,16 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    prefills (0 when chunked), fused launches 6 x 24 x forwards on the
    kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
    step, prefill seconds and tokens/s.
-7. train: qwen2-0.5b at full width (24 layers, bf16, ``remat`` "full",
+7. train, in a process of its own (``chip_smoke.py --phase train``, with
+   ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
+   so the serve phases run without it; its result comes back as JSON on
+   its last line, and a failing or crashing child fails the run):
+   qwen2-0.5b at full width (24 layers, bf16, ``remat`` "full",
    weights from ``init_params`` seed 0) trains 3 steps of 4 x 1024
    synthetic tokens (``DataConfig(vocab_size=151936, seq_len=1024,
    global_batch=4, seed=0)``, ``AdamWConfig(lr=3e-4, warmup_steps=1,
-   total_steps=3)``) with ``torch.use_deterministic_algorithms(True)``
-   (``CUBLAS_WORKSPACE_CONFIG`` is set before CUDA starts), in four modes:
+   total_steps=3)``) with ``torch.use_deterministic_algorithms(True)``,
+   in four modes:
    (a) ideal channel, kernel backend, through ``runtime.train_loop.train``
    into a temporary checkpoint directory (the end-of-run checkpoint is
    timed, its size printed, and the directory removed): fused launches
@@ -507,6 +533,95 @@ def engine_forward_ms(torch, dpu, r, k, c, with_bias, site, gen) -> float:
         return eager_ms(lambda: eng.matmul_float(x, w, site=site, fold=0, bias=b))
 
 
+def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card):
+    """One bit-sliced GEMM, ``PhotonicEngine.int_gemm(slicing=plane_bits)``
+    on CUDA int8 operands (the kernel backend: P^2 unfused ``photonic_gemm``
+    plane passes), against the same call with every pass through the twin
+    on the same card; ideal rows also against ``exact_int_gemm``.  Times:
+    the P^2 kernel launches alone on the plane operands the engine made
+    (CUDA graph), the engine's whole sliced call on the device (CUDA graph:
+    slicing, hashing, seeds, the passes, the shift-add), the call with twin
+    passes (host-timed), and ``torch._int_mm`` of the same GEMM for the
+    ideal channel.  Appends a result dict to ``rows_out``."""
+    import repro_torch.photonic.engine as E
+    from repro_torch.kernels.photonic_gemm.ref import exact_int_gemm
+    from repro_torch.photonic.slicing import SlicingSpec
+
+    dev = torch.device("cuda")
+    eng = E.PhotonicEngine(dpu=dpu, backend="kernel")
+    spec = SlicingSpec(plane_bits)
+    pe = E._plane_engine(eng.with_slicing(spec), spec)
+    stages, _ = E.kernel_stages(pe.dpu, r, k, c)
+    planes = spec.num_planes(dpu.operand_bits)
+    noisy = stages["noise_sigma"] > 0.0
+    ideal = dpu.effective_channel() is None
+    x = torch.randint(-127, 128, (r, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+    kw = dict(site=site, fold=0, slicing=spec)
+    kernel, calls = E.photonic_gemm, []
+
+    def record(*a, **k_):
+        calls.append((a, k_))
+        return kernel(*a, **k_)
+
+    def twin(xp, wp, seed, rows=None, **st):
+        return K.photonic_gemm_twin(xp, wp, seed, **st)
+
+    n0 = K.LAUNCHES["photonic_gemm"]
+    try:
+        E.photonic_gemm = record
+        y_k = eng.int_gemm(x, w, **kw)
+        E.photonic_gemm = twin
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        y_t = eng.int_gemm(x, w, **kw)
+        torch.cuda.synchronize()
+        t_ms = (time.perf_counter() - t0) * 1e3  # the twin passes are slow: timed once
+    finally:
+        E.photonic_gemm = kernel
+    launched = K.LAUNCHES["photonic_gemm"] - n0
+    exact = exact_int_gemm(x, w).to(torch.int64)
+    diff = (y_k.to(torch.int64) - y_t.to(torch.int64)).abs()
+    err = float(diff.max())
+    # Agreement: bitwise for deterministic channels; with detector noise a
+    # pass's psum may round one LSB apart (ulp-close draws): at most 0.1% of
+    # elements per pass, each by at most two LSBs of the top plane pass.
+    top = 2 * 2 ** (2 * plane_bits * (planes - 1))
+    if noisy:
+        ok = float((diff > 0).to(torch.float64).mean()) <= 1e-3 * planes**2 and err <= top
+        tol = f"noisy: <= {0.1 * planes**2:g}% elements off, <= 2 top-pass LSB ({top})"
+    else:
+        ok = err == 0.0
+        tol = "bitwise"
+    if ideal:
+        ok = ok and bool(torch.equal(y_k.to(torch.int64), exact))
+        tol += ", == exact_int_gemm"
+    err_sliced = float((y_k.to(torch.int64) - exact).abs().to(torch.float64).mean())
+    err_plain = float((eng.int_gemm(x, w, site=site, fold=0).to(torch.int64) - exact).abs().to(torch.float64).mean())
+    k_ms = graph_ms(lambda: [kernel(*a, **k_) for a, k_ in calls])
+    e_ms = graph_ms(lambda: eng.int_gemm(x, w, **kw))
+    lib_ms = None
+    if ideal and r > 16:
+        lib_ms = graph_ms(lambda: torch._int_mm(x, w))
+    xdots = int(stages["intermod_eps"] > 0) + int(stages["crossweight_eps"] > 0)
+    draws = r * c * -(-k // stages["n_chunk"]) * planes**2 if noisy else 0
+    parts = bound_ms(r, k, c, 1, planes**2, xdots, False, False, draws)
+    b_ms, b_by = bound_of([parts])
+    chan = "ideal" if ideal else dpu.organization
+    rows_out.append(dict(
+        site=site, R_live=r, K=k, C=c, channel=chan, plane_bits=plane_bits, passes=planes**2,
+        ms=k_ms, engine_ms=e_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+        parts=parts, draws=draws, max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
+        mean_abs_err_to_exact=err_sliced, unsliced_mean_abs_err_to_exact=err_plain,
+    ))
+    log(f"  sliced {site:7s} R={r:3d} K={k:4d} C={c:5d} {chan:5s} p={plane_bits}: {planes**2} passes, kernel "
+        f"{k_ms:.4f} ms, engine {e_ms:.4f} ms, twin passes {t_ms:.3f} ms, _int_mm "
+        f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms ({b_by}), {launched} "
+        f"launches, max_abs_err {err:.3g} [{tol}], mean |y - exact| {err_sliced:.2f} (unsliced "
+        f"{err_plain:.2f}) -> {'ok' if ok else 'MISMATCH'} [{card}]")
+    return ok
+
+
 def build_kernels(libs) -> None:
     """Build every kernel source at once (one ``nvcc`` each, started
     together) with ``-Xptxas -v``, and log each build's seconds."""
@@ -711,19 +826,26 @@ def profiled(torch, fn, label):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launch_calls=launches, cost=cost)
 
 
-def serve(torch, arch, params, dpu, backend, prompts, card, label):
-    """Serve ``prompts`` greedily through the port's Scheduler.  Once every
-    request is prefilled, two steady decode steps run apart (under the
-    profiler on the kernel backend) and are left out of the rates."""
+def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, fuse=False):
+    """Serve ``prompts`` greedily through the port's Scheduler, the model
+    config changed by ``extra`` (e.g. ``photonic_slicing``) and, with
+    ``fuse``, every layer's Q/K/V fused into one ``wqkv`` bank after the
+    scheduler prepacked them.  Once every request is prefilled, two steady
+    decode steps run apart (under the profiler on the kernel backend) and
+    are left out of the rates."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.photonic import fuse_qkv_params
     from repro_torch.serving import Request, Scheduler, ServingConfig
 
-    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend)
+    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend, **(extra or {}))
     sch = Scheduler(
         arch, cfg, params,
         ServingConfig(batch_size=4, max_seq=128, block_size=16, chunk_tokens=64, record_logits=True),
     )
+    if fuse:
+        for layer in sch.params["layers"]:
+            layer["attn"] = fuse_qkv_params(layer["attn"], sch.photonic)
     reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     K.reset_launches()
@@ -755,15 +877,16 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label):
     # Rates without the two steps set apart.
     run_s = dt - prof_wall
     decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
-    log(f"  {backend} backend, channel={sch.photonic.describe().channel}: {toks} tokens in "
+    log(f"  {label}: {sch.photonic.describe()}: {toks} tokens in "
         f"{dt:.3f} s, {toks - prof_toks} tokens in {run_s:.3f} s outside the two set-apart steps = "
         f"{(toks - prof_toks) / run_s:.2f} tok/s; prefill {st['prefill_s']:.3f} s over "
         f"{st['prefill_chunks']} chunks, decode {decode_ms:.2f} ms/step over "
         f"{st['decode_steps'] - 2} other steps; fused launches "
-        f"{launches['photonic_gemm_fused']} for {forwards} forwards [{card}]")
+        f"{launches['photonic_gemm_fused']}, unfused launches {launches['photonic_gemm']} for "
+        f"{forwards} forwards [{card}]")
     done = all(r.done and len(r.output) == 8 for r in reqs)
     st = dict(st, seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
-              decode_ms_per_step=decode_ms, profile=prof)
+              decode_ms_per_step=decode_ms, tok_per_s=(toks - prof_toks) / run_s, profile=prof)
     return reqs, launches, forwards, done, finite, st
 
 
@@ -1058,31 +1181,171 @@ def train_phase(torch, arch, ideal, smwa, card):
     return ok, res, main_launches
 
 
+def smwa_dpu():
+    """The serve and train phases' SMWA analog operating point (N = 42,
+    ``noise_seed=0``)."""
+    from repro_torch.core.dpu import DPUConfig
+    from repro_torch.noise.channel import build_channel_model
+
+    return DPUConfig(
+        organization="SMWA", bits=4, datarate_gs=5.0,
+        channel=build_channel_model("SMWA", n=42, bits=4, datarate_gs=5.0), noise_seed=0,
+    )
+
+
+def ideal_dpu():
+    from repro_torch.core.dpu import DPUConfig
+
+    return DPUConfig(organization="SMWA", bits=4, datarate_gs=5.0)
+
+
+def setup(torch) -> None:
+    """The import path and the matrix-product settings of every phase: f32
+    products in full f32 (no TF32) for the twins and the digital GEMMs;
+    both are PyTorch's defaults, stated here."""
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def train_child() -> int:
+    """``chip_smoke.py --phase train``: the train phase alone, in a process
+    whose environment sets ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's
+    reproducible workspaces, which the deterministic mode needs) before
+    CUDA starts.  The kernels were built by the parent; the last line of
+    stdout is the phase's result as JSON."""
+    import torch
+
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 2
+    if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
+        print("chip_smoke --phase train: CUBLAS_WORKSPACE_CONFIG=:4096:8 must be set", file=sys.stderr)
+        return 2
+    setup(torch)
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import registry
+
+    K.LIBRARY.load()
+    F.LIBRARY.load()
+    ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
+    print(json.dumps({"ok": ok, "train": res, "launches": launches}))
+    return 0 if ok else 1
+
+
+def run_train_child(card):
+    """The train phase in its own process (``train_child``), with
+    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only.
+    Its log lines are relayed; returns (ok, result, launches), ok false when
+    the child fails, crashes or prints no result."""
+    env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
+    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "train"], env=env,
+                          stdout=subprocess.PIPE, text=True, timeout=900)
+    lines = proc.stdout.splitlines()
+    for line in lines[:-1]:
+        log(line)
+    try:
+        child = json.loads(lines[-1]) if lines else None
+    except json.JSONDecodeError:
+        log(lines[-1])
+        child = None
+    ok = proc.returncode == 0 and child is not None and child.get("ok") is True
+    log(f"  train child process: exit code {proc.returncode}, result line {'read' if child else 'missing'}: "
+        f"{ok} [{card}]")
+    if child is None:
+        return False, {}, {}
+    return ok, child["train"], child["launches"]
+
+
+def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
+    """The paged server with ``photonic_slicing=2`` (every routed GEMM as 16
+    unfused plane passes), ideal and SMWA-analog: tokens on the ideal
+    channel equal the unsliced server's, SMWA logits finite, launches
+    16 x 6 x 24 x forwards of ``photonic_gemm`` and none of the fused
+    kernel.  Returns (ok, {label: (reqs, launches, stats)})."""
+    n_layers = arch.config.num_layers
+    ok, out = True, {}
+    for label, dpu in (("sliced_ideal", ideal_dpu()), ("sliced_smwa", smwa_dpu())):
+        reqs, launches, forwards, done, finite, st = serve(
+            torch, arch, params, dpu, "kernel", prompts, card, label, extra=dict(photonic_slicing=2))
+        expect = 16 * 6 * n_layers * forwards
+        good = (done and finite and launches["photonic_gemm"] == expect
+                and launches["photonic_gemm_fused"] == 0 and launches["flash_attention"] == 0)
+        log(f"  {label}: all done {done}, logits finite {finite}, photonic_gemm launches "
+            f"{launches['photonic_gemm']} == 16 x 6 x {n_layers} x {forwards} = {expect}, fused "
+            f"{launches['photonic_gemm_fused']} == 0: {good}")
+        ok &= good
+        out[label] = (reqs, launches, st)
+        torch.cuda.empty_cache()
+    same = all(a.output == b.output for a, b in zip(out["sliced_ideal"][0], unsliced_ideal))
+    log(f"  sliced ideal tokens == unsliced ideal tokens: {same}")
+    for a, b, c in zip(out["sliced_ideal"][0], unsliced_ideal, out["sliced_smwa"][0]):
+        log(f"    uid {a.uid}: sliced {a.output} unsliced {b.output} sliced smwa {c.output}")
+    return ok and same, out
+
+
+def int8_serve_phase(torch, arch, params, prompts, card):
+    """The int8 serving layout: the seed-0 float params converted by
+    ``quantize_params`` to ``photonic_scope="weights_int8"``, an int8 KV
+    cache, and every layer's Q/K/V fused into one ``wqkv`` bank, on the
+    paged server under the ideal channel.  Gates: kernel tokens == ``ref``
+    tokens (both fused), fused tokens == the same server's with three
+    sites, fused launches 4 x 24 x forwards with ``wqkv`` and 6 x 24 x
+    forwards without.  Returns (ok, {label: (reqs, launches, stats)})."""
+    from repro_torch.models.common import quantize_params
+
+    n_layers = arch.config.num_layers
+    extra = dict(photonic_scope="weights_int8", kv_cache_int8=True)
+    cfg_q = dataclasses.replace(arch.config, photonic=ideal_dpu(), **extra)
+    t0 = time.perf_counter()
+    params_q = quantize_params(params, arch.param_defs(cfg_q))
+    torch.cuda.synchronize()
+    log(f"  quantize_params (full width, int8 w + f32 w_scale): {time.perf_counter() - t0:.2f} s")
+    ok, out = True, {}
+    for label, backend, fuse in (("int8_fused", "kernel", True), ("int8_fused_ref", "ref", True),
+                                 ("int8_three_sites", "kernel", False)):
+        reqs, launches, forwards, done, finite, st = serve(
+            torch, arch, params_q, ideal_dpu(), backend, prompts, card, label, extra=extra, fuse=fuse)
+        per_layer = 4 if fuse else 6
+        expect = per_layer * n_layers * forwards if backend == "kernel" else 0
+        good = (done and finite and launches["photonic_gemm_fused"] == expect
+                and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
+        log(f"  {label}: all done {done}, logits finite {finite}, fused launches "
+            f"{launches['photonic_gemm_fused']} == {expect} ({per_layer} GEMMs a layer): {good}")
+        ok &= good
+        out[label] = (reqs, launches, st)
+        torch.cuda.empty_cache()
+    same_ref = all(a.output == b.output for a, b in zip(out["int8_fused"][0], out["int8_fused_ref"][0]))
+    same_fuse = all(a.output == b.output for a, b in zip(out["int8_fused"][0], out["int8_three_sites"][0]))
+    log(f"  int8 fused kernel tokens == ref tokens: {same_ref}; fused tokens == three-site tokens: {same_fuse}")
+    for a, b, c in zip(out["int8_fused"][0], out["int8_fused_ref"][0], out["int8_three_sites"][0]):
+        log(f"    uid {a.uid}: kernel {a.output} ref {b.output} three sites {c.output}")
+    del params_q
+    return ok and same_ref and same_fuse, out
+
+
 def main() -> int:
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    # cuBLAS reproducibility for the train phase's deterministic mode: set
-    # before the first cuBLAS handle exists.
-    os.environ.setdefault("CUBLAS_WORKSPACE_CONFIG", ":4096:8")
-    sys.path.insert(0, str(ROOT / "src"))
+    if sys.argv[1:] == ["--phase", "train"]:
+        return train_child()
+    setup(torch)
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.models import registry
     from repro_torch.models.common import init_params
 
-    # f32 matrix products in full f32 (no TF32) for the twins and the
-    # digital GEMMs; both are PyTorch's defaults, stated here.
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
     card = card_line()
     all_ok = True
     with Phase("device"):
         log(f"  card: {card}")
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
+        log(f"  CUBLAS_WORKSPACE_CONFIG in this process: {os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}")
         variants, shipped_terms = p_term_libraries()
         build_kernels([K.LIBRARY, F.LIBRARY, *variants.values()])
         from repro_torch.kernels._build import NVCC_FLAGS
@@ -1098,6 +1361,7 @@ def main() -> int:
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
     rows = []
+    sliced_rows = []
     with Phase("kernels"):
         chans = {name: dpu_for(name) for name in ("ideal", "SMWA", "ASMW")}
         for name, dpu in chans.items():
@@ -1138,6 +1402,29 @@ def main() -> int:
                     f"{'n/a' if lib is None else f'{lib:.4f} ms'}"
                     + (f", engine forward {layer_sum(layer, 'engine_ms'):.4f} ms" if "engine_ms" in layer[0] else "")
                     + f" [{card}]")
+        # Bit-sliced GEMMs: the six sites at 2-bit planes (the sliced serve
+        # path's shapes), and attn.wq at the other plane widths.
+        for name, dpu in chans.items():
+            for r in (4, 64):
+                for site, k, c, b in SITES:
+                    all_ok &= sliced_case(torch, K, dpu, r, k, c, 2, site, gen, sliced_rows, card)
+            for p in (1, 4, 8):
+                all_ok &= sliced_case(torch, K, dpu, 64, *SITES[0][1:3], p, SITES[0][0], gen, sliced_rows, card)
+        for name in chans:
+            for r in (4, 64):
+                layer = [x for x in sliced_rows if x["channel"] == name and x["R_live"] == r and x["plane_bits"] == 2]
+                bm, bb = bound_of([x["parts"] for x in layer])
+                lib = layer_sum(layer, "library_ms")
+                log(f"  sliced layer sum {name} R={r} p=2 (16 passes a site): kernel "
+                    f"{sum(x['ms'] for x in layer):.4f} ms, engine {sum(x['engine_ms'] for x in layer):.4f} ms, "
+                    f"twin passes {sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}), _int_mm "
+                    f"{'n/a' if lib is None else f'{lib:.4f} ms'} [{card}]")
+        wq = next(x for x in sliced_rows if x["channel"] == "SMWA" and x["R_live"] == 64
+                  and x["plane_bits"] == 2 and x["site"] == "attn.wq")
+        quieter = wq["mean_abs_err_to_exact"] < wq["unsliced_mean_abs_err_to_exact"]
+        log(f"  SMWA attn.wq R=64: mean |y - exact| sliced p=2 {wq['mean_abs_err_to_exact']:.2f} < unsliced "
+            f"{wq['unsliced_mean_abs_err_to_exact']:.2f}: {quieter}")
+        all_ok &= quieter
     flash_rows = []
     with Phase("flash kernels"):
         for case in FLASH_CASES:
@@ -1148,15 +1435,10 @@ def main() -> int:
         log("kernel phase: MISMATCH")
         return 1
     arch = registry.get("qwen2-0.5b")
-    from repro_torch.core.dpu import DPUConfig
-    from repro_torch.noise.channel import build_channel_model
     from repro_torch.photonic.engine import PhotonicEngine
     from repro_torch.photonic.packing import pack_dense
 
-    smwa = DPUConfig(
-        organization="SMWA", bits=4, datarate_gs=5.0,
-        channel=build_channel_model("SMWA", n=42, bits=4, datarate_gs=5.0), noise_seed=0,
-    )
+    smwa = smwa_dpu()
     with Phase("int_gemm path"):
         eng = PhotonicEngine(dpu=smwa, backend="kernel")
         packs = []
@@ -1170,7 +1452,7 @@ def main() -> int:
         for site, pk in packs:
             outs.append(eng.int_gemm(
                 xq if pk.k == 896 else xq2, pk.wq, site=site, fold=0,
-                logical_kc=(pk.k, pk.c), tiling=pk.tiling, w_word=pk.w_word,
+                logical_kc=(pk.k, pk.c), tiling=pk.tiling, pack=pk,
             ))
         torch.cuda.synchronize()
         int_path_launches = K.LAUNCHES["photonic_gemm"]
@@ -1181,6 +1463,7 @@ def main() -> int:
         log(f"  int_gemm over the six sites: photonic_gemm launches {int_path_launches}, "
             f"shapes ok {int_ok}")
         all_ok &= int_ok
+        del packs, outs
 
     with Phase("serve"):
         t0 = time.perf_counter()
@@ -1189,7 +1472,7 @@ def main() -> int:
         log(f"  init_params (qwen2-0.5b full width, bf16) {time.perf_counter() - t0:.2f} s")
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, arch.config.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
-        ideal = DPUConfig(organization="SMWA", bits=4, datarate_gs=5.0)
+        ideal = ideal_dpu()
         n_layers = arch.config.num_layers
         results = {}
         for label, dpu, backend in (
@@ -1215,6 +1498,14 @@ def main() -> int:
             log(f"    smwa uid {r.uid}: {r.output}")
         all_ok &= same
 
+    with Phase("sliced serve"):
+        sliced_ok, sliced = sliced_serve_phase(torch, arch, params, prompts, results["ideal"][0], card)
+        all_ok &= sliced_ok
+
+    with Phase("int8 serve"):
+        int8_ok, int8 = int8_serve_phase(torch, arch, params, prompts, card)
+        all_ok &= int8_ok
+
     with Phase("oneshot serve"):
         oneshot = oneshot_phase(torch, arch, params, ideal, prompts, card)
         all_ok &= oneshot["ok"]
@@ -1222,41 +1513,48 @@ def main() -> int:
     torch.cuda.empty_cache()
 
     with Phase("train"):
-        train_ok, train_res, train_launches = train_phase(torch, arch, ideal, smwa, card)
+        train_ok, train_res, train_launches = run_train_child(card)
         all_ok &= train_ok
 
     if not all_ok:
         log("chip_smoke: FAILED")
         return 1
 
-    # The kernels line: each kernel's numbers summed over one decoder
-    # layer's six GEMMs at R=64 under the ideal channel (where _int_mm is a
-    # like-for-like yardstick); launches from the serve / int_gemm paths.
+    # The kernels line.  photonic_gemm_fused: one decoder layer's six GEMMs
+    # at R=64 under the ideal channel (where _int_mm is a like-for-like
+    # yardstick), launches from the paged serve runs, the int8 runs and
+    # train().  photonic_gemm: the same layer bit-sliced at 2-bit planes (16
+    # unfused passes a GEMM), launches from the sliced serve runs.
     fused_rows = [x for x in rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["x"] == "int8"]
-    int_ideal = [x for x in int_rows if x[0] == "ideal"]
+    sliced_layer = [x for x in sliced_rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["plane_bits"] == 2]
     fused_bound = bound_of([x["parts"] for x in fused_rows])
-    int_bound = bound_of([x[8] for x in int_ideal])
+    sliced_bound = bound_of([x["parts"] for x in sliced_layer])
     kernels = [
         dict(
             name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
             replaces="src/repro/kernels/photonic_gemm/kernel.py:412",
             launches=(results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"]
+                      + int8["int8_fused"][1]["photonic_gemm_fused"]
+                      + int8["int8_three_sites"][1]["photonic_gemm_fused"]
                       + train_launches["photonic_gemm_fused"]),
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
             bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
             library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x; launches from "
-                                  "the ideal and SMWA serve runs and the train() run",
+                                  "the ideal and SMWA serve runs, the two int8 kernel serve runs and the "
+                                  "train() run",
         ),
         dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,
             replaces="src/repro/kernels/photonic_gemm/kernel.py:319",
-            launches=int_path_launches,
-            max_abs_err=max(x[4] for x in int_ideal),
-            ms=sum(x[5] for x in int_ideal), plain_ms=sum(x[6] for x in int_ideal),
-            bound_ms=int_bound[0], bound_by=op_or_bytes(int_bound[1]),
-            library_ms=sum(x[7] for x in int_ideal),
-            case="six qwen2-0.5b sites, R=64, ideal channel; launches from the int_gemm path",
+            launches=sliced["sliced_ideal"][1]["photonic_gemm"] + sliced["sliced_smwa"][1]["photonic_gemm"],
+            max_abs_err=max(x["max_abs_err"] for x in sliced_layer),
+            ms=layer_sum(sliced_layer, "ms"), plain_ms=layer_sum(sliced_layer, "plain_ms"),
+            bound_ms=sliced_bound[0], bound_by=op_or_bytes(sliced_bound[1]),
+            library_ms=layer_sum(sliced_layer, "library_ms"),
+            case="six qwen2-0.5b sites, R=64, ideal channel, bit-sliced at 2-bit planes (16 unfused "
+                 "passes a GEMM); library: torch._int_mm of the same int8 GEMMs; launches from the "
+                 "sliced ideal and SMWA serve runs",
         ),
     ]
     fl = next(x for x in flash_rows if x["case"] == "lm_logits")
@@ -1273,10 +1571,10 @@ def main() -> int:
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
-        {"card": card, "kernel_rows": rows, "flash_rows": flash_rows, "p_term_rows": p_rows,
-         "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
+        {"card": card, "kernel_rows": rows, "sliced_rows": sliced_rows, "flash_rows": flash_rows,
+         "p_term_rows": p_rows, "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
-         "serve": {k: v[2] for k, v in results.items()}, "train": train_res}, indent=1))
+         "serve": {k: v[2] for k, v in {**results, **sliced, **int8}.items()}, "train": train_res}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,9 +1,10 @@
 """Operating point and quantization of the photonic DPU, in PyTorch.
 
 Port of ``repro.core.dpu``: the config, the quantizers, the oracle
-datapath ``dpu_int_gemm`` and the straight-through estimator (STE) used to
-train through it (bit slicing as a separate helper waits for the slicing
-slice; the oracle's slices come from ``photonic_gemm.ref``).  The quantizers keep the reference's reciprocal-multiply spelling exactly:
+datapath ``dpu_int_gemm``, the straight-through estimator (STE) used to
+train through it, and :func:`bit_slices`, the operand planes of the
+bit-sliced execution mode.  The quantizers keep the reference's
+reciprocal-multiply spelling exactly:
 ``scale = max(amax, 1e-12) * (1/qmax)`` computed in the input dtype (each
 constant cast to that dtype first, as JAX's weak-typed scalars are), then
 true division ``x / scale``, round half-to-even, clip, cast.
@@ -171,6 +172,20 @@ def quantize_symmetric(
     scale = torch.maximum(amax, _const(1e-12, amax)) * _const(1.0 / qmax, amax)
     q = torch.clamp(torch.round(x / scale), -qmax, qmax)
     return q.to(torch.int8 if bits <= 8 else torch.int32), scale.to(torch.float32)
+
+
+def bit_slices(q: torch.Tensor, slice_bits: int, num_slices: int) -> torch.Tensor:
+    """Signed-magnitude bit-slice decomposition, stacked on a new leading
+    axis as int8: ``q == sum_s slices[s] * 2**(slice_bits * s)`` exactly,
+    ``slices[s]`` in ``[-(2^slice_bits - 1), 2^slice_bits - 1]``.
+    Reference: ``repro.core.dpu:bit_slices``."""
+    qi = q.to(torch.int32)
+    sgn = torch.sign(qi)
+    mag = torch.abs(qi)
+    mask = (1 << slice_bits) - 1
+    return torch.stack(
+        [(sgn * ((mag >> (slice_bits * s)) & mask)).to(torch.int8) for s in range(num_slices)]
+    )
 
 
 # ---------------------------------------------------------------------------

@@ -69,12 +69,15 @@
 // The ideal channel is one exact pass over the full int8 operands in
 // 64-wide K steps.  Every other channel takes the slice path: per chunk,
 // the x slices and, per weight slice, w_s and nbr(w_s) are built in shared
-// memory (slices lie in +-(2^B - 1), neighbour sums in +-2(2^B - 1), so
-// both fit int8 for B <= 6), zero-padded to the mma depth; the padding is
-// exact and supplies the reference's zero neighbour at the chunk edges.
-// dot(nbr(x_c), w_c) and dot(x_c, nbr(w_c)) are the same integer (both are
-// x^T (S + S^T) w for the shift S within the chunk), so one mma gives both
-// crosstalk terms.  The psum tiles then go through shared memory to a
+// memory, zero-padded to the mma depth; the padding is exact and supplies
+// the reference's zero neighbour at the chunk edges.  dot(nbr(x_c), w_c)
+// and dot(x_c, nbr(w_c)) are the same integer (both are x^T (S + S^T) w for
+// the shift S within the chunk), so one mma gives both crosstalk terms.
+// Slices lie in +-(2^B - 1) and neighbour sums in +-2(2^B - 1), which fits
+// int8 for B <= 6.  Wider slices (the 8-bit planes of the bit-sliced mode,
+// one slice of the whole operand) keep the two neighbours apart: w_s[k - 1]
+// and w_s[k + 1] are two int8 tiles and the crosstalk dot is two mmas into
+// one int32 sum, the same integer, so the result stays bitwise.  The psum tiles then go through shared memory to a
 // layout where every lane holds a live element, and the float chain and
 // the Box-Muller draw run there, the counter from the element's (row, col).
 
@@ -215,20 +218,27 @@ __host__ __device__ constexpr int ideal_stage_bytes(int bn, int x_f32) {
 }
 
 // Slice path shared memory: the raw weight ring (2 stages of n x 128
-// bytes), w_s and nbr(w_s) as [128][npad + 4] bytes, the x slices as
+// bytes), w_s and nbr(w_s) (or its two halves, `nb` = 2) as [128][npad + 4]
+// bytes each, the x slices as
 // [S][BN][npad + 16] bytes (row strides of 1 and 4 words mod 8: fragment
 // reads free of bank conflicts).  8-row CTAs add the int32 psum and
 // crosstalk tiles, [BN][kAccStride], through which the float chain moves to
 // the compact layout (the last one holds the CTA's sums at the end); 64-row
 // CTAs run the chain in the fragment layout and put their sums over the
 // start of the buffer at the end.
-__host__ __device__ constexpr int slice_smem_bytes(int bn, int n, int npad, int S, int xtalk) {
-  return bn == 8 ? 2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16) +
-                       (1 + xtalk) * bn * kAccStride * 4
-                 : (2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16) >
+__host__ __device__ constexpr int slice_smem_bytes(int bn, int n, int npad, int S, int nb) {
+  return bn == 8 ? 2 * n * kTileC + (1 + nb) * kTileC * (npad + 4) + S * bn * (npad + 16) +
+                       (1 + (nb > 0)) * bn * kAccStride * 4
+                 : (2 * n * kTileC + (1 + nb) * kTileC * (npad + 4) + S * bn * (npad + 16) >
                             bn * kAccStride * 4
-                        ? 2 * n * kTileC + (1 + xtalk) * kTileC * (npad + 4) + S * bn * (npad + 16)
+                        ? 2 * n * kTileC + (1 + nb) * kTileC * (npad + 4) + S * bn * (npad + 16)
                         : bn * kAccStride * 4);
+}
+
+// Neighbour tiles of the slice path: none without crosstalk, their sum when
+// it fits int8 (slice_bits <= 6), else the two neighbours apart.
+__host__ __device__ constexpr int neighbour_tiles(int xtalk, int slice_bits) {
+  return xtalk ? (slice_bits > 6 ? 2 : 1) : 0;
 }
 
 template <int BN, int WN>
@@ -402,11 +412,14 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
   const int n = p.n_chunk, npad = p.npad, nq = npad / 4;
   const int ns = p.num_slices;
   const bool xtalk = p.eps_im > 0.0f || p.eps_cw > 0.0f;
+  const int nb = neighbour_tiles(xtalk, p.slice_bits);
+  const bool split_nb = nb == 2;  // w_s[k - 1] and w_s[k + 1] in two tiles
   const int sws = npad + 4, sxs = npad + 16;  // byte strides of the w and x slice rows
   unsigned char* raw = smem;                                    // [2][n][128]
   unsigned char* wsl = raw + 2 * n * kTileC;                    // [128][sws]
-  unsigned char* wnb = wsl + kTileC * sws;                      // [128][sws] if xtalk
-  unsigned char* xsl = wnb + (xtalk ? kTileC * sws : 0);        // [S][BN][sxs]
+  unsigned char* wnb = wsl + kTileC * sws;                      // [128][sws] if xtalk: the sum, or w_s[k - 1]
+  unsigned char* wnb2 = wnb + kTileC * sws;                     // [128][sws] if split_nb: w_s[k + 1]
+  unsigned char* xsl = wsl + (1 + nb) * kTileC * sws;           // [S][BN][sxs]
   int* ptile = reinterpret_cast<int*>(xsl + ns * BN * sxs);    // [BN][kAccStride], compact only
   int* xtile = ptile + BN * kAccStride;                         // [BN][kAccStride], compact with xtalk
   const uint32_t raw0 = smem_addr(raw);
@@ -485,7 +498,12 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
           if (xtalk) {
             const uint32_t left = __funnelshift_l(prev, cur, 8);   // byte b: s[k - 1]
             const uint32_t right = __funnelshift_r(cur, next, 8);  // byte b: s[k + 1]
-            *reinterpret_cast<uint32_t*>(wnb + c * sws + 4 * q) = __vadd4(left, right);
+            if (split_nb) {
+              *reinterpret_cast<uint32_t*>(wnb + c * sws + 4 * q) = left;
+              *reinterpret_cast<uint32_t*>(wnb2 + c * sws + 4 * q) = right;
+            } else {
+              *reinterpret_cast<uint32_t*>(wnb + c * sws + 4 * q) = __vadd4(left, right);
+            }
           }
           prev = cur;
           cur = next;
@@ -520,22 +538,22 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
           if (p.adc_lim >= 0) psum = min(max(psum, -p.adc_lim), p.adc_lim);
           return psum * (1 << shift);
         };
-        // The A fragments of one K step: w_s (and nbr(w_s)) for the lane's columns.
-        auto load_a = [&](int ks, uint32_t (*a)[4], uint32_t (*an)[4]) {
+        // The A fragments of one K step: w_s (and nbr(w_s), or its two
+        // halves) for the lane's columns.
+        auto frag = [&](const unsigned char* t, int c0, int w0, uint32_t* f) {
+          f[0] = *reinterpret_cast<const uint32_t*>(t + c0 * sws + w0);
+          f[1] = *reinterpret_cast<const uint32_t*>(t + (c0 + 1) * sws + w0);
+          f[2] = *reinterpret_cast<const uint32_t*>(t + c0 * sws + w0 + 16);
+          f[3] = *reinterpret_cast<const uint32_t*>(t + (c0 + 1) * sws + w0 + 16);
+        };
+        auto load_a = [&](int ks, uint32_t (*a)[4], uint32_t (*an)[4], uint32_t (*an2)[4]) {
 #pragma unroll
           for (int mt = 0; mt < 2; ++mt) {
             const int c0 = wm * 32 + 4 * g + 2 * mt;
             const int w0 = 4 * (ks * 8 + t);
-            a[mt][0] = *reinterpret_cast<const uint32_t*>(wsl + c0 * sws + w0);
-            a[mt][1] = *reinterpret_cast<const uint32_t*>(wsl + (c0 + 1) * sws + w0);
-            a[mt][2] = *reinterpret_cast<const uint32_t*>(wsl + c0 * sws + w0 + 16);
-            a[mt][3] = *reinterpret_cast<const uint32_t*>(wsl + (c0 + 1) * sws + w0 + 16);
-            if (xtalk) {
-              an[mt][0] = *reinterpret_cast<const uint32_t*>(wnb + c0 * sws + w0);
-              an[mt][1] = *reinterpret_cast<const uint32_t*>(wnb + (c0 + 1) * sws + w0);
-              an[mt][2] = *reinterpret_cast<const uint32_t*>(wnb + c0 * sws + w0 + 16);
-              an[mt][3] = *reinterpret_cast<const uint32_t*>(wnb + (c0 + 1) * sws + w0 + 16);
-            }
+            frag(wsl, c0, w0, a[mt]);
+            if (xtalk) frag(wnb, c0, w0, an[mt]);
+            if (split_nb) frag(wnb2, c0, w0, an2[mt]);
           }
         };
 
@@ -550,8 +568,8 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
 #pragma unroll
               for (int e = 0; e < 4; ++e) ps[mt][nt][e] = xt[mt][nt][e] = 0;
           for (int ks = 0; ks < npad / 32; ++ks) {
-            uint32_t a[2][4], an[2][4];
-            load_a(ks, a, an);
+            uint32_t a[2][4], an[2][4], an2[2][4];
+            load_a(ks, a, an, an2);
 #pragma unroll
             for (int nt = 0; nt < S::kNT; ++nt) {
               const int rr = wn * (BN / WN) + nt * 8 + g;
@@ -561,6 +579,7 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
               for (int mt = 0; mt < 2; ++mt) {
                 mma_s8(ps[mt][nt], a[mt], b0, b1);
                 if (xtalk) mma_s8(xt[mt][nt], an[mt], b0, b1);
+                if (split_nb) mma_s8(xt[mt][nt], an2[mt], b0, b1);
               }
             }
           }
@@ -592,14 +611,15 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
             int ps[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}}, xt[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
             const int rr = wn * (BN / WN) + nt * 8 + g;
             for (int ks = 0; ks < npad / 32; ++ks) {
-              uint32_t a[2][4], an[2][4];
-              load_a(ks, a, an);
+              uint32_t a[2][4], an[2][4], an2[2][4];
+              load_a(ks, a, an, an2);
               const uint32_t b0 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + t));
               const uint32_t b1 = *reinterpret_cast<const uint32_t*>(xs + rr * sxs + 4 * (ks * 8 + 4 + t));
 #pragma unroll
               for (int mt = 0; mt < 2; ++mt) {
                 mma_s8(ps[mt], a[mt], b0, b1);
                 if (xtalk) mma_s8(xt[mt], an[mt], b0, b1);
+                if (split_nb) mma_s8(xt[mt], an2[mt], b0, b1);
               }
             }
 #pragma unroll
@@ -698,7 +718,7 @@ extern "C" int photonic_gemm_launch(
   if (x_f32 && !fused) return -4;
   if (slice_bits < 1 || num_slices < 1 || slice_bits * num_slices > 16) return -5;
   const int xtalk = (eps_im > 0.0f || eps_cw > 0.0f) ? 1 : 0;
-  if (!ideal && (slice_bits > 8 || (xtalk && slice_bits > 6))) return -6;  // slices or neighbour sums overflow int8
+  if (!ideal && slice_bits > 8) return -6;  // slices overflow int8
   if (bn != 8 && bn != 64) return -7;
   if (R % bn != 0 || (!ideal && tile_r % bn != 0)) return -8;
   const int analog = (sigma > 0.0f || use_filter || eps_im > 0.0f || eps_cw > 0.0f) ? 1 : 0;
@@ -748,7 +768,7 @@ extern "C" int photonic_gemm_launch(
     const int acc_bytes = bn * kAccStride * 4;
     if (acc_bytes > bytes) bytes = acc_bytes;
   } else {
-    bytes = slice_smem_bytes(bn, n_chunk, p.npad, num_slices, xtalk);
+    bytes = slice_smem_bytes(bn, n_chunk, p.npad, num_slices, neighbour_tiles(xtalk, slice_bits));
   }
   if (bytes > 227 * 1024 - 128) return -12;  // the static `last` flag shares the SM's 227 KB
   cudaStream_t s = static_cast<cudaStream_t>(stream);

@@ -265,15 +265,23 @@ def photonic_gemm_fused_twin(
 SPLIT_WAVES = {True: 1, False: 8}  # CTAs per SM the split aims for: ideal path, slice path
 
 
-def slice_smem_bytes(bn: int, n_chunk: int, num_slices: int, xtalk: bool) -> int:
+def neighbour_tiles(xtalk: bool, slice_bits: int) -> int:
+    """The slice path's crosstalk neighbour tiles (``neighbour_tiles`` in
+    the CUDA source): none without crosstalk, the int8 neighbour sum for
+    slices of at most 6 bits, else the two neighbours apart (their sum
+    would overflow int8), whose two products the kernel adds in int32."""
+    return (2 if slice_bits > 6 else 1) if xtalk else 0
+
+
+def slice_smem_bytes(bn: int, n_chunk: int, num_slices: int, nb: int) -> int:
     """Shared memory of the kernel's slice path (``slice_smem_bytes`` in the
-    CUDA source): the raw weight ring, the weight slice and neighbour tiles
-    and the x slices; 8-row CTAs add the int32 psum tiles, 64-row CTAs need
-    room for their int32 sums at the end."""
+    CUDA source): the raw weight ring, the weight slice and its ``nb``
+    neighbour tiles and the x slices; 8-row CTAs add the int32 psum tiles,
+    64-row CTAs need room for their int32 sums at the end."""
     npad = -(-n_chunk // 32) * 32
-    base = 2 * n_chunk * TILE_C + (1 + xtalk) * TILE_C * (npad + 4) + num_slices * bn * (npad + 16)
+    base = 2 * n_chunk * TILE_C + (1 + nb) * TILE_C * (npad + 4) + num_slices * bn * (npad + 16)
     acc = bn * (TILE_C + 4) * 4
-    return base + (1 + xtalk) * acc if bn == 8 else max(base, acc)
+    return base + (1 + (nb > 0)) * acc if bn == 8 else max(base, acc)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -308,7 +316,7 @@ def plan_launch(
     n_chunk: int,
     num_slices: int,
     ideal: bool,
-    xtalk: bool = False,
+    nb: int = 0,
     sms: int = 132,
 ) -> LaunchPlan:
     """The launch plan of a ``(rp, kp) x (kp, cp)`` call with ``rows`` live
@@ -321,7 +329,7 @@ def plan_launch(
     covers the SMs wherever there are that many unit-tiles."""
     units = kp // K_STEP if ideal else kp // n_chunk
     wide = rows > 8 and rp % 64 == 0 and (
-        ideal or (tile_r % 64 == 0 and slice_smem_bytes(64, n_chunk, num_slices, xtalk) <= SMEM_LIMIT))
+        ideal or (tile_r % 64 == 0 and slice_smem_bytes(64, n_chunk, num_slices, nb) <= SMEM_LIMIT))
     bn = 64 if wide else 8
     row_tiles = -(-rows // bn)
     col_tiles = cp // TILE_C
@@ -382,14 +390,22 @@ LIBRARY = CudaLibrary(SOURCE, _bind)
 # ---------------------------------------------------------------------------
 # Wrappers: twin on CPU tensors, kernel on CUDA tensors, nothing else
 # ---------------------------------------------------------------------------
+def seed_words(seeds: torch.Tensor) -> torch.Tensor:
+    """uint32 seeds (int64 images) as int32 words of the same bit pattern,
+    the form the kernel reads; both wrappers take a one-element slice of
+    the result as a seed as it is (the twin reads it through ``_u32``)."""
+    s = seeds.to(torch.int64) & 0xFFFFFFFF
+    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+
+
 def _seed_tensor(seed: UInt, device) -> torch.Tensor:
     """A uint32 seed as the kernel's one-element int32 device buffer (the
     bit pattern is what the kernel reads)."""
     if isinstance(seed, torch.Tensor):
-        s = (seed.to(device=device, dtype=torch.int64) & 0xFFFFFFFF).reshape(1)
-    else:
-        s = torch.full((1,), int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device)
-    return torch.where(s >= 2**31, s - 2**32, s).to(torch.int32)
+        if seed.dtype == torch.int32 and seed.numel() == 1 and seed.device == device:
+            return seed.reshape(1)
+        return seed_words(seed.to(device).reshape(1))
+    return seed_words(torch.full((1,), int(seed) & 0xFFFFFFFF, dtype=torch.int64, device=device))
 
 
 def _data_ptr(t: Optional[torch.Tensor]) -> Optional[int]:
@@ -428,13 +444,13 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
     xtalk = intermod_eps > 0.0 or crossweight_eps > 0.0
     ideal = (not _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps)
              and adc_bits is None and k % K_STEP == 0)
-    if not ideal and (slice_bits > 8 or (xtalk and slice_bits > 6)):
-        raise ValueError(f"the CUDA kernel's slice path takes slice_bits <= 6 with crosstalk "
-                         f"(<= 8 without), got {slice_bits}: its slices and neighbour sums are int8")
+    if not ideal and slice_bits > 8:
+        raise ValueError(f"the CUDA kernel's slice path takes slice_bits <= 8, got {slice_bits}: "
+                         f"its slices are int8")
     dev = x.device if x.device.index is not None else torch.device("cuda", torch.cuda.current_device())
     sms = _sm_count(dev.index)
     plan = plan_launch(rows, r, k, c, tile_r=tile_r, n_chunk=n_chunk, num_slices=num_slices,
-                       ideal=ideal, xtalk=xtalk, sms=sms)
+                       ideal=ideal, nb=neighbour_tiles(xtalk, slice_bits), sms=sms)
     stream = torch.cuda.current_stream(dev).cuda_stream
     ws_acc = tickets = None
     if plan.n_split > 1:

@@ -8,7 +8,10 @@ softmax; masks stay ``-1e30`` (not ``-inf``), and the GQA head map is
 ``repeat_interleave`` (``jnp.repeat``'s element order).  ``attn_impl =
 "flash"`` sends the prefill/forward attention core to the flash kernel
 (:func:`_attend`); the paged and decode cores stay as the reference has
-them.  MLA and cross-attention wait for their slices.
+them.  A fused ``wqkv`` bank (:func:`repro_torch.photonic.fuse_qkv_params`)
+runs the Q/K/V projections as one GEMM, and ``kv_cache_int8`` stores the
+KV cache as int8 with one f32 scale per (token, KV head) on the one-shot
+and paged paths.  MLA and cross-attention wait for their slices.
 """
 
 from __future__ import annotations
@@ -17,6 +20,7 @@ from typing import Any, Dict, Optional, Tuple
 
 import torch
 
+from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.models.common import ModelConfig, apply_rope, dense, qdense_def
 from repro_torch.serving import kv_cache as kvc
 
@@ -35,9 +39,21 @@ def gqa_def(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def gqa_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str, Any]:
-    """Reference: ``repro.models.attention:gqa_cache_def`` (float KV only)."""
-    shape = (batch, max_seq, cfg.num_kv_heads, cfg.hd)
+    """Reference: ``repro.models.attention:gqa_cache_def``: float K/V, or
+    int8 K/V with f32 ``k_scale`` / ``v_scale`` of shape ``(batch,
+    max_seq, kv)`` under ``kv_cache_int8``."""
+    kv, hd = cfg.num_kv_heads, cfg.hd
+    shape = (batch, max_seq, kv, hd)
     axes = ("batch", "kv_seq", "kv_heads", None)
+    if cfg.kv_cache_int8:
+        sshape = (batch, max_seq, kv)
+        saxes = ("batch", "kv_seq", "kv_heads")
+        return {
+            "k": (shape, axes, torch.int8),
+            "v": (shape, axes, torch.int8),
+            "k_scale": (sshape, saxes, torch.float32),
+            "v_scale": (sshape, saxes, torch.float32),
+        }
     return {"k": (shape, axes, dtype), "v": (shape, axes, dtype)}
 
 
@@ -103,21 +119,50 @@ def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
 
 
 def _qkv_proj(params, x, cfg: ModelConfig, *, layer=None):
-    """Q/K/V projections, head-split, RoPE not yet applied.  Reference:
-    ``repro.models.attention:_qkv_proj`` (three sites; the fused ``wqkv``
-    bank waits for ``fuse_qkv_params``)."""
-    h, kv = cfg.n_q_heads, cfg.num_kv_heads
-    yq = dense(params["wq"], x, cfg, site="attn.wq", layer=layer)
-    yk = dense(params["wk"], x, cfg, site="attn.wk", layer=layer)
-    yv = dense(params["wv"], x, cfg, site="attn.wv", layer=layer)
+    """Q/K/V projections, head-split, RoPE not yet applied: one GEMM at
+    site "attn.wqkv" when the dict holds a fused ``wqkv`` bank (its output
+    columns split back here), else three.  Reference:
+    ``repro.models.attention:_qkv_proj``."""
+    h, kv, hd = cfg.n_q_heads, cfg.num_kv_heads, cfg.hd
+    if "wqkv" in params:
+        y = dense(params["wqkv"], x, cfg, site="attn.wqkv", layer=layer)
+        yq, yk, yv = torch.split(y, (h * hd, kv * hd, kv * hd), dim=-1)
+    else:
+        yq = dense(params["wq"], x, cfg, site="attn.wq", layer=layer)
+        yk = dense(params["wk"], x, cfg, site="attn.wk", layer=layer)
+        yv = dense(params["wv"], x, cfg, site="attn.wv", layer=layer)
     return _split_heads(yq, h), _split_heads(yk, kv), _split_heads(yv, kv)
 
 
-def _check_supported(cfg: ModelConfig) -> None:
+def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, KV head) symmetric int8 quantization of K/V rows in f32:
+    ``(q int8, scale f32)``, the scale taken over the head dimension in the
+    reference's spelling (``quantize_symmetric``).  Reference:
+    ``repro.models.attention:_quantize_kv``."""
+    q, scale = quantize_symmetric(x.to(torch.float32), 8, axis=-1)
+    return q, scale.squeeze(-1)
+
+
+def _kv_rows(k, v, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+    """The cache rows of computed K/V: as they are, or int8 with their
+    scales under ``kv_cache_int8``.  Reference:
+    ``repro.models.attention:_kv_rows`` (the caller drops the batch axis)."""
     if cfg.kv_cache_int8:
-        raise NotImplementedError(
-            "int8 KV caches are not ported yet (ROADMAP.md Queue 1, 'Dense decoder')"
-        )
+        qk, sk = _quantize_kv(k)
+        qv, sv = _quantize_kv(v)
+        return {"k": qk, "v": qv, "k_scale": sk, "v_scale": sv}
+    return {"k": k, "v": v}
+
+
+def _kv_view(g: Dict[str, torch.Tensor], cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+    """f32 K/V of a cache slab, dequantizing an int8 cache as
+    ``q.float() * scale[..., None]``.  Reference:
+    ``repro.models.attention:_kv_view``."""
+    if cfg.kv_cache_int8:
+        kf = g["k"].to(torch.float32) * g["k_scale"][..., None]
+        vf = g["v"].to(torch.float32) * g["v_scale"][..., None]
+        return kf, vf
+    return g["k"].to(torch.float32), g["v"].to(torch.float32)
 
 
 def _acc_dtype(cfg: ModelConfig):
@@ -163,17 +208,18 @@ def gqa_prefill(
     params, x: torch.Tensor, cfg: ModelConfig, *, positions: torch.Tensor, max_seq: int, layer=None
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """Self-attention over the prompt; returns the output and a dense KV
-    cache padded to ``max_seq`` rows.  Reference:
-    ``repro.models.attention:gqa_prefill`` (float KV)."""
-    _check_supported(cfg)
+    cache padded to ``max_seq`` rows (int8 with its scales under
+    ``kv_cache_int8``).  Reference: ``repro.models.attention:gqa_prefill``."""
     b, t, _ = x.shape
     q, k, v = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, cfg, causal=True)
     out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
-    pad = (0, 0, 0, 0, 0, max_seq - t)
-    cache = {"k": torch.nn.functional.pad(k, pad), "v": torch.nn.functional.pad(v, pad)}
+    cache = {
+        name: torch.nn.functional.pad(r, (0, 0) * (r.dim() - 2) + (0, max_seq - t))
+        for name, r in _kv_rows(k, v, cfg).items()
+    }
     return out, cache
 
 
@@ -187,12 +233,11 @@ def gqa_decode(
     layer: Optional[int] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One decode token per row against the dense cache, mask ``kv_pos <=
-    pos``.  Reference: ``repro.models.attention:gqa_decode`` (float KV).
-    The new K/V row is written into ``cache`` in place (the reference
-    returns an updated copy), at ``pos`` clamped into the cache as
-    ``dynamic_update_slice`` clamps it; the returned dict holds the same
-    tensors."""
-    _check_supported(cfg)
+    pos``.  Reference: ``repro.models.attention:gqa_decode``.  The new
+    K/V row (int8 with its scales under ``kv_cache_int8``) is written into
+    ``cache`` in place (the reference returns an updated copy), at ``pos``
+    clamped into the cache as ``dynamic_update_slice`` clamps it; the
+    returned dict holds the same tensors."""
     h, kv = cfg.n_q_heads, cfg.num_kv_heads
     b = x.shape[0]
     pos = int(pos)
@@ -200,13 +245,14 @@ def gqa_decode(
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k1 = apply_rope(k1, posv, cfg.rope_theta)
-    ck, cv = cache["k"], cache["v"]
-    s_max = ck.shape[1]
+    rows = _kv_rows(k1[:, 0], v1[:, 0], cfg)
+    s_max = cache["k"].shape[1]
     at = min(max(pos, 0), s_max - 1)
-    ck[:, at] = k1[:, 0].to(ck.dtype)
-    cv[:, at] = v1[:, 0].to(cv.dtype)
-    kf = _repeat_kv(ck.to(torch.float32), h // kv)
-    vf = _repeat_kv(cv.to(torch.float32), h // kv)
+    for name, row in rows.items():
+        cache[name][:, at] = row.to(cache[name].dtype)
+    kf, vf = _kv_view(cache, cfg)
+    kf = _repeat_kv(kf, h // kv)
+    vf = _repeat_kv(vf, h // kv)
     qf = q.to(torch.float32) * (cfg.hd**-0.5)
     s = torch.einsum("bqhd,bshd->bhqs", qf, kf)
     kv_pos = torch.arange(s_max, device=x.device)
@@ -216,7 +262,7 @@ def gqa_decode(
     out = dense(
         params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
     )
-    return out, {"k": ck, "v": cv}
+    return out, {name: cache[name] for name in rows}
 
 
 def gqa_prefill_chunk(
@@ -234,22 +280,22 @@ def gqa_prefill_chunk(
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
     """One chunk of a chunked prefill: this chunk's K/V scatter into the
     pool (in place), then attention over cache rows ``[0, t_full)``.
-    Reference: ``repro.models.attention:gqa_prefill_chunk``."""
-    _check_supported(cfg)
+    Reference: ``repro.models.attention:gqa_prefill_chunk``: a chunk that
+    covers the whole prompt attends over its own K/V, as the one-shot
+    prefill does (no int8 round trip)."""
     tc = x.shape[1]
     q, k, v = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
 
     blocks, offsets = kvc.chunk_dest(block_table, t0, tc, block_size)
-    kvc.scatter_kv(kv_pool, blocks, offsets, {"k": k[0], "v": v[0]})
+    kvc.scatter_kv(kv_pool, blocks, offsets, _kv_rows(k[0], v[0], cfg))
 
     if t_full == tc:
         kf, vf = k, v
         q_offset = 0
     else:
-        g = kvc.gather_kv(kv_pool, block_table[None], t_full)
-        kf, vf = g["k"].to(torch.float32), g["v"].to(torch.float32)
+        kf, vf = _kv_view(kvc.gather_kv(kv_pool, block_table[None], t_full), cfg)
         q_offset = t0
     out = chunked_attention(
         q, kf, vf, causal=True, q_offset=q_offset,
@@ -275,17 +321,16 @@ def gqa_decode_paged(
     """One decode token per row against the paged pool, per-row causal mask
     ``kv_pos <= pos[b]``.  Reference:
     ``repro.models.attention:gqa_decode_paged``."""
-    _check_supported(cfg)
     h, kv = cfg.n_q_heads, cfg.num_kv_heads
     b = x.shape[0]
     q, k1, v1 = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, pos[:, None], cfg.rope_theta)
     k1 = apply_rope(k1, pos[:, None], cfg.rope_theta)
 
-    kvc.scatter_kv(kv_pool, blocks, offsets, {"k": k1[:, 0], "v": v1[:, 0]})
-    g = kvc.gather_kv(kv_pool, block_table, gather_len)
-    kf = _repeat_kv(g["k"].to(torch.float32), h // kv)
-    vf = _repeat_kv(g["v"].to(torch.float32), h // kv)
+    kvc.scatter_kv(kv_pool, blocks, offsets, _kv_rows(k1[:, 0], v1[:, 0], cfg))
+    kf, vf = _kv_view(kvc.gather_kv(kv_pool, block_table, gather_len), cfg)
+    kf = _repeat_kv(kf, h // kv)
+    vf = _repeat_kv(vf, h // kv)
     qf = q.to(torch.float32) * (cfg.hd**-0.5)
     s = torch.einsum("bqhd,bshd->bhqs", qf, kf)
     kv_pos = torch.arange(gather_len, device=x.device)

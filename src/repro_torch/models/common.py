@@ -18,7 +18,7 @@ import torch
 import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
-from repro_torch.core.dpu import DPUConfig
+from repro_torch.core.dpu import DPUConfig, quantize_symmetric
 
 
 @dataclasses.dataclass(frozen=True)
@@ -95,7 +95,8 @@ class ModelConfig:
     padded_vocab: Optional[int] = None
 
     def __post_init__(self):
-        from repro_torch.photonic.engine import BACKENDS, NOT_PORTED_SLICING
+        from repro_torch.photonic.engine import BACKENDS
+        from repro_torch.photonic.slicing import resolve_slicing
 
         scopes = ("none", "weights", "weights_int8")
         if self.photonic_scope not in scopes:
@@ -110,8 +111,9 @@ class ModelConfig:
         impls = ("chunked", "flash")
         if self.attn_impl not in impls:
             raise ValueError(f"attn_impl={self.attn_impl!r} is not one of {impls}")
-        if self.photonic_slicing is not None:
-            raise NotImplementedError(NOT_PORTED_SLICING)
+        # Eager normalization through the slicing resolution point (an
+        # unknown plane width raises here, not at the first GEMM).
+        object.__setattr__(self, "photonic_slicing", resolve_slicing(self.photonic_slicing))
 
     @property
     def hd(self) -> int:
@@ -235,6 +237,7 @@ def engine_from_model_config(cfg: ModelConfig):
         cfg.photonic_backend,
         tuple(cfg.photonic_include),
         tuple(cfg.photonic_exclude),
+        slicing=cfg.photonic_slicing,
     )
 
 
@@ -246,12 +249,14 @@ def dense(
     site: Optional[str] = None,
     layer: Optional[int] = None,
     epilogue: Any = None,
+    slicing: Any = None,
     activation: Optional[str] = None,
 ) -> torch.Tensor:
     """Linear layer; routes through the photonic engine when enabled.
     Reference: ``repro.models.common:dense`` (single-device branch; the
     tensor-parallel branch waits for its slice).  Bias and activation ride
-    the engine's fused epilogue."""
+    the engine's fused epilogue; ``slicing`` overrides
+    ``cfg.photonic_slicing`` for this GEMM."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
 
     if epilogue is not None:
@@ -265,7 +270,9 @@ def dense(
     bias = params.get("b")
     ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
     eng = engine_from_model_config(cfg)
-    return _single_device_matmul(eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep)
+    return _single_device_matmul(
+        eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep, slicing=slicing
+    )
 
 
 def _digital_epilogue(y, ep):
@@ -278,24 +285,45 @@ def _digital_epilogue(y, ep):
     return y
 
 
-def _single_device_matmul(eng, params, w, x, cfg, *, site, layer, epilogue):
+def _single_device_matmul(eng, params, w, x, cfg, *, site, layer, epilogue, slicing=None):
     """Reference: ``repro.models.common:_single_device_matmul``."""
     from repro_torch.photonic.packing import PackedDense
 
+    kw = dict(site=site, fold=layer, epilogue=epilogue, slicing=slicing)
     if isinstance(w, PackedDense):
         if eng is None:
             return _digital_epilogue(x @ w.dequant().to(x.dtype), epilogue)
-        return eng.matmul(x, w, site=site, fold=layer, epilogue=epilogue)
+        return eng.matmul(x, w, **kw)
     if "w_scale" in params:
         if eng is None:
             from repro_torch.photonic.engine import engine_for
 
             eng = engine_for(DPUConfig(), cfg.photonic_backend)
         packed = PackedDense(w, params["w_scale"], w.shape[-2], w.shape[-1], tiling=None)
-        return eng.matmul(x, packed, site=site, fold=layer, epilogue=epilogue)
+        return eng.matmul(x, packed, **kw)
     if eng is not None and cfg.photonic_scope == "weights":
-        return eng.matmul_float(x, w, site=site, fold=layer, epilogue=epilogue)
+        return eng.matmul_float(x, w, **kw)
     return _digital_epilogue(x @ w.to(x.dtype), epilogue)
+
+
+def quantize_params(params: Any, defs: Any) -> Any:
+    """A float checkpoint in the int8-stored layout that ``defs`` (made
+    with ``photonic_scope="weights_int8"``) describes: every dense def with
+    a ``w_scale`` gets an int8 ``w`` and an f32 per-column scale over the
+    contraction axis, from the f32 weight in the reference's spelling
+    (``quantize_symmetric``).  Per-layer lists are walked layer by layer.
+    Reference: ``repro.models.common:quantize_params``."""
+    if isinstance(defs, dict) and "w_scale" in defs:
+        q, scale = quantize_symmetric(params["w"].to(torch.float32), 8, axis=-2)
+        return {**params, "w": q, "w_scale": scale.squeeze(-2)}
+    if isinstance(defs, dict):
+        return {
+            k: quantize_params(params[k], v) if isinstance(v, (dict, list)) else params[k]
+            for k, v in defs.items()
+        }
+    if isinstance(defs, list):
+        return [quantize_params(p, d) for p, d in zip(params, defs)]
+    return params
 
 
 def rmsnorm_def(d: int) -> Dict[str, P]:

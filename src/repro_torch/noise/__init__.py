@@ -1,7 +1,12 @@
 """`repro_torch.noise` — port of `repro.noise`: the analog channel model and
 the counter-based signal-chain stages."""
 
-from repro_torch.noise.channel import ChannelModel, analog_pass_psums, build_channel_model
+from repro_torch.noise.channel import (
+    ChannelModel,
+    analog_pass_psums,
+    build_channel_model,
+    sliced_channel,
+)
 from repro_torch.noise.stages import (
     adc_quantize,
     data_tweak,
@@ -23,4 +28,5 @@ __all__ = [
     "hash_mix32",
     "neighbor_sum",
     "seed_from_key",
+    "sliced_channel",
 ]

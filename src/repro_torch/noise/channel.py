@@ -3,8 +3,9 @@
 Port of ``repro.noise.channel``.  :class:`ChannelModel` and
 :func:`build_channel_model` are pure Python and reproduce the reference
 field for field; :func:`analog_pass_psums` is the oracle-side analog pass
-in PyTorch.  ``shard_local_channel`` and ``sliced_channel`` wait for the
-tensor-parallel and bit-slicing slices of the port.
+in PyTorch; :func:`sliced_channel` is the channel one plane pass of the
+bit-sliced mode sees.  ``shard_local_channel`` waits for the
+tensor-parallel slice of the port.
 """
 
 from __future__ import annotations
@@ -223,6 +224,81 @@ def build_channel_model(
         delivered_dbm=delivered_dbm,
         snr_db=snr_db,
         builder=builder,
+    )
+
+
+def _rebuilder(builder: tuple):
+    """``rebuild(n, bits=None)``: the model a recorded builder would have
+    produced at fan-in ``n`` (and, optionally, another analog precision),
+    every other argument replayed as given.  Reference:
+    ``repro.noise.channel:_rebuilder``."""
+    (
+        org,
+        params,
+        m_given,
+        bits_given,
+        datarate_gs,
+        adc_bits,
+        enable_loss,
+        enable_crosstalk,
+        enable_detector_noise,
+        enable_adc,
+        platform,
+    ) = builder
+
+    def rebuild(n: int, bits: Optional[int] = None) -> ChannelModel:
+        return build_channel_model(
+            org,
+            params,
+            n=n,
+            m=m_given,
+            bits=bits_given if bits is None else bits,
+            datarate_gs=datarate_gs,
+            adc_bits=adc_bits,
+            enable_loss=enable_loss,
+            enable_crosstalk=enable_crosstalk,
+            enable_detector_noise=enable_detector_noise,
+            enable_adc=enable_adc,
+            platform=platform,
+        )
+
+    return rebuild
+
+
+def sliced_channel(channel: ChannelModel, plane_bits: int) -> ChannelModel:
+    """The channel one bit-plane pass of the sliced mode sees: the same
+    hardware (fan-in N, power, loss chain), a ``plane_bits``-bit operand
+    plane per pass, so the product full-scale and the detector sigma
+    referred to it shrink from ``(2^B - 1)^2`` to ``(2^p - 1)^2`` psum LSBs;
+    the crosstalk couplings are relative amplitudes and carry over.
+
+    A model made by :func:`build_channel_model` is rebuilt from its
+    recorded arguments at ``bits=plane_bits`` (same N); a hand-made one
+    scales its sigma by the full-scale ratio.  Couplings, filter alpha and
+    ADC bits the caller set survive, and so does a sigma override (scaled).
+    Reference: ``repro.noise.channel:sliced_channel``."""
+    plane_bits = int(plane_bits)
+    if plane_bits == channel.bits:
+        return channel
+    scale = float((2**plane_bits - 1) ** 2) / float((2**channel.bits - 1) ** 2)
+    if channel.builder is None:
+        return dataclasses.replace(
+            channel,
+            bits=plane_bits,
+            detector_sigma_lsb=channel.detector_sigma_lsb * scale,
+        )
+    rebuild = _rebuilder(channel.builder)
+    rebuilt = rebuild(channel.n, plane_bits)
+    sigma = rebuilt.detector_sigma_lsb
+    if channel.detector_sigma_lsb != rebuild(channel.n).detector_sigma_lsb:
+        sigma = channel.detector_sigma_lsb * scale
+    return dataclasses.replace(
+        rebuilt,
+        intermod_eps=channel.intermod_eps,
+        crossweight_eps=channel.crossweight_eps,
+        filter_alpha=channel.filter_alpha,
+        adc_bits=channel.adc_bits,
+        detector_sigma_lsb=sigma,
     )
 
 

@@ -108,6 +108,12 @@ def tweak_word(a: torch.Tensor) -> torch.Tensor:
     return _mul32(a.to(torch.int64) & U32, _S1).sum() & U32
 
 
+def tweak_words(a: torch.Tensor) -> torch.Tensor:
+    """:func:`tweak_word` of each ``a[i]`` along the leading axis (int64
+    ``(a.shape[0],)``), bitwise the per-slice values."""
+    return _mul32(a.to(torch.int64) & U32, _S1).reshape(a.shape[0], -1).sum(dim=1) & U32
+
+
 def fold_words(seed: UInt, *words: UInt) -> UInt:
     """Fold precomputed content words into a seed (the second half of
     :func:`data_tweak`)."""

@@ -1,5 +1,6 @@
 """`repro_torch.photonic` — port of `repro.photonic`: the weight-stationary
-photonic execution engine and one-time weight prepacking."""
+photonic execution engine, its bit-sliced mode, and one-time weight
+prepacking."""
 
 from repro_torch.kernels.photonic_gemm.epilogue import (
     ACTIVATIONS,
@@ -9,15 +10,23 @@ from repro_torch.kernels.photonic_gemm.epilogue import (
     as_epilogue,
 )
 from repro_torch.photonic.engine import (
+    PLANE_STREAM_TAG,
     EngineInfo,
     PhotonicEngine,
     SitePolicy,
     engine_for,
 )
-from repro_torch.photonic.packing import PackedDense, pack_dense, prepack_params
+from repro_torch.photonic.packing import (
+    PackedDense,
+    fuse_qkv_params,
+    pack_dense,
+    prepack_params,
+)
+from repro_torch.photonic.slicing import SlicingSpec, resolve_slicing
 
 __all__ = [
     "ACTIVATIONS",
+    "PLANE_STREAM_TAG",
     "EngineInfo",
     "Epilogue",
     "EpilogueArgs",
@@ -25,8 +34,11 @@ __all__ = [
     "PackedDense",
     "PhotonicEngine",
     "SitePolicy",
+    "SlicingSpec",
     "as_epilogue",
     "engine_for",
+    "fuse_qkv_params",
     "pack_dense",
     "prepack_params",
+    "resolve_slicing",
 ]

@@ -27,6 +27,15 @@ operand.  The weight's word is constant for a prepacked weight, so
 :class:`~repro_torch.photonic.packing.PackedDense` carries it (computed once
 at pack time, bitwise the per-call value) and decode never re-hashes the
 int8 weight bank.
+
+Bit-sliced execution (``slicing=``, DESIGN.md §15): each operand splits
+into ``plane_bits``-wide signed-magnitude planes, every plane pair runs as
+one unfused pass (``photonic_gemm`` on the ``kernel`` backend) through the
+channel re-referred to the plane full-scale, and the passes recombine with
+exact shifts; the epilogue is then applied digitally.  A pack caches its
+weight planes and their content words per plane width
+(:meth:`~repro_torch.photonic.packing.PackedDense.planes`), so decode
+neither re-slices nor re-hashes the bank.
 """
 
 from __future__ import annotations
@@ -42,6 +51,7 @@ import torch.nn.functional as F
 from repro_torch.core.dpu import (
     NOT_PORTED_KEYS,
     DPUConfig,
+    bit_slices,
     quant_scale,
     quantize_symmetric,
     quantize_with_scale,
@@ -56,16 +66,19 @@ from repro_torch.kernels.photonic_gemm.epilogue import (
 from repro_torch.kernels.photonic_gemm.kernel import (
     photonic_gemm,
     photonic_gemm_fused,
+    seed_words,
 )
 from repro_torch.kernels.photonic_gemm.ref import exact_int_gemm, photonic_gemm_ref
-from repro_torch.noise.stages import fold_seed, fold_words, tweak_word
+from repro_torch.noise.channel import sliced_channel
+from repro_torch.noise.stages import fold_seed, fold_words, tweak_word, tweak_words
+from repro_torch.photonic.slicing import SlicingSpec, resolve_slicing
 
 BACKENDS = ("ref", "kernel", "exact")
 
-NOT_PORTED_SLICING = (
-    "bit-sliced execution (repro.photonic.slicing, _sliced_int_gemm) is not "
-    "ported yet: ROADMAP.md Queue 1, 'Engine, epilogue, packing and slicing'"
-)
+# Stream-domain tag folded in ahead of the plane-pair index of a sliced GEMM,
+# so plane streams decorrelate from each other and never collide with a
+# layer-fold stream.  Reference: ``repro.photonic.engine:PLANE_STREAM_TAG``.
+PLANE_STREAM_TAG = 0x504C
 
 
 def _round_up(x: int, m: int) -> int:
@@ -81,6 +94,19 @@ def _digital_reference(x, wf, bias, spec: EpilogueSpec) -> torch.Tensor:
     if spec.activation is not None:
         y = ACTIVATIONS[spec.activation](y)
     return y
+
+
+def plane_operands(
+    q: torch.Tensor, plane_bits: int, planes: int, shape: Tuple[int, int], with_words: bool
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The planes of an int operand ``q`` zero-padded to ``shape``, as one
+    contiguous int8 ``(planes, *shape)`` tensor, and each plane's content
+    word (int64 ``(planes,)``, or None).  Zero padding slices to zero
+    planes and hashes to nothing, so the words are the logical planes'."""
+    r, k = q.shape
+    qp = F.pad(q, (0, shape[1] - k, 0, shape[0] - r))
+    pl = bit_slices(qp, plane_bits, planes)
+    return pl, (tweak_words(pl) if with_words else None)
 
 
 def site_hash(site: str) -> int:
@@ -212,12 +238,14 @@ class EngineInfo:
 @dataclasses.dataclass(frozen=True)
 class PhotonicEngine:
     """Frozen photonic operating point + routing policy.  Reference:
-    ``repro.photonic.engine:PhotonicEngine``."""
+    ``repro.photonic.engine:PhotonicEngine``.  ``slicing`` (anything
+    :func:`~repro_torch.photonic.slicing.resolve_slicing` takes) selects
+    the bit-sliced execution mode for every routed GEMM."""
 
     dpu: DPUConfig = DPUConfig()
     backend: str = "kernel"
     policy: SitePolicy = SitePolicy()
-    slicing: Optional[object] = None
+    slicing: Optional[SlicingSpec] = None
 
     def __post_init__(self):
         if self.backend not in BACKENDS:
@@ -225,11 +253,18 @@ class PhotonicEngine:
                 f"unknown photonic backend {self.backend!r}; expected one of "
                 f"{BACKENDS}"
             )
-        if self.slicing is not None:
-            raise NotImplementedError(NOT_PORTED_SLICING)
+        object.__setattr__(self, "slicing", resolve_slicing(self.slicing))
 
     def routes(self, site: Optional[str]) -> bool:
         return self.policy.routes(site)
+
+    def with_slicing(self, slicing) -> "PhotonicEngine":
+        """This engine with another slicing mode (frozen replace).
+        Reference: ``repro.photonic.engine:PhotonicEngine.with_slicing``."""
+        spec = resolve_slicing(slicing)
+        if spec == self.slicing:
+            return self
+        return dataclasses.replace(self, slicing=spec)
 
     @property
     def noisy(self) -> bool:
@@ -250,12 +285,24 @@ class PhotonicEngine:
             n=d.n,
             datarate_gs=d.datarate_gs,
             channel="analog" if ch is not None and ch.analog else "ideal",
-            slicing=None,
+            slicing=None if self.slicing is None else self.slicing.plane_bits,
             include=tuple(self.policy.include),
             exclude=tuple(self.policy.exclude),
         )
 
     # -- seed derivation -----------------------------------------------------
+    def _site_seed(self, site: Optional[str], fold: Optional[int], prng_key) -> int:
+        """``noise_seed`` with the site hash and the layer index folded in
+        (host integers)."""
+        if prng_key is not None:
+            raise NotImplementedError(NOT_PORTED_KEYS)
+        seed = self.dpu.noise_seed_value()
+        if site is not None:
+            seed = fold_seed(seed, site_hash(site))
+        if fold is not None:
+            seed = fold_seed(seed, int(fold))
+        return seed
+
     def stream_seed(
         self,
         site: Optional[str],
@@ -265,19 +312,17 @@ class PhotonicEngine:
         *,
         w_word: Optional[torch.Tensor] = None,
         prng_key=None,
+        plane: Optional[int] = None,
     ) -> torch.Tensor:
         """uint32 noise-stream seed for one GEMM call (0-dim int64 on the
         operands' device).  Reference: ``repro.photonic.engine:
         PhotonicEngine.stream_seed`` on its ``noise_seed`` branch: site hash
-        and layer index folded on the host, then the operands' content
-        words (``w_word`` is the prepacked weight's, if known)."""
-        if prng_key is not None:
-            raise NotImplementedError(NOT_PORTED_KEYS)
-        seed = self.dpu.noise_seed_value()
-        if site is not None:
-            seed = fold_seed(seed, site_hash(site))
-        if fold is not None:
-            seed = fold_seed(seed, int(fold))
+        and layer index folded on the host, then ``(PLANE_STREAM_TAG,
+        plane)`` for a plane pass, then the operands' content words
+        (``w_word`` is the prepacked weight's, if known)."""
+        seed = self._site_seed(site, fold, prng_key)
+        if plane is not None:
+            seed = fold_seed(seed, PLANE_STREAM_TAG, plane)
         return fold_words(seed, tweak_word(xq), tweak_word(wq) if w_word is None else w_word)
 
     # -- integer datapath ----------------------------------------------------
@@ -288,19 +333,34 @@ class PhotonicEngine:
         *,
         site: Optional[str] = None,
         fold: Optional[int] = None,
+        plane: Optional[int] = None,
         logical_kc: Optional[Tuple[int, int]] = None,
         tiling: Optional[Tuple[int, int, int]] = None,
-        w_word: Optional[torch.Tensor] = None,
         tile_r: int = 128,
         tile_c: int = 128,
         epilogue: Optional[EpilogueArgs] = None,
+        slicing=None,
+        pack=None,
         prng_key=None,
     ) -> torch.Tensor:
         """Integer GEMM through the DPU datapath; int32 ``(R, C)``, or f32
         with ``epilogue`` (the fused hot path; ``xq`` may then be a float
         activation, quantized in the kernel prologue on the ``kernel``
-        backend and digitally elsewhere).  Reference:
-        ``repro.photonic.engine:PhotonicEngine.int_gemm``."""
+        backend and digitally elsewhere).  ``plane`` is the plane-pair
+        index of one pass of a sliced GEMM (it only perturbs the noise
+        stream); ``slicing`` overrides the engine's mode for this call
+        (``"none"`` forces the unsliced datapath; the ``exact`` backend
+        ignores slicing, the decomposition being exact); ``pack`` is the
+        :class:`~repro_torch.photonic.packing.PackedDense` that ``wq``
+        belongs to, whose precomputed content word (and, sliced, cached
+        weight planes) the noise stream uses instead of hashing ``wq``.
+        Reference: ``repro.photonic.engine:PhotonicEngine.int_gemm``."""
+        mode = self.slicing if slicing is None else resolve_slicing(slicing)
+        if mode is not None and self.backend != "exact":
+            return self._sliced_int_gemm(
+                mode, xq, wq, site=site, fold=fold, logical_kc=logical_kc,
+                tile_r=tile_r, tile_c=tile_c, epilogue=epilogue, pack=pack, prng_key=prng_key,
+            )
         k, c = logical_kc if logical_kc is not None else tuple(wq.shape[-2:])
         cfg = self.dpu
         channel = cfg.effective_channel()
@@ -321,7 +381,8 @@ class PhotonicEngine:
             return acc if epilogue is None else _finish(acc, epilogue)
 
         seed = (
-            self.stream_seed(site, fold, xq, wq, w_word=w_word, prng_key=prng_key)
+            self.stream_seed(site, fold, xq, wq, w_word=None if pack is None else pack.w_word,
+                             prng_key=prng_key, plane=plane)
             if noisy
             else None
         )
@@ -366,6 +427,87 @@ class PhotonicEngine:
         )
         return out[:r, :c]
 
+    def _sliced_int_gemm(
+        self,
+        mode: SlicingSpec,
+        xq: torch.Tensor,
+        wq: torch.Tensor,
+        *,
+        site,
+        fold,
+        logical_kc,
+        tile_r,
+        tile_c,
+        epilogue: Optional[EpilogueArgs],
+        pack,
+        prng_key,
+    ) -> torch.Tensor:
+        """Bit-sliced execution: both operands decomposed into
+        ``mode.plane_bits``-wide signed-magnitude planes, every plane pair
+        one unfused pass of the plane engine (:func:`_plane_engine`) with
+        ``(PLANE_STREAM_TAG, si * P + ti)`` folded into its stream and the
+        *plane* operands' content words hashed, the passes recombined with
+        exact shifts, the epilogue applied digitally.  Reference:
+        ``repro.photonic.engine:PhotonicEngine._sliced_int_gemm``.
+
+        As there, a pack's tiling is dropped: the planes run at the plane
+        engine's own tiling over the logical ``(K, C)``.  The activation is
+        quantized and sliced once per call and each of its planes hashed
+        once; the weight planes and words come from ``pack``'s cache when
+        given.  Each pass is the plane engine's ``int_gemm`` on these
+        operands, spelled out here so the stage arguments and padding are
+        worked out once per call, not once per pass."""
+        cfg = self.dpu
+        k, c = logical_kc if logical_kc is not None else tuple(wq.shape[-2:])
+        if xq.is_floating_point():
+            if epilogue is None:
+                raise TypeError(
+                    "int_gemm got float activations without an EpilogueArgs; "
+                    "quantize explicitly or pass epilogue= (fused hot path)"
+                )
+            xq = quantize_with_scale(xq, epilogue.x_scale, cfg.operand_bits)
+        pe = _plane_engine(self, mode)
+        pcfg = pe.dpu
+        p = mode.plane_bits
+        planes = mode.num_planes(cfg.operand_bits)
+        r = xq.shape[0]
+        if pe.backend == "kernel":
+            stages, (rp, kp, cp) = kernel_stages(
+                pcfg, r, k, c, None, tile_r=tile_r, tile_c=tile_c
+            )
+        else:
+            rp, kp, cp = r, k, c
+        noisy = pe.noisy
+        x_pl, x_words = plane_operands(xq, p, planes, (rp, kp), noisy)
+        if pack is not None:
+            w_pl, w_words = pack.planes(p, planes, (kp, cp), noisy)
+        else:
+            w_pl, w_words = plane_operands(wq[:k, :c], p, planes, (kp, cp), noisy)
+        seeds = None
+        if noisy:
+            ids = torch.arange(planes * planes, dtype=torch.int64, device=xq.device)
+            base = fold_seed(pe._site_seed(site, fold, prng_key), PLANE_STREAM_TAG, ids)
+            seeds = fold_words(base.reshape(planes, planes), x_words[:, None], w_words[None, :])
+            seeds = seed_words(seeds.reshape(-1))
+        channel = pcfg.effective_channel()
+        acc = None
+        for si in range(planes):
+            for ti in range(planes):
+                i = si * planes + ti
+                seed = None if seeds is None else seeds[i]
+                if pe.backend == "kernel":
+                    part = photonic_gemm(x_pl[si], w_pl[ti], seed, rows=r, **stages)[:r, :c]
+                else:
+                    part = photonic_gemm_ref(
+                        x_pl[si], w_pl[ti], slice_bits=pcfg.bits, num_slices=pcfg.num_slices,
+                        n_chunk=pcfg.n, adc_bits=channel.adc_bits if channel is not None else pcfg.adc_bits,
+                        channel=channel, seed=seed,
+                    )
+                # Exact recombination: q = sum_s plane_s * 2^(p s) per operand.
+                part = part << (p * (si + ti))
+                acc = part if acc is None else acc + part
+        return acc if epilogue is None else _finish(acc, epilogue)
+
     # -- float entry points --------------------------------------------------
     def matmul_float(
         self,
@@ -375,16 +517,20 @@ class PhotonicEngine:
         site: Optional[str] = None,
         fold: Optional[int] = None,
         epilogue=None,
+        slicing=None,
         bias: Optional[torch.Tensor] = None,
         activation: Optional[str] = None,
     ) -> torch.Tensor:
         """Float GEMM quantizing both operands per call (the training
-        path; differentiable by the straight-through estimator).
-        Reference: ``repro.photonic.engine:PhotonicEngine.matmul_float``."""
+        path; differentiable by the straight-through estimator, whose
+        backward does not depend on ``slicing``, this call's override of
+        the engine's mode).  Reference:
+        ``repro.photonic.engine:PhotonicEngine.matmul_float``."""
         spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
-        if not self.routes(site):
+        eng = self if slicing is None else self.with_slicing(slicing)
+        if not eng.routes(site):
             return _digital_reference(x, w.to(x.dtype), bias, spec)
-        return _FloatMatmul.apply(self, site, spec, fold, x, w, bias)
+        return _FloatMatmul.apply(eng, site, spec, fold, x, w, bias)
 
     def matmul(
         self,
@@ -394,17 +540,38 @@ class PhotonicEngine:
         site: Optional[str] = None,
         fold: Optional[int] = None,
         epilogue=None,
+        slicing=None,
         bias: Optional[torch.Tensor] = None,
         activation: Optional[str] = None,
     ) -> torch.Tensor:
         """Float GEMM against a prepacked weight — the weight-stationary hot
         path; differentiable in ``x`` and the bias (the int8 bank is frozen
-        and its scale gets a zero gradient).  Reference:
+        and its scale gets a zero gradient); ``slicing`` overrides the
+        engine's mode for this call.  Reference:
         ``repro.photonic.engine:PhotonicEngine.matmul``."""
         spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
-        if not self.routes(site):
+        eng = self if slicing is None else self.with_slicing(slicing)
+        if not eng.routes(site):
             return _digital_reference(x, packed.dequant().to(x.dtype), bias, spec)
-        return _PackedMatmul.apply(self, site, spec, fold, packed, x, packed.w_scale, bias)
+        return _PackedMatmul.apply(eng, site, spec, fold, packed, x, packed.w_scale, bias)
+
+
+@functools.lru_cache(maxsize=None)
+def _plane_engine(engine: PhotonicEngine, mode: SlicingSpec) -> PhotonicEngine:
+    """The single-plane-pass engine of a sliced ``engine``: analog precision
+    = operand width = the plane width (one pass, no hardware re-slicing),
+    the DPE size frozen at the parent's N, the channel re-referred to the
+    plane full-scale (a legacy ``noise_sigma_lsb`` re-referred alike).
+    Reference: ``repro.photonic.engine:_plane_engine``."""
+    cfg = engine.dpu
+    p = mode.plane_bits
+    updates = dict(bits=p, operand_bits=p, dpe_size=cfg.n)
+    if cfg.channel is not None:
+        updates["channel"] = sliced_channel(cfg.channel, p)
+    elif cfg.noise_sigma_lsb > 0.0:
+        scale = float((2**p - 1) ** 2) / float((2**cfg.bits - 1) ** 2)
+        updates["noise_sigma_lsb"] = cfg.noise_sigma_lsb * scale
+    return dataclasses.replace(engine, dpu=dataclasses.replace(cfg, **updates), slicing=None)
 
 
 @functools.lru_cache(maxsize=None)
@@ -418,7 +585,10 @@ def engine_for(
     """Cached engine construction.  Reference:
     ``repro.photonic.engine:engine_for``."""
     return PhotonicEngine(
-        dpu=dpu, backend=backend, policy=SitePolicy(include, exclude), slicing=slicing
+        dpu=dpu,
+        backend=backend,
+        policy=SitePolicy(include, exclude),
+        slicing=resolve_slicing(slicing),
     )
 
 
@@ -437,29 +607,29 @@ def _stream_gemm(
     bias,
     fold,
     *,
-    logical_kc=None,
-    tiling=None,
-    w_word=None,
+    pack=None,
 ):
     """One forward through the fused hot path.  Reference:
     ``repro.photonic.engine:_stream_gemm``: f32 activations defer their
-    rounding (scale computed here), other dtypes quantize up front."""
+    rounding (scale computed here), other dtypes quantize up front.
+    ``pack`` is the prepacked weight ``wq`` belongs to: its logical shape,
+    tiling, content word and plane cache."""
     lead = x.shape[:-1]
     xr = x.reshape(-1, x.shape[-1])
     if xr.dtype == torch.float32:
         xs, sx = xr, quant_scale(xr, eng.dpu.operand_bits)
     else:
         xs, sx = quantize_symmetric(xr, eng.dpu.operand_bits)
-    cols = logical_kc[1] if logical_kc is not None else wq.shape[1]
+    cols = wq.shape[1] if pack is None else pack.c
     y = eng.int_gemm(
         xs,
         wq,
         site=site,
         fold=fold,
-        logical_kc=logical_kc,
-        tiling=tiling,
-        w_word=w_word,
+        logical_kc=None if pack is None else (pack.k, pack.c),
+        tiling=None if pack is None else pack.tiling,
         epilogue=EpilogueArgs(spec, sx, w_scale, bias),
+        pack=pack,
     )
     return y.reshape(*lead, cols).to(x.dtype)
 
@@ -520,10 +690,7 @@ class _PackedMatmul(torch.autograd.Function):
     def forward(ctx, eng, site, spec, fold, packed, x, w_scale, bias):
         ctx.spec, ctx.packed = spec, packed
         ctx.save_for_backward(x, w_scale, bias)
-        return _stream_gemm(
-            eng, site, spec, x, packed.wq, w_scale, bias, fold,
-            logical_kc=(packed.k, packed.c), tiling=packed.tiling, w_word=packed.w_word,
-        )
+        return _stream_gemm(eng, site, spec, x, packed.wq, w_scale, bias, fold, pack=packed)
 
     @staticmethod
     def backward(ctx, g):

@@ -39,7 +39,7 @@ from repro_torch.optim import adamw
 
 NOT_PORTED_MESH = (
     "training on a mesh (mesh=, tp_axis=) is not ported yet: ROADMAP.md "
-    "Queue 1, item 8 (tensor parallel)"
+    "Queue 1, 'Tensor parallel'"
 )
 
 

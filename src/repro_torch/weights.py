@@ -6,7 +6,9 @@ numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
 included) into the port's layout, where ``layers`` is a per-layer list, and
 :func:`train_state_from_jax` does the same for a training state (params
 plus the AdamW moments and step), so a test can continue a reference run in
-the port.
+the port.  The int8-stored serving layout (``quantize_params``: int8 ``w``
+with an f32 per-column ``w_scale``) and a fused ``wqkv`` attention dict
+come across unchanged in dtype.
 """
 
 from __future__ import annotations
@@ -17,6 +19,10 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+
+# Float leaves that keep f32 whatever the parameter dtype: the per-column
+# dequantization scales of the int8-stored layout.
+_F32_LEAVES = frozenset({"w_scale"})
 
 
 def _tensor(a, dtype, device) -> torch.Tensor:
@@ -32,7 +38,8 @@ def _tensor(a, dtype, device) -> torch.Tensor:
 def params_from_jax(tree: Any, cfg, device=None) -> Any:
     """The reference's parameter tree (nested dicts of numpy arrays, layer
     leaves stacked on axis 0) as the port's parameters on ``device``.
-    Float leaves take ``cfg.param_dtype``; integer leaves keep theirs."""
+    Float leaves take ``cfg.param_dtype``, except a ``w_scale``, which stays
+    f32 as the int8 layout keeps it; integer leaves keep their dtype."""
     return _unstacked(tree, cfg.param_dtype, resolve_device(device))
 
 
@@ -57,10 +64,10 @@ def train_state_from_jax(params: Any, opt_state: Any, cfg, device=None):
 
 
 def _unstacked(tree: Any, dtype, dev) -> Any:
-    def conv(node):
+    def conv(node, key=None):
         if isinstance(node, dict):
-            return {k: conv(v) for k, v in node.items()}
-        return _tensor(node, dtype, dev)
+            return {k: conv(v, k) for k, v in node.items()}
+        return _tensor(node, torch.float32 if key in _F32_LEAVES else dtype, dev)
 
     def unstack(node, i):
         if isinstance(node, dict):
@@ -73,7 +80,7 @@ def _unstacked(tree: Any, dtype, dev) -> Any:
             n = len(np.asarray(_first_leaf(sub)))
             out[key] = [conv(unstack(sub, i)) for i in range(n)]
         else:
-            out[key] = conv(sub)
+            out[key] = conv(sub, key)
     return out
 
 

@@ -161,8 +161,9 @@ def test_routing_policy_and_unported_modes():
     tx, tw = torch.from_numpy(x), torch.from_numpy(w)
     assert eng.routes("attn.wq") and not eng.routes("ffn.router")
     torch.testing.assert_close(eng.matmul_float(tx, tw, site="ffn.router"), tx @ tw, rtol=0, atol=0)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TEngine(dpu=td, slicing=4)
+    assert TEngine(dpu=td, slicing=4).slicing.plane_bits == 4  # bit-slicing is ported
+    with pytest.raises(ValueError, match="plane_bits"):
+        TEngine(dpu=td, slicing=3)
     with pytest.raises(NotImplementedError, match="noise_seed"):
         eng.stream_seed("a", None, tx, tw, prng_key=[0, 1])
     with pytest.raises(ValueError, match="unknown photonic backend"):

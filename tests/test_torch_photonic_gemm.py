@@ -256,6 +256,49 @@ def test_split_planner_assigns_every_chunk_once(r, kt, ct, n_chunk, chunks, idea
     assert plan.ctas < tiles + tk.SPLIT_WAVES[ideal] * sms  # no split past its target
 
 
+def _plane_stages(name, n=N):
+    """Stage kwargs of one plane pass of the bit-sliced mode at 8-bit planes:
+    the channel rebuilt at ``bits=8`` and one slice of the whole operand."""
+    ch = tch.build_channel_model(name.split("_")[0], n=n, bits=8)
+    if name.endswith("_det"):
+        ch = ch.disable("detector")
+    return dict(
+        slice_bits=8, num_slices=1, n_chunk=n, tile_k=2 * n, adc_bits=ch.adc_bits,
+        noise_sigma=ch.detector_sigma_lsb, filter_alpha=ch.filter_alpha,
+        intermod_eps=ch.intermod_eps, crossweight_eps=ch.crossweight_eps,
+    )
+
+
+@pytest.mark.parametrize("name", ["ASMW_det", "ASMW", "MASW"])
+def test_int_twin_matches_pallas_at_8_bit_planes(jx, name):
+    """An 8-bit plane pass under crosstalk (neighbour sums up to +-254, past
+    int8): the twin against the reference's kernel."""
+    jk, jnp = jx.jk, jx.jnp
+    st = _plane_stages(name)
+    k = 88
+    kp = -(-k // st["tile_k"]) * st["tile_k"]
+    x, w = _operands(4, 16, k, 256, kp)
+    if st["noise_sigma"] > 0:
+        st["valid_chunks"] = -(-k // st["n_chunk"])
+    want = jk.photonic_gemm_pallas(
+        jnp.asarray(x), jnp.asarray(w), jnp.asarray([12345], jnp.int32), tile_r=8, tile_c=128,
+        interpret=True, **st,
+    )
+    got = tk.photonic_gemm(torch.from_numpy(x), torch.from_numpy(w), 12345, tile_r=8, tile_c=128, **st)
+    _assert_psums(got.numpy(), want, _kind(name))
+
+
+def test_neighbour_tiles_of_the_slice_path():
+    """Slices of at most 6 bits keep one int8 tile of neighbour sums; wider
+    ones keep the two neighbours apart, one more tile of shared memory."""
+    assert [tk.neighbour_tiles(x, b) for x, b in ((False, 8), (True, 4), (True, 6), (True, 7), (True, 8))] == [
+        0, 1, 1, 2, 2]
+    for bn in tk.CTA_ROWS:
+        one, two = (tk.slice_smem_bytes(bn, 42, 1, nb) for nb in (1, 2))
+        assert one < two <= tk.SMEM_LIMIT
+    assert tk.slice_smem_bytes(8, 42, 1, 2) - tk.slice_smem_bytes(8, 42, 1, 1) == 128 * (64 + 4)
+
+
 def test_split_planner_at_the_served_shapes():
     """qwen2-0.5b: every site's grid covers the 132 SMs where its
     chunk-tiles allow, and the wide ones are not split."""
@@ -303,6 +346,32 @@ def test_cuda_kernel_matches_twin(name):
     assert close >= (0.99 if noisy else 1.0)
 
 
+@pytest.mark.cuda
+@pytest.mark.parametrize("name", ["ASMW", "ASMW_det"])
+@pytest.mark.parametrize("r", [4, 64])
+def test_cuda_kernel_8_bit_plane_pass_under_crosstalk(name, r):
+    """The unfused kernel at ``slice_bits=8``, ``num_slices=1`` (one pass of
+    8-bit planes) under ASMW's crosstalk, where the neighbour sums overflow
+    int8 and the kernel takes the two neighbours apart: against its twin,
+    bitwise (noise: one-LSB roundings) on 8- and 64-row CTAs."""
+    dev = _card()
+    st = _plane_stages(name, 42)
+    st["tile_k"] = 504
+    k, c = 896, 256
+    kp = -(-k // st["tile_k"]) * st["tile_k"]
+    noisy = st["noise_sigma"] > 0
+    if noisy:
+        st["valid_chunks"] = -(-k // st["n_chunk"])
+    rp = 8 if r <= 8 else 64
+    x, w = _operands(6, rp, k, c, kp)
+    x[r:] = 0
+    tx, tw = torch.from_numpy(x).to(dev), torch.from_numpy(w).to(dev)
+    kw = dict(tile_r=rp, tile_c=128, **st)
+    got = tk.photonic_gemm(tx, tw, 7, rows=r, **kw)[:r]
+    want = tk.photonic_gemm_twin(tx, tw, 7, **kw)[:r]
+    _assert_psums(got.cpu().numpy(), want.cpu().numpy(), "noisy" if noisy else "bitwise", bits=8)
+
+
 # (label, live rows R, padded Rp, K, C, channel, n_chunk, tile_k, tile_r)
 CARD_CASES = [
     ("one-chunk K", 16, 16, 42, 128, "SMWA", 42, 42, 16),
@@ -340,7 +409,7 @@ def test_cuda_kernel_cases(case, masked):
     kw = dict(tile_r=tile_r, tile_c=128, **st)
     plan = tk.plan_launch(r, rp, kp, c, tile_r=tile_r, n_chunk=n, num_slices=2,
                           ideal=name == "ideal" and kp % tk.K_STEP == 0,
-                          xtalk=st.get("intermod_eps", 0.0) > 0, sms=tk._sm_count(dev.index or 0))
+                          nb=tk.neighbour_tiles(st.get("intermod_eps", 0.0) > 0, 4), sms=tk._sm_count(dev.index or 0))
     if "split" in label:  # CTAs of one output tile take unequal numbers of chunks
         assert plan.n_split > 1 and plan.units % plan.n_split != 0
     if label == "one-chunk K":

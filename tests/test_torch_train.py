@@ -14,8 +14,9 @@ Tolerances, fixed before the first run:
   its twin on the CPU): the loss within ``1e-5`` relative; with
   ``photonic=None`` every gradient leaf within ``rtol=1e-5, atol=1e-6``;
   with the ideal channel every leaf within ``1e-3`` of its max abs (rare
-  one-LSB quantization flips, parity tier "Float tolerance"); ``remat`` on
-  and off bitwise equal;
+  one-LSB quantization flips, parity tier "Float tolerance"); the same
+  under the SMWA channel with ``noise_seed`` on both packages' ``ref``
+  backend; ``remat`` on and off bitwise equal;
 * ``train()``: losses within ``rtol=1e-4`` of the reference's
   ``train()`` (which runs its ``exact`` backend: under the ideal channel
   every backend is bitwise the same); a run killed at step 6 and resumed
@@ -45,6 +46,7 @@ from repro.data import pipeline as jdata  # noqa: E402
 from repro.models import common as jcm  # noqa: E402
 from repro.models import lm as jlm  # noqa: E402
 from repro.models import registry as jreg  # noqa: E402
+from repro.noise.channel import build_channel_model as jbuild  # noqa: E402
 from repro.optim import adamw as jopt  # noqa: E402
 from repro.runtime import train_loop as jtl  # noqa: E402
 from repro_torch._tree import tree_items  # noqa: E402
@@ -54,6 +56,7 @@ from repro_torch.data import pipeline as tdata  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
+from repro_torch.noise.channel import build_channel_model as tbuild  # noqa: E402
 from repro_torch.optim import adamw as topt  # noqa: E402
 from repro_torch.runtime import train_loop as ttl  # noqa: E402
 from repro_torch.weights import params_from_jax, train_state_from_jax  # noqa: E402
@@ -199,6 +202,35 @@ def test_lm_loss_and_grads_match_reference(jparams, photonic):
         assert torch.equal(a, b), k
 
 
+def test_lm_loss_and_grads_match_reference_under_smwa(jparams):
+    """The analog channel in training: SMWA (filter truncation and detector
+    noise, ``noise_seed=0``) at its calibrated N on the ``ref`` backend of
+    both packages (the same untiled stream; the reference's interpret-mode
+    kernel under ``value_and_grad`` takes minutes here), the loss within
+    ``1e-5`` relative and each gradient leaf within ``1e-3`` of its max abs,
+    as for the ideal channel.  The gradients go straight through the noisy
+    forward, so they differ from the ideal channel's only through the
+    activations the noise moved."""
+    n = JDPU(organization="SMWA", bits=4, datarate_gs=5.0).n
+    jd = JDPU(organization="SMWA", bits=4, datarate_gs=5.0, noise_seed=0,
+              channel=jbuild("SMWA", n=n, bits=4, datarate_gs=5.0))
+    td = TDPU(organization="SMWA", bits=4, datarate_gs=5.0, noise_seed=0,
+              channel=tbuild("SMWA", n=n, bits=4, datarate_gs=5.0))
+    jc = dataclasses.replace(JA.smoke_config, photonic=jd, photonic_backend="ref")
+    tc = dataclasses.replace(TA.smoke_config, photonic=td, photonic_backend="ref")
+    batch = jdata.SyntheticTokens(jdata.DataConfig(**DATA)).batch_at(0)
+    want, jg = jax.value_and_grad(jlm.lm_loss)(jparams, {k: jnp.asarray(v) for k, v in batch.items()}, jc)
+    tp = params_from_jax(_np_tree(jparams), tc, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    loss, grads = ttl._value_and_grad(lambda p, b: TA.loss(p, b, tc), tp, tb)
+    np.testing.assert_allclose(float(loss), float(want), rtol=1e-5)
+    ideal, _ = ttl._value_and_grad(lambda p, b: TA.loss(p, b, _cfgs(True)[1]), tp, tb)
+    assert float(loss) != float(ideal)  # the channel is live
+    got = _stacked(grads)
+    for (path, g), w in zip(jax.tree_util.tree_leaves_with_path(got), jax.tree.leaves(_np_tree(jg))):
+        np.testing.assert_allclose(g, w, rtol=0, atol=1e-3 * np.abs(w).max(), err_msg=str(path))
+
+
 def test_lm_logits_is_differentiable_through_the_photonic_engine(jparams):
     """Every routed weight gets a nonzero gradient through the kernel
     backend (the twin's rounding alone would give zeros)."""
@@ -319,7 +351,7 @@ def test_microbatched_step_matches_reference(jparams):
 
 def test_train_refuses_a_mesh(tmp_path):
     _, tc = _cfgs(False)
-    with pytest.raises(NotImplementedError, match="Queue 1, item 8"):
+    with pytest.raises(NotImplementedError, match="Queue 1, .Tensor parallel."):
         _port_train(tmp_path, tc, tp_axis="model")
 
 
