@@ -18,6 +18,14 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    and asynchronous-copy (``LDGSTS``, ``UTMALDG``) instructions, and the
    SASS instructions of one Box-Muller draw (a probe built from the
    photonic kernel's own ``gaussian``) for the bound of noisy rows.
+1b. keys: the port's ``prng`` (JAX's threefry2x32, bit for bit) on the
+   card against the same calls on the CPU and against known answers of
+   ``jax.random`` embedded here (``KEY_ANSWERS``; the card has no JAX,
+   and ``tests/test_torch_prng.py`` recomputes them from JAX): ``fold_in``,
+   ``split``, 8/16/32-bit words and f32 ``uniform`` bits exactly, and
+   ``categorical`` of a bf16 row of 151,936 logits under four per-row keys
+   exactly; the Gumbel noise of the card against the CPU's is counted (f32
+   ``log`` may round apart), not gated.
 2. kernels: each CUDA kernel against its plain PyTorch twin on the card at
    the server's GEMM shapes (rows R in {4, 64}; the six qwen2-0.5b weight
    sites) under the ideal, SMWA and ASMW channels, at the ``lm_logits``
@@ -48,11 +56,20 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    unsliced GEMM.  Per row: the P^2 kernel launches alone (CUDA graph),
    the engine's whole sliced call (CUDA graph), the twin passes,
    ``torch._int_mm`` (ideal), and the bound (bytes, and int8 ops and
-   draws of all P^2 passes).
+   draws of all P^2 passes).  Then the new dense configs' shapes:
+   granite-3-8b's six sites (K = 4096 and 12800, C up to 25600) and
+   deepseek-67b's MLP down projection (K = 22016) and untied LM head
+   (C = 102400), at R in {4, 64}, ideal and SMWA (the SMWA seed derived
+   from a ``prng`` key, as ``PhotonicEngine.stream_seed`` derives it), each
+   held to its twin bitwise, noise included, with its time, bound and the
+   ``_int_mm`` time of its int core (on the rows padded to 32 at R = 4);
+   and granite's ``attn.wq`` at R = 4 bit-sliced at p = 2 under SMWA with
+   the key.
 3. flash kernels: the flash-attention kernel on the card (qwen2-0.5b
    heads unless noted): B=4 at the four serve prompt lengths, B=2 T=1000
    (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936, non-causal
-   B=2 T=1000 kv_valid=900, hd=128 (H=12, KV=2, T=1024) and one f32 case.
+   B=2 T=1000 kv_valid=900, hd=128 (H=12, KV=2, T=1024), granite-3-8b's
+   heads (H=32, KV=8, hd=128, B=2, T=1000) and one f32 case.
    Per case: median kernel time (CUDA graph), twin time,
    ``scaled_dot_product_attention`` time (``is_causal`` where the mask is
    plain causal, else an explicit boolean mask; a yardstick only, the port
@@ -106,6 +123,23 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    prefills (0 when chunked), fused launches 6 x 24 x forwards on the
    kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
    step, prefill seconds and tokens/s.
+6b. dense serve: granite-3-8b at full width (40 layers, d=4096, 32/8
+   heads, hd=128, d_ff=12800, vocab 49155, bf16, ``init_params`` seed 0)
+   on the paged ``Scheduler``, the serve phase's prompt lengths and 8 new
+   tokens: ideal greedy on ``kernel`` and ``ref`` (tokens equal); ideal
+   sampled at temperature 0.8 under the reference's keys (seed 0) twice
+   on ``kernel`` and once on ``ref`` (all equal, and unlike the greedy
+   tokens); the int8 layout with the bias-free fused ``wqkv`` bank on
+   ``kernel`` and ``ref`` (tokens equal); then qwen2-1.5b at full width
+   (28 layers) ideal greedy on ``kernel`` and ``ref`` (tokens equal).  The
+   granite ideal and int8 kernel runs profile two decode steps (device
+   busy share); the phase prints its peak memory.
+6c. deepseek: deepseek-67b at full width with 4 of its 95 layers (its
+   134 GB of bf16 weights do not fit one 80 GB card): ``lm_logits`` on
+   B=1, T=512 on ``kernel`` and ``ref``, max |dlogit| / max |logit| <=
+   2e-2 and argmax agreement >= 99% (the oneshot phase's bf16 floor), the
+   untied ``lm_head`` routed; 2 prompts x 4 greedy tokens on the paged
+   server, ``kernel`` tokens equal ``ref``'s.
 7. train, in a process of its own (``chip_smoke.py --phase train``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
    so the serve phases run without it; its result comes back as JSON on
@@ -115,7 +149,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    synthetic tokens (``DataConfig(vocab_size=151936, seq_len=1024,
    global_batch=4, seed=0)``, ``AdamWConfig(lr=3e-4, warmup_steps=1,
    total_steps=3)``) with ``torch.use_deterministic_algorithms(True)``,
-   in four modes:
+   in five modes:
    (a) ideal channel, kernel backend, through ``runtime.train_loop.train``
    into a temporary checkpoint directory (the end-of-run checkpoint is
    timed, its size printed, and the directory removed): fused launches
@@ -123,7 +157,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    same on the ``exact`` backend: losses and final parameters bitwise equal
    to (a)'s; (c) SMWA analog, ``noise_seed=0``: losses and grad norms
    finite, the gap to (a) printed; (d) (a) with ``remat=False``: step-1
-   loss bitwise equal to (a)'s, 144 launches per step.  (b)-(d) call
+   loss bitwise equal to (a)'s, 144 launches per step; (e) (a) with
+   ``remat_policy="dots"``: losses and final parameters bitwise (a)'s, 288
+   launches per step (the kernel is no product the policy saves).  (b)-(e) call
    ``build_train_step`` on the same batches.  Per mode: seconds per step
    (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``;
    for (a) also one more step under the torch profiler (device busy share,
@@ -161,6 +197,18 @@ SITES = [  # (site, K, C, bias) — one decoder layer of qwen2-0.5b
     ("ffn.wi", 896, 9728, False),
     ("ffn.wo", 4864, 896, False),
 ]
+# (site, K, C, bias) — one decoder layer of granite-3-8b (no QKV bias), and
+# deepseek-67b's two widest GEMMs: the MLP down projection (K = 22016) and
+# the untied LM head (C = 102400)
+GRANITE_SITES = [
+    ("attn.wq", 4096, 4096, False),
+    ("attn.wk", 4096, 1024, False),
+    ("attn.wv", 4096, 1024, False),
+    ("attn.wo", 4096, 4096, False),
+    ("ffn.wi", 4096, 25600, False),
+    ("ffn.wo", 12800, 4096, False),
+]
+DEEPSEEK_SITES = [("ffn.wo", 22016, 8192, False), ("lm_head", 8192, 102400, False)]
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TRAIN_STEPS = 3
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
@@ -180,8 +228,28 @@ FLASH_CASES = [
     ("offset", 1, 64, 1000, 14, 2, 64, True, 936, None, "bf16"),
     ("kv_valid", 2, 1000, 1000, 14, 2, 64, False, 0, 900, "bf16"),
     ("hd128", 2, 1024, 1024, 12, 2, 128, True, 0, None, "bf16"),
+    ("granite", 2, 1000, 1000, 32, 8, 128, True, 0, None, "bf16"),
     ("f32", 2, 1000, 1000, 14, 2, 64, True, 0, None, "f32"),
 ]
+
+# Known answers of jax.random (threefry2x32 with jax_threefry_partitionable
+# on, its default since JAX 0.5), computed with JAX 0.9.0 on the CPU; the
+# card has no JAX.  tests/test_torch_prng.py recomputes every one from JAX.
+# "categorical" draws row / 0.8 of a bf16 row of 151,936 logits (numpy
+# seed row_seed, standard normal x 3) under fold_in(fold_in(key, uid), n).
+KEY_ANSWERS = {
+    "seed": 7, "fold": 3, "n_bits": 12, "row_seed": 5, "vocab": 151936,
+    "uid_n": [(0, 0), (1, 3), (7, 8), (123456, 2)],
+    "fold_in": [276534068, 1641862660],
+    "split": [[3625411723, 1954958720], [195045567, 4062205631], [966301609, 1948237315]],
+    "bits8": [11, 0, 170, 48, 134, 107, 88, 106, 139, 174, 217, 78],
+    "bits16": [10507, 32256, 10666, 17712, 25478, 39787, 13144, 54634, 3723, 45230, 36825, 15694],
+    "bits32": [2895194379, 4185947648, 1300703658, 1906787632, 3139134342, 2709822315, 1926509400,
+               1767298410, 299634315, 385396910, 1594265561, 3613146446],
+    "uniform_f32_bits": [1059885352, 1064927358, 1050349136, 1055084168, 1060838242, 1059161242,
+                         1055238244, 1053994408, 1032773744, 1035453824, 1052642588, 1062689852],
+    "categorical": [67189, 148188, 84228, 111253],
+}
 
 
 def layer_sum(rs, key):
@@ -393,11 +461,18 @@ def passes_of(dpu, stages) -> tuple:
     return passes, int(stages["intermod_eps"] > 0) + int(stages["crossweight_eps"] > 0)
 
 
-def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_out):
+def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_out, *, model="qwen2-0.5b",
+                site=None, key=None, exact=False, twin_once=False):
     """One kernel-vs-twin case at the stage arguments and padding the
     engine gives an (r, k) x (k, c) GEMM; appends a result dict to
-    ``rows_out``."""
-    from repro_torch.photonic.engine import kernel_stages
+    ``rows_out``.  With ``key`` (a ``repro_torch.prng`` key) a noisy case
+    draws the stream the engine derives from it for ``site`` at layer 0;
+    ``exact`` holds the kernel to its twin bitwise, noise included;
+    ``twin_once`` times the twin once (a wide GEMM's twin is slow); the
+    ``_int_mm`` yardstick of the int core is timed for every ``exact``
+    case, on the rows padded to 32 where fewer (its least row count is
+    17)."""
+    from repro_torch.photonic.engine import PhotonicEngine, kernel_stages
 
     dev = torch.device("cuda")
     stages, (rp, kp, cp) = kernel_stages(dpu, r, k, c)
@@ -412,6 +487,8 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     ws = torch.rand((cp,), generator=gen, device=dev) * 0.01 + 1e-3
     bias = torch.randn((cp,), generator=gen, device=dev) if with_bias else None
     seed = torch.randint(0, 2**32, (), generator=gen, device=dev, dtype=torch.int64)
+    if key is not None and not x_f32:
+        seed = PhotonicEngine(dpu=dpu).stream_seed(site, 0, x[:r, :k], w[:k, :c], prng_key=key)
     args = (x, w, xs, ws, bias, seed)
     kw = dict(operand_bits=8, activation=activation, **stages)
 
@@ -440,7 +517,10 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     err = float(diff.max())
     finite = bool(torch.isfinite(y_k).all())
     lsb = diff / unit
-    if activation is None and bias is None:
+    if exact:
+        ok = finite and err == 0.0
+        tol = "bitwise" + (", noise included" if noisy else "")
+    elif activation is None and bias is None:
         if noisy:
             frac = float((lsb > 0.5).to(torch.float64).mean())
             ok = finite and frac <= 1e-3 and float(lsb.max()) <= 2 * 2 ** (2 * dpu.bits)
@@ -458,9 +538,14 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     k_ms = graph_ms(run_kernel)
     launched = K.LAUNCHES["photonic_gemm_fused"] - n0
     del y_k, y_t, diff, lsb
-    t_ms = t_once if r >= 1000 else eager_ms(run_twin)  # the twin at R = 2000 is slow: timed once
+    t_ms = t_once if r >= 1000 or twin_once else eager_ms(run_twin)  # the twin at R = 2000 is slow: timed once
     lib_ms = None
-    if not analog and stages["adc_bits"] is None and r > 16:
+    if exact and not x_f32:
+        xi = torch.zeros((max(r, 32), k), dtype=torch.int8, device=dev)
+        xi[:r] = x[:r, :k]
+        wl = w[:k, :c].contiguous()
+        lib_ms = graph_ms(lambda: torch._int_mm(xi, wl))
+    elif not analog and stages["adc_bits"] is None and r > 16:
         xi = x if not x_f32 else torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
         xi, wl = xi[:r, :k].contiguous(), w[:k, :c].contiguous()
         lib_ms = graph_ms(lambda: torch._int_mm(xi, wl))
@@ -469,12 +554,14 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     parts = bound_ms(r, k, c, 4 if x_f32 else 1, passes, xdots, with_bias, True, draws)
     b_ms, b_by = bound_of([parts])
     rows_out.append(dict(
+        model=model, site=site, keyed=key is not None,
         R_live=r, R=rp, K=k, C=c, Kp=kp, Cp=cp, channel=dpu.organization if analog else "ideal",
         x="f32" if x_f32 else "int8", bias=with_bias, activation=activation,
         ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, parts=parts,
         draws=draws, max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
     ))
-    log(f"  R={r:3d}/{rp:3d} K={k:4d}/{kp:4d} C={c:5d} {rows_out[-1]['channel']:5s} x={rows_out[-1]['x']:4s} "
+    log(f"  {'' if model == 'qwen2-0.5b' else model + ' ' + str(site) + (' keyed' if key is not None else '') + ' '}"
+        f"R={r:3d}/{rp:3d} K={k:4d}/{kp:4d} C={c:5d} {rows_out[-1]['channel']:5s} x={rows_out[-1]['x']:4s} "
         f"bias={int(with_bias)} act={activation}: kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
         f"_int_mm {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms "
         f"({b_by}), {launched} launches, max_abs_err {err:.3g} [{tol}] -> {'ok' if ok else 'MISMATCH'}")
@@ -533,7 +620,7 @@ def engine_forward_ms(torch, dpu, r, k, c, with_bias, site, gen) -> float:
         return eager_ms(lambda: eng.matmul_float(x, w, site=site, fold=0, bias=b))
 
 
-def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card):
+def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card, *, prng_key=None, model="qwen2-0.5b"):
     """One bit-sliced GEMM, ``PhotonicEngine.int_gemm(slicing=plane_bits)``
     on CUDA int8 operands (the kernel backend: P^2 unfused ``photonic_gemm``
     plane passes), against the same call with every pass through the twin
@@ -557,7 +644,7 @@ def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card):
     ideal = dpu.effective_channel() is None
     x = torch.randint(-127, 128, (r, k), generator=gen, device=dev, dtype=torch.int8)
     w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
-    kw = dict(site=site, fold=0, slicing=spec)
+    kw = dict(site=site, fold=0, slicing=spec, prng_key=prng_key)
     kernel, calls = E.photonic_gemm, []
 
     def record(*a, **k_):
@@ -597,7 +684,8 @@ def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card):
         ok = ok and bool(torch.equal(y_k.to(torch.int64), exact))
         tol += ", == exact_int_gemm"
     err_sliced = float((y_k.to(torch.int64) - exact).abs().to(torch.float64).mean())
-    err_plain = float((eng.int_gemm(x, w, site=site, fold=0).to(torch.int64) - exact).abs().to(torch.float64).mean())
+    err_plain = float((eng.int_gemm(x, w, site=site, fold=0, prng_key=prng_key).to(torch.int64) - exact)
+                      .abs().to(torch.float64).mean())
     k_ms = graph_ms(lambda: [kernel(*a, **k_) for a, k_ in calls])
     e_ms = graph_ms(lambda: eng.int_gemm(x, w, **kw))
     lib_ms = None
@@ -609,12 +697,14 @@ def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card):
     b_ms, b_by = bound_of([parts])
     chan = "ideal" if ideal else dpu.organization
     rows_out.append(dict(
+        model=model, keyed=prng_key is not None,
         site=site, R_live=r, K=k, C=c, channel=chan, plane_bits=plane_bits, passes=planes**2,
         ms=k_ms, engine_ms=e_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
         parts=parts, draws=draws, max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
         mean_abs_err_to_exact=err_sliced, unsliced_mean_abs_err_to_exact=err_plain,
     ))
-    log(f"  sliced {site:7s} R={r:3d} K={k:4d} C={c:5d} {chan:5s} p={plane_bits}: {planes**2} passes, kernel "
+    log(f"  sliced {'' if model == 'qwen2-0.5b' else model + ' '}{site:7s}{' keyed' if prng_key is not None else ''} "
+        f"R={r:3d} K={k:4d} C={c:5d} {chan:5s} p={plane_bits}: {planes**2} passes, kernel "
         f"{k_ms:.4f} ms, engine {e_ms:.4f} ms, twin passes {t_ms:.3f} ms, _int_mm "
         f"{lib_ms if lib_ms is None else round(lib_ms, 4)} ms, bound {b_ms:.5f} ms ({b_by}), {launched} "
         f"launches, max_abs_err {err:.3g} [{tol}], mean |y - exact| {err_sliced:.2f} (unsliced "
@@ -639,6 +729,55 @@ def build_kernels(libs) -> None:
         log(f"  built {path.relative_to(ROOT)} in {secs:.2f} s; SASS {sass_counts(path)}")
         lib.load()
     log(f"  all {len(libs)} kernel sources built in {time.perf_counter() - t0:.2f} s")
+
+
+def keys_phase(torch, card):
+    """The port's ``prng`` (JAX's threefry2x32) on the card against the
+    same calls on the CPU and against ``KEY_ANSWERS``: keys, 8/16/32-bit
+    words and f32 uniform bits exactly; ``categorical`` of the bf16 row of
+    151,936 logits under four per-row keys exactly, on both devices.  The
+    Gumbel noise of a (4, 151936) draw on the card is compared with the CPU
+    draw's (their f32 ``log`` may round apart; counted, not gated); the
+    vectorized draw over the four rows is timed.  Returns (ok, result)."""
+    from repro_torch import prng
+
+    c = KEY_ANSWERS
+    key = prng.PRNGKey(c["seed"])
+    checks = {
+        "fold_in": prng.fold_in(key, c["fold"]).tolist() == c["fold_in"],
+        "split": prng.split(key, 3).tolist() == c["split"],
+    }
+    n = c["n_bits"]
+    row = torch.from_numpy(np.random.default_rng(c["row_seed"]).standard_normal(c["vocab"]).astype(np.float32) * 3)
+    row = row.to(torch.bfloat16)
+    keys = np.stack([prng.fold_in(prng.fold_in(key, u), i) for u, i in c["uid_n"]])
+    for dev in ("cpu", "cuda"):
+        for bits in (8, 16, 32):
+            got = prng.random_bits(key, bits, (n,), device=dev)
+            checks[f"bits{bits} {dev}"] = got.device.type == dev and got.cpu().tolist() == c[f"bits{bits}"]
+        u = prng.uniform(key, (n,), torch.float32, device=dev).cpu().view(torch.int32).to(torch.int64)
+        checks[f"uniform {dev}"] = (u & 0xFFFFFFFF).tolist() == c["uniform_f32_bits"]
+        rows = row.to(dev)[None, :].expand(len(keys), -1)
+        rows = rows / torch.full((), 0.8, dtype=rows.dtype, device=dev)  # the samplers' spelling
+        checks[f"categorical {dev}"] = prng.categorical(keys, rows).cpu().tolist() == c["categorical"]
+    big = (4, c["vocab"])
+    same_bits = torch.equal(prng.random_bits(keys, 32, big[1:], device="cuda").cpu(),
+                            prng.random_bits(keys, 32, big[1:], device="cpu"))
+    checks["bits32 (4 x 151936) cuda == cpu"] = same_bits
+    diffs = {}
+    for dt in (torch.bfloat16, torch.float32):
+        a = prng.gumbel(keys, big[1:], dt, device="cuda").cpu().float()
+        b = prng.gumbel(keys, big[1:], dt, device="cpu").float()
+        diffs[str(dt).removeprefix("torch.")] = (int((a != b).sum()), float((a - b).abs().max()))
+    rows = (row.to("cuda")[None, :].expand(4, -1) / torch.full((), 0.8, dtype=torch.bfloat16, device="cuda"))
+    ms = eager_ms(lambda: prng.categorical(keys, rows), reps=5)
+    ok = all(checks.values())
+    for name, good in checks.items():
+        log(f"  {name}: {'ok' if good else 'MISMATCH'}")
+    log(f"  gumbel (4 x 151936) cuda vs cpu, elements apart and max |diff|: {diffs} (not gated)")
+    log(f"  categorical of 4 bf16 rows of 151936 under 4 keys on the card: {ms:.3f} ms host-timed; "
+        f"draws {prng.categorical(keys, rows).tolist()} == {c['categorical']} [{card}]")
+    return ok, dict(checks=checks, gumbel_cuda_vs_cpu=diffs, categorical_ms=ms)
 
 
 def flash_case(torch, F, case, gen, rows_out, card):
@@ -826,27 +965,31 @@ def profiled(torch, fn, label):
     return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launch_calls=launches, cost=cost)
 
 
-def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, fuse=False):
-    """Serve ``prompts`` greedily through the port's Scheduler, the model
+def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, fuse=False, temperature=None,
+          new_tokens=8, batch=4, profile=True):
+    """Serve ``prompts`` through the port's Scheduler, greedily or, with a
+    ``temperature``, sampled under the reference's keys (seed 0), the model
     config changed by ``extra`` (e.g. ``photonic_slicing``) and, with
     ``fuse``, every layer's Q/K/V fused into one ``wqkv`` bank after the
     scheduler prepacked them.  Once every request is prefilled, two steady
-    decode steps run apart (under the profiler on the kernel backend) and
-    are left out of the rates."""
+    decode steps run apart (under the profiler on the kernel backend, with
+    ``profile``) and are left out of the rates."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.photonic import fuse_qkv_params
     from repro_torch.serving import Request, Scheduler, ServingConfig
 
     cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend, **(extra or {}))
+    sampling = {} if temperature is None else dict(greedy=False, temperature=temperature, seed=0)
     sch = Scheduler(
         arch, cfg, params,
-        ServingConfig(batch_size=4, max_seq=128, block_size=16, chunk_tokens=64, record_logits=True),
+        ServingConfig(batch_size=batch, max_seq=128, block_size=16, chunk_tokens=64, record_logits=True,
+                      **sampling),
     )
     if fuse:
         for layer in sch.params["layers"]:
             layer["attn"] = fuse_qkv_params(layer["attn"], sch.photonic)
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens) for i, p in enumerate(prompts)]
     torch.cuda.synchronize()
     K.reset_launches()
     F.reset_launches()
@@ -858,7 +1001,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, f
     before_s, before_toks = sch.stats["decode_s"], sum(len(r.output) for r in reqs)
     tp = time.perf_counter()
     prof = None
-    if backend == "kernel":
+    if backend == "kernel" and profile:
         prof = profiled(torch, lambda: [sch.step() for _ in range(2)], label)
     else:
         sch.step()
@@ -884,7 +1027,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, f
         f"{st['decode_steps'] - 2} other steps; fused launches "
         f"{launches['photonic_gemm_fused']}, unfused launches {launches['photonic_gemm']} for "
         f"{forwards} forwards [{card}]")
-    done = all(r.done and len(r.output) == 8 for r in reqs)
+    done = all(r.done and len(r.output) == new_tokens for r in reqs)
     st = dict(st, seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
               decode_ms_per_step=decode_ms, tok_per_s=(toks - prof_toks) / run_s, profile=prof)
     return reqs, launches, forwards, done, finite, st
@@ -1057,7 +1200,7 @@ def _fingerprint(tree) -> str:
 
 
 def train_phase(torch, arch, ideal, smwa, card):
-    """Full-width training in four modes (module docstring, phase 7).
+    """Full-width training in five modes (module docstring, phase 7).
     Returns (ok, result dict, fused launches of the main-path run (a))."""
     from repro_torch.checkpoint import ckpt
     from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
@@ -1146,11 +1289,13 @@ def train_phase(torch, arch, ideal, smwa, card):
         log(f"  train a: profiled step fused launches {K.LAUNCHES['photonic_gemm_fused']}")
         del out, step, batch
 
-        # (b) exact backend, (c) SMWA analog, (d) no remat: build_train_step on the same batches.
+        # (b) exact backend, (c) SMWA analog, (d) no remat, (e) remat_policy
+        # "dots": build_train_step on the same batches.
         for label, cfg in (
             ("b", dataclasses.replace(cfg_a, photonic_backend="exact")),
             ("c", dataclasses.replace(cfg_a, photonic=smwa)),
             ("d", dataclasses.replace(cfg_a, remat=False)),
+            ("e", dataclasses.replace(cfg_a, remat_policy="dots")),
         ):
             params, losses, norms, secs, launches = steps(cfg)
             res[label] = dict(losses=losses, grad_norms=norms)
@@ -1167,11 +1312,20 @@ def train_phase(torch, arch, ideal, smwa, card):
                         and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * TRAIN_STEPS)
                 log(f"  train c: losses and grad norms finite, {launches['photonic_gemm_fused']} fused "
                     f"launches: {good}")
-            else:
+            elif label == "d":
                 good = (losses[0] == res["a"]["losses"][0]
                         and launches["photonic_gemm_fused"] == 6 * n_layers * TRAIN_STEPS)
                 log(f"  train d: step-1 loss bitwise equal to (a)'s, {launches['photonic_gemm_fused']} == "
                     f"{6 * n_layers * TRAIN_STEPS} fused launches: {good}")
+            else:
+                # The kernel is no product the policy saves: recomputed, as under "full".
+                same = losses == res["a"]["losses"]
+                fp = _fingerprint(params)
+                good = (same and fp == fp_a
+                        and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * TRAIN_STEPS)
+                log(f"  train e (remat_policy dots): losses bitwise equal to (a)'s: {same}; final params "
+                    f"sha256 {fp} vs (a) {fp_a}; {launches['photonic_gemm_fused']} == "
+                    f"{6 * n_layers * 2 * TRAIN_STEPS} fused launches: {good}")
             ok &= good
             del params
         del params_a
@@ -1325,6 +1479,167 @@ def int8_serve_phase(torch, arch, params, prompts, card):
     return ok and same_ref and same_fuse, out
 
 
+def dense_serve_phase(torch, registry, card):
+    """granite-3-8b at full width (40 layers, bf16, ``init_params`` seed 0
+    on the card) on the paged Scheduler with the serve phase's four prompt
+    lengths and 8 new tokens: ideal greedy on ``kernel`` and ``ref``
+    (tokens equal); ideal at temperature 0.8 under the reference's keys
+    (seed 0), twice on ``kernel`` and once on ``ref`` (all three equal); the
+    int8 layout (``quantize_params``, ``kv_cache_int8``, the bias-free fused
+    ``wqkv`` bank) on ``kernel`` and ``ref`` (tokens equal); then
+    qwen2-1.5b at full width (28 layers) ideal greedy on ``kernel`` and
+    ``ref`` (tokens equal).  Fused launches 6 (4 with ``wqkv``) x layers x
+    forwards on ``kernel``, none on ``ref``.  Returns (ok, runs, peak
+    memory in bytes)."""
+    from repro_torch.models.common import init_params, quantize_params
+
+    ok, runs = True, {}
+    torch.cuda.reset_peak_memory_stats()
+
+    def one(arch, params, label, backend, **kw):
+        n_layers = arch.config.num_layers
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, arch.config.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
+        # Only granite's ideal run is profiled: the profiler's report costs ~10 s a run.
+        reqs, launches, forwards, done, finite, st = serve(
+            torch, arch, params, ideal_dpu(), backend, prompts, card, label,
+            profile=label in ("granite_ideal", "granite_int8_fused"), **kw)
+        expect = (4 if kw.get("fuse") else 6) * n_layers * forwards if backend == "kernel" else 0
+        good = (done and finite and launches["photonic_gemm_fused"] == expect
+                and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
+        log(f"  {label}: all done {done}, logits finite {finite}, fused launches "
+            f"{launches['photonic_gemm_fused']} == {expect}: {good}")
+        runs[label] = (reqs, launches, st)
+        torch.cuda.empty_cache()
+        return good
+
+    def same(a, b):
+        eq = all(x.output == y.output for x, y in zip(runs[a][0], runs[b][0]))
+        log(f"  {a} tokens == {b} tokens: {eq}")
+        for x, y in zip(runs[a][0], runs[b][0]):
+            log(f"    uid {x.uid}: {a} {x.output} {b} {y.output}")
+        return eq
+
+    arch = registry.get("granite-3-8b")
+    t0 = time.perf_counter()
+    params = init_params(arch.config, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_params (granite-3-8b full width, 40 layers, bf16) {time.perf_counter() - t0:.2f} s")
+    ok &= one(arch, params, "granite_ideal", "kernel")
+    ok &= one(arch, params, "granite_ideal_ref", "ref")
+    ok &= same("granite_ideal", "granite_ideal_ref")
+    for label, backend in (("granite_t08", "kernel"), ("granite_t08_again", "kernel"), ("granite_t08_ref", "ref")):
+        ok &= one(arch, params, label, backend, temperature=0.8)
+    ok &= same("granite_t08", "granite_t08_again") & same("granite_t08", "granite_t08_ref")
+    differs = any(x.output != y.output for x, y in zip(runs["granite_t08"][0], runs["granite_ideal"][0]))
+    log(f"  granite sampled tokens differ from greedy ones (the draw is live): {differs}")
+    ok &= differs
+    extra = dict(photonic_scope="weights_int8", kv_cache_int8=True)
+    params_q = quantize_params(params, arch.param_defs(dataclasses.replace(arch.config, photonic=ideal_dpu(), **extra)))
+    del params
+    torch.cuda.empty_cache()
+    ok &= one(arch, params_q, "granite_int8_fused", "kernel", extra=extra, fuse=True)
+    ok &= one(arch, params_q, "granite_int8_fused_ref", "ref", extra=extra, fuse=True)
+    ok &= same("granite_int8_fused", "granite_int8_fused_ref")
+    del params_q
+    torch.cuda.empty_cache()
+
+    arch = registry.get("qwen2-1.5b")
+    params = init_params(arch.config, 0, device="cuda")
+    ok &= one(arch, params, "qwen2_1_5b_ideal", "kernel")
+    ok &= one(arch, params, "qwen2_1_5b_ideal_ref", "ref")
+    ok &= same("qwen2_1_5b_ideal", "qwen2_1_5b_ideal_ref")
+    del params
+    torch.cuda.empty_cache()
+    peak = torch.cuda.max_memory_allocated()
+    log(f"  dense serve peak memory (max_memory_allocated) {peak / 2**30:.2f} GiB [{card}]")
+    return ok, runs, peak
+
+
+def deepseek_phase(torch, registry, card):
+    """deepseek-67b at full width with 4 of its 95 layers (the only cut:
+    134 GB of bf16 weights do not fit one 80 GB card), ``init_params``
+    seed 0 on the card, ideal channel.  ``lm_logits`` on B = 1, T = 512 on
+    ``kernel`` and ``ref``, gated as the oneshot phase gates bf16 logits at
+    its floor: max |dlogit| / max |logit| <= 2e-2 and argmax agreement >=
+    99% (fused launches 6 x 4 + 1, the untied ``lm_head`` routed); then 2
+    prompts (32 and 48 tokens) x 4 greedy tokens on the paged server,
+    ``kernel`` tokens equal ``ref``'s.  Returns (ok, result, kernel
+    launches)."""
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import prepack_serving_params
+
+    arch = registry.get("deepseek-67b")
+    cfg = dataclasses.replace(arch.config, num_layers=4)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_params (deepseek-67b full width, 4 of 95 layers, bf16) {time.perf_counter() - t0:.2f} s")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 512)), device="cuda")
+    logits, res, ok, launches = {}, {}, True, 0
+    for backend in ("kernel", "ref"):
+        run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+        with torch.no_grad():
+            _, packed = prepack_serving_params(arch, run, params)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            t0 = time.perf_counter()
+            out, _ = lm.lm_logits(packed, tokens, run)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            logits[backend] = out.float()
+            del packed, out
+        want = 6 * 4 + 1 if backend == "kernel" else 0
+        good = K.LAUNCHES["photonic_gemm_fused"] == want and bool(torch.isfinite(logits[backend]).all())
+        launches += K.LAUNCHES["photonic_gemm_fused"]
+        log(f"  deepseek lm_logits {backend} (B=1, T=512): {dt:.3f} s, fused launches "
+            f"{K.LAUNCHES['photonic_gemm_fused']} == {want}, finite: {good} [{card}]")
+        res[f"lm_logits_{backend}_s"] = dt
+        ok &= good
+        torch.cuda.empty_cache()
+    a, b = logits["kernel"], logits["ref"]
+    rel = float((a - b).abs().max() / b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    good = rel <= 2e-2 and agree >= 0.99
+    log(f"  deepseek lm_logits kernel vs ref over 512 positions: max |dlogit| / max |logit| {rel:.4g} "
+        f"(<= 2e-2), argmax agreement {agree:.4f} (>= 0.99), bitwise {bool(torch.equal(a, b))}: {good}")
+    ok &= good
+    res.update(rel_err=rel, argmax_agreement=agree)
+    del logits, a, b
+    torch.cuda.empty_cache()
+    arch4 = dataclasses.replace(arch, config=cfg)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (32, 48)]
+    outs = {}
+    for backend in ("kernel", "ref"):
+        reqs, lc, forwards, done, finite, st = serve(torch, arch4, params, ideal_dpu(), backend, prompts, card,
+                                                     f"deepseek_{backend}", new_tokens=4, batch=2, profile=False)
+        # The head runs on a prompt's final prefill chunk and on every decode step.
+        want = 6 * 4 * forwards + st["prefills"] + st["decode_steps"] if backend == "kernel" else 0
+        good = done and finite and lc["photonic_gemm_fused"] == want
+        log(f"  deepseek serve {backend}: all done {done}, logits finite {finite}, fused launches "
+            f"{lc['photonic_gemm_fused']} == {want}: {good}")
+        ok &= good
+        if backend == "kernel":
+            launches += lc["photonic_gemm_fused"]
+        outs[backend] = reqs
+        res[f"serve_{backend}"] = st
+        torch.cuda.empty_cache()
+    same = all(x.output == y.output for x, y in zip(outs["kernel"], outs["ref"]))
+    for x, y in zip(outs["kernel"], outs["ref"]):
+        log(f"    uid {x.uid}: kernel {x.output} ref {y.output}")
+    log(f"  deepseek paged greedy kernel tokens == ref tokens: {same}")
+    ok &= same
+    del params
+    torch.cuda.empty_cache()
+    res["peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  deepseek peak memory (max_memory_allocated) {res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    return ok, res, launches
+
+
 def main() -> int:
     import torch
 
@@ -1357,6 +1672,10 @@ def main() -> int:
             capture_output=True, text=True, check=True, timeout=60).stdout.split()[0]) * 1e6
         log(f"  Box-Muller draw: {DRAW['instructions']} SASS instructions; {DRAW['sms']} SMs x {LANES} lanes "
             f"at {DRAW['clock_hz'] / 1e6:.0f} MHz (max SM clock)")
+
+    with Phase("keys"):
+        keys_ok, keys_res = keys_phase(torch, card)
+        all_ok &= keys_ok
 
     gen = torch.Generator(device="cuda")
     gen.manual_seed(0)
@@ -1392,7 +1711,8 @@ def main() -> int:
                 int_rows.append((name, k, c) + res)
         for name in chans:
             for r in (4, 64, 2000, TRAIN_ROWS):
-                layer = [x for x in rows if x["channel"] == name and x["R_live"] == r and x["x"] == "int8"]
+                layer = [x for x in rows if x["channel"] == name and x["R_live"] == r and x["x"] == "int8"
+                         and x["model"] == "qwen2-0.5b"]
                 if len(layer) != len(SITES):
                     continue
                 bm, bb = bound_of([x["parts"] for x in layer])
@@ -1425,6 +1745,29 @@ def main() -> int:
         log(f"  SMWA attn.wq R=64: mean |y - exact| sliced p=2 {wq['mean_abs_err_to_exact']:.2f} < unsliced "
             f"{wq['unsliced_mean_abs_err_to_exact']:.2f}: {quieter}")
         all_ok &= quieter
+        # The new dense configs' shapes: granite-3-8b's six sites and
+        # deepseek-67b's MLP down projection and LM head, at decode and a
+        # prefill chunk, ideal and SMWA (seeded through a prng key), each
+        # held to its twin bitwise; one sliced SMWA row under a key.
+        from repro_torch import prng
+
+        key = prng.fold_in(prng.PRNGKey(0), 17)
+        for model, sites in (("granite-3-8b", GRANITE_SITES), ("deepseek-67b", DEEPSEEK_SITES)):
+            for name in ("ideal", "SMWA"):
+                for r in (4, 64):
+                    for site, k, c, b in sites:
+                        all_ok &= kernel_case(torch, K, chans[name], r, k, c, b, False, None, gen, rows,
+                                              model=model, site=site, key=key if name == "SMWA" else None,
+                                              exact=True, twin_once=True)
+            for name in ("ideal", "SMWA"):
+                for r in (4, 64):
+                    layer = [x for x in rows if x["model"] == model and x["channel"] == name and x["R_live"] == r]
+                    bm, bb = bound_of([x["parts"] for x in layer])
+                    log(f"  {model} {'layer' if model == 'granite-3-8b' else 'ffn.wo + lm_head'} sum {name} R={r}: "
+                        f"kernel {sum(x['ms'] for x in layer):.4f} ms, twin {sum(x['plain_ms'] for x in layer):.3f} ms, "
+                        f"bound {bm:.5f} ms ({bb}), _int_mm {layer_sum(layer, 'library_ms'):.4f} ms [{card}]")
+        all_ok &= sliced_case(torch, K, chans["SMWA"], 4, *GRANITE_SITES[0][1:3], 2, GRANITE_SITES[0][0], gen,
+                              sliced_rows, card, prng_key=key, model="granite-3-8b")
     flash_rows = []
     with Phase("flash kernels"):
         for case in FLASH_CASES:
@@ -1512,6 +1855,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    with Phase("dense serve"):
+        dense_ok, dense, dense_peak = dense_serve_phase(torch, registry, card)
+        all_ok &= dense_ok
+
+    with Phase("deepseek"):
+        deepseek_ok, deepseek, deepseek_launches = deepseek_phase(torch, registry, card)
+        all_ok &= deepseek_ok
+
     with Phase("train"):
         train_ok, train_res, train_launches = run_train_child(card)
         all_ok &= train_ok
@@ -1525,8 +1876,10 @@ def main() -> int:
     # yardstick), launches from the paged serve runs, the int8 runs and
     # train().  photonic_gemm: the same layer bit-sliced at 2-bit planes (16
     # unfused passes a GEMM), launches from the sliced serve runs.
-    fused_rows = [x for x in rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["x"] == "int8"]
-    sliced_layer = [x for x in sliced_rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["plane_bits"] == 2]
+    fused_rows = [x for x in rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["x"] == "int8"
+                  and x["model"] == "qwen2-0.5b"]
+    sliced_layer = [x for x in sliced_rows if x["R_live"] == 64 and x["channel"] == "ideal" and x["plane_bits"] == 2
+                    and x["model"] == "qwen2-0.5b"]
     fused_bound = bound_of([x["parts"] for x in fused_rows])
     sliced_bound = bound_of([x["parts"] for x in sliced_layer])
     kernels = [
@@ -1536,13 +1889,15 @@ def main() -> int:
             launches=(results["ideal"][1]["photonic_gemm_fused"] + results["smwa"][1]["photonic_gemm_fused"]
                       + int8["int8_fused"][1]["photonic_gemm_fused"]
                       + int8["int8_three_sites"][1]["photonic_gemm_fused"]
-                      + train_launches["photonic_gemm_fused"]),
+                      + train_launches["photonic_gemm_fused"]
+                      + sum(v[1]["photonic_gemm_fused"] for v in dense.values()) + deepseek_launches),
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
             bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
             library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x; launches from "
-                                  "the ideal and SMWA serve runs, the two int8 kernel serve runs and the "
-                                  "train() run",
+                                  "the ideal and SMWA serve runs, the two int8 kernel serve runs, the "
+                                  "train() run, the granite-3-8b and qwen2-1.5b serve runs and the "
+                                  "deepseek-67b lm_logits and serve runs",
         ),
         dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,
@@ -1574,7 +1929,8 @@ def main() -> int:
         {"card": card, "kernel_rows": rows, "sliced_rows": sliced_rows, "flash_rows": flash_rows,
          "p_term_rows": p_rows, "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
-         "serve": {k: v[2] for k, v in {**results, **sliced, **int8}.items()}, "train": train_res}, indent=1))
+         "serve": {k: v[2] for k, v in {**results, **sliced, **int8, **dense}.items()}, "train": train_res,
+         "keys": keys_res, "deepseek": deepseek, "dense_serve_peak_bytes": dense_peak}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,15 +1,22 @@
 """Asynchronous, atomic checkpoints of a tensor tree.
 
-Port of ``repro.checkpoint.ckpt``, with its on-disk layout: one directory
-``step_%08d`` holding ``leaves.npz`` (every leaf under its ``/``-joined
-path) and ``manifest.json`` (step, keys, shapes, dtypes), written under a
-``.tmp_step_%08d`` name and published by one atomic rename, so a killed
-save never corrupts the latest complete checkpoint.  ``save`` copies the
-leaves to the host synchronously and, unless ``blocking``, writes the
-files on a thread while training goes on.  numpy has no bfloat16, so a
-bf16 leaf is stored as its raw 16-bit pattern (int16) and the manifest
-records ``bfloat16``; ``restore`` reads it back bit for bit.  Elastic
-restore onto a mesh waits for the tensor-parallel slice.
+Port of ``repro.checkpoint.ckpt``.  The files are the reference's: one
+directory ``step_%08d`` holding ``leaves.npz`` (every leaf under its
+``/``-joined path) and ``manifest.json`` (step, keys, shapes, dtypes),
+written under a ``.tmp_step_%08d`` name and published by one atomic
+rename, so a killed save never corrupts the latest complete checkpoint.
+``save`` copies the leaves to the host synchronously and, unless
+``blocking``, writes the files on a thread while training goes on.
+
+The leaf paths are the port's own: per-layer lists (``params/layers/0/wq``)
+and NamedTuple fields by name (``opt/mu/...``, ``opt/step``).  The
+reference stacks the layers on a leading axis (``params/layers/wq``) and
+prints NamedTuple fields with a dot (``opt/.mu/...``, ``opt/.step``).
+``restore`` reads both layouts.  numpy has no bfloat16: the port stores a
+bf16 leaf as its raw 16-bit pattern (int16), the reference's ``np.savez``
+as a void ``V2`` array; both manifests record ``bfloat16`` and ``restore``
+reads either through the 16-bit pattern, bit for bit.  Elastic restore
+onto a mesh waits for the tensor-parallel slice.
 """
 
 from __future__ import annotations
@@ -19,7 +26,7 @@ import os
 import shutil
 import threading
 from pathlib import Path
-from typing import Any, Optional
+from typing import Any, Optional, Tuple
 
 import numpy as np
 import torch
@@ -97,20 +104,48 @@ def latest_step(ckpt_dir: str | Path) -> Optional[int]:
     return steps[-1] if steps else None
 
 
+def _archive_key(key: str, files) -> Tuple[str, Optional[int]]:
+    """Where the leaf the port calls ``key`` lies in an archive with names
+    ``files``: under ``key`` itself (the port's layout), or in the
+    reference's layout, where NamedTuple fields carry a leading ``.`` and
+    a ``layers/<i>/`` leaf is row ``i`` of the stacked ``layers/`` leaf.
+    Returns the archive name and the row (None for the whole leaf)."""
+    if key in files:
+        return key, None
+    by_plain = {"/".join(p.lstrip(".") for p in f.split("/")): f for f in files}
+    parts = key.split("/")
+    for j in range(1, len(parts) - 1):
+        if parts[j - 1] == "layers" and parts[j].isdigit():
+            stacked = "/".join(parts[:j] + parts[j + 1 :])
+            if stacked in by_plain:
+                return by_plain[stacked], int(parts[j])
+    if key in by_plain:
+        return by_plain[key], None
+    raise KeyError(f"{key} is not in the checkpoint (in either layout)")
+
+
 def restore(ckpt_dir: str | Path, step: int, target_tree: Any) -> Any:
     """Rebuild a tree shaped like ``target_tree`` from the checkpoint of
     ``step``, each leaf in its target's dtype and on its target's device.
-    Reference: ``repro.checkpoint.ckpt:restore`` (without ``shardings``)."""
+    The checkpoint may be the port's or one the reference's ``save``
+    wrote (module docstring).  Reference:
+    ``repro.checkpoint.ckpt:restore`` (without ``shardings``)."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
     out = []
     with np.load(d / "leaves.npz") as data:
+        files = set(data.files)
         for key, tgt in tree_items(target_tree).items():
-            arr = data[key]
+            name, row = _archive_key(key, files)
+            arr = data[name]
+            if manifest["dtypes"][name] == "bfloat16":
+                arr = arr.view(np.int16)  # int16 (port) or void V2 (reference)
+            if row is not None:
+                arr = arr[row]
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape}, target {tuple(tgt.shape)}")
-            t = torch.from_numpy(arr)
-            if manifest["dtypes"][key] == "bfloat16":
+            t = torch.from_numpy(np.array(arr))  # a contiguous copy; 0-dim stays 0-dim
+            if manifest["dtypes"][name] == "bfloat16":
                 t = t.view(torch.bfloat16)
             out.append(t.to(device=tgt.device, dtype=tgt.dtype))
     return tree_unflatten(target_tree, out)

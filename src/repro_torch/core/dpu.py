@@ -13,6 +13,7 @@ true division ``x / scale``, round half-to-even, clip, cast.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Optional, Tuple
 
 import torch
@@ -21,14 +22,8 @@ from repro_torch import platforms as _platforms
 from repro_torch.core import scalability
 from repro_torch.kernels.photonic_gemm.ref import photonic_gemm_ref
 from repro_torch.noise.channel import ChannelModel
-from repro_torch.noise.stages import data_tweak
+from repro_torch.noise.stages import data_tweak, seed_from_key
 from repro_torch.orgs import OrgSpec, resolve
-
-NOT_PORTED_KEYS = (
-    "prng_key stream folding (jax.random.fold_in) is not ported; use "
-    "DPUConfig.noise_seed"
-)
-
 
 @dataclasses.dataclass(frozen=True)
 class DPUConfig:
@@ -107,15 +102,20 @@ class DPUConfig:
             )
         return None
 
-    def noise_seed_value(self) -> int:
-        """uint32 stream seed from ``noise_seed``.  Reference:
-        ``repro.core.dpu:DPUConfig.noise_seed_array`` without a ``prng_key``
-        (key streams are not ported; the engine raises for them)."""
+    def noise_seed_array(self, prng_key=None, *, what: str = "noise") -> int:
+        """uint32 stream seed (a Python int) from ``prng_key`` or
+        ``noise_seed``, in that order, raising the documented error when
+        neither is given.  ``prng_key`` is a :mod:`repro_torch.prng` key
+        (or a raw JAX key's words).  Reference:
+        ``repro.core.dpu:DPUConfig.noise_seed_array``."""
+        if prng_key is not None:
+            return seed_from_key(prng_key)
         if self.noise_seed is not None:
             return self.noise_seed & 0xFFFFFFFF
         raise ValueError(
-            "noise requires a randomness source: set DPUConfig.noise_seed "
-            "(deterministic; same seed => bitwise-equal results)"
+            f"{what} requires a randomness source: pass prng_key or set "
+            "DPUConfig.noise_seed (deterministic; same seed => bitwise-equal "
+            "results)"
         )
 
 
@@ -201,13 +201,12 @@ def dpu_int_gemm(
     """Integer GEMM through the DPU datapath; int32 ``(R, C)``.  Reference:
     ``repro.core.dpu:dpu_int_gemm``: exact when the channel is ideal; an
     analog channel runs every slice-pair pass through the signal chain,
-    its noise stream ``data_tweak(noise_seed, xq, wq)`` folded per pass."""
-    if prng_key is not None:
-        raise NotImplementedError(NOT_PORTED_KEYS)
+    its noise stream ``data_tweak(seed, xq, wq)`` folded per pass, the seed
+    from ``prng_key`` or else ``cfg.noise_seed``."""
     channel = cfg.effective_channel()
     seed = None
     if channel is not None and channel.analog and channel.detector_sigma_lsb > 0.0:
-        seed = data_tweak(cfg.noise_seed_value(), xq, wq)
+        seed = data_tweak(cfg.noise_seed_array(prng_key, what="detector noise"), xq, wq)
     return photonic_gemm_ref(
         xq,
         wq,
@@ -246,9 +245,9 @@ def photonic_matmul(
 
 class _PhotonicMatmulSTE(torch.autograd.Function):
     @staticmethod
-    def forward(ctx, x, w, cfg):
+    def forward(ctx, x, w, cfg, prng_key):
         ctx.save_for_backward(x, w)
-        return photonic_matmul(x, w, cfg)
+        return photonic_matmul(x, w, cfg, prng_key=prng_key)
 
     @staticmethod
     def backward(ctx, g):
@@ -257,7 +256,7 @@ class _PhotonicMatmulSTE(torch.autograd.Function):
         x2 = x.reshape(-1, x.shape[-1])
         dx = (g2 @ w.T.to(g2.dtype)).reshape(x.shape).to(x.dtype)
         dw = (x2.T.to(g2.dtype) @ g2).to(w.dtype)
-        return dx, dw, None
+        return dx, dw, None, None
 
 
 def photonic_matmul_ste(
@@ -265,8 +264,15 @@ def photonic_matmul_ste(
 ) -> torch.Tensor:
     """QAT forward through the (optionally noisy) photonic datapath; the
     backward is the straight-through dense-matmul gradient
-    ``dx = g @ w.T``, ``dw = x.T @ g`` (the noise source gets none).
-    Reference: ``repro.core.dpu:photonic_matmul_ste``."""
-    if prng_key is not None:
-        raise NotImplementedError(NOT_PORTED_KEYS)
-    return _PhotonicMatmulSTE.apply(x, w, cfg)
+    ``dx = g @ w.T``, ``dw = x.T @ g`` (the key gets none).  Reference:
+    ``repro.core.dpu:photonic_matmul_ste``."""
+    return _PhotonicMatmulSTE.apply(x, w, cfg, prng_key)
+
+
+def noise_sigma_from_snr(cfg: DPUConfig, params=None) -> float:
+    """Analog noise std (psum LSBs) implied by operating at ENOB = B:
+    half-LSB symbol noise accumulated in quadrature over the chunk,
+    ``sqrt(N) / 2``.  ``params`` is accepted for the reference's
+    signature and unused there too.  Reference:
+    ``repro.core.dpu:noise_sigma_from_snr``."""
+    return math.sqrt(cfg.n) * 0.5

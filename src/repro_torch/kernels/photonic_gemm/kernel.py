@@ -87,6 +87,11 @@ def _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps) -> bool:
 # ---------------------------------------------------------------------------
 # The plain twin
 # ---------------------------------------------------------------------------
+# Elements of the twin's per-chunk psum array (G, R, C) above which it
+# works in column blocks, so a wide analog GEMM (a 102,400-column LM head)
+# stays within the card's memory.
+_TWIN_BLOCK = 1 << 28
+
 def _accumulate_twin(
     x: torch.Tensor,  # (R, K) int
     w: torch.Tensor,  # (K, C) int
@@ -104,9 +109,14 @@ def _accumulate_twin(
     tile_r: int,
     tile_c: int,
     tile_k: int,
+    col0: int = 0,
 ) -> torch.Tensor:
     """The reference ``_accumulate`` summed over the whole K grid axis, for
-    every logical tile at once; int64 ``(R, C)``."""
+    every logical tile at once; int64 ``(R, C)``.  ``w`` may be the columns
+    from ``col0`` (a multiple of ``tile_c``) of a wider weight: the noise
+    stream ids are those of the whole.  A call whose per-chunk psum array
+    would pass ``_TWIN_BLOCK`` elements runs in column blocks of whole
+    tiles (columns are independent, so the values are the same)."""
     analog = _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps)
     if not analog and adc_bits is None:
         # Ideal ADC: the shift-added slice passes equal the exact product.
@@ -116,6 +126,14 @@ def _accumulate_twin(
     dev = x.device
     chunks = tile_k // n_chunk
     g_tot = k // n_chunk
+    cb = max(1, _TWIN_BLOCK // (g_tot * r * tile_c)) * tile_c
+    if cb < c:
+        kw = dict(slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk, adc_bits=adc_bits,
+                  noise_sigma=noise_sigma, filter_alpha=filter_alpha, intermod_eps=intermod_eps,
+                  crossweight_eps=crossweight_eps, valid_chunks=valid_chunks, tile_r=tile_r,
+                  tile_c=tile_c, tile_k=tile_k)
+        return torch.cat([_accumulate_twin(x, w[:, c0 : c0 + cb], seed, col0=col0 + c0, **kw)
+                          for c0 in range(0, c, cb)], dim=1)
     lim = 2 ** (adc_bits - 1) - 1 if adc_bits is not None else None
     x_sl = slice_decompose(x, slice_bits, num_slices)
     w_sl = slice_decompose(w, slice_bits, num_slices)
@@ -125,7 +143,7 @@ def _accumulate_twin(
         cols = torch.arange(c, device=dev)
         g = torch.arange(g_tot, device=dev)
         ii = torch.arange(r // tile_r, device=dev)[:, None, None]
-        jj = torch.arange(c // tile_c, device=dev)[None, :, None]
+        jj = (torch.arange(c // tile_c, device=dev) + col0 // tile_c)[None, :, None]
         kk = torch.arange(k // tile_k, device=dev)[None, None, :]
         tile_seed = fold_seed(seed, ii, jj, kk)  # (I, J, KK)
         # Each global chunk g sits in K-tile g // chunks, at g % chunks there.

@@ -68,13 +68,34 @@ def photonic_gemm_ref(
             if analog:
                 pass_seed = fold_seed(seed if seed is not None else 0, si * num_slices + ti)
                 psum = analog_pass_psums(xs, ws, channel, pass_seed)
+                out = out + (psum.to(torch.int64).sum(dim=1) << shift)
             else:
-                psum = int_dot(xs.permute(1, 0, 2), ws).permute(1, 0, 2)
-                if adc_bits is not None:
-                    lim = 2 ** (adc_bits - 1) - 1
-                    psum = torch.clamp(psum, -lim, lim)
-            out = out + (psum.to(torch.int64).sum(dim=1) << shift)
+                out = out + (_digital_pass(xs, ws, adc_bits) << shift)
     return out.to(torch.int32)
+
+
+# Elements of one (G, rows, C) psum block of the digital pass: rows are
+# taken in blocks so a wide GEMM (a 102,400-column LM head over hundreds
+# of rows) never holds its whole float64 psum array at once.
+_PSUM_BLOCK = 1 << 28
+
+
+def _digital_pass(xs: torch.Tensor, ws: torch.Tensor, adc_bits: Optional[int]) -> torch.Tensor:
+    """One slice-pair pass without an analog stage: the per-chunk psums
+    (saturated to ``adc_bits``), summed over chunks, int64 ``(R, C)``.
+    Row blocks change no value: each row's psums are its own."""
+    r, g, _ = xs.shape
+    c = ws.shape[-1]
+    w64 = ws.to(torch.float64)
+    rb = max(1, _PSUM_BLOCK // max(1, g * c))
+    parts = []
+    for r0 in range(0, r, rb):
+        psum = torch.matmul(xs[r0 : r0 + rb].permute(1, 0, 2).to(torch.float64), w64).to(torch.int64)
+        if adc_bits is not None:
+            lim = 2 ** (adc_bits - 1) - 1
+            psum = torch.clamp(psum, -lim, lim)
+        parts.append(psum.sum(dim=0))
+    return torch.cat(parts, dim=0)
 
 
 def exact_int_gemm(xq: torch.Tensor, wq: torch.Tensor) -> torch.Tensor:

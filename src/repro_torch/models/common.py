@@ -11,6 +11,7 @@ carry the reference's weights over with ``repro_torch.weights``).
 from __future__ import annotations
 
 import dataclasses
+import functools
 import math
 from typing import Any, Dict, Optional, Tuple, Union
 
@@ -251,12 +252,15 @@ def dense(
     epilogue: Any = None,
     slicing: Any = None,
     activation: Optional[str] = None,
+    prng_key: Any = None,
 ) -> torch.Tensor:
     """Linear layer; routes through the photonic engine when enabled.
     Reference: ``repro.models.common:dense`` (single-device branch; the
     tensor-parallel branch waits for its slice).  Bias and activation ride
     the engine's fused epilogue; ``slicing`` overrides
-    ``cfg.photonic_slicing`` for this GEMM."""
+    ``cfg.photonic_slicing`` for this GEMM; ``prng_key`` (a
+    :mod:`repro_torch.prng` key) is the noise source, winning over
+    ``DPUConfig.noise_seed``."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
 
     if epilogue is not None:
@@ -271,7 +275,8 @@ def dense(
     ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
     eng = engine_from_model_config(cfg)
     return _single_device_matmul(
-        eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep, slicing=slicing
+        eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep, slicing=slicing,
+        prng_key=prng_key,
     )
 
 
@@ -285,11 +290,13 @@ def _digital_epilogue(y, ep):
     return y
 
 
-def _single_device_matmul(eng, params, w, x, cfg, *, site, layer, epilogue, slicing=None):
+def _single_device_matmul(
+    eng, params, w, x, cfg, *, site, layer, epilogue, slicing=None, prng_key=None
+):
     """Reference: ``repro.models.common:_single_device_matmul``."""
     from repro_torch.photonic.packing import PackedDense
 
-    kw = dict(site=site, fold=layer, epilogue=epilogue, slicing=slicing)
+    kw = dict(site=site, fold=layer, epilogue=epilogue, slicing=slicing, prng_key=prng_key)
     if isinstance(w, PackedDense):
         if eng is None:
             return _digital_epilogue(x @ w.dequant().to(x.dtype), epilogue)
@@ -395,24 +402,44 @@ def softmax_cross_entropy(
     return torch.mean(lse - gold)
 
 
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective-checkpoint policy of ``remat_policy="dots"``: save the
+    outputs of matrix products without batch dimensions (``mm``,
+    ``addmm``, ``mv``, ``dot``), recompute everything else — batched
+    products (``bmm``, the attention scores) included.  Reference:
+    ``jax.checkpoint_policies.dots_with_no_batch_dims_saveable``."""
+    from torch.utils.checkpoint import CheckpointPolicy
+
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.addmm.default, aten.mv.default, aten.dot.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
 def apply_remat(fn, cfg: ModelConfig):
-    """``fn`` under activation checkpointing when ``cfg.remat``: policy
-    "full" saves nothing and recomputes the whole call in the backward
-    (``torch.utils.checkpoint``, non-reentrant).  Without autograd (no grad
-    mode) the call runs as it is, as ``jax.checkpoint`` outside a
-    differentiation does.  Reference: ``repro.models.common:apply_remat``.
-    The "dots" policy (save the matmul outputs) is not ported."""
+    """``fn`` under activation checkpointing when ``cfg.remat``
+    (``torch.utils.checkpoint``, non-reentrant).  Policy "full" (and, as
+    in the reference, any name but "dots") saves nothing and recomputes
+    the whole call in the backward; "dots" saves the outputs of matrix
+    products without batch dimensions (:func:`_dots_policy`).  The
+    photonic kernel is a ``ctypes`` call, not a product the policy sees
+    (in the reference it is a ``pallas_call``, no ``dot`` either), so it
+    is recomputed under both; the recompute is deterministic, so both
+    policies give the same losses and gradients bit for bit.  Without
+    autograd (no grad mode) the call runs as it is, as ``jax.checkpoint``
+    outside a differentiation does.  Reference:
+    ``repro.models.common:apply_remat``."""
     if not cfg.remat:
         return fn
+    kw = {}
     if cfg.remat_policy == "dots":
-        raise NotImplementedError(
-            'remat_policy="dots" is not ported (ROADMAP.md Queue 1, "Dense '
-            'decoder"); use remat_policy="full" or remat=False'
-        )
+        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
 
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
 
     return remat

@@ -11,7 +11,7 @@ decoder family is ported; the other families wait for their slices
 from __future__ import annotations
 
 import dataclasses
-from typing import Any, Callable, Dict
+from typing import Any, Callable, Dict, Tuple
 
 from repro_torch.models import lm
 from repro_torch.models.common import ModelConfig
@@ -28,6 +28,7 @@ class Arch:
     prefill: Callable[..., Any]
     decode: Callable[..., Any]
     cache_def: Callable[..., Any]
+    skip_shapes: Tuple[str, ...] = ()
     notes: str = ""
 
 
@@ -53,12 +54,13 @@ _REGISTRY: Dict[str, Arch] = {}
 
 
 def make_arch(name: str, family: str, config: ModelConfig, smoke_config: ModelConfig,
-              notes: str = "") -> Arch:
+              skip_shapes: Tuple[str, ...] = (), notes: str = "") -> Arch:
     """Reference: ``repro.models.registry:make_arch``."""
     if family not in FAMILY_FNS:
         raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md Queue 1)")
     defs, loss, prefill, decode, cache_def = FAMILY_FNS[family]
-    arch = Arch(name, family, config, smoke_config, defs, loss, prefill, decode, cache_def, notes)
+    arch = Arch(name, family, config, smoke_config, defs, loss, prefill, decode, cache_def,
+                skip_shapes, notes)
     _REGISTRY[name] = arch
     return arch
 

@@ -17,8 +17,9 @@ key words) are folded on the host without a device round trip.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Union
+from typing import Optional, Union
 
+import numpy as np
 import torch
 
 U32 = 0xFFFFFFFF
@@ -129,15 +130,25 @@ def data_tweak(seed: UInt, *arrays: torch.Tensor) -> UInt:
     return fold_words(seed, *(tweak_word(a) for a in arrays))
 
 
-def seed_from_key(key_words: Optional[Sequence[int]]) -> Optional[int]:
-    """Collapse raw uint32 PRNG key words to a uint32 seed.  Reference:
-    ``repro.noise.stages:seed_from_key`` (which first unwraps a typed JAX
-    key to these words; the port takes the words themselves)."""
-    if key_words is None:
+def seed_from_key(prng_key) -> Optional[int]:
+    """Collapse a PRNG key to a uint32 seed (a Python int).  ``prng_key``
+    is a port key (:mod:`repro_torch.prng`, a uint32 array of shape
+    ``(2,)``), a raw JAX key as numpy, a torch tensor or a sequence of
+    key words.  Reference: ``repro.noise.stages:seed_from_key`` (which
+    first unwraps a typed JAX key to these words)."""
+    if prng_key is None:
         return None
+    if isinstance(prng_key, torch.Tensor):
+        prng_key = prng_key.detach().cpu().numpy()
+    return seed_from_key_words(*(int(w) for w in np.asarray(prng_key).reshape(-1)))
+
+
+def seed_from_key_words(*words: UInt) -> UInt:
+    """:func:`seed_from_key` of the key whose words are ``words``: Python
+    ints, or int64 tensors holding many keys' words elementwise."""
     seed = 0
-    for i, w in enumerate(key_words):
-        seed = hash_mix32(seed ^ (int(w) & U32) ^ (i * _GOLDEN & U32))
+    for i, w in enumerate(words):
+        seed = hash_mix32(seed ^ _u32(w) ^ (i * _GOLDEN & U32))
     return seed
 
 

@@ -48,8 +48,8 @@ from typing import Optional, Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch import prng
 from repro_torch.core.dpu import (
-    NOT_PORTED_KEYS,
     DPUConfig,
     bit_slices,
     quant_scale,
@@ -70,7 +70,14 @@ from repro_torch.kernels.photonic_gemm.kernel import (
 )
 from repro_torch.kernels.photonic_gemm.ref import exact_int_gemm, photonic_gemm_ref
 from repro_torch.noise.channel import sliced_channel
-from repro_torch.noise.stages import fold_seed, fold_words, tweak_word, tweak_words
+from repro_torch.noise.stages import (
+    fold_seed,
+    fold_words,
+    seed_from_key,
+    seed_from_key_words,
+    tweak_word,
+    tweak_words,
+)
 from repro_torch.photonic.slicing import SlicingSpec, resolve_slicing
 
 BACKENDS = ("ref", "kernel", "exact")
@@ -291,17 +298,50 @@ class PhotonicEngine:
         )
 
     # -- seed derivation -----------------------------------------------------
-    def _site_seed(self, site: Optional[str], fold: Optional[int], prng_key) -> int:
-        """``noise_seed`` with the site hash and the layer index folded in
-        (host integers)."""
+    def _site_key(self, site: Optional[str], fold: Optional[int], prng_key):
+        """``prng_key`` with the site hash and the layer index folded in
+        (``jax.random.fold_in`` on the host)."""
+        key = prng.key_data(prng_key)
+        if site is not None:
+            key = prng.fold_in(key, site_hash(site) & 0x7FFFFFFF)
+        if fold is not None:
+            key = prng.fold_in(key, int(fold))
+        return key
+
+    def _site_seed(
+        self, site: Optional[str], fold: Optional[int], prng_key, plane: Optional[int] = None
+    ) -> int:
+        """The stream seed before the operands' content words (a host
+        integer).  A key wins over ``noise_seed``: site hash, layer index
+        and ``(PLANE_STREAM_TAG, plane)`` are folded into the key, which
+        then collapses through ``seed_from_key``; without one they are
+        folded into ``noise_seed`` by ``fold_seed``."""
         if prng_key is not None:
-            raise NotImplementedError(NOT_PORTED_KEYS)
-        seed = self.dpu.noise_seed_value()
+            key = self._site_key(site, fold, prng_key)
+            if plane is not None:
+                key = prng.fold_in(prng.fold_in(key, PLANE_STREAM_TAG), plane)
+            return seed_from_key(key)
+        seed = self.dpu.noise_seed_array(None)
         if site is not None:
             seed = fold_seed(seed, site_hash(site))
         if fold is not None:
             seed = fold_seed(seed, int(fold))
+        if plane is not None:
+            seed = fold_seed(seed, PLANE_STREAM_TAG, plane)
         return seed
+
+    def _plane_seeds(self, site, fold, prng_key, n: int, device) -> torch.Tensor:
+        """:meth:`_site_seed` of plane passes ``0 .. n-1`` (int64 ``(n,)``
+        on ``device``), as one vectorized fold on the device (no host copy,
+        so a CUDA graph can hold it): ``fold_seed`` of the plane ids without
+        a key; with one, the site/layer/tag key folded on the host, then
+        ``fold_in`` of each plane id (the threefry block of ``(0, id)``) and
+        ``seed_from_key`` elementwise."""
+        ids = torch.arange(n, dtype=torch.int64, device=device)
+        if prng_key is None:
+            return fold_seed(self._site_seed(site, fold, None), PLANE_STREAM_TAG, ids)
+        k1, k2 = (int(w) for w in prng.fold_in(self._site_key(site, fold, prng_key), PLANE_STREAM_TAG))
+        return seed_from_key_words(*prng.threefry2x32(k1, k2, torch.zeros_like(ids), ids))
 
     def stream_seed(
         self,
@@ -316,13 +356,11 @@ class PhotonicEngine:
     ) -> torch.Tensor:
         """uint32 noise-stream seed for one GEMM call (0-dim int64 on the
         operands' device).  Reference: ``repro.photonic.engine:
-        PhotonicEngine.stream_seed`` on its ``noise_seed`` branch: site hash
-        and layer index folded on the host, then ``(PLANE_STREAM_TAG,
-        plane)`` for a plane pass, then the operands' content words
-        (``w_word`` is the prepacked weight's, if known)."""
-        seed = self._site_seed(site, fold, prng_key)
-        if plane is not None:
-            seed = fold_seed(seed, PLANE_STREAM_TAG, plane)
+        PhotonicEngine.stream_seed``: site hash, layer index and, for a
+        plane pass, ``(PLANE_STREAM_TAG, plane)`` folded on the host into
+        ``prng_key`` (which wins) or ``noise_seed``, then the operands'
+        content words (``w_word`` is the prepacked weight's, if known)."""
+        seed = self._site_seed(site, fold, prng_key, plane)
         return fold_words(seed, tweak_word(xq), tweak_word(wq) if w_word is None else w_word)
 
     # -- integer datapath ----------------------------------------------------
@@ -485,8 +523,7 @@ class PhotonicEngine:
             w_pl, w_words = plane_operands(wq[:k, :c], p, planes, (kp, cp), noisy)
         seeds = None
         if noisy:
-            ids = torch.arange(planes * planes, dtype=torch.int64, device=xq.device)
-            base = fold_seed(pe._site_seed(site, fold, prng_key), PLANE_STREAM_TAG, ids)
+            base = pe._plane_seeds(site, fold, prng_key, planes * planes, xq.device)
             seeds = fold_words(base.reshape(planes, planes), x_words[:, None], w_words[None, :])
             seeds = seed_words(seeds.reshape(-1))
         channel = pcfg.effective_channel()
@@ -520,6 +557,7 @@ class PhotonicEngine:
         slicing=None,
         bias: Optional[torch.Tensor] = None,
         activation: Optional[str] = None,
+        prng_key=None,
     ) -> torch.Tensor:
         """Float GEMM quantizing both operands per call (the training
         path; differentiable by the straight-through estimator, whose
@@ -530,7 +568,7 @@ class PhotonicEngine:
         eng = self if slicing is None else self.with_slicing(slicing)
         if not eng.routes(site):
             return _digital_reference(x, w.to(x.dtype), bias, spec)
-        return _FloatMatmul.apply(eng, site, spec, fold, x, w, bias)
+        return _FloatMatmul.apply(eng, site, spec, fold, prng_key, x, w, bias)
 
     def matmul(
         self,
@@ -543,6 +581,7 @@ class PhotonicEngine:
         slicing=None,
         bias: Optional[torch.Tensor] = None,
         activation: Optional[str] = None,
+        prng_key=None,
     ) -> torch.Tensor:
         """Float GEMM against a prepacked weight — the weight-stationary hot
         path; differentiable in ``x`` and the bias (the int8 bank is frozen
@@ -553,7 +592,7 @@ class PhotonicEngine:
         eng = self if slicing is None else self.with_slicing(slicing)
         if not eng.routes(site):
             return _digital_reference(x, packed.dequant().to(x.dtype), bias, spec)
-        return _PackedMatmul.apply(eng, site, spec, fold, packed, x, packed.w_scale, bias)
+        return _PackedMatmul.apply(eng, site, spec, fold, prng_key, packed, x, packed.w_scale, bias)
 
 
 @functools.lru_cache(maxsize=None)
@@ -606,6 +645,7 @@ def _stream_gemm(
     w_scale,
     bias,
     fold,
+    prng_key=None,
     *,
     pack=None,
 ):
@@ -630,6 +670,7 @@ def _stream_gemm(
         tiling=None if pack is None else pack.tiling,
         epilogue=EpilogueArgs(spec, sx, w_scale, bias),
         pack=pack,
+        prng_key=prng_key,
     )
     return y.reshape(*lead, cols).to(x.dtype)
 
@@ -666,11 +707,11 @@ class _FloatMatmul(torch.autograd.Function):
     ``db`` are f32 products cast back to the operand dtypes."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, fold, x, w, bias):
+    def forward(ctx, eng, site, spec, fold, prng_key, x, w, bias):
         ctx.spec = spec
         ctx.save_for_backward(x, w, bias)
         wq, sw = quantize_symmetric(w, eng.dpu.operand_bits, axis=0)
-        return _stream_gemm(eng, site, spec, x, wq, sw, bias, fold)
+        return _stream_gemm(eng, site, spec, x, wq, sw, bias, fold, prng_key)
 
     @staticmethod
     def backward(ctx, g):
@@ -678,7 +719,7 @@ class _FloatMatmul(torch.autograd.Function):
         wf = w.to(torch.float32)
         dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
         dw = (x2.T @ g2).to(w.dtype)
-        return None, None, None, None, dx, dw, db
+        return None, None, None, None, None, dx, dw, db
 
 
 class _PackedMatmul(torch.autograd.Function):
@@ -687,10 +728,10 @@ class _PackedMatmul(torch.autograd.Function):
     frozen serving state and ``w_scale`` gets zeros."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, fold, packed, x, w_scale, bias):
+    def forward(ctx, eng, site, spec, fold, prng_key, packed, x, w_scale, bias):
         ctx.spec, ctx.packed = spec, packed
         ctx.save_for_backward(x, w_scale, bias)
-        return _stream_gemm(eng, site, spec, x, packed.wq, w_scale, bias, fold, pack=packed)
+        return _stream_gemm(eng, site, spec, x, packed.wq, w_scale, bias, fold, prng_key, pack=packed)
 
     @staticmethod
     def backward(ctx, g):
@@ -698,4 +739,4 @@ class _PackedMatmul(torch.autograd.Function):
         p = ctx.packed
         wf = p.wq[: p.k, : p.c].to(torch.float32) * w_scale.to(torch.float32)[None, :]
         dx, _, _, db = _ste_grads(ctx.spec, g, x, wf, bias)
-        return None, None, None, None, None, dx, torch.zeros_like(w_scale), db
+        return None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db

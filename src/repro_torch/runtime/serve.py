@@ -19,6 +19,7 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch._device import resolve_device
 from repro_torch.serving.scheduler import (
     Request,
@@ -134,8 +135,9 @@ class LegacyEngine:
     ``decode`` steps.  Known limitations, kept as the reference has them:
     worst-case cache memory per slot, head-of-line blocking on long
     prompts, the batchless ``pos`` staying live across admissions, and a
-    shared sampling stream across slots (one ``torch.Generator`` seeded by
-    ``seed``; its draws are not JAX's).  ``stats`` adds the host seconds of
+    shared sampling stream across slots (the key ``PRNGKey(seed)``, split
+    once a step, its second half drawing ``categorical`` for every row, as
+    JAX draws).  ``stats`` adds the host seconds of
     the prefills and the decode steps (each ends in a device-to-host token
     read, so they include its device work).
     """
@@ -162,8 +164,7 @@ class LegacyEngine:
         self.slots: List[Optional[Request]] = [None] * cfg.batch_size
         self.cache = None
         self.tokens = torch.zeros((cfg.batch_size, 1), dtype=torch.int64, device=self.device)
-        self._gen = torch.Generator(device=self.device)
-        self._gen.manual_seed(cfg.seed)
+        self._rng = prng.PRNGKey(cfg.seed)
         self.stats = {
             "prefills": 0, "decode_steps": 0, "completed": 0, "prefill_s": 0.0, "decode_s": 0.0,
         }
@@ -211,8 +212,10 @@ class LegacyEngine:
         if self.cfg.greedy:
             nxt = torch.argmax(logits, dim=-1)
         else:
-            probs = torch.softmax(logits.to(torch.float32) / self.cfg.temperature, dim=-1)
-            nxt = torch.multinomial(probs, 1, generator=self._gen)[:, 0]
+            self._rng, k = prng.split(self._rng)
+            # The temperature in the logits' dtype first, as JAX's weak typing does.
+            temp = torch.full((), self.cfg.temperature, dtype=logits.dtype, device=logits.device)
+            nxt = prng.categorical(k, logits / temp, axis=-1)
         self.tokens = nxt[:, None].to(torch.int64)
         nxt = nxt.tolist()
         self.stats["decode_s"] += time.perf_counter() - t0

@@ -5,9 +5,9 @@ decode slots backed by the block pool, prompts prefill in chunks of at
 most ``chunk_tokens`` tokens per step, and every step interleaves that
 prefill budget with one batched decode over all live slots.  The
 scheduler prepacks every routed weight once (weight-stationary decode),
-zeroes blocks at allocation (no stale KV), and draws samples from a
-``torch.Generator`` seeded by ``(seed, request uid, token index)`` — never
-the slot.  It runs on ``cuda`` unless constructed with ``device="cpu"``.
+zeroes blocks at allocation (no stale KV), and draws samples under the
+reference's key ``fold_in(fold_in(PRNGKey(seed), uid), n)`` — the request
+uid and token index, never the slot (:mod:`repro_torch.prng`).  It runs on ``cuda`` unless constructed with ``device="cpu"``.
 """
 
 from __future__ import annotations
@@ -20,8 +20,8 @@ from typing import Callable, List, Optional
 import numpy as np
 import torch
 
+from repro_torch import prng
 from repro_torch._device import resolve_device
-from repro_torch.noise.stages import fold_seed
 from repro_torch.serving import kv_cache as kvc
 
 
@@ -159,17 +159,18 @@ class Scheduler:
             )
 
     def _pick(self, rows: torch.Tensor, uids, ns) -> np.ndarray:
-        """Next token per row: argmax, or a draw from a generator seeded by
-        ``fold_seed(seed, uid, n)`` — the request's stream, never the slot's."""
+        """Next token per row: argmax, or ``categorical`` of ``row /
+        temperature`` under the key ``fold_in(fold_in(PRNGKey(seed), uid),
+        n)`` — the request's stream, never the slot's.  The keys are
+        folded on the host; all rows draw in one vectorized pass on their
+        device.  Reference: ``repro.serving.scheduler:Scheduler._pick``."""
         if self.cfg.greedy:
             return torch.argmax(rows, dim=-1).cpu().numpy()
-        out = []
-        for row, u, n in zip(rows, uids, ns):
-            g = torch.Generator(device=rows.device)
-            g.manual_seed(int(fold_seed(self.cfg.seed, int(u), int(n))))
-            probs = torch.softmax(row.to(torch.float32) / self.cfg.temperature, dim=-1)
-            out.append(int(torch.multinomial(probs, 1, generator=g)))
-        return np.asarray(out, np.int64)
+        base = prng.PRNGKey(self.cfg.seed)
+        keys = np.stack([prng.fold_in(prng.fold_in(base, int(u)), int(n)) for u, n in zip(uids, ns)])
+        # The temperature in the rows' dtype first, as JAX's weak typing does.
+        temp = torch.full((), self.cfg.temperature, dtype=rows.dtype, device=rows.device)
+        return prng.categorical(keys, rows / temp).cpu().numpy()
 
     def _emit(self, slot: int, tok: int, logits_row=None) -> None:
         s = self.slots[slot]

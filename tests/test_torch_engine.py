@@ -164,8 +164,17 @@ def test_routing_policy_and_unported_modes():
     assert TEngine(dpu=td, slicing=4).slicing.plane_bits == 4  # bit-slicing is ported
     with pytest.raises(ValueError, match="plane_bits"):
         TEngine(dpu=td, slicing=3)
-    with pytest.raises(NotImplementedError, match="noise_seed"):
-        eng.stream_seed("a", None, tx, tw, prng_key=[0, 1])
+    # A key wins over noise_seed and folds as the reference's does.
+    jd, tdn = _dpus("smwa")
+    xq = np.clip(np.round(x * 40), -127, 127).astype(np.int8)
+    wq = np.clip(np.round(w * 300), -127, 127).astype(np.int8)
+    want = JEngine(dpu=jd, backend="pallas").stream_seed(
+        "a", 3, jnp.asarray([0, 1], jnp.uint32), jnp.asarray(xq), jnp.asarray(wq)
+    )
+    got = TEngine(dpu=tdn).stream_seed(
+        "a", 3, torch.from_numpy(xq), torch.from_numpy(wq), prng_key=[0, 1]
+    )
+    assert int(got) == int(np.asarray(want))
     with pytest.raises(ValueError, match="unknown photonic backend"):
         TEngine(dpu=td, backend="pallas")
     with pytest.raises(TypeError, match="float activations"):

@@ -48,6 +48,7 @@ from repro.noise import channel as jch  # noqa: E402
 from repro.noise import stages as jst  # noqa: E402
 from repro.photonic.engine import PhotonicEngine as JEngine  # noqa: E402
 from repro.photonic.packing import pack_dense as jpack  # noqa: E402
+from repro_torch import prng  # noqa: E402
 from repro_torch.core import dpu as tdpu  # noqa: E402
 from repro_torch.models import common as tcm  # noqa: E402
 from repro_torch.noise import channel as tch  # noqa: E402
@@ -199,8 +200,19 @@ def test_ste_grads_under_noise_equal_ideal_bitwise():
     for a, b in zip(gi, gn):
         np.testing.assert_array_equal(a, b)
         assert np.isfinite(a).all()
-    with pytest.raises(NotImplementedError, match="noise_seed"):
-        tdpu.photonic_matmul_ste(_t(x), _t(w), noisy, prng_key=[0, 1])
+    # A key wins over noise_seed and draws the reference's stream (the
+    # psum tier of the noisy forward: one-LSB roundings at <= 1%).
+    jnoisy, _ = _dpu_pair("smwa")
+    yk = tdpu.photonic_matmul_ste(_t(x), _t(w), noisy, prng_key=prng.PRNGKey(9))
+    want = np.asarray(jdpu.photonic_matmul_ste(
+        jnp.asarray(x), jnp.asarray(w), jnoisy, prng_key=jax.random.PRNGKey(9)))
+    assert (yk != y_n).any()
+    assert (yk.detach().numpy() != want).mean() <= 0.01
+    assert np.abs(yk.detach().numpy() - want).max() <= 1e-2 * np.abs(want).max()
+    gk = _grads(lambda a, b: (tdpu.photonic_matmul_ste(a, b, noisy, prng_key=prng.PRNGKey(9))
+                              * _t(g)).sum(), x, w)
+    for a, b in zip(gi, gk):
+        np.testing.assert_array_equal(a, b)
 
 
 # ---------------------------------------------------------------------------
@@ -308,7 +320,11 @@ def test_flash_attention_raises_under_autograd_and_dots_remat_is_not_ported():
         flash_attention(q, k, k)
     with torch.no_grad():
         assert flash_attention(q, k, k).shape == (1, 8, 2, 64)
+    # The "dots" policy runs (test_torch_train.py holds it bitwise to
+    # "full"); remat off returns the function itself.
     cfg = dataclasses.replace(tcm.ModelConfig(), remat_policy="dots")
-    with pytest.raises(NotImplementedError, match="dots"):
-        tcm.apply_remat(lambda x: x, cfg)
+    v = torch.randn(3, 4, requires_grad=True)
+    (gr,) = torch.autograd.grad(tcm.apply_remat(lambda t: (t @ t.T).sum(), cfg)(v), v)
+    (gp,) = torch.autograd.grad((v @ v.T).sum(), v)
+    assert torch.equal(gr, gp)
     assert tcm.apply_remat(abs, dataclasses.replace(cfg, remat=False)) is abs

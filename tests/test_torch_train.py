@@ -202,6 +202,28 @@ def test_lm_loss_and_grads_match_reference(jparams, photonic):
         assert torch.equal(a, b), k
 
 
+@pytest.mark.parametrize("photonic", [False, True], ids=["float", "ideal-photonic"])
+def test_dots_remat_policy_equals_full_bitwise(jparams, photonic):
+    """``remat_policy="dots"`` (a selective checkpoint that saves the
+    outputs of products without batch dimensions) gives the loss and the
+    gradients of ``"full"`` bit for bit; its loss is the reference's
+    ``"dots"`` loss within ``1e-5`` relative, as for ``"full"``."""
+    jc, tc = _cfgs(photonic)
+    batch = jdata.SyntheticTokens(jdata.DataConfig(**DATA)).batch_at(1)
+    tp = params_from_jax(_np_tree(jparams), tc, "cpu")
+    tb = {k: torch.from_numpy(v) for k, v in batch.items()}
+    runs = {}
+    for policy in ("full", "dots"):
+        cfg = dataclasses.replace(tc, remat_policy=policy)
+        runs[policy] = ttl._value_and_grad(lambda p, b: TA.loss(p, b, cfg), tp, tb)
+    assert torch.equal(runs["full"][0], runs["dots"][0])
+    for (k, a), b in zip(tree_items(runs["full"][1]).items(), tree_items(runs["dots"][1]).values()):
+        assert torch.equal(a, b), k
+    want = jlm.lm_loss(jparams, {k: jnp.asarray(v) for k, v in batch.items()},
+                       dataclasses.replace(jc, remat_policy="dots"))
+    np.testing.assert_allclose(float(runs["dots"][0]), float(want), rtol=1e-5)
+
+
 def test_lm_loss_and_grads_match_reference_under_smwa(jparams):
     """The analog channel in training: SMWA (filter truncation and detector
     noise, ``noise_seed=0``) at its calibrated N on the ``ref`` backend of
@@ -376,6 +398,33 @@ def test_checkpoint_roundtrip_keeps_dtypes_and_bits(tmp_path):
         assert a.dtype == b.dtype and torch.equal(a, b), k
     with pytest.raises(ValueError, match="shape"):
         tckpt.restore(tmp_path, 7, {**like, "params": {**like["params"], "w": torch.zeros(3, 5)}})
+
+
+def test_restore_reads_a_reference_checkpoint_bitwise(jparams, tmp_path):
+    """A checkpoint written by the reference's ``ckpt.save`` (bf16 params
+    with the layer axis stacked, AdamW's ``OptState`` printed as ``.mu`` /
+    ``.nu`` / ``.step``, bf16 leaves stored as void ``V2``) restores into
+    the port's per-layer tree bit for bit."""
+    jc, tc = _cfgs(False, param_dtype=jnp.bfloat16)
+    tc = dataclasses.replace(tc, param_dtype=torch.bfloat16)
+    params = jax.tree.map(lambda a: a.astype(jnp.bfloat16), jparams)
+    rng = np.random.default_rng(3)
+    mu = jax.tree.map(lambda a: jnp.asarray(rng.normal(size=a.shape).astype(np.float32)), params)
+    nu = jax.tree.map(lambda a: jnp.asarray(rng.random(size=a.shape).astype(np.float32)), params)
+    opt = jopt.OptState(jnp.asarray(5, jnp.int32), mu, nu)
+    jckpt.save(tmp_path, 5, {"params": params, "opt": opt})
+    assert "opt/.step" in (tmp_path / "step_00000005" / "manifest.json").read_text()
+    want = train_state_from_jax(_np_tree(params), _np_tree(opt), tc, "cpu")
+    like = jax.tree.map(np.zeros_like, _np_tree(params))
+    start = train_state_from_jax(like, _np_tree(jopt.init(like)), tc, "cpu")
+    back = tckpt.restore(tmp_path, 5, {"params": start.params, "opt": start.opt_state})
+    assert isinstance(back["opt"], topt.OptState) and int(back["opt"].step) == 5
+    got = {"params": back["params"], "opt": back["opt"]}
+    ref = {"params": want.params, "opt": want.opt_state}
+    assert tree_items(got).keys() == tree_items(ref).keys()
+    for (k, a), b in zip(tree_items(got).items(), tree_items(ref).values()):
+        assert a.dtype == b.dtype and torch.equal(a, b), k
+    assert back["params"]["layers"][0]["attn"]["wq"]["w"].dtype == torch.bfloat16
 
 
 def test_async_save_cleanup_and_atomicity(tmp_path):
