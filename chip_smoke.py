@@ -64,7 +64,13 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    held to its twin bitwise, noise included, with its time, bound and the
    ``_int_mm`` time of its int core (on the rows padded to 32 at R = 4);
    and granite's ``attn.wq`` at R = 4 bit-sliced at p = 2 under SMWA with
-   the key.
+   the key.  Then deepseek-v2-lite-16b's sites: ``attn.wq`` (C = 3072),
+   ``attn.wdkv`` (C = 576), ``attn.wo``, the shared experts' ``wi`` / ``wo``
+   and layer 0's dense ``ffn.wi`` (C = 21888) and ``ffn.wo`` (K = 10944) at
+   R in {4, 64}, and the latent up-projections ``attn.wuk`` / ``attn.wuv``
+   (K = 512) at R = 4 x 128 (expanded decode runs them over the padded
+   cache), ideal and keyed SMWA, each bitwise its twin, with sums for a MoE
+   layer's absorbed and expanded decode.
 3. flash kernels: the flash-attention kernel on the card (qwen2-0.5b
    heads unless noted): B=4 at the four serve prompt lengths, B=2 T=1000
    (ragged edge), B=1 T=4096, B=1 Tq=64 Tk=1000 q_offset=936, non-causal
@@ -140,6 +146,21 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    2e-2 and argmax agreement >= 99% (the oneshot phase's bf16 floor), the
    untied ``lm_head`` routed; 2 prompts x 4 greedy tokens on the paged
    server, ``kernel`` tokens equal ``ref``'s.
+6d. moe: deepseek-v2-lite-16b (MLA, 64 routed experts top-6 + 2 shared,
+   a dense first block) at full width and all 27 layers, bf16,
+   ``init_params`` seed 0: ``lm_logits`` B=1 T=512 on ``kernel`` and
+   ``ref`` (190 fused launches = 27 x 7 + 1; the oneshot phase's bf16 gate
+   on the logits, and on the aux loss); ``serve.Engine`` → ``LegacyEngine``
+   with the serve phase's four prompt lengths, 8 new tokens, batch 4,
+   max_seq 128: greedy expanded and absorbed (``mla_absorb``) on
+   ``kernel`` and ``ref``, sampled at temperature 0.8, each pair's tokens
+   equal; SMWA (``noise_seed=0``): logits finite, requests done; fused
+   launches 190 a prefill and 190 (136 absorbed) a decode step; two decode
+   steps of the greedy kernel runs under the profiler; the agreement of
+   absorbed and expanded tokens printed; peak memory of ``lm_logits`` and
+   of serving.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
+   layers (84 GB of bf16 weights do not fit): ``lm_logits`` B=1 T=512,
+   ``kernel`` vs ``ref``, 17 launches.
 7. train, in a process of its own (``chip_smoke.py --phase train``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
    so the serve phases run without it; its result comes back as JSON on
@@ -209,6 +230,26 @@ GRANITE_SITES = [
     ("ffn.wo", 12800, 4096, False),
 ]
 DEEPSEEK_SITES = [("ffn.wo", 22016, 8192, False), ("lm_head", 8192, 102400, False)]
+# (site, K, C, bias) — deepseek-v2-lite-16b: the MLA projections and the
+# shared experts of a MoE layer, then layer 0's dense FFN (d_ff = 10944);
+# the latent up-projections run over the padded cache in expanded decode,
+# R = batch 4 x max_seq 128 rows.
+V2_SITES = [
+    ("attn.wq", 2048, 3072, False),
+    ("attn.wdkv", 2048, 576, False),
+    ("attn.wo", 2048, 2048, False),
+    ("ffn.shared.wi", 2048, 5632, False),
+    ("ffn.shared.wo", 2816, 2048, False),
+    ("ffn.wi", 2048, 21888, False),
+    ("ffn.wo", 10944, 2048, False),
+]
+V2_CACHE_SITES = [("attn.wuk", 512, 2048, False), ("attn.wuv", 512, 2048, False)]
+V2_CACHE_ROWS = 4 * 128
+# Fused launches of one deepseek-v2-lite-16b forward over its 27 layers:
+# 7 routed GEMMs a layer (wq, wdkv, wuk, wuv, wo and the dense or shared
+# FFN's wi and wo) and the untied head; absorbed decode drops wuk and wuv.
+V2_FORWARD_LAUNCHES = 27 * 7 + 1
+V2_ABSORBED_LAUNCHES = 27 * 5 + 1
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TRAIN_STEPS = 3
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
@@ -628,8 +669,8 @@ def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card, *
     the P^2 kernel launches alone on the plane operands the engine made
     (CUDA graph), the engine's whole sliced call on the device (CUDA graph:
     slicing, hashing, seeds, the passes, the shift-add), the call with twin
-    passes (host-timed), and ``torch._int_mm`` of the same GEMM for the
-    ideal channel.  Appends a result dict to ``rows_out``."""
+    passes (host-timed), and ``torch._int_mm`` of the same int8 GEMM (rows
+    padded to 32 where fewer).  Appends a result dict to ``rows_out``."""
     import repro_torch.photonic.engine as E
     from repro_torch.kernels.photonic_gemm.ref import exact_int_gemm
     from repro_torch.photonic.slicing import SlicingSpec
@@ -688,9 +729,12 @@ def sliced_case(torch, K, dpu, r, k, c, plane_bits, site, gen, rows_out, card, *
                       .abs().to(torch.float64).mean())
     k_ms = graph_ms(lambda: [kernel(*a, **k_) for a, k_ in calls])
     e_ms = graph_ms(lambda: eng.int_gemm(x, w, **kw))
-    lib_ms = None
-    if ideal and r > 16:
-        lib_ms = graph_ms(lambda: torch._int_mm(x, w))
+    # The int core's yardstick, whatever the channel: torch._int_mm of the
+    # same int8 GEMM, on the rows padded to 32 where fewer (its least row
+    # count is 17).
+    xi = torch.zeros((max(r, 32), k), dtype=torch.int8, device=dev)
+    xi[:r] = x
+    lib_ms = graph_ms(lambda: torch._int_mm(xi, w))
     xdots = int(stages["intermod_eps"] > 0) + int(stages["crossweight_eps"] > 0)
     draws = r * c * -(-k // stages["n_chunk"]) * planes**2 if noisy else 0
     parts = bound_ms(r, k, c, 1, planes**2, xdots, False, False, draws)
@@ -1640,6 +1684,210 @@ def deepseek_phase(torch, registry, card):
     return ok, res, launches
 
 
+def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *, absorb=False, temperature=None,
+                     profile=False):
+    """Serve ``prompts`` (8 new tokens each) through ``serve.Engine``, which
+    must pick ``LegacyEngine`` for the family (batch 4, max_seq 128),
+    greedily or sampled at ``temperature`` under the reference's keys (seed
+    0), with ``mla_absorb``.  Launch counts are reset just before.  After
+    the step that admits every prompt, two decode steps run apart (under
+    the profiler with ``profile``) and are left out of the rates.  Every
+    prefill's and decode's logits are checked finite as they come."""
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.runtime.serve import Engine, LegacyEngine, ServeConfig
+    from repro_torch.serving import Request
+
+    finite = []
+
+    def checked(fn):
+        def call(*a):
+            logits, cache = fn(*a)
+            finite.append(bool(torch.isfinite(logits).all()))
+            return logits, cache
+        return call
+
+    arch_chk = dataclasses.replace(arch, prefill=checked(arch.prefill), decode=checked(arch.decode))
+    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend=backend, mla_absorb=absorb)
+    sampling = {} if temperature is None else dict(greedy=False, temperature=temperature, seed=0)
+    eng = Engine(arch_chk, cfg, params, ServeConfig(batch_size=4, max_seq=128, **sampling))
+    legacy = isinstance(eng.impl, LegacyEngine)
+    impl = eng.impl
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    queue = list(reqs)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    F.reset_launches()
+    t0 = time.perf_counter()
+    impl.step(queue)  # admits all four prompts, then one decode step
+    before_s, before_toks = impl.stats["decode_s"], sum(len(r.output) for r in reqs)
+    tp = time.perf_counter()
+    prof = None
+    if profile:
+        prof = profiled(torch, lambda: [impl.step(queue) for _ in range(2)], label)
+    else:
+        impl.step(queue)
+        impl.step(queue)
+    prof_wall = time.perf_counter() - tp
+    prof_s = impl.stats["decode_s"] - before_s
+    prof_toks = sum(len(r.output) for r in reqs) - before_toks
+    while queue or any(x is not None for x in impl.slots):
+        impl.step(queue)
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    launches = dict(K.LAUNCHES, **F.LAUNCHES)
+    st = dict(impl.stats)
+    toks = sum(len(r.output) for r in reqs)
+    run_s = dt - prof_wall
+    decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
+    per_decode = V2_ABSORBED_LAUNCHES if absorb else V2_FORWARD_LAUNCHES
+    want = V2_FORWARD_LAUNCHES * st["prefills"] + per_decode * st["decode_steps"] if backend == "kernel" else 0
+    done = all(r.done and len(r.output) == 8 for r in reqs)
+    good = (legacy and done and all(finite) and launches["photonic_gemm_fused"] == want
+            and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
+    st.update(seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
+              tok_per_s=(toks - prof_toks) / run_s, decode_ms_per_step=decode_ms, profile=prof,
+              launches_per_decode=per_decode if backend == "kernel" else 0,
+              peak_bytes=torch.cuda.max_memory_allocated())
+    log(f"  {label}: LegacyEngine {legacy}, {eng.photonic.describe()}: {toks} tokens in {dt:.3f} s, "
+        f"{toks - prof_toks} outside the two set-apart steps in {run_s:.3f} s = {st['tok_per_s']:.2f} tok/s; "
+        f"prefill {st['prefill_s']:.3f} s over {st['prefills']} prefills (batch 4), decode {decode_ms:.2f} "
+        f"ms/step over {st['decode_steps'] - 2} other steps; fused launches {launches['photonic_gemm_fused']} "
+        f"== {V2_FORWARD_LAUNCHES} x {st['prefills']} + {per_decode if backend == 'kernel' else 0} x "
+        f"{st['decode_steps']} = {want}; all done {done}, logits finite {all(finite)}: {good}; peak memory "
+        f"(max_memory_allocated, this run) {st['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    return reqs, launches, st, good
+
+
+def moe_phase(torch, registry, card):
+    """deepseek-v2-lite-16b (MLA with absorbed decode, 64 routed experts top-6
+    + 2 shared) at full width and all 27 layers, bf16, ``init_params`` seed
+    0 on the card: ``lm_logits`` at B = 1, T = 512 on ``kernel`` and
+    ``ref`` on the ideal channel (fused launches 27 x 7 + 1 = 190; max
+    |dlogit| / max |logit| <= 2e-2 and argmax agreement >= 99%, aux within
+    2e-2 relative); ``serve.Engine`` (which must pick ``LegacyEngine``),
+    the serve phase's four prompt lengths and 8 new tokens: greedy on
+    ``kernel`` and ``ref``, expanded and with ``mla_absorb`` (190 launches
+    a prefill, 190 or 136 a decode step; kernel tokens equal ``ref``'s in
+    each mode; how far the two modes' tokens agree is printed, not gated),
+    sampled at temperature 0.8 under the reference's keys (kernel tokens
+    equal ``ref``'s), and the SMWA analog point (``noise_seed=0``: logits
+    finite, all requests done); the kernel greedy runs profile two decode
+    steps.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
+    layers (the whole model is 84 GB of bf16 weights): ``lm_logits`` B = 1,
+    T = 512 on ``kernel`` and ``ref`` (4 x 4 + 1 = 17 launches), the same
+    gate.  Returns (ok, result, kernel launches)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import lm
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import prepack_serving_params
+
+    res, ok, launches_total = {}, True, 0
+
+    def forward(arch, cfg, params, want_launches, tag):
+        nonlocal ok, launches_total
+        tokens = torch.as_tensor(np.random.default_rng(1).integers(0, cfg.vocab_size, (1, 512)), device="cuda")
+        logits, auxes = {}, {}
+        for backend in ("kernel", "ref"):
+            run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+            torch.cuda.reset_peak_memory_stats()
+            with torch.no_grad():
+                _, packed = prepack_serving_params(arch, run, params)
+                torch.cuda.synchronize()
+                K.reset_launches()
+                t0 = time.perf_counter()
+                out, aux = lm.lm_logits(packed, tokens, run)
+                torch.cuda.synchronize()
+                dt = time.perf_counter() - t0
+                logits[backend], auxes[backend] = out.float(), float(aux)
+                del packed, out
+            want = want_launches if backend == "kernel" else 0
+            n = K.LAUNCHES["photonic_gemm_fused"]
+            good = n == want and bool(torch.isfinite(logits[backend]).all())
+            launches_total += n
+            peak = torch.cuda.max_memory_allocated()
+            log(f"  {tag} lm_logits {backend} (B=1, T=512): {dt:.3f} s, aux {auxes[backend]:.6f}, fused launches "
+                f"{n} == {want}, finite: {good}; peak memory (max_memory_allocated, prepack and forward) "
+                f"{peak / 2**30:.2f} GiB [{card}]")
+            res[f"{tag}_lm_logits_{backend}_s"] = dt
+            res[f"{tag}_lm_logits_{backend}_peak_bytes"] = peak
+            ok &= good
+            torch.cuda.empty_cache()
+        a, b = logits["kernel"], logits["ref"]
+        rel = float((a - b).abs().max() / b.abs().max())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        aux_rel = abs(auxes["kernel"] - auxes["ref"]) / abs(auxes["ref"])
+        good = rel <= 2e-2 and agree >= 0.99 and aux_rel <= 2e-2
+        log(f"  {tag} lm_logits kernel vs ref over 512 positions: max |dlogit| / max |logit| {rel:.4g} (<= 2e-2), "
+            f"argmax agreement {agree:.4f} (>= 0.99), aux relative difference {aux_rel:.3g} (<= 2e-2), bitwise "
+            f"{bool(torch.equal(a, b))}: {good}")
+        res[tag] = dict(rel_err=rel, argmax_agreement=agree, aux=auxes, aux_rel=aux_rel, bitwise=bool(torch.equal(a, b)))
+        ok &= good
+
+    arch = registry.get("deepseek-v2-lite-16b")
+    cfg = arch.config
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init_params (deepseek-v2-lite-16b full width, 27 layers, bf16, {n_params / 1e9:.3f} B parameters) "
+        f"{time.perf_counter() - t0:.2f} s")
+    forward(arch, cfg, params, V2_FORWARD_LAUNCHES, "deepseek_v2_lite")
+
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
+    runs = {}
+    for label, backend, absorb, temp, dpu in (
+        ("v2_greedy", "kernel", False, None, ideal_dpu()),
+        ("v2_greedy_ref", "ref", False, None, ideal_dpu()),
+        ("v2_absorbed", "kernel", True, None, ideal_dpu()),
+        ("v2_absorbed_ref", "ref", True, None, ideal_dpu()),
+        ("v2_t08", "kernel", False, 0.8, ideal_dpu()),
+        ("v2_t08_ref", "ref", False, 0.8, ideal_dpu()),
+        ("v2_smwa", "kernel", False, None, smwa_dpu()),
+    ):
+        reqs, lc, st, good = legacy_moe_serve(
+            torch, arch, params, dpu, backend, prompts, card, label, absorb=absorb, temperature=temp,
+            profile=label in ("v2_greedy", "v2_absorbed"))
+        ok &= good
+        if backend == "kernel":
+            launches_total += lc["photonic_gemm_fused"]
+        runs[label] = (reqs, lc, st)
+        torch.cuda.empty_cache()
+
+    def same(a_, b_):
+        eq = all(x.output == y.output for x, y in zip(runs[a_][0], runs[b_][0]))
+        log(f"  {a_} tokens == {b_} tokens: {eq}")
+        for x, y in zip(runs[a_][0], runs[b_][0]):
+            log(f"    uid {x.uid}: {a_} {x.output} {b_} {y.output}")
+        return eq
+
+    ok &= same("v2_greedy", "v2_greedy_ref") & same("v2_absorbed", "v2_absorbed_ref") & same("v2_t08", "v2_t08_ref")
+    pairs = [(x.output, y.output) for x, y in zip(runs["v2_greedy"][0], runs["v2_absorbed"][0])]
+    agree = sum(a_ == b_ for p in pairs for a_, b_ in zip(*p)) / sum(len(p[0]) for p in pairs)
+    log(f"  absorbed vs expanded greedy tokens (kernel, not gated): {agree:.3f} of positions equal, "
+        f"first tokens equal {all(p[0][0] == p[1][0] for p in pairs)}")
+    res["absorbed_vs_expanded_token_agreement"] = agree
+    for r in runs["v2_smwa"][0]:
+        log(f"    smwa uid {r.uid}: {r.output}")
+    res["serve"] = {k: v[2] for k, v in runs.items()}
+    del params, runs
+    torch.cuda.empty_cache()
+
+    arch = registry.get("phi3.5-moe-42b-a6.6b")
+    cfg = dataclasses.replace(arch.config, num_layers=4)
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    log(f"  init_params (phi3.5-moe full width, 4 of 32 layers, bf16) {time.perf_counter() - t0:.2f} s")
+    forward(arch, cfg, params, 4 * 4 + 1, "phi3_5_moe")
+    del params
+    torch.cuda.empty_cache()
+    return ok, res, launches_total
+
+
 def main() -> int:
     import torch
 
@@ -1768,6 +2016,31 @@ def main() -> int:
                         f"bound {bm:.5f} ms ({bb}), _int_mm {layer_sum(layer, 'library_ms'):.4f} ms [{card}]")
         all_ok &= sliced_case(torch, K, chans["SMWA"], 4, *GRANITE_SITES[0][1:3], 2, GRANITE_SITES[0][0], gen,
                               sliced_rows, card, prng_key=key, model="granite-3-8b")
+        # deepseek-v2-lite-16b's sites: decode (R = 4) and a prefill chunk
+        # (R = 64), and wuk / wuv over the padded cache (R = 512), ideal and
+        # SMWA under the key, each bitwise its twin.
+        model = "deepseek-v2-lite-16b"
+        for name in ("ideal", "SMWA"):
+            cases = [(r, site) for r in (4, 64) for site in V2_SITES]
+            cases += [(V2_CACHE_ROWS, site) for site in V2_CACHE_SITES]
+            for r, (site, k, c, b) in cases:
+                all_ok &= kernel_case(torch, K, chans[name], r, k, c, b, False, None, gen, rows,
+                                      model=model, site=site, key=key if name == "SMWA" else None,
+                                      exact=True, twin_once=True)
+            v2 = [x for x in rows if x["model"] == model and x["channel"] == name]
+            attn_ffn = ("attn.wq", "attn.wdkv", "attn.wo", "ffn.shared.wi", "ffn.shared.wo")
+            sums = {
+                "MoE layer, absorbed decode (R=4)": [x for x in v2 if x["R_live"] == 4 and x["site"] in attn_ffn],
+                "MoE layer, expanded decode (R=4, wuk/wuv R=512)": [
+                    x for x in v2 if (x["R_live"] == 4 and x["site"] in attn_ffn) or x["R_live"] == V2_CACHE_ROWS],
+                "MoE layer sites at R=64": [x for x in v2 if x["R_live"] == 64 and x["site"] in attn_ffn],
+                "layer 0 dense FFN (R=4)": [x for x in v2 if x["R_live"] == 4 and x["site"] in ("ffn.wi", "ffn.wo")],
+            }
+            for what, layer in sums.items():
+                bm, bb = bound_of([x["parts"] for x in layer])
+                log(f"  {model} {what} {name}: kernel {sum(x['ms'] for x in layer):.4f} ms, twin "
+                    f"{sum(x['plain_ms'] for x in layer):.3f} ms, bound {bm:.5f} ms ({bb}), _int_mm "
+                    f"{layer_sum(layer, 'library_ms'):.4f} ms [{card}]")
     flash_rows = []
     with Phase("flash kernels"):
         for case in FLASH_CASES:
@@ -1863,6 +2136,10 @@ def main() -> int:
         deepseek_ok, deepseek, deepseek_launches = deepseek_phase(torch, registry, card)
         all_ok &= deepseek_ok
 
+    with Phase("moe"):
+        moe_ok, moe, moe_launches = moe_phase(torch, registry, card)
+        all_ok &= moe_ok
+
     with Phase("train"):
         train_ok, train_res, train_launches = run_train_child(card)
         all_ok &= train_ok
@@ -1890,14 +2167,16 @@ def main() -> int:
                       + int8["int8_fused"][1]["photonic_gemm_fused"]
                       + int8["int8_three_sites"][1]["photonic_gemm_fused"]
                       + train_launches["photonic_gemm_fused"]
-                      + sum(v[1]["photonic_gemm_fused"] for v in dense.values()) + deepseek_launches),
+                      + sum(v[1]["photonic_gemm_fused"] for v in dense.values()) + deepseek_launches
+                      + moe_launches),
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
             bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
             library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x; launches from "
                                   "the ideal and SMWA serve runs, the two int8 kernel serve runs, the "
-                                  "train() run, the granite-3-8b and qwen2-1.5b serve runs and the "
-                                  "deepseek-67b lm_logits and serve runs",
+                                  "train() run, the granite-3-8b and qwen2-1.5b serve runs, the "
+                                  "deepseek-67b lm_logits and serve runs, and the moe phase's "
+                                  "deepseek-v2-lite-16b and phi3.5-moe lm_logits and LegacyEngine runs",
         ),
         dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,
@@ -1930,7 +2209,7 @@ def main() -> int:
          "p_term_rows": p_rows, "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
          "serve": {k: v[2] for k, v in {**results, **sliced, **int8, **dense}.items()}, "train": train_res,
-         "keys": keys_res, "deepseek": deepseek, "dense_serve_peak_bytes": dense_peak}, indent=1))
+         "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

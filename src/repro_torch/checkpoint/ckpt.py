@@ -10,8 +10,10 @@ rename, so a killed save never corrupts the latest complete checkpoint.
 
 The leaf paths are the port's own: per-layer lists (``params/layers/0/wq``)
 and NamedTuple fields by name (``opt/mu/...``, ``opt/step``).  The
-reference stacks the layers on a leading axis (``params/layers/wq``) and
-prints NamedTuple fields with a dot (``opt/.mu/...``, ``opt/.step``).
+reference stacks the layers on a leading axis (``params/layers/wq``, a MoE
+layer's expert banks too) and prints NamedTuple fields with a dot
+(``opt/.mu/...``, ``opt/.step``); an unstacked block such as DeepSeek-V2's
+``params/first_block/...`` has one name in both.
 ``restore`` reads both layouts.  numpy has no bfloat16: the port stores a
 bf16 leaf as its raw 16-bit pattern (int16), the reference's ``np.savez``
 as a void ``V2`` array; both manifests record ``bfloat16`` and ``restore``

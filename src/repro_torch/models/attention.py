@@ -342,3 +342,169 @@ def gqa_decode_paged(
         params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
     )
     return out, kv_pool
+
+
+# ---------------------------------------------------------------------------
+# MLA (multi-head latent attention, DeepSeek-V2)
+# ---------------------------------------------------------------------------
+def mla_def(cfg: ModelConfig) -> Dict[str, Any]:
+    """Reference: ``repro.models.attention:mla_def``."""
+    d, h = cfg.d_model, cfg.n_q_heads
+    nope, rope, vd = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim
+    r = cfg.kv_lora_rank
+    return {
+        "wq": qdense_def(cfg, d, h * (nope + rope), (None, "heads")),
+        "wdkv": qdense_def(cfg, d, r + rope, (None, None)),
+        "wuk": qdense_def(cfg, r, h * nope, (None, "heads")),
+        "wuv": qdense_def(cfg, r, h * vd, (None, "heads")),
+        "wo": qdense_def(cfg, h * vd, d, ("heads", None)),
+    }
+
+
+def mla_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str, Any]:
+    """The compressed cache: ``c_kv (batch, max_seq, kv_lora_rank)`` and
+    ``k_rope (batch, max_seq, rope)``.  Reference:
+    ``repro.models.attention:mla_cache_def``."""
+    axes = ("batch", "kv_seq", None)
+    return {
+        "c_kv": ((batch, max_seq, cfg.kv_lora_rank), axes, dtype),
+        "k_rope": ((batch, max_seq, cfg.qk_rope_head_dim), axes, dtype),
+    }
+
+
+def _mla_up_weight(p: Dict[str, Any]) -> torch.Tensor:
+    """Float view of an MLA up-projection weight for the absorbed-decode
+    products, dequantizing a prepacked or int8-stored layout.  Reference:
+    ``repro.models.attention:_mla_up_weight``."""
+    from repro_torch.photonic.packing import PackedDense
+
+    w = p["w"]
+    if isinstance(w, PackedDense):
+        return w.dequant()
+    if "w_scale" in p:
+        return w.to(torch.float32) * p["w_scale"].to(torch.float32)[None, :]
+    return w
+
+
+def _mla_qkv(params, x, cfg: ModelConfig, positions, layer=None):
+    """``(q_nope, q_rope, c_kv, k_rope)``, RoPE applied; ``k_rope`` is one
+    head ``(B, T, 1, rope)``.  Reference: ``repro.models.attention:_mla_qkv``."""
+    h = cfg.n_q_heads
+    nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
+    b, t, _ = x.shape
+    q = dense(params["wq"], x, cfg, site="attn.wq", layer=layer).reshape(b, t, h, nope + rope)
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
+    dkv = dense(params["wdkv"], x, cfg, site="attn.wdkv", layer=layer)  # (B, T, r + rope)
+    c_kv, k_rope = dkv[..., : cfg.kv_lora_rank], dkv[..., cfg.kv_lora_rank :]
+    k_rope = apply_rope(k_rope[:, :, None, :], positions, cfg.rope_theta)
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(params, c_kv, k_rope, cfg: ModelConfig, layer=None):
+    """Per-head K (nope up-projection beside the shared RoPE key) and V
+    from the latent rows.  Reference: ``repro.models.attention:_mla_expand_kv``."""
+    h = cfg.n_q_heads
+    nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
+    b, t, _ = c_kv.shape
+    k_nope = dense(params["wuk"], c_kv, cfg, site="attn.wuk", layer=layer).reshape(b, t, h, nope)
+    v = dense(params["wuv"], c_kv, cfg, site="attn.wuv", layer=layer).reshape(b, t, h, vd)
+    k = torch.cat([k_nope, k_rope.expand(b, t, h, k_rope.shape[-1])], dim=-1)
+    return k, v
+
+
+def _mla_core(params, x, cfg: ModelConfig, positions, causal: bool, layer):
+    b, t, _ = x.shape
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(params, x, cfg, positions, layer)
+    k, v = _mla_expand_kv(params, c_kv, k_rope, cfg, layer)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    scale = (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    out = chunked_attention(
+        q, k, v, causal=causal, scale=scale, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg)
+    )
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    return out, c_kv, k_rope
+
+
+def mla_attention(params, x, cfg: ModelConfig, *, positions, causal: bool = True, layer=None):
+    """Full-sequence MLA; the core is chunked attention with Q 192 and V
+    128 wide at DeepSeek-V2's widths.  Reference:
+    ``repro.models.attention:mla_attention``."""
+    return _mla_core(params, x, cfg, positions, causal, layer)[0]
+
+
+def mla_prefill(params, x, cfg: ModelConfig, *, positions, max_seq: int, layer=None):
+    """MLA over the prompt; returns the output and the compressed cache
+    padded to ``max_seq`` rows.  Reference: ``repro.models.attention:mla_prefill``."""
+    t = x.shape[1]
+    out, c_kv, k_rope = _mla_core(params, x, cfg, positions, True, layer)
+    pad = (0, 0, 0, max_seq - t)
+    cache = {
+        "c_kv": torch.nn.functional.pad(c_kv, pad),
+        "k_rope": torch.nn.functional.pad(k_rope[:, :, 0, :], pad),
+    }
+    return out, cache
+
+
+def _mla_cache_write(params, x, cache, pos: int, cfg: ModelConfig, layer):
+    """The decode token's projections, its latent and RoPE-key rows written
+    into ``cache`` in place at ``pos`` (clamped into the cache, as
+    ``dynamic_update_slice`` clamps it)."""
+    posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
+    q_nope, q_rope, c_kv1, k_rope1 = _mla_qkv(params, x, cfg, posv, layer)
+    c, kr = cache["c_kv"], cache["k_rope"]
+    at = min(max(pos, 0), c.shape[1] - 1)
+    c[:, at] = c_kv1[:, 0].to(c.dtype)
+    kr[:, at] = k_rope1[:, 0, 0].to(kr.dtype)
+    return q_nope, q_rope, c, kr
+
+
+def _decode_softmax(s: torch.Tensor, pos: int) -> torch.Tensor:
+    kv_pos = torch.arange(s.shape[-1], device=s.device)
+    return torch.softmax(s.masked_fill(~(kv_pos <= pos)[None, None, None, :], NEG), dim=-1)
+
+
+def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
+    """MLA decode with the up-projections absorbed into the query and
+    output paths: attention runs against the latent cache in f32, with
+    ``wuk`` / ``wuv`` read as floats (dequantized when packed or
+    int8-stored), so no per-head K/V is expanded.  Reference:
+    ``repro.models.attention:mla_decode_absorbed``.  The cache is updated
+    in place; the returned dict holds the same tensors."""
+    b = x.shape[0]
+    h = cfg.n_q_heads
+    nope, rope, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
+    pos = int(pos)
+    q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
+    f32 = torch.float32
+    w_uk = _mla_up_weight(params["wuk"]).to(f32).reshape(r, h, nope)
+    w_uv = _mla_up_weight(params["wuv"]).to(f32).reshape(r, h, vd)
+    q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
+    cf = c.to(f32)
+    s_nope = torch.einsum("bqhr,bsr->bhqs", q_abs, cf)
+    s_rope = torch.einsum("bqhe,bse->bhqs", q_rope.to(f32), kr.to(f32))
+    p = _decode_softmax((s_nope + s_rope) * (nope + rope) ** -0.5, pos)
+    ctx = torch.einsum("bhqs,bsr->bqhr", p, cf)
+    out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
+    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer)
+    return out, {"c_kv": c, "k_rope": kr}
+
+
+def mla_decode(params, x, cache, pos, cfg: ModelConfig, layer=None):
+    """MLA decode against the compressed cache.  Without ``mla_absorb`` the
+    up-projections re-expand every row of the padded cache (``B *
+    max_seq`` rows through ``wuk`` and ``wuv``, padding included, so the
+    noise streams follow the reference's tiling).  Reference:
+    ``repro.models.attention:mla_decode``."""
+    if cfg.mla_absorb:
+        return mla_decode_absorbed(params, x, cache, pos, cfg, layer)
+    b = x.shape[0]
+    pos = int(pos)
+    q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
+    k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
+    q = torch.cat([q_nope, q_rope], dim=-1)
+    qf = q.to(torch.float32) * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
+    p = _decode_softmax(torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32)), pos)
+    out = torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32))
+    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer)
+    return out, {"c_kv": c, "k_rope": kr}

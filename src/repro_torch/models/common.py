@@ -128,6 +128,10 @@ class ModelConfig:
     def n_vocab(self) -> int:
         return self.padded_vocab if self.padded_vocab is not None else self.vocab_size
 
+    @property
+    def moe_hidden(self) -> int:
+        return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
+
 
 # ---------------------------------------------------------------------------
 # Parameter definitions

@@ -1,11 +1,12 @@
-"""Architecture registry (dense family).
+"""Architecture registry (the dense and moe families).
 
 Port of ``repro.models.registry``: each arch exposes its config, a smoke
 config, ``param_defs(cfg)``, ``loss(params, batch, cfg)``,
 ``prefill(params, batch, cfg, max_seq)``, ``decode(params, token, cache,
-cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  Only the dense
-decoder family is ported; the other families wait for their slices
-(ROADMAP.md Queue 1).
+cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  The dense
+and moe decoder families are ported; the reference's vlm, ssm, hybrid and
+audio families wait for their slices (ROADMAP.md Queue 1), and asking for
+one of their archs raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -48,7 +49,24 @@ def _lm_cache_def(cfg, batch, max_seq, meta, dtype):
     return lm.lm_cache_def(cfg, batch, max_seq, dtype)
 
 
-FAMILY_FNS = {"dense": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def)}
+FAMILY_FNS = {
+    "dense": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
+    "moe": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
+}
+# The reference's archs whose families are not ported yet.
+UNPORTED = {
+    "llama-3.2-vision-90b": "vlm",
+    "xlstm-350m": "ssm",
+    "zamba2-2.7b": "hybrid",
+    "whisper-medium": "audio",
+}
+
+
+def _unported(what: str) -> NotImplementedError:
+    return NotImplementedError(
+        f"{what} is not ported yet; the port has the {sorted(FAMILY_FNS)} families, and "
+        f"{sorted(set(UNPORTED.values()))} wait for their slices (ROADMAP.md Queue 1)"
+    )
 
 _REGISTRY: Dict[str, Arch] = {}
 
@@ -57,7 +75,7 @@ def make_arch(name: str, family: str, config: ModelConfig, smoke_config: ModelCo
               skip_shapes: Tuple[str, ...] = (), notes: str = "") -> Arch:
     """Reference: ``repro.models.registry:make_arch``."""
     if family not in FAMILY_FNS:
-        raise NotImplementedError(f"family {family!r} is not ported yet (ROADMAP.md Queue 1)")
+        raise _unported(f"family {family!r}")
     defs, loss, prefill, decode, cache_def = FAMILY_FNS[family]
     arch = Arch(name, family, config, smoke_config, defs, loss, prefill, decode, cache_def,
                 skip_shapes, notes)
@@ -69,6 +87,8 @@ def get(name: str) -> Arch:
     """Reference: ``repro.models.registry:get``."""
     if not _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers the ported archs)
+    if name in UNPORTED:
+        raise _unported(f"arch {name!r} (family {UNPORTED[name]!r})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -3,8 +3,9 @@
 Port of ``repro.runtime.serve``.  ``Engine`` keeps the original
 constructor/run surface but routes the dense GQA LM family onto the paged
 continuous-batching scheduler (``repro_torch.serving.Scheduler``); other
-families go to ``LegacyEngine``, the original fixed-slot loop, kept as the
-baseline the scheduler is compared against.  Both prepack every routed
+families (the moe family here, MLA or not, as in the reference) go to
+``LegacyEngine``, the original fixed-slot loop, kept as the baseline the
+scheduler is compared against.  Both prepack every routed
 weight once at construction (``prepack_serving_params``), so decode does
 no weight quantization.  Both run on ``cuda`` unless constructed with
 ``device="cpu"``.
@@ -129,7 +130,9 @@ class LegacyEngine:
     ``repro.runtime.serve:LegacyEngine`` (no tensor-parallel mesh yet).
 
     Keeps ``batch_size`` decode slots backed by one dense ``(batch,
-    max_seq)`` KV cache.  Free slots fill by prefilling the prompt, tiled
+    max_seq)`` KV cache (GQA ``k``/``v``, or MLA's latent ``c_kv``/``k_rope``
+    with the first block's under ``first``; each leaf's batch axis comes
+    from the arch's ``cache_def``).  Free slots fill by prefilling the prompt, tiled
     over the batch (one prefill per admission, merged into the batch cache
     at the slot index), then all active slots advance together through
     ``decode`` steps.  Known limitations, kept as the reference has them:

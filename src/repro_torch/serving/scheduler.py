@@ -68,15 +68,22 @@ def _to_device(tree, device):
 
 def prepack_serving_params(arch, model_cfg, params):
     """Quantize and pack every routed weight once.  Returns
-    ``(engine_or_None, params)``.  Reference:
-    ``repro.serving.scheduler:prepack_serving_params`` (single device)."""
+    ``(engine_or_None, params)``.  Under ``mla_absorb`` the MLA
+    up-projections ``wuk`` / ``wuv`` stay as they are: absorbed decode
+    reads them as floats in its own products, never through ``dense``.
+    Reference: ``repro.serving.scheduler:prepack_serving_params`` (single
+    device)."""
     from repro_torch.models.common import engine_from_model_config
     from repro_torch.photonic.packing import prepack_params
 
     engine = engine_from_model_config(model_cfg)
     if engine is None:
         return None, params
-    return engine, prepack_params(params, arch.param_defs(model_cfg), engine)
+    pack_engine = engine
+    if model_cfg.mla_absorb:
+        pol = dataclasses.replace(engine.policy, exclude=engine.policy.exclude + ("wuk", "wuv"))
+        pack_engine = dataclasses.replace(engine, policy=pol)
+    return engine, prepack_params(params, arch.param_defs(model_cfg), pack_engine)
 
 
 class _Slot:
@@ -103,8 +110,8 @@ class Scheduler:
     ):
         if model_cfg.mla or model_cfg.cross_attn_every:
             raise ValueError(
-                "paged serving covers the GQA self-attention LM stack; MLA / "
-                "cross-attention families are not ported yet"
+                "paged serving covers the GQA self-attention LM stack; use "
+                "runtime.serve.LegacyEngine for MLA / cross-attention families"
             )
         if cfg.max_seq % cfg.block_size:
             raise ValueError(

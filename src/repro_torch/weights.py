@@ -3,7 +3,9 @@
 ``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
 so parity tests build parameters with the reference and hand them over as
 numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
-included) into the port's layout, where ``layers`` is a per-layer list, and
+included) into the port's layout, where ``layers`` is a per-layer list (a
+stacked ``(L, E, d, 2f)`` expert bank becomes ``(E, d, 2f)`` per layer, and
+an unstacked block such as DeepSeek-V2's ``first_block`` comes as it is), and
 :func:`train_state_from_jax` does the same for a training state (params
 plus the AdamW moments and step), so a test can continue a reference run in
 the port.  The int8-stored serving layout (``quantize_params``: int8 ``w``
