@@ -161,6 +161,42 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    of serving.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
    layers (84 GB of bf16 weights do not fit): ``lm_logits`` B=1 T=512,
    ``kernel`` vs ``ref``, 17 launches.
+6e. cross: the cross-attention families.  Kernel rows, each against its
+   twin (bitwise, noise included; the gelu tail of whisper's ``ffn.wi``
+   at float tolerance, 1e-5 relative, its bitwise agreement recorded) with
+   its time, bound and the ``_int_mm`` time of its int core:
+   llama-3.2-vision-90b's six self-layer sites and its cross layer's
+   ``wq`` / ``wo`` / MLP at R in {4, 64} and its head at R = 4, ideal and
+   SMWA under a ``prng`` key; ``cross_kv``'s ``wk`` / ``wv`` at R = 4 x
+   1600, ideal; whisper-medium's encoder sites at R = 4 x 1500, ideal, and
+   its decoder sites and head at R = 4, ideal and keyed SMWA; sums per
+   layer and per decode step.  The flash kernel on whisper's encoder (B =
+   4, T = 1500, 16 / 16 heads, hd 64, non-causal, bf16) against the f64
+   bound, with the SDPA time.  Then llama-3.2-vision-90b at full width
+   with 10 of its 100 layers (8 self + 2 cross, two groups: 180 GB of bf16
+   weights do not fit one card), ``init_params`` seed 0, bf16, both gates
+   of each cross layer set to 0.5 (at their zero init a cross layer is the
+   identity, and a broken cross path would agree with itself): ``lm_logits``
+   B = 1, T = 512 with an f32 and a bf16 vision input (1, 1600, 8192) on
+   ``kernel`` and ``ref`` (61 fused launches, the oneshot phase's bf16
+   floor, bitwise agreement printed), and with another vision input (the
+   logits must move); ``arch.prefill`` of 4 x 64 tokens with bf16 vision
+   (4, 1600, 8192), then 16 greedy ``arch.decode`` steps at max_seq 128 on
+   ``kernel`` and ``ref`` (tokens equal; 61 launches a prefill, 57 a decode
+   step; the kernel run's last two steps under the profiler) and 4 steps
+   under SMWA (``noise_seed=0``: logits finite).  whisper-medium whole (24 +
+   24 layers): ``whisper_logits`` with audio (4, 1500, 1024) in f32 and
+   bf16 and 375 decoder tokens on ``kernel`` and ``ref`` (385 launches, the
+   bf16 floor), and with ``attn_impl="flash"`` against chunked (48 flash
+   launches) under the oneshot phase's gate: the witness, chunked at
+   flash's key block (``attn_chunk=128``) against chunked, measures how far
+   the model carries a rounding difference of its attention cores, and
+   flash may be no further than max(2e-2, 2 x the witness's) with argmax
+   disagreement <= max(1%, 2 x the witness's); ``arch.prefill`` of 4 x 4 tokens then 16 greedy decode steps
+   at max_seq 375 on ``kernel``, ``ref`` and kernel with flash (tokens of
+   the first two equal; 385 launches a prefill, 193 a decode step, flash
+   48 a prefill).  Each model prints prefill seconds, decode ms/step,
+   device busy share and launches a step, and peak memory.
 7. train, in a process of its own (``chip_smoke.py --phase train``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
    so the serve phases run without it; its result comes back as JSON on
@@ -250,6 +286,45 @@ V2_CACHE_ROWS = 4 * 128
 # FFN's wi and wo) and the untied head; absorbed decode drops wuk and wuv.
 V2_FORWARD_LAUNCHES = 27 * 7 + 1
 V2_ABSORBED_LAUNCHES = 27 * 5 + 1
+# (site, K, C) — llama-3.2-vision-90b: one self layer's six sites; a cross
+# layer runs wq, wo and the MLP at the decoder rows (the self layer's
+# shapes) and cross_kv's wk / wv over the vision rows (batch 4 x
+# vision_seq 1600); the untied head.  Its cut: 10 of 100 layers, 8 self and
+# 2 cross (two groups, the fewest that run the reference's group loop).
+VISION_SITES = [
+    ("attn.wq", 8192, 8192),
+    ("attn.wk", 8192, 1024),
+    ("attn.wv", 8192, 1024),
+    ("attn.wo", 8192, 8192),
+    ("ffn.wi", 8192, 57344),
+    ("ffn.wo", 28672, 8192),
+]
+VISION_CROSS_SITES = [VISION_SITES[i] for i in (0, 3, 4, 5)]
+VISION_KV_SITES = VISION_SITES[1:3]
+VISION_HEAD = ("lm_head", 8192, 128256)
+VISION_KV_ROWS = 4 * 1600
+VISION_LAYERS = 10
+VISION_FORWARD_LAUNCHES = 8 * 6 + 2 * 6 + 1  # a forward or prefill: 6 a self layer, 6 a cross layer, the head
+VISION_DECODE_LAUNCHES = 8 * 6 + 2 * 4 + 1  # a decode step: cross_kv is read from the cache
+# (site, K, C) — whisper-medium: the six sites of an encoder layer (at the
+# encoder rows, batch 4 x 1500 frames; ffn.wi with the gelu epilogue) and of
+# a decoder layer, whose cross-attention adds wq and wo of the same shapes;
+# the untied head.
+WHISPER_SITES = [
+    ("attn.wq", 1024, 1024),
+    ("attn.wk", 1024, 1024),
+    ("attn.wv", 1024, 1024),
+    ("attn.wo", 1024, 1024),
+    ("ffn.wi", 1024, 4096),
+    ("ffn.wo", 4096, 1024),
+]
+WHISPER_HEAD = ("lm_head", 1024, 51865)
+WHISPER_ENC_ROWS = 4 * 1500
+WHISPER_PREFILL_LAUNCHES = 24 * 6 + 24 * 10 + 1  # encoder 6 a layer, decoder 10 (cross K/V included), head
+WHISPER_DECODE_LAUNCHES = 24 * 8 + 1  # a decode step: the cross K/V are read from the cache
+# (label, B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, dtype): whisper's
+# encoder self-attention, non-causal MHA over its 1500 frames.
+WHISPER_FLASH = ("whisper encoder", 4, 1500, 1500, 16, 16, 64, False, 0, None, "bf16")
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TRAIN_STEPS = 3
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
@@ -508,11 +583,13 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     engine gives an (r, k) x (k, c) GEMM; appends a result dict to
     ``rows_out``.  With ``key`` (a ``repro_torch.prng`` key) a noisy case
     draws the stream the engine derives from it for ``site`` at layer 0;
-    ``exact`` holds the kernel to its twin bitwise, noise included;
+    ``exact`` holds the kernel to its twin bitwise, noise included (a bias
+    or activation tail still at float tolerance; whether it came out
+    bitwise is in the row);
     ``twin_once`` times the twin once (a wide GEMM's twin is slow); the
     ``_int_mm`` yardstick of the int core is timed for every ``exact``
     case, on the rows padded to 32 where fewer (its least row count is
-    17)."""
+    17) and the columns to a multiple of 8 (its least step)."""
     from repro_torch.photonic.engine import PhotonicEngine, kernel_stages
 
     dev = torch.device("cuda")
@@ -558,7 +635,7 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     err = float(diff.max())
     finite = bool(torch.isfinite(y_k).all())
     lsb = diff / unit
-    if exact:
+    if exact and activation is None and bias is None:
         ok = finite and err == 0.0
         tol = "bitwise" + (", noise included" if noisy else "")
     elif activation is None and bias is None:
@@ -584,7 +661,7 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     if exact and not x_f32:
         xi = torch.zeros((max(r, 32), k), dtype=torch.int8, device=dev)
         xi[:r] = x[:r, :k]
-        wl = w[:k, :c].contiguous()
+        wl = w[:k, :-(-c // 8) * 8].contiguous()  # _int_mm takes C in multiples of 8: the zero tile padding
         lib_ms = graph_ms(lambda: torch._int_mm(xi, wl))
     elif not analog and stages["adc_bits"] is None and r > 16:
         xi = x if not x_f32 else torch.clamp(torch.round(x / xs), -127, 127).to(torch.int8)
@@ -599,7 +676,7 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
         R_live=r, R=rp, K=k, C=c, Kp=kp, Cp=cp, channel=dpu.organization if analog else "ideal",
         x="f32" if x_f32 else "int8", bias=with_bias, activation=activation,
         ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, parts=parts,
-        draws=draws, max_abs_err=err, tolerance=tol, ok=ok, launches=launched,
+        draws=draws, max_abs_err=err, bitwise=err == 0.0, tolerance=tol, ok=ok, launches=launched,
     ))
     log(f"  {'' if model == 'qwen2-0.5b' else model + ' ' + str(site) + (' keyed' if key is not None else '') + ' '}"
         f"R={r:3d}/{rp:3d} K={k:4d}/{kp:4d} C={c:5d} {rows_out[-1]['channel']:5s} x={rows_out[-1]['x']:4s} "
@@ -842,7 +919,7 @@ def flash_case(torch, F, case, gen, rows_out, card):
     qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
     plain_causal = causal and q_offset == 0 and tq == tk and valid == tk
     mask = None
-    if not plain_causal:
+    if not plain_causal and (causal or valid < tk):
         kv_pos = torch.arange(tk, device=dev)
         mask = (kv_pos < valid)[None, :].expand(tq, tk)
         if causal:
@@ -1888,6 +1965,356 @@ def moe_phase(torch, registry, card):
     return ok, res, launches_total
 
 
+def cross_kernel_rows(torch, K, chans, key, gen, rows, card):
+    """The cross phase's kernel rows, each against its twin on the card:
+    llama-3.2-vision-90b's six self-layer sites and its cross layer's
+    ``wq`` / ``wo`` / MLP at R = 4 and 64 and its head at R = 4, ideal and
+    SMWA under ``key``; ``cross_kv``'s ``wk`` / ``wv`` at R = 4 x 1600,
+    ideal; whisper-medium's encoder sites at R = 4 x 1500, ideal, and its
+    decoder sites and head at R = 4, ideal and SMWA under ``key``.  Every
+    row is bitwise its twin, noise included, except the gelu tail of
+    ``ffn.wi`` (float tolerance, 1e-5 relative).  Logs the per-layer and
+    per-step sums.  Returns ok."""
+    ok = True
+
+    def case(model, name, r, site, k, c, label=None):
+        return kernel_case(torch, K, chans[name], r, k, c, False, False, "gelu" if model == "whisper-medium" and
+                           site == "ffn.wi" else None, gen, rows, model=model, site=label or site,
+                           key=key if name == "SMWA" else None, exact=True, twin_once=True)
+
+    vlm, wh = "llama-3.2-vision-90b", "whisper-medium"
+    for name in ("ideal", "SMWA"):
+        for r in (4, 64):
+            for site, k, c in VISION_SITES:
+                ok &= case(vlm, name, r, site, k, c)
+            for site, k, c in VISION_CROSS_SITES:
+                ok &= case(vlm, name, r, site, k, c, label="cross " + site)
+        ok &= case(vlm, name, 4, *VISION_HEAD)
+    for site, k, c in VISION_KV_SITES:
+        ok &= case(vlm, "ideal", VISION_KV_ROWS, site, k, c, label="cross_kv " + site)
+    for site, k, c in WHISPER_SITES:
+        ok &= case(wh, "ideal", WHISPER_ENC_ROWS, site, k, c, label="encoder " + site)
+    for name in ("ideal", "SMWA"):
+        for site, k, c in WHISPER_SITES:
+            ok &= case(wh, name, 4, site, k, c)
+        ok &= case(wh, name, 4, *WHISPER_HEAD)
+
+    def pick(model, name, r, sites):
+        return [next(x for x in rows if x["model"] == model and x["channel"] == name and x["R_live"] == r
+                     and x["site"] == s) for s in sites]
+
+    def log_sum(what, parts):
+        """``parts``: (count, row) pairs summed as count x row."""
+        bm, bb = bound_of([tuple(n * v for v in x["parts"]) for n, x in parts])
+        tot = {key_: sum(n * x[key_] for n, x in parts) for key_ in ("ms", "plain_ms", "library_ms")}
+        log(f"  {what}: kernel {tot['ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms, bound {bm:.5f} ms ({bb}), "
+            f"_int_mm {tot['library_ms']:.4f} ms [{card}]")
+        return dict(tot, bound_ms=bm, bound_by=bb)
+
+    sums = {}
+    self_sites = [s for s, _, _ in VISION_SITES]
+    cross_sites = ["cross " + s for s, _, _ in VISION_CROSS_SITES]
+    for name in ("ideal", "SMWA"):
+        for r in (4, 64):
+            sums[f"vlm self layer {name} R={r}"] = log_sum(
+                f"{vlm} self layer (6 sites) {name} R={r}", [(1, x) for x in pick(vlm, name, r, self_sites)])
+            sums[f"vlm cross layer {name} R={r}"] = log_sum(
+                f"{vlm} cross layer's wq/wo/MLP {name} R={r}", [(1, x) for x in pick(vlm, name, r, cross_sites)])
+        step = ([(8, x) for x in pick(vlm, name, 4, self_sites)] + [(2, x) for x in pick(vlm, name, 4, cross_sites)]
+                + [(1, x) for x in pick(vlm, name, 4, ["lm_head"])])
+        sums[f"vlm decode step {name}"] = log_sum(
+            f"{vlm} decode step's GEMMs (8 self layers + 2 cross layers + head, R=4) {name}", step)
+    kv = pick(vlm, "ideal", VISION_KV_ROWS, ["cross_kv " + s for s, _, _ in VISION_KV_SITES])
+    sums["vlm cross_kv"] = log_sum(f"{vlm} cross_kv (wk + wv, R={VISION_KV_ROWS}) ideal", [(1, x) for x in kv])
+    enc = pick(wh, "ideal", WHISPER_ENC_ROWS, ["encoder " + s for s, _, _ in WHISPER_SITES])
+    sums["whisper encoder layer"] = log_sum(f"{wh} encoder layer (R={WHISPER_ENC_ROWS}) ideal",
+                                            [(1, x) for x in enc])
+    for name in ("ideal", "SMWA"):
+        dec = pick(wh, name, 4, [s for s, _, _ in WHISPER_SITES])
+        # A decoder layer's eight calls: the self-attention's four, the cross wq and wo, the MLP.
+        layer = [(1, x) for x in dec] + [(1, dec[0]), (1, dec[3])]
+        sums[f"whisper decoder layer {name}"] = log_sum(f"{wh} decoder layer (8 calls, R=4) {name}", layer)
+        sums[f"whisper decode step {name}"] = log_sum(
+            f"{wh} decode step's GEMMs (24 decoder layers + head, R=4) {name}",
+            [(24 * n, x) for n, x in layer] + [(1, x) for x in pick(wh, name, 4, ["lm_head"])])
+    return ok, sums
+
+
+def decode_run(torch, arch, packed, cfg, batch, max_seq, steps, card, label, *, want_prefill, want_step,
+               profile=False, want_flash=0):
+    """``arch.prefill`` of ``batch`` then ``steps`` greedy ``arch.decode``
+    steps, each step's logits checked finite, launch counts reset just
+    before and held to ``want_prefill`` + ``want_step`` x steps fused
+    launches (``want_flash`` flash launches).  With ``profile`` the last two
+    steps run under the profiler and are left out of the rates.  Returns
+    (tokens (B, steps + 1) as lists, result dict, ok)."""
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+
+    vocab = cfg.vocab_size
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    F.reset_launches()
+    finite = []
+    with torch.no_grad():
+        t0 = time.perf_counter()
+        logits, cache = arch.prefill(packed, batch, cfg, max_seq)
+        tok = logits[:, -1, :vocab].argmax(-1)
+        finite.append(bool(torch.isfinite(logits).all()))
+        torch.cuda.synchronize()
+        prefill_s = time.perf_counter() - t0
+        toks = [tok]
+
+        def step():
+            nonlocal cache
+            logits, cache = arch.decode(packed, toks[-1][:, None], cache, cfg)
+            toks.append(logits[:, -1, :vocab].argmax(-1))
+            finite.append(bool(torch.isfinite(logits).all()))
+
+        timed = steps - 2 if profile else steps
+        t0 = time.perf_counter()
+        for _ in range(timed):
+            step()
+        torch.cuda.synchronize()
+        decode_s = time.perf_counter() - t0
+        prof = profiled(torch, lambda: [step() for _ in range(2)], label) if profile else None
+    fused, flash = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
+    want = want_prefill + want_step * steps
+    ok = all(finite) and fused == want and flash == want_flash and K.LAUNCHES["photonic_gemm"] == 0
+    res = dict(prefill_s=prefill_s, decode_ms_per_step=decode_s / timed * 1e3, steps=steps,
+               fused_launches=fused, flash_launches=flash, peak_bytes=torch.cuda.max_memory_allocated(),
+               profile=prof, finite=all(finite))
+    if prof:
+        res["launch_calls_per_step"] = prof["launch_calls"] / 2
+        res["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    log(f"  {label}: prefill {prefill_s:.3f} s, decode {res['decode_ms_per_step']:.2f} ms/step over {timed} "
+        f"steps; fused launches {fused} == {want_prefill} + {want_step} x {steps} = {want}, flash {flash} == "
+        f"{want_flash}, logits finite {all(finite)}: {ok}; peak memory (max_memory_allocated, this run) "
+        f"{res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    return torch.stack(toks, dim=1).tolist(), res, ok
+
+
+def cross_phase(torch, registry, card):
+    """The cross-attention families at full width (module docstring, phase
+    6e, after its kernel rows).  Returns (ok, result, fused launches,
+    flash launches)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import lm, whisper
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import prepack_serving_params
+
+    ok, res, fused_total, flash_total = True, {}, 0, 0  # launches summed over both models
+    g = torch.Generator(device="cuda")
+    g.manual_seed(3)
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def same_tokens(a, b, what):
+        eq = a == b
+        log(f"  {what}: {eq}")
+        for i, (x, y) in enumerate(zip(a, b)):
+            log(f"    row {i}: {x} / {y}")
+        return eq
+
+    def floor_gate(a, b, what):
+        """The oneshot phase's bf16 floor on two logits tensors: (pass, numbers)."""
+        rel = float((a - b).abs().max() / b.abs().max())
+        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+        bitwise = bool(torch.equal(a, b))
+        good = rel <= 2e-2 and agree >= 0.99
+        log(f"  {what} over {a.shape[0] * a.shape[1]} positions: max |dlogit| / max |logit| {rel:.4g} (<= 2e-2), "
+            f"argmax agreement {agree:.4f} (>= 0.99), bitwise {bitwise}: {good}")
+        return good, dict(rel_err=rel, argmax_agreement=agree, bitwise=bitwise)
+
+    # -- llama-3.2-vision-90b, 10 of 100 layers --------------------------------
+    arch = registry.get("llama-3.2-vision-90b")
+    cfg = dataclasses.replace(arch.config, num_layers=VISION_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    # Both gates init to zero, and tanh(0) = 0 makes every cross layer the
+    # identity: a broken cross path would agree with itself.  Open them.
+    for c in params["cross"]:
+        c["gate_ffn"].fill_(0.5)
+        c["attn"]["gate"].fill_(0.5)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init_params (llama-3.2-vision-90b full width, {VISION_LAYERS} of 100 layers: 8 self + 2 cross, bf16, "
+        f"{n_params / 1e9:.3f} B parameters) {time.perf_counter() - t0:.2f} s; gates set to 0.5")
+    vision = {f32: torch.randn((4, cfg.vision_seq, cfg.d_model), generator=g, device="cuda")}
+    vision[bf16] = vision[f32].to(bf16)
+    tokens = torch.randint(0, cfg.vocab_size, (1, 512), generator=g, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 64), generator=g, device="cuda")
+    logits, packs, vlm = {}, {}, {}
+    for backend in ("kernel", "ref"):
+        run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+        with torch.no_grad():
+            t0 = time.perf_counter()
+            _, packs[backend] = prepack_serving_params(arch, run, params)
+            torch.cuda.synchronize()
+            log(f"  prepack ({backend}) {time.perf_counter() - t0:.2f} s")
+            for dt in (bf16, f32):
+                K.reset_launches()
+                t0 = time.perf_counter()
+                out, _ = lm.lm_logits(packs[backend], tokens, run, vision=vision[dt][:1])
+                torch.cuda.synchronize()
+                secs = time.perf_counter() - t0
+                logits[backend, dt] = out.float()
+                want = VISION_FORWARD_LAUNCHES if backend == "kernel" else 0
+                n = K.LAUNCHES["photonic_gemm_fused"]
+                good = n == want and bool(torch.isfinite(out).all())
+                fused_total += n
+                log(f"  vlm lm_logits {backend}, vision {str(dt)[6:]} (B=1, T=512, vision 1600): {secs:.3f} s, "
+                    f"fused launches {n} == {want}, finite: {good} [{card}]")
+                vlm[f"lm_logits_{backend}_{str(dt)[6:]}_s"] = secs
+                ok &= good
+    vlm["lm_logits_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  vlm peak memory over init, both prepacks and the four lm_logits (max_memory_allocated) "
+        f"{vlm['lm_logits_peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    for dt in (bf16, f32):
+        good, vlm[f"lm_logits_{str(dt)[6:]}"] = floor_gate(logits["kernel", dt], logits["ref", dt],
+                                                           f"vlm lm_logits kernel vs ref, vision {str(dt)[6:]}")
+        ok &= good
+    # The cross path is live: other vision, other logits.
+    moved = float((logits["kernel", bf16] - logits["kernel", f32]).abs().max())
+    K.reset_launches()
+    with torch.no_grad():
+        other, _ = lm.lm_logits(packs["kernel"], tokens, dataclasses.replace(cfg, photonic=ideal_dpu()),
+                                vision=torch.randn((1, cfg.vision_seq, cfg.d_model), generator=g, device="cuda"))
+    n = K.LAUNCHES["photonic_gemm_fused"]
+    fused_total += n
+    moved_other = float((other.float() - logits["kernel", f32]).abs().max() / logits["kernel", f32].abs().max())
+    good = moved_other > 1e-2 and n == VISION_FORWARD_LAUNCHES
+    log(f"  vlm lm_logits with another vision input: max |dlogit| / max |logit| {moved_other:.4g} (> 1e-2: the "
+        f"cross layers read the vision input), fused launches {n} == {VISION_FORWARD_LAUNCHES}: {good}; bf16 vs "
+        f"f32 vision max |dlogit| {moved:.4g}")
+    ok &= good
+    del logits, other
+    batch = {"tokens": prompt, "vision": vision[bf16]}
+    toks = {}
+    for backend in ("kernel", "ref"):
+        run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+        toks[backend], vlm[f"decode_{backend}"], good = decode_run(
+            torch, arch, packs[backend], run, batch, 128, 16, card, f"vlm_{backend}",
+            want_prefill=VISION_FORWARD_LAUNCHES if backend == "kernel" else 0,
+            want_step=VISION_DECODE_LAUNCHES if backend == "kernel" else 0, profile=backend == "kernel")
+        ok &= good
+        fused_total += vlm[f"decode_{backend}"]["fused_launches"]
+    ok &= same_tokens(toks["kernel"], toks["ref"], "vlm greedy tokens (64-token prompt + 16 steps), kernel == ref")
+    del packs
+    torch.cuda.empty_cache()
+    run = dataclasses.replace(cfg, photonic=smwa_dpu(), photonic_backend="kernel")
+    with torch.no_grad():
+        _, packed = prepack_serving_params(arch, run, params)
+    smwa_toks, vlm["decode_smwa"], good = decode_run(
+        torch, arch, packed, run, batch, 128, 4, card, "vlm_smwa",
+        want_prefill=VISION_FORWARD_LAUNCHES, want_step=VISION_DECODE_LAUNCHES)
+    ok &= good
+    fused_total += vlm["decode_smwa"]["fused_launches"]
+    log(f"  vlm SMWA (noise_seed=0) tokens: {smwa_toks}")
+    vlm.update(n_params=n_params, fused_launches=fused_total)
+    res["llama-3.2-vision-90b"] = vlm
+    del packed, params, vision, batch
+    torch.cuda.empty_cache()
+
+    # -- whisper-medium, full depth ----------------------------------------------
+    arch = registry.get("whisper-medium")
+    cfg = arch.config
+    t0 = time.perf_counter()
+    params = init_params(cfg, 0, device="cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in tree_leaves(params))
+    log(f"  init_params (whisper-medium full width, 24 + 24 layers, bf16, {n_params / 1e9:.3f} B parameters) "
+        f"{time.perf_counter() - t0:.2f} s")
+    t_enc = 1500
+    audio = {f32: torch.randn((4, t_enc, cfg.d_model), generator=g, device="cuda")}
+    audio[bf16] = audio[f32].to(bf16)
+    dec_tokens = torch.randint(0, cfg.vocab_size, (4, t_enc // cfg.decoder_ratio), generator=g, device="cuda")
+    prompt = torch.randint(0, cfg.vocab_size, (4, 4), generator=g, device="cuda")
+    wres, logits, packs = {}, {}, {}
+    torch.cuda.reset_peak_memory_stats()
+    for backend in ("kernel", "ref"):
+        run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+        with torch.no_grad():
+            _, packs[backend] = prepack_serving_params(arch, run, params)
+            for dt in (bf16, f32):
+                # On the kernel in bf16 also flash, and the witness: chunked at
+                # flash's key block (the oneshot phase's gate).
+                impls = (("chunked", "chunked", cfg.attn_chunk),)
+                if backend == "kernel" and dt == bf16:
+                    impls += (("flash", "flash", cfg.attn_chunk), ("chunked_128", "chunked", 128))
+                for name, impl, chunk in impls:
+                    K.reset_launches()
+                    F.reset_launches()
+                    t0 = time.perf_counter()
+                    out, _ = whisper.whisper_logits(packs[backend], {"tokens": dec_tokens, "audio_embed": audio[dt]},
+                                                    dataclasses.replace(run, attn_impl=impl, attn_chunk=chunk))
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    logits[backend, dt, name] = out.float()
+                    want = WHISPER_PREFILL_LAUNCHES if backend == "kernel" else 0
+                    want_flash = 48 if impl == "flash" else 0
+                    n, nf = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
+                    good = n == want and nf == want_flash and bool(torch.isfinite(out).all())
+                    fused_total += n
+                    flash_total += nf
+                    log(f"  whisper_logits {backend}, audio {str(dt)[6:]}, attn_impl={impl} attn_chunk={chunk} (B=4, "
+                        f"1500 frames, 375 tokens): {secs:.3f} s, fused launches {n} == {want}, flash {nf} == "
+                        f"{want_flash}, finite: {good} [{card}]")
+                    wres[f"whisper_logits_{backend}_{str(dt)[6:]}_{name}_s"] = secs
+                    ok &= good
+    wres["whisper_logits_peak_bytes"] = torch.cuda.max_memory_allocated()
+    log(f"  whisper peak memory over both prepacks and the six whisper_logits (max_memory_allocated) "
+        f"{wres['whisper_logits_peak_bytes'] / 2**30:.2f} GiB [{card}]")
+    for dt in (bf16, f32):
+        good, wres[f"whisper_logits_{str(dt)[6:]}"] = floor_gate(
+            logits["kernel", dt, "chunked"], logits["ref", dt, "chunked"],
+            f"whisper_logits kernel vs ref, audio {str(dt)[6:]}")
+        ok &= good
+    # Flash against chunked under the oneshot phase's gate: the bf16 floor,
+    # widened to twice what the witness (chunked at flash's key block
+    # against chunked, no kernel involved) shows the model makes of a
+    # rounding difference of its attention cores.
+    _, witness = floor_gate(logits["kernel", bf16, "chunked_128"], logits["kernel", bf16, "chunked"],
+                            "whisper_logits witness: chunked at 128 vs chunked (bf16; sets the flash gate)")
+    max_rel = max(2e-2, 2 * witness["rel_err"])
+    min_agree = 1.0 - max(0.01, 2 * (1.0 - witness["argmax_agreement"]))
+    _, flash_cmp = floor_gate(logits["kernel", bf16, "flash"], logits["kernel", bf16, "chunked"],
+                              "whisper_logits flash vs chunked (bf16; the plain bf16 floor, not gated)")
+    good = flash_cmp["rel_err"] <= max_rel and flash_cmp["argmax_agreement"] >= min_agree
+    log(f"  whisper_logits flash vs chunked, gate <= {max_rel:.4g} and >= {min_agree:.4f} (max(2e-2, 2 x witness), "
+        f"max(1%, 2 x the witness's disagreement)): {good} [{card}]")
+    wres["whisper_logits_flash_vs_chunked"] = dict(flash_cmp, witness=witness, max_rel_err=max_rel,
+                                                   min_argmax_agreement=min_agree)
+    ok &= good
+    del logits
+    batch = {"tokens": prompt, "audio_embed": audio[bf16]}
+    toks = {}
+    max_seq = t_enc // cfg.decoder_ratio
+    for label, backend, impl in (("kernel", "kernel", "chunked"), ("ref", "ref", "chunked"),
+                                 ("flash", "kernel", "flash")):
+        run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend, attn_impl=impl)
+        kernel = backend == "kernel"
+        toks[label], wres[f"decode_{label}"], good = decode_run(
+            torch, arch, packs[backend], run, batch, max_seq, 16, card, f"whisper_{label}",
+            want_prefill=WHISPER_PREFILL_LAUNCHES if kernel else 0, want_step=WHISPER_DECODE_LAUNCHES if kernel else 0,
+            want_flash=48 if impl == "flash" else 0, profile=label == "kernel")
+        ok &= good
+        fused_total += wres[f"decode_{label}"]["fused_launches"]
+        flash_total += wres[f"decode_{label}"]["flash_launches"]
+    ok &= same_tokens(toks["kernel"], toks["ref"], "whisper greedy tokens (4-token prompt + 16 steps), kernel == ref")
+    agree = sum(a == b for x, y in zip(toks["flash"], toks["kernel"]) for a, b in zip(x, y)) / (4 * 17)
+    log(f"  whisper flash-prefill tokens vs chunked (not gated): {agree:.3f} of positions equal")
+    wres["flash_token_agreement"] = agree
+    wres.update(n_params=n_params, fused_launches=fused_total - vlm["fused_launches"], flash_launches=flash_total)
+    res["whisper-medium"] = wres
+    del packs, params, audio, batch
+    torch.cuda.empty_cache()
+    return ok, res, fused_total, flash_total
+
+
 def main() -> int:
     import torch
 
@@ -2140,6 +2567,14 @@ def main() -> int:
         moe_ok, moe, moe_launches = moe_phase(torch, registry, card)
         all_ok &= moe_ok
 
+    cross_rows, cross_flash = [], []
+    with Phase("cross"):
+        rows_ok, cross_sums = cross_kernel_rows(torch, K, chans, key, gen, cross_rows, card)
+        all_ok &= rows_ok
+        all_ok &= flash_case(torch, F, WHISPER_FLASH, gen, cross_flash, card)
+        cross_ok, cross, cross_fused, cross_flash_launches = cross_phase(torch, registry, card)
+        all_ok &= cross_ok
+
     with Phase("train"):
         train_ok, train_res, train_launches = run_train_child(card)
         all_ok &= train_ok
@@ -2202,6 +2637,39 @@ def main() -> int:
         case="B=2, T=1000, 14 heads / 2 KV heads, hd=64, causal, bf16 (the lm_logits shape); "
              "launches from the one-shot flash runs",
     ))
+    # The cross phase's rows: llama-3.2-vision-90b's decode step (8 self
+    # layers, 2 cross layers and the head at R = 4, ideal; launches from its
+    # lm_logits and decode runs), whisper-medium's encoder layer (the six
+    # sites at R = 4 x 1500, ideal; launches from its whisper_logits and
+    # decode runs), and the flash kernel on whisper's encoder.
+    for what, sums_key, rows_of, launches in (
+        ("llama-3.2-vision-90b decode step: 8 self layers (6 sites) + 2 cross layers (wq, wo, ffn) + the head, "
+         "R=4, ideal channel, int8 x; launches from the cross phase's llama-3.2-vision runs",
+         "vlm decode step ideal", lambda x: x["model"] == "llama-3.2-vision-90b" and x["R_live"] == 4
+         and x["channel"] == "ideal", cross["llama-3.2-vision-90b"]["fused_launches"]),
+        ("whisper-medium encoder layer: six sites at R=4x1500 (ffn.wi with gelu), ideal channel, int8 x; "
+         "launches from the cross phase's whisper runs", "whisper encoder layer",
+         lambda x: x["model"] == "whisper-medium" and x["R_live"] == WHISPER_ENC_ROWS,
+         cross["whisper-medium"]["fused_launches"]),
+    ):
+        sm = cross_sums[sums_key]
+        kernels.append(dict(
+            name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:412", launches=launches,
+            max_abs_err=max(x["max_abs_err"] for x in cross_rows if rows_of(x)),
+            ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"], bound_by=op_or_bytes(sm["bound_by"]),
+            library_ms=sm["library_ms"], case=what + "; library: torch._int_mm of the int cores",
+        ))
+    wf = cross_flash[0]
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SRC,
+        replaces="src/repro/kernels/flash_attention/kernel.py:91",
+        launches=cross_flash_launches, max_abs_err=wf["max_abs_err"], bound_ratio=wf["bound_ratio"]["kernel"][0],
+        ms=wf["ms"], plain_ms=wf["plain_ms"], bound_ms=wf["bound_ms"], bound_by=wf["bound_by"],
+        library_ms=wf["library_ms"],
+        case="whisper-medium encoder: B=4, T=1500, 16 / 16 heads, hd=64, non-causal, bf16; launches from the "
+             "cross phase's whisper flash runs",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -2209,7 +2677,8 @@ def main() -> int:
          "p_term_rows": p_rows, "oneshot": {k: v for k, v in oneshot.items() if k != "ok"},
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
          "serve": {k: v[2] for k, v in {**results, **sliced, **int8, **dense}.items()}, "train": train_res,
-         "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak}, indent=1))
+         "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak,
+         "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -9,7 +9,7 @@ bound through ``ctypes``.  Each kernel keeps a plain PyTorch twin beside
 it that CPU tensors take.
 
 Requires torch >= 2.1 (``torch.utils._python_dispatch.TorchDispatchMode``,
-``gelu(approximate="tanh")``, ``torch.Generator`` on CUDA) and numpy.
+``torch.Generator`` on CUDA) and numpy.
 ``import repro_torch`` loads neither ``jax`` nor any module of ``repro``:
 the JAX-free reference modules it needs are private copies here.
 

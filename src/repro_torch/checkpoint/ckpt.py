@@ -11,7 +11,8 @@ rename, so a killed save never corrupts the latest complete checkpoint.
 The leaf paths are the port's own: per-layer lists (``params/layers/0/wq``)
 and NamedTuple fields by name (``opt/mu/...``, ``opt/step``).  The
 reference stacks the layers on a leading axis (``params/layers/wq``, a MoE
-layer's expert banks too) and prints NamedTuple fields with a dot
+layer's expert banks too; llama-vision's ``cross`` and whisper's
+``enc_layers`` / ``dec_layers`` likewise) and prints NamedTuple fields with a dot
 (``opt/.mu/...``, ``opt/.step``); an unstacked block such as DeepSeek-V2's
 ``params/first_block/...`` has one name in both.
 ``restore`` reads both layouts.  numpy has no bfloat16: the port stores a
@@ -34,6 +35,7 @@ import numpy as np
 import torch
 
 from repro_torch._tree import tree_items, tree_unflatten
+from repro_torch.weights import STACKED
 
 
 def _dtype_name(t: torch.Tensor) -> str:
@@ -110,14 +112,15 @@ def _archive_key(key: str, files) -> Tuple[str, Optional[int]]:
     """Where the leaf the port calls ``key`` lies in an archive with names
     ``files``: under ``key`` itself (the port's layout), or in the
     reference's layout, where NamedTuple fields carry a leading ``.`` and
-    a ``layers/<i>/`` leaf is row ``i`` of the stacked ``layers/`` leaf.
+    a ``layers/<i>/`` leaf is row ``i`` of the stacked ``layers/`` leaf
+    (so are ``cross/<i>/``, ``enc_layers/<i>/`` and ``dec_layers/<i>/``).
     Returns the archive name and the row (None for the whole leaf)."""
     if key in files:
         return key, None
     by_plain = {"/".join(p.lstrip(".") for p in f.split("/")): f for f in files}
     parts = key.split("/")
     for j in range(1, len(parts) - 1):
-        if parts[j - 1] == "layers" and parts[j].isdigit():
+        if parts[j - 1] in STACKED and parts[j].isdigit():
             stacked = "/".join(parts[:j] + parts[j + 1 :])
             if stacked in by_plain:
                 return by_plain[stacked], int(parts[j])

@@ -1,13 +1,17 @@
 """`repro_torch.configs` — the ported model configs; importing this package
 registers them with ``repro_torch.models.registry``: the four dense
-decoders qwen2-0.5b, qwen2-1.5b, granite-3-8b and deepseek-67b, and the two
-MoE decoders deepseek-v2-lite-16b (MLA) and phi3.5-moe-42b-a6.6b (GQA)."""
+decoders qwen2-0.5b, qwen2-1.5b, granite-3-8b and deepseek-67b, the two
+MoE decoders deepseek-v2-lite-16b (MLA) and phi3.5-moe-42b-a6.6b (GQA),
+the vision decoder llama-3.2-vision-90b (gated cross-attention) and the
+encoder-decoder whisper-medium."""
 
 from repro_torch.configs import (  # noqa: F401
     deepseek_67b,
     deepseek_v2_lite_16b,
     granite_3_8b,
+    llama_3_2_vision_90b,
     phi3_5_moe_42b,
     qwen2_0_5b,
     qwen2_1_5b,
+    whisper_medium,
 )

@@ -6,8 +6,9 @@ rescale / bias / activation epilogue (:func:`apply_epilogue`).  The CUDA
 kernel applies the same op sequence per element; the rescale chain
 ``acc.f32 * x_scale * w_scale`` is left-associated and multiply-only, so
 it is bitwise across backends.  The bias add and the activation are held
-at float tolerance (the reference's compiled regime may contract them into
-FMAs).  Gelu is the tanh form, ``jax.nn.gelu``'s default.
+at float tolerance against the reference (its compiled regime may contract
+them into FMAs).  Gelu is the tanh form, ``jax.nn.gelu``'s default, spelled
+in the kernel's op order.
 """
 
 from __future__ import annotations
@@ -20,7 +21,14 @@ import torch.nn.functional as F
 
 
 def _gelu(y: torch.Tensor) -> torch.Tensor:
-    return F.gelu(y, approximate="tanh")
+    """The tanh-form gelu in the CUDA kernel's op order (``gelu_tanh`` in
+    ``csrc/photonic_gemm.cu``), one rounding per op: ``x * (0.5 * (1 +
+    tanh(c * (x + 0.044715 * x^3))))``, ``c = sqrt(2 / pi)`` rounded to f32;
+    a narrower input is computed in f32 and rounded once, as ``F.gelu``
+    does."""
+    x = y.to(torch.float32)
+    x3 = x * x * x
+    return (x * (0.5 * (1.0 + torch.tanh(0.7978845608028654 * (x + 0.044715 * x3))))).to(y.dtype)
 
 
 ACTIVATIONS = {

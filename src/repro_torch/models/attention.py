@@ -1,8 +1,10 @@
-"""GQA self-attention (RoPE, QKV bias), in PyTorch: the full-sequence
-forward, the one-shot prefill/decode over a dense cache, and the paged
-prefill/decode over the block pool.
+"""Attention in PyTorch: GQA self-attention (RoPE, QKV bias) with the
+full-sequence forward, the one-shot prefill/decode over a dense cache and
+the paged prefill/decode over the block pool; MLA (DeepSeek-V2); and
+cross-attention over a precomputed memory (llama-3.2-vision's gated
+layers, the whisper decoder).
 
-Port of the GQA part of ``repro.models.attention``.  The reference's
+Port of ``repro.models.attention``.  The reference's
 ``lax.scan`` over KV blocks becomes a Python loop with the same online
 softmax; masks stay ``-1e30`` (not ``-inf``), and the GQA head map is
 ``repeat_interleave`` (``jnp.repeat``'s element order).  ``attn_impl =
@@ -11,7 +13,7 @@ softmax; masks stay ``-1e30`` (not ``-inf``), and the GQA head map is
 them.  A fused ``wqkv`` bank (:func:`repro_torch.photonic.fuse_qkv_params`)
 runs the Q/K/V projections as one GEMM, and ``kv_cache_int8`` stores the
 KV cache as int8 with one f32 scale per (token, KV head) on the one-shot
-and paged paths.  MLA and cross-attention wait for their slices.
+and paged paths.
 """
 
 from __future__ import annotations
@@ -21,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.dpu import quantize_symmetric
-from repro_torch.models.common import ModelConfig, apply_rope, dense, qdense_def
+from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def
 from repro_torch.serving import kv_cache as kvc
 
 NEG = -1e30
@@ -36,6 +38,15 @@ def gqa_def(cfg: ModelConfig) -> Dict[str, Any]:
         "wv": qdense_def(cfg, d, kv * hd, (None, "kv_heads"), bias=cfg.qkv_bias),
         "wo": qdense_def(cfg, h * hd, d, ("heads", None)),
     }
+
+
+def cross_attn_def(cfg: ModelConfig) -> Dict[str, Any]:
+    """``gqa_def`` plus the ``(1,)`` ``gate`` of llama-vision's gated
+    cross-attention, initialized to zeros (so a gated block starts as the
+    identity).  Reference: ``repro.models.attention:cross_attn_def``."""
+    d = gqa_def(cfg)
+    d["gate"] = P((1,), (None,), init="zeros")
+    return d
 
 
 def gqa_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str, Any]:
@@ -342,6 +353,42 @@ def gqa_decode_paged(
         params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
     )
     return out, kv_pool
+
+
+# ---------------------------------------------------------------------------
+# Cross-attention (vision / whisper decoder): static memory, no RoPE on K/V
+# ---------------------------------------------------------------------------
+def cross_attention(
+    params,
+    x: torch.Tensor,  # (B, T, D)
+    memory_kv: Tuple[torch.Tensor, torch.Tensor],  # precomputed (B, S, KV, hd) pair
+    cfg: ModelConfig,
+    *,
+    gated: bool = False,
+    layer: Optional[int] = None,
+) -> torch.Tensor:
+    """Q from ``x`` against the memory's K/V, non-causal, then ``attn.wo``;
+    ``gated`` scales the output by ``tanh(gate)``.  The core stays the
+    chunked online softmax whatever ``attn_impl`` says, as in the
+    reference.  Reference: ``repro.models.attention:cross_attention``."""
+    b, t, _ = x.shape
+    q = _split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer), cfg.n_q_heads)
+    k, v = memory_kv
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg))
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    if gated:
+        out = torch.tanh(params["gate"].to(out.dtype)) * out
+    return out
+
+
+def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig, layer=None):
+    """The memory's cross-attention K/V ``(B, S, KV, hd)`` each, through
+    ``attn.wk`` / ``attn.wv`` (in the memory's dtype: an f32 memory gives
+    f32 K/V).  Reference: ``repro.models.attention:cross_kv``."""
+    kv = cfg.num_kv_heads
+    k = _split_heads(dense(params["wk"], memory, cfg, site="attn.wk", layer=layer), kv)
+    v = _split_heads(dense(params["wv"], memory, cfg, site="attn.wv", layer=layer), kv)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

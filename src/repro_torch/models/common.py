@@ -160,7 +160,7 @@ def init_params(
     device=None,
     defs: Any = None,
 ) -> Any:
-    """Materialize ``defs`` (default: the registry's defs for ``cfg``) from a
+    """Materialize ``defs`` (default: the defs of ``cfg.family``) from a
     seeded generator on ``device`` (``cuda`` unless asked otherwise).
 
     Same init rules as ``repro.models.common:init_tree`` (fan-in-scaled
@@ -173,9 +173,11 @@ def init_params(
         generator = torch.Generator(device=dev)
         generator.manual_seed(seed)
     if defs is None:
-        from repro_torch.models import lm
+        from repro_torch.models import registry
 
-        defs = lm.lm_def(cfg)
+        if cfg.family not in registry.FAMILY_FNS:
+            raise registry._unported(f"family {cfg.family!r}")
+        defs = registry.FAMILY_FNS[cfg.family][0](cfg)
 
     def make(p: P) -> torch.Tensor:
         dt = _DTYPES[p.dtype] if p.dtype is not None else cfg.param_dtype

@@ -1,67 +1,70 @@
-"""Decoder-only LM (the dense and MoE families: GQA or MLA attention, a
-dense MLP or a top-k MoE), in PyTorch: the full-sequence forward, one-shot
-prefill/decode over a dense cache, and the paged path (GQA stacks only).
+"""Decoder-only LM (the dense, MoE and vision cross-attention families:
+GQA or MLA attention, a dense MLP or a top-k MoE, gated cross-attention
+layers), in PyTorch: the full-sequence forward, one-shot prefill/decode over
+a dense cache, and the paged path (GQA self-attention stacks only).
 
-Port of ``repro.models.lm`` (vision cross-attention waits for its slice).
-The reference scans a stacked layer tree; here ``params["layers"]`` is a
-per-layer list walked by a Python loop, and the layer index is folded into
-every GEMM's noise stream exactly as the scan counter is there (so a block
-recomputed under ``remat`` draws the same noise stream).  DeepSeek-V2's
-dense first block is the unstacked ``params["first_block"]`` at layer 0,
-the list following from layer 1, as the reference folds them.  Caches keep
+Port of ``repro.models.lm``.  The reference scans a stacked layer tree;
+here ``params["layers"]`` is a per-layer list walked by a Python loop, and
+the layer index is folded into every GEMM's noise stream exactly as the
+scan counter is there (so a block recomputed under ``remat`` draws the same
+noise stream).  DeepSeek-V2's dense first block is the unstacked
+``params["first_block"]`` at layer 0, the list following from layer 1, as
+the reference folds them.  llama-3.2-vision's stack is groups of
+``cross_attn_every - 1`` self layers (folding ``base + g * per + i``) and
+one gated cross layer from the ``params["cross"]`` list (folding
+``num_layers + g``, a range disjoint from the self layers').  Caches keep
 the reference's stacked layout, one tensor per leaf with the layer axis
 first: the one-shot cache (GQA ``(layers, batch, max_seq, kv, hd)``, MLA
 ``(layers, batch, max_seq, width)`` plus the first block's under
-``first``) with a batchless ``pos``, the paged pool ``(layers,
-num_blocks, block_size, kv, hd)``.  Both are updated in
-place by decode (the reference returns new ones; the port saves the copy).
+``first``, the cross layers' memory K/V pair under ``cross_kv``) with a
+batchless ``pos``, the paged pool ``(layers, num_blocks, block_size, kv,
+hd)``.  Both are updated in place by decode (the reference returns new
+ones; the port saves the copy).
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict
+from typing import Any, Dict, Optional
 
 import torch
 
 from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn
-from repro_torch.models.common import ModelConfig
+from repro_torch.models.common import P, ModelConfig
 from repro_torch.serving import kv_cache as kvc
 
 
 def block_def(cfg: ModelConfig, kind: str = "self") -> Dict[str, Any]:
     """One decoder block: MLA or GQA attention, then the MoE (when the
     config has experts and ``kind`` is "self") or a dense MLP ("dense_ffn",
-    DeepSeek-V2's first layer).  Reference: ``repro.models.lm:block_def``
-    (self-attention kinds)."""
+    DeepSeek-V2's first layer); or, for ``kind`` "cross", gated
+    cross-attention and a dense MLP behind the ``(1,)`` ``gate_ffn``
+    (zeros at init).  Reference: ``repro.models.lm:block_def``."""
     d: Dict[str, Any] = {
         "ln1": cm.rmsnorm_def(cfg.d_model),
         "ln2": cm.rmsnorm_def(cfg.d_model),
-        "attn": attn.mla_def(cfg) if cfg.mla else attn.gqa_def(cfg),
     }
-    if kind == "dense_ffn" or cfg.num_experts == 0:
+    if kind == "cross":
+        d["attn"] = attn.cross_attn_def(cfg)
+        d["gate_ffn"] = P((1,), (None,), init="zeros")
+    else:
+        d["attn"] = attn.mla_def(cfg) if cfg.mla else attn.gqa_def(cfg)
+    if kind in ("dense_ffn", "cross") or cfg.num_experts == 0:
         d["ffn"] = ffn.mlp_def(cfg)
     else:
         d["ffn"] = ffn.moe_def(cfg)
     return d
 
 
-def _check_family(cfg: ModelConfig) -> None:
-    if cfg.cross_attn_every:
-        raise NotImplementedError(
-            "the port serves the dense, MLA and MoE decoders; vision "
-            "cross-attention (llama-3.2-vision) waits for its slice (ROADMAP.md Queue 1)"
-        )
-
-
 def _check_paged_support(cfg: ModelConfig) -> None:
-    """Reference: ``repro.models.lm:_check_paged_support``."""
-    _check_family(cfg)
-    if cfg.mla:
+    """Reference: ``repro.models.lm:_check_paged_support`` (its message,
+    with the engine named)."""
+    if cfg.mla or cfg.cross_attn_every:
         raise ValueError(
-            "paged serving covers the GQA self-attention stack only (no MLA "
-            "latent caches); serve MLA through runtime.serve.LegacyEngine"
+            "paged serving covers the GQA self-attention stack only "
+            "(no MLA latent caches / vision cross-attention); serve these "
+            "families through the legacy fixed-slot engine (runtime.serve.LegacyEngine)"
         )
 
 
@@ -69,17 +72,21 @@ def _has_first_block(cfg: ModelConfig) -> bool:
     return bool(cfg.mla and cfg.num_experts)
 
 
+def _n_cross(cfg: ModelConfig) -> int:
+    """Gated cross-attention layers.  Reference: ``repro.models.lm:_n_cross``."""
+    return cfg.num_layers // cfg.cross_attn_every if cfg.cross_attn_every else 0
+
+
 def _n_self(cfg: ModelConfig) -> int:
-    """Layers in the ``layers`` list: all but DeepSeek-V2's dense first
-    block.  Reference: ``repro.models.lm:_n_self`` (no cross layers)."""
-    return cfg.num_layers - int(_has_first_block(cfg))
+    """Layers in the ``layers`` list: all but the cross layers and
+    DeepSeek-V2's dense first block.  Reference: ``repro.models.lm:_n_self``."""
+    return cfg.num_layers - _n_cross(cfg) - int(_has_first_block(cfg))
 
 
 def lm_def(cfg: ModelConfig) -> Dict[str, Any]:
     """Parameter definitions, one block dict per layer, plus the unstacked
-    ``first_block`` of the MLA + MoE family.  Reference:
-    ``repro.models.lm:lm_def``."""
-    _check_family(cfg)
+    ``first_block`` of the MLA + MoE family and the ``cross`` list of the
+    vision family.  Reference: ``repro.models.lm:lm_def``."""
     defs: Dict[str, Any] = {
         "embed": cm.embed_def(cfg.n_vocab, cfg.d_model),
         "layers": [block_def(cfg, "self") for _ in range(_n_self(cfg))],
@@ -87,6 +94,8 @@ def lm_def(cfg: ModelConfig) -> Dict[str, Any]:
     }
     if _has_first_block(cfg):
         defs["first_block"] = block_def(cfg, "dense_ffn")
+    if cfg.cross_attn_every:
+        defs["cross"] = [block_def(cfg, "cross") for _ in range(_n_cross(cfg))]
     if not cfg.tie_embeddings:
         defs["lm_head"] = cm.qdense_def(cfg, cfg.d_model, cfg.n_vocab, (None, "vocab"))
     return defs
@@ -94,7 +103,8 @@ def lm_def(cfg: ModelConfig) -> Dict[str, Any]:
 
 def lm_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str, Any]:
     """Stacked per-layer cache shapes, the first block's cache under
-    ``first`` (MLA + MoE) and the batchless ``pos``.  Reference:
+    ``first`` (MLA + MoE), the cross layers' memory K/V pair under
+    ``cross_kv`` and the batchless ``pos``.  Reference:
     ``repro.models.lm:lm_cache_def``."""
     layer = (
         attn.mla_cache_def(cfg, batch, max_seq, dtype)
@@ -110,19 +120,37 @@ def lm_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str,
     }
     if _has_first_block(cfg):
         out["first"] = layer
+    if cfg.cross_attn_every:
+        kv_shape = (_n_cross(cfg), batch, cfg.vision_seq, cfg.num_kv_heads, cfg.hd)
+        axes = (None, "batch", None, "kv_heads", None)
+        out["cross_kv"] = ((kv_shape, axes, dtype), (kv_shape, axes, dtype))
     return out
 
 
 def _blocks(params, cfg: ModelConfig):
-    """``(layer index, block params)`` in order: the first block at layer 0
-    when there is one, then the list from ``base``, the folds of the
-    reference's unscanned block and ``_scan_blocks(base=...)``."""
+    """``(kind, layer index, block params)`` in order, the index being the
+    block's noise fold: the first block at layer 0 when there is one, then
+    the ``layers`` list from ``base`` (``_scan_blocks(base=...)``); in the
+    vision family, each group's self layers at ``base + g * per + i`` and
+    then its cross layer (kind "cross") at ``num_layers + g``."""
     base = 0
     if _has_first_block(cfg):
-        yield 0, params["first_block"]
+        yield "self", 0, params["first_block"]
         base = 1
+    per = cfg.cross_attn_every - 1
     for i, p in enumerate(params["layers"]):
-        yield base + i, p
+        yield "self", base + i, p
+        if cfg.cross_attn_every and (i + 1) % per == 0:
+            g = i // per
+            yield "cross", cfg.num_layers + g, params["cross"][g]
+
+
+def _vision(vision, cfg: ModelConfig):
+    if cfg.cross_attn_every and vision is None:
+        raise ValueError(
+            f"{cfg.arch_id} has cross-attention layers: pass vision= (B, vision_seq, d_model)"
+        )
+    return vision
 
 
 def _layer_pool(kv_pool: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Tensor]:
@@ -168,17 +196,31 @@ def self_block(params, x: torch.Tensor, cfg: ModelConfig, positions, layer=None)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
+def cross_block(params, x: torch.Tensor, memory_kv, cfg: ModelConfig, layer=None) -> torch.Tensor:
+    """One gated cross-attention layer: ``x + cross_attention(gated)``, then
+    ``x + tanh(gate_ffn) * mlp``.  Reference: ``repro.models.lm:cross_block``."""
+    h = cm.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    x = x + attn.cross_attention(params["attn"], h, memory_kv, cfg, gated=True, layer=layer)
+    h = cm.rmsnorm(params["ln2"], x, cfg.norm_eps)
+    return x + torch.tanh(params["gate_ffn"].to(x.dtype)) * ffn.mlp(params["ffn"], h, cfg, layer=layer)
+
+
 def _remat_body(p, idx, x, positions, cfg):
     return self_block(p, x, cfg, positions, layer=idx)
 
 
-def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
+def _remat_cross(p, idx, x, kv, cfg):
+    return cross_block(p, x, kv, cfg, layer=idx)
+
+
+def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig, vision: Optional[torch.Tensor] = None):
     """Logits of every position, ``(B, T, V)``, and the summed MoE aux
     loss; differentiable, each block under :func:`~repro_torch.models.
-    common.apply_remat` as the reference's scanned body is.  Reference:
-    ``repro.models.lm:lm_logits`` and ``_scan_blocks``: the first block's
-    aux plus the list's, summed from 0 in layer order."""
-    _check_family(cfg)
+    common.apply_remat` as the reference's scanned body is (a cross layer's
+    ``cross_kv`` of ``vision`` ``(B, vision_seq, D)`` outside it, as there).
+    Reference: ``repro.models.lm:lm_logits`` and ``_scan_blocks``: the
+    first block's aux plus the list's, summed from 0 in layer order."""
+    vision = _vision(vision, cfg)
     t = tokens.shape[1]
     x = cm.embed(params["embed"], tokens, cfg)
     positions = torch.arange(t, device=tokens.device)
@@ -186,7 +228,12 @@ def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
     aux_first, aux = zero, zero
     base = int(_has_first_block(cfg))
     block = cm.apply_remat(_remat_body, cfg)
-    for idx, p in _blocks(params, cfg):
+    cross = cm.apply_remat(_remat_cross, cfg)
+    for kind, idx, p in _blocks(params, cfg):
+        if kind == "cross":
+            kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
+            x = cross(p, idx, x, kv, cfg)
+            continue
         x, a = block(p, idx, x, positions, cfg)
         if idx < base:
             aux_first = aux_first + a
@@ -196,9 +243,10 @@ def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-    """Mean next-token cross-entropy plus ``0.01 x`` the aux loss.
-    Reference: ``repro.models.lm:lm_loss``."""
-    logits, aux = lm_logits(params, batch["tokens"], cfg)
+    """Mean next-token cross-entropy plus ``0.01 x`` the aux loss, the
+    batch's ``vision`` feeding the cross layers.  Reference:
+    ``repro.models.lm:lm_loss``."""
+    logits, aux = lm_logits(params, batch["tokens"], cfg, vision=batch.get("vision"))
     ce = cm.softmax_cross_entropy(logits, batch["labels"], cfg.vocab_size)
     return ce + 0.01 * aux
 
@@ -222,41 +270,57 @@ def _layer_decode(p, x, cache, pos, cfg, layer=None):
     return _ffn_residual(p, x + a, cfg, layer), cache
 
 
-def lm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int):
+def lm_prefill(
+    params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int, vision: Optional[torch.Tensor] = None
+):
     """Run the prompt ``(B, T)``; returns ``(last-token logits (B, 1, V),
     caches)``: ``layers`` stacked (GQA ``k``/``v`` leaves ``(layers, B,
     max_seq, kv, hd)``, MLA ``c_kv``/``k_rope`` ``(layers, B, max_seq,
-    width)``), the first block's cache under ``first`` (MLA + MoE) and
-    ``pos = T``.  Reference: ``repro.models.lm:lm_prefill``."""
-    _check_family(cfg)
+    width)``), the first block's cache under ``first`` (MLA + MoE), the
+    cross layers' ``cross_kv`` of ``vision`` as a stacked ``(k, v)`` pair
+    ``(cross layers, B, vision_seq, kv, hd)`` each, and ``pos = T``.
+    Reference: ``repro.models.lm:lm_prefill``."""
+    vision = _vision(vision, cfg)
     t = tokens.shape[1]
     x = cm.embed(params["embed"], tokens, cfg)
     positions = torch.arange(t, device=tokens.device)
     caches: Dict[str, Any] = {}
-    layer_caches = []
+    layer_caches, cross_kvs = [], []
     base = int(_has_first_block(cfg))
-    for idx, p in _blocks(params, cfg):
+    for kind, idx, p in _blocks(params, cfg):
+        if kind == "cross":
+            kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
+            x = cross_block(p, x, kv, cfg, layer=idx)
+            cross_kvs.append(kv)
+            continue
         x, c = _layer_prefill(p, x, cfg, positions, max_seq, layer=idx)
         if idx < base:
             caches["first"] = c
         else:
             layer_caches.append(c)
     caches["layers"] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
+    if cross_kvs:
+        caches["cross_kv"] = tuple(torch.stack(side) for side in zip(*cross_kvs))
     caches["pos"] = t
     return _head(params, x[:, -1:, :], cfg), caches
 
 
 def lm_decode(params, token: torch.Tensor, caches, cfg: ModelConfig):
     """One decode step for ``token`` ``(B, 1)``; returns ``(logits (B, 1,
-    V), caches)`` with ``pos`` advanced.  Reference:
+    V), caches)`` with ``pos`` advanced; the cross layers read their
+    ``cross_kv`` and never recompute it.  Reference:
     ``repro.models.lm:lm_decode``.  The cache tensors are updated in
     place; the returned dict is new, holding the same tensors."""
-    _check_family(cfg)
     pos = caches["pos"]
     x = cm.embed(params["embed"], token, cfg)
     layers = caches["layers"]
     base = int(_has_first_block(cfg))
-    for idx, p in _blocks(params, cfg):
+    for kind, idx, p in _blocks(params, cfg):
+        if kind == "cross":
+            g = idx - cfg.num_layers
+            kv = (caches["cross_kv"][0][g], caches["cross_kv"][1][g])
+            x = cross_block(p, x, kv, cfg, layer=idx)
+            continue
         cache = caches["first"] if idx < base else _layer_pool(layers, idx - base)
         x, _ = _layer_decode(p, x, cache, pos, cfg, layer=idx)
     return _head(params, x, cfg), {**caches, "pos": pos + 1}

@@ -1,12 +1,14 @@
-"""Architecture registry (the dense and moe families).
+"""Architecture registry (the dense, moe, vlm and audio families).
 
 Port of ``repro.models.registry``: each arch exposes its config, a smoke
 config, ``param_defs(cfg)``, ``loss(params, batch, cfg)``,
 ``prefill(params, batch, cfg, max_seq)``, ``decode(params, token, cache,
-cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  The dense
-and moe decoder families are ported; the reference's vlm, ssm, hybrid and
-audio families wait for their slices (ROADMAP.md Queue 1), and asking for
-one of their archs raises ``NotImplementedError``.
+cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  The vlm
+family's batches carry ``vision`` ``(B, vision_seq, D)`` beside
+``tokens``; the audio family's carry ``audio_embed`` ``(B, T_enc, D)``,
+and its ``cache_def`` reads the encoder length from ``meta["enc_seq"]``.
+The reference's ssm and hybrid families wait for their slices (ROADMAP.md
+Queue 1), and asking for one of their archs raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -14,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
-from repro_torch.models import lm
+from repro_torch.models import lm, whisper
 from repro_torch.models.common import ModelConfig
 
 
@@ -38,7 +40,7 @@ def _lm_loss(params, batch, cfg):
 
 
 def _lm_prefill(params, batch, cfg, max_seq):
-    return lm.lm_prefill(params, batch["tokens"], cfg, max_seq)
+    return lm.lm_prefill(params, batch["tokens"], cfg, max_seq, vision=batch.get("vision"))
 
 
 def _lm_decode(params, token, cache, cfg):
@@ -49,16 +51,30 @@ def _lm_cache_def(cfg, batch, max_seq, meta, dtype):
     return lm.lm_cache_def(cfg, batch, max_seq, dtype)
 
 
+def _whisper_prefill(params, batch, cfg, max_seq):
+    return whisper.whisper_prefill(params, batch, cfg, max_seq)
+
+
+def _whisper_cache_def(cfg, batch, max_seq, meta, dtype):
+    return whisper.whisper_cache_def(cfg, batch, max_seq, meta["enc_seq"], dtype)
+
+
 FAMILY_FNS = {
     "dense": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
+    "vlm": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
     "moe": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
+    "audio": (
+        whisper.whisper_def,
+        whisper.whisper_loss,
+        _whisper_prefill,
+        whisper.whisper_decode,
+        _whisper_cache_def,
+    ),
 }
 # The reference's archs whose families are not ported yet.
 UNPORTED = {
-    "llama-3.2-vision-90b": "vlm",
     "xlstm-350m": "ssm",
     "zamba2-2.7b": "hybrid",
-    "whisper-medium": "audio",
 }
 
 

@@ -3,9 +3,12 @@
 Port of ``repro.runtime.serve``.  ``Engine`` keeps the original
 constructor/run surface but routes the dense GQA LM family onto the paged
 continuous-batching scheduler (``repro_torch.serving.Scheduler``); other
-families (the moe family here, MLA or not, as in the reference) go to
-``LegacyEngine``, the original fixed-slot loop, kept as the baseline the
-scheduler is compared against.  Both prepack every routed
+families (the moe family, MLA or not, and the vlm and audio families, as
+in the reference) go to ``LegacyEngine``, the original fixed-slot loop,
+kept as the baseline the scheduler is compared against.  ``LegacyEngine``
+feeds its prefill tokens only, as the reference's does, so it refuses the
+vlm and audio families, whose prefill needs ``vision`` / ``audio_embed``:
+those run through the registry's ``prefill`` / ``decode``.  Both prepack every routed
 weight once at construction (``prepack_serving_params``), so decode does
 no weight quantization.  Both run on ``cuda`` unless constructed with
 ``device="cpu"``.
@@ -155,6 +158,15 @@ class LegacyEngine:
         device=None,
         clock: Callable[[], float] = time.monotonic,
     ):
+        family = getattr(arch, "family", None)
+        if family in ("vlm", "audio"):
+            raise NotImplementedError(
+                f"LegacyEngine cannot serve the {family!r} family: the reference's one-shot "
+                f"engine feeds its prefill tokens only (repro.runtime.serve:LegacyEngine._admit), never the "
+                f"{'vision' if family == 'vlm' else 'audio_embed'} input the family needs; run "
+                f"the arch's prefill(params, batch, cfg, max_seq) / decode(params, token, "
+                f"cache, cfg) from repro_torch.models.registry instead"
+            )
         self.arch = arch
         self.model_cfg = model_cfg
         self.device = resolve_device(device)

@@ -3,9 +3,11 @@
 ``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
 so parity tests build parameters with the reference and hand them over as
 numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
-included) into the port's layout, where ``layers`` is a per-layer list (a
-stacked ``(L, E, d, 2f)`` expert bank becomes ``(E, d, 2f)`` per layer, and
-an unstacked block such as DeepSeek-V2's ``first_block`` comes as it is), and
+included) into the port's layout, where ``layers`` (and the other stacks:
+llama-vision's ``cross``, whisper's ``enc_layers`` and ``dec_layers``) is a
+per-layer list (a stacked ``(L, E, d, 2f)`` expert bank becomes ``(E, d,
+2f)`` per layer, and an unstacked block such as DeepSeek-V2's
+``first_block`` comes as it is), and
 :func:`train_state_from_jax` does the same for a training state (params
 plus the AdamW moments and step), so a test can continue a reference run in
 the port.  The int8-stored serving layout (``quantize_params``: int8 ``w``
@@ -22,6 +24,9 @@ import torch
 
 from repro_torch._device import resolve_device
 
+# The reference's layer stacks (stacked on axis 0, lists in the port): the
+# decoder layers, llama-vision's cross layers, whisper's encoder and decoder.
+STACKED = frozenset({"layers", "cross", "enc_layers", "dec_layers"})
 # Float leaves that keep f32 whatever the parameter dtype: the per-column
 # dequantization scales of the int8-stored layout.
 _F32_LEAVES = frozenset({"w_scale"})
@@ -78,7 +83,7 @@ def _unstacked(tree: Any, dtype, dev) -> Any:
 
     out = {}
     for key, sub in tree.items():
-        if key == "layers":
+        if key in STACKED:
             n = len(np.asarray(_first_leaf(sub)))
             out[key] = [conv(unstack(sub, i)) for i in range(n)]
         else:

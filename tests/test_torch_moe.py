@@ -24,8 +24,10 @@ twin against the reference's ``ref``, both exact):
   within 1e-5;
 * the checkpoint names of the unstacked ``first_block`` and the expert
   stacks: a reference checkpoint restores into the port bit for bit;
-* ``registry.get`` of an unported arch, and ``lm_def`` of a vision
-  config, raise ``NotImplementedError`` naming what is missing.
+* ``registry.get`` of an unported arch raises ``NotImplementedError``
+  naming what is missing (the vlm and audio archs come back with the
+  reference's family), and the paged ``lm_prefill_chunk`` refuses vision
+  cross-attention with the reference's message.
 """
 
 import dataclasses
@@ -329,16 +331,35 @@ def test_reference_checkpoint_of_the_moe_layout_restores_bitwise(tmp_path):
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "xlstm-350m", "zamba2-2.7b", "whisper-medium"])
 def test_registry_raises_clearly_for_unported_archs(name):
+    """The ssm and hybrid archs still raise, naming what is missing; the
+    vlm and audio archs are ported and come back with the reference's
+    family."""
     family = jreg.get(name).family
-    with pytest.raises(NotImplementedError, match=f"{name}.*{family}.*not ported yet"):
-        treg.get(name)
-    with pytest.raises(NotImplementedError, match=f"family '{family}' is not ported yet"):
-        treg.make_arch("x", family, TModelConfig(), TModelConfig())
+    if family in ("vlm", "audio"):
+        arch = treg.get(name)
+        assert arch.name == name and arch.family == family
+        assert arch.prefill is treg.FAMILY_FNS[family][2]
+    else:
+        with pytest.raises(NotImplementedError, match=f"{name}.*{family}.*not ported yet"):
+            treg.get(name)
+        with pytest.raises(NotImplementedError, match=f"family '{family}' is not ported yet"):
+            treg.make_arch("x", family, TModelConfig(), TModelConfig())
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get("no-such-arch")
 
 
 def test_lm_refuses_vision_cross_attention():
+    """The paged path refuses vision cross-attention with the reference's
+    message (``repro.models.lm:_check_paged_support``)."""
     cfg = TModelConfig(cross_attn_every=2, num_layers=4)
-    with pytest.raises(NotImplementedError, match="vision cross-attention"):
-        tlm.lm_def(cfg)
+    message = ("paged serving covers the GQA self-attention stack only (no MLA latent caches / vision "
+               "cross-attention); serve these families through the legacy fixed-slot engine")
+    with pytest.raises(ValueError) as info:
+        tlm.lm_prefill_chunk({}, torch.zeros((1, 4), dtype=torch.int64), {}, torch.zeros(4, dtype=torch.int64), 0,
+                             cfg, t_full=4, block_size=4, with_logits=True)
+    assert message in str(info.value)
+    with pytest.raises(ValueError) as info:
+        jlm.lm_prefill_chunk({}, jnp.zeros((1, 4), jnp.int32), {}, jnp.zeros(4, jnp.int32), 0,
+                             JModelConfig(cross_attn_every=2, num_layers=4), t_full=4, block_size=4,
+                             with_logits=True)
+    assert message in str(info.value)
