@@ -197,6 +197,34 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    the first two equal; 385 launches a prefill, 193 a decode step, flash
    48 a prefill).  Each model prints prefill seconds, decode ms/step,
    device busy share and launches a step, and peak memory.
+6f. recurrent: the ssm and hybrid families.  Kernel rows, each bitwise
+   its twin (noise included) with its time, bound and the ``_int_mm``
+   time of its int core: xlstm-350m's mLSTM sites (``up`` 1024->4096,
+   ``wq``/``wk``/``wv`` 2048->2048, the gates ``wi``/``wf`` 2048->4, the
+   narrowest GEMM the kernel runs, ``down`` 2048->1024), its sLSTM sites
+   (``wx`` 1024->4096, ``down`` 1024->1024) and head (1024->50304), and
+   zamba2-2.7b's Mamba2 sites (``in_proj`` 2560->10448, ``out_proj``
+   5120->2560), shared-block sites (``attn.wq/wk/wv/wo`` 2560->2560,
+   ``ffn.wi`` 2560->20480, ``ffn.wo`` 10240->2560) and head (2560->32000),
+   at R = 4 and 4 x 64 (heads at R = 4), ideal and SMWA under a ``prng``
+   key; sums per layer and per decode step.  Flash at zamba2's shared
+   attention (B = 4, T = 512, 32 / 32 heads, hd 80, which the wrapper
+   zero-pads to the 128 template; causal, bf16) against the f64 bound,
+   with the SDPA time.  Then both models whole at full width,
+   ``init_params`` seed 0, bf16 (xlstm-350m's mLSTM gates, zero at init,
+   set to fan-in normals: a zero gate GEMM would agree with itself):
+   ``xlstm_logits`` / ``zamba2_logits`` at B = 1, T = 600 (not a multiple
+   of ``ssm_chunk`` = 256: the padded chunk path) on ``kernel`` and
+   ``ref`` under the oneshot phase's bf16 floor, bitwise agreement printed,
+   154 / 163 fused launches; zamba2 also with ``attn_impl="flash"`` (9
+   flash launches) against chunked under the witness gate of whisper's;
+   ``serve.Engine`` → ``LegacyEngine``, batch 4, max_seq 128, the serve
+   phase's four prompts and 8 greedy tokens on ``kernel`` and ``ref``
+   (tokens equal; 154 / 163 launches a prefill and a decode step; two
+   decode steps of the kernel run under the profiler), and SMWA
+   (``noise_seed=0``) for 4 decode steps (logits finite).  Each model
+   prints prefill seconds, decode ms/step, tokens/s, device busy share and
+   launches a step, and peak memory.
 7. train, in a process of its own (``chip_smoke.py --phase train``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
    so the serve phases run without it; its result comes back as JSON on
@@ -325,6 +353,38 @@ WHISPER_DECODE_LAUNCHES = 24 * 8 + 1  # a decode step: the cross K/V are read fr
 # (label, B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, dtype): whisper's
 # encoder self-attention, non-causal MHA over its 1500 frames.
 WHISPER_FLASH = ("whisper encoder", 4, 1500, 1500, 16, 16, 64, False, 0, None, "bf16")
+# (site, K, C) — xlstm-350m: an mLSTM layer's seven sites (the gates wi / wf
+# at C = num_heads = 4, the narrowest GEMM the kernel runs), an sLSTM layer's
+# two (its down projection labelled apart from the mLSTM's), the untied head.
+XLSTM_SITES = [
+    ("up", 1024, 4096),
+    ("wq", 2048, 2048),
+    ("wk", 2048, 2048),
+    ("wv", 2048, 2048),
+    ("wi", 2048, 4),
+    ("wf", 2048, 4),
+    ("down", 2048, 1024),
+]
+XLSTM_SLSTM_SITES = [("wx", 1024, 4096), ("slstm down", 1024, 1024)]
+XLSTM_HEAD = ("lm_head", 1024, 50304)
+XLSTM_LAUNCHES = 21 * 7 + 3 * 2 + 1  # a forward, prefill or decode step: 21 mLSTM + 3 sLSTM layers, the head
+# (site, K, C) — zamba2-2.7b: a Mamba2 layer's two sites, the shared
+# attention block's six (one weight set, 9 invocations), the untied head.
+ZAMBA_SITES = [("in_proj", 2560, 10448), ("out_proj", 5120, 2560)]
+ZAMBA_SHARED_SITES = [
+    ("attn.wq", 2560, 2560),
+    ("attn.wk", 2560, 2560),
+    ("attn.wv", 2560, 2560),
+    ("attn.wo", 2560, 2560),
+    ("ffn.wi", 2560, 20480),
+    ("ffn.wo", 10240, 2560),
+]
+ZAMBA_HEAD = ("lm_head", 2560, 32000)
+ZAMBA_LAUNCHES = 54 * 2 + 9 * 6 + 1  # 54 Mamba2 layers, 9 shared-block invocations, the head
+# The shared attention's flash core: 32 / 32 heads of hd 80, which the
+# wrapper pads with zeros to the 128-wide template.
+ZAMBA_FLASH = ("zamba2 shared attention", 4, 512, 512, 32, 32, 80, True, 0, None, "bf16")
+RECURRENT_ROWS = (4, 4 * 64)  # decode, and a 64-token prompt of the serve batch
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TRAIN_STEPS = 3
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
@@ -1762,14 +1822,17 @@ def deepseek_phase(torch, registry, card):
 
 
 def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *, absorb=False, temperature=None,
-                     profile=False):
-    """Serve ``prompts`` (8 new tokens each) through ``serve.Engine``, which
-    must pick ``LegacyEngine`` for the family (batch 4, max_seq 128),
+                     profile=False, per_forward=None, new_tokens=8):
+    """Serve ``prompts`` (``new_tokens`` each) through ``serve.Engine``,
+    which must pick ``LegacyEngine`` for the family (batch 4, max_seq 128),
     greedily or sampled at ``temperature`` under the reference's keys (seed
-    0), with ``mla_absorb``.  Launch counts are reset just before.  After
-    the step that admits every prompt, two decode steps run apart (under
-    the profiler with ``profile``) and are left out of the rates.  Every
-    prefill's and decode's logits are checked finite as they come."""
+    0), with ``mla_absorb``.  Launch counts are reset just before and held
+    to deepseek-v2-lite's (190 a prefill, 190 or 136 absorbed a decode
+    step) or, with ``per_forward``, to that many a prefill and a decode
+    step.  After the step that admits every prompt, two decode steps run
+    apart (under the profiler with ``profile``) and are left out of the
+    rates.  Every prefill's and decode's logits are checked finite as they
+    come."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.runtime.serve import Engine, LegacyEngine, ServeConfig
@@ -1790,7 +1853,7 @@ def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *,
     eng = Engine(arch_chk, cfg, params, ServeConfig(batch_size=4, max_seq=128, **sampling))
     legacy = isinstance(eng.impl, LegacyEngine)
     impl = eng.impl
-    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=new_tokens) for i, p in enumerate(prompts)]
     queue = list(reqs)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -1818,9 +1881,10 @@ def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *,
     toks = sum(len(r.output) for r in reqs)
     run_s = dt - prof_wall
     decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
-    per_decode = V2_ABSORBED_LAUNCHES if absorb else V2_FORWARD_LAUNCHES
-    want = V2_FORWARD_LAUNCHES * st["prefills"] + per_decode * st["decode_steps"] if backend == "kernel" else 0
-    done = all(r.done and len(r.output) == 8 for r in reqs)
+    per_prefill = V2_FORWARD_LAUNCHES if per_forward is None else per_forward
+    per_decode = per_forward or (V2_ABSORBED_LAUNCHES if absorb else V2_FORWARD_LAUNCHES)
+    want = per_prefill * st["prefills"] + per_decode * st["decode_steps"] if backend == "kernel" else 0
+    done = all(r.done and len(r.output) == new_tokens for r in reqs)
     good = (legacy and done and all(finite) and launches["photonic_gemm_fused"] == want
             and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
     st.update(seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
@@ -1831,7 +1895,7 @@ def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *,
         f"{toks - prof_toks} outside the two set-apart steps in {run_s:.3f} s = {st['tok_per_s']:.2f} tok/s; "
         f"prefill {st['prefill_s']:.3f} s over {st['prefills']} prefills (batch 4), decode {decode_ms:.2f} "
         f"ms/step over {st['decode_steps'] - 2} other steps; fused launches {launches['photonic_gemm_fused']} "
-        f"== {V2_FORWARD_LAUNCHES} x {st['prefills']} + {per_decode if backend == 'kernel' else 0} x "
+        f"== {per_prefill if backend == 'kernel' else 0} x {st['prefills']} + {per_decode if backend == 'kernel' else 0} x "
         f"{st['decode_steps']} = {want}; all done {done}, logits finite {all(finite)}: {good}; peak memory "
         f"(max_memory_allocated, this run) {st['peak_bytes'] / 2**30:.2f} GiB [{card}]")
     return reqs, launches, st, good
@@ -2095,6 +2159,18 @@ def decode_run(torch, arch, packed, cfg, batch, max_seq, steps, card, label, *, 
     return torch.stack(toks, dim=1).tolist(), res, ok
 
 
+def floor_gate(a, b, what):
+    """The oneshot phase's bf16 floor on two logits tensors of one shape:
+    (pass, numbers)."""
+    rel = float((a - b).abs().max() / b.abs().max())
+    agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
+    bitwise = bool((a == b).all())
+    good = rel <= 2e-2 and agree >= 0.99
+    log(f"  {what} over {a.shape[0] * a.shape[1]} positions: max |dlogit| / max |logit| {rel:.4g} (<= 2e-2), "
+        f"argmax agreement {agree:.4f} (>= 0.99), bitwise {bitwise}: {good}")
+    return good, dict(rel_err=rel, argmax_agreement=agree, bitwise=bitwise)
+
+
 def cross_phase(torch, registry, card):
     """The cross-attention families at full width (module docstring, phase
     6e, after its kernel rows).  Returns (ok, result, fused launches,
@@ -2117,16 +2193,6 @@ def cross_phase(torch, registry, card):
         for i, (x, y) in enumerate(zip(a, b)):
             log(f"    row {i}: {x} / {y}")
         return eq
-
-    def floor_gate(a, b, what):
-        """The oneshot phase's bf16 floor on two logits tensors: (pass, numbers)."""
-        rel = float((a - b).abs().max() / b.abs().max())
-        agree = float((a.argmax(-1) == b.argmax(-1)).float().mean())
-        bitwise = bool(torch.equal(a, b))
-        good = rel <= 2e-2 and agree >= 0.99
-        log(f"  {what} over {a.shape[0] * a.shape[1]} positions: max |dlogit| / max |logit| {rel:.4g} (<= 2e-2), "
-            f"argmax agreement {agree:.4f} (>= 0.99), bitwise {bitwise}: {good}")
-        return good, dict(rel_err=rel, argmax_agreement=agree, bitwise=bitwise)
 
     # -- llama-3.2-vision-90b, 10 of 100 layers --------------------------------
     arch = registry.get("llama-3.2-vision-90b")
@@ -2312,6 +2378,183 @@ def cross_phase(torch, registry, card):
     res["whisper-medium"] = wres
     del packs, params, audio, batch
     torch.cuda.empty_cache()
+    return ok, res, fused_total, flash_total
+
+
+def recurrent_kernel_rows(torch, K, chans, key, gen, rows, card):
+    """The recurrent phase's kernel rows, each bitwise its twin on the card
+    (noise included): xlstm-350m's mLSTM sites (the gates ``wi`` / ``wf``
+    at C = 4), sLSTM sites and head, and zamba2-2.7b's Mamba2 sites,
+    shared-block sites and head, at R = 4 and 4 x 64 (the heads at R = 4),
+    ideal and SMWA under ``key``.  Logs the per-layer and per-decode-step
+    sums.  Returns (ok, sums)."""
+    ok = True
+    xl, zb = "xlstm-350m", "zamba2-2.7b"
+    layers = {xl: (XLSTM_SITES, XLSTM_SLSTM_SITES, XLSTM_HEAD), zb: (ZAMBA_SITES, ZAMBA_SHARED_SITES, ZAMBA_HEAD)}
+    for model, (first, second, head) in layers.items():
+        for name in ("ideal", "SMWA"):
+            for r in RECURRENT_ROWS:
+                for site, k, c in first + second:
+                    ok &= kernel_case(torch, K, chans[name], r, k, c, False, False, None, gen, rows, model=model,
+                                      site=site, key=key if name == "SMWA" else None, exact=True, twin_once=True)
+            ok &= kernel_case(torch, K, chans[name], 4, *head[1:], False, False, None, gen, rows, model=model,
+                              site=head[0], key=key if name == "SMWA" else None, exact=True, twin_once=True)
+
+    def pick(model, name, r, sites):
+        return [next(x for x in rows if x["model"] == model and x["channel"] == name and x["R_live"] == r
+                     and x["site"] == s) for s, _, _ in sites]
+
+    def log_sum(what, parts):
+        """``parts``: (count, row) pairs summed as count x row."""
+        bm, bb = bound_of([tuple(n * v for v in x["parts"]) for n, x in parts])
+        tot = {key_: sum(n * x[key_] for n, x in parts) for key_ in ("ms", "plain_ms", "library_ms")}
+        log(f"  {what}: kernel {tot['ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms, bound {bm:.5f} ms ({bb}), "
+            f"_int_mm {tot['library_ms']:.4f} ms [{card}]")
+        return dict(tot, bound_ms=bm, bound_by=bb)
+
+    sums = {}
+    counts = {xl: (21, 3, "mLSTM layer (7 sites)", "sLSTM layer (2 sites)"),
+              zb: (54, 9, "Mamba2 layer (2 sites)", "shared-block invocation (6 sites)")}
+    for model, (first, second, head) in layers.items():
+        n1, n2, what1, what2 = counts[model]
+        for name in ("ideal", "SMWA"):
+            for r in RECURRENT_ROWS:
+                sums[f"{model} first {name} R={r}"] = log_sum(
+                    f"{model} {what1} {name} R={r}", [(1, x) for x in pick(model, name, r, first)])
+                sums[f"{model} second {name} R={r}"] = log_sum(
+                    f"{model} {what2} {name} R={r}", [(1, x) for x in pick(model, name, r, second)])
+            step = ([(n1, x) for x in pick(model, name, 4, first)] + [(n2, x) for x in pick(model, name, 4, second)]
+                    + [(1, x) for x in pick(model, name, 4, [head])])
+            sums[f"{model} decode step {name}"] = log_sum(
+                f"{model} decode step's GEMMs ({n1} x {what1.split(' (')[0]} + {n2} x {what2.split(' (')[0]} + head, "
+                f"R=4) {name}", step)
+    return ok, sums
+
+
+def recurrent_phase(torch, registry, card):
+    """The recurrent families whole at full width (module docstring, phase
+    6f, after its kernel rows and flash case).  Returns (ok, result, fused
+    launches, flash launches)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models import xlstm, zamba2
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import prepack_serving_params
+
+    ok, res, fused_total, flash_total = True, {}, 0, 0
+    g = torch.Generator(device="cuda")
+    g.manual_seed(4)
+    rng = np.random.default_rng(0)
+    models = (("xlstm-350m", xlstm.xlstm_logits, XLSTM_LAUNCHES), ("zamba2-2.7b", zamba2.zamba2_logits, ZAMBA_LAUNCHES))
+    for name, logits_fn, launches in models:
+        fused_before, flash_before = fused_total, flash_total
+        arch = registry.get(name)
+        cfg = arch.config
+        t0 = time.perf_counter()
+        params = init_params(cfg, 0, device="cuda")
+        if name == "xlstm-350m":
+            # The gates init to zero: every gate GEMM would return zeros, and
+            # a broken C = 4 path would agree with itself.  Fan-in normals.
+            for p in (p for group in params["mlstm"] for p in group):
+                for gate in ("wi", "wf"):
+                    w = p[gate]["w"]
+                    w.copy_(torch.randn(w.shape, generator=g, device="cuda") * w.shape[0] ** -0.5)
+        torch.cuda.synchronize()
+        n_params = sum(t.numel() for t in tree_leaves(params))
+        log(f"  init_params ({name} full width, all {cfg.num_layers} layers, bf16, {n_params / 1e9:.3f} B "
+            f"parameters) {time.perf_counter() - t0:.2f} s" + ("; mLSTM gates wi / wf set to fan-in normals"
+                                                                  if name == "xlstm-350m" else ""))
+        out = {"n_params": n_params}
+        tokens = torch.randint(0, cfg.vocab_size, (1, 600), generator=g, device="cuda")
+        logits = {}
+        torch.cuda.reset_peak_memory_stats()
+        for backend in ("kernel", "ref"):
+            run = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend=backend)
+            # (label, attn_impl, attn_chunk, groups): zamba2 on the kernel
+            # also runs flash and the witness, whole and cut to its first
+            # group (6 Mamba2 layers and one shared-attention invocation).
+            impls = [("chunked", "chunked", cfg.attn_chunk, None)]
+            if backend == "kernel" and name == "zamba2-2.7b":
+                impls += [("flash", "flash", cfg.attn_chunk, None), ("chunked_128", "chunked", 128, None),
+                          ("chunked_1group", "chunked", cfg.attn_chunk, 1), ("flash_1group", "flash", cfg.attn_chunk, 1),
+                          ("chunked_128_1group", "chunked", 128, 1)]
+            with torch.no_grad():
+                _, packed = prepack_serving_params(arch, run, params)
+                for label, impl, chunk, groups in impls:
+                    p_, c_, want = packed, run, launches if backend == "kernel" else 0
+                    if groups is not None:
+                        p_ = {**packed, "mamba": packed["mamba"][:groups]}
+                        c_ = dataclasses.replace(run, num_layers=groups * cfg.attn_every)
+                        want = groups * (2 * cfg.attn_every + 6) + 1
+                    K.reset_launches()
+                    F.reset_launches()
+                    t0 = time.perf_counter()
+                    y, _ = logits_fn(p_, tokens, dataclasses.replace(c_, attn_impl=impl, attn_chunk=chunk))
+                    torch.cuda.synchronize()
+                    secs = time.perf_counter() - t0
+                    logits[backend, label] = y.float()
+                    want_flash = (groups or 9) if impl == "flash" else 0
+                    n, nf = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
+                    good = n == want and nf == want_flash and bool(torch.isfinite(y).all())
+                    fused_total += n
+                    flash_total += nf
+                    log(f"  {name} logits {backend}, attn_impl={impl} attn_chunk={chunk}, "
+                        f"{'all' if groups is None else groups} group(s) (B=1, T=600: the chunk path padded to "
+                        f"768): {secs:.3f} s, fused launches {n} == {want}, flash {nf} == {want_flash}, "
+                        f"finite: {good} [{card}]")
+                    out[f"logits_{backend}_{label}_s"] = secs
+                    ok &= good
+                del packed
+            torch.cuda.empty_cache()
+        out["logits_peak_bytes"] = torch.cuda.max_memory_allocated()
+        log(f"  {name} peak memory over init, both prepacks and the logits runs (max_memory_allocated) "
+            f"{out['logits_peak_bytes'] / 2**30:.2f} GiB [{card}]")
+        good, out["logits"] = floor_gate(logits["kernel", "chunked"], logits["ref", "chunked"],
+                                         f"{name} logits kernel vs ref")
+        ok &= good
+        if name == "zamba2-2.7b":
+            # Flash against chunked under the oneshot phase's gate (as
+            # whisper's), whole and at the first group alone: the witness
+            # (chunked at flash's key block against chunked) measures how
+            # far each depth carries a rounding difference of the core.
+            for depth in ("", "_1group"):
+                _, witness = floor_gate(logits["kernel", "chunked_128" + depth], logits["kernel", "chunked" + depth],
+                                        f"{name}{depth} logits witness: chunked at 128 vs chunked (sets the flash gate)")
+                max_rel = max(2e-2, 2 * witness["rel_err"])
+                min_agree = 1.0 - max(0.01, 2 * (1.0 - witness["argmax_agreement"]))
+                _, cmp_ = floor_gate(logits["kernel", "flash" + depth], logits["kernel", "chunked" + depth],
+                                     f"{name}{depth} logits flash (hd 80 padded to 128) vs chunked (not gated by "
+                                     f"the plain floor)")
+                good = cmp_["rel_err"] <= max_rel and cmp_["argmax_agreement"] >= min_agree
+                log(f"  {name}{depth} flash vs chunked, gate <= {max_rel:.4g} and >= {min_agree:.4f}: {good} [{card}]")
+                out["flash_vs_chunked" + depth] = dict(cmp_, witness=witness, max_rel_err=max_rel,
+                                                       min_argmax_agreement=min_agree)
+                ok &= good
+        del logits
+        prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
+        runs = {}
+        for label, backend, dpu, steps in (("greedy", "kernel", ideal_dpu(), 8), ("greedy_ref", "ref", ideal_dpu(), 8),
+                                           ("smwa", "kernel", smwa_dpu(), 5)):
+            reqs, lc, st, good = legacy_moe_serve(
+                torch, arch, params, dpu, backend, prompts, card, f"{name} {label}", profile=label == "greedy",
+                per_forward=launches, new_tokens=steps)
+            ok &= good
+            fused_total += lc["photonic_gemm_fused"]
+            runs[label] = (reqs, st)
+            torch.cuda.empty_cache()
+        eq = all(x.output == y.output for x, y in zip(runs["greedy"][0], runs["greedy_ref"][0]))
+        log(f"  {name} greedy tokens (4 prompts x 8 tokens), kernel == ref: {eq}")
+        for x, y in zip(runs["greedy"][0], runs["greedy_ref"][0]):
+            log(f"    uid {x.uid}: kernel {x.output} ref {y.output}")
+        for r in runs["smwa"][0]:
+            log(f"    smwa (noise_seed=0, 4 decode steps) uid {r.uid}: {r.output}")
+        ok &= eq
+        out.update(serve={k: v[1] for k, v in runs.items()}, fused_launches=fused_total - fused_before,
+                   flash_launches=flash_total - flash_before)
+        res[name] = out
+        del params, runs
+        torch.cuda.empty_cache()
     return ok, res, fused_total, flash_total
 
 
@@ -2575,6 +2818,14 @@ def main() -> int:
         cross_ok, cross, cross_fused, cross_flash_launches = cross_phase(torch, registry, card)
         all_ok &= cross_ok
 
+    rec_rows, rec_flash = [], []
+    with Phase("recurrent"):
+        rows_ok, rec_sums = recurrent_kernel_rows(torch, K, chans, key, gen, rec_rows, card)
+        all_ok &= rows_ok
+        all_ok &= flash_case(torch, F, ZAMBA_FLASH, gen, rec_flash, card)
+        rec_ok, rec, _, rec_flash_launches = recurrent_phase(torch, registry, card)
+        all_ok &= rec_ok
+
     with Phase("train"):
         train_ok, train_res, train_launches = run_train_child(card)
         all_ok &= train_ok
@@ -2670,6 +2921,32 @@ def main() -> int:
         case="whisper-medium encoder: B=4, T=1500, 16 / 16 heads, hd=64, non-causal, bf16; launches from the "
              "cross phase's whisper flash runs",
     ))
+    # The recurrent phase's rows: each model's decode step (R = 4, ideal;
+    # launches from its logits and LegacyEngine runs), and the flash kernel
+    # at zamba2's shared-attention heads (hd 80, padded to the 128 template;
+    # launches from zamba2's flash logits run).
+    for model in ("xlstm-350m", "zamba2-2.7b"):
+        sm = rec_sums[f"{model} decode step ideal"]
+        kernels.append(dict(
+            name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:412", launches=rec[model]["fused_launches"],
+            max_abs_err=max(x["max_abs_err"] for x in rec_rows if x["model"] == model and x["R_live"] == 4
+                            and x["channel"] == "ideal"),
+            ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"], bound_by=op_or_bytes(sm["bound_by"]),
+            library_ms=sm["library_ms"],
+            case=f"{model} decode step's GEMMs at R=4, ideal channel, int8 x ({XLSTM_LAUNCHES if model == 'xlstm-350m' else ZAMBA_LAUNCHES} "
+                 f"calls); library: torch._int_mm of the int cores; launches from the recurrent phase's {model} runs",
+        ))
+    zf = rec_flash[0]
+    kernels.append(dict(
+        name="flash_attention", route="cuda", source=FLASH_SRC,
+        replaces="src/repro/kernels/flash_attention/kernel.py:91",
+        launches=rec_flash_launches, max_abs_err=zf["max_abs_err"], bound_ratio=zf["bound_ratio"]["kernel"][0],
+        ms=zf["ms"], plain_ms=zf["plain_ms"], bound_ms=zf["bound_ms"], bound_by=zf["bound_by"],
+        library_ms=zf["library_ms"],
+        case="zamba2-2.7b shared attention: B=4, T=512, 32 / 32 heads, hd=80 (zero-padded to the 128 template), "
+             "causal, bf16; launches from the recurrent phase's zamba2 flash logits runs (whole: 9; first group: 1)",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -2678,7 +2955,8 @@ def main() -> int:
          "int_rows": [list(x[:3]) + [x[4], x[5], x[6], x[7], bound_of([x[8]])[0]] for x in int_rows],
          "serve": {k: v[2] for k, v in {**results, **sliced, **int8, **dense}.items()}, "train": train_res,
          "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak,
-         "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross}}, indent=1))
+         "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross},
+         "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

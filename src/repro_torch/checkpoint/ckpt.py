@@ -11,10 +11,13 @@ rename, so a killed save never corrupts the latest complete checkpoint.
 The leaf paths are the port's own: per-layer lists (``params/layers/0/wq``)
 and NamedTuple fields by name (``opt/mu/...``, ``opt/step``).  The
 reference stacks the layers on a leading axis (``params/layers/wq``, a MoE
-layer's expert banks too; llama-vision's ``cross`` and whisper's
-``enc_layers`` / ``dec_layers`` likewise) and prints NamedTuple fields with a dot
-(``opt/.mu/...``, ``opt/.step``); an unstacked block such as DeepSeek-V2's
-``params/first_block/...`` has one name in both.
+layer's expert banks too; llama-vision's ``cross``, whisper's
+``enc_layers`` / ``dec_layers`` and xLSTM's ``slstm`` likewise), xLSTM's
+``mlstm`` and Zamba2's ``mamba`` on two (``params/mlstm/up/w`` holds the
+port's ``params/mlstm/<g>/<i>/up/w``), and prints NamedTuple fields with a
+dot (``opt/.mu/...``, ``opt/.step``); an unstacked block such as
+DeepSeek-V2's ``params/first_block/...`` or Zamba2's ``params/shared/...``
+has one name in both.
 ``restore`` reads both layouts.  numpy has no bfloat16: the port stores a
 bf16 leaf as its raw 16-bit pattern (int16), the reference's ``np.savez``
 as a void ``V2`` array; both manifests record ``bfloat16`` and ``restore``
@@ -113,19 +116,24 @@ def _archive_key(key: str, files) -> Tuple[str, Optional[int]]:
     ``files``: under ``key`` itself (the port's layout), or in the
     reference's layout, where NamedTuple fields carry a leading ``.`` and
     a ``layers/<i>/`` leaf is row ``i`` of the stacked ``layers/`` leaf
-    (so are ``cross/<i>/``, ``enc_layers/<i>/`` and ``dec_layers/<i>/``).
-    Returns the archive name and the row (None for the whole leaf)."""
+    (so are ``cross/<i>/``, ``enc_layers/<i>/``, ``dec_layers/<i>/`` and
+    ``slstm/<i>/``), and a ``mlstm/<g>/<i>/`` leaf is row ``(g, i)`` of
+    the doubly stacked ``mlstm/`` leaf (so is ``mamba/<g>/<i>/``).
+    Returns the archive name and the row index (a tuple, empty for the
+    whole leaf)."""
     if key in files:
-        return key, None
+        return key, ()
     by_plain = {"/".join(p.lstrip(".") for p in f.split("/")): f for f in files}
     parts = key.split("/")
     for j in range(1, len(parts) - 1):
-        if parts[j - 1] in STACKED and parts[j].isdigit():
-            stacked = "/".join(parts[:j] + parts[j + 1 :])
+        depth = STACKED.get(parts[j - 1], 0)
+        idx = parts[j : j + depth]
+        if depth and len(idx) == depth and all(p.isdigit() for p in idx):
+            stacked = "/".join(parts[:j] + parts[j + depth :])
             if stacked in by_plain:
-                return by_plain[stacked], int(parts[j])
+                return by_plain[stacked], tuple(int(p) for p in idx)
     if key in by_plain:
-        return by_plain[key], None
+        return by_plain[key], ()
     raise KeyError(f"{key} is not in the checkpoint (in either layout)")
 
 
@@ -145,7 +153,7 @@ def restore(ckpt_dir: str | Path, step: int, target_tree: Any) -> Any:
             arr = data[name]
             if manifest["dtypes"][name] == "bfloat16":
                 arr = arr.view(np.int16)  # int16 (port) or void V2 (reference)
-            if row is not None:
+            if row:
                 arr = arr[row]
             if tuple(arr.shape) != tuple(tgt.shape):
                 raise ValueError(f"{key}: checkpoint shape {arr.shape}, target {tuple(tgt.shape)}")

@@ -11,7 +11,11 @@ cores, held to the twin.
   H, hd)`` and ``k``, ``v`` as ``(B, Tk, KV, hd)``, the reference's public
   layout, unpadded: the kernel reads them through their strides and masks
   the ragged edge itself, so the padding and the ``(B, H, T, hd)``
-  transpose the reference makes for the TPU are not copied here.  A CPU
+  transpose the reference makes for the TPU are not copied here.  A head
+  dim between the kernel's templates (zamba2's 80) is zero-padded to the
+  next one (:func:`template_head_dim`) and the output sliced back: the
+  zero columns add exact zeros to every score and give zero output
+  columns, and the caller's ``scale`` (of the true head dim) is kept.  A CPU
   tensor takes the twin; a CUDA tensor launches the kernel or raises, with
   no fallback.  Each launch adds one to ``LAUNCHES["flash_attention"]``.
   It has no backward (the reference's kernel has none either), so it
@@ -49,6 +53,15 @@ def reset_launches() -> None:
 
 def _round_up(x: int, m: int) -> int:
     return -(-x // m) * m
+
+
+def template_head_dim(hd: int) -> int:
+    """The narrowest of the kernel's head-dim templates that holds ``hd``
+    (the width the wrapper zero-pads q, k and v to)."""
+    for width in HEAD_DIMS:
+        if hd <= width:
+            return width
+    raise ValueError(f"the CUDA kernel takes head dims up to {HEAD_DIMS[-1]}, got {hd}")
 
 
 # ---------------------------------------------------------------------------
@@ -152,7 +165,8 @@ def flash_attention_fwd(
     """Attention forward, ``(B, Tq, H, hd)`` in ``q.dtype``.  Reference:
     ``repro.kernels.flash_attention.kernel:flash_attention_pallas`` (which
     takes the padded ``(B, H, T, hd)`` layout; here the kernel masks the
-    ragged edge).  ``bq`` is the logical query block: rows do not interact,
+    ragged edge; a head dim between the templates is zero-padded, module
+    docstring).  ``bq`` is the logical query block: rows do not interact,
     so the kernels' CTAs cover their own row tiles (32 query rows of one
     head in f32; 64 rows of one KV head's packed query heads in bf16).
     The bf16 kernel reads k and v by TMA, so their views must be 16-byte
@@ -171,8 +185,7 @@ def flash_attention_fwd(
     b, tq, h, hd = q.shape
     tk, kvh = k.shape[1], k.shape[2]
     _check_args(h, kvh, n_rep, bq, bk)
-    if hd not in HEAD_DIMS:
-        raise ValueError(f"the CUDA kernel takes head dims {HEAD_DIMS}, got {hd}")
+    width = template_head_dim(hd)
     if q.dtype not in DTYPE_CODES:
         raise TypeError(f"the CUDA kernel takes {tuple(DTYPE_CODES)}, got {q.dtype}")
     if bk > MAX_BK:
@@ -188,9 +201,11 @@ def flash_attention_fwd(
             raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {shape}")
         if t.stride(-1) != 1:
             raise ValueError(f"{name} must have a contiguous head dim (stride 1), got {t.stride()}")
-    out = torch.empty((b, tq, h, hd), dtype=q.dtype, device=q.device)
+    if width != hd:
+        q, k, v = (torch.nn.functional.pad(t, (0, width - hd)) for t in (q, k, v))
+    out = torch.empty((b, tq, h, width), dtype=q.dtype, device=q.device)
     rc = LIBRARY.load().flash_attention_launch(
-        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], hd,
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), DTYPE_CODES[q.dtype], width,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], *out.stride()[:3],
         b, h, kvh, tq, tk,
         float(scale), int(causal), int(q_offset), int(kv_valid), int(bk),
@@ -199,4 +214,4 @@ def flash_attention_fwd(
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed with code {rc}")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return out if width == hd else out[..., :hd]

@@ -175,8 +175,6 @@ def init_params(
     if defs is None:
         from repro_torch.models import registry
 
-        if cfg.family not in registry.FAMILY_FNS:
-            raise registry._unported(f"family {cfg.family!r}")
         defs = registry.FAMILY_FNS[cfg.family][0](cfg)
 
     def make(p: P) -> torch.Tensor:
@@ -339,6 +337,12 @@ def quantize_params(params: Any, defs: Any) -> Any:
     return params
 
 
+def stack_states(states) -> Dict[str, torch.Tensor]:
+    """Per-layer state dicts as one dict of tensors stacked on a new
+    leading axis (the reference's scanned layout)."""
+    return {k: torch.stack([s[k] for s in states]) for k in states[0]}
+
+
 def rmsnorm_def(d: int) -> Dict[str, P]:
     return {"scale": P((d,), (None,), init="ones")}
 
@@ -386,6 +390,20 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     x1, x2 = torch.chunk(x.to(torch.float32), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+def softplus(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.softplus``: ``logaddexp(x, 0)``, spelled as ``lax``
+    spells it (``max(x, 0) + log1p(exp(-|x|))``, NaN passed through).
+    ``torch.nn.functional.softplus`` returns ``x`` itself above its
+    ``threshold`` instead."""
+    out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+    return torch.where(torch.isnan(x), x, out)
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """``jax.nn.log_sigmoid``: ``-softplus(-x)``."""
+    return -softplus(-x)
 
 
 # ---------------------------------------------------------------------------

@@ -1,4 +1,5 @@
-"""Architecture registry (the dense, moe, vlm and audio families).
+"""Architecture registry (the dense, moe, vlm, ssm, hybrid and audio
+families: all of the reference's).
 
 Port of ``repro.models.registry``: each arch exposes its config, a smoke
 config, ``param_defs(cfg)``, ``loss(params, batch, cfg)``,
@@ -7,8 +8,7 @@ cfg)`` and ``cache_def(cfg, batch, max_seq, meta, dtype)``.  The vlm
 family's batches carry ``vision`` ``(B, vision_seq, D)`` beside
 ``tokens``; the audio family's carry ``audio_embed`` ``(B, T_enc, D)``,
 and its ``cache_def`` reads the encoder length from ``meta["enc_seq"]``.
-The reference's ssm and hybrid families wait for their slices (ROADMAP.md
-Queue 1), and asking for one of their archs raises ``NotImplementedError``.
+The ssm (xLSTM) and hybrid (Zamba2) families take ``tokens`` only.
 """
 
 from __future__ import annotations
@@ -16,7 +16,7 @@ from __future__ import annotations
 import dataclasses
 from typing import Any, Callable, Dict, Tuple
 
-from repro_torch.models import lm, whisper
+from repro_torch.models import lm, whisper, xlstm, zamba2
 from repro_torch.models.common import ModelConfig
 
 
@@ -51,6 +51,22 @@ def _lm_cache_def(cfg, batch, max_seq, meta, dtype):
     return lm.lm_cache_def(cfg, batch, max_seq, dtype)
 
 
+def _xlstm_prefill(params, batch, cfg, max_seq):
+    return xlstm.xlstm_prefill(params, batch["tokens"], cfg)
+
+
+def _xlstm_cache_def(cfg, batch, max_seq, meta, dtype):
+    return xlstm.xlstm_cache_def(cfg, batch, max_seq, dtype)
+
+
+def _zamba_prefill(params, batch, cfg, max_seq):
+    return zamba2.zamba2_prefill(params, batch["tokens"], cfg, max_seq)
+
+
+def _zamba_cache_def(cfg, batch, max_seq, meta, dtype):
+    return zamba2.zamba2_cache_def(cfg, batch, max_seq, dtype)
+
+
 def _whisper_prefill(params, batch, cfg, max_seq):
     return whisper.whisper_prefill(params, batch, cfg, max_seq)
 
@@ -63,6 +79,20 @@ FAMILY_FNS = {
     "dense": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
     "vlm": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
     "moe": (lm.lm_def, _lm_loss, _lm_prefill, _lm_decode, _lm_cache_def),
+    "ssm": (
+        xlstm.xlstm_def,
+        xlstm.xlstm_loss,
+        _xlstm_prefill,
+        xlstm.xlstm_decode,
+        _xlstm_cache_def,
+    ),
+    "hybrid": (
+        zamba2.zamba2_def,
+        zamba2.zamba2_loss,
+        _zamba_prefill,
+        zamba2.zamba2_decode,
+        _zamba_cache_def,
+    ),
     "audio": (
         whisper.whisper_def,
         whisper.whisper_loss,
@@ -71,27 +101,12 @@ FAMILY_FNS = {
         _whisper_cache_def,
     ),
 }
-# The reference's archs whose families are not ported yet.
-UNPORTED = {
-    "xlstm-350m": "ssm",
-    "zamba2-2.7b": "hybrid",
-}
-
-
-def _unported(what: str) -> NotImplementedError:
-    return NotImplementedError(
-        f"{what} is not ported yet; the port has the {sorted(FAMILY_FNS)} families, and "
-        f"{sorted(set(UNPORTED.values()))} wait for their slices (ROADMAP.md Queue 1)"
-    )
-
 _REGISTRY: Dict[str, Arch] = {}
 
 
 def make_arch(name: str, family: str, config: ModelConfig, smoke_config: ModelConfig,
               skip_shapes: Tuple[str, ...] = (), notes: str = "") -> Arch:
     """Reference: ``repro.models.registry:make_arch``."""
-    if family not in FAMILY_FNS:
-        raise _unported(f"family {family!r}")
     defs, loss, prefill, decode, cache_def = FAMILY_FNS[family]
     arch = Arch(name, family, config, smoke_config, defs, loss, prefill, decode, cache_def,
                 skip_shapes, notes)
@@ -103,8 +118,6 @@ def get(name: str) -> Arch:
     """Reference: ``repro.models.registry:get``."""
     if not _REGISTRY:
         import repro_torch.configs  # noqa: F401  (registers the ported archs)
-    if name in UNPORTED:
-        raise _unported(f"arch {name!r} (family {UNPORTED[name]!r})")
     if name not in _REGISTRY:
         raise KeyError(f"unknown arch {name!r}; have {sorted(_REGISTRY)}")
     return _REGISTRY[name]

@@ -1,0 +1,213 @@
+"""Mamba2 (SSD) blocks, in PyTorch: the chunkwise-parallel scan for the
+full sequence and prefill, the O(1) recurrent step for decode.  Used
+inside the zamba2 hybrid.
+
+Port of ``repro.models.ssm``.  SSD recurrence per head (scalar decay
+``a_t = exp(-exp(A_log) * dt_t)``)::
+
+    S_t = a_t * S_{t-1} + dt_t * x_t (outer) B_t        # (head_dim, state)
+    y_t = S_t @ C_t + D * x_t
+
+Within a chunk the quadratic masked form ``L[t,s] = (C_t . B_s) *
+exp(b_t - b_s) * dt_s`` (s <= t) gives the intra-chunk terms; a loop over
+chunks carries the state (a ``lax.scan`` there).  The scan is plain
+``torch.einsum`` / ``torch.cumsum``, as it is ``jnp`` outside any Pallas
+kernel in the reference.  The causal conv keeps both of the reference's
+spellings: prefill sums the W shifted products from the int 0, decode is
+an ``einsum`` over the window.  No GEMM here passes ``layer=``, as in the
+reference.
+"""
+
+from __future__ import annotations
+
+from typing import Any, Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.models import common as cm
+from repro_torch.models.common import P, ModelConfig, dense, qdense_def
+
+
+def _inner(cfg: ModelConfig) -> int:
+    return cfg.ssm_expand * cfg.d_model
+
+
+def _nheads(cfg: ModelConfig) -> int:
+    return _inner(cfg) // cfg.ssm_head_dim
+
+
+def mamba_def(cfg: ModelConfig) -> Dict[str, Any]:
+    """Reference: ``repro.models.ssm:mamba_def``."""
+    d, inner, st, h = cfg.d_model, _inner(cfg), cfg.ssm_state_size, _nheads(cfg)
+    conv_ch = inner + 2 * st
+    return {
+        "ln": cm.rmsnorm_def(d),
+        "in_proj": qdense_def(cfg, d, 2 * inner + 2 * st + h, (None, "inner")),
+        "conv_w": P((cfg.ssm_conv_width, conv_ch), (None, "inner")),
+        "conv_b": P((conv_ch,), ("inner",), init="zeros"),
+        "a_log": P((h,), ("mamba_heads",), init="zeros"),
+        "dt_bias": P((h,), ("mamba_heads",), init="zeros"),
+        "d_skip": P((h,), ("mamba_heads",), init="ones"),
+        "out_norm": cm.rmsnorm_def(inner),
+        "out_proj": qdense_def(cfg, inner, d, ("inner", None)),
+    }
+
+
+def _split_in(params, x, cfg: ModelConfig):
+    """Reference: ``repro.models.ssm:_split_in``."""
+    inner, st = _inner(cfg), cfg.ssm_state_size
+    u = dense(params["in_proj"], x, cfg, site="in_proj")
+    return u[..., :inner], u[..., inner : 2 * inner + 2 * st], u[..., 2 * inner + 2 * st :]
+
+
+def _causal_conv(params, xbc: torch.Tensor) -> torch.Tensor:
+    """Depthwise causal conv over time, ``xbc`` ``(B, T, C)``: the Python
+    sum of the W shifted products from the int 0, in ``xbc``'s dtype.
+    Reference: ``repro.models.ssm:_causal_conv``."""
+    w = params["conv_w"].to(xbc.dtype)  # (W, C)
+    width = w.shape[0]
+    pad = F.pad(xbc, (0, 0, width - 1, 0))
+    t = xbc.shape[1]
+    out = sum(pad[:, i : i + t, :] * w[i][None, None, :] for i in range(width))
+    return F.silu(out + params["conv_b"].to(xbc.dtype))
+
+
+def _ssd_chunked(
+    xh: torch.Tensor,  # (B, T, H, dh)
+    b_mat: torch.Tensor,  # (B, T, st)
+    c_mat: torch.Tensor,  # (B, T, st)
+    dt: torch.Tensor,  # (B, T, H)  (softplus'd)
+    a_log: torch.Tensor,  # (H,)
+    chunk: int,
+    s0: Optional[torch.Tensor] = None,  # (B, H, dh, st) initial state
+) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Chunkwise SSD: ``(y (B, T, H, dh) f32, final state (B, H, dh, st)
+    f32)``.  ``chunk = min(chunk, T)``; T is zero-padded to a multiple of
+    it.  Reference: ``repro.models.ssm:_ssd_chunked``."""
+    bsz, t, h, dh = xh.shape
+    st = b_mat.shape[-1]
+    chunk = min(chunk, t)
+    pad = (-t) % chunk
+    if pad:
+        xh = F.pad(xh, (0, 0, 0, 0, 0, pad))
+        b_mat = F.pad(b_mat, (0, 0, 0, pad))
+        c_mat = F.pad(c_mat, (0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+    tp = t + pad
+    f32 = torch.float32
+    decay = -torch.exp(a_log.to(f32))  # (H,) negative rates
+    state = torch.zeros((bsz, h, dh, st), dtype=f32, device=xh.device) if s0 is None else s0
+    tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=xh.device))
+    ys = []
+    for c0 in range(0, tp, chunk):
+        sl = slice(c0, c0 + chunk)
+        xc, bc, cc, dtc = (a[:, sl].to(f32) for a in (xh, b_mat, c_mat, dt))
+        loga = dtc * decay[None, None, :]  # (B, L, H) log a_t
+        b_cum = torch.cumsum(loga, dim=1)  # (B, L, H)
+        # intra-chunk: L[t,s] = (C_t.B_s) exp(b_t - b_s) dt_s  (s <= t)
+        cb = torch.einsum("bts,bls->btl", cc, bc)
+        gap = b_cum[:, :, None, :] - b_cum[:, None, :, :]  # (B, L_t, L_s, H)
+        lmat = torch.where(tri[None, :, :, None], cb[..., None] * torch.exp(gap), 0.0) * dtc[:, None, :, :]
+        y_intra = torch.einsum("btsh,bshd->bthd", lmat, xc)
+        # inter-chunk: y_t += C_t @ (exp(b_t) * S_prev)
+        y_inter = torch.einsum("bts,bhds,bth->bthd", cc, state, torch.exp(b_cum))
+        # state update
+        b_tot = b_cum[:, -1, :]  # (B, H)
+        w = torch.exp(b_tot[:, None, :] - b_cum) * dtc  # (B, L, H)
+        s_new = torch.einsum("blh,bls,blhd->bhds", w, bc, xc)
+        state = state * torch.exp(b_tot)[:, :, None, None] + s_new
+        ys.append(y_intra + y_inter)
+    return torch.cat(ys, dim=1)[:, :t], state
+
+
+def _mamba_core(params, x: torch.Tensor, cfg: ModelConfig):
+    """The full-sequence block up to its output: ``(x + out, final SSD
+    state, pre-conv xbc)``.  ``mamba_block`` and ``mamba_prefill`` are
+    this computation in the reference, spelled out twice there."""
+    inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
+    f32 = torch.float32
+    xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
+    z, xbc_in, dt = _split_in(params, xn, cfg)
+    xbc = _causal_conv(params, xbc_in)
+    xi = xbc[..., :inner].reshape(*x.shape[:2], h, dh)
+    b_mat = xbc[..., inner : inner + st]
+    c_mat = xbc[..., inner + st :]
+    dt = cm.softplus(dt.to(f32) + params["dt_bias"].to(f32))
+    y, s = _ssd_chunked(xi, b_mat, c_mat, dt, params["a_log"], cfg.ssm_chunk)
+    y = y + params["d_skip"].to(f32)[None, None, :, None] * xi.to(f32)
+    y = y.reshape(*x.shape[:2], inner).to(x.dtype)
+    y = cm.rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
+    return x + dense(params["out_proj"], y, cfg, site="out_proj"), s, xbc_in
+
+
+def mamba_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Full-sequence (train/prefill) Mamba2 block with residual.
+    Reference: ``repro.models.ssm:mamba_block``."""
+    return _mamba_core(params, x, cfg)[0]
+
+
+def mamba_state_def(cfg: ModelConfig, batch: int, dtype) -> Dict[str, Any]:
+    """Reference: ``repro.models.ssm:mamba_state_def``."""
+    inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
+    conv_ch = inner + 2 * st
+    return {
+        "ssm": ((batch, h, dh, st), ("batch", "mamba_heads", None, None), torch.float32),
+        "conv": ((batch, cfg.ssm_conv_width - 1, conv_ch), ("batch", None, "inner"), dtype),
+    }
+
+
+def mamba_prefill(params, x: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """Like :func:`mamba_block`, and the decode state: the final SSD state
+    and the last ``W - 1`` pre-conv inputs.  Reference:
+    ``repro.models.ssm:mamba_prefill``."""
+    out, s, xbc = _mamba_core(params, x, cfg)
+    return out, {"ssm": s, "conv": xbc[:, -(cfg.ssm_conv_width - 1) :, :]}
+
+
+def mamba_decode(
+    params, x: torch.Tensor, state: Dict[str, torch.Tensor], cfg: ModelConfig
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+    """One-token step, ``x`` ``(B, 1, D)``; returns the output and the new
+    state (fresh tensors; the caller keeps them).  Reference:
+    ``repro.models.ssm:mamba_decode``."""
+    inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
+    f32 = torch.float32
+    xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
+    z, xbc, dt = _split_in(params, xn, cfg)  # (B, 1, ...)
+    conv_in = torch.cat([state["conv"].to(xbc.dtype), xbc], dim=1)
+    new_conv = conv_in[:, 1:, :]
+    w = params["conv_w"].to(xbc.dtype)
+    width = w.shape[0]
+    conv_out = torch.einsum("bwc,wc->bc", conv_in[:, -width:, :], w)
+    xbc1 = F.silu(conv_out + params["conv_b"].to(xbc.dtype))  # (B, C)
+    xi = xbc1[:, :inner].reshape(-1, h, dh).to(f32)
+    b_v = xbc1[:, inner : inner + st].to(f32)
+    c_v = xbc1[:, inner + st :].to(f32)
+    dt1 = cm.softplus(dt[:, 0, :].to(f32) + params["dt_bias"].to(f32))  # (B, H)
+    a = torch.exp(dt1 * -torch.exp(params["a_log"].to(f32)))  # (B, H)
+    s = state["ssm"] * a[:, :, None, None] + torch.einsum("bh,bhd,bs->bhds", dt1, xi, b_v)
+    y = torch.einsum("bhds,bs->bhd", s, c_v)
+    y = y + params["d_skip"].to(f32)[None, :, None] * xi
+    y = y.reshape(-1, 1, inner).to(x.dtype)
+    y = cm.rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
+    out = dense(params["out_proj"], y, cfg, site="out_proj")
+    return x + out, {"ssm": s, "conv": new_conv}
+
+
+def ssd_reference(xh, b_mat, c_mat, dt, a_log):
+    """Step-by-step recurrence, the oracle of :func:`_ssd_chunked`.
+    Reference: ``repro.models.ssm:ssd_reference``."""
+    bsz, t, h, dh = xh.shape
+    st = b_mat.shape[-1]
+    f32 = torch.float32
+    decay = -torch.exp(a_log.to(f32))
+    s = torch.zeros((bsz, h, dh, st), dtype=f32, device=xh.device)
+    ys = []
+    for i in range(t):
+        a = torch.exp(dt[:, i, :] * decay[None, :])  # (B, H)
+        s = s * a[:, :, None, None] + torch.einsum(
+            "bh,bhd,bs->bhds", dt[:, i, :], xh[:, i].to(f32), b_mat[:, i].to(f32)
+        )
+        ys.append(torch.einsum("bhds,bs->bhd", s, c_mat[:, i].to(f32)))
+    return torch.stack(ys, dim=1), s

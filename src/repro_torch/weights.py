@@ -2,12 +2,14 @@
 
 ``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
 so parity tests build parameters with the reference and hand them over as
-numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axis
+numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axes
 included) into the port's layout, where ``layers`` (and the other stacks:
-llama-vision's ``cross``, whisper's ``enc_layers`` and ``dec_layers``) is a
-per-layer list (a stacked ``(L, E, d, 2f)`` expert bank becomes ``(E, d,
-2f)`` per layer, and an unstacked block such as DeepSeek-V2's
-``first_block`` comes as it is), and
+llama-vision's ``cross``, whisper's ``enc_layers`` and ``dec_layers``,
+xLSTM's ``slstm``) is a per-layer list (a stacked ``(L, E, d, 2f)`` expert
+bank becomes ``(E, d, 2f)`` per layer), the doubly stacked ``(n_groups,
+per, ...)`` ``mlstm`` (xLSTM) and ``mamba`` (Zamba2) become lists of
+groups, each a list of per-layer dicts, and an unstacked block such as
+DeepSeek-V2's ``first_block`` or Zamba2's ``shared`` comes as it is), and
 :func:`train_state_from_jax` does the same for a training state (params
 plus the AdamW moments and step), so a test can continue a reference run in
 the port.  The int8-stored serving layout (``quantize_params``: int8 ``w``
@@ -24,9 +26,12 @@ import torch
 
 from repro_torch._device import resolve_device
 
-# The reference's layer stacks (stacked on axis 0, lists in the port): the
-# decoder layers, llama-vision's cross layers, whisper's encoder and decoder.
-STACKED = frozenset({"layers", "cross", "enc_layers", "dec_layers"})
+# The reference's layer stacks and how many leading layer axes each has
+# (lists, or lists of lists, in the port): the decoder layers,
+# llama-vision's cross layers, whisper's encoder and decoder, xLSTM's sLSTM
+# layers (one a group); xLSTM's mLSTM and Zamba2's Mamba2 layers, stacked
+# (n_groups, per, ...).
+STACKED = {"layers": 1, "cross": 1, "enc_layers": 1, "dec_layers": 1, "slstm": 1, "mlstm": 2, "mamba": 2}
 # Float leaves that keep f32 whatever the parameter dtype: the per-column
 # dequantization scales of the int8-stored layout.
 _F32_LEAVES = frozenset({"w_scale"})
@@ -81,14 +86,13 @@ def _unstacked(tree: Any, dtype, dev) -> Any:
             return {k: unstack(v, i) for k, v in node.items()}
         return np.asarray(node)[i]
 
-    out = {}
-    for key, sub in tree.items():
-        if key in STACKED:
-            n = len(np.asarray(_first_leaf(sub)))
-            out[key] = [conv(unstack(sub, i)) for i in range(n)]
-        else:
-            out[key] = conv(sub, key)
-    return out
+    def lists(node, depth):
+        if depth == 0:
+            return conv(node)
+        n = len(np.asarray(_first_leaf(node)))
+        return [lists(unstack(node, i), depth - 1) for i in range(n)]
+
+    return {key: lists(sub, STACKED[key]) if key in STACKED else conv(sub, key) for key, sub in tree.items()}
 
 
 def _first_leaf(node):

@@ -24,10 +24,10 @@ twin against the reference's ``ref``, both exact):
   within 1e-5;
 * the checkpoint names of the unstacked ``first_block`` and the expert
   stacks: a reference checkpoint restores into the port bit for bit;
-* ``registry.get`` of an unported arch raises ``NotImplementedError``
-  naming what is missing (the vlm and audio archs come back with the
-  reference's family), and the paged ``lm_prefill_chunk`` refuses vision
-  cross-attention with the reference's message.
+* ``registry.get`` of the vlm, ssm, hybrid and audio archs comes back
+  with the reference's family and adapters, and the paged
+  ``lm_prefill_chunk`` refuses vision cross-attention with the
+  reference's message.
 """
 
 import dataclasses
@@ -330,20 +330,16 @@ def test_reference_checkpoint_of_the_moe_layout_restores_bitwise(tmp_path):
 
 
 @pytest.mark.parametrize("name", ["llama-3.2-vision-90b", "xlstm-350m", "zamba2-2.7b", "whisper-medium"])
-def test_registry_raises_clearly_for_unported_archs(name):
-    """The ssm and hybrid archs still raise, naming what is missing; the
-    vlm and audio archs are ported and come back with the reference's
-    family."""
+def test_registry_returns_each_family_with_its_adapters(name):
+    """The vlm, ssm, hybrid and audio archs come back with the reference's
+    family and that family's adapters; an unknown arch raises as the
+    reference's lookup does."""
     family = jreg.get(name).family
-    if family in ("vlm", "audio"):
-        arch = treg.get(name)
-        assert arch.name == name and arch.family == family
-        assert arch.prefill is treg.FAMILY_FNS[family][2]
-    else:
-        with pytest.raises(NotImplementedError, match=f"{name}.*{family}.*not ported yet"):
-            treg.get(name)
-        with pytest.raises(NotImplementedError, match=f"family '{family}' is not ported yet"):
-            treg.make_arch("x", family, TModelConfig(), TModelConfig())
+    arch = treg.get(name)
+    assert arch.name == name and arch.family == family
+    assert (arch.param_defs, arch.loss, arch.prefill, arch.decode, arch.cache_def) == treg.FAMILY_FNS[family]
+    assert arch.prefill.__name__ == jreg.FAMILY_FNS[family][2].__name__
+    assert sorted(treg.FAMILY_FNS) == sorted(jreg.FAMILY_FNS)
     with pytest.raises(KeyError, match="unknown arch"):
         treg.get("no-such-arch")
 
