@@ -217,7 +217,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    of ``ssm_chunk`` = 256: the padded chunk path) on ``kernel`` and
    ``ref`` under the oneshot phase's bf16 floor, bitwise agreement printed,
    154 / 163 fused launches; zamba2 also with ``attn_impl="flash"`` (9
-   flash launches) against chunked under the witness gate of whisper's;
+   flash launches) against chunked under the witness gate of whisper's,
+   and each of those 9 flash calls against the f64 bound of
+   ``ref.oracle_and_bound`` on its own inputs (every element within it);
    ``serve.Engine`` → ``LegacyEngine``, batch 4, max_seq 128, the serve
    phase's four prompts and 8 greedy tokens on ``kernel`` and ``ref``
    (tokens equal; 154 / 163 launches a prefill and a decode step; two
@@ -249,6 +251,37 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``;
    for (a) also one more step under the torch profiler (device busy share,
    top kernels and host ops).
+7b. train families: kernel rows at the training shape (R = 4 x 1024),
+   ideal, each bitwise its twin with its time, bound and ``_int_mm`` time:
+   xlstm-350m's mLSTM layer (the gates at C = 4) and sLSTM layer,
+   zamba2-2.7b's Mamba2 layer and shared-block invocation, and a
+   deepseek-v2-lite-16b MoE layer's routed GEMMs (MLA expanded, as
+   training runs it).  Then, in a process of its own as phase 7
+   (``chip_smoke.py --phase train-families``), deterministic mode, bf16,
+   ``init_params`` seed 0, ``DataConfig(seq_len=1024, global_batch=4,
+   seed=0)``, AdamW as phase 7, each model at published width:
+   xlstm-350m and zamba2-2.7b whole (zamba2 at its ``ssm_chunk`` of 256,
+   from the zero init of ``a_log`` / ``dt_bias``, where the reference's
+   SSD gradient is NaN; xlstm first records one loss and gradient at its
+   published init, whose sLSTM ``r`` makes the gradient NaN at 1024
+   tokens, then trains with ``r`` at std 1/sqrt(head_dim), entering
+   ``train()`` as its step-0 checkpoint): (a) ``train()`` 3 steps on the
+   ideal channel and the kernel, its end-of-run checkpoint timed in a
+   temporary directory; (b) SMWA (``noise_seed=0``) through
+   ``build_train_step``, one step; (c) the ``exact`` backend, 3 steps:
+   losses and final parameters bitwise (a)'s.  deepseek-v2-lite-16b cut
+   to its dense first block and 3 MoE layers (its AdamW moments alone
+   take 128 GB whole): the same through ``build_train_step``.
+   whisper-medium whole: one step of 4 x 448 target tokens over
+   ``audio_embed`` (4, 1500, 1024) in modes (a) (b) (c);
+   llama-3.2-vision-90b cut to one group (4 self + 1 cross layer, gates
+   at 0.5): loss and gradients only (no optimizer state), 4 x 1024 tokens
+   over ``vision`` (4, 1600, 8192), modes (a) and (c), (c)'s gradients
+   bitwise (a)'s.  Gates: losses finite, grad norms finite, fused
+   launches a step = the routed GEMMs of a forward plus those the
+   backward recomputes (301, 271, 57, 721, 59), ``exact`` bitwise.  Per
+   mode: s/step, tokens/s, peak memory, launches; for (a) also one more
+   step with the card's NVML ``utilization.gpu`` sampled (device busy).
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -257,6 +290,7 @@ or when the port's sources are not beside this script.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import json
 import os
@@ -387,6 +421,26 @@ ZAMBA_FLASH = ("zamba2 shared attention", 4, 512, 512, 32, 32, 80, True, 0, None
 RECURRENT_ROWS = (4, 4 * 64)  # decode, and a 64-token prompt of the serve batch
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TRAIN_STEPS = 3
+# The train-families phase: the fused launches of one training step, the
+# forward's and then the recompute of the blocks that run under remat
+# "full" in the backward.  xlstm-350m recomputes its 21 mLSTM blocks (the
+# sLSTM blocks and the head run once); zamba2-2.7b its 54 Mamba2 blocks
+# (the shared block runs once an invocation).
+XLSTM_TRAIN_LAUNCHES = XLSTM_LAUNCHES + 21 * 7
+ZAMBA_TRAIN_LAUNCHES = ZAMBA_LAUNCHES + 54 * 2
+# deepseek-v2-lite-16b cut to its dense first block and 3 MoE layers (its
+# AdamW moments alone would take 128 GB whole); every block under remat.
+V2_TRAIN_LAYERS = 4
+V2_TRAIN_LAUNCHES = 2 * V2_TRAIN_LAYERS * 7 + 1
+# whisper-medium: 448 target tokens over 1500 frames; the encoder and the
+# decoder blocks are recomputed, the cross K/V (computed outside the
+# decoder's remat body) are not.
+WHISPER_TRAIN_TOKENS = 448
+WHISPER_TRAIN_LAUNCHES = WHISPER_PREFILL_LAUNCHES + 24 * 6 + 24 * 8
+# llama-3.2-vision-90b cut to one group: 4 self layers and 1 cross layer;
+# cross_kv runs outside the cross block's remat body.
+VISION_TRAIN_LAYERS = 5
+VISION_TRAIN_LAUNCHES = (4 * 6 + 6 + 1) + (4 * 6 + 4)
 FUSED_SRC = "src/repro_torch/kernels/photonic_gemm/csrc/photonic_gemm.cu"
 FLASH_SRC = "src/repro_torch/kernels/flash_attention/csrc/flash_attention.cu"
 # Attention's least time counts its 4 * hd flops per live score entry at
@@ -647,9 +701,10 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     or activation tail still at float tolerance; whether it came out
     bitwise is in the row);
     ``twin_once`` times the twin once (a wide GEMM's twin is slow); the
-    ``_int_mm`` yardstick of the int core is timed for every ``exact``
-    case, on the rows padded to 32 where fewer (its least row count is
-    17) and the columns to a multiple of 8 (its least step)."""
+    ``_int_mm`` yardstick of the int core is timed for every ``exact`` or
+    ideal case with int8 ``x``, on the rows padded to 32 where fewer (its
+    least row count is 17) and the columns to a multiple of 8 (its least
+    step)."""
     from repro_torch.photonic.engine import PhotonicEngine, kernel_stages
 
     dev = torch.device("cuda")
@@ -718,7 +773,7 @@ def kernel_case(torch, K, dpu, r, k, c, with_bias, x_f32, activation, gen, rows_
     del y_k, y_t, diff, lsb
     t_ms = t_once if r >= 1000 or twin_once else eager_ms(run_twin)  # the twin at R = 2000 is slow: timed once
     lib_ms = None
-    if exact and not x_f32:
+    if not x_f32 and (exact or (not analog and stages["adc_bits"] is None)):
         xi = torch.zeros((max(r, 32), k), dtype=torch.int8, device=dev)
         xi[:r] = x[:r, :k]
         wl = w[:k, :-(-c // 8) * 8].contiguous()  # _int_mm takes C in multiples of 8: the zero tile padding
@@ -1516,6 +1571,257 @@ def train_phase(torch, arch, ideal, smwa, card):
     return ok, res, main_launches
 
 
+def _open_gates(params):
+    """Both gates of every cross layer to 0.5: at their zero init a cross
+    layer is the identity, and a broken cross path would agree with
+    itself."""
+    for c in params["cross"]:
+        c["gate_ffn"].fill_(0.5)
+        c["attn"]["gate"].fill_(0.5)
+
+
+def busy_share(torch, fn):
+    """Run ``fn()`` while ``nvidia-smi`` samples the card's NVML
+    ``utilization.gpu`` (the share of each sample period in which a kernel
+    ran) every 100 ms; returns (mean % over the samples taken while ``fn``
+    ran, sample count).  The torch profiler's report takes minutes over the
+    400,000 launches of an xLSTM training step, this costs nothing."""
+    from datetime import datetime
+
+    proc = subprocess.Popen(["nvidia-smi", "-i", "0", "--query-gpu=timestamp,utilization.gpu",
+                             "--format=csv,noheader,nounits", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        time.sleep(1.0)  # nvidia-smi's start-up
+        t0 = datetime.now()
+        fn()
+        torch.cuda.synchronize()
+        t1 = datetime.now()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=30)
+    vals = []
+    for line in out.splitlines():
+        stamp, _, util = line.partition(",")
+        try:
+            at = datetime.strptime(stamp.strip(), "%Y/%m/%d %H:%M:%S.%f")
+            if t0 <= at <= t1:
+                vals.append(float(util))
+        except ValueError:
+            continue
+    return (statistics.mean(vals) if vals else float("nan")), len(vals)
+
+
+def _one_more(step, params, state, batch):
+    """(one more training step from ``params`` / ``state`` as a call, the
+    params), holding the only references the caller keeps."""
+    return (lambda: step(params, state, batch), params)
+
+
+def train_families_phase(torch, registry, card):
+    """Training the non-dense families at full width (module docstring,
+    phase 7b).  Returns (ok, result dict, fused launches of the main-path
+    runs)."""
+    from repro_torch._tree import tree_leaves
+    from repro_torch.checkpoint import ckpt
+    from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
+    from repro_torch.kernels.flash_attention import kernel as F
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, _value_and_grad, build_train_step, train
+
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(7)
+    # (arch, layers kept or None, fused launches a step, entry point, extra
+    # batch input, decoder tokens a sequence, steps, SMWA steps).  One SMWA
+    # step shows the noisy forward and backward finite (a zamba2 step takes
+    # 25 s under SMWA, llama-3.2-vision's group 40 s, so that group runs
+    # none).
+    specs = [
+        ("xlstm-350m", None, XLSTM_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
+        ("zamba2-2.7b", None, ZAMBA_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
+        ("deepseek-v2-lite-16b", V2_TRAIN_LAYERS, V2_TRAIN_LAUNCHES, "step", None, 1024, TRAIN_STEPS, 1),
+        ("whisper-medium", None, WHISPER_TRAIN_LAUNCHES, "step", "audio_embed", WHISPER_TRAIN_TOKENS, 1, 1),
+        ("llama-3.2-vision-90b", VISION_TRAIN_LAYERS, VISION_TRAIN_LAUNCHES, "grads", "vision", 1024, 1, 0),
+    ]
+    ok, res, total = True, {}, 0
+
+    def reset():
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        K.reset_launches()
+        F.reset_launches()
+
+    torch.use_deterministic_algorithms(True)
+    try:
+        for name, layers, per_step, entry, extra, seq, n_steps, smwa_steps in specs:
+            t0 = time.perf_counter()
+            arch = registry.get(name)
+            cfg = arch.config if layers is None else dataclasses.replace(arch.config, num_layers=layers)
+            data = DataConfig(vocab_size=cfg.vocab_size, seq_len=seq, global_batch=4, seed=0)
+            stream = SyntheticTokens(data)
+            batches = [make_global_batch(stream, i, "cuda") for i in range(n_steps + 1)]  # + the busy step's
+            if extra:
+                side = torch.randn((4, 1500 if extra == "audio_embed" else cfg.vision_seq, cfg.d_model),
+                                   generator=gen, device="cuda").to(cfg.compute_dtype)
+                for b in batches:
+                    b[extra] = side
+            tokens = data.global_batch * seq
+            opt = adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+            out = {"layers": cfg.num_layers, "entry": entry, "launches_per_step": per_step}
+            cfg_a = dataclasses.replace(cfg, photonic=ideal_dpu(), photonic_backend="kernel")
+            log(f"  {name}: {'all' if layers is None else layers} of {arch.config.num_layers} layers, bf16, "
+                f"init_params seed 0" + ("; gates at 0.5" if extra == "vision" else "")
+                + f"; {entry}, batch 4 x {seq} tokens" + (f" with {extra} {tuple(side.shape)}" if extra else ""))
+
+            def init(cfg_):
+                params = init_params(cfg_, 0, "cuda", defs=arch.param_defs(cfg_))
+                if extra == "vision":
+                    _open_gates(params)
+                if name == "xlstm-350m":
+                    # The sLSTM's recurrent r inits at std 1/sqrt(num_heads), its
+                    # fan over the head axis (the reference's P(fan_axis=0)):
+                    # 0.5 here, and the backward through 1024 steps overflows
+                    # (ROADMAP Queue 3 item 12).  The fan-in of its contraction
+                    # is head_dim: scale r to std 1/sqrt(head_dim).
+                    dh = cfg_.d_model // cfg_.num_heads
+                    for s_ in params["slstm"]:
+                        s_["r"].mul_((cfg_.num_heads / dh) ** 0.5)
+                return params
+
+            def loss_of(cfg_):
+                return lambda p, b: arch.loss(p, b, cfg_)
+
+            def steps(cfg_, n):
+                """(losses, grad norms, seconds, fingerprint of the final
+                params or of the gradients, what one more step needs) of n
+                steps from ``init``; counts reset first."""
+                params = init(cfg_)
+                reset()
+                losses, norms, secs = [], [], []
+                if entry == "grads":
+                    t1 = time.time()
+                    loss, grads = _value_and_grad(loss_of(cfg_), params, batches[0])
+                    losses, norms = [float(loss)], [float(adamw.global_norm(grads))]
+                    secs.append(time.time() - t1)
+                    fp = _fingerprint(grads)
+                    del grads
+                    return losses, norms, secs, fp, (lambda: _value_and_grad(loss_of(cfg_), params, batches[-1]), params)
+                state = adamw.init(params)
+                step = build_train_step(loss_of(cfg_), opt)
+                for i in range(n):
+                    t1 = time.time()
+                    params, state, m = step(params, state, batches[i])
+                    losses.append(float(m["loss"]))
+                    norms.append(float(m["grad_norm"]))
+                    secs.append(time.time() - t1)
+                torch.cuda.synchronize()
+                return losses, norms, secs, _fingerprint(params), _one_more(step, params, state, batches[-1])
+
+            def record(label, losses, norms, secs, extra_log=""):
+                per = statistics.median(secs[1:]) if len(secs) > 1 else secs[0]
+                peak = torch.cuda.max_memory_allocated()
+                n = K.LAUNCHES["photonic_gemm_fused"]
+                out[label] = dict(losses=losses, grad_norms=norms, step_seconds=secs, s_per_step=per,
+                                  tokens_per_s=tokens / per, max_memory_allocated=peak, fused_launches=n,
+                                  flash_launches=F.LAUNCHES["flash_attention"])
+                log(f"  {name} {label}: {per:.4f} s/step ({'median of steps 2-' + str(len(secs)) if len(secs) > 1 else 'one step'}; "
+                    f"all {[round(x, 4) for x in secs]}), {tokens / per:.1f} tokens/s, max_memory_allocated "
+                    f"{peak / 2**30:.2f} GiB, fused launches {n} ({n / len(secs):.0f}/step), flash "
+                    f"{F.LAUNCHES['flash_attention']}; losses {losses}, grad norms {norms}{extra_log} [{card}]")
+                return n
+
+            if name == "xlstm-350m":
+                # The published init, one loss and gradient: the reference's
+                # fault of Queue 3 item 12, recorded, not gated.
+                params = init_params(cfg_a, 0, "cuda", defs=arch.param_defs(cfg_a))
+                loss, grads = _value_and_grad(loss_of(cfg_a), params, batches[0])
+                bad = sum(not bool(torch.isfinite(g).all()) for g in tree_leaves(grads))
+                out["published_init"] = dict(loss=float(loss), grad_norm=float(adamw.global_norm(grads)),
+                                             nonfinite_leaves=bad, leaves=len(tree_leaves(grads)))
+                log(f"  {name} at its published init (r at std 1/sqrt(num_heads)): step-1 loss {float(loss):.6f}, "
+                    f"grad norm {out['published_init']['grad_norm']}, {bad} of {len(tree_leaves(grads))} gradient "
+                    f"leaves non-finite [{card}]")
+                del params, grads, loss
+            # (a) the entry point on the ideal channel and the kernel.
+            if entry == "train":
+                ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_ckpt_")
+                try:
+                    if name == "xlstm-350m":  # the rescaled r enters train() as its step-0 checkpoint
+                        params = init(cfg_a)
+                        ckpt.save(ckpt_dir, 0, {"params": params, "opt": adamw.init(params)})
+                        del params
+                    reset()
+                    t1 = time.perf_counter()
+                    run = train(arch=arch, model_cfg=cfg_a, data_cfg=data,
+                                train_cfg=TrainConfig(steps=n_steps, ckpt_every=1000, ckpt_dir=ckpt_dir,
+                                                      log_every=1),
+                                opt_cfg=opt, log=lambda m: log(f"    {m}"), device="cuda")
+                    wall = time.perf_counter() - t1
+                    step_dir = Path(ckpt_dir) / f"step_{n_steps:08d}"
+                    saved = (step_dir / "manifest.json").exists()
+                    size = sum(f.stat().st_size for f in step_dir.iterdir()) if saved else 0
+                finally:
+                    shutil.rmtree(ckpt_dir, ignore_errors=True)
+                fp_a = _fingerprint(run["params"])
+                losses_a = run["losses"]
+                # train() reports no grad norms: (c)'s, bitwise the same run, stand for them.
+                n_a = record("a", losses_a, [], run["step_seconds"], f"; train() wall {wall:.3f} s, end-of-run "
+                             f"checkpoint {size / 1e9:.3f} GB saved: {saved}, loop blocked on it "
+                             f"{run['checkpoint_seconds']:.3f} s")
+                out["a"].update(wall_s=wall, checkpoint_s=run["checkpoint_seconds"], checkpoint_bytes=size)
+                good = saved
+                more = _one_more(build_train_step(loss_of(cfg_a), opt), run["params"], run["opt_state"], batches[-1])
+                del run
+            else:
+                losses_a, norms, secs, fp_a, more = steps(cfg_a, n_steps)
+                n_a = record("a", losses_a, norms, secs)
+                good = all(np.isfinite(norms))
+            good &= all(np.isfinite(losses_a)) and n_a == per_step * n_steps
+            log(f"  {name} a: losses finite, fused launches {n_a} == {per_step} x {n_steps}: {good}")
+            ok &= good
+            total += n_a
+            out["n_params"] = sum(t.numel() for t in tree_leaves(more[1]))
+            # One more step of (a), its device busy share sampled (not gated).
+            K.reset_launches()
+            out["a"]["busy_pct"], samples = busy_share(torch, more[0])
+            log(f"  {name}: {out['n_params'] / 1e9:.3f} B parameters; one more step of (a): device busy "
+                f"{out['a']['busy_pct']:.1f}% (NVML utilization.gpu, {samples} samples of 100 ms) [{card}]")
+            del more
+            # (b) SMWA analog (noise_seed=0); (c) the exact backend, which
+            # must give (a)'s losses and final state bit for bit.
+            modes = [("b", dataclasses.replace(cfg_a, photonic=smwa_dpu()), smwa_steps)] if smwa_steps else []
+            modes.append(("c", dataclasses.replace(cfg_a, photonic_backend="exact"), n_steps))
+            for label, cfg_, n in modes:
+                losses, norms, secs, fp, held = steps(cfg_, n)
+                del held
+                launched = record(label, losses, norms, secs)
+                if label == "b":
+                    good = all(np.isfinite(losses)) and all(np.isfinite(norms)) and launched == per_step * n
+                    log(f"  {name} b (SMWA, noise_seed=0): losses and grad norms finite, {launched} == "
+                        f"{per_step} x {n} fused launches; |loss - loss_a| "
+                        f"{[abs(x - y) for x, y in zip(losses, losses_a)]}: {good}")
+                else:
+                    good = losses == losses_a and fp == fp_a and launched == 0 and all(np.isfinite(norms))
+                    log(f"  {name} c (exact): losses bitwise (a)'s: {losses == losses_a}; "
+                        f"{'gradients' if entry == 'grads' else 'final params'} sha256 {fp} vs (a) {fp_a}; grad "
+                        f"norms finite: {good}")
+                    if entry == "train":
+                        out["a"]["grad_norms"] = norms
+                ok &= good
+                torch.cuda.empty_cache()
+            out["seconds"] = time.perf_counter() - t0
+            log(f"  {name}: {out['seconds']:.1f} s in all")
+            res[name] = out
+            del batches
+            torch.cuda.empty_cache()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.cuda.empty_cache()
+    return ok, res, total
+
+
 def smwa_dpu():
     """The serve and train phases' SMWA analog operating point (N = 42,
     ``noise_seed=0``)."""
@@ -1543,19 +1849,19 @@ def setup(torch) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def train_child() -> int:
-    """``chip_smoke.py --phase train``: the train phase alone, in a process
-    whose environment sets ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's
-    reproducible workspaces, which the deterministic mode needs) before
-    CUDA starts.  The kernels were built by the parent; the last line of
-    stdout is the phase's result as JSON."""
+def child(phase: str) -> int:
+    """``chip_smoke.py --phase train`` or ``--phase train-families``: the
+    phase alone, in a process whose environment sets
+    ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's reproducible workspaces, which the
+    deterministic mode needs) before CUDA starts.  The kernels were built by
+    the parent; the last line of stdout is the phase's result as JSON."""
     import torch
 
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
     if os.environ.get("CUBLAS_WORKSPACE_CONFIG") != ":4096:8":
-        print("chip_smoke --phase train: CUBLAS_WORKSPACE_CONFIG=:4096:8 must be set", file=sys.stderr)
+        print(f"chip_smoke --phase {phase}: CUBLAS_WORKSPACE_CONFIG=:4096:8 must be set", file=sys.stderr)
         return 2
     setup(torch)
     from repro_torch.kernels.flash_attention import kernel as F
@@ -1564,33 +1870,43 @@ def train_child() -> int:
 
     K.LIBRARY.load()
     F.LIBRARY.load()
-    ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
-    print(json.dumps({"ok": ok, "train": res, "launches": launches}))
+    if phase == "train":
+        ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
+    else:
+        ok, res, launches = train_families_phase(torch, registry, card_line())
+    print(json.dumps({"ok": ok, "result": res, "launches": launches}))
     return 0 if ok else 1
 
 
-def run_train_child(card):
-    """The train phase in its own process (``train_child``), with
+def run_child(card, phase, timeout):
+    """``phase`` in its own process (:func:`child`), with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only.
     Its log lines are relayed; returns (ok, result, launches), ok false when
-    the child fails, crashes or prints no result."""
+    the child fails, crashes, outlives ``timeout`` seconds or prints no
+    result."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    proc = subprocess.run([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", "train"], env=env,
-                          stdout=subprocess.PIPE, text=True, timeout=900)
-    lines = proc.stdout.splitlines()
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", phase], env=env,
+                            stdout=subprocess.PIPE, text=True)
+    try:
+        out, _ = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, _ = proc.communicate()
+        log(f"  {phase} child process: killed after {timeout} s")
+    lines = out.splitlines()
     for line in lines[:-1]:
         log(line)
     try:
-        child = json.loads(lines[-1]) if lines else None
+        result = json.loads(lines[-1]) if lines else None
     except json.JSONDecodeError:
         log(lines[-1])
-        child = None
-    ok = proc.returncode == 0 and child is not None and child.get("ok") is True
-    log(f"  train child process: exit code {proc.returncode}, result line {'read' if child else 'missing'}: "
+        result = None
+    ok = proc.returncode == 0 and result is not None and result.get("ok") is True
+    log(f"  {phase} child process: exit code {proc.returncode}, result line {'read' if result else 'missing'}: "
         f"{ok} [{card}]")
-    if child is None:
+    if result is None:
         return False, {}, {}
-    return ok, child["train"], child["launches"]
+    return ok, result["result"], result["launches"]
 
 
 def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
@@ -2200,11 +2516,7 @@ def cross_phase(torch, registry, card):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     params = init_params(cfg, 0, device="cuda")
-    # Both gates init to zero, and tanh(0) = 0 makes every cross layer the
-    # identity: a broken cross path would agree with itself.  Open them.
-    for c in params["cross"]:
-        c["gate_ffn"].fill_(0.5)
-        c["attn"]["gate"].fill_(0.5)
+    _open_gates(params)
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
     log(f"  init_params (llama-3.2-vision-90b full width, {VISION_LAYERS} of 100 layers: 8 self + 2 cross, bf16, "
@@ -2431,6 +2743,79 @@ def recurrent_kernel_rows(torch, K, chans, key, gen, rows, card):
     return ok, sums
 
 
+def train_kernel_rows(torch, K, ideal, gen, rows, card):
+    """The train-families phase's kernel rows at the training shape (R =
+    4096 = 4 x 1024 tokens), ideal channel, each bitwise its twin, with its
+    time, bound and the ``_int_mm`` time of its int core: xlstm-350m's
+    mLSTM layer (the gates ``wi`` / ``wf`` at C = 4) and sLSTM layer,
+    zamba2-2.7b's Mamba2 layer and shared-block invocation, and a
+    deepseek-v2-lite-16b MoE layer's routed GEMMs (MLA expanded, as
+    training runs it: ``wuk`` / ``wuv`` over the 4096 latent rows; the
+    shared experts).  Logs the per-layer sums.  Returns (ok, sums)."""
+    v2 = [x[:3] for x in V2_SITES[:3] + V2_CACHE_SITES + V2_SITES[3:5]]
+    layers = [
+        ("xlstm-350m", "mLSTM layer (7 sites)", XLSTM_SITES),
+        ("xlstm-350m", "sLSTM layer (2 sites)", XLSTM_SLSTM_SITES),
+        ("zamba2-2.7b", "Mamba2 layer (2 sites)", ZAMBA_SITES),
+        ("zamba2-2.7b", "shared-block invocation (6 sites)", ZAMBA_SHARED_SITES),
+        ("deepseek-v2-lite-16b", "MoE layer (7 routed sites, MLA expanded)", v2),
+    ]
+    ok, sums = True, {}
+    for model, what, sites in layers:
+        first = len(rows)
+        for site, k, c in sites:
+            ok &= kernel_case(torch, K, ideal, TRAIN_ROWS, k, c, False, False, None, gen, rows, model=model,
+                              site=site, exact=True, twin_once=True)
+        layer = rows[first:]
+        bm, bb = bound_of([x["parts"] for x in layer])
+        tot = {key: sum(x[key] for x in layer) for key in ("ms", "plain_ms", "library_ms")}
+        sums[f"{model} {what}"] = dict(tot, bound_ms=bm, bound_by=bb)
+        log(f"  {model} {what} ideal R={TRAIN_ROWS}: kernel {tot['ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms, "
+            f"bound {bm:.5f} ms ({bb}), _int_mm {tot['library_ms']:.4f} ms [{card}]")
+    return ok, sums
+
+
+@contextlib.contextmanager
+def recorded_flash_calls():
+    """Inside the block, every ``flash_attention_fwd`` call that
+    ``ops.flash_attention`` makes is recorded as ``(q, k, v, args, out)``
+    in the list the block receives."""
+    from repro_torch.kernels.flash_attention import ops
+
+    calls, real = [], ops.flash_attention_fwd
+
+    def record(q, k, v, **args):
+        out = real(q, k, v, **args)
+        calls.append((q, k, v, args, out))
+        return out
+
+    ops.flash_attention_fwd = record
+    try:
+        yield calls
+    finally:
+        ops.flash_attention_fwd = real
+
+
+def flash_calls_within_bound(torch, calls, what, card):
+    """Each recorded flash call's output against the f64 bound of
+    ``ref.oracle_and_bound`` on that call's own inputs (inside a model, not
+    on random ones).  Returns (every element within the bound, [(worst
+    |got - o| / bound, elements over it)] a call)."""
+    from repro_torch.kernels.flash_attention.ref import gate_ratio, oracle_and_bound
+
+    worst = []
+    for q, k, v, args, y in calls:
+        o, bound = oracle_and_bound(q, k, v, scale=args["scale"], causal=args["causal"], q_offset=args["q_offset"],
+                                    kv_valid=args["kv_valid"], bk=args["bk"])
+        r = gate_ratio(y, o, bound)
+        worst.append((float(r.max()), int((r > 1).sum())))
+        del o, bound, r
+    ok = bool(worst) and all(n == 0 for _, n in worst)
+    log(f"  {what} flash calls in the forward, each against the f64 bound of its own inputs (worst |got - o| / "
+        f"bound, elements over): {[(round(x, 4), n) for x, n in worst]}: {ok} [{card}]")
+    return ok, worst
+
+
 def recurrent_phase(torch, registry, card):
     """The recurrent families whole at full width (module docstring, phase
     6f, after its kernel rows and flash case).  Returns (ok, result, fused
@@ -2489,10 +2874,16 @@ def recurrent_phase(torch, registry, card):
                         want = groups * (2 * cfg.attn_every + 6) + 1
                     K.reset_launches()
                     F.reset_launches()
-                    t0 = time.perf_counter()
-                    y, _ = logits_fn(p_, tokens, dataclasses.replace(c_, attn_impl=impl, attn_chunk=chunk))
-                    torch.cuda.synchronize()
-                    secs = time.perf_counter() - t0
+                    record = label == "flash"  # each shared invocation's flash call, for the bound below
+                    with recorded_flash_calls() if record else contextlib.nullcontext([]) as calls:
+                        t0 = time.perf_counter()
+                        y, _ = logits_fn(p_, tokens, dataclasses.replace(c_, attn_impl=impl, attn_chunk=chunk))
+                        torch.cuda.synchronize()
+                        secs = time.perf_counter() - t0
+                    if record:
+                        good, out["flash_invocations"] = flash_calls_within_bound(torch, calls, name, card)
+                        ok &= good
+                        del calls
                     logits[backend, label] = y.float()
                     want_flash = (groups or 9) if impl == "flash" else 0
                     n, nf = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
@@ -2564,8 +2955,8 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if sys.argv[1:] == ["--phase", "train"]:
-        return train_child()
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"]):
+        return child(sys.argv[2])
     setup(torch)
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
@@ -2827,8 +3218,15 @@ def main() -> int:
         all_ok &= rec_ok
 
     with Phase("train"):
-        train_ok, train_res, train_launches = run_train_child(card)
+        train_ok, train_res, train_launches = run_child(card, "train", timeout=600)
         all_ok &= train_ok
+
+    fam_rows = []
+    with Phase("train families"):
+        rows_ok, fam_sums = train_kernel_rows(torch, K, chans["ideal"], gen, fam_rows, card)
+        all_ok &= rows_ok
+        fam_ok, fam, _ = run_child(card, "train-families", timeout=500)
+        all_ok &= fam_ok
 
     if not all_ok:
         log("chip_smoke: FAILED")
@@ -2947,6 +3345,22 @@ def main() -> int:
         case="zamba2-2.7b shared attention: B=4, T=512, 32 / 32 heads, hd=80 (zero-padded to the 128 template), "
              "causal, bf16; launches from the recurrent phase's zamba2 flash logits runs (whole: 9; first group: 1)",
     ))
+    # The train-families phase's rows at R = 4096: xlstm-350m's mLSTM layer,
+    # zamba2-2.7b's Mamba2 layer and deepseek-v2-lite-16b's MoE layer, each
+    # with the launches of its model's training runs.
+    for model, what in (("xlstm-350m", "mLSTM layer (7 sites)"), ("zamba2-2.7b", "Mamba2 layer (2 sites)"),
+                        ("deepseek-v2-lite-16b", "MoE layer (7 routed sites, MLA expanded)")):
+        sm = fam_sums[f"{model} {what}"]
+        kernels.append(dict(
+            name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:412",
+            launches=sum(fam.get(model, {}).get(m, {}).get("fused_launches", 0) for m in ("a", "b")),
+            max_abs_err=max(x["max_abs_err"] for x in fam_rows if x["model"] == model),
+            ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"], bound_by=op_or_bytes(sm["bound_by"]),
+            library_ms=sm["library_ms"],
+            case=f"{model} {what} at the training shape R=4096, ideal channel, int8 x; library: torch._int_mm of "
+                 f"the int cores; launches from the train-families phase's {model} runs (ideal and SMWA)",
+        ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -2956,7 +3370,8 @@ def main() -> int:
          "serve": {k: v[2] for k, v in {**results, **sliced, **int8, **dense}.items()}, "train": train_res,
          "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak,
          "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross},
-         "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec}}, indent=1))
+         "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec},
+         "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -392,13 +392,36 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor, theta: float) -> torch.
     return out.to(x.dtype)
 
 
+class _Softplus(torch.autograd.Function):
+    """``lax.logaddexp(x, 0)`` with its custom JVP: the gradient is ``exp(x
+    - out)`` (``+inf`` replaced by 0 on both sides first), not the
+    derivative of the spelled-out forward, which passes 1 at ``x = 0``
+    where JAX passes 0.5 (xLSTM's zero-init forget gates sit there)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
+        out = torch.where(torch.isnan(x), x, out)
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+
+        def finite(a):
+            return torch.where(a == float("inf"), torch.zeros_like(a), a)
+
+        return g * torch.exp(finite(x) - finite(out))
+
+
 def softplus(x: torch.Tensor) -> torch.Tensor:
     """``jax.nn.softplus``: ``logaddexp(x, 0)``, spelled as ``lax``
-    spells it (``max(x, 0) + log1p(exp(-|x|))``, NaN passed through).
+    spells it (``max(x, 0) + log1p(exp(-|x|))``, NaN passed through), with
+    ``lax.logaddexp``'s gradient (:class:`_Softplus`).
     ``torch.nn.functional.softplus`` returns ``x`` itself above its
     ``threshold`` instead."""
-    out = torch.clamp_min(x, 0) + torch.log1p(torch.exp(-torch.abs(x)))
-    return torch.where(torch.isnan(x), x, out)
+    return _Softplus.apply(x)
 
 
 def log_sigmoid(x: torch.Tensor) -> torch.Tensor:

@@ -95,7 +95,7 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig, layer=None) -> Tuple[torch.Te
     logits = dense(params["router"], x.to(torch.float32), cfg, site="ffn.router", layer=layer)
     gates = torch.softmax(logits, dim=-1)
     topv, topi = _top_k(gates, k)
-    topv = topv / torch.clamp(topv.sum(-1, keepdim=True), min=1e-9)
+    topv = topv / torch.maximum(topv.sum(-1, keepdim=True), torch.full((), 1e-9, device=dev))
 
     experts = torch.arange(e, device=dev)
     slots = torch.arange(cap, device=dev)

@@ -12,10 +12,12 @@ Within a chunk the quadratic masked form ``L[t,s] = (C_t . B_s) *
 exp(b_t - b_s) * dt_s`` (s <= t) gives the intra-chunk terms; a loop over
 chunks carries the state (a ``lax.scan`` there).  The scan is plain
 ``torch.einsum`` / ``torch.cumsum``, as it is ``jnp`` outside any Pallas
-kernel in the reference.  The causal conv keeps both of the reference's
-spellings: prefill sums the W shifted products from the int 0, decode is
-an ``einsum`` over the window.  No GEMM here passes ``layer=``, as in the
-reference.
+kernel in the reference, except that the intra-chunk ``exp`` is masked
+before it is taken (:func:`_live_exp`), which keeps the reference's
+forward and makes its NaN gradient at ``ssm_chunk = 256`` finite.  The
+causal conv keeps both of the reference's spellings: prefill sums the W
+shifted products from the int 0, decode is an ``einsum`` over the window.
+No GEMM here passes ``layer=``, as in the reference.
 """
 
 from __future__ import annotations
@@ -73,6 +75,17 @@ def _causal_conv(params, xbc: torch.Tensor) -> torch.Tensor:
     return F.silu(out + params["conv_b"].to(xbc.dtype))
 
 
+def _live_exp(gap: torch.Tensor, live: torch.Tensor) -> torch.Tensor:
+    """``exp(gap)`` on the live entries (s <= t), ``exp(0)`` above the
+    diagonal, which the caller drops.  The reference exponentiates every
+    entry (``ssm.py:114-117``): above the diagonal ``gap = b_t - b_s > 0``
+    reaches about ``0.7 x (chunk - 1)``, past f32's ``exp`` limit (88.7) at
+    its published chunk of 256, and although the forward drops the
+    ``inf``, the backward multiplies it by a zero cotangent and gets NaN.
+    Masking first leaves the forward bitwise the same."""
+    return torch.exp(torch.where(live, gap, 0.0))
+
+
 def _ssd_chunked(
     xh: torch.Tensor,  # (B, T, H, dh)
     b_mat: torch.Tensor,  # (B, T, st)
@@ -108,7 +121,8 @@ def _ssd_chunked(
         # intra-chunk: L[t,s] = (C_t.B_s) exp(b_t - b_s) dt_s  (s <= t)
         cb = torch.einsum("bts,bls->btl", cc, bc)
         gap = b_cum[:, :, None, :] - b_cum[:, None, :, :]  # (B, L_t, L_s, H)
-        lmat = torch.where(tri[None, :, :, None], cb[..., None] * torch.exp(gap), 0.0) * dtc[:, None, :, :]
+        live = tri[None, :, :, None]
+        lmat = torch.where(live, cb[..., None] * _live_exp(gap, live), 0.0) * dtc[:, None, :, :]
         y_intra = torch.einsum("btsh,bshd->bthd", lmat, xc)
         # inter-chunk: y_t += C_t @ (exp(b_t) * S_prev)
         y_inter = torch.einsum("bts,bhds,bth->bthd", cc, state, torch.exp(b_cum))

@@ -220,6 +220,9 @@ def _slstm_scan(params, gx, cfg: ModelConfig, state):
     dh = d // h
     r = params["r"].to(torch.float32)
     c, n, m, hprev = state
+    # jnp.maximum(n, 1e-6): a tie splits the gradient, as torch.maximum
+    # does (torch.clamp_min would pass all of it).
+    n_floor = torch.full((), 1e-6, dtype=torch.float32, device=gx.device)
     hs = []
     for i in range(t):
         rec = torch.einsum("bhd,hde->bhe", hprev.reshape(b, h, dh), r).reshape(b, 4 * d)
@@ -231,7 +234,7 @@ def _slstm_scan(params, gx, cfg: ModelConfig, state):
         iw = torch.exp(gi - m_t)
         c = fw * c + iw * torch.tanh(gz)
         n = fw * n + iw
-        hprev = torch.sigmoid(go) * c / torch.clamp_min(n, 1e-6)
+        hprev = torch.sigmoid(go) * c / torch.maximum(n, n_floor)
         m = m_t
         hs.append(hprev)
     return torch.stack(hs, dim=1), (c, n, m, hprev)

@@ -12,9 +12,11 @@ groups, each a list of per-layer dicts, and an unstacked block such as
 DeepSeek-V2's ``first_block`` or Zamba2's ``shared`` comes as it is), and
 :func:`train_state_from_jax` does the same for a training state (params
 plus the AdamW moments and step), so a test can continue a reference run in
-the port.  The int8-stored serving layout (``quantize_params``: int8 ``w``
-with an f32 per-column ``w_scale``) and a fused ``wqkv`` attention dict
-come across unchanged in dtype.
+the port; :func:`params_to_reference` goes the other way, a port tree (its
+parameters or their gradients) in the reference's stacked layout.  The
+int8-stored serving layout (``quantize_params``: int8 ``w`` with an f32
+per-column ``w_scale``) and a fused ``wqkv`` attention dict come across
+unchanged in dtype.
 """
 
 from __future__ import annotations
@@ -99,3 +101,26 @@ def _first_leaf(node):
     while isinstance(node, dict):
         node = node[sorted(node)[0]]
     return node
+
+
+def params_to_reference(tree: Any) -> Any:
+    """A port tree of tensors (parameters, gradients or moments) in the
+    reference's layout, as numpy: each per-layer list (or list of lists)
+    stacked on its leading axes again, bf16 leaves as f32 (numpy has no
+    bfloat16).  The inverse of :func:`params_from_jax` up to dtype."""
+
+    def conv(node):
+        if isinstance(node, dict):
+            return {k: conv(v) for k, v in node.items()}
+        if isinstance(node, list):
+            return _stacked([conv(v) for v in node])
+        t = node.detach()
+        return (t.float() if t.dtype == torch.bfloat16 else t).cpu().numpy()
+
+    return conv(tree)
+
+
+def _stacked(parts):
+    if isinstance(parts[0], dict):
+        return {k: _stacked([p[k] for p in parts]) for k in parts[0]}
+    return np.stack(parts)
