@@ -129,8 +129,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    prefills (0 when chunked), fused launches 6 x 24 x forwards on the
    kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
    step, prefill seconds and tokens/s.
-6b. dense serve: granite-3-8b at full width (40 layers, d=4096, 32/8
-   heads, hd=128, d_ff=12800, vocab 49155, bf16, ``init_params`` seed 0)
+6b. dense serve: granite-3-8b at full width with 10 of its 40 layers
+   (d=4096, 32/8 heads, hd=128, d_ff=12800, vocab 49155, bf16,
+   ``init_params`` seed 0; cut from 40 to keep the run inside its limit)
    on the paged ``Scheduler``, the serve phase's prompt lengths and 8 new
    tokens: ideal greedy on ``kernel`` and ``ref`` (tokens equal); ideal
    sampled at temperature 0.8 under the reference's keys (seed 0) twice
@@ -260,7 +261,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    (``chip_smoke.py --phase train-families``), deterministic mode, bf16,
    ``init_params`` seed 0, ``DataConfig(seq_len=1024, global_batch=4,
    seed=0)``, AdamW as phase 7, each model at published width:
-   xlstm-350m and zamba2-2.7b whole (zamba2 at its ``ssm_chunk`` of 256,
+   xlstm-350m cut to one group (7 mLSTM + 1 sLSTM of 24 layers) and
+   zamba2-2.7b to 18 of 54 layers (3 shared-block invocations), both cut
+   to keep the run inside its limit (zamba2 at its ``ssm_chunk`` of 256,
    from the zero init of ``a_log`` / ``dt_bias``, where the reference's
    SSD gradient is NaN; xlstm first records one loss and gradient at its
    published init, whose sLSTM ``r`` makes the gradient NaN at 1024
@@ -279,9 +282,34 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    over ``vision`` (4, 1600, 8192), modes (a) and (c), (c)'s gradients
    bitwise (a)'s.  Gates: losses finite, grad norms finite, fused
    launches a step = the routed GEMMs of a forward plus those the
-   backward recomputes (301, 271, 57, 721, 59), ``exact`` bitwise.  Per
+   backward recomputes (101, 91, 57, 721, 59), ``exact`` bitwise.  Per
    mode: s/step, tokens/s, peak memory, launches; for (a) also one more
    step with the card's NVML ``utilization.gpu`` sampled (device busy).
+
+8. analytic: the paper's analytic tier and the photonic GEMM's ``ops``
+   surface in the port.  (a) ``ops.photonic_gemm`` (f32 x and w, the
+   fused kernel) and ``ops.photonic_gemm_int`` (int8, the unfused kernel)
+   at qwen2-0.5b's six sites, R = 64, ideal and SMWA (``noise_seed=0``),
+   plus ``photonic_gemm_int(tile_c=256)`` at ``attn.wq`` under SMWA: one
+   counted run (12 fused and 13 unfused launches), each output bitwise the
+   same call with the engine's kernel swapped for its twin, the whole call
+   timed in a CUDA graph beside its bound, the twin path and, for the
+   ideal ``photonic_gemm_int``, ``torch._int_mm``.  (b) ``evaluate_all()``
+   (Fig. 7: 3 organizations x DR {1, 5, 10} x 4 CNNs) held to the
+   reference's float-hex digest ``FIG7_DIGEST``; FPS, FPS/W and
+   FPS/W/mm^2 per cell and SMWA's ratios to ASMW and MASW averaged over
+   the CNNs, labelled as the simulator's outputs.  (c) The mapper's graph
+   of qwen2-0.5b (``seq_len`` 1000) and deepseek-v2-lite-16b (512) mapped
+   onto ``DpuPool.area_matched(org, 5)`` for SMWA, ASMW and MASW with
+   ``MapperOptions(batch=2)``: simulated tokens/s, FPS/W, mean
+   utilization, and the host seconds of the mapping.  (d) Each graph
+   against the routed GEMMs (site, layer, K, C, rows) recorded during the
+   oneshot phase's ideal flash ``lm_logits`` (B = 2, T = 1000) and the moe
+   phase's kernel ``lm_logits`` (B = 1, T = 512): every node needs one GEMM
+   of equal K, C and rows x batch and every GEMM a node, except the three
+   differences of ``GRAPH_DIFFERENCES`` (a tied head, deepseek's dense
+   first block, the routed experts), printed with their numbers; any other
+   fails the phase.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -292,6 +320,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import hashlib
 import json
 import os
 import shutil
@@ -328,6 +357,9 @@ GRANITE_SITES = [
     ("ffn.wo", 12800, 4096, False),
 ]
 DEEPSEEK_SITES = [("ffn.wo", 22016, 8192, False), ("lm_head", 8192, 102400, False)]
+# granite-3-8b serves 10 of its 40 layers (at full width), cut to keep the
+# run inside its time limit.
+GRANITE_SERVE_LAYERS = 10
 # (site, K, C, bias) — deepseek-v2-lite-16b: the MLA projections and the
 # shared experts of a MoE layer, then layer 0's dense FFN (d_ff = 10944);
 # the latent up-projections run over the padded cache in expanded decode,
@@ -348,6 +380,9 @@ V2_CACHE_ROWS = 4 * 128
 # FFN's wi and wo) and the untied head; absorbed decode drops wuk and wuv.
 V2_FORWARD_LAUNCHES = 27 * 7 + 1
 V2_ABSORBED_LAUNCHES = 27 * 5 + 1
+# The analytic phase's mapper graphs: (seq_len, batch) of the lm_logits
+# call whose routed GEMMs the oneshot and moe phases record.
+LM_GRAPHS = {"qwen2-0.5b": (1000, 2), "deepseek-v2-lite-16b": (512, 1)}
 # (site, K, C) — llama-3.2-vision-90b: one self layer's six sites; a cross
 # layer runs wq, wo and the MLP at the decoder rows (the self layer's
 # shapes) and cross_kv's wk / wv over the vision rows (batch 4 x
@@ -426,8 +461,14 @@ TRAIN_STEPS = 3
 # "full" in the backward.  xlstm-350m recomputes its 21 mLSTM blocks (the
 # sLSTM blocks and the head run once); zamba2-2.7b its 54 Mamba2 blocks
 # (the shared block runs once an invocation).
-XLSTM_TRAIN_LAUNCHES = XLSTM_LAUNCHES + 21 * 7
-ZAMBA_TRAIN_LAUNCHES = ZAMBA_LAUNCHES + 54 * 2
+# Depth cut for the run's time limit: xlstm-350m trains one group (7 mLSTM
+# + 1 sLSTM layer of 24), zamba2-2.7b 18 of 54 layers (3 shared-block
+# invocations); a step launches the forward's routed GEMMs plus the
+# mLSTM / Mamba2 ones the backward recomputes.
+XLSTM_TRAIN_LAYERS = 8
+ZAMBA_TRAIN_LAYERS = 18
+XLSTM_TRAIN_LAUNCHES = 2 * 7 * 7 + 1 * 2 + 1
+ZAMBA_TRAIN_LAUNCHES = 2 * 18 * 2 + 3 * 6 + 1
 # deepseek-v2-lite-16b cut to its dense first block and 3 MoE layers (its
 # AdamW moments alone would take 128 GB whole); every block under remat.
 V2_TRAIN_LAYERS = 4
@@ -480,6 +521,23 @@ KEY_ANSWERS = {
                          1055238244, 1053994408, 1032773744, 1035453824, 1052642588, 1062689852],
     "categorical": [67189, 148188, 84228, 111253],
 }
+
+
+# The Fig. 7 grid (3 organizations x DR {1, 5, 10} x 4 CNNs) of the
+# reference's ``repro.core.simulator.evaluate_all``: the sha256 of
+# ``fig7_digest``'s float-hex lines.  The analytic phase holds the port's
+# grid to it; tests/test_torch_analytic.py recomputes it from the reference.
+FIG7_DIGEST = "bbfcd0ec74deb9672c3b29e267414c5a304a2c046e7cc20413284a86aaecdcd8"
+
+
+def fig7_digest(results) -> str:
+    """sha256 over one line per (org, DR, CNN) cell of an ``evaluate_all``
+    result: FPS, FPS/W, FPS/W/mm^2 and dynamic energy in float hex."""
+    lines = []
+    for (org, dr, model), res in sorted(results.items()):
+        lines.append(f"{org} {dr} {model} {res.fps.hex()} {res.fps_per_w.hex()} "
+                     f"{res.fps_per_w_per_mm2().hex()} {res.dynamic_energy_j.hex()}")
+    return hashlib.sha256("\n".join(lines).encode()).hexdigest()
 
 
 def layer_sum(rs, key):
@@ -1363,10 +1421,14 @@ def oneshot_phase(torch, arch, params, ideal, prompts, card):
                 torch.cuda.synchronize()
                 K.reset_launches()
                 F.reset_launches()
+                record = photonic and name == "flash"  # the analytic phase's graph-vs-executed records
                 t0 = time.perf_counter()
-                logits[name], _ = lm.lm_logits(
-                    packed, tokens, dataclasses.replace(base, attn_impl=impl, attn_chunk=chunk))
+                with recorded_gemm_calls() if record else contextlib.nullcontext([]) as calls:
+                    logits[name], _ = lm.lm_logits(
+                        packed, tokens, dataclasses.replace(base, attn_impl=impl, attn_chunk=chunk))
                 torch.cuda.synchronize()
+                if record:
+                    res["gemm_calls"] = calls
                 dt = time.perf_counter() - t0
                 want, want_fused = (n_layers if impl == "flash" else 0), (6 * n_layers if photonic else 0)
                 finite = bool(torch.isfinite(logits[name].float()).all())
@@ -1638,8 +1700,8 @@ def train_families_phase(torch, registry, card):
     # 25 s under SMWA, llama-3.2-vision's group 40 s, so that group runs
     # none).
     specs = [
-        ("xlstm-350m", None, XLSTM_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
-        ("zamba2-2.7b", None, ZAMBA_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
+        ("xlstm-350m", XLSTM_TRAIN_LAYERS, XLSTM_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
+        ("zamba2-2.7b", ZAMBA_TRAIN_LAYERS, ZAMBA_TRAIN_LAUNCHES, "train", None, 1024, TRAIN_STEPS, 1),
         ("deepseek-v2-lite-16b", V2_TRAIN_LAYERS, V2_TRAIN_LAUNCHES, "step", None, 1024, TRAIN_STEPS, 1),
         ("whisper-medium", None, WHISPER_TRAIN_LAUNCHES, "step", "audio_embed", WHISPER_TRAIN_TOKENS, 1, 1),
         ("llama-3.2-vision-90b", VISION_TRAIN_LAYERS, VISION_TRAIN_LAUNCHES, "grads", "vision", 1024, 1, 0),
@@ -1977,7 +2039,8 @@ def int8_serve_phase(torch, arch, params, prompts, card):
 
 
 def dense_serve_phase(torch, registry, card):
-    """granite-3-8b at full width (40 layers, bf16, ``init_params`` seed 0
+    """granite-3-8b at full width with ``GRANITE_SERVE_LAYERS`` of its 40
+    layers (bf16, ``init_params`` seed 0
     on the card) on the paged Scheduler with the serve phase's four prompt
     lengths and 8 new tokens: ideal greedy on ``kernel`` and ``ref``
     (tokens equal); ideal at temperature 0.8 under the reference's keys
@@ -2018,10 +2081,12 @@ def dense_serve_phase(torch, registry, card):
         return eq
 
     arch = registry.get("granite-3-8b")
+    arch = dataclasses.replace(arch, config=dataclasses.replace(arch.config, num_layers=GRANITE_SERVE_LAYERS))
     t0 = time.perf_counter()
     params = init_params(arch.config, 0, device="cuda")
     torch.cuda.synchronize()
-    log(f"  init_params (granite-3-8b full width, 40 layers, bf16) {time.perf_counter() - t0:.2f} s")
+    log(f"  init_params (granite-3-8b full width, {GRANITE_SERVE_LAYERS} of 40 layers, bf16) "
+        f"{time.perf_counter() - t0:.2f} s")
     ok &= one(arch, params, "granite_ideal", "kernel")
     ok &= one(arch, params, "granite_ideal_ref", "ref")
     ok &= same("granite_ideal", "granite_ideal_ref")
@@ -2254,9 +2319,13 @@ def moe_phase(torch, registry, card):
                 _, packed = prepack_serving_params(arch, run, params)
                 torch.cuda.synchronize()
                 K.reset_launches()
+                record = tag == "deepseek_v2_lite" and backend == "kernel"  # the analytic phase's records
                 t0 = time.perf_counter()
-                out, aux = lm.lm_logits(packed, tokens, run)
+                with recorded_gemm_calls() if record else contextlib.nullcontext([]) as calls:
+                    out, aux = lm.lm_logits(packed, tokens, run)
                 torch.cuda.synchronize()
+                if record:
+                    res["gemm_calls"] = calls
                 dt = time.perf_counter() - t0
                 logits[backend], auxes[backend] = out.float(), float(aux)
                 del packed, out
@@ -2816,6 +2885,266 @@ def flash_calls_within_bound(torch, calls, what, card):
     return ok, worst
 
 
+@contextlib.contextmanager
+def recorded_gemm_calls():
+    """Inside the block, every routed GEMM that reaches
+    ``PhotonicEngine.int_gemm`` is recorded in the list the block receives
+    as ``dict(site, layer, K, C, rows)`` (the logical K and C, the live
+    rows); a GEMM the site policy keeps digital never gets there."""
+    from repro_torch.photonic.engine import PhotonicEngine
+
+    calls, real = [], PhotonicEngine.int_gemm
+
+    def record(self, xq, wq, **kw):
+        k, c = kw.get("logical_kc") or tuple(wq.shape[-2:])
+        fold = kw.get("fold")
+        calls.append(dict(site=kw.get("site"), layer=None if fold is None else int(fold), K=int(k), C=int(c),
+                          rows=int(xq.shape[0])))
+        return real(self, xq, wq, **kw)
+
+    PhotonicEngine.int_gemm = record
+    try:
+        yield calls
+    finally:
+        PhotonicEngine.int_gemm = real
+
+
+# The mapper's LM graph (``repro.mapper.workload.WorkloadGraph.
+# from_model_config``) differs from the model the port and the reference
+# run in three places, each read in the reference's code (ROADMAP Queue 3):
+GRAPH_DIFFERENCES = {
+    "tied_head": "the graph prices lm_head on the DPU (src/repro/mapper/workload.py:202); a model that ties its "
+                 "embeddings computes the digital x @ table.T (src/repro/models/lm.py:186-187; port "
+                 "models/lm.py::_head), no routed GEMM",
+    "first_block": "the graph lowers layer 0 of an MLA MoE model as routed plus shared experts "
+                   "(src/repro/mapper/workload.py:181-197); the model's layer 0 is a dense FFN of width d_ff "
+                   "(first_block, src/repro/models/lm.py:67-68, :146; port models/lm.py::_layers)",
+    "expert_rows": "the graph prices the routed experts as ffn.wi / ffn.wo GEMMs of t x top_k rows on the DPU "
+                   "(src/repro/mapper/workload.py:187-190); the model runs every expert on its capacity slots, "
+                   "E x capacity rows a batch row, as digital einsums outside the engine "
+                   "(src/repro/models/ffn.py:69-71, :112-119; port models/ffn.py::moe), no routed GEMM",
+}
+
+
+def graph_vs_executed(cfg, graph, calls, batch):
+    """Each node of ``graph`` (the mapper's batch-free lowering of ``cfg``)
+    against the routed GEMMs ``calls`` one forward of ``batch`` sequences
+    made (``recorded_gemm_calls``): a node needs exactly one GEMM of its
+    layer and site with equal K, C and rows x batch, and every GEMM a node.
+    Returns ``(ok, report)``: ``report`` holds the matched count, each
+    difference of ``GRAPH_DIFFERENCES`` with its nodes, and the unexplained
+    ones (``ok`` when there are none)."""
+    executed = {}
+    for c in calls:
+        name = c["site"] if c["layer"] is None else f"L{c['layer']}.{c['site']}"
+        executed.setdefault(name, []).append((c["K"], c["C"], c["rows"]))
+    swiglu = 2 if cfg.ffn_act == "swiglu" else 1
+    first_block = bool(cfg.mla and cfg.num_experts)
+    report = {"matched": 0, "unexplained": [], **{kind: [] for kind in GRAPH_DIFFERENCES}}
+    for node in graph.nodes:
+        want = (node.k, node.cols, node.rows * batch)
+        got = executed.get(node.name)
+        layer, _, site = node.name.partition(".")
+        entry = dict(node=node.name, graph=list(want), executed=got)
+        if got == [want]:
+            report["matched"] += 1
+        elif node.name == "lm_head" and cfg.tie_embeddings and got is None:
+            report["tied_head"].append(entry)
+        elif first_block and layer == "L0" and (
+            (site == "ffn.wi" and got == [(cfg.d_model, swiglu * cfg.d_ff, node.rows // cfg.num_experts_per_tok * batch)])
+            or (site == "ffn.wo" and got == [(cfg.d_ff, cfg.d_model, node.rows // cfg.num_experts_per_tok * batch)])
+            or (site.startswith("ffn.shared.") and got is None)
+        ):
+            report["first_block"].append(entry)
+        elif cfg.num_experts and site in ("ffn.wi", "ffn.wo") and got is None:
+            report["expert_rows"].append(entry)
+        else:
+            report["unexplained"].append(entry)
+    names = {node.name for node in graph.nodes}
+    for name, got in executed.items():
+        if name not in names:
+            report["unexplained"].append(dict(node=name, graph=None, executed=got))
+    return not report["unexplained"], report
+
+
+def ops_rows(torch, K, chans, gen, rows_out, card):
+    """The ``ops`` surface on the card: ``photonic_gemm`` (f32 x and w, the
+    fused kernel) and ``photonic_gemm_int`` (int8, the unfused kernel) at
+    qwen2-0.5b's six sites, R = 64, on the ideal channel and on SMWA
+    (``noise_seed=0``), plus ``photonic_gemm_int(tile_c=256)`` at ``attn.wq``
+    under SMWA (the legacy tiling, whose noise stream ids differ).  The
+    calls run once with the launch counts reset just before and read just
+    after (the main path's count: each call one launch); then each output
+    is held bitwise to the same call with the engine's kernel swapped for
+    its twin on the card, and each call is timed (CUDA graph of the whole
+    ``ops`` call: quantization, seeds, padding, the kernel), its twin path
+    host-timed.  Bounds: x, w read once, the output written once, the
+    int8 ops of every pass and the Box-Muller draws (``bound_ms``).
+    Library: ``torch._int_mm`` where it computes the same function (the
+    ideal ``photonic_gemm_int``), else None.  Returns (ok, launches)."""
+    import repro_torch.photonic.engine as E
+    from repro_torch.kernels.photonic_gemm import ops
+
+    r = 64
+    cases = [(fn, name, site, k, c, 128) for fn in ("photonic_gemm", "photonic_gemm_int")
+             for name in ("ideal", "SMWA") for site, k, c, _ in SITES]
+    cases.append(("photonic_gemm_int", "SMWA", SITES[0][0], SITES[0][1], SITES[0][2], 256))
+    dev = torch.device("cuda")
+    args = []
+    for fn, name, site, k, c, tile_c in cases:
+        if fn == "photonic_gemm":
+            x = torch.randn((r, k), generator=gen, device=dev)
+            w = torch.randn((k, c), generator=gen, device=dev) * k**-0.5
+            call = (lambda x=x, w=w, d=chans[name]: ops.photonic_gemm(x, w, d))
+        else:
+            x = torch.randint(-127, 128, (r, k), generator=gen, device=dev, dtype=torch.int8)
+            w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+            call = (lambda x=x, w=w, d=chans[name], t=tile_c: ops.photonic_gemm_int(x, w, d, tile_c=t))
+        args.append((x, w, call))
+    torch.cuda.synchronize()
+    K.reset_launches()
+    outs = [call() for _, _, call in args]
+    torch.cuda.synchronize()
+    launches = dict(K.LAUNCHES)
+    want = {"photonic_gemm_fused": 12, "photonic_gemm": 13}
+    ok = launches == want
+    log(f"  ops main path: {len(cases)} calls, launches {launches} == {want}: {ok}")
+
+    kernel_fused, kernel_int = E.photonic_gemm_fused, E.photonic_gemm
+
+    def twin_fused(*a, rows=None, **kw):
+        return K.photonic_gemm_fused_twin(*a, **kw)
+
+    def twin_int(*a, rows=None, **kw):
+        return K.photonic_gemm_twin(*a, **kw)
+
+    for (fn, name, site, k, c, tile_c), (x, w, call), y in zip(cases, args, outs):
+        try:
+            E.photonic_gemm_fused, E.photonic_gemm = twin_fused, twin_int
+            y_t = call()
+            torch.cuda.synchronize()
+            t_ms = eager_ms(call)
+        finally:
+            E.photonic_gemm_fused, E.photonic_gemm = kernel_fused, kernel_int
+        err = float((y.to(torch.float64) - y_t.to(torch.float64)).abs().max())
+        good = err == 0.0 and bool(torch.isfinite(y.to(torch.float32)).all())
+        k_ms = graph_ms(call)
+        dpu = chans[name]
+        stages, _ = E.kernel_stages(dpu, r, k, c, tile_c=tile_c)
+        passes, xdots = passes_of(dpu, stages)
+        noisy = stages["noise_sigma"] > 0.0
+        draws = r * c * -(-k // stages["n_chunk"]) * passes if noisy else 0
+        fused = fn == "photonic_gemm"
+        parts = bound_ms(r, k, c, 4 if fused else 1, passes, xdots, False, False, draws)
+        if fused:  # f32 weights, read once (bound_ms counts int8 ones)
+            parts = (parts[0] + k * c * 3 / PEAK_BYTES_PER_S * 1e3,) + parts[1:]
+        b_ms, b_by = bound_of([parts])
+        lib_ms = None
+        if not fused and name == "ideal":
+            lib_ms = graph_ms(lambda x=x, w=w: torch._int_mm(x, w))
+        rows_out.append(dict(
+            fn=fn, site=site, channel=name, tile_c=tile_c, R_live=r, K=k, C=c, ms=k_ms, plain_ms=t_ms,
+            library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by, parts=parts, draws=draws, max_abs_err=err,
+            tolerance="bitwise" + (", noise included" if noisy else ""), ok=good,
+        ))
+        log(f"  ops.{fn:17s} {site:7s} R={r} K={k:4d} C={c:5d} {name:5s} tile_c={tile_c}: whole call {k_ms:.4f} ms "
+            f"(CUDA graph), twin path {t_ms:.3f} ms, _int_mm {lib_ms if lib_ms is None else round(lib_ms, 4)} ms, "
+            f"bound {b_ms:.5f} ms ({b_by}), max_abs_err {err:.3g} [bitwise] -> {'ok' if good else 'MISMATCH'} "
+            f"[{card}]")
+        ok &= good
+    return ok, launches
+
+
+def analytic_phase(torch, K, chans, gen, ops_out, lm_records, card):
+    """The analytic tier and the ``ops`` surface (module docstring, phase
+    8): (a) ``ops_rows``; (b) the port's Fig. 7 grid against
+    ``FIG7_DIGEST``, with FPS, FPS/W and FPS/W/mm^2 per cell and SMWA's
+    ratios to ASMW and MASW averaged over the CNNs (the simulator's outputs,
+    not measurements of the card); (c) the mapper on the LM configs the
+    card serves, each graph mapped onto ``DpuPool.area_matched(org, 5)``
+    for SMWA, ASMW and MASW with ``MapperOptions(batch=2)``: simulated
+    tokens/s, FPS/W and mean utilization, and the host seconds of the
+    mapping on this machine; (d) ``graph_vs_executed`` against the routed
+    GEMMs recorded in the oneshot and moe phases' ``lm_logits``.  Returns
+    (ok, result dict, launches of the ops main path)."""
+    from repro_torch.core.simulator import evaluate_all
+    from repro_torch.mapper import DpuPool, MapperOptions, WorkloadGraph, map_workload
+    from repro_torch.models import registry
+
+    res = {}
+    ok, launches = ops_rows(torch, K, chans, gen, ops_out, card)
+
+    t0 = time.perf_counter()
+    grid = evaluate_all()
+    host_s = time.perf_counter() - t0
+    digest = fig7_digest(grid)
+    good = digest == FIG7_DIGEST and len(grid) == 36
+    log(f"  Fig. 7 grid (simulator outputs, not card measurements): evaluate_all() over 3 orgs x DR (1, 5, 10) x 4 "
+        f"CNNs, {len(grid)} cells in {host_s:.3f} s of host time; digest {digest[:16]}... == the reference's "
+        f"{FIG7_DIGEST[:16]}...: {good}")
+    ok &= good
+    cells = {}
+    for (org, dr, model), r in grid.items():
+        cells[f"{org} {dr} {model}"] = dict(fps=r.fps, fps_per_w=r.fps_per_w, fps_per_w_per_mm2=r.fps_per_w_per_mm2())
+        log(f"    simulated {org} DR={dr:2d} {model:13s}: FPS {r.fps:.6g}, FPS/W {r.fps_per_w:.6g}, "
+            f"FPS/W/mm^2 {r.fps_per_w_per_mm2():.6g}")
+    models = sorted({m for _, _, m in grid})
+    ratios = {}
+    for dr in (1, 5, 10):
+        for other in ("ASMW", "MASW"):
+            vals = {}
+            for metric in ("fps", "fps_per_w", "fps_per_w_per_mm2"):
+                per = [cells[f"SMWA {dr} {m}"][metric] / cells[f"{other} {dr} {m}"][metric] for m in models]
+                vals[metric], vals[metric + "_max"] = statistics.mean(per), max(per)
+            ratios[f"SMWA/{other} DR={dr}"] = vals
+            log(f"    simulated SMWA over {other} at DR={dr}, mean (max) over the 4 CNNs: FPS {vals['fps']:.4f}x "
+                f"({vals['fps_max']:.4f}x), FPS/W {vals['fps_per_w']:.4f}x ({vals['fps_per_w_max']:.4f}x), "
+                f"FPS/W/mm^2 {vals['fps_per_w_per_mm2']:.4f}x ({vals['fps_per_w_per_mm2_max']:.4f}x)")
+    res["fig7"] = dict(digest=digest, host_s=host_s, cells=cells, ratios=ratios)
+
+    res["mapper"], res["graph_vs_executed"] = {}, {}
+    for arch_name, (seq_len, batch) in LM_GRAPHS.items():
+        cfg = registry.get(arch_name).config
+        t0 = time.perf_counter()
+        graph = WorkloadGraph.from_model_config(cfg, seq_len=seq_len)
+        build_s = time.perf_counter() - t0
+        for org in ("SMWA", "ASMW", "MASW"):
+            t0 = time.perf_counter()
+            pool = DpuPool.area_matched(org, 5)
+            tl = map_workload(graph, pool, MapperOptions(batch=2))
+            map_s = time.perf_counter() - t0
+            row = dict(nodes=len(graph), pool=pool.size, n=pool.cfg.n, tokens_per_s=tl.fps * seq_len,
+                       fps=tl.fps, fps_per_w=tl.fps_per_w, mean_utilization=tl.mean_utilization,
+                       host_s=map_s, graph_host_s=build_s)
+            res["mapper"][f"{arch_name} {org}"] = row
+            log(f"  mapper (simulated, not the card): {arch_name} seq_len {seq_len}, {len(graph)} nodes, "
+                f"{graph.total_macs / 1e9:.2f} GMAC a sequence, on {pool.size} x {org} N={pool.cfg.n} at 5 GS/s, "
+                f"batch 2: {row['tokens_per_s']:.6g} simulated tokens/s, FPS/W {tl.fps_per_w:.6g}, mean "
+                f"utilization {tl.mean_utilization:.4f}; host {map_s:.3f} s to map ({build_s:.3f} s to build the "
+                f"graph) [{card}]")
+        good, report = graph_vs_executed(cfg, graph, lm_records[arch_name], batch)
+        res["graph_vs_executed"][arch_name] = report
+        log(f"  graph vs executed, {arch_name} (lm_logits B={batch} T={seq_len}, {len(lm_records[arch_name])} routed "
+            f"GEMMs recorded): {report['matched']} of {len(graph)} nodes equal in K, C and rows x batch")
+        for kind, text in GRAPH_DIFFERENCES.items():
+            if report[kind]:
+                log(f"    difference {kind}: {len(report[kind])} nodes; {text}")
+                for e in report[kind][:4]:
+                    log(f"      {e['node']}: graph (K, C, rows x batch) {tuple(e['graph'])}, executed {e['executed']}")
+        if cfg.num_experts:
+            cap = max(int(seq_len * cfg.num_experts_per_tok * cfg.capacity_factor / cfg.num_experts), 1)
+            layers = len(report["expert_rows"]) // 2
+            log(f"    expert_rows in numbers: the graph streams t x top_k = {seq_len} x {cfg.num_experts_per_tok} = "
+                f"{seq_len * cfg.num_experts_per_tok} rows a sequence through each routed bank of {layers} layers; "
+                f"the model dispatches E x capacity = {cfg.num_experts} x {cap} = {cfg.num_experts * cap} slots a "
+                f"batch row (capacity factor {cfg.capacity_factor}), digitally")
+        for e in report["unexplained"]:
+            log(f"    UNEXPLAINED {e['node']}: graph {e['graph']}, executed {e['executed']}")
+        log(f"  graph vs executed {arch_name}: only the named differences: {good}")
+        ok &= good
+    return ok, res, launches
+
+
 def recurrent_phase(torch, registry, card):
     """The recurrent families whole at full width (module docstring, phase
     6f, after its kernel rows and flash case).  Returns (ok, result, fused
@@ -3228,6 +3557,12 @@ def main() -> int:
         fam_ok, fam, _ = run_child(card, "train-families", timeout=500)
         all_ok &= fam_ok
 
+    ops_out = []
+    with Phase("analytic"):
+        records = {"qwen2-0.5b": oneshot["gemm_calls"], "deepseek-v2-lite-16b": moe["gemm_calls"]}
+        analytic_ok, analytic, ops_launches = analytic_phase(torch, K, chans, gen, ops_out, records, card)
+        all_ok &= analytic_ok
+
     if not all_ok:
         log("chip_smoke: FAILED")
         return 1
@@ -3361,6 +3696,27 @@ def main() -> int:
             case=f"{model} {what} at the training shape R=4096, ideal channel, int8 x; library: torch._int_mm of "
                  f"the int cores; launches from the train-families phase's {model} runs (ideal and SMWA)",
         ))
+    # The analytic phase's ops rows: the six qwen2-0.5b sites at R = 64 on the
+    # ideal channel through ops.photonic_gemm (the fused kernel) and
+    # ops.photonic_gemm_int (the unfused one), with the launches of the ops
+    # main path (ideal and SMWA, and the tile_c=256 row).
+    for name, fn, what in (
+        ("photonic_gemm_fused", "photonic_gemm", "kernels/photonic_gemm/ops.py::photonic_gemm, f32 x and w (the "
+         "weight quantized per call)"),
+        ("photonic_gemm", "photonic_gemm_int", "kernels/photonic_gemm/ops.py::photonic_gemm_int, int8 x and w; "
+         "library: torch._int_mm of the same GEMMs"),
+    ):
+        layer = [x for x in ops_out if x["fn"] == fn and x["channel"] == "ideal" and x["tile_c"] == 128]
+        bm, bb = bound_of([x["parts"] for x in layer])
+        kernels.append(dict(
+            name=name, route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:" + ("412" if name == "photonic_gemm_fused" else "319"),
+            launches=ops_launches[name], max_abs_err=max(x["max_abs_err"] for x in layer),
+            ms=layer_sum(layer, "ms"), plain_ms=layer_sum(layer, "plain_ms"), bound_ms=bm,
+            bound_by=op_or_bytes(bb), library_ms=layer_sum(layer, "library_ms"),
+            case=f"{what}: six qwen2-0.5b sites, R=64, ideal channel, the whole ops call in a CUDA graph; launches "
+                 "from the analytic phase's ops main path (ideal and SMWA; photonic_gemm_int also at tile_c=256)",
+        ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -3371,7 +3727,8 @@ def main() -> int:
          "keys": keys_res, "deepseek": deepseek, "moe": moe, "dense_serve_peak_bytes": dense_peak,
          "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross},
          "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec},
-         "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam}}, indent=1))
+         "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam},
+         "analytic": {"ops_rows": ops_out, **analytic}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -86,7 +86,7 @@
 
 namespace {
 
-constexpr int kTileC = 128;   // logical tile_c; a CTA covers one column tile
+constexpr int kTileC = 128;   // a CTA's columns; the logical tile_c is a multiple, so a CTA lies in one logical tile
 constexpr int kMaxN = 256;    // longest chunk
 constexpr int kKStep = 64;    // K step of the ideal path (its split unit)
 constexpr int kStages = 4;    // cp.async ring depth, ideal path
@@ -712,7 +712,7 @@ extern "C" int photonic_gemm_launch(
     float sigma, int use_filter, float filter_scale, float eps_im, float eps_cw,
     int valid_chunks, int activation, int bn, int ideal, int n_split,
     void* ws_acc, void* tickets, void* stream) {
-  if (tile_c != kTileC || C % kTileC != 0) return -1;
+  if (tile_c < kTileC || tile_c % kTileC != 0 || C % tile_c != 0) return -1;
   if (tile_r % 8 != 0 || R % tile_r != 0 || live_rows < 1 || live_rows > R) return -2;
   if (n_chunk < 1 || n_chunk > kMaxN || tile_k % n_chunk != 0 || K % tile_k != 0) return -3;
   if (x_f32 && !fused) return -4;

@@ -59,7 +59,7 @@ from repro_torch.noise.stages import (
 
 SOURCE = Path(__file__).resolve().parent / "csrc" / "photonic_gemm.cu"
 ACTIVATION_CODES = {None: 0, "gelu": 1, "silu": 2}
-TILE_C = 128  # the logical tile_c the CUDA kernel supports
+TILE_C = 128  # a CTA's columns; the CUDA kernel takes a logical tile_c that is a multiple of it
 CTA_ROWS = (8, 64)  # the kernel's CTA row counts; tile_r must be a multiple of 8
 MAX_CHUNK = 256  # longest n_chunk the kernel stages in shared memory
 K_STEP = 64  # the ideal path's K step, its unit of the contraction split
@@ -448,8 +448,8 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
     r, k = x.shape
     c = wq.shape[1]
     rows = r if rows is None else int(rows)
-    if tile_c != TILE_C:
-        raise ValueError(f"the CUDA kernel takes tile_c={TILE_C}, got {tile_c}")
+    if tile_c % TILE_C:
+        raise ValueError(f"the CUDA kernel takes tile_c a multiple of {TILE_C}, got {tile_c}")
     if tile_r % CTA_ROWS[0]:
         raise ValueError(f"the CUDA kernel takes tile_r a multiple of {CTA_ROWS[0]}, got {tile_r}")
     if n_chunk > MAX_CHUNK:

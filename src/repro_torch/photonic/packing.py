@@ -10,11 +10,14 @@ channel — the weight's content word for the noise-stream seed, computed
 once here instead of on every decode step.  A pack also caches, per plane
 width, the planes of its bank and their words for bit-sliced execution
 (:meth:`PackedDense.planes`).  :func:`fuse_qkv_params` fuses an attention
-dict's Q/K/V projections into one ``wqkv`` bank.
+dict's Q/K/V projections into one ``wqkv`` bank.  :func:`reprogram_cost`
+prices the weight-stationary reprogramming that packing amortizes (the
+mapper's replication price).
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Optional, Tuple
 
 import torch
@@ -23,6 +26,37 @@ import torch.nn.functional as F
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.noise.stages import tweak_word
 from repro_torch.photonic.engine import PhotonicEngine, pallas_tiling, plane_operands
+
+
+@dataclasses.dataclass(frozen=True)
+class ReprogramCost:
+    """Latency/energy to (re)program one weight tile onto a DPU's rings.
+    Reference: ``repro.photonic.packing:ReprogramCost``.
+
+    The tile is EO-tuned once (``latency_s``, Table VI) and then streamed
+    against for free.  The mapper prices replication with it
+    (``AcceleratorConfig.weight_reprogram_cost``): a row-split replica
+    re-programs the full tile chain, so it must stream long enough to
+    cover its own reprogramming.
+    """
+
+    latency_s: float
+    energy_j: float
+    rings: int
+
+
+def reprogram_cost(
+    rings: int, *, tune_latency_s: float, tune_power_w_per_ring: float
+) -> ReprogramCost:
+    """Cost of programming ``rings`` weight rings in one tuning pass.
+    Reference: ``repro.photonic.packing:reprogram_cost``.  (Energy is
+    spelled ``(power x latency) x rings`` to stay bit-identical with the
+    legacy simulator's tune-energy accounting.)"""
+    return ReprogramCost(
+        latency_s=tune_latency_s,
+        energy_j=tune_power_w_per_ring * tune_latency_s * rings,
+        rings=rings,
+    )
 
 
 class PackedDense:
