@@ -129,6 +129,34 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    prefills (0 when chunked), fused launches 6 x 24 x forwards on the
    kernel backend, kernel tokens equal to ``ref`` tokens; ms per decode
    step, prefill seconds and tokens/s.
+6a. tp: tensor-parallel photonic serving, K sharded over two shards.
+   Kernel rows first, in this process: each shard's
+   ``shard_local_engine(engine, K / 2).int_gemm(shard=i)`` on CUDA int8
+   operands (the unfused ``photonic_gemm`` kernel at the shard-local
+   fan-in: K_local 448 / 2432 for qwen2-0.5b's six sites at R in {4, 64},
+   2048 / 6400 for granite-3-8b's at R = 4), ideal, SMWA under a ``prng``
+   key and ASMW under its ``noise_seed``, against the same call through the
+   twin on the card (bitwise; under noise one-LSB roundings at <= 0.1% of
+   elements), each ideal sum over the shards equal to ``exact_int_gemm``;
+   per shard the kernel's time (CUDA graph), the twin's, ``torch._int_mm``
+   of the shard's int core and the bound.  Then a child process
+   (``chip_smoke.py --phase tp TOKENS``) starts two ranks on the one card
+   (``repro_torch.launch.mesh.spawn``, backend ``gloo`` with CUDA tensors:
+   NCCL refuses two ranks on one device; the phase prints the backend),
+   each building the ("data", "model") 1 x 2 mesh and qwen2-0.5b whole
+   (``init_params`` seed 0, bf16), serving the serve phase's four prompts
+   and 8 greedy tokens through ``serve.Engine`` → ``Scheduler`` with
+   ``mesh=`` / ``tp_axis="model"`` and without a mesh, ideal and SMWA:
+   per forward 6 x 24 unfused launches and as many int32 all-reduces
+   (``repro_torch.analysis.contracts.ALL_REDUCES``), one per routed GEMM,
+   and no fused launch (6 x 24 fused without the mesh); ideal TP = 2
+   tokens and logits equal TP = 1's; SMWA deterministic across two TP = 2
+   runs and unlike the unsharded logits; tokens and logits equal across
+   the ranks; then ``lm_logits`` at B = 2, T = 1000 under TP = 2 bitwise
+   TP = 1's.  Rank 0 profiles two decode steps (launches a step, device
+   busy share); prefill seconds and decode ms/step per run; whether the
+   TP = 2 tokens equal the serve phase's (which prefills in chunks of 64
+   tokens) is printed, not gated.
 6b. dense serve: granite-3-8b at full width with 10 of its 40 layers
    (d=4096, 32/8 heads, hd=128, d_ff=12800, vocab 49155, bf16,
    ``init_params`` seed 0; cut from 40 to keep the run inside its limit)
@@ -455,6 +483,7 @@ ZAMBA_LAUNCHES = 54 * 2 + 9 * 6 + 1  # 54 Mamba2 layers, 9 shared-block invocati
 ZAMBA_FLASH = ("zamba2 shared attention", 4, 512, 512, 32, 32, 80, True, 0, None, "bf16")
 RECURRENT_ROWS = (4, 4 * 64)  # decode, and a 64-token prompt of the serve batch
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
+TP_SHARDS = 2  # the tp phase's tensor-parallel degree: two ranks sharing the one card
 TRAIN_STEPS = 3
 # The train-families phase: the fused launches of one training step, the
 # forward's and then the recompute of the blocks that run under remat
@@ -1911,12 +1940,13 @@ def setup(torch) -> None:
     torch.backends.cudnn.allow_tf32 = False
 
 
-def child(phase: str) -> int:
-    """``chip_smoke.py --phase train`` or ``--phase train-families``: the
-    phase alone, in a process whose environment sets
-    ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's reproducible workspaces, which the
-    deterministic mode needs) before CUDA starts.  The kernels were built by
-    the parent; the last line of stdout is the phase's result as JSON."""
+def child(phase: str, arg=None) -> int:
+    """``chip_smoke.py --phase train``, ``--phase train-families`` or
+    ``--phase tp TOKENS``: the phase alone, in a process whose environment
+    sets ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's reproducible workspaces,
+    which the deterministic mode needs) before CUDA starts.  The kernels
+    were built by the parent; the last line of stdout is the phase's result
+    as JSON."""
     import torch
 
     if not torch.cuda.is_available():
@@ -1934,20 +1964,22 @@ def child(phase: str) -> int:
     F.LIBRARY.load()
     if phase == "train":
         ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
+    elif phase == "tp":
+        ok, res, launches = tp_child(json.loads(arg))
     else:
         ok, res, launches = train_families_phase(torch, registry, card_line())
     print(json.dumps({"ok": ok, "result": res, "launches": launches}))
     return 0 if ok else 1
 
 
-def run_child(card, phase, timeout):
+def run_child(card, phase, timeout, args=()):
     """``phase`` in its own process (:func:`child`), with
     ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only.
     Its log lines are relayed; returns (ok, result, launches), ok false when
     the child fails, crashes, outlives ``timeout`` seconds or prints no
     result."""
     env = dict(os.environ, CUBLAS_WORKSPACE_CONFIG=":4096:8")
-    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", phase], env=env,
+    proc = subprocess.Popen([sys.executable, str(ROOT / "chip_smoke.py"), "--phase", phase, *args], env=env,
                             stdout=subprocess.PIPE, text=True)
     try:
         out, _ = proc.communicate(timeout=timeout)
@@ -1969,6 +2001,318 @@ def run_child(card, phase, timeout):
     if result is None:
         return False, {}, {}
     return ok, result["result"], result["launches"]
+
+
+def tp_case(torch, K, dpu, r, k, c, site, gen, rows_out, card, *, model="qwen2-0.5b", key=None, shards=TP_SHARDS):
+    """One K-sharded GEMM as ``psum_int_gemm`` runs it, shard by shard in
+    this process: shard ``i``'s ``int_gemm(shard=i)`` of the shard-local
+    engine (``shard_local_engine(engine, K / shards)``) on CUDA int8
+    operands (the unfused ``photonic_gemm`` kernel), against the same call
+    with the kernel swapped for its twin on the card: bitwise, and under
+    noise one-LSB roundings at <= 0.1% of elements (each within two
+    top-pass LSBs); under the ideal channel the sum over shards also equals
+    ``exact_int_gemm`` of the whole GEMM.  Per shard a row: the kernel
+    launch alone (CUDA graph of the recorded call), the twin call
+    (host-timed once), ``torch._int_mm`` of the shard's int core (rows
+    padded to 32 where fewer) and the bound of the shard's logical GEMM.
+    With ``key`` (a ``repro_torch.prng`` key) the stream is the key's."""
+    import repro_torch.photonic.engine as E
+    from repro_torch.kernels.photonic_gemm.ref import exact_int_gemm
+    from repro_torch.photonic.sharded import shard_local_engine
+
+    dev = torch.device("cuda")
+    kl = k // shards
+    local = shard_local_engine(E.PhotonicEngine(dpu=dpu, backend="kernel"), kl)
+    stages, _ = E.kernel_stages(local.dpu, r, kl, c)
+    noisy = stages["noise_sigma"] > 0.0
+    ideal = dpu.effective_channel() is None
+    chan = "ideal" if ideal else dpu.organization
+    x = torch.randint(-127, 128, (r, k), generator=gen, device=dev, dtype=torch.int8)
+    w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+    kernel = E.photonic_gemm
+    total, ok = None, True
+    passes, xdots = passes_of(local.dpu, stages)
+    for i in range(shards):
+        xs, ws = x[:, i * kl:(i + 1) * kl].contiguous(), w[i * kl:(i + 1) * kl].contiguous()
+        calls = []
+
+        def record(*a, **k_):
+            calls.append((a, k_))
+            return kernel(*a, **k_)
+
+        def twin(xp, wp, seed, rows=None, **st):
+            return K.photonic_gemm_twin(xp, wp, seed, **st)
+
+        kw = dict(site=site, fold=0, shard=i, prng_key=key)
+        n0 = K.LAUNCHES["photonic_gemm"]
+        try:
+            E.photonic_gemm = record
+            y_k = local.int_gemm(xs, ws, **kw)
+            E.photonic_gemm = twin
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            y_t = local.int_gemm(xs, ws, **kw)
+            torch.cuda.synchronize()
+            t_ms = (time.perf_counter() - t0) * 1e3
+        finally:
+            E.photonic_gemm = kernel
+        diff = (y_k.to(torch.int64) - y_t.to(torch.int64)).abs()
+        err = float(diff.max())
+        if noisy:
+            good = float((diff > 0).to(torch.float64).mean()) <= 1e-3 and err <= 2 * 2 ** (2 * dpu.bits)
+            tol = "noisy: <=0.1% elements off, <= 2 top-pass LSB"
+        else:
+            good = err == 0.0
+            tol = "bitwise"
+        (a, k_), = calls
+        k_ms = graph_ms(lambda: kernel(*a, **k_))
+        launched = K.LAUNCHES["photonic_gemm"] - n0
+        xi = torch.zeros((max(r, 32), kl), dtype=torch.int8, device=dev)
+        xi[:r] = xs
+        lib_ms = graph_ms(lambda: torch._int_mm(xi, ws))
+        draws = r * c * -(-kl // stages["n_chunk"]) * passes if noisy else 0
+        parts = bound_ms(r, kl, c, 1, passes, xdots, False, False, draws)
+        b_ms, b_by = bound_of([parts])
+        total = y_k.to(torch.int64) if total is None else total + y_k.to(torch.int64)
+        ok &= good
+        rows_out.append(dict(
+            model=model, site=site, keyed=key is not None, shard=i, shards=shards, R_live=r, K=k, K_local=kl,
+            C=c, n_chunk=stages["n_chunk"], channel=chan, ms=k_ms, plain_ms=t_ms, library_ms=lib_ms,
+            bound_ms=b_ms, bound_by=b_by, parts=parts, draws=draws, max_abs_err=err, bitwise=err == 0.0,
+            tolerance=tol, ok=good, launches=launched,
+        ))
+        log(f"  tp {'' if model == 'qwen2-0.5b' else model + ' '}{site:8s}{' keyed' if key is not None else ''} "
+            f"shard {i}/{shards} R={r:3d} K={kl:5d}/{k:5d} C={c:5d} {chan:5s} N_local={stages['n_chunk']}: kernel "
+            f"{k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}), "
+            f"{launched} launches, max_abs_err {err:.3g} [{tol}] -> {'ok' if good else 'MISMATCH'} [{card}]")
+    if ideal:
+        same = bool(torch.equal(total, exact_int_gemm(x, w).to(torch.int64)))
+        log(f"    sum over {shards} shards == exact_int_gemm: {same}")
+        ok &= same
+    return ok
+
+
+def tp_kernel_rows(torch, K, chans, key, gen, rows, card):
+    """The tp phase's kernel rows (:func:`tp_case`): qwen2-0.5b's six sites
+    at R = 4 and 64 and granite-3-8b's at R = 4, K-sharded over two shards,
+    ideal, SMWA under ``key`` and ASMW under its ``noise_seed``.  Logs one
+    shard's sums over a layer.  Returns (ok, sums)."""
+    ok = True
+    cases = [("qwen2-0.5b", SITES, (4, 64)), ("granite-3-8b", GRANITE_SITES, (4,))]
+    for model, sites, rs in cases:
+        for name in ("ideal", "SMWA", "ASMW"):
+            for r in rs:
+                for site, k, c, _ in sites:
+                    ok &= tp_case(torch, K, chans[name], r, k, c, site, gen, rows, card, model=model,
+                                  key=key if name == "SMWA" else None)
+    sums = {}
+    for model, sites, rs in cases:
+        for name in ("ideal", "SMWA", "ASMW"):
+            for r in rs:
+                layer = [x for x in rows if x["model"] == model and x["channel"] == name and x["R_live"] == r
+                         and x["shard"] == 0]
+                bm, bb = bound_of([x["parts"] for x in layer])
+                tot = {k_: sum(x[k_] for x in layer) for k_ in ("ms", "plain_ms", "library_ms")}
+                sums[f"{model} {name} R={r}"] = dict(tot, bound_ms=bm, bound_by=bb,
+                                                     max_abs_err=max(x["max_abs_err"] for x in layer))
+                log(f"  tp {model} layer, one shard of {TP_SHARDS} (six sites) {name} R={r}: kernel "
+                    f"{tot['ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms, bound {bm:.5f} ms ({bb}), _int_mm "
+                    f"{tot['library_ms']:.4f} ms [{card}]")
+    return ok, sums
+
+
+def tp_serve(torch, arch, params, dpu, prompts, mesh, rank, card, label, *, profile=False):
+    """Serve ``prompts`` (8 greedy tokens each) through ``serve.Engine`` →
+    ``Scheduler`` with ``mesh`` (None: one rank, unsharded) on the kernel
+    backend, logits recorded.  Once every request is prefilled two decode
+    steps run apart, under the torch profiler on rank 0 with ``profile``,
+    and are left out of the decode rate.  Returns (requests, result)."""
+    from repro_torch.analysis import contracts
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.runtime.serve import Engine, ServeConfig
+    from repro_torch.serving import Request
+
+    cfg = dataclasses.replace(arch.config, photonic=dpu, photonic_backend="kernel")
+    eng = Engine(arch, cfg, params, ServeConfig(batch_size=4, max_seq=128), mesh=mesh)
+    sch = eng.impl
+    sch.cfg.record_logits = True
+    reqs = [Request(uid=i, prompt=p, max_new_tokens=8) for i, p in enumerate(prompts)]
+    torch.cuda.synchronize()
+    K.reset_launches()
+    contracts.reset_all_reduces()
+    t0 = time.perf_counter()
+    for r in reqs:
+        sch.submit(r)
+    while not all(r.output for r in reqs):
+        sch.step()
+    before_s = sch.stats["decode_s"]
+    prof = None
+    if profile and rank == 0:
+        prof = profiled(torch, lambda: [sch.step() for _ in range(2)], f"tp_{label}")
+    else:
+        sch.step()
+        sch.step()
+    if mesh is not None:
+        # Every rank waits here for rank 0's profiler report, so that no
+        # rank's later decode steps take the report's time.
+        import torch.distributed as dist
+
+        dist.barrier()
+    prof_s = sch.stats["decode_s"] - before_s
+    sch.run()
+    torch.cuda.synchronize()
+    dt = time.perf_counter() - t0
+    st = sch.stats
+    forwards = st["prefill_chunks"] + st["decode_steps"]
+    res = dict(
+        tokens=[r.output for r in reqs], seconds=dt, prefill_s=st["prefill_s"], forwards=forwards,
+        decode_steps=st["decode_steps"],
+        decode_ms_per_step=(st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3,
+        launches=dict(K.LAUNCHES), all_reduces=contracts.ALL_REDUCES["psum_int_gemm"],
+        done=all(r.done and len(r.output) == 8 for r in reqs),
+        finite=all(bool(np.isfinite(row).all()) for r in reqs for row in r.logits), profile=prof,
+        engine=str(eng.photonic.describe()),
+    )
+    if prof is not None:
+        res["launches_per_decode_step"] = prof["launch_calls"] / 2
+        res["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    return reqs, res
+
+
+def _logits_of(reqs):
+    return np.concatenate([np.stack(r.logits) for r in reqs])
+
+
+def tp_rank(rank, world, serve_tokens):
+    """One rank of the tp phase: qwen2-0.5b at full width, whole (24
+    layers, bf16, ``init_params`` seed 0), served through ``Engine`` with
+    the ("data", "model") mesh of ``world`` ranks sharing the card and at
+    TP = 1 on the same rank; ``lm_logits`` at B = 2, T = 1000 at both.
+    Returns this rank's results and gates."""
+    import torch
+    import torch.distributed as dist
+
+    setup(torch)
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.analysis import contracts
+    from repro_torch.launch.mesh import make_tp_smoke_mesh
+    from repro_torch.models import lm, registry
+    from repro_torch.models.common import init_params
+    from repro_torch.photonic import tensor_parallel
+
+    K.LIBRARY.load()
+    card = card_line()
+
+    def say(msg):
+        log(f"  [rank {rank}] {msg}")
+
+    mesh = make_tp_smoke_mesh(world)
+    say(f"backend {dist.get_backend()} (CUDA tensors), world {dist.get_world_size()}, mesh "
+        f"{mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}, model-axis rank {mesh.get_local_rank('model')}, "
+        f"device {torch.cuda.current_device()} {torch.cuda.get_device_name()}")
+    arch = registry.get("qwen2-0.5b")
+    n_layers = arch.config.num_layers
+    t0 = time.perf_counter()
+    params = init_params(arch.config, 0, device="cuda")
+    torch.cuda.synchronize()
+    say(f"init_params (qwen2-0.5b full width, bf16) {time.perf_counter() - t0:.2f} s")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, arch.config.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
+    ideal, smwa = ideal_dpu(), smwa_dpu()
+    out, gates = {"rank": rank}, {}
+    runs, logits = {}, {}
+    for label, dpu, m, profile in (
+        ("ideal_tp1", ideal, None, False), ("ideal", ideal, mesh, True),
+        ("smwa_tp1", smwa, None, False), ("smwa", smwa, mesh, False), ("smwa_again", smwa, mesh, False),
+    ):
+        reqs, res = tp_serve(torch, arch, params, dpu, prompts, m, rank, card, label, profile=profile)
+        logits[label] = _logits_of(reqs)
+        runs[label] = res
+        tp = m is not None
+        want = 6 * n_layers * res["forwards"]
+        counts = ((res["launches"]["photonic_gemm"], res["all_reduces"], res["launches"]["photonic_gemm_fused"])
+                  == ((want, want, 0) if tp else (0, 0, want)))
+        gates[f"{label} done, finite, launches"] = res["done"] and res["finite"] and counts
+        say(f"{label}: {res['engine']}: {res['seconds']:.3f} s, prefill {res['prefill_s']:.3f} s, decode "
+            f"{res['decode_ms_per_step']:.2f} ms/step over {res['decode_steps'] - 2} steps (2 set apart); "
+            f"photonic_gemm launches {res['launches']['photonic_gemm']}, all-reduces {res['all_reduces']}, fused "
+            f"{res['launches']['photonic_gemm_fused']} for {res['forwards']} forwards "
+            f"(want {'unfused = all-reduces' if tp else 'fused'} {want}): {counts} [{card}]")
+        if res["profile"] is not None:
+            say(f"{label}: {res['launches_per_decode_step']:.0f} launches a decode step, device busy "
+                f"{res['device_busy_share']:.1%} (torch profiler, two decode steps) [{card}]")
+        torch.cuda.empty_cache()
+    out["runs"] = runs
+    gates["ideal TP=2 tokens == TP=1 tokens"] = runs["ideal"]["tokens"] == runs["ideal_tp1"]["tokens"]
+    gates["ideal TP=2 logits == TP=1 logits"] = bool(np.array_equal(logits["ideal"], logits["ideal_tp1"]))
+    gates["smwa TP=2 deterministic (tokens, logits)"] = (
+        runs["smwa"]["tokens"] == runs["smwa_again"]["tokens"]
+        and bool(np.array_equal(logits["smwa"], logits["smwa_again"])))
+    gates["smwa TP=2 logits != unsharded"] = not np.array_equal(logits["smwa"], logits["smwa_tp1"])
+    out["smwa_tokens_equal_unsharded"] = runs["smwa"]["tokens"] == runs["smwa_tp1"]["tokens"]
+    out["ideal_tokens_equal_serve_phase"] = runs["ideal"]["tokens"] == serve_tokens
+    out["digests"] = {k: hashlib.sha256(v.tobytes()).hexdigest()[:16] for k, v in logits.items()}
+    del logits
+    # lm_logits at the oneshot phase's shape: TP = 2 bitwise TP = 1.
+    import repro_torch.serving as serving
+
+    cfg = dataclasses.replace(arch.config, photonic=ideal, photonic_backend="kernel")
+    tokens = torch.as_tensor(np.random.default_rng(1).integers(0, arch.config.vocab_size, (2, 1000)), device="cuda")
+    got = {}
+    with torch.no_grad():
+        for label, m in (("tp1", None), ("tp", mesh)):
+            _, packed = serving.prepack_serving_params(arch, cfg, params, mesh=m)
+            torch.cuda.synchronize()
+            K.reset_launches()
+            contracts.reset_all_reduces()
+            t0 = time.perf_counter()
+            with tensor_parallel(m, "model") if m is not None else contextlib.nullcontext():
+                got[label], _ = lm.lm_logits(packed, tokens, cfg)
+            torch.cuda.synchronize()
+            dt = time.perf_counter() - t0
+            runs[f"lm_logits_{label}"] = dict(seconds=dt, launches=dict(K.LAUNCHES),
+                                              all_reduces=contracts.ALL_REDUCES["psum_int_gemm"])
+            say(f"lm_logits B=2 T=1000 {label}: {dt:.3f} s, photonic_gemm {K.LAUNCHES['photonic_gemm']}, fused "
+                f"{K.LAUNCHES['photonic_gemm_fused']}, all-reduces {contracts.ALL_REDUCES['psum_int_gemm']} [{card}]")
+            del packed
+    want = 6 * n_layers
+    gates["lm_logits TP=2 == TP=1 bitwise"] = bool(torch.equal(got["tp"], got["tp1"]))
+    gates["lm_logits launches"] = (
+        (runs["lm_logits_tp"]["launches"]["photonic_gemm"], runs["lm_logits_tp"]["all_reduces"],
+         runs["lm_logits_tp1"]["launches"]["photonic_gemm_fused"]) == (want, want, want))
+    gates["lm_logits finite"] = bool(torch.isfinite(got["tp"].float()).all())
+    out["digests"]["lm_logits"] = hashlib.sha256(got["tp"].float().cpu().numpy().tobytes()).hexdigest()[:16]
+    out["gates"] = gates
+    out["backend"] = dist.get_backend()
+    out["peak_bytes"] = torch.cuda.max_memory_allocated()
+    for k, v in gates.items():
+        say(f"{k}: {v}")
+    return out
+
+
+def tp_child(serve_tokens):
+    """``chip_smoke.py --phase tp``: two ranks of :func:`tp_rank` on the one
+    card over ``gloo`` with CUDA tensors (NCCL refuses two ranks on one
+    device), started by ``repro_torch.launch.mesh.spawn``.  Gates: each
+    rank's own, and the ranks' tokens and logits equal.  Returns (ok,
+    result, launches summed over the ranks)."""
+    from repro_torch.launch.mesh import spawn
+
+    backend = "gloo"
+    log(f"  tp: {TP_SHARDS} ranks on one card, backend {backend}, CUDA tensors")
+    res = spawn(tp_rank, TP_SHARDS, backend=backend, device="cuda", args=(serve_tokens,), timeout=600)
+    ok = all(all(r["gates"].values()) for r in res)
+    same = all(r["runs"][k]["tokens"] == res[0]["runs"][k]["tokens"] for r in res for k in ("ideal", "smwa"))
+    same_logits = all(r["digests"] == res[0]["digests"] for r in res)
+    log(f"  tp: every rank's gates {ok}; tokens equal across ranks {same}; logits equal across ranks "
+        f"{same_logits}; ideal TP=2 tokens == the serve phase's (chunked prefill of 64 tokens, information "
+        f"only) {res[0]['ideal_tokens_equal_serve_phase']}; SMWA TP=2 tokens == unsharded SMWA tokens "
+        f"{res[0]['smwa_tokens_equal_unsharded']}")
+    for i, tok in enumerate(res[0]["runs"]["ideal"]["tokens"]):
+        log(f"    uid {i}: TP=2 {tok} TP=1 {res[0]['runs']['ideal_tp1']['tokens'][i]}")
+    launches = {"photonic_gemm": sum(r["runs"][k]["launches"]["photonic_gemm"] for r in res
+                                     for k in ("ideal", "smwa", "smwa_again", "lm_logits_tp"))}
+    return ok and same and same_logits, {"backend": backend, "ranks": res}, launches
 
 
 def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
@@ -3286,6 +3630,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"]):
         return child(sys.argv[2])
+    if sys.argv[1:3] == ["--phase", "tp"] and len(sys.argv) == 4:
+        return child("tp", sys.argv[3])
     setup(torch)
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
@@ -3518,6 +3864,14 @@ def main() -> int:
     del params
     torch.cuda.empty_cache()
 
+    tp_rows = []
+    with Phase("tp"):
+        rows_ok, tp_sums = tp_kernel_rows(torch, K, chans, key, gen, tp_rows, card)
+        all_ok &= rows_ok
+        serve_tokens = json.dumps([[int(t) for t in r.output] for r in results["ideal"][0]])
+        tp_ok, tp_res, tp_launches = run_child(card, "tp", timeout=700, args=[serve_tokens])
+        all_ok &= tp_ok
+
     with Phase("dense serve"):
         dense_ok, dense, dense_peak = dense_serve_phase(torch, registry, card)
         all_ok &= dense_ok
@@ -3717,6 +4071,19 @@ def main() -> int:
             case=f"{what}: six qwen2-0.5b sites, R=64, ideal channel, the whole ops call in a CUDA graph; launches "
                  "from the analytic phase's ops main path (ideal and SMWA; photonic_gemm_int also at tile_c=256)",
         ))
+    # The tp phase's row: one shard's six unfused GEMMs of a qwen2-0.5b layer
+    # at R = 64, ideal channel, K-sharded over two shards; launches from the
+    # tp phase's K-sharded serve and lm_logits runs, summed over the ranks.
+    sm = tp_sums["qwen2-0.5b ideal R=64"]
+    kernels.append(dict(
+        name="photonic_gemm", route="cuda", source=FUSED_SRC,
+        replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=tp_launches["photonic_gemm"],
+        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"],
+        bound_by=op_or_bytes(sm["bound_by"]), library_ms=sm["library_ms"],
+        case=f"tensor-parallel: one shard of {TP_SHARDS} of a qwen2-0.5b layer's six sites (K_local 448 / 2432), "
+             "R=64, ideal channel, shard_local_engine.int_gemm(shard=i); library: torch._int_mm of the shard's "
+             "int cores; launches from the tp phase's K-sharded Engine and lm_logits runs, both ranks",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -3728,7 +4095,8 @@ def main() -> int:
          "cross": {"kernel_rows": cross_rows, "sums": cross_sums, "flash_rows": cross_flash, **cross},
          "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec},
          "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam},
-         "analytic": {"ops_rows": ops_out, **analytic}}, indent=1))
+         "analytic": {"ops_rows": ops_out, **analytic},
+         "tp": {"kernel_rows": tp_rows, "sums": tp_sums, **tp_res}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

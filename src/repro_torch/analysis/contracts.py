@@ -6,6 +6,11 @@ weight-sized arrays in a traced jaxpr; PyTorch runs eagerly, so the port
 counts ``aten.round`` calls on *weight-shaped* tensors — the logical
 ``(K, C)`` or stored ``(Kp, Cp)`` shape of a routed weight — while the code
 runs, with a ``TorchDispatchMode``.
+
+:data:`ALL_REDUCES` counts the collectives of tensor-parallel execution:
+``repro_torch.photonic.sharded.psum_int_gemm`` adds one for each int32
+all-reduce it issues, the forward counterpart of the reference
+``ContractChecker``'s "one psum per routed GEMM".
 """
 
 from __future__ import annotations
@@ -14,6 +19,14 @@ from typing import Any, Iterable, Set, Tuple
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
+
+
+ALL_REDUCES = {"psum_int_gemm": 0}
+
+
+def reset_all_reduces() -> None:
+    for name in ALL_REDUCES:
+        ALL_REDUCES[name] = 0
 
 
 class WeightRoundCounter(TorchDispatchMode):
@@ -34,7 +47,8 @@ class WeightRoundCounter(TorchDispatchMode):
 
 
 def weight_shapes(params: Any) -> Set[Tuple[int, ...]]:
-    """Logical and stored shapes of every prepacked weight in a tree."""
+    """Logical and stored shapes of every prepacked weight in a tree (a
+    K-sharded pack's shard-local ``(K/shards, C)`` among them)."""
     from repro_torch.photonic.packing import PackedDense
 
     shapes: Set[Tuple[int, ...]] = set()
@@ -42,6 +56,7 @@ def weight_shapes(params: Any) -> Set[Tuple[int, ...]]:
     def walk(node):
         if isinstance(node, PackedDense):
             shapes.add((node.k, node.c))
+            shapes.add((node.k_local, node.c))
             shapes.add(tuple(node.wq.shape))
         elif isinstance(node, dict):
             for v in node.values():

@@ -21,7 +21,7 @@ import torch
 from repro_torch import platforms as _platforms
 from repro_torch.core import scalability
 from repro_torch.kernels.photonic_gemm.ref import photonic_gemm_ref
-from repro_torch.noise.channel import ChannelModel
+from repro_torch.noise.channel import ChannelModel, shard_local_channel
 from repro_torch.noise.stages import data_tweak, seed_from_key
 from repro_torch.orgs import OrgSpec, resolve
 
@@ -101,6 +101,22 @@ class DPUConfig:
                 platform=self.platform,
             )
         return None
+
+    def shard_local(self, k_local: int) -> "DPUConfig":
+        """The operating point of one shard of a K-sharded GEMM: the DPE
+        fan-in clamped to ``N_local = min(N, K_local)`` and the channel
+        rebuilt there (:func:`~repro_torch.noise.channel.shard_local_channel`).
+        An ideal config only clamps the chunk size, which is numerically
+        inert.  Reference: ``repro.core.dpu:DPUConfig.shard_local``."""
+        n_local = min(self.n, max(int(k_local), 1))
+        updates: dict = {}
+        if self.dpe_size != n_local:
+            updates["dpe_size"] = n_local
+        if self.channel is not None:
+            ch = shard_local_channel(self.channel, n_local)
+            if ch is not self.channel:
+                updates["channel"] = ch
+        return dataclasses.replace(self, **updates) if updates else self
 
     def noise_seed_array(self, prng_key=None, *, what: str = "noise") -> int:
         """uint32 stream seed (a Python int) from ``prng_key`` or

@@ -259,13 +259,19 @@ def dense(
     prng_key: Any = None,
 ) -> torch.Tensor:
     """Linear layer; routes through the photonic engine when enabled.
-    Reference: ``repro.models.common:dense`` (single-device branch; the
-    tensor-parallel branch waits for its slice).  Bias and activation ride
+    Reference: ``repro.models.common:dense``.  Bias and activation ride
     the engine's fused epilogue; ``slicing`` overrides
     ``cfg.photonic_slicing`` for this GEMM; ``prng_key`` (a
     :mod:`repro_torch.prng` key) is the noise source, winning over
-    ``DPUConfig.noise_seed``."""
+    ``DPUConfig.noise_seed``.
+
+    Under an active tensor-parallel scope
+    (:func:`repro_torch.photonic.sharded.tensor_parallel` / ``manual_tp``)
+    routed GEMMs K-shard over the mesh axis: shard-local channel at
+    ``N_local``, (site, layer, shard)-folded noise, an int32 all-reduce —
+    bitwise the single-device path under an ideal channel."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
+    from repro_torch.photonic import sharded as tp
 
     if epilogue is not None:
         if activation is not None:
@@ -278,6 +284,11 @@ def dense(
     bias = params.get("b")
     ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
     eng = engine_from_model_config(cfg)
+    y = tp.maybe_tp_matmul(
+        eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing,
+    )
+    if y is not None:
+        return y
     return _single_device_matmul(
         eng, params, params["w"], x, cfg, site=site, layer=layer, epilogue=ep, slicing=slicing,
         prng_key=prng_key,

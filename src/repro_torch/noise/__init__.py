@@ -5,6 +5,7 @@ from repro_torch.noise.channel import (
     ChannelModel,
     analog_pass_psums,
     build_channel_model,
+    shard_local_channel,
     sliced_channel,
 )
 from repro_torch.noise.stages import (
@@ -28,5 +29,6 @@ __all__ = [
     "hash_mix32",
     "neighbor_sum",
     "seed_from_key",
+    "shard_local_channel",
     "sliced_channel",
 ]

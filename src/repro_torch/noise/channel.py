@@ -4,8 +4,8 @@ Port of ``repro.noise.channel``.  :class:`ChannelModel` and
 :func:`build_channel_model` are pure Python and reproduce the reference
 field for field; :func:`analog_pass_psums` is the oracle-side analog pass
 in PyTorch; :func:`sliced_channel` is the channel one plane pass of the
-bit-sliced mode sees.  ``shard_local_channel`` waits for the
-tensor-parallel slice of the port.
+bit-sliced mode sees, :func:`shard_local_channel` the channel one shard of
+a K-sharded (tensor-parallel) GEMM sees.
 """
 
 from __future__ import annotations
@@ -263,6 +263,43 @@ def _rebuilder(builder: tuple):
         )
 
     return rebuild
+
+
+def shard_local_channel(channel: ChannelModel, n_local: int) -> ChannelModel:
+    """The channel model one shard of a K-sharded GEMM sees: the fan-in
+    shrinks to ``N_local = min(N, K/shards)``, and with it the through
+    loss, the propagation length, the delivered power and so the detector
+    sigma, while the crosstalk couplings and the ADC carry over.
+
+    A no-op at ``n_local >= channel.n``.  A model made by
+    :func:`build_channel_model` is rebuilt from its recorded arguments at
+    ``n_local``, then the caller's couplings, filter alpha and ADC bits are
+    put back (so disabled stages stay disabled) and a sigma the caller
+    replaced survives; a hand-made model keeps its magnitudes and only
+    shrinks its geometry.  Reference:
+    ``repro.noise.channel:shard_local_channel``."""
+    n_local = max(int(n_local), 1)
+    if n_local >= channel.n:
+        return channel
+    if channel.builder is None:
+        return dataclasses.replace(
+            channel,
+            n=n_local,
+            num_wavelengths=min(channel.num_wavelengths, n_local),
+        )
+    rebuild = _rebuilder(channel.builder)
+    rebuilt = rebuild(n_local)
+    sigma = rebuilt.detector_sigma_lsb
+    if channel.detector_sigma_lsb != rebuild(channel.n).detector_sigma_lsb:
+        sigma = channel.detector_sigma_lsb
+    return dataclasses.replace(
+        rebuilt,
+        intermod_eps=channel.intermod_eps,
+        crossweight_eps=channel.crossweight_eps,
+        filter_alpha=channel.filter_alpha,
+        adc_bits=channel.adc_bits,
+        detector_sigma_lsb=sigma,
+    )
 
 
 def sliced_channel(channel: ChannelModel, plane_bits: int) -> ChannelModel:

@@ -1,6 +1,6 @@
 """`repro_torch.photonic` — port of `repro.photonic`: the weight-stationary
 photonic execution engine, its bit-sliced mode, and one-time weight
-prepacking."""
+prepacking, and its tensor-parallel (K-sharded) execution."""
 
 from repro_torch.kernels.photonic_gemm.epilogue import (
     ACTIVATIONS,
@@ -22,6 +22,12 @@ from repro_torch.photonic.packing import (
     pack_dense,
     prepack_params,
 )
+from repro_torch.photonic.sharded import (
+    manual_tp,
+    psum_int_gemm,
+    shard_local_engine,
+    tensor_parallel,
+)
 from repro_torch.photonic.slicing import SlicingSpec, resolve_slicing
 
 __all__ = [
@@ -38,7 +44,11 @@ __all__ = [
     "as_epilogue",
     "engine_for",
     "fuse_qkv_params",
+    "manual_tp",
     "pack_dense",
     "prepack_params",
+    "psum_int_gemm",
     "resolve_slicing",
+    "shard_local_engine",
+    "tensor_parallel",
 ]

@@ -82,9 +82,15 @@ from repro_torch.photonic.slicing import SlicingSpec, resolve_slicing
 
 BACKENDS = ("ref", "kernel", "exact")
 
+# Stream-domain tag folded in ahead of the shard index of a K-sharded GEMM,
+# so the (site, fold=i) and (site, shard=i) streams never coincide.
+# Reference: ``repro.photonic.engine:SHARD_STREAM_TAG``.
+SHARD_STREAM_TAG = 0x5348
+
 # Stream-domain tag folded in ahead of the plane-pair index of a sliced GEMM,
 # so plane streams decorrelate from each other and never collide with a
-# layer-fold stream.  Reference: ``repro.photonic.engine:PLANE_STREAM_TAG``.
+# layer-fold or shard stream.  Reference:
+# ``repro.photonic.engine:PLANE_STREAM_TAG``.
 PLANE_STREAM_TAG = 0x504C
 
 
@@ -298,26 +304,35 @@ class PhotonicEngine:
         )
 
     # -- seed derivation -----------------------------------------------------
-    def _site_key(self, site: Optional[str], fold: Optional[int], prng_key):
-        """``prng_key`` with the site hash and the layer index folded in
-        (``jax.random.fold_in`` on the host)."""
+    def _site_key(self, site: Optional[str], fold: Optional[int], prng_key, shard: Optional[int] = None):
+        """``prng_key`` with the site hash, the layer index and
+        ``(SHARD_STREAM_TAG, shard)`` folded in (``jax.random.fold_in`` on
+        the host)."""
         key = prng.key_data(prng_key)
         if site is not None:
             key = prng.fold_in(key, site_hash(site) & 0x7FFFFFFF)
         if fold is not None:
             key = prng.fold_in(key, int(fold))
+        if shard is not None:
+            key = prng.fold_in(prng.fold_in(key, SHARD_STREAM_TAG), int(shard))
         return key
 
     def _site_seed(
-        self, site: Optional[str], fold: Optional[int], prng_key, plane: Optional[int] = None
+        self,
+        site: Optional[str],
+        fold: Optional[int],
+        prng_key,
+        plane: Optional[int] = None,
+        shard: Optional[int] = None,
     ) -> int:
         """The stream seed before the operands' content words (a host
-        integer).  A key wins over ``noise_seed``: site hash, layer index
-        and ``(PLANE_STREAM_TAG, plane)`` are folded into the key, which
-        then collapses through ``seed_from_key``; without one they are
-        folded into ``noise_seed`` by ``fold_seed``."""
+        integer).  A key wins over ``noise_seed``: site hash, layer index,
+        ``(SHARD_STREAM_TAG, shard)`` and ``(PLANE_STREAM_TAG, plane)`` are
+        folded into the key, which then collapses through
+        ``seed_from_key``; without one they are folded into ``noise_seed``
+        by ``fold_seed`` in the same order."""
         if prng_key is not None:
-            key = self._site_key(site, fold, prng_key)
+            key = self._site_key(site, fold, prng_key, shard)
             if plane is not None:
                 key = prng.fold_in(prng.fold_in(key, PLANE_STREAM_TAG), plane)
             return seed_from_key(key)
@@ -326,11 +341,13 @@ class PhotonicEngine:
             seed = fold_seed(seed, site_hash(site))
         if fold is not None:
             seed = fold_seed(seed, int(fold))
+        if shard is not None:
+            seed = fold_seed(seed, SHARD_STREAM_TAG, int(shard))
         if plane is not None:
             seed = fold_seed(seed, PLANE_STREAM_TAG, plane)
         return seed
 
-    def _plane_seeds(self, site, fold, prng_key, n: int, device) -> torch.Tensor:
+    def _plane_seeds(self, site, fold, prng_key, n: int, device, shard: Optional[int] = None) -> torch.Tensor:
         """:meth:`_site_seed` of plane passes ``0 .. n-1`` (int64 ``(n,)``
         on ``device``), as one vectorized fold on the device (no host copy,
         so a CUDA graph can hold it): ``fold_seed`` of the plane ids without
@@ -339,8 +356,8 @@ class PhotonicEngine:
         ``seed_from_key`` elementwise."""
         ids = torch.arange(n, dtype=torch.int64, device=device)
         if prng_key is None:
-            return fold_seed(self._site_seed(site, fold, None), PLANE_STREAM_TAG, ids)
-        k1, k2 = (int(w) for w in prng.fold_in(self._site_key(site, fold, prng_key), PLANE_STREAM_TAG))
+            return fold_seed(self._site_seed(site, fold, None, shard=shard), PLANE_STREAM_TAG, ids)
+        k1, k2 = (int(w) for w in prng.fold_in(self._site_key(site, fold, prng_key, shard), PLANE_STREAM_TAG))
         return seed_from_key_words(*prng.threefry2x32(k1, k2, torch.zeros_like(ids), ids))
 
     def stream_seed(
@@ -353,14 +370,17 @@ class PhotonicEngine:
         w_word: Optional[torch.Tensor] = None,
         prng_key=None,
         plane: Optional[int] = None,
+        shard: Optional[int] = None,
     ) -> torch.Tensor:
         """uint32 noise-stream seed for one GEMM call (0-dim int64 on the
         operands' device).  Reference: ``repro.photonic.engine:
-        PhotonicEngine.stream_seed``: site hash, layer index and, for a
-        plane pass, ``(PLANE_STREAM_TAG, plane)`` folded on the host into
+        PhotonicEngine.stream_seed``: site hash, layer index, for one shard
+        of a K-sharded GEMM ``(SHARD_STREAM_TAG, shard)`` and for a plane
+        pass ``(PLANE_STREAM_TAG, plane)`` folded on the host into
         ``prng_key`` (which wins) or ``noise_seed``, then the operands'
-        content words (``w_word`` is the prepacked weight's, if known)."""
-        seed = self._site_seed(site, fold, prng_key, plane)
+        content words (``w_word`` is the prepacked weight's, if known).
+        ``shard=None, plane=None`` is the unsharded, unsliced stream."""
+        seed = self._site_seed(site, fold, prng_key, plane, shard)
         return fold_words(seed, tweak_word(xq), tweak_word(wq) if w_word is None else w_word)
 
     # -- integer datapath ----------------------------------------------------
@@ -371,6 +391,7 @@ class PhotonicEngine:
         *,
         site: Optional[str] = None,
         fold: Optional[int] = None,
+        shard: Optional[int] = None,
         plane: Optional[int] = None,
         logical_kc: Optional[Tuple[int, int]] = None,
         tiling: Optional[Tuple[int, int, int]] = None,
@@ -384,8 +405,9 @@ class PhotonicEngine:
         """Integer GEMM through the DPU datapath; int32 ``(R, C)``, or f32
         with ``epilogue`` (the fused hot path; ``xq`` may then be a float
         activation, quantized in the kernel prologue on the ``kernel``
-        backend and digitally elsewhere).  ``plane`` is the plane-pair
-        index of one pass of a sliced GEMM (it only perturbs the noise
+        backend and digitally elsewhere).  ``shard`` is the index of one
+        K-shard of a tensor-parallel GEMM and ``plane`` the plane-pair
+        index of one pass of a sliced GEMM (both only perturb the noise
         stream); ``slicing`` overrides the engine's mode for this call
         (``"none"`` forces the unsliced datapath; the ``exact`` backend
         ignores slicing, the decomposition being exact); ``pack`` is the
@@ -396,7 +418,7 @@ class PhotonicEngine:
         mode = self.slicing if slicing is None else resolve_slicing(slicing)
         if mode is not None and self.backend != "exact":
             return self._sliced_int_gemm(
-                mode, xq, wq, site=site, fold=fold, logical_kc=logical_kc,
+                mode, xq, wq, site=site, fold=fold, shard=shard, logical_kc=logical_kc,
                 tile_r=tile_r, tile_c=tile_c, epilogue=epilogue, pack=pack, prng_key=prng_key,
             )
         k, c = logical_kc if logical_kc is not None else tuple(wq.shape[-2:])
@@ -420,7 +442,7 @@ class PhotonicEngine:
 
         seed = (
             self.stream_seed(site, fold, xq, wq, w_word=None if pack is None else pack.w_word,
-                             prng_key=prng_key, plane=plane)
+                             prng_key=prng_key, plane=plane, shard=shard)
             if noisy
             else None
         )
@@ -473,6 +495,7 @@ class PhotonicEngine:
         *,
         site,
         fold,
+        shard=None,
         logical_kc,
         tile_r,
         tile_c,
@@ -523,7 +546,7 @@ class PhotonicEngine:
             w_pl, w_words = plane_operands(wq[:k, :c], p, planes, (kp, cp), noisy)
         seeds = None
         if noisy:
-            base = pe._plane_seeds(site, fold, prng_key, planes * planes, xq.device)
+            base = pe._plane_seeds(site, fold, prng_key, planes * planes, xq.device, shard)
             seeds = fold_words(base.reshape(planes, planes), x_words[:, None], w_words[None, :])
             seeds = seed_words(seeds.reshape(-1))
         channel = pcfg.effective_channel()
@@ -586,8 +609,15 @@ class PhotonicEngine:
         """Float GEMM against a prepacked weight — the weight-stationary hot
         path; differentiable in ``x`` and the bias (the int8 bank is frozen
         and its scale gets a zero gradient); ``slicing`` overrides the
-        engine's mode for this call.  Reference:
+        engine's mode for this call.  A K-sharded pack runs only under
+        :func:`~repro_torch.photonic.sharded.tensor_parallel` at its degree
+        and raises here.  Reference:
         ``repro.photonic.engine:PhotonicEngine.matmul``."""
+        if packed.shards != 1:
+            raise ValueError(
+                f"{packed!r} is K-sharded: it runs under "
+                "repro_torch.photonic.sharded.tensor_parallel with a mesh axis of its size"
+            )
         spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
         eng = self if slicing is None else self.with_slicing(slicing)
         if not eng.routes(site):

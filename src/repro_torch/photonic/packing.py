@@ -1,13 +1,16 @@
 """One-time weight prepacking for the weight-stationary photonic engine.
 
-Port of ``repro.photonic.packing`` (unsharded layout; the K-sharded banks
-wait for their slice).  :func:`prepack_params` walks a parameter tree
-against its definition tree and replaces every routed dense weight with a
-:class:`PackedDense`: per-column int8 weights (bitwise the per-call
-``quantize_symmetric(w, bits, axis=0)``), stored tile-padded in the
+Port of ``repro.photonic.packing``.  :func:`prepack_params` walks a
+parameter tree against its definition tree and replaces every routed dense
+weight with a :class:`PackedDense`: per-column int8 weights (bitwise the
+per-call ``quantize_symmetric(w, bits, axis=0)``), stored tile-padded in the
 kernel's ``(Kp, Cp)`` layout for the ``kernel`` backend, plus — for a noisy
 channel — the weight's content word for the noise-stream seed, computed
-once here instead of on every decode step.  A pack also caches, per plane
+once here instead of on every decode step.  With ``shards > 1`` the bank is
+stored K-sharded for tensor-parallel execution
+(:mod:`repro_torch.photonic.sharded`): quantized globally, split into
+``shards`` row blocks each tile-padded for the shard-local engine; under a
+mesh each rank keeps only its own block.  A pack also caches, per plane
 width, the planes of its bank and their words for bit-sliced execution
 (:meth:`PackedDense.planes`).  :func:`fuse_qkv_params` fuses an attention
 dict's Q/K/V projections into one ``wqkv`` bank.  :func:`reprogram_cost`
@@ -24,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core.dpu import quantize_symmetric
-from repro_torch.noise.stages import tweak_word
+from repro_torch.noise.stages import tweak_word, tweak_words
 from repro_torch.photonic.engine import PhotonicEngine, pallas_tiling, plane_operands
 
 
@@ -61,14 +64,21 @@ def reprogram_cost(
 
 class PackedDense:
     """A prepacked dense weight.  Reference:
-    ``repro.photonic.packing:PackedDense`` (``shards`` is always 1 here).
+    ``repro.photonic.packing:PackedDense``.
 
     ``wq`` int8 ``(K, C)`` or tile-padded ``(Kp, Cp)`` when ``tiling`` is
-    set; ``w_scale`` f32 ``(C,)``; ``k, c`` the logical dims; ``w_word`` the
-    0-dim int64 content word of ``wq`` (or None when no stream needs it).
+    set; with ``shards > 1`` the concatenation of the per-shard banks,
+    ``(shards * Kp_local, Cp)``, each tile-padded for its shard-local
+    ``tiling`` (``(K, C)`` rows in order without one).  ``shard`` is set
+    when the pack holds only that shard's block (a rank's share under a
+    mesh): ``wq`` is then ``(Kp_local, Cp)``.  ``w_scale`` f32 ``(C,)``,
+    always the global per-column scale; ``k, c`` the logical global dims;
+    ``w_word`` the content word the noise stream folds for the bank (0-dim
+    int64; int64 ``(shards,)``, one word a block, when sharded), or None
+    when no stream needs it.
     """
 
-    __slots__ = ("wq", "w_scale", "k", "c", "tiling", "shards", "w_word", "_planes")
+    __slots__ = ("wq", "w_scale", "k", "c", "tiling", "shards", "w_word", "shard", "_planes", "_views")
 
     def __init__(
         self,
@@ -79,12 +89,10 @@ class PackedDense:
         tiling: Optional[Tuple[int, int, int]] = None,
         shards: int = 1,
         w_word: Optional[torch.Tensor] = None,
+        shard: Optional[int] = None,
     ):
-        if shards != 1:
-            raise NotImplementedError(
-                "K-sharded packs wait for the tensor-parallel slice "
-                "(ROADMAP.md Queue 1, 'Tensor parallel')"
-            )
+        if shard is not None and not 0 <= shard < shards:
+            raise ValueError(f"shard={shard} outside [0, {shards})")
         self.wq = wq
         self.w_scale = w_scale
         self.k = k
@@ -92,7 +100,56 @@ class PackedDense:
         self.tiling = tiling
         self.shards = shards
         self.w_word = w_word
+        self.shard = shard
         self._planes = {}
+        self._views = {}
+
+    @property
+    def k_local(self) -> int:
+        """Per-shard logical contraction length."""
+        return self.k // self.shards
+
+    def _block_rows(self, parts: int) -> int:
+        """Stored rows of one of ``parts`` row blocks."""
+        if self.tiling is not None:
+            return self.wq.shape[-2] // (1 if self.shard is not None else self.shards)
+        return self.k // parts
+
+    def local(self, i: int, parts: int) -> "PackedDense":
+        """Block ``i`` of ``parts`` K-blocks as an unsharded pack over the
+        logical ``(K/parts, C)``: a K-sharded pack's own bank (``parts`` is
+        its ``shards``), or rows of an unsharded raw ``(K, C)`` bank; the
+        global scale, the block's content word when the pack carries
+        words.  Cached, so a block's planes and words are made once."""
+        if i not in self._views:
+            if self.shard is not None and i != self.shard:
+                raise ValueError(f"this pack holds shard {self.shard} only, not shard {i}")
+            if self.shards not in (1, parts) or (self.tiling is not None and self.shards != parts):
+                raise ValueError(f"{self!r} cannot be split into {parts} K-blocks")
+            rows = self._block_rows(parts)
+            start = 0 if self.shard is not None else i * rows
+            wq = self.wq[start : start + rows]
+            k_local = self.k // parts
+            if self.tiling is None:
+                wq = wq[:, : self.c]
+            word = None
+            if self.shards > 1 and self.w_word is not None:
+                word = self.w_word[i]
+            self._views[i] = PackedDense(wq.contiguous(), self.w_scale, k_local, self.c, self.tiling, 1, word)
+        return self._views[i]
+
+    def only(self, i: int) -> "PackedDense":
+        """This K-sharded pack reduced to shard ``i``'s block (what a rank
+        keeps under a mesh)."""
+        if self.shards == 1:
+            raise ValueError("only() takes a K-sharded pack")
+        if self.shard is not None:
+            if i != self.shard:
+                raise ValueError(f"this pack holds shard {self.shard} only, not shard {i}")
+            return self
+        rows = self._block_rows(self.shards)
+        wq = self.wq[i * rows : (i + 1) * rows].contiguous()
+        return PackedDense(wq, self.w_scale, self.k, self.c, self.tiling, self.shards, self.w_word, i)
 
     def planes(self, plane_bits: int, planes: int, shape: Tuple[int, int], with_words: bool):
         """The bit-sliced mode's weight operands, cached per plane width:
@@ -108,14 +165,24 @@ class PackedDense:
         return self._planes[key]
 
     def dequant(self) -> torch.Tensor:
-        """The float32 weight this pack represents (logical K x C)."""
-        wq = self.wq[: self.k, : self.c]
+        """The float32 weight this pack represents (logical K x C); for a
+        pack that holds one shard's block, that block's ``(K/shards, C)``
+        rows."""
+        if self.shard is not None:
+            wq = self.wq[: self.k_local, : self.c]
+        elif self.shards > 1:
+            rows = self.wq.shape[-2] // self.shards
+            wq = self.wq.reshape(self.shards, rows, self.wq.shape[-1])[:, : self.k_local, : self.c]
+            wq = wq.reshape(self.k, self.c)
+        else:
+            wq = self.wq[: self.k, : self.c]
         return wq.to(torch.float32) * self.w_scale.to(torch.float32)[None, :]
 
     def __repr__(self):
+        held = "" if self.shard is None else f", shard={self.shard}"
         return (
             f"PackedDense(k={self.k}, c={self.c}, stored={tuple(self.wq.shape)}, "
-            f"tiling={self.tiling}, shards={self.shards})"
+            f"tiling={self.tiling}, shards={self.shards}{held})"
         )
 
 
@@ -141,9 +208,17 @@ def _is_dense_def(node: Any) -> bool:
     return not isinstance(w, dict) and hasattr(w, "shape") and len(w.shape) >= 2
 
 
-def pack_dense(params: dict, engine: PhotonicEngine, *, already_quantized: bool = False) -> dict:
+def pack_dense(
+    params: dict, engine: PhotonicEngine, *, already_quantized: bool = False, shards: int = 1
+) -> dict:
     """Pack one dense-layer param dict ``{"w", ["w_scale"], ["b"]}``.
-    Reference: ``repro.photonic.packing:pack_dense`` (``shards=1``)."""
+    Reference: ``repro.photonic.packing:pack_dense``.
+
+    ``shards > 1`` stores the K-sharded layout: the quantization stays
+    global (bitwise scales), then the int8 bank splits into ``shards`` row
+    blocks of ``K/shards``, each tile-padded for the shard-local engine
+    (``pallas_tiling`` of ``dpu.shard_local(K/shards)``), concatenated; a
+    noisy engine's pack carries one content word a block."""
     w = params["w"]
     if already_quantized or "w_scale" in params:
         wq = w
@@ -152,15 +227,26 @@ def pack_dense(params: dict, engine: PhotonicEngine, *, already_quantized: bool 
         wq, s = quantize_symmetric(w, engine.dpu.operand_bits, axis=-2)
         scale = s.squeeze(-2)
     k, c = wq.shape[-2], wq.shape[-1]
+    if shards > 1 and k % shards:
+        raise ValueError(f"K={k} is not divisible by shards={shards}")
+    k_local = k // shards
     tiling = None
     if engine.backend == "kernel":
-        n_chunk, tile_k, tile_c = pallas_tiling(engine.dpu, k, c)
-        kp = -(-k // tile_k) * tile_k
+        tile_dpu = engine.dpu.shard_local(k_local) if shards > 1 else engine.dpu
+        n_chunk, tile_k, tile_c = pallas_tiling(tile_dpu, k_local, c)
+        kp = -(-k_local // tile_k) * tile_k
         cp = -(-c // tile_c) * tile_c
-        wq = F.pad(wq, (0, cp - c, 0, kp - k)).contiguous()
+        lead = wq.shape[:-2]
+        wq = wq.reshape(*lead, shards, k_local, c)
+        wq = F.pad(wq, (0, cp - c, 0, kp - k_local)).reshape(*lead, shards * kp, cp).contiguous()
         tiling = (n_chunk, tile_k, tile_c)
-    w_word = tweak_word(wq) if engine.noisy else None
-    out = {"w": PackedDense(wq, scale, k, c, tiling, 1, w_word)}
+    w_word = None
+    if engine.noisy:
+        if shards == 1:
+            w_word = tweak_word(wq)
+        else:
+            w_word = tweak_words(wq.reshape(shards, wq.shape[-2] // shards, wq.shape[-1]))
+    out = {"w": PackedDense(wq, scale, k, c, tiling, shards, w_word)}
     if "b" in params:
         out["b"] = params["b"]
     return out
@@ -176,8 +262,8 @@ def fuse_qkv_params(attn: dict, engine: PhotonicEngine) -> dict:
     another, equally valid stream (the site is "attn.wqkv").
 
     Takes prepacked (:class:`PackedDense`), int8-stored (``w`` + per-column
-    ``w_scale``) or float parts; mixed layouts, a bias on only some of
-    Q/K/V, and a missing projection raise.  A fused pack is re-padded for
+    ``w_scale``) or float parts; mixed layouts, K-sharded packs, a bias on
+    only some of Q/K/V, and a missing projection raise.  A fused pack is re-padded for
     the ``kernel`` backend and carries the content word of the fused bank
     when the channel is noisy.  Reference:
     ``repro.photonic.packing:fuse_qkv_params``."""
@@ -196,6 +282,8 @@ def fuse_qkv_params(attn: dict, engine: PhotonicEngine) -> dict:
 
     if all(packed):
         packs = [p["w"] for p in parts]
+        if any(pk.shards != 1 for pk in packs):
+            raise ValueError("fuse_qkv_params: K-sharded packs not supported")
         k = packs[0].k
         if any(pk.k != k for pk in packs):
             raise ValueError(f"fuse_qkv_params: mismatched K {[pk.k for pk in packs]}")
@@ -229,15 +317,32 @@ def fuse_qkv_params(attn: dict, engine: PhotonicEngine) -> dict:
     return out
 
 
-def prepack_params(params: Any, defs: Any, engine: PhotonicEngine) -> Any:
+def prepack_params(
+    params: Any, defs: Any, engine: PhotonicEngine, *, mesh=None, axis: str = "model"
+) -> Any:
     """Prepack every policy-routed dense site of a parameter tree (dicts and
-    per-layer lists).  Reference: ``repro.photonic.packing:prepack_params``
-    (single device)."""
+    per-layer lists).  Reference: ``repro.photonic.packing:prepack_params``.
+
+    With ``mesh`` (a :class:`~torch.distributed.device_mesh.DeviceMesh`
+    whose ``axis`` is sized > 1) the banks take the K-sharded layout and
+    this rank keeps only its own block and the global scale, ready for
+    :mod:`repro_torch.photonic.sharded`; a site whose K the axis does not
+    divide keeps the unsharded layout (and the single-device path at call
+    time)."""
+    shards, rank = 1, 0
+    if mesh is not None and axis in (mesh.mesh_dim_names or ()):
+        shards = mesh.size(mesh.mesh_dim_names.index(axis))
+        rank = mesh.get_local_rank(axis)
 
     def walk(p, d, path):
         if _is_dense_def(d):
             if engine.routes(site_name(path)):
-                return pack_dense(p, engine, already_quantized="w_scale" in d)
+                k = p["w"].shape[-2]
+                site_shards = shards if k % shards == 0 else 1
+                packed = pack_dense(p, engine, already_quantized="w_scale" in d, shards=site_shards)
+                if site_shards > 1:
+                    packed["w"] = packed["w"].only(rank)
+                return packed
             return p
         if isinstance(d, dict):
             return {k: walk(p[k], d[k], path + (k,)) for k in d}

@@ -1,0 +1,317 @@
+"""Tensor-parallel photonic execution: shard-local channels over a mesh.
+
+Port of ``repro.photonic.sharded``.  The paper's fifth signal manipulation,
+Summation, accumulates each DPE's partial dot product in the digital
+domain; sharding a GEMM's reduction axis K over a device mesh is the same
+semantics at system scale.  Each shard evaluates its local fan-in on a
+channel rebuilt at ``N_local = min(N, K/shards)``
+(:meth:`~repro_torch.core.dpu.DPUConfig.shard_local`), folds its shard
+index into its noise stream, and the int32 partials meet in one exact
+all-reduce.
+
+The reference is single-controller: each routed GEMM wraps a
+``shard_map``.  The port is SPMD over a ``torch.distributed`` process
+group: every rank runs the whole model, replicated, on the same inputs and
+keys; at a routed GEMM a rank holds only its K block of the packed bank (or
+slices its K block of a float weight), runs the shard-local engine on the
+unfused kernel, and ``dist.all_reduce`` sums the int32 partials over the
+mesh's tensor-parallel axis; the replicated epilogue runs on the sum.  The
+activation's scale is its global abs-max, which every rank sees because
+the activation is replicated: the reference gets the same scale from a
+``pmax`` of local maxima, and max is exact in any order.
+
+Modes (both dispatch from ``models.common.dense`` via
+:func:`maybe_tp_matmul`):
+
+* :func:`tensor_parallel` ``(mesh, axis)``: the mesh's process group for
+  ``axis``; K-sharded tile-padded packs
+  (``prepack_params(mesh=...)``) run here;
+* :func:`manual_tp` ``(axis, group)``: the reference's mode for call sites
+  inside a ``shard_map`` body; here a process group given directly (the
+  default group when none), raw ``(K, C)`` banks and float weights only.
+
+Contracts (``tests/test_torch_sharded.py``): an ideal channel makes the
+K-sharded output bitwise the unsharded one; each shard's channel is
+``build_channel_model`` at its ``N_local``; noisy calls are deterministic
+per ``noise_seed`` / ``prng_key`` and decorrelate across shards.
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import functools
+import threading
+from typing import Optional
+
+import torch
+import torch.distributed as dist
+
+from repro_torch.analysis.contracts import ALL_REDUCES
+from repro_torch.core.dpu import quantize_symmetric
+from repro_torch.kernels.photonic_gemm.epilogue import apply_epilogue, as_epilogue
+from repro_torch.photonic.engine import PhotonicEngine, _ste_grads
+from repro_torch.photonic.packing import PackedDense
+
+
+# ---------------------------------------------------------------------------
+# Shard-local operating points
+# ---------------------------------------------------------------------------
+@functools.lru_cache(maxsize=None)
+def shard_local_engine(engine: PhotonicEngine, k_local: int) -> PhotonicEngine:
+    """The engine one K-shard executes: same backend and policy, the DPU
+    rebuilt at the shard-local fan-in.  Reference:
+    ``repro.photonic.sharded:shard_local_engine``."""
+    return dataclasses.replace(engine, dpu=engine.dpu.shard_local(k_local))
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel context
+# ---------------------------------------------------------------------------
+@dataclasses.dataclass(frozen=True)
+class TPContext:
+    """Active tensor-parallel scope: a mesh axis to K-shard over, and its
+    process group.  ``mesh=None`` is manual mode.  Reference:
+    ``repro.photonic.sharded:TPContext``."""
+
+    axis: str
+    mesh: Optional[object] = None  # torch.distributed.device_mesh.DeviceMesh
+    group: Optional[object] = None  # the axis's ProcessGroup; None: the default group
+
+    @property
+    def manual(self) -> bool:
+        return self.mesh is None
+
+    def process_group(self):
+        return dist.group.WORLD if self.group is None else self.group
+
+    def size(self) -> int:
+        return dist.get_world_size(self.process_group())
+
+    def rank(self) -> int:
+        """This process's index along the axis (the reference's
+        ``lax.axis_index``)."""
+        return dist.get_rank(self.process_group())
+
+
+class _Ctx(threading.local):
+    current: Optional[TPContext] = None
+
+
+_CTX = _Ctx()
+
+
+def current_tp() -> Optional[TPContext]:
+    """The active TP context, or ``None`` (single-device execution)."""
+    return _CTX.current
+
+
+@contextlib.contextmanager
+def _scope(ctx: TPContext):
+    prev = _CTX.current
+    _CTX.current = ctx
+    try:
+        yield
+    finally:
+        _CTX.current = prev
+
+
+def tensor_parallel(mesh, axis: str = "model"):
+    """Run policy-routed ``dense()`` GEMMs K-sharded over ``mesh[axis]``
+    (a :class:`~torch.distributed.device_mesh.DeviceMesh` with named axes).
+    Every rank of the axis must make the same calls in the same order.
+    Reference: ``repro.photonic.sharded:tensor_parallel``."""
+    names = tuple(mesh.mesh_dim_names or ())
+    if axis not in names:
+        raise ValueError(f"mesh has no axis {axis!r}; axes are {names}")
+    return _scope(TPContext(axis=axis, mesh=mesh, group=mesh.get_group(axis)))
+
+
+def manual_tp(axis: str = "model", group=None):
+    """TP over an explicit process group (the default group when ``group``
+    is None), the reference's mode for call sites inside a ``shard_map``
+    body: operands arrive replicated, each rank slices its K block by its
+    index in the group and the partials meet in the all-reduce.  Tile-padded
+    packs are not shardable here, as there.  Reference:
+    ``repro.photonic.sharded:manual_tp``."""
+    return _scope(TPContext(axis=axis, mesh=None, group=group))
+
+
+# ---------------------------------------------------------------------------
+# The collective core
+# ---------------------------------------------------------------------------
+def psum_int_gemm(
+    engine: PhotonicEngine,
+    xq: torch.Tensor,  # (R, K_local) int8: this shard's activation block
+    wq: torch.Tensor,  # (K_local, C) int8, or the shard's padded bank
+    *,
+    group,
+    site: Optional[str] = None,
+    fold: Optional[int] = None,
+    prng_key=None,
+    logical_kc=None,
+    tiling=None,
+    pack: Optional[PackedDense] = None,
+) -> torch.Tensor:
+    """Shard-local integer GEMM and a digital-domain int32 all-reduce over
+    ``group`` (the mesh axis's process group): Summation.  The shard runs
+    ``engine`` rebuilt at its local fan-in, folds its index in the group
+    into the noise stream (shards decorrelate), and the int32 partials add
+    exactly, so an ideal channel gives bitwise the unsharded result.
+    ``pack`` is the unsharded view of this shard's block
+    (:meth:`PackedDense.local`), whose content word and plane cache the
+    stream uses.  Adds one to ``ALL_REDUCES["psum_int_gemm"]``.  Reference:
+    ``repro.photonic.sharded:psum_int_gemm`` (whose ``axis`` is the mesh
+    axis bound in ``shard_map``)."""
+    k_local = int((logical_kc or tuple(wq.shape[-2:]))[0])
+    local = shard_local_engine(engine, k_local)
+    out = local.int_gemm(
+        xq,
+        wq,
+        site=site,
+        fold=fold,
+        shard=dist.get_rank(group),
+        prng_key=prng_key,
+        logical_kc=logical_kc,
+        tiling=tiling,
+        pack=pack,
+    ).contiguous()
+    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
+    ALL_REDUCES["psum_int_gemm"] += 1
+    return out
+
+
+def _local_x(x: torch.Tensor, bits: int, i: int, k_local: int):
+    """``x`` as rows quantized at its global abs-max (the scale every rank
+    derives, bitwise the unsharded one) and sliced to rank ``i``'s K block,
+    with that scale."""
+    xq, sx = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    return xq[:, i * k_local : (i + 1) * k_local].contiguous(), sx
+
+
+# ---------------------------------------------------------------------------
+# STE autograd wrappers
+# ---------------------------------------------------------------------------
+class _TPFloatMatmul(torch.autograd.Function):
+    """A float weight K-sharded per call.  Reference:
+    ``repro.photonic.sharded:_tp_float_matmul``: the weight quantized per
+    column at its global abs-max, each rank's K block of both operands
+    through :func:`psum_int_gemm`, the epilogue on the sum; the backward is
+    the dense straight-through one of the unsharded ``matmul_float``."""
+
+    @staticmethod
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, x, w, bias):
+        ctx.spec = spec
+        ctx.save_for_backward(x, w, bias)
+        bits = eng.dpu.operand_bits
+        k, c = w.shape
+        size, i = tp.size(), tp.rank()
+        k_local = k // size
+        xl, sx = _local_x(x, bits, i, k_local)
+        wq, sw = quantize_symmetric(w, bits, axis=0)
+        wl = wq[i * k_local : (i + 1) * k_local].contiguous()
+        out = psum_int_gemm(eng, xl, wl, group=tp.process_group(), site=site, fold=fold, prng_key=prng_key)
+        y = apply_epilogue(out, sx, sw.to(torch.float32), bias, spec)
+        return y.reshape(*x.shape[:-1], c).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, bias = ctx.saved_tensors
+        wf = w.to(torch.float32)
+        dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        dw = (x2.T @ g2).to(w.dtype)
+        return None, None, None, None, None, None, dx, dw, db
+
+
+class _TPPackedMatmul(torch.autograd.Function):
+    """A prepacked bank, K-sharded.  Reference:
+    ``repro.photonic.sharded:_tp_packed_matmul``: this rank's block of the
+    bank (:meth:`PackedDense.local`) against its K block of the quantized
+    activation, the global per-column scale in the epilogue on the sum.
+    Backward: ``dx`` against the whole dequantized bank (a rank holding one
+    block gathers the others) and ``db``; the int8 bank is frozen and its
+    scale gets zeros."""
+
+    @staticmethod
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, packed, x, w_scale, bias):
+        ctx.spec, ctx.packed, ctx.tp = spec, packed, tp
+        ctx.save_for_backward(x, w_scale, bias)
+        size, i = tp.size(), tp.rank()
+        k_local = packed.k // size
+        xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local)
+        view = packed.local(i, size)
+        out = psum_int_gemm(
+            eng, xl, view.wq, group=tp.process_group(), site=site, fold=fold, prng_key=prng_key,
+            logical_kc=(k_local, packed.c), tiling=view.tiling, pack=view,
+        )
+        y = apply_epilogue(out, sx, w_scale.to(torch.float32), bias, spec)
+        return y.reshape(*x.shape[:-1], packed.c).to(x.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w_scale, bias = ctx.saved_tensors
+        p, tp = ctx.packed, ctx.tp
+        wf = p.dequant()
+        if p.shard is not None:
+            blocks = [torch.empty_like(wf) for _ in range(tp.size())]
+            dist.all_gather(blocks, wf.contiguous(), group=tp.process_group())
+            wf = torch.cat(blocks, dim=0)
+        dx, _, _, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        return None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
+
+
+# ---------------------------------------------------------------------------
+# dense() dispatch
+# ---------------------------------------------------------------------------
+def maybe_tp_matmul(
+    engine: Optional[PhotonicEngine],
+    params: dict,
+    x: torch.Tensor,
+    cfg,
+    *,
+    site: Optional[str] = None,
+    fold: Optional[int] = None,
+    prng_key=None,
+    epilogue=None,
+    slicing=None,
+    bias: Optional[torch.Tensor] = None,
+    activation: Optional[str] = None,
+) -> Optional[torch.Tensor]:
+    """The tensor-parallel product for ``models.common.dense``, or ``None``
+    when TP does not apply (no active context, degree 1, a site the policy
+    keeps digital, a K the degree does not divide, a pack layout the mode
+    cannot shard) and the caller falls through to the single-device path.
+    ``epilogue=`` is applied after the all-reduce (the legacy ``bias=`` /
+    ``activation=`` keywords are its shims); ``slicing`` overrides the
+    engine's bit-slicing mode and rides into every shard-local pass.
+    Reference: ``repro.photonic.sharded:maybe_tp_matmul``."""
+    tp = current_tp()
+    if tp is None or engine is None or not engine.routes(site):
+        return None
+    size = tp.size()
+    if size <= 1:
+        return None
+    spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
+    if slicing is not None:
+        engine = engine.with_slicing(slicing)
+    w = params["w"]
+    if isinstance(w, PackedDense):
+        packed = w
+    elif "w_scale" in params:
+        packed = PackedDense(w, params["w_scale"], w.shape[-2], w.shape[-1])
+    elif getattr(cfg, "photonic_scope", "weights") == "weights":
+        if w.shape[0] % size:
+            return None
+        return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, x, w, bias)
+    else:
+        return None
+    if packed.k % size:
+        return None
+    if packed.tiling is not None:
+        # Tile-padded banks shard only in the layout they were packed for:
+        # mesh mode, pack shards == TP degree.
+        if tp.manual or packed.shards != size:
+            return None
+    elif packed.shards not in (1, size):
+        return None
+    return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, packed, x, packed.w_scale, bias)

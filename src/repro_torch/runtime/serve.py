@@ -11,11 +11,15 @@ vlm and audio families, whose prefill needs ``vision`` / ``audio_embed``:
 those run through the registry's ``prefill`` / ``decode``.  Both prepack every routed
 weight once at construction (``prepack_serving_params``), so decode does
 no weight quantization.  Both run on ``cuda`` unless constructed with
-``device="cpu"``.
+``device="cpu"``.  Both take ``mesh=`` / ``tp_axis=``: tensor-parallel
+serving, every rank running the same engine on the same requests, the
+banks K-sharded and every model call under
+:func:`repro_torch.photonic.sharded.tensor_parallel`.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional
@@ -30,6 +34,7 @@ from repro_torch.serving.scheduler import (
     Scheduler,
     ServingConfig,
     _to_device,
+    _tp_size,
     prepack_serving_params,
 )
 
@@ -55,10 +60,11 @@ def _paged_block_size(max_seq: int) -> int:
 
 
 class Engine:
-    """Reference: ``repro.runtime.serve:Engine`` (no tensor-parallel mesh
-    yet)."""
+    """Reference: ``repro.runtime.serve:Engine``."""
 
-    def __init__(self, arch, model_cfg, params, cfg: ServeConfig, *, device=None):
+    def __init__(
+        self, arch, model_cfg, params, cfg: ServeConfig, *, mesh=None, tp_axis: str = "model", device=None
+    ):
         self.arch = arch
         self.model_cfg = model_cfg
         self.cfg = cfg
@@ -80,9 +86,9 @@ class Engine:
                 temperature=cfg.temperature,
                 seed=cfg.seed,
             )
-            self.impl = Scheduler(arch, model_cfg, params, scfg, device=device)
+            self.impl = Scheduler(arch, model_cfg, params, scfg, mesh=mesh, tp_axis=tp_axis, device=device)
         else:
-            self.impl = LegacyEngine(arch, model_cfg, params, cfg, device=device)
+            self.impl = LegacyEngine(arch, model_cfg, params, cfg, mesh=mesh, tp_axis=tp_axis, device=device)
 
     @property
     def photonic(self):
@@ -99,6 +105,9 @@ class Engine:
     @property
     def stats(self):
         return self.impl.stats
+
+    def _tp_scope(self):
+        return self.impl._tp_scope()
 
     def run(self, requests: List[Request], max_steps: int = 10_000) -> List[Request]:
         return self.impl.run(requests, max_steps)
@@ -130,7 +139,7 @@ def _merge(live, new, axes, slot: int):
 
 class LegacyEngine:
     """The original fixed-slot continuous-batching loop.  Reference:
-    ``repro.runtime.serve:LegacyEngine`` (no tensor-parallel mesh yet).
+    ``repro.runtime.serve:LegacyEngine``.
 
     Keeps ``batch_size`` decode slots backed by one dense ``(batch,
     max_seq)`` KV cache (GQA ``k``/``v``, or MLA's latent ``c_kv``/``k_rope``
@@ -155,6 +164,8 @@ class LegacyEngine:
         params,
         cfg: ServeConfig,
         *,
+        mesh=None,
+        tp_axis: str = "model",
         device=None,
         clock: Callable[[], float] = time.monotonic,
     ):
@@ -170,10 +181,13 @@ class LegacyEngine:
         self.arch = arch
         self.model_cfg = model_cfg
         self.device = resolve_device(device)
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self._tp_size = _tp_size(mesh, tp_axis)
         self._clock = clock
         with torch.no_grad():
             self.photonic, self.params = prepack_serving_params(
-                arch, model_cfg, _to_device(params, self.device)
+                arch, model_cfg, _to_device(params, self.device), mesh=mesh, tp_axis=tp_axis
             )
         self.cfg = cfg
         self.slots: List[Optional[Request]] = [None] * cfg.batch_size
@@ -189,6 +203,16 @@ class LegacyEngine:
         )
         self._batch_axis = _batch_axes(cache_def)
 
+    def _tp_scope(self):
+        """The tensor-parallel scope every model call runs under (a no-op
+        without a TP mesh).  Reference:
+        ``repro.runtime.serve:LegacyEngine._tp_scope``."""
+        if self.photonic is not None and self._tp_size > 1:
+            from repro_torch.photonic import sharded
+
+            return sharded.tensor_parallel(self.mesh, self.tp_axis)
+        return contextlib.nullcontext()
+
     # -- admission -----------------------------------------------------------
     def _admit(self, req: Request, slot: int):
         """Prefill the prompt for one slot and merge into the batch cache."""
@@ -196,7 +220,7 @@ class LegacyEngine:
         b = self.cfg.batch_size
         prompt = torch.as_tensor(np.asarray(req.prompt), dtype=torch.int64, device=self.device)
         batch = {"tokens": prompt[None, :].repeat(b, 1)}
-        with torch.no_grad():
+        with torch.no_grad(), self._tp_scope():
             logits, cache = self.arch.prefill(self.params, batch, self.model_cfg, self.cfg.max_seq)
         self.stats["prefills"] += 1
         if self.cache is None:
@@ -220,7 +244,7 @@ class LegacyEngine:
         if all(s is None for s in self.slots):
             return
         t0 = time.perf_counter()
-        with torch.no_grad():
+        with torch.no_grad(), self._tp_scope():
             logits, self.cache = self.arch.decode(self.params, self.tokens, self.cache, self.model_cfg)
         self.stats["decode_steps"] += 1
         logits = logits[:, -1, : self.model_cfg.vocab_size]

@@ -8,11 +8,16 @@ scheduler prepacks every routed weight once (weight-stationary decode),
 zeroes blocks at allocation (no stale KV), and draws samples under the
 reference's key ``fold_in(fold_in(PRNGKey(seed), uid), n)`` — the request
 uid and token index, never the slot (:mod:`repro_torch.prng`).  It runs on ``cuda`` unless constructed with ``device="cpu"``.
+With ``mesh=`` (a ``DeviceMesh`` whose ``tp_axis`` is sized > 1) every rank
+runs the same scheduler on the same requests: the banks prepack K-sharded,
+each rank keeping its block, and every prefill and decode call runs its
+routed GEMMs under :func:`repro_torch.photonic.sharded.tensor_parallel`.
 """
 
 from __future__ import annotations
 
 import collections
+import contextlib
 import dataclasses
 import time
 from typing import Callable, List, Optional
@@ -66,13 +71,19 @@ def _to_device(tree, device):
     return tree
 
 
-def prepack_serving_params(arch, model_cfg, params):
+def _tp_size(mesh, tp_axis: str) -> int:
+    names = tuple(mesh.mesh_dim_names or ()) if mesh is not None else ()
+    return mesh.size(names.index(tp_axis)) if tp_axis in names else 1
+
+
+def prepack_serving_params(arch, model_cfg, params, *, mesh=None, tp_axis: str = "model"):
     """Quantize and pack every routed weight once.  Returns
     ``(engine_or_None, params)``.  Under ``mla_absorb`` the MLA
     up-projections ``wuk`` / ``wuv`` stay as they are: absorbed decode
     reads them as floats in its own products, never through ``dense``.
-    Reference: ``repro.serving.scheduler:prepack_serving_params`` (single
-    device)."""
+    With a ``mesh`` whose ``tp_axis`` is sized > 1 the banks take the
+    K-sharded layout and this rank keeps its block.  Reference:
+    ``repro.serving.scheduler:prepack_serving_params``."""
     from repro_torch.models.common import engine_from_model_config
     from repro_torch.photonic.packing import prepack_params
 
@@ -83,7 +94,10 @@ def prepack_serving_params(arch, model_cfg, params):
     if model_cfg.mla_absorb:
         pol = dataclasses.replace(engine.policy, exclude=engine.policy.exclude + ("wuk", "wuv"))
         pack_engine = dataclasses.replace(engine, policy=pol)
-    return engine, prepack_params(params, arch.param_defs(model_cfg), pack_engine)
+    sharded = _tp_size(mesh, tp_axis) > 1
+    return engine, prepack_params(
+        params, arch.param_defs(model_cfg), pack_engine, mesh=mesh if sharded else None, axis=tp_axis
+    )
 
 
 class _Slot:
@@ -95,8 +109,8 @@ class _Slot:
 
 
 class Scheduler:
-    """Reference: ``repro.serving.scheduler:Scheduler`` (no tensor-parallel
-    mesh yet)."""
+    """Reference: ``repro.serving.scheduler:Scheduler``.  ``mesh`` /
+    ``tp_axis``: tensor-parallel serving (see the module docstring)."""
 
     def __init__(
         self,
@@ -105,6 +119,8 @@ class Scheduler:
         params,
         cfg: ServingConfig,
         *,
+        mesh=None,
+        tp_axis: str = "model",
         device=None,
         clock: Callable[[], float] = time.monotonic,
     ):
@@ -122,10 +138,13 @@ class Scheduler:
         self.arch = arch
         self.model_cfg = model_cfg
         self.cfg = cfg
+        self.mesh = mesh
+        self.tp_axis = tp_axis
+        self._tp_size = _tp_size(mesh, tp_axis)
         self._clock = clock
         with torch.no_grad():
             self.photonic, self.params = prepack_serving_params(
-                arch, model_cfg, _to_device(params, self.device)
+                arch, model_cfg, _to_device(params, self.device), mesh=mesh, tp_axis=tp_axis
             )
 
         table_width = cfg.max_seq // cfg.block_size
@@ -155,10 +174,20 @@ class Scheduler:
     def _t(self, a: np.ndarray) -> torch.Tensor:
         return torch.as_tensor(a, device=self.device)
 
+    def _tp_scope(self):
+        """The tensor-parallel scope every model call runs under (a no-op
+        without a TP mesh).  Reference:
+        ``repro.serving.scheduler:Scheduler._tp_scope``."""
+        if self.photonic is not None and self._tp_size > 1:
+            from repro_torch.photonic import sharded
+
+            return sharded.tensor_parallel(self.mesh, self.tp_axis)
+        return contextlib.nullcontext()
+
     def _decode_call(self, pool, active: np.ndarray):
         from repro_torch.models import lm
 
-        with torch.no_grad():
+        with torch.no_grad(), self._tp_scope():
             return lm.lm_decode_paged(
                 self.params, self._t(self._tokens), pool, self._t(self._table),
                 self._t(self._pos), self._t(active), self._trash, self.model_cfg,
@@ -250,7 +279,7 @@ class Scheduler:
             tc = min(budget, t_full - s.prefill_done)
             toks = self._t(prompt[s.prefill_done : s.prefill_done + tc][None, :])
             final = s.prefill_done + tc == t_full
-            with torch.no_grad():
+            with torch.no_grad(), self._tp_scope():
                 logits, self.kv_pool = lm.lm_prefill_chunk(
                     self.params, toks, self.kv_pool, self._t(self._table[slot]),
                     s.prefill_done, self.model_cfg, t_full=t_full,

@@ -16,12 +16,14 @@ the port; :func:`params_to_reference` goes the other way, a port tree (its
 parameters or their gradients) in the reference's stacked layout.  The
 int8-stored serving layout (``quantize_params``: int8 ``w`` with an f32
 per-column ``w_scale``) and a fused ``wqkv`` attention dict come across
-unchanged in dtype.
+unchanged in dtype, and so does a prepacked weight, the reference's
+``PackedDense`` (K-sharded or not: its stored bank, scale, logical dims,
+tiling and shard count), as the port's (:func:`packed_from_jax`).
 """
 
 from __future__ import annotations
 
-from typing import Any
+from typing import Any, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -77,13 +79,57 @@ def train_state_from_jax(params: Any, opt_state: Any, cfg, device=None):
     return TrainState(params_from_jax(params, cfg, dev), opt, step)
 
 
+class _Pack(NamedTuple):
+    """One layer's slice of a stacked reference ``PackedDense``."""
+
+    wq: Any
+    w_scale: Any
+    k: int
+    c: int
+    tiling: Optional[Tuple[int, int, int]]
+    shards: int
+
+
+def _is_pack(node) -> bool:
+    """A reference ``PackedDense`` (duck-typed: the port imports no
+    ``repro``) or a :class:`_Pack`."""
+    return all(hasattr(node, a) for a in ("wq", "w_scale", "k", "c", "tiling", "shards"))
+
+
+def packed_from_jax(pack, *, words: bool = False, device=None):
+    """The reference's ``PackedDense`` as the port's
+    :class:`~repro_torch.photonic.packing.PackedDense` on ``device``: the
+    int8 bank as stored (the K-sharded ``(shards * Kp_local, Cp)`` layout
+    kept, with ``shards``), the f32 global scale, the logical ``k, c`` and
+    the tiling; with ``words`` also the content word(s) the port's pack
+    carries for a noisy engine (one a block when sharded), computed from
+    the bank."""
+    from repro_torch.noise.stages import tweak_word, tweak_words
+    from repro_torch.photonic.packing import PackedDense
+
+    dev = resolve_device(device)
+    wq = _tensor(pack.wq, None, dev)
+    scale = _tensor(pack.w_scale, torch.float32, dev)
+    tiling = None if pack.tiling is None else tuple(int(t) for t in pack.tiling)
+    shards = int(pack.shards)
+    word = None
+    if words:
+        word = tweak_word(wq) if shards == 1 else tweak_words(wq.reshape(shards, -1, wq.shape[-1]))
+    return PackedDense(wq, scale, int(pack.k), int(pack.c), tiling, shards, word)
+
+
 def _unstacked(tree: Any, dtype, dev) -> Any:
     def conv(node, key=None):
+        if _is_pack(node):
+            return packed_from_jax(node, device=dev)
         if isinstance(node, dict):
             return {k: conv(v, k) for k, v in node.items()}
         return _tensor(node, torch.float32 if key in _F32_LEAVES else dtype, dev)
 
     def unstack(node, i):
+        if _is_pack(node):
+            return _Pack(np.asarray(node.wq)[i], np.asarray(node.w_scale)[i], node.k, node.c, node.tiling,
+                         node.shards)
         if isinstance(node, dict):
             return {k: unstack(v, i) for k, v in node.items()}
         return np.asarray(node)[i]
@@ -98,8 +144,8 @@ def _unstacked(tree: Any, dtype, dev) -> Any:
 
 
 def _first_leaf(node):
-    while isinstance(node, dict):
-        node = node[sorted(node)[0]]
+    while isinstance(node, dict) or _is_pack(node):
+        node = node.wq if _is_pack(node) else node[sorted(node)[0]]
     return node
 
 
