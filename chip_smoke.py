@@ -99,9 +99,13 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    and must equal 6 x 24 x forward calls; ideal-mode tokens must equal the
    same server's on the ``ref`` backend.  In each run, once every request
    is prefilled, two decode steps are set apart and left out of the rates
-   printed; on the kernel backend they run under the torch profiler:
+   printed; in the ideal kernel run they run under the torch profiler:
    device busy share, top kernels and top host ops (full tables in
-   ``chiprun_out/profile_*.txt``) and the profiler's own cost.
+   ``chiprun_out/profile_*.txt``) and the profiler's own cost.  (Cut for
+   the run's limit: the reports of the SMWA, sliced, int8 three-site,
+   TP, granite int8, absorbed MLA and recurrent runs: the profiler's report
+   takes 3-32 s a run; the serve, int8 fused, granite, expanded MLA,
+   llama-3.2-vision and whisper runs keep theirs.)
    The paged path runs chunked attention, so its flash count must stay 0.
 5b. sliced serve: the same server, prompts and tokens with
    ``photonic_slicing=2`` in the ideal and SMWA modes: ``photonic_gemm``
@@ -153,8 +157,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    tokens and logits equal TP = 1's; SMWA deterministic across two TP = 2
    runs and unlike the unsharded logits; tokens and logits equal across
    the ranks; then ``lm_logits`` at B = 2, T = 1000 under TP = 2 bitwise
-   TP = 1's.  Rank 0 profiles two decode steps (launches a step, device
-   busy share); prefill seconds and decode ms/step per run; whether the
+   TP = 1's.  Prefill seconds and decode ms/step per run; whether the
    TP = 2 tokens equal the serve phase's (which prefills in chunks of 64
    tokens) is printed, not gated.
 6b. dense serve: granite-3-8b at full width with 10 of its 40 layers
@@ -167,8 +170,8 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    tokens); the int8 layout with the bias-free fused ``wqkv`` bank on
    ``kernel`` and ``ref`` (tokens equal); then qwen2-1.5b at full width
    (28 layers) ideal greedy on ``kernel`` and ``ref`` (tokens equal).  The
-   granite ideal and int8 kernel runs profile two decode steps (device
-   busy share); the phase prints its peak memory.
+   granite ideal run profiles two decode steps (device busy share); the
+   phase prints its peak memory.
 6c. deepseek: deepseek-67b at full width with 4 of its 95 layers (its
    134 GB of bf16 weights do not fit one 80 GB card): ``lm_logits`` on
    B=1, T=512 on ``kernel`` and ``ref``, max |dlogit| / max |logit| <=
@@ -185,7 +188,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``kernel`` and ``ref``, sampled at temperature 0.8, each pair's tokens
    equal; SMWA (``noise_seed=0``): logits finite, requests done; fused
    launches 190 a prefill and 190 (136 absorbed) a decode step; two decode
-   steps of the greedy kernel runs under the profiler; the agreement of
+   steps of the expanded greedy kernel run under the profiler; the agreement of
    absorbed and expanded tokens printed; peak memory of ``lm_logits`` and
    of serving.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
    layers (84 GB of bf16 weights do not fit): ``lm_logits`` B=1 T=512,
@@ -213,18 +216,19 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    (4, 1600, 8192), then 16 greedy ``arch.decode`` steps at max_seq 128 on
    ``kernel`` and ``ref`` (tokens equal; 61 launches a prefill, 57 a decode
    step; the kernel run's last two steps under the profiler) and 4 steps
-   under SMWA (``noise_seed=0``: logits finite).  whisper-medium whole (24 +
-   24 layers): ``whisper_logits`` with audio (4, 1500, 1024) in f32 and
-   bf16 and 375 decoder tokens on ``kernel`` and ``ref`` (385 launches, the
-   bf16 floor), and with ``attn_impl="flash"`` against chunked (48 flash
+   under SMWA (``noise_seed=0``: logits finite).  whisper-medium at full
+   width with 12 + 12 of its 24 + 24 layers (cut for the run's
+   limit): ``whisper_logits`` with audio (4, 1500, 1024) in f32 and
+   bf16 and 375 decoder tokens on ``kernel`` and ``ref`` (193 launches, the
+   bf16 floor), and with ``attn_impl="flash"`` against chunked (24 flash
    launches) under the oneshot phase's gate: the witness, chunked at
    flash's key block (``attn_chunk=128``) against chunked, measures how far
    the model carries a rounding difference of its attention cores, and
    flash may be no further than max(2e-2, 2 x the witness's) with argmax
    disagreement <= max(1%, 2 x the witness's); ``arch.prefill`` of 4 x 4 tokens then 16 greedy decode steps
    at max_seq 375 on ``kernel``, ``ref`` and kernel with flash (tokens of
-   the first two equal; 385 launches a prefill, 193 a decode step, flash
-   48 a prefill).  Each model prints prefill seconds, decode ms/step,
+   the first two equal; 193 launches a prefill, 97 a decode step, flash
+   24 a prefill).  Each model prints prefill seconds, decode ms/step,
    device busy share and launches a step, and peak memory.
 6f. recurrent: the ssm and hybrid families.  Kernel rows, each bitwise
    its twin (noise included) with its time, bound and the ``_int_mm``
@@ -251,11 +255,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``ref.oracle_and_bound`` on its own inputs (every element within it);
    ``serve.Engine`` → ``LegacyEngine``, batch 4, max_seq 128, the serve
    phase's four prompts and 8 greedy tokens on ``kernel`` and ``ref``
-   (tokens equal; 154 / 163 launches a prefill and a decode step; two
-   decode steps of the kernel run under the profiler), and SMWA
+   (tokens equal; 154 / 163 launches a prefill and a decode step), and SMWA
    (``noise_seed=0``) for 4 decode steps (logits finite).  Each model
-   prints prefill seconds, decode ms/step, tokens/s, device busy share and
-   launches a step, and peak memory.
+   prints prefill seconds, decode ms/step, tokens/s and peak memory.
 7. train, in a process of its own (``chip_smoke.py --phase train``, with
    ``CUBLAS_WORKSPACE_CONFIG=:4096:8`` in that process's environment only,
    so the serve phases run without it; its result comes back as JSON on
@@ -273,13 +275,53 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    same on the ``exact`` backend: losses and final parameters bitwise equal
    to (a)'s; (c) SMWA analog, ``noise_seed=0``: losses and grad norms
    finite, the gap to (a) printed; (d) (a) with ``remat=False``: step-1
-   loss bitwise equal to (a)'s, 144 launches per step; (e) (a) with
+   loss bitwise equal to (a)'s, 144 launches a step; (e) (a) with
    ``remat_policy="dots"``: losses and final parameters bitwise (a)'s, 288
    launches per step (the kernel is no product the policy saves).  (b)-(e) call
    ``build_train_step`` on the same batches.  Per mode: seconds per step
-   (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``;
-   for (a) also one more step under the torch profiler (device busy share,
-   top kernels and host ops).
+   (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``.
+   (c) and (d) take one step, whose loss is all their gates read, and (a)
+   takes no profiled fourth step (both cut for the run's
+   limit).
+7c. tp train: tensor- and data-parallel training.  Kernel rows first, in
+   this process: each shard's ``shard_local_engine(engine, K / 2)
+   .int_gemm(shard=i)`` at qwen2-0.5b's six sites at R = 4096 (TP = 2
+   training) and R = 2048 (a data rank of DP 2 x TP 2), ideal, bitwise its
+   twin, each sum over the shards equal to ``exact_int_gemm``, with the
+   kernel's time (CUDA graph), the twin's, ``torch._int_mm`` of the shard's
+   int core and the bound.  Then a child (``chip_smoke.py --phase tp-train
+   PHASE7``, phase 7 (a)'s losses and final-parameter fingerprint as JSON;
+   deterministic mode and ``CUBLAS_WORKSPACE_CONFIG`` as phase 7) starts
+   ranks on the one card (``repro_torch.launch.mesh.spawn``, ``gloo`` with
+   CUDA tensors; NCCL refuses two ranks on one device), bf16,
+   ``init_params`` seed 0, phase 7's ``DataConfig`` and ``AdamWConfig``:
+   (a) two ranks, the ("data", "model") 1 x 2 mesh, qwen2-0.5b at full
+   width and all 24 layers, ideal, kernel backend,
+   ``train(mesh=, tp_axis="model")`` for 3 steps of 4 x 1024 tokens into a
+   shared temporary directory: losses and final parameters bitwise phase 7
+   (a)'s, ranks equal, per step 288 unfused launches and 288 all-reduces
+   (6 x 24 x 2 with remat) and no fused launch, exactly one checkpoint,
+   written by rank 0; s/step (median of steps 2-3), tokens/s, peak memory
+   per rank, the checkpoint's blocking seconds.  (b) SMWA (``noise_seed=0``)
+   at TP = 2: one ``build_train_step`` under ``tensor_parallel``, loss and
+   grad norm finite and equal across the ranks, the gap to (a) printed.
+   (c) four ranks, the (2, 2) mesh, qwen2-0.5b at full width cut to 4 of
+   its 24 layers (four ranks share the card and the run's time limit),
+   after TP = 1 ``train()`` at that depth in the child: (c1)
+   ``train(mesh=, tp_axis="model")`` for 2 steps, losses and parameters
+   bitwise TP = 1's, per step per rank 48 unfused launches, 48 all-reduces
+   and 48 row gathers (each rank runs its 2048 rows of a GEMM and the rows
+   are gathered over "data"); (c2) one ``make_dp_train_step(tp_axis=
+   "model")`` step: the loss within ``rtol=1e-5`` of the mean of TP = 1's
+   losses on the two data blocks (a data rank quantizes its own rows, as
+   the reference's ``shard_map`` body does; the gap to the whole batch's
+   loss is printed), parameters within the reference's ``atol=2e-2`` of
+   TP = 1's step on the whole batch, every rank's parameters bitwise equal;
+   (c3) (c2) with ``compress_grads=True`` (the int8 ring): finite, the loss
+   equal to (c2)'s, the ranks' parameters within what one AdamW step can
+   open between them (2 x lr plus a bf16 rounding: the owner of a ring
+   chunk keeps its f32 sum, the others its requantized copy), the gap to
+   (c2) printed.
 7b. train families: kernel rows at the training shape (R = 4 x 1024),
    ideal, each bitwise its twin with its time, bound and ``_int_mm`` time:
    xlstm-350m's mLSTM layer (the gates at C = 4) and sLSTM layer,
@@ -447,6 +489,10 @@ WHISPER_HEAD = ("lm_head", 1024, 51865)
 WHISPER_ENC_ROWS = 4 * 1500
 WHISPER_PREFILL_LAUNCHES = 24 * 6 + 24 * 10 + 1  # encoder 6 a layer, decoder 10 (cross K/V included), head
 WHISPER_DECODE_LAUNCHES = 24 * 8 + 1  # a decode step: the cross K/V are read from the cache
+WHISPER_SERVE_LAYERS = 12  # the cross phase's whisper-medium: 12 + 12 of its 24 + 24 layers (the run's limit)
+WHISPER_SERVE_PREFILL_LAUNCHES = WHISPER_SERVE_LAYERS * 6 + WHISPER_SERVE_LAYERS * 10 + 1
+WHISPER_SERVE_DECODE_LAUNCHES = WHISPER_SERVE_LAYERS * 8 + 1
+WHISPER_SERVE_FLASH = 2 * WHISPER_SERVE_LAYERS  # a flash forward: every encoder and decoder self-attention
 # (label, B, Tq, Tk, H, KV, hd, causal, q_offset, kv_valid, dtype): whisper's
 # encoder self-attention, non-causal MHA over its 1500 frames.
 WHISPER_FLASH = ("whisper encoder", 4, 1500, 1500, 16, 16, 64, False, 0, None, "bf16")
@@ -485,6 +531,9 @@ RECURRENT_ROWS = (4, 4 * 64)  # decode, and a 64-token prompt of the serve batch
 TRAIN_ROWS = 4096  # the train phase's rows per GEMM: global_batch 4 x seq_len 1024
 TP_SHARDS = 2  # the tp phase's tensor-parallel degree: two ranks sharing the one card
 TRAIN_STEPS = 3
+TP_TRAIN_ROWS = (TRAIN_ROWS, TRAIN_ROWS // 2)  # phase 7c's rows per GEMM: TP = 2, and a data rank of DP 2 x TP 2
+TP_TRAIN_GRID_LAYERS = 4  # phase 7c (c): qwen2-0.5b cut to 4 of 24 layers, four ranks on the one card
+TP_TRAIN_GRID_STEPS = 2
 # The train-families phase: the fused launches of one training step, the
 # forward's and then the recompute of the blocks that run under remat
 # "full" in the backward.  xlstm-350m recomputes its 21 mLSTM blocks (the
@@ -1545,11 +1594,12 @@ def train_phase(torch, arch, ideal, smwa, card):
     ok, res = True, {}
 
     def rates(label, secs, launches, extra=""):
-        per = statistics.median(secs[1:])
+        per = statistics.median(secs[1:] or secs)
         peak = torch.cuda.max_memory_allocated()
         res[label].update(s_per_step=per, tokens_per_s=tokens / per, max_memory_allocated=peak,
                           step_seconds=secs, launches=launches)
-        log(f"  train {label}: {per:.4f} s/step (median of steps 2-{TRAIN_STEPS}; all {[round(x, 4) for x in secs]}), "
+        log(f"  train {label}: {per:.4f} s/step ({'median of steps 2-' + str(len(secs)) if len(secs) > 1 else 'one step'}; "
+            f"all {[round(x, 4) for x in secs]}), "
             f"{tokens / per:.1f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB, fused launches "
             f"{launches['photonic_gemm_fused']} ({launches['photonic_gemm_fused'] / len(secs):.0f}/step), "
             f"flash {launches['flash_attention']}{extra} [{card}]")
@@ -1561,15 +1611,15 @@ def train_phase(torch, arch, ideal, smwa, card):
         K.reset_launches()
         F.reset_launches()
 
-    def steps(cfg):
-        """(params, losses, grad norms, seconds, launches): TRAIN_STEPS steps
-        of build_train_step from init_params(seed 0); counts reset first."""
+    def steps(cfg, n=TRAIN_STEPS):
+        """(params, losses, grad norms, seconds, launches): ``n`` steps of
+        build_train_step from init_params(seed 0); counts reset first."""
         params = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
         state = adamw.init(params)
         step = build_train_step(lambda p, b: arch.loss(p, b, cfg), opt)
         reset()
         losses, norms, secs = [], [], []
-        for i in range(TRAIN_STEPS):
+        for i in range(n):
             t0 = time.time()
             params, state, m = step(params, state, make_global_batch(stream, i, "cuda"))
             losses.append(float(m["loss"]))
@@ -1608,23 +1658,20 @@ def train_phase(torch, arch, ideal, smwa, card):
             f"{6 * n_layers * 2 * TRAIN_STEPS}, flash 0, checkpoint saved: {good}")
         ok &= good
         params_a, fp_a = out["params"], _fingerprint(out["params"])
-        # One more step of (a) under the profiler (not part of the gates above).
-        step = build_train_step(lambda p, b: arch.loss(p, b, cfg_a), opt)
-        batch = make_global_batch(stream, TRAIN_STEPS, "cuda")
-        K.reset_launches()
-        res["a"]["profile"] = profiled(torch, lambda: step(params_a, out["opt_state"], batch), "train_a")
-        log(f"  train a: profiled step fused launches {K.LAUNCHES['photonic_gemm_fused']}")
-        del out, step, batch
+        res["a"]["fingerprint"] = fp_a
+        del out
 
         # (b) exact backend, (c) SMWA analog, (d) no remat, (e) remat_policy
         # "dots": build_train_step on the same batches.
-        for label, cfg in (
-            ("b", dataclasses.replace(cfg_a, photonic_backend="exact")),
-            ("c", dataclasses.replace(cfg_a, photonic=smwa)),
-            ("d", dataclasses.replace(cfg_a, remat=False)),
-            ("e", dataclasses.replace(cfg_a, remat_policy="dots")),
+        # (c) and (d) take one step (their gates read no later one; cut for the
+        # run's limit).
+        for label, cfg, n in (
+            ("b", dataclasses.replace(cfg_a, photonic_backend="exact"), TRAIN_STEPS),
+            ("c", dataclasses.replace(cfg_a, photonic=smwa), 1),
+            ("d", dataclasses.replace(cfg_a, remat=False), 1),
+            ("e", dataclasses.replace(cfg_a, remat_policy="dots"), TRAIN_STEPS),
         ):
-            params, losses, norms, secs, launches = steps(cfg)
+            params, losses, norms, secs, launches = steps(cfg, n)
             res[label] = dict(losses=losses, grad_norms=norms)
             gap = [abs(a - b) for a, b in zip(losses, res["a"]["losses"])]
             rates(label, secs, launches, f"; losses {losses}, grad norms {norms}, |loss - loss_a| {gap}")
@@ -1636,14 +1683,14 @@ def train_phase(torch, arch, ideal, smwa, card):
                     f"{fp_a}: {good}")
             elif label == "c":
                 good = (all(np.isfinite(losses)) and all(np.isfinite(norms))
-                        and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * TRAIN_STEPS)
+                        and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * n)
                 log(f"  train c: losses and grad norms finite, {launches['photonic_gemm_fused']} fused "
                     f"launches: {good}")
             elif label == "d":
                 good = (losses[0] == res["a"]["losses"][0]
-                        and launches["photonic_gemm_fused"] == 6 * n_layers * TRAIN_STEPS)
+                        and launches["photonic_gemm_fused"] == 6 * n_layers * n)
                 log(f"  train d: step-1 loss bitwise equal to (a)'s, {launches['photonic_gemm_fused']} == "
-                    f"{6 * n_layers * TRAIN_STEPS} fused launches: {good}")
+                    f"{6 * n_layers * n} fused launches: {good}")
             else:
                 # The kernel is no product the policy saves: recomputed, as under "full".
                 same = losses == res["a"]["losses"]
@@ -1941,8 +1988,8 @@ def setup(torch) -> None:
 
 
 def child(phase: str, arg=None) -> int:
-    """``chip_smoke.py --phase train``, ``--phase train-families`` or
-    ``--phase tp TOKENS``: the phase alone, in a process whose environment
+    """``chip_smoke.py --phase train``, ``--phase train-families``,
+    ``--phase tp TOKENS`` or ``--phase tp-train PHASE7``: the phase alone, in a process whose environment
     sets ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's reproducible workspaces,
     which the deterministic mode needs) before CUDA starts.  The kernels
     were built by the parent; the last line of stdout is the phase's result
@@ -1966,6 +2013,8 @@ def child(phase: str, arg=None) -> int:
         ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
     elif phase == "tp":
         ok, res, launches = tp_child(json.loads(arg))
+    elif phase == "tp-train":
+        ok, res, launches = tp_train_child(json.loads(arg))
     else:
         ok, res, launches = train_families_phase(torch, registry, card_line())
     print(json.dumps({"ok": ok, "result": res, "launches": launches}))
@@ -2222,7 +2271,7 @@ def tp_rank(rank, world, serve_tokens):
     out, gates = {"rank": rank}, {}
     runs, logits = {}, {}
     for label, dpu, m, profile in (
-        ("ideal_tp1", ideal, None, False), ("ideal", ideal, mesh, True),
+        ("ideal_tp1", ideal, None, False), ("ideal", ideal, mesh, False),
         ("smwa_tp1", smwa, None, False), ("smwa", smwa, mesh, False), ("smwa_again", smwa, mesh, False),
     ):
         reqs, res = tp_serve(torch, arch, params, dpu, prompts, m, rank, card, label, profile=profile)
@@ -2315,6 +2364,385 @@ def tp_child(serve_tokens):
     return ok and same and same_logits, {"backend": backend, "ranks": res}, launches
 
 
+def tp_train_kernel_rows(torch, K, ideal, gen, rows, card):
+    """Phase 7c's kernel rows (:func:`tp_case`): qwen2-0.5b's six sites
+    K-sharded over two shards at the training shapes, R = 4096 (TP = 2) and
+    R = 2048 (a data rank of DP 2 x TP 2), ideal.  Logs one shard's sums
+    over a layer.  Returns (ok, sums)."""
+    ok, sums = True, {}
+    for r in TP_TRAIN_ROWS:
+        for site, k, c, _ in SITES:
+            ok &= tp_case(torch, K, ideal, r, k, c, site, gen, rows, card)
+        layer = [x for x in rows if x["R_live"] == r and x["shard"] == 0]
+        bm, bb = bound_of([x["parts"] for x in layer])
+        tot = {k_: sum(x[k_] for x in layer) for k_ in ("ms", "plain_ms", "library_ms")}
+        sums[f"qwen2-0.5b ideal R={r}"] = dict(tot, bound_ms=bm, bound_by=bb,
+                                               max_abs_err=max(x["max_abs_err"] for x in layer))
+        log(f"  tp train qwen2-0.5b layer, one shard of {TP_SHARDS} (six sites) ideal R={r}: kernel "
+            f"{tot['ms']:.4f} ms, twin {tot['plain_ms']:.3f} ms, bound {bm:.5f} ms ({bb}), _int_mm "
+            f"{tot['library_ms']:.4f} ms [{card}]")
+    return ok, sums
+
+
+def _train_inputs(arch):
+    """Phase 7's data stream and optimizer settings."""
+    from repro_torch.data.pipeline import DataConfig
+    from repro_torch.optim import adamw
+
+    data = DataConfig(vocab_size=arch.config.vocab_size, seq_len=1024, global_batch=4, seed=0)
+    return data, adamw.AdamWConfig(lr=3e-4, warmup_steps=1, total_steps=TRAIN_STEPS)
+
+
+class _SaveCounter:
+    """Counts ``repro_torch.checkpoint.ckpt.save`` calls while active."""
+
+    def __enter__(self):
+        from repro_torch.checkpoint import ckpt
+
+        self.ckpt, self.save, self.n = ckpt, ckpt.save, 0
+
+        def counting(*a, **k):
+            self.n += 1
+            return self.save(*a, **k)
+
+        ckpt.save = counting
+        return self
+
+    def __exit__(self, *exc):
+        self.ckpt.save = self.save
+        return False
+
+
+def _tp_train_rank_setup(rank):
+    """A tp-train rank's common start: the import path and matmul settings,
+    deterministic mode, the kernel library; returns (torch, K, say)."""
+    import torch
+
+    setup(torch)
+    torch.use_deterministic_algorithms(True)
+    from repro_torch.kernels.photonic_gemm import kernel as K
+
+    K.LIBRARY.load()
+
+    def say(msg):
+        log(f"  [rank {rank}] {msg}")
+
+    return torch, K, say
+
+
+def _reset_counts(torch, K):
+    from repro_torch.analysis import contracts
+
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    K.reset_launches()
+    contracts.reset_all_reduces()
+
+
+def _counts(K):
+    from repro_torch.analysis import contracts
+
+    return dict(K.LAUNCHES, all_reduces=contracts.ALL_REDUCES["psum_int_gemm"],
+                row_gathers=contracts.ROW_GATHERS["tp_rows"])
+
+
+def _rank_spread(torch, tree, lr):
+    """The largest difference of any parameter between the ranks (an
+    ``all_reduce`` of the max and of the min), and whether every difference
+    is within what one AdamW step from one state can open between ranks
+    whose gradients differ: 2 x lr plus one bf16 rounding of the value."""
+    import torch.distributed as dist
+
+    from repro_torch._tree import tree_leaves
+
+    worst, within = 0.0, True
+    for t in tree_leaves(tree):
+        hi = t.detach().to(torch.float32).clone()
+        lo = hi.clone()
+        dist.all_reduce(hi, op=dist.ReduceOp.MAX)
+        dist.all_reduce(lo, op=dist.ReduceOp.MIN)
+        spread = hi - lo
+        mag = torch.maximum(hi.abs(), lo.abs()).clamp_min(2.0 ** -126)
+        ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
+        worst = max(worst, float(spread.max()))
+        within &= bool((spread <= 2 * lr + ulp).all())
+    return worst, within
+
+
+def tp_train_pair_rank(rank, world, phase7, ckpt_dir):
+    """One rank of phase 7c (a) and (b): qwen2-0.5b at full width and all 24
+    layers (bf16, ``init_params`` seed 0, phase 7's data and AdamW) on the
+    ("data", "model") 1 x 2 mesh of two ranks sharing the card.  (a)
+    ``train(mesh=, tp_axis="model")`` for phase 7's 3 steps into the shared
+    ``ckpt_dir``, ideal channel, kernel backend; (b) one ``build_train_step``
+    under ``tensor_parallel`` on the SMWA channel.  Returns this rank's
+    results and gates."""
+    import torch.distributed as dist
+
+    torch, K, say = _tp_train_rank_setup(rank)
+    from repro_torch.data.pipeline import SyntheticTokens, make_global_batch
+    from repro_torch.launch.mesh import make_tp_smoke_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.photonic import tensor_parallel
+    from repro_torch.runtime.train_loop import TrainConfig, build_train_step, train
+
+    card = card_line()
+    mesh = make_tp_smoke_mesh(world)
+    say(f"backend {dist.get_backend()} (CUDA tensors), world {dist.get_world_size()}, mesh {mesh.mesh_dim_names} "
+        f"{tuple(mesh.mesh.shape)}, model-axis rank {mesh.get_local_rank('model')}")
+    arch = registry.get("qwen2-0.5b")
+    n_layers = arch.config.num_layers
+    data, opt = _train_inputs(arch)
+    tokens = data.global_batch * data.seq_len
+    cfg = dataclasses.replace(arch.config, photonic=ideal_dpu(), photonic_backend="kernel")
+    out, gates = {"rank": rank}, {}
+    per_step = 6 * n_layers * 2  # the six sites of every layer, forward and the remat recompute
+
+    # (a) the entry point: train() on the mesh.
+    _reset_counts(torch, K)
+    with _SaveCounter() as saves:
+        t0 = time.perf_counter()
+        res = train(arch=arch, model_cfg=cfg, data_cfg=data,
+                    train_cfg=TrainConfig(steps=TRAIN_STEPS, ckpt_every=1000, ckpt_dir=ckpt_dir, log_every=1),
+                    opt_cfg=opt, mesh=mesh, tp_axis="model", log=say, device="cuda")
+        wall = time.perf_counter() - t0
+    counts = _counts(K)
+    peak = torch.cuda.max_memory_allocated()
+    fp = _fingerprint(res["params"])
+    dist.barrier()
+    written = sorted(q.name for q in Path(ckpt_dir).iterdir())
+    size = sum(f.stat().st_size for f in (Path(ckpt_dir) / written[0]).iterdir()) if written else 0
+    secs = res["step_seconds"]
+    per = statistics.median(secs[1:])
+    out["a"] = dict(losses=res["losses"], fingerprint=fp, step_seconds=secs, s_per_step=per,
+                    tokens_per_s=tokens / per, max_memory_allocated=peak, wall_s=wall,
+                    checkpoint_s=res["checkpoint_seconds"], checkpoint_bytes=size, saves=saves.n, counts=counts)
+    gates["(a) losses bitwise phase 7 (a)'s"] = res["losses"] == phase7["losses"]
+    gates["(a) final params bitwise phase 7 (a)'s"] = fp == phase7["fingerprint"]
+    gates["(a) launches and collectives"] = (
+        (counts["photonic_gemm"], counts["all_reduces"], counts["photonic_gemm_fused"], counts["row_gathers"])
+        == (per_step * TRAIN_STEPS, per_step * TRAIN_STEPS, 0, 0))
+    gates["(a) one checkpoint, by rank 0"] = (written == [f"step_{TRAIN_STEPS:08d}"]
+                                              and saves.n == (1 if rank == 0 else 0))
+    say(f"(a) train(mesh=(1, {world}), tp_axis='model'): {per:.4f} s/step (median of steps 2-{TRAIN_STEPS}; all "
+        f"{[round(x, 4) for x in secs]}), {tokens / per:.1f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB, "
+        f"wall {wall:.3f} s; losses {res['losses']} (phase 7 (a) {phase7['losses']}); params sha256 {fp} (phase 7 "
+        f"{phase7['fingerprint']}); photonic_gemm {counts['photonic_gemm']}, all-reduces {counts['all_reduces']}, "
+        f"row gathers {counts['row_gathers']}, fused {counts['photonic_gemm_fused']} (want {per_step}/step unfused "
+        f"= all-reduces); checkpoint saves {saves.n}, on disk {written} ({size / 1e9:.3f} GB), loop blocked "
+        f"{res['checkpoint_seconds']:.3f} s [{card}]")
+    loss_a0 = res["losses"][0]
+    del res
+    torch.cuda.empty_cache()
+
+    # (b) SMWA: one step under the TP scope.
+    cfg_b = dataclasses.replace(cfg, photonic=smwa_dpu())
+    params = init_params(cfg_b, 0, "cuda", defs=arch.param_defs(cfg_b))
+    state = adamw.init(params)
+    step = build_train_step(lambda p, b: arch.loss(p, b, cfg_b), opt)
+    batch = make_global_batch(SyntheticTokens(data), 0, "cuda")
+    _reset_counts(torch, K)
+    with tensor_parallel(mesh, "model"):
+        t0 = time.perf_counter()
+        params, state, m = step(params, state, batch)
+        loss, norm = float(m["loss"]), float(m["grad_norm"])
+        dt = time.perf_counter() - t0
+    counts = _counts(K)
+    out["b"] = dict(loss=loss, grad_norm=norm, seconds=dt, gap_to_a=abs(loss - loss_a0), counts=counts,
+                    max_memory_allocated=torch.cuda.max_memory_allocated())
+    gates["(b) SMWA loss and grad norm finite, launches"] = (
+        bool(np.isfinite(loss) and np.isfinite(norm))
+        and (counts["photonic_gemm"], counts["all_reduces"], counts["photonic_gemm_fused"]) == (per_step, per_step, 0))
+    say(f"(b) SMWA step under tensor_parallel: loss {loss!r}, grad norm {norm!r}, |loss - loss_a| "
+        f"{abs(loss - loss_a0):.6g}, {dt:.3f} s, photonic_gemm {counts['photonic_gemm']}, all-reduces "
+        f"{counts['all_reduces']} [{card}]")
+    out["gates"] = gates
+    for k, v in gates.items():
+        say(f"{k}: {v}")
+    return out
+
+
+def tp_train_grid_rank(rank, world, tp1, ckpt_dir):
+    """One rank of phase 7c (c): qwen2-0.5b at full width cut to
+    ``TP_TRAIN_GRID_LAYERS`` of its 24 layers (four ranks share the card and
+    the run's time limit), on the ("data", "model") 2 x 2 mesh.  (c1)
+    ``train(mesh=, tp_axis="model")`` for ``TP_TRAIN_GRID_STEPS`` steps,
+    held to ``tp1`` (TP = 1 at the same depth); (c2) one
+    ``make_dp_train_step(tp_axis="model")`` step; (c3) the same with
+    ``compress_grads=True``.  Returns this rank's results and gates."""
+    import torch.distributed as dist
+
+    torch, K, say = _tp_train_rank_setup(rank)
+    from repro_torch.data.pipeline import SyntheticTokens, make_global_batch
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.dp_step import make_dp_train_step
+    from repro_torch.runtime.train_loop import TrainConfig, build_train_step, train
+
+    card = card_line()
+    mesh = build_mesh((2, 2), ("data", "model"))
+    say(f"backend {dist.get_backend()} (CUDA tensors), mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}, "
+        f"coordinate (data {mesh.get_local_rank('data')}, model {mesh.get_local_rank('model')})")
+    arch = registry.get("qwen2-0.5b")
+    data, opt = _train_inputs(arch)
+    tokens = data.global_batch * data.seq_len
+    cfg = dataclasses.replace(arch.config, num_layers=TP_TRAIN_GRID_LAYERS, photonic=ideal_dpu(),
+                              photonic_backend="kernel")
+    per_step = 6 * TP_TRAIN_GRID_LAYERS * 2
+    out, gates = {"rank": rank}, {}
+
+    # (c1) train() on the grid.
+    _reset_counts(torch, K)
+    with _SaveCounter() as saves:
+        res = train(arch=arch, model_cfg=cfg, data_cfg=data,
+                    train_cfg=TrainConfig(steps=TP_TRAIN_GRID_STEPS, ckpt_every=1000, ckpt_dir=ckpt_dir, log_every=1),
+                    opt_cfg=opt, mesh=mesh, tp_axis="model", log=say, device="cuda")
+    counts = _counts(K)
+    fp = _fingerprint(res["params"])
+    secs = res["step_seconds"]
+    out["c1"] = dict(losses=res["losses"], fingerprint=fp, step_seconds=secs, counts=counts, saves=saves.n,
+                     max_memory_allocated=torch.cuda.max_memory_allocated(), tokens_per_s=tokens / secs[-1])
+    gates["(c1) losses and params bitwise TP = 1's"] = res["losses"] == tp1["losses"] and fp == tp1["fingerprint"]
+    n = per_step * TP_TRAIN_GRID_STEPS
+    gates["(c1) launches and collectives"] = (
+        (counts["photonic_gemm"], counts["all_reduces"], counts["row_gathers"], counts["photonic_gemm_fused"])
+        == (n, n, n, 0))
+    gates["(c1) checkpoint by rank 0 only"] = saves.n == (1 if rank == 0 else 0)
+    say(f"(c1) train(mesh=(2, 2), tp_axis='model') at {TP_TRAIN_GRID_LAYERS} layers: steps {[round(x, 4) for x in secs]} "
+        f"s, losses {res['losses']} (TP = 1 {tp1['losses']}), params sha256 {fp} (TP = 1 {tp1['fingerprint']}); "
+        f"photonic_gemm {counts['photonic_gemm']}, all-reduces {counts['all_reduces']}, row gathers "
+        f"{counts['row_gathers']}, fused {counts['photonic_gemm_fused']} (want {per_step}/step each, fused 0); "
+        f"max_memory_allocated {out['c1']['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+    del res
+    torch.cuda.empty_cache()
+
+    # (c2) the DP step, and its TP = 1 yardsticks on this rank (no collective).
+    params0 = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
+    batch = make_global_batch(SyntheticTokens(data), 0, "cuda")
+
+    def loss_fn(p, b):
+        return arch.loss(p, b, cfg)
+
+    whole, _, m_whole = build_train_step(loss_fn, opt)(params0, adamw.init(params0), batch)
+    with torch.no_grad():
+        halves = [float(loss_fn(params0, {k: v[i * 2:(i + 1) * 2] for k, v in batch.items()})) for i in range(2)]
+    blocks = (halves[0] + halves[1]) / 2
+    lr = float(adamw.schedule_lr(opt, torch.tensor(1)))
+    results = {}
+    for label, compress in (("c2", False), ("c3", True)):
+        step = make_dp_train_step(loss_fn, opt, mesh, compress_grads=compress, tp_axis="model")
+        _reset_counts(torch, K)
+        t0 = time.perf_counter()
+        p, _, loss, norm = step(params0, adamw.init(params0), batch)
+        loss, norm = float(loss), float(norm)
+        dt = time.perf_counter() - t0
+        counts = _counts(K)
+        worst, within = _rank_spread(torch, p, lr)
+        to_whole = max(float((a.float() - b.float()).abs().max()) for a, b in zip(_leaves(p), _leaves(whole)))
+        results[label] = p
+        out[label] = dict(loss=loss, grad_norm=norm, seconds=dt, counts=counts, rank_spread=worst,
+                          within_one_step=within,
+                          blocks_loss=blocks, whole_loss=float(m_whole["loss"]), max_abs_to_whole=to_whole,
+                          finite=bool(np.isfinite(loss) and np.isfinite(norm)
+                                      and all(bool(torch.isfinite(t).all()) for t in _leaves(p))))
+        say(f"({label}) make_dp_train_step(compress_grads={compress}): loss {loss!r} (TP = 1: mean over the two "
+            f"data blocks {blocks!r}, whole batch {float(m_whole['loss'])!r}), grad norm {norm!r} (whole batch "
+            f"{float(m_whole['grad_norm'])!r}), max |p - p_whole| {to_whole:.4g}, largest difference between ranks "
+            f"{worst:.4g}, {dt:.3f} s, photonic_gemm {counts['photonic_gemm']}, all-reduces {counts['all_reduces']} "
+            f"[{card}]")
+    c2, c3 = out["c2"], out["c3"]
+    gates["(c2) loss within rtol 1e-5 of TP = 1 over the data blocks"] = abs(c2["loss"] - blocks) <= 1e-5 * abs(blocks)
+    gates["(c2) params within atol 2e-2 of TP = 1 on the whole batch"] = c2["max_abs_to_whole"] <= 2e-2
+    gates["(c2) ranks bitwise equal"] = c2["rank_spread"] == 0.0
+    gates["(c2) launches"] = (c2["counts"]["photonic_gemm"], c2["counts"]["all_reduces"]) == (per_step, per_step)
+    gates["(c3) finite, loss equal to (c2)'s"] = c3["finite"] and c3["loss"] == c2["loss"]
+    gates["(c3) ranks agree within one AdamW step"] = c3["within_one_step"]
+    c3["gap_to_c2"] = max(float((a.float() - b.float()).abs().max()) for a, b in zip(_leaves(results["c3"]),
+                                                                                     _leaves(results["c2"])))
+    say(f"(c3) against (c2): max |p_c3 - p_c2| {c3['gap_to_c2']:.4g}, |grad norm gap| "
+        f"{abs(c3['grad_norm'] - c2['grad_norm']):.4g} [{card}]")
+    out["gates"] = gates
+    for k, v in gates.items():
+        say(f"{k}: {v}")
+    return out
+
+
+def _leaves(tree):
+    from repro_torch._tree import tree_leaves
+
+    return tree_leaves(tree)
+
+
+def tp_train_child(phase7):
+    """``chip_smoke.py --phase tp-train PHASE7``: tensor- and data-parallel
+    training of qwen2-0.5b on the one card, the ranks over ``gloo`` with
+    CUDA tensors (NCCL refuses two ranks on one device), started by
+    ``repro_torch.launch.mesh.spawn``.  (a) and (b) on two ranks
+    (:func:`tp_train_pair_rank`), held to phase 7 (a)'s losses and final
+    parameter fingerprint (``PHASE7``); then TP = 1 at
+    ``TP_TRAIN_GRID_LAYERS`` layers in this process, and (c) on four ranks
+    (:func:`tp_train_grid_rank`) held to it.  Gates: each rank's own, and
+    the ranks' results equal.  Returns (ok, result, launches summed over
+    the ranks)."""
+    import torch
+
+    from repro_torch.launch.mesh import spawn
+    from repro_torch.models import registry
+    from repro_torch.runtime.train_loop import TrainConfig, train
+
+    backend = "gloo"
+    log(f"  tp train: backend {backend}, CUDA tensors, ranks sharing the card")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    try:
+        pair = spawn(tp_train_pair_rank, TP_SHARDS, backend=backend, device="cuda", args=(phase7, ckpt_dir),
+                     timeout=420)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ok = all(all(r["gates"].values()) for r in pair)
+    same = (all(r["a"]["losses"] == pair[0]["a"]["losses"] and r["a"]["fingerprint"] == pair[0]["a"]["fingerprint"]
+                for r in pair)
+            and all((r["b"]["loss"], r["b"]["grad_norm"]) == (pair[0]["b"]["loss"], pair[0]["b"]["grad_norm"])
+                    for r in pair))
+    log(f"  tp train (a)/(b): every rank's gates {ok}; ranks agree (losses, params, SMWA loss and grad norm) {same}")
+
+    # TP = 1 at the grid's depth, in this process, before the four ranks start.
+    torch.use_deterministic_algorithms(True)
+    arch = registry.get("qwen2-0.5b")
+    data, opt = _train_inputs(arch)
+    cfg = dataclasses.replace(arch.config, num_layers=TP_TRAIN_GRID_LAYERS, photonic=ideal_dpu(),
+                              photonic_backend="kernel")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    try:
+        res = train(arch=arch, model_cfg=cfg, data_cfg=data,
+                    train_cfg=TrainConfig(steps=TP_TRAIN_GRID_STEPS, ckpt_every=1000, ckpt_dir=ckpt_dir, log_every=100),
+                    opt_cfg=opt, log=lambda m: None, device="cuda")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    tp1 = dict(losses=res["losses"], fingerprint=_fingerprint(res["params"]), step_seconds=res["step_seconds"])
+    log(f"  tp train: TP = 1 at {TP_TRAIN_GRID_LAYERS} layers, {TP_TRAIN_GRID_STEPS} steps: losses {tp1['losses']}, "
+        f"params sha256 {tp1['fingerprint']}, steps {[round(x, 4) for x in tp1['step_seconds']]} s")
+    del res
+    torch.cuda.empty_cache()
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_tp_ckpt_")
+    try:
+        grid = spawn(tp_train_grid_rank, 4, backend=backend, device="cuda", args=(tp1, ckpt_dir), timeout=420)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    grid_ok = all(all(r["gates"].values()) for r in grid)
+    grid_same = all(r["c1"]["fingerprint"] == grid[0]["c1"]["fingerprint"] and r["c2"]["loss"] == grid[0]["c2"]["loss"]
+                    and r["c3"]["loss"] == grid[0]["c3"]["loss"] for r in grid)
+    log(f"  tp train (c): every rank's gates {grid_ok}; ranks agree (c1 params, c2 and c3 losses) {grid_same}")
+    launches = {"photonic_gemm": sum(r[k]["counts"]["photonic_gemm"] for r in pair for k in ("a", "b"))
+                + sum(r[k]["counts"]["photonic_gemm"] for r in grid for k in ("c1", "c2", "c3"))}
+    return (ok and same and grid_ok and grid_same, {"backend": backend, "pair": pair, "tp1_grid": tp1, "grid": grid},
+            launches)
+
+
 def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
     """The paged server with ``photonic_slicing=2`` (every routed GEMM as 16
     unfused plane passes), ideal and SMWA-analog: tokens on the ideal
@@ -2325,7 +2753,8 @@ def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
     ok, out = True, {}
     for label, dpu in (("sliced_ideal", ideal_dpu()), ("sliced_smwa", smwa_dpu())):
         reqs, launches, forwards, done, finite, st = serve(
-            torch, arch, params, dpu, "kernel", prompts, card, label, extra=dict(photonic_slicing=2))
+            torch, arch, params, dpu, "kernel", prompts, card, label, extra=dict(photonic_slicing=2),
+            profile=False)
         expect = 16 * 6 * n_layers * forwards
         good = (done and finite and launches["photonic_gemm"] == expect
                 and launches["photonic_gemm_fused"] == 0 and launches["flash_attention"] == 0)
@@ -2363,7 +2792,8 @@ def int8_serve_phase(torch, arch, params, prompts, card):
     for label, backend, fuse in (("int8_fused", "kernel", True), ("int8_fused_ref", "ref", True),
                                  ("int8_three_sites", "kernel", False)):
         reqs, launches, forwards, done, finite, st = serve(
-            torch, arch, params_q, ideal_dpu(), backend, prompts, card, label, extra=extra, fuse=fuse)
+            torch, arch, params_q, ideal_dpu(), backend, prompts, card, label, extra=extra, fuse=fuse,
+            profile=label == "int8_fused")
         per_layer = 4 if fuse else 6
         expect = per_layer * n_layers * forwards if backend == "kernel" else 0
         good = (done and finite and launches["photonic_gemm_fused"] == expect
@@ -2407,7 +2837,7 @@ def dense_serve_phase(torch, registry, card):
         # Only granite's ideal run is profiled: the profiler's report costs ~10 s a run.
         reqs, launches, forwards, done, finite, st = serve(
             torch, arch, params, ideal_dpu(), backend, prompts, card, label,
-            profile=label in ("granite_ideal", "granite_int8_fused"), **kw)
+            profile=label == "granite_ideal", **kw)
         expect = (4 if kw.get("fuse") else 6) * n_layers * forwards if backend == "kernel" else 0
         good = (done and finite and launches["photonic_gemm_fused"] == expect
                 and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
@@ -2720,7 +3150,7 @@ def moe_phase(torch, registry, card):
     ):
         reqs, lc, st, good = legacy_moe_serve(
             torch, arch, params, dpu, backend, prompts, card, label, absorb=absorb, temperature=temp,
-            profile=label in ("v2_greedy", "v2_absorbed"))
+            profile=label == "v2_greedy")
         ok &= good
         if backend == "kernel":
             launches_total += lc["photonic_gemm_fused"]
@@ -3010,14 +3440,15 @@ def cross_phase(torch, registry, card):
     del packed, params, vision, batch
     torch.cuda.empty_cache()
 
-    # -- whisper-medium, full depth ----------------------------------------------
+    # -- whisper-medium, 12 + 12 of its 24 + 24 layers ---------------------------
     arch = registry.get("whisper-medium")
-    cfg = arch.config
+    cfg = dataclasses.replace(arch.config, num_layers=WHISPER_SERVE_LAYERS, encoder_layers=WHISPER_SERVE_LAYERS)
     t0 = time.perf_counter()
-    params = init_params(cfg, 0, device="cuda")
+    params = init_params(cfg, 0, device="cuda", defs=arch.param_defs(cfg))
     torch.cuda.synchronize()
     n_params = sum(t.numel() for t in tree_leaves(params))
-    log(f"  init_params (whisper-medium full width, 24 + 24 layers, bf16, {n_params / 1e9:.3f} B parameters) "
+    log(f"  init_params (whisper-medium full width, {WHISPER_SERVE_LAYERS} + {WHISPER_SERVE_LAYERS} of its 24 + 24 "
+        f"layers, bf16, {n_params / 1e9:.3f} B parameters) "
         f"{time.perf_counter() - t0:.2f} s")
     t_enc = 1500
     audio = {f32: torch.randn((4, t_enc, cfg.d_model), generator=g, device="cuda")}
@@ -3045,8 +3476,8 @@ def cross_phase(torch, registry, card):
                     torch.cuda.synchronize()
                     secs = time.perf_counter() - t0
                     logits[backend, dt, name] = out.float()
-                    want = WHISPER_PREFILL_LAUNCHES if backend == "kernel" else 0
-                    want_flash = 48 if impl == "flash" else 0
+                    want = WHISPER_SERVE_PREFILL_LAUNCHES if backend == "kernel" else 0
+                    want_flash = WHISPER_SERVE_FLASH if impl == "flash" else 0
                     n, nf = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
                     good = n == want and nf == want_flash and bool(torch.isfinite(out).all())
                     fused_total += n
@@ -3090,8 +3521,9 @@ def cross_phase(torch, registry, card):
         kernel = backend == "kernel"
         toks[label], wres[f"decode_{label}"], good = decode_run(
             torch, arch, packs[backend], run, batch, max_seq, 16, card, f"whisper_{label}",
-            want_prefill=WHISPER_PREFILL_LAUNCHES if kernel else 0, want_step=WHISPER_DECODE_LAUNCHES if kernel else 0,
-            want_flash=48 if impl == "flash" else 0, profile=label == "kernel")
+            want_prefill=WHISPER_SERVE_PREFILL_LAUNCHES if kernel else 0,
+            want_step=WHISPER_SERVE_DECODE_LAUNCHES if kernel else 0,
+            want_flash=WHISPER_SERVE_FLASH if impl == "flash" else 0, profile=label == "kernel")
         ok &= good
         fused_total += wres[f"decode_{label}"]["fused_launches"]
         flash_total += wres[f"decode_{label}"]["flash_launches"]
@@ -3601,7 +4033,7 @@ def recurrent_phase(torch, registry, card):
         for label, backend, dpu, steps in (("greedy", "kernel", ideal_dpu(), 8), ("greedy_ref", "ref", ideal_dpu(), 8),
                                            ("smwa", "kernel", smwa_dpu(), 5)):
             reqs, lc, st, good = legacy_moe_serve(
-                torch, arch, params, dpu, backend, prompts, card, f"{name} {label}", profile=label == "greedy",
+                torch, arch, params, dpu, backend, prompts, card, f"{name} {label}", profile=False,
                 per_forward=launches, new_tokens=steps)
             ok &= good
             fused_total += lc["photonic_gemm_fused"]
@@ -3630,8 +4062,8 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"]):
         return child(sys.argv[2])
-    if sys.argv[1:3] == ["--phase", "tp"] and len(sys.argv) == 4:
-        return child("tp", sys.argv[3])
+    if sys.argv[1:3] in (["--phase", "tp"], ["--phase", "tp-train"]) and len(sys.argv) == 4:
+        return child(sys.argv[2], sys.argv[3])
     setup(torch)
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
@@ -3831,7 +4263,7 @@ def main() -> int:
             ("ideal", ideal, "kernel"), ("smwa", smwa, "kernel"), ("ideal_ref", ideal, "ref"),
         ):
             reqs, launches, forwards, done, finite, st = serve(
-                torch, arch, params, dpu, backend, prompts, card, label
+                torch, arch, params, dpu, backend, prompts, card, label, profile=label == "ideal"
             )
             expect = 6 * n_layers * forwards if backend == "kernel" else 0
             ok = (done and finite and launches["photonic_gemm_fused"] == expect
@@ -3903,6 +4335,18 @@ def main() -> int:
     with Phase("train"):
         train_ok, train_res, train_launches = run_child(card, "train", timeout=600)
         all_ok &= train_ok
+
+    tpt_rows = []
+    with Phase("tp train"):
+        rows_ok, tpt_sums = tp_train_kernel_rows(torch, K, chans["ideal"], gen, tpt_rows, card)
+        all_ok &= rows_ok
+        if "a" in train_res:
+            arg = json.dumps({k: train_res["a"][k] for k in ("losses", "fingerprint")})
+            tpt_ok, tpt_res, tpt_launches = run_child(card, "tp-train", timeout=600, args=[arg])
+        else:
+            log("  tp train: phase 7 (a) gave no losses to hold TP = 2 to")
+            tpt_ok, tpt_res, tpt_launches = False, {}, {}
+        all_ok &= tpt_ok
 
     fam_rows = []
     with Phase("train families"):
@@ -4084,6 +4528,20 @@ def main() -> int:
              "R=64, ideal channel, shard_local_engine.int_gemm(shard=i); library: torch._int_mm of the shard's "
              "int cores; launches from the tp phase's K-sharded Engine and lm_logits runs, both ranks",
     ))
+    # The tp-train phase's row: one shard's six unfused GEMMs of a qwen2-0.5b
+    # layer at the TP = 2 training shape (R = 4096), ideal channel; launches
+    # from the tp-train phase's runs, summed over the ranks.
+    sm = tpt_sums[f"qwen2-0.5b ideal R={TRAIN_ROWS}"]
+    kernels.append(dict(
+        name="photonic_gemm", route="cuda", source=FUSED_SRC,
+        replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=tpt_launches["photonic_gemm"],
+        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"],
+        bound_by=op_or_bytes(sm["bound_by"]), library_ms=sm["library_ms"],
+        case=f"tensor-parallel training: one shard of {TP_SHARDS} of a qwen2-0.5b layer's six sites (K_local 448 / "
+             f"2432), R={TRAIN_ROWS}, ideal channel, shard_local_engine.int_gemm(shard=i); library: torch._int_mm of "
+             "the shard's int cores; launches from the tp-train phase's runs (TP = 2 train() and SMWA step, the "
+             "DP 2 x TP 2 train() and DP steps), every rank",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -4096,7 +4554,8 @@ def main() -> int:
          "recurrent": {"kernel_rows": rec_rows, "sums": rec_sums, "flash_rows": rec_flash, **rec},
          "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam},
          "analytic": {"ops_rows": ops_out, **analytic},
-         "tp": {"kernel_rows": tp_rows, "sums": tp_sums, **tp_res}}, indent=1))
+         "tp": {"kernel_rows": tp_rows, "sums": tp_sums, **tp_res},
+         "tp_train": {"kernel_rows": tpt_rows, "sums": tpt_sums, **tpt_res}}, indent=1))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -10,7 +10,9 @@ runs, with a ``TorchDispatchMode``.
 :data:`ALL_REDUCES` counts the collectives of tensor-parallel execution:
 ``repro_torch.photonic.sharded.psum_int_gemm`` adds one for each int32
 all-reduce it issues, the forward counterpart of the reference
-``ContractChecker``'s "one psum per routed GEMM".
+``ContractChecker``'s "one psum per routed GEMM".  :data:`ROW_GATHERS`
+counts the mesh-mode GEMMs whose rows split over the data axes and were
+gathered back (``repro_torch.photonic.sharded``): one a GEMM.
 """
 
 from __future__ import annotations
@@ -22,11 +24,14 @@ from torch.utils._python_dispatch import TorchDispatchMode
 
 
 ALL_REDUCES = {"psum_int_gemm": 0}
+ROW_GATHERS = {"tp_rows": 0}
 
 
 def reset_all_reduces() -> None:
-    for name in ALL_REDUCES:
-        ALL_REDUCES[name] = 0
+    """Zero :data:`ALL_REDUCES` and :data:`ROW_GATHERS`."""
+    for counts in (ALL_REDUCES, ROW_GATHERS):
+        for name in counts:
+            counts[name] = 0
 
 
 class WeightRoundCounter(TorchDispatchMode):

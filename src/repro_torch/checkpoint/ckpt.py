@@ -21,8 +21,10 @@ has one name in both.
 ``restore`` reads both layouts.  numpy has no bfloat16: the port stores a
 bf16 leaf as its raw 16-bit pattern (int16), the reference's ``np.savez``
 as a void ``V2`` array; both manifests record ``bfloat16`` and ``restore``
-reads either through the 16-bit pattern, bit for bit.  Elastic restore
-onto a mesh waits for the tensor-parallel slice.
+reads either through the 16-bit pattern, bit for bit.  ``restore(shardings=)``
+is the elastic path: the checkpoint holds whole host arrays, so a job
+resumes on any mesh; every rank reads the same file and builds each leaf
+as a DTensor from its own slice, with no collective.
 """
 
 from __future__ import annotations
@@ -137,14 +139,45 @@ def _archive_key(key: str, files) -> Tuple[str, Optional[int]]:
     raise KeyError(f"{key} is not in the checkpoint (in either layout)")
 
 
-def restore(ckpt_dir: str | Path, step: int, target_tree: Any) -> Any:
+def _local_slice(t: torch.Tensor, sharding) -> torch.Tensor:
+    """This rank's block of the whole tensor ``t`` under ``sharding``'s
+    placements: for each mesh axis that shards a dimension, the chunk at
+    the rank's coordinate on that axis, cut as ``torch.chunk`` cuts it
+    (DTensor's ``Shard`` layout: a chunk past the last is empty)."""
+    from torch.distributed.tensor import Shard
+
+    mesh = sharding.mesh
+    for axis, p in zip(mesh.mesh_dim_names, sharding.placements):
+        if isinstance(p, Shard):
+            n, i = mesh.size(mesh.mesh_dim_names.index(axis)), mesh.get_local_rank(axis)
+            chunks = torch.chunk(t, n, dim=p.dim)
+            t = chunks[i] if i < len(chunks) else t.narrow(p.dim, 0, 0)
+    return t.contiguous()
+
+
+def _place(t: torch.Tensor, sharding):
+    """``t`` (the whole leaf) as a DTensor on ``sharding``'s mesh, built
+    from this rank's slice alone."""
+    from torch.distributed.tensor import DTensor
+
+    local = _local_slice(t, sharding).to(sharding.mesh.device_type)
+    return DTensor.from_local(local, sharding.mesh, sharding.placements, run_check=False,
+                              shape=t.shape, stride=t.stride())
+
+
+def restore(ckpt_dir: str | Path, step: int, target_tree: Any, shardings: Any = None) -> Any:
     """Rebuild a tree shaped like ``target_tree`` from the checkpoint of
     ``step``, each leaf in its target's dtype and on its target's device.
     The checkpoint may be the port's or one the reference's ``save``
-    wrote (module docstring).  Reference:
-    ``repro.checkpoint.ckpt:restore`` (without ``shardings``)."""
+    wrote (module docstring).  With ``shardings`` (a tree of
+    :class:`~repro_torch.runtime.sharding.NamedSharding` shaped like
+    ``target_tree``), each leaf comes back as a DTensor on its sharding's
+    mesh and placements, holding this rank's slice on the mesh's device
+    (the elastic-resume path).  Reference:
+    ``repro.checkpoint.ckpt:restore``."""
     d = Path(ckpt_dir) / f"step_{step:08d}"
     manifest = json.loads((d / "manifest.json").read_text())
+    placed = tree_items(shardings) if shardings is not None else {}
     out = []
     with np.load(d / "leaves.npz") as data:
         files = set(data.files)
@@ -160,7 +193,10 @@ def restore(ckpt_dir: str | Path, step: int, target_tree: Any) -> Any:
             t = torch.from_numpy(np.array(arr))  # a contiguous copy; 0-dim stays 0-dim
             if manifest["dtypes"][name] == "bfloat16":
                 t = t.view(torch.bfloat16)
-            out.append(t.to(device=tgt.device, dtype=tgt.dtype))
+            if key in placed:
+                out.append(_place(t.to(dtype=tgt.dtype), placed[key]))
+            else:
+                out.append(t.to(device=tgt.device, dtype=tgt.dtype))
     return tree_unflatten(target_tree, out)
 
 

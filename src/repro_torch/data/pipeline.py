@@ -64,9 +64,29 @@ class SyntheticTokens:
             step += 1
 
 
-def make_global_batch(stream: SyntheticTokens, step: int, device=None) -> Dict[str, torch.Tensor]:
+def local_rows(t, sharding):
+    """This rank's rows of the global ``t`` under ``sharding`` (a
+    :class:`~repro_torch.runtime.sharding.NamedSharding` whose spec shards
+    the leading dimension, as ``P(dp_axes)`` does): the equal block at the
+    rank's coordinate over those mesh axes, row-major; all of ``t`` when
+    the leading dimension is replicated."""
+    from repro_torch.runtime.sharding import local_block
+
+    i, n = local_block(sharding.spec[0] if sharding.spec else None, sharding.mesh)
+    if t.shape[0] % n:
+        raise ValueError(f"{t.shape[0]} rows do not split into {n} blocks")
+    rows = t.shape[0] // n
+    return t[i * rows : (i + 1) * rows]
+
+
+def make_global_batch(stream: SyntheticTokens, step: int, device=None, sharding=None) -> Dict[str, torch.Tensor]:
     """A step's batch as int32 tensors on ``device`` (``cuda`` unless asked
-    otherwise).  Reference: ``repro.data.pipeline:make_global_batch``
-    (single process; the sharded placement waits for the mesh)."""
+    otherwise): the whole global batch, or with ``sharding`` this rank's
+    rows of it (:func:`local_rows`), slices of the one global stream (a
+    ``SyntheticTokens(shard_index=...)`` stream draws other batches).
+    Reference: ``repro.data.pipeline:make_global_batch``."""
     dev = resolve_device(device)
-    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in stream.batch_at(step).items()}
+    host = stream.batch_at(step)
+    if sharding is not None:
+        host = {k: local_rows(v, sharding) for k, v in host.items()}
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev) for k, v in host.items()}

@@ -10,6 +10,7 @@ carry the reference's weights over with ``repro_torch.weights``).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import functools
 import math
@@ -132,6 +133,31 @@ class ModelConfig:
     def moe_hidden(self) -> int:
         return self.moe_d_ff if self.moe_d_ff is not None else self.d_ff
 
+    def pad_for_mesh(self, model_axis: int) -> "ModelConfig":
+        """A config whose head, kv-head and vocab counts the TP degree
+        divides: q-heads padded up (``padded_heads``; the extras are
+        structural), kv-heads replicated up to the degree when fewer (raises
+        when the degree is not a multiple of them) or padded up, the vocab
+        padded up (``padded_vocab``, masked out of the loss).  Reference:
+        ``repro.models.common:ModelConfig.pad_for_mesh``."""
+        changes: Dict[str, Any] = {}
+        if self.num_heads % model_axis:
+            changes["padded_heads"] = _round_up(self.num_heads, model_axis)
+        kv = self.num_kv_heads
+        if kv and kv < model_axis:
+            if model_axis % kv:
+                raise ValueError(f"cannot replicate kv={kv} onto tp={model_axis}")
+            changes["num_kv_heads"] = model_axis
+        elif kv % model_axis:
+            changes["num_kv_heads"] = _round_up(kv, model_axis)
+        if self.vocab_size % model_axis:
+            changes["padded_vocab"] = _round_up(self.vocab_size, model_axis)
+        return dataclasses.replace(self, **changes) if changes else self
+
+
+def _round_up(x: int, m: int) -> int:
+    return -(-x // m) * m
+
 
 # ---------------------------------------------------------------------------
 # Parameter definitions
@@ -201,6 +227,18 @@ def init_params(
         raise TypeError(f"bad param def: {type(node)}")
 
     return walk(defs)
+
+
+def axes_tree(defs: Any) -> Any:
+    """The logical-axis tree matching :func:`init_params`' output: each
+    :class:`P` as its ``axes`` tuple, dicts and per-layer lists kept.
+    Reference: ``repro.models.common:axes_tree`` (whose stacked layer
+    leaves carry one more leading ``None`` per stacking)."""
+    if isinstance(defs, P):
+        return defs.axes
+    if isinstance(defs, list):
+        return [axes_tree(v) for v in defs]
+    return {k: axes_tree(v) for k, v in defs.items()}
 
 
 def dense_def(
@@ -485,19 +523,51 @@ def apply_remat(fn, cfg: ModelConfig):
     is recomputed under both; the recompute is deterministic, so both
     policies give the same losses and gradients bit for bit.  Without
     autograd (no grad mode) the call runs as it is, as ``jax.checkpoint``
-    outside a differentiation does.  Reference:
+    outside a differentiation does.  The recompute runs under the
+    tensor-parallel scope of the forward call (the scope is thread-local and
+    autograd recomputes on its own thread on the card), as the reference's
+    recompute replays the traced, sharded forward.  Reference:
     ``repro.models.common:apply_remat``."""
     if not cfg.remat:
         return fn
-    kw = {}
-    if cfg.remat_policy == "dots":
-        from torch.utils.checkpoint import create_selective_checkpoint_contexts
+    from repro_torch.photonic.sharded import current_tp, reenter
 
-        kw["context_fn"] = functools.partial(create_selective_checkpoint_contexts, _dots_policy)
+    def contexts(tp):
+        if cfg.remat_policy == "dots":
+            from torch.utils.checkpoint import create_selective_checkpoint_contexts
+
+            fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
+        else:
+            fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
+        return fwd, _stacked_contexts(rec, reenter(tp))
 
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
-        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False, **kw)
+        # The recompute runs in the backward, on autograd's device thread on
+        # the card: it re-enters the forward's tensor-parallel scope, so its
+        # GEMMs K-shard and issue their collectives as the forward's did.
+        tp = current_tp()
+        return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
+                                                 context_fn=functools.partial(contexts, tp))
 
     return remat
+
+
+@contextlib.contextmanager
+def _stacked_contexts(*cms):
+    with contextlib.ExitStack() as stack:
+        for cm in cms:
+            stack.enter_context(cm)
+        yield
+
+
+# ---------------------------------------------------------------------------
+# Sharding-constraint helper (no-op outside a mesh)
+# ---------------------------------------------------------------------------
+def with_logical(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
+    """Reference: ``repro.models.common:with_logical``
+    (:func:`repro_torch.runtime.sharding.logical_constraint`)."""
+    from repro_torch.runtime.sharding import logical_constraint
+
+    return logical_constraint(x, axes)

@@ -119,3 +119,10 @@ def update(
     new_mu = tree_unflatten(params, [o[1] for o in out])
     new_nu = tree_unflatten(params, [o[2] for o in out])
     return new_p, OptState(step, new_mu, new_nu), {"lr": lr, "grad_norm": gnorm}
+
+
+def opt_state_axes(param_axes: Any) -> OptState:
+    """Logical axes of the optimizer state: the step unsharded, the
+    moments sharded like the params.  Reference:
+    ``repro.optim.adamw:opt_state_axes``."""
+    return OptState((), param_axes, param_axes)

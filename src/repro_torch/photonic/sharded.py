@@ -30,10 +30,22 @@ Modes (both dispatch from ``models.common.dense`` via
   inside a ``shard_map`` body; here a process group given directly (the
   default group when none), raw ``(K, C)`` banks and float weights only.
 
-Contracts (``tests/test_torch_sharded.py``): an ideal channel makes the
-K-sharded output bitwise the unsharded one; each shard's channel is
-``build_channel_model`` at its ``N_local``; noisy calls are deterministic
-per ``noise_seed`` / ``prng_key`` and decorrelate across shards.
+In mesh mode the rows split too, as the reference's GSPMD path splits
+them (``_row_sharding``): when the mesh's other axes (its data axes) have
+more than one rank and divide the rows, each rank runs only its row block
+(by its row-major coordinate over those axes) through
+:func:`psum_int_gemm`, so its tiles fold the row-local ids the
+reference's ``shard_map`` body folds, and one ``all_gather`` per data axis
+rebuilds the replicated output (counted in
+``repro_torch.analysis.contracts.ROW_GATHERS``, one a GEMM).  Indivisible
+rows replicate.  The straight-through backward stays the dense one on the
+replicated operands.
+
+Contracts (``tests/test_torch_sharded.py``, ``tests/test_torch_train_tp.py``):
+an ideal channel makes the K-sharded output bitwise the unsharded one, rows
+split or not; each shard's channel is ``build_channel_model`` at its
+``N_local``; noisy calls are deterministic per ``noise_seed`` /
+``prng_key`` and decorrelate across shards.
 """
 
 from __future__ import annotations
@@ -47,7 +59,7 @@ from typing import Optional
 import torch
 import torch.distributed as dist
 
-from repro_torch.analysis.contracts import ALL_REDUCES
+from repro_torch.analysis.contracts import ALL_REDUCES, ROW_GATHERS
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.kernels.photonic_gemm.epilogue import apply_epilogue, as_epilogue
 from repro_torch.photonic.engine import PhotonicEngine, _ste_grads
@@ -116,6 +128,14 @@ def _scope(ctx: TPContext):
         _CTX.current = prev
 
 
+def reenter(ctx: Optional[TPContext]):
+    """Make ``ctx`` (a context :func:`current_tp` returned earlier, or
+    ``None``) the active one again, as a context manager.  The TP scope is
+    thread-local, and autograd runs a CUDA backward (and so a remat
+    recompute) on its own thread, where the caller's scope is not active."""
+    return contextlib.nullcontext() if ctx is None else _scope(ctx)
+
+
 def tensor_parallel(mesh, axis: str = "model"):
     """Run policy-routed ``dense()`` GEMMs K-sharded over ``mesh[axis]``
     (a :class:`~torch.distributed.device_mesh.DeviceMesh` with named axes).
@@ -181,12 +201,57 @@ def psum_int_gemm(
     return out
 
 
-def _local_x(x: torch.Tensor, bits: int, i: int, k_local: int):
+def _row_sharding(tp: TPContext, rows: int):
+    """The mesh axes a mesh-mode GEMM's rows split over, with this rank's
+    block index and the block count: every axis but the TP axis, row-major;
+    ``None`` (replicate) in manual mode, with no such axis of more than one
+    rank, or when the block count does not divide ``rows``.  Reference:
+    ``repro.photonic.sharded:_row_sharding``."""
+    if tp.manual:
+        return None
+    mesh = tp.mesh
+    dp_axes = tuple(a for a in mesh.mesh_dim_names if a != tp.axis)
+    if not dp_axes:
+        return None
+    from repro_torch.runtime.sharding import local_block
+
+    index, count = local_block(dp_axes, mesh)
+    if count == 1 or rows % count:
+        return None
+    return dp_axes, index, count
+
+
+def _gather_rows(out: torch.Tensor, tp: TPContext, dp_axes) -> torch.Tensor:
+    """This rank's row block of a GEMM's sum, gathered over ``dp_axes``
+    (innermost first, so the blocks land row-major) into the replicated
+    output.  Adds one to ``ROW_GATHERS["tp_rows"]``."""
+    for axis in reversed(dp_axes):
+        group = tp.mesh.get_group(axis)
+        blocks = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
+        dist.all_gather(blocks, out, group=group)
+        out = torch.cat(blocks, dim=0)
+    ROW_GATHERS["tp_rows"] += 1
+    return out
+
+
+def _local_x(x: torch.Tensor, bits: int, i: int, k_local: int, rows=None):
     """``x`` as rows quantized at its global abs-max (the scale every rank
-    derives, bitwise the unsharded one) and sliced to rank ``i``'s K block,
-    with that scale."""
+    derives, bitwise the unsharded one), sliced to rank ``i``'s K block and,
+    with ``rows`` (:func:`_row_sharding`), to this rank's row block; with
+    that scale."""
     xq, sx = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    if rows is not None:
+        _, index, count = rows
+        r = xq.shape[0] // count
+        xq = xq[index * r : (index + 1) * r]
     return xq[:, i * k_local : (i + 1) * k_local].contiguous(), sx
+
+
+def _tp_int_gemm(eng, xl, wl, tp: TPContext, rows, **kw) -> torch.Tensor:
+    """:func:`psum_int_gemm` over the TP axis, then the rows gathered when
+    they were split."""
+    out = psum_int_gemm(eng, xl, wl, group=tp.process_group(), **kw)
+    return out if rows is None else _gather_rows(out, tp, rows[0])
 
 
 # ---------------------------------------------------------------------------
@@ -207,10 +272,11 @@ class _TPFloatMatmul(torch.autograd.Function):
         k, c = w.shape
         size, i = tp.size(), tp.rank()
         k_local = k // size
-        xl, sx = _local_x(x, bits, i, k_local)
+        rows = _row_sharding(tp, x.numel() // k)
+        xl, sx = _local_x(x, bits, i, k_local, rows)
         wq, sw = quantize_symmetric(w, bits, axis=0)
         wl = wq[i * k_local : (i + 1) * k_local].contiguous()
-        out = psum_int_gemm(eng, xl, wl, group=tp.process_group(), site=site, fold=fold, prng_key=prng_key)
+        out = _tp_int_gemm(eng, xl, wl, tp, rows, site=site, fold=fold, prng_key=prng_key)
         y = apply_epilogue(out, sx, sw.to(torch.float32), bias, spec)
         return y.reshape(*x.shape[:-1], c).to(x.dtype)
 
@@ -238,10 +304,11 @@ class _TPPackedMatmul(torch.autograd.Function):
         ctx.save_for_backward(x, w_scale, bias)
         size, i = tp.size(), tp.rank()
         k_local = packed.k // size
-        xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local)
+        rows = _row_sharding(tp, x.numel() // packed.k)
+        xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local, rows)
         view = packed.local(i, size)
-        out = psum_int_gemm(
-            eng, xl, view.wq, group=tp.process_group(), site=site, fold=fold, prng_key=prng_key,
+        out = _tp_int_gemm(
+            eng, xl, view.wq, tp, rows, site=site, fold=fold, prng_key=prng_key,
             logical_kc=(k_local, packed.c), tiling=view.tiling, pack=view,
         )
         y = apply_epilogue(out, sx, w_scale.to(torch.float32), bias, spec)

@@ -1,4 +1,4 @@
-"""Fault-tolerant single-device training loop.
+"""Fault-tolerant training loop, on one device or SPMD over a mesh.
 
 Port of ``repro.runtime.train_loop``:
 
@@ -15,12 +15,25 @@ Port of ``repro.runtime.train_loop``:
 
 The step is eager PyTorch: ``loss_fn`` runs forward, ``torch.autograd``
 takes the gradient (through the photonic engine's straight-through
-functions), and ``adamw.update`` applies it.  The mesh (``mesh=``,
-``tp_axis=``) waits for the tensor-parallel slice.
+functions), and ``adamw.update`` applies it.
+
+With ``mesh=`` (a :class:`DeviceMesh` over every rank of the default
+process group) the loop runs SPMD: every rank calls :func:`train` with the
+same arguments and holds the params replicated; ``use_rules(mesh)`` is
+active across the run, and with ``tp_axis=`` and a photonic engine every
+routed GEMM K-shards over that axis (``tensor_parallel``), its rows split
+over the other axes, so the values are the unsharded step's.  The
+single-controller reference has no ranks to keep in step; the port keeps
+three rules: only rank 0 writes checkpoints, and every rank waits at a
+barrier before it looks for the latest one; the preemption flag and the
+simulated failure are agreed across ranks (``all_reduce(MAX)``) before the
+checkpoint decision, so no rank leaves while the others wait in a
+collective; every rank's batch is the one global batch.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import signal
 import tempfile
@@ -29,6 +42,7 @@ from pathlib import Path
 from typing import Any, Callable, Dict, Optional
 
 import torch
+import torch.distributed as dist
 
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_items, tree_map, tree_unflatten
@@ -36,11 +50,6 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
 from repro_torch.models.common import engine_from_model_config, init_params
 from repro_torch.optim import adamw
-
-NOT_PORTED_MESH = (
-    "training on a mesh (mesh=, tp_axis=) is not ported yet: ROADMAP.md "
-    "Queue 1, 'Tensor parallel'"
-)
 
 
 @dataclasses.dataclass
@@ -127,6 +136,16 @@ class StragglerWatchdog:
         return straggled
 
 
+def _agreed(flag: bool, mesh) -> bool:
+    """``flag`` or'ed over every rank (an ``all_reduce(MAX)``) on a mesh;
+    ``flag`` itself without one."""
+    if mesh is None:
+        return flag
+    t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device_type)
+    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    return bool(t.item())
+
+
 def train(
     *,
     arch,
@@ -141,13 +160,19 @@ def train(
     device=None,
 ) -> Dict[str, Any]:
     """Run (or resume) a training job on ``device`` (``cuda`` unless asked
-    otherwise).  Reference: ``repro.runtime.train_loop:train``.  Returns
+    otherwise), alone or as one rank of ``mesh`` (module docstring), with
+    routed GEMMs K-sharded over ``tp_axis`` (a ``ValueError`` names an axis
+    the mesh lacks; ``tp_axis`` without a mesh changes nothing, as in the
+    reference).  Reference: ``repro.runtime.train_loop:train``.  Returns
     the final params and optimizer state, the losses, the straggler events,
     the final step and whether the run was preempted, as the reference
     does, plus each step's seconds (``step_seconds``) and the seconds the
     loop spent blocked in checkpointing (``checkpoint_seconds``)."""
-    if mesh is not None or tp_axis is not None:
-        raise NotImplementedError(NOT_PORTED_MESH)
+    from repro_torch.runtime import sharding as shd
+
+    if mesh is not None and tp_axis is not None and tp_axis not in shd.mesh_axis_sizes(mesh):
+        raise ValueError(f"tp_axis {tp_axis!r} not in mesh axes {tuple(shd.mesh_axis_sizes(mesh))}")
+    writer = mesh is None or dist.get_rank() == 0
     dev = resolve_device(device)
     opt_cfg = opt_cfg or adamw.AdamWConfig(total_steps=train_cfg.steps)
     stream = SyntheticTokens(data_cfg)
@@ -163,6 +188,8 @@ def train(
     step_fn = build_train_step(loss_fn, opt_cfg, train_cfg.microbatches)
 
     # ---- init or resume ----------------------------------------------------
+    if mesh is not None:
+        dist.barrier()  # rank 0's last checkpoint is on disk before anyone looks
     start = ckpt.latest_step(train_cfg.ckpt_dir)
     params = init_params(model_cfg, train_cfg.seed, dev, defs=arch.param_defs(model_cfg))
     opt_state = adamw.init(params)
@@ -190,9 +217,20 @@ def train(
     losses, step_seconds = [], []
     ckpt_seconds = 0.0
     pending_save = None
+    # The mesh's rule scope and the TP scope are live across the whole loop
+    # and are entered last before the try, so `finally` always leaves them
+    # (a leaked thread-local scope would re-route every later dense()).
+    scopes = contextlib.ExitStack()
+    if mesh is not None:
+        scopes.enter_context(shd.use_rules(mesh))
+        if tp_axis is not None and photonic_engine is not None:
+            from repro_torch.photonic import sharded as tp_sharded
+
+            log(f"[train] photonic tensor-parallel over mesh axis {tp_axis!r}")
+            scopes.enter_context(tp_sharded.tensor_parallel(mesh, tp_axis))
     try:
         for step in range(step0, train_cfg.steps):
-            if fail_at_step is not None and step == fail_at_step:
+            if _agreed(fail_at_step is not None and step == fail_at_step, mesh):
                 raise RuntimeError(f"simulated node failure at step {step}")
             t0 = time.time()
             batch = make_global_batch(stream, step, dev)
@@ -206,7 +244,8 @@ def train(
             if step % train_cfg.log_every == 0:
                 log(f"[train] step {step} loss {loss:.4f} ({dt:.3f}s)")
             is_last = step == train_cfg.steps - 1
-            if (step + 1) % train_cfg.ckpt_every == 0 or is_last or preempted["flag"]:
+            preempted["flag"] = _agreed(preempted["flag"], mesh)
+            if ((step + 1) % train_cfg.ckpt_every == 0 or is_last or preempted["flag"]) and writer:
                 t1 = time.time()
                 if pending_save is not None:
                     pending_save.join()
@@ -228,6 +267,7 @@ def train(
         ckpt_seconds += time.time() - t1
         for sig, h in old_handlers.items():
             signal.signal(sig, h)
+        scopes.close()
 
     return {
         "params": params,

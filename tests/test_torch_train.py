@@ -372,9 +372,15 @@ def test_microbatched_step_matches_reference(jparams):
 
 
 def test_train_refuses_a_mesh(tmp_path):
+    """A mesh without the TP axis asked for is refused before any step,
+    naming the axis (training on a mesh is held in
+    ``tests/test_torch_train_tp.py``)."""
+    from repro_torch.runtime.sharding import abstract_mesh
+
     _, tc = _cfgs(False)
-    with pytest.raises(NotImplementedError, match="Queue 1, .Tensor parallel."):
-        _port_train(tmp_path, tc, tp_axis="model")
+    with pytest.raises(ValueError, match=r"tp_axis 'tensor' not in mesh axes \('data', 'model'\)"):
+        _port_train(tmp_path, tc, mesh=abstract_mesh((1, 2), ("data", "model")), tp_axis="tensor")
+    assert ttl.ckpt.latest_step(tmp_path) is None
 
 
 # ---------------------------------------------------------------------------
