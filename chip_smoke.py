@@ -8,8 +8,11 @@ CUDA toolkit:
 
 Phases, in order (each prints its wall time; any failure exits non-zero):
 
-1. device: the card's name and power limit (``nvidia-smi``), torch and
-   CUDA versions; the kernels are built from
+1. device: the launch profile (``repro_torch.launch.profile.apply()``, run
+   first; its ``describe()`` printed: tcmalloc, the log and allocator
+   environment, torch and CUDA versions, the card, the build directory,
+   TF32 and ``cudnn.benchmark``); the card's name and power limit
+   (``nvidia-smi``), torch and CUDA versions; the kernels are built from
    ``src/repro_torch/kernels/{photonic_gemm,flash_attention}/csrc``, with
    two variants of the flash source that split P into the other counts of
    bf16 terms (one to three; the shipped source uses two), one ``nvcc``
@@ -97,15 +100,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    paged ``Scheduler`` with every weight GEMM on the fused kernel, in the
    ideal and the SMWA-analog mode; launch counts are reset before each run
    and must equal 6 x 24 x forward calls; ideal-mode tokens must equal the
-   same server's on the ``ref`` backend.  In each run, once every request
-   is prefilled, two decode steps are set apart and left out of the rates
-   printed; in the ideal kernel run they run under the torch profiler:
-   device busy share, top kernels and top host ops (full tables in
-   ``chiprun_out/profile_*.txt``) and the profiler's own cost.  (Cut for
-   the run's limit: the reports of the SMWA, sliced, int8 three-site,
-   TP, granite int8, absorbed MLA and recurrent runs: the profiler's report
-   takes 3-32 s a run; the serve, int8 fused, granite, expanded MLA,
-   llama-3.2-vision and whisper runs keep theirs.)
+   same server's on the ``ref`` backend.  (Cut for the run's limit: every
+   serving run's profiler report, 3-16 s each, with the two decode steps
+   each run set apart for it; the tooling phase profiles one decode step.)
    The paged path runs chunked attention, so its flash count must stay 0.
 5b. sliced serve: the same server, prompts and tokens with
    ``photonic_slicing=2`` in the ideal and SMWA modes: ``photonic_gemm``
@@ -154,10 +151,15 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    per forward 6 x 24 unfused launches and as many int32 all-reduces
    (``repro_torch.analysis.contracts.ALL_REDUCES``), one per routed GEMM,
    and no fused launch (6 x 24 fused without the mesh); ideal TP = 2
-   tokens and logits equal TP = 1's; SMWA deterministic across two TP = 2
-   runs and unlike the unsharded logits; tokens and logits equal across
-   the ranks; then ``lm_logits`` at B = 2, T = 1000 under TP = 2 bitwise
-   TP = 1's.  Prefill seconds and decode ms/step per run; whether the
+   tokens and logits equal TP = 1's; SMWA unlike the unsharded logits; tokens
+   and logits equal across the ranks (the second TP = 2 SMWA run, which
+   held SMWA deterministic, is cut for the run's limit); after the ideal
+   TP = 2 run, a ``ContractChecker`` over one more decode step
+   (``Scheduler.decode_checker``, 4 rows): ``assert_psum_per_gemm(144)``,
+   144 unfused launches, and the all-reduce wire bytes of
+   ``collective_summary`` equal to the ring formula 2 (g - 1) / g x bytes
+   summed over the (4, C) int32 partials of the six sites x 24 layers, g =
+   2; then ``lm_logits`` at B = 2, T = 1000 under TP = 2 bitwise TP = 1's.  Prefill seconds and decode ms/step per run; whether the
    TP = 2 tokens equal the serve phase's (which prefills in chunks of 64
    tokens) is printed, not gated.
 6b. dense serve: granite-3-8b at full width with 10 of its 40 layers
@@ -170,7 +172,6 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    tokens); the int8 layout with the bias-free fused ``wqkv`` bank on
    ``kernel`` and ``ref`` (tokens equal); then qwen2-1.5b at full width
    (28 layers) ideal greedy on ``kernel`` and ``ref`` (tokens equal).  The
-   granite ideal run profiles two decode steps (device busy share); the
    phase prints its peak memory.
 6c. deepseek: deepseek-67b at full width with 4 of its 95 layers (its
    134 GB of bf16 weights do not fit one 80 GB card): ``lm_logits`` on
@@ -187,8 +188,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    max_seq 128: greedy expanded and absorbed (``mla_absorb``) on
    ``kernel`` and ``ref``, sampled at temperature 0.8, each pair's tokens
    equal; SMWA (``noise_seed=0``): logits finite, requests done; fused
-   launches 190 a prefill and 190 (136 absorbed) a decode step; two decode
-   steps of the expanded greedy kernel run under the profiler; the agreement of
+   launches 190 a prefill and 190 (136 absorbed) a decode step; the agreement of
    absorbed and expanded tokens printed; peak memory of ``lm_logits`` and
    of serving.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
    layers (84 GB of bf16 weights do not fit): ``lm_logits`` B=1 T=512,
@@ -215,7 +215,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    logits must move); ``arch.prefill`` of 4 x 64 tokens with bf16 vision
    (4, 1600, 8192), then 16 greedy ``arch.decode`` steps at max_seq 128 on
    ``kernel`` and ``ref`` (tokens equal; 61 launches a prefill, 57 a decode
-   step; the kernel run's last two steps under the profiler) and 4 steps
+   step) and 4 steps
    under SMWA (``noise_seed=0``: logits finite).  whisper-medium at full
    width with 12 + 12 of its 24 + 24 layers (cut for the run's
    limit): ``whisper_logits`` with audio (4, 1500, 1024) in f32 and
@@ -228,8 +228,8 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    disagreement <= max(1%, 2 x the witness's); ``arch.prefill`` of 4 x 4 tokens then 16 greedy decode steps
    at max_seq 375 on ``kernel``, ``ref`` and kernel with flash (tokens of
    the first two equal; 193 launches a prefill, 97 a decode step, flash
-   24 a prefill).  Each model prints prefill seconds, decode ms/step,
-   device busy share and launches a step, and peak memory.
+   24 a prefill).  Each model prints prefill seconds, decode ms/step and
+   peak memory.
 6f. recurrent: the ssm and hybrid families.  Kernel rows, each bitwise
    its twin (noise included) with its time, bound and the ``_int_mm``
    time of its int core: xlstm-350m's mLSTM sites (``up`` 1024->4096,
@@ -332,8 +332,8 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``init_params`` seed 0, ``DataConfig(seq_len=1024, global_batch=4,
    seed=0)``, AdamW as phase 7, each model at published width:
    xlstm-350m cut to one group (7 mLSTM + 1 sLSTM of 24 layers) and
-   zamba2-2.7b to 18 of 54 layers (3 shared-block invocations), both cut
-   to keep the run inside its limit (zamba2 at its ``ssm_chunk`` of 256,
+   zamba2-2.7b to one group, 6 of 54 layers (one shared-block invocation),
+   both cut to keep the run inside its limit (zamba2 at its ``ssm_chunk`` of 256,
    from the zero init of ``a_log`` / ``dt_bias``, where the reference's
    SSD gradient is NaN; xlstm first records one loss and gradient at its
    published init, whose sLSTM ``r`` makes the gradient NaN at 1024
@@ -343,8 +343,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    temporary directory; (b) SMWA (``noise_seed=0``) through
    ``build_train_step``, one step; (c) the ``exact`` backend, 3 steps:
    losses and final parameters bitwise (a)'s.  deepseek-v2-lite-16b cut
-   to its dense first block and 3 MoE layers (its AdamW moments alone
-   take 128 GB whole): the same through ``build_train_step``.
+   to its dense first block and one MoE layer (its AdamW moments alone
+   take 128 GB whole; the run's limit cuts the other MoE layers):
+   the same through ``build_train_step``.
    whisper-medium whole: one step of 4 x 448 target tokens over
    ``audio_embed`` (4, 1500, 1024) in modes (a) (b) (c);
    llama-3.2-vision-90b cut to one group (4 self + 1 cross layer, gates
@@ -352,7 +353,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    over ``vision`` (4, 1600, 8192), modes (a) and (c), (c)'s gradients
    bitwise (a)'s.  Gates: losses finite, grad norms finite, fused
    launches a step = the routed GEMMs of a forward plus those the
-   backward recomputes (101, 91, 57, 721, 59), ``exact`` bitwise.  Per
+   backward recomputes (101, 31, 29, 721, 59), ``exact`` bitwise.  Per
    mode: s/step, tokens/s, peak memory, launches; for (a) also one more
    step with the card's NVML ``utilization.gpu`` sampled (device busy).
 
@@ -380,6 +381,33 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    differences of ``GRAPH_DIFFERENCES`` (a tied head, deepseek's dense
    first block, the routed experts), printed with their numbers; any other
    fails the phase.
+9. tooling: the port's tooling tier (``repro_torch.launch.{profile,
+   hlo_analysis,dryrun}``, ``analysis.contracts.ContractChecker``).  On
+   qwen2-0.5b's paged ``Scheduler`` at full width (bf16,
+   ``init_params`` seed 0, ideal channel, kernel backend, prepacked, the
+   serve phase's four prompts prefilled): (b) ``decode_checker()`` over one
+   decode step: ``assert_zero_weight_rounds`` at the smallest routed
+   weight's size, 144 fused launches, its ``matmul_traffic_bytes``
+   against the step's device time from (d); the same step over the float
+   (unpacked) weights counts more than zero weight rounds; (d)
+   ``hlo_analysis.dispatch_summary`` of one decode step under the torch
+   profiler (launches, device busy share; photonic launches 144 and flash
+   0, the serve phase's constants); (f) ``dryrun.account`` over phase 7
+   (a)'s training step (qwen2-0.5b, 4 x 1024 tokens, TP = 1, ideal, on the
+   ``ref`` backend, which fake tensors can run) for real on the card and
+   under fake CUDA tensors: FLOPs, argument bytes, GEMM traffic and the
+   aten op stream equal exactly, the fake peak against
+   ``max_memory_allocated`` printed as a ratio.  (e) Then, after the card
+   work so that none of its host time shares the CPU, the three dry-run
+   cells of ``DRY_CELLS``, each a subprocess started together (``python -m
+   repro_torch.launch.dryrun ... --device cuda``: fake CUDA tensors on a
+   fake 256-rank group, the production (16, 16) mesh): qwen2-0.5b x
+   decode_32k, qwen2-0.5b x train_4k with ``--photonic --dp-shardmap``,
+   and xlstm-350m x decode_32k (its prefill_32k steps the sLSTM once a
+   token, millions of fake ops past the phase's time).  Each exits 0 with
+   ``ok`` (its ladder identity exact), with its bytes, FLOPs, collectives
+   and whether it fits one 80 GB rank printed; the JSONs land in
+   ``chiprun_out/dryrun/``.  (c) runs in the tp phase's ranks.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -540,16 +568,17 @@ TP_TRAIN_GRID_STEPS = 2
 # sLSTM blocks and the head run once); zamba2-2.7b its 54 Mamba2 blocks
 # (the shared block runs once an invocation).
 # Depth cut for the run's time limit: xlstm-350m trains one group (7 mLSTM
-# + 1 sLSTM layer of 24), zamba2-2.7b 18 of 54 layers (3 shared-block
-# invocations); a step launches the forward's routed GEMMs plus the
-# mLSTM / Mamba2 ones the backward recomputes.
+# + 1 sLSTM layer of 24), zamba2-2.7b one group, 6 of 54 layers (one
+# shared-block invocation); a step launches the forward's routed GEMMs plus
+# the mLSTM / Mamba2 ones the backward recomputes.
 XLSTM_TRAIN_LAYERS = 8
-ZAMBA_TRAIN_LAYERS = 18
+ZAMBA_TRAIN_LAYERS = 6
 XLSTM_TRAIN_LAUNCHES = 2 * 7 * 7 + 1 * 2 + 1
-ZAMBA_TRAIN_LAUNCHES = 2 * 18 * 2 + 3 * 6 + 1
-# deepseek-v2-lite-16b cut to its dense first block and 3 MoE layers (its
-# AdamW moments alone would take 128 GB whole); every block under remat.
-V2_TRAIN_LAYERS = 4
+ZAMBA_TRAIN_LAUNCHES = 2 * ZAMBA_TRAIN_LAYERS * 2 + 1 * 6 + 1
+# deepseek-v2-lite-16b cut to its dense first block and one MoE layer (its
+# AdamW moments alone would take 128 GB whole; the run's limit cuts the
+# rest); every block under remat.
+V2_TRAIN_LAYERS = 2
 V2_TRAIN_LAUNCHES = 2 * V2_TRAIN_LAYERS * 7 + 1
 # whisper-medium: 448 target tokens over 1500 frames; the encoder and the
 # decoder blocks are recomputed, the cross K/V (computed outside the
@@ -1297,10 +1326,15 @@ def p_terms_phase(torch, F, variants, shipped, gen, card):
 
 
 def profiled(torch, fn, label):
-    """Run ``fn()`` under the torch profiler (CPU + CUDA) and log the device
-    busy share and the top kernels and host ops; the full table goes to
-    ``chiprun_out/profile_<label>.txt``."""
+    """Run ``fn()`` under the torch profiler (CPU + CUDA) and log
+    ``repro_torch.launch.hlo_analysis.dispatch_summary`` of it: device busy
+    milliseconds and share, device events, ``cudaLaunchKernel`` calls, the
+    photonic and flash kernels' launches, the top kernels and host ops; the
+    full table goes to ``chiprun_out/profile_<label>.txt``.  Returns the
+    summary with the profiler's own cost."""
     from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch import hlo_analysis
 
     t_enter = time.perf_counter()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
@@ -1309,43 +1343,34 @@ def profiled(torch, fn, label):
         torch.cuda.synchronize()
         t1 = time.perf_counter()
     t_exit = time.perf_counter()
-    wall_ms = (t1 - t0) * 1e3
     ka = prof.key_averages()
     t_avg = time.perf_counter()
-
-    def dev_us(e):
-        return getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
-
-    kernels = [e for e in ka if e.device_type == torch.autograd.DeviceType.CUDA]
-    busy_ms = sum(dev_us(e) for e in kernels) / 1e3
-    share = f"{busy_ms / wall_ms:.1%}" if busy_ms > 0 else "not measured"
-    launches = sum(e.count for e in ka if e.key == "cudaLaunchKernel")
-    log(f"  profile {label}: wall {wall_ms:.1f} ms under the profiler, device busy "
-        f"{busy_ms:.1f} ms ({share}), {sum(e.count for e in kernels)} device events, "
-        f"{launches} cudaLaunchKernel calls")
-    for e in sorted(kernels, key=dev_us, reverse=True)[:6]:
-        log(f"    device {dev_us(e) / 1e3:9.2f} ms x{e.count:<6d} {e.key[:70]}")
-    host = [e for e in ka if e.device_type != torch.autograd.DeviceType.CUDA]
-    for e in sorted(host, key=lambda e: e.self_cpu_time_total, reverse=True)[:8]:
-        log(f"    host   {e.self_cpu_time_total / 1e3:9.2f} ms x{e.count:<6d} {e.key[:70]}")
+    summary = hlo_analysis.dispatch_summary(ka, (t1 - t0) * 1e3)
+    share = "not measured" if summary["busy_share"] is None else f"{summary['busy_share']:.1%}"
+    log(f"  profile {label}: wall {summary['wall_ms']:.1f} ms under the profiler, device busy "
+        f"{summary['device_busy_ms']:.1f} ms ({share}), {summary['device_events']} device events, "
+        f"{summary['launch_calls']} cudaLaunchKernel calls, photonic launches {summary['photonic_launches']}, "
+        f"flash launches {summary['flash_launches']}")
+    for name, count, ms in summary["top_kernels"]:
+        log(f"    device {ms:9.2f} ms x{count:<6d} {name[:70]}")
+    for name, count, ms in summary["top_host_ops"]:
+        log(f"    host   {ms:9.2f} ms x{count:<6d} {name[:70]}")
     out = ROOT / "chiprun_out"
     out.mkdir(exist_ok=True)
     (out / f"profile_{label}.txt").write_text(ka.table(sort_by="self_cpu_time_total", row_limit=60))
     cost = dict(start_s=t0 - t_enter, stop_s=t_exit - t1, key_averages_s=t_avg - t_exit,
                 report_s=time.perf_counter() - t_avg)
     log(f"  profiler cost {label}: " + ", ".join(f"{k} {v:.3f}" for k, v in cost.items()))
-    return dict(wall_ms=wall_ms, device_busy_ms=busy_ms, launch_calls=launches, cost=cost)
+    return dict(summary, cost=cost)
 
 
 def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, fuse=False, temperature=None,
-          new_tokens=8, batch=4, profile=True):
+          new_tokens=8, batch=4):
     """Serve ``prompts`` through the port's Scheduler, greedily or, with a
     ``temperature``, sampled under the reference's keys (seed 0), the model
     config changed by ``extra`` (e.g. ``photonic_slicing``) and, with
     ``fuse``, every layer's Q/K/V fused into one ``wqkv`` bank after the
-    scheduler prepacked them.  Once every request is prefilled, two steady
-    decode steps run apart (under the profiler on the kernel backend, with
-    ``profile``) and are left out of the rates."""
+    scheduler prepacked them."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.photonic import fuse_qkv_params
@@ -1366,22 +1391,7 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, f
     K.reset_launches()
     F.reset_launches()
     t0 = time.perf_counter()
-    for r in reqs:
-        sch.submit(r)
-    while not all(r.output for r in reqs):
-        sch.step()
-    before_s, before_toks = sch.stats["decode_s"], sum(len(r.output) for r in reqs)
-    tp = time.perf_counter()
-    prof = None
-    if backend == "kernel" and profile:
-        prof = profiled(torch, lambda: [sch.step() for _ in range(2)], label)
-    else:
-        sch.step()
-        sch.step()
-    prof_wall = time.perf_counter() - tp
-    prof_s = sch.stats["decode_s"] - before_s
-    prof_toks = sum(len(r.output) for r in reqs) - before_toks
-    sch.run()
+    sch.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     launches = dict(K.LAUNCHES, **F.LAUNCHES)
@@ -1389,19 +1399,14 @@ def serve(torch, arch, params, dpu, backend, prompts, card, label, extra=None, f
     forwards = st["prefill_chunks"] + st["decode_steps"]
     toks = sum(len(r.output) for r in reqs)
     finite = all(bool(np.isfinite(row).all()) for r in reqs for row in r.logits)
-    # Rates without the two steps set apart.
-    run_s = dt - prof_wall
-    decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
-    log(f"  {label}: {sch.photonic.describe()}: {toks} tokens in "
-        f"{dt:.3f} s, {toks - prof_toks} tokens in {run_s:.3f} s outside the two set-apart steps = "
-        f"{(toks - prof_toks) / run_s:.2f} tok/s; prefill {st['prefill_s']:.3f} s over "
-        f"{st['prefill_chunks']} chunks, decode {decode_ms:.2f} ms/step over "
-        f"{st['decode_steps'] - 2} other steps; fused launches "
+    decode_ms = st["decode_s"] / max(st["decode_steps"], 1) * 1e3
+    log(f"  {label}: {sch.photonic.describe()}: {toks} tokens in {dt:.3f} s = {toks / dt:.2f} tok/s; prefill "
+        f"{st['prefill_s']:.3f} s over {st['prefill_chunks']} chunks, decode {decode_ms:.2f} ms/step over "
+        f"{st['decode_steps']} steps; fused launches "
         f"{launches['photonic_gemm_fused']}, unfused launches {launches['photonic_gemm']} for "
         f"{forwards} forwards [{card}]")
     done = all(r.done and len(r.output) == new_tokens for r in reqs)
-    st = dict(st, seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
-              decode_ms_per_step=decode_ms, tok_per_s=(toks - prof_toks) / run_s, profile=prof)
+    st = dict(st, seconds=dt, tokens=toks, decode_ms_per_step=decode_ms, tok_per_s=toks / dt)
     return reqs, launches, forwards, done, finite, st
 
 
@@ -2170,12 +2175,13 @@ def tp_kernel_rows(torch, K, chans, key, gen, rows, card):
     return ok, sums
 
 
-def tp_serve(torch, arch, params, dpu, prompts, mesh, rank, card, label, *, profile=False):
+def tp_serve(torch, arch, params, dpu, prompts, mesh, rank, card, label, *, check=False):
     """Serve ``prompts`` (8 greedy tokens each) through ``serve.Engine`` →
     ``Scheduler`` with ``mesh`` (None: one rank, unsharded) on the kernel
-    backend, logits recorded.  Once every request is prefilled two decode
-    steps run apart, under the torch profiler on rank 0 with ``profile``,
-    and are left out of the decode rate.  Returns (requests, result)."""
+    backend, logits recorded.  With ``check``, one more decode
+    step runs under the scheduler's ``decode_checker`` after the run (its
+    collectives and launches in ``result["checker"]``).  Returns
+    (requests, result)."""
     from repro_torch.analysis import contracts
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.runtime.serve import Engine, ServeConfig
@@ -2190,25 +2196,7 @@ def tp_serve(torch, arch, params, dpu, prompts, mesh, rank, card, label, *, prof
     K.reset_launches()
     contracts.reset_all_reduces()
     t0 = time.perf_counter()
-    for r in reqs:
-        sch.submit(r)
-    while not all(r.output for r in reqs):
-        sch.step()
-    before_s = sch.stats["decode_s"]
-    prof = None
-    if profile and rank == 0:
-        prof = profiled(torch, lambda: [sch.step() for _ in range(2)], f"tp_{label}")
-    else:
-        sch.step()
-        sch.step()
-    if mesh is not None:
-        # Every rank waits here for rank 0's profiler report, so that no
-        # rank's later decode steps take the report's time.
-        import torch.distributed as dist
-
-        dist.barrier()
-    prof_s = sch.stats["decode_s"] - before_s
-    sch.run()
+    sch.run(reqs)
     torch.cuda.synchronize()
     dt = time.perf_counter() - t0
     st = sch.stats
@@ -2216,15 +2204,29 @@ def tp_serve(torch, arch, params, dpu, prompts, mesh, rank, card, label, *, prof
     res = dict(
         tokens=[r.output for r in reqs], seconds=dt, prefill_s=st["prefill_s"], forwards=forwards,
         decode_steps=st["decode_steps"],
-        decode_ms_per_step=(st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3,
+        decode_ms_per_step=st["decode_s"] / max(st["decode_steps"], 1) * 1e3,
         launches=dict(K.LAUNCHES), all_reduces=contracts.ALL_REDUCES["psum_int_gemm"],
         done=all(r.done and len(r.output) == 8 for r in reqs),
-        finite=all(bool(np.isfinite(row).all()) for r in reqs for row in r.logits), profile=prof,
+        finite=all(bool(np.isfinite(row).all()) for r in reqs for row in r.logits),
         engine=str(eng.photonic.describe()),
     )
-    if prof is not None:
-        res["launches_per_decode_step"] = prof["launch_calls"] / 2
-        res["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
+    if check:
+        from repro_torch.analysis.contracts import ContractViolation
+
+        checker = sch.decode_checker("tp_decode")
+        torch.cuda.synchronize()
+        try:
+            checker.assert_psum_per_gemm(6 * arch.config.num_layers)
+            psum = "held"
+        except ContractViolation as e:
+            psum = str(e)
+        res["checker"] = dict(
+            assert_psum_per_gemm=psum,
+            all_reduces=checker.all_reduces(), summary=checker.collective_summary(), launches=checker.launches,
+            partials=[c.out_bytes for c in checker.collectives if c.kind == "all-reduce"],
+            group_sizes=sorted({c.group_size for c in checker.collectives}, key=str),
+            matmul_traffic_bytes=checker.matmul_traffic_bytes(),
+        )
     return reqs, res
 
 
@@ -2270,11 +2272,10 @@ def tp_rank(rank, world, serve_tokens):
     ideal, smwa = ideal_dpu(), smwa_dpu()
     out, gates = {"rank": rank}, {}
     runs, logits = {}, {}
-    for label, dpu, m, profile in (
-        ("ideal_tp1", ideal, None, False), ("ideal", ideal, mesh, False),
-        ("smwa_tp1", smwa, None, False), ("smwa", smwa, mesh, False), ("smwa_again", smwa, mesh, False),
+    for label, dpu, m in (
+        ("ideal_tp1", ideal, None), ("ideal", ideal, mesh), ("smwa_tp1", smwa, None), ("smwa", smwa, mesh),
     ):
-        reqs, res = tp_serve(torch, arch, params, dpu, prompts, m, rank, card, label, profile=profile)
+        reqs, res = tp_serve(torch, arch, params, dpu, prompts, m, rank, card, label, check=label == "ideal")
         logits[label] = _logits_of(reqs)
         runs[label] = res
         tp = m is not None
@@ -2283,20 +2284,32 @@ def tp_rank(rank, world, serve_tokens):
                   == ((want, want, 0) if tp else (0, 0, want)))
         gates[f"{label} done, finite, launches"] = res["done"] and res["finite"] and counts
         say(f"{label}: {res['engine']}: {res['seconds']:.3f} s, prefill {res['prefill_s']:.3f} s, decode "
-            f"{res['decode_ms_per_step']:.2f} ms/step over {res['decode_steps'] - 2} steps (2 set apart); "
+            f"{res['decode_ms_per_step']:.2f} ms/step over {res['decode_steps']} steps; "
             f"photonic_gemm launches {res['launches']['photonic_gemm']}, all-reduces {res['all_reduces']}, fused "
             f"{res['launches']['photonic_gemm_fused']} for {res['forwards']} forwards "
             f"(want {'unfused = all-reduces' if tp else 'fused'} {want}): {counts} [{card}]")
-        if res["profile"] is not None:
-            say(f"{label}: {res['launches_per_decode_step']:.0f} launches a decode step, device busy "
-                f"{res['device_busy_share']:.1%} (torch profiler, two decode steps) [{card}]")
         torch.cuda.empty_cache()
     out["runs"] = runs
+    # The contract checker over one TP = 2 decode step (4 rows): one int32
+    # all-reduce per routed GEMM, priced by the ring formula 2 (g - 1) / g x
+    # bytes over the (R, C) partials the engine reduces, g = 2.
+    from repro_torch.launch.hlo_analysis import _wire_bytes
+
+    chk = runs["ideal"]["checker"]
+    want_bytes = sum(n_layers * _wire_bytes("all-reduce", 4 * c * 4, world) for _, _, c, _ in SITES)
+    gates[f"checker: assert_psum_per_gemm({6 * n_layers}) on a TP = 2 decode step"] = (
+        chk["assert_psum_per_gemm"] == "held")
+    gates["checker: all-reduce wire bytes == ring formula over the padded int32 partials"] = (
+        chk["summary"].get("bytes_all-reduce") == want_bytes)
+    gates["checker: 144 unfused launches, no fused"] = (
+        chk["launches"]["photonic_gemm"] == 6 * n_layers and chk["launches"]["photonic_gemm_fused"] == 0)
+    say(f"checker over one TP = 2 decode step: assert_psum_per_gemm({6 * n_layers}) {chk['assert_psum_per_gemm']}; "
+        f"{chk['all_reduces']} all-reduces (group sizes {chk['group_sizes']}), "
+        f"wire bytes {chk['summary'].get('bytes_all-reduce')} == ring formula {want_bytes} over "
+        f"{sum(chk['partials'])} bytes of int32 partials; launches {chk['launches']}; GEMM traffic "
+        f"{chk['matmul_traffic_bytes']} bytes [{card}]")
     gates["ideal TP=2 tokens == TP=1 tokens"] = runs["ideal"]["tokens"] == runs["ideal_tp1"]["tokens"]
     gates["ideal TP=2 logits == TP=1 logits"] = bool(np.array_equal(logits["ideal"], logits["ideal_tp1"]))
-    gates["smwa TP=2 deterministic (tokens, logits)"] = (
-        runs["smwa"]["tokens"] == runs["smwa_again"]["tokens"]
-        and bool(np.array_equal(logits["smwa"], logits["smwa_again"])))
     gates["smwa TP=2 logits != unsharded"] = not np.array_equal(logits["smwa"], logits["smwa_tp1"])
     out["smwa_tokens_equal_unsharded"] = runs["smwa"]["tokens"] == runs["smwa_tp1"]["tokens"]
     out["ideal_tokens_equal_serve_phase"] = runs["ideal"]["tokens"] == serve_tokens
@@ -2360,7 +2373,8 @@ def tp_child(serve_tokens):
     for i, tok in enumerate(res[0]["runs"]["ideal"]["tokens"]):
         log(f"    uid {i}: TP=2 {tok} TP=1 {res[0]['runs']['ideal_tp1']['tokens'][i]}")
     launches = {"photonic_gemm": sum(r["runs"][k]["launches"]["photonic_gemm"] for r in res
-                                     for k in ("ideal", "smwa", "smwa_again", "lm_logits_tp"))}
+                                     for k in ("ideal", "smwa", "lm_logits_tp"))
+                                 + sum(r["runs"]["ideal"]["checker"]["launches"]["photonic_gemm"] for r in res)}
     return ok and same and same_logits, {"backend": backend, "ranks": res}, launches
 
 
@@ -2753,8 +2767,7 @@ def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
     ok, out = True, {}
     for label, dpu in (("sliced_ideal", ideal_dpu()), ("sliced_smwa", smwa_dpu())):
         reqs, launches, forwards, done, finite, st = serve(
-            torch, arch, params, dpu, "kernel", prompts, card, label, extra=dict(photonic_slicing=2),
-            profile=False)
+            torch, arch, params, dpu, "kernel", prompts, card, label, extra=dict(photonic_slicing=2))
         expect = 16 * 6 * n_layers * forwards
         good = (done and finite and launches["photonic_gemm"] == expect
                 and launches["photonic_gemm_fused"] == 0 and launches["flash_attention"] == 0)
@@ -2792,8 +2805,7 @@ def int8_serve_phase(torch, arch, params, prompts, card):
     for label, backend, fuse in (("int8_fused", "kernel", True), ("int8_fused_ref", "ref", True),
                                  ("int8_three_sites", "kernel", False)):
         reqs, launches, forwards, done, finite, st = serve(
-            torch, arch, params_q, ideal_dpu(), backend, prompts, card, label, extra=extra, fuse=fuse,
-            profile=label == "int8_fused")
+            torch, arch, params_q, ideal_dpu(), backend, prompts, card, label, extra=extra, fuse=fuse)
         per_layer = 4 if fuse else 6
         expect = per_layer * n_layers * forwards if backend == "kernel" else 0
         good = (done and finite and launches["photonic_gemm_fused"] == expect
@@ -2834,10 +2846,8 @@ def dense_serve_phase(torch, registry, card):
         n_layers = arch.config.num_layers
         rng = np.random.default_rng(0)
         prompts = [rng.integers(0, arch.config.vocab_size, n).astype(np.int32) for n in (16, 40, 64, 24)]
-        # Only granite's ideal run is profiled: the profiler's report costs ~10 s a run.
         reqs, launches, forwards, done, finite, st = serve(
-            torch, arch, params, ideal_dpu(), backend, prompts, card, label,
-            profile=label == "granite_ideal", **kw)
+            torch, arch, params, ideal_dpu(), backend, prompts, card, label, **kw)
         expect = (4 if kw.get("fuse") else 6) * n_layers * forwards if backend == "kernel" else 0
         good = (done and finite and launches["photonic_gemm_fused"] == expect
                 and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
@@ -2952,7 +2962,7 @@ def deepseek_phase(torch, registry, card):
     outs = {}
     for backend in ("kernel", "ref"):
         reqs, lc, forwards, done, finite, st = serve(torch, arch4, params, ideal_dpu(), backend, prompts, card,
-                                                     f"deepseek_{backend}", new_tokens=4, batch=2, profile=False)
+                                                     f"deepseek_{backend}", new_tokens=4, batch=2)
         # The head runs on a prompt's final prefill chunk and on every decode step.
         want = 6 * 4 * forwards + st["prefills"] + st["decode_steps"] if backend == "kernel" else 0
         good = done and finite and lc["photonic_gemm_fused"] == want
@@ -2977,16 +2987,14 @@ def deepseek_phase(torch, registry, card):
 
 
 def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *, absorb=False, temperature=None,
-                     profile=False, per_forward=None, new_tokens=8):
+                     per_forward=None, new_tokens=8):
     """Serve ``prompts`` (``new_tokens`` each) through ``serve.Engine``,
     which must pick ``LegacyEngine`` for the family (batch 4, max_seq 128),
     greedily or sampled at ``temperature`` under the reference's keys (seed
     0), with ``mla_absorb``.  Launch counts are reset just before and held
     to deepseek-v2-lite's (190 a prefill, 190 or 136 absorbed a decode
     step) or, with ``per_forward``, to that many a prefill and a decode
-    step.  After the step that admits every prompt, two decode steps run
-    apart (under the profiler with ``profile``) and are left out of the
-    rates.  Every prefill's and decode's logits are checked finite as they
+    step.  Every prefill's and decode's logits are checked finite as they
     come."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
@@ -3015,18 +3023,6 @@ def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *,
     K.reset_launches()
     F.reset_launches()
     t0 = time.perf_counter()
-    impl.step(queue)  # admits all four prompts, then one decode step
-    before_s, before_toks = impl.stats["decode_s"], sum(len(r.output) for r in reqs)
-    tp = time.perf_counter()
-    prof = None
-    if profile:
-        prof = profiled(torch, lambda: [impl.step(queue) for _ in range(2)], label)
-    else:
-        impl.step(queue)
-        impl.step(queue)
-    prof_wall = time.perf_counter() - tp
-    prof_s = impl.stats["decode_s"] - before_s
-    prof_toks = sum(len(r.output) for r in reqs) - before_toks
     while queue or any(x is not None for x in impl.slots):
         impl.step(queue)
     torch.cuda.synchronize()
@@ -3034,22 +3030,19 @@ def legacy_moe_serve(torch, arch, params, dpu, backend, prompts, card, label, *,
     launches = dict(K.LAUNCHES, **F.LAUNCHES)
     st = dict(impl.stats)
     toks = sum(len(r.output) for r in reqs)
-    run_s = dt - prof_wall
-    decode_ms = (st["decode_s"] - prof_s) / max(st["decode_steps"] - 2, 1) * 1e3
+    decode_ms = st["decode_s"] / max(st["decode_steps"], 1) * 1e3
     per_prefill = V2_FORWARD_LAUNCHES if per_forward is None else per_forward
     per_decode = per_forward or (V2_ABSORBED_LAUNCHES if absorb else V2_FORWARD_LAUNCHES)
     want = per_prefill * st["prefills"] + per_decode * st["decode_steps"] if backend == "kernel" else 0
     done = all(r.done and len(r.output) == new_tokens for r in reqs)
     good = (legacy and done and all(finite) and launches["photonic_gemm_fused"] == want
             and launches["photonic_gemm"] == 0 and launches["flash_attention"] == 0)
-    st.update(seconds=dt, tokens=toks, rated_s=run_s, rated_tokens=toks - prof_toks,
-              tok_per_s=(toks - prof_toks) / run_s, decode_ms_per_step=decode_ms, profile=prof,
+    st.update(seconds=dt, tokens=toks, tok_per_s=toks / dt, decode_ms_per_step=decode_ms,
               launches_per_decode=per_decode if backend == "kernel" else 0,
               peak_bytes=torch.cuda.max_memory_allocated())
-    log(f"  {label}: LegacyEngine {legacy}, {eng.photonic.describe()}: {toks} tokens in {dt:.3f} s, "
-        f"{toks - prof_toks} outside the two set-apart steps in {run_s:.3f} s = {st['tok_per_s']:.2f} tok/s; "
-        f"prefill {st['prefill_s']:.3f} s over {st['prefills']} prefills (batch 4), decode {decode_ms:.2f} "
-        f"ms/step over {st['decode_steps'] - 2} other steps; fused launches {launches['photonic_gemm_fused']} "
+    log(f"  {label}: LegacyEngine {legacy}, {eng.photonic.describe()}: {toks} tokens in {dt:.3f} s = "
+        f"{st['tok_per_s']:.2f} tok/s; prefill {st['prefill_s']:.3f} s over {st['prefills']} prefills (batch 4), "
+        f"decode {decode_ms:.2f} ms/step over {st['decode_steps']} steps; fused launches {launches['photonic_gemm_fused']} "
         f"== {per_prefill if backend == 'kernel' else 0} x {st['prefills']} + {per_decode if backend == 'kernel' else 0} x "
         f"{st['decode_steps']} = {want}; all done {done}, logits finite {all(finite)}: {good}; peak memory "
         f"(max_memory_allocated, this run) {st['peak_bytes'] / 2**30:.2f} GiB [{card}]")
@@ -3069,8 +3062,7 @@ def moe_phase(torch, registry, card):
     each mode; how far the two modes' tokens agree is printed, not gated),
     sampled at temperature 0.8 under the reference's keys (kernel tokens
     equal ``ref``'s), and the SMWA analog point (``noise_seed=0``: logits
-    finite, all requests done); the kernel greedy runs profile two decode
-    steps.  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
+    finite, all requests done).  Then phi3.5-moe-42b-a6.6b at full width with 4 of its 32
     layers (the whole model is 84 GB of bf16 weights): ``lm_logits`` B = 1,
     T = 512 on ``kernel`` and ``ref`` (4 x 4 + 1 = 17 launches), the same
     gate.  Returns (ok, result, kernel launches)."""
@@ -3149,8 +3141,7 @@ def moe_phase(torch, registry, card):
         ("v2_smwa", "kernel", False, None, smwa_dpu()),
     ):
         reqs, lc, st, good = legacy_moe_serve(
-            torch, arch, params, dpu, backend, prompts, card, label, absorb=absorb, temperature=temp,
-            profile=label == "v2_greedy")
+            torch, arch, params, dpu, backend, prompts, card, label, absorb=absorb, temperature=temp)
         ok &= good
         if backend == "kernel":
             launches_total += lc["photonic_gemm_fused"]
@@ -3264,13 +3255,11 @@ def cross_kernel_rows(torch, K, chans, key, gen, rows, card):
 
 
 def decode_run(torch, arch, packed, cfg, batch, max_seq, steps, card, label, *, want_prefill, want_step,
-               profile=False, want_flash=0):
+               want_flash=0):
     """``arch.prefill`` of ``batch`` then ``steps`` greedy ``arch.decode``
     steps, each step's logits checked finite, launch counts reset just
     before and held to ``want_prefill`` + ``want_step`` x steps fused
-    launches (``want_flash`` flash launches).  With ``profile`` the last two
-    steps run under the profiler and are left out of the rates.  Returns
-    (tokens (B, steps + 1) as lists, result dict, ok)."""
+    launches (``want_flash`` flash launches).  Returns (tokens (B, steps + 1) as lists, result dict, ok)."""
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
 
@@ -3295,23 +3284,18 @@ def decode_run(torch, arch, packed, cfg, batch, max_seq, steps, card, label, *, 
             toks.append(logits[:, -1, :vocab].argmax(-1))
             finite.append(bool(torch.isfinite(logits).all()))
 
-        timed = steps - 2 if profile else steps
         t0 = time.perf_counter()
-        for _ in range(timed):
+        for _ in range(steps):
             step()
         torch.cuda.synchronize()
         decode_s = time.perf_counter() - t0
-        prof = profiled(torch, lambda: [step() for _ in range(2)], label) if profile else None
     fused, flash = K.LAUNCHES["photonic_gemm_fused"], F.LAUNCHES["flash_attention"]
     want = want_prefill + want_step * steps
     ok = all(finite) and fused == want and flash == want_flash and K.LAUNCHES["photonic_gemm"] == 0
-    res = dict(prefill_s=prefill_s, decode_ms_per_step=decode_s / timed * 1e3, steps=steps,
+    res = dict(prefill_s=prefill_s, decode_ms_per_step=decode_s / steps * 1e3, steps=steps,
                fused_launches=fused, flash_launches=flash, peak_bytes=torch.cuda.max_memory_allocated(),
-               profile=prof, finite=all(finite))
-    if prof:
-        res["launch_calls_per_step"] = prof["launch_calls"] / 2
-        res["device_busy_share"] = prof["device_busy_ms"] / prof["wall_ms"]
-    log(f"  {label}: prefill {prefill_s:.3f} s, decode {res['decode_ms_per_step']:.2f} ms/step over {timed} "
+               finite=all(finite))
+    log(f"  {label}: prefill {prefill_s:.3f} s, decode {res['decode_ms_per_step']:.2f} ms/step over {steps} "
         f"steps; fused launches {fused} == {want_prefill} + {want_step} x {steps} = {want}, flash {flash} == "
         f"{want_flash}, logits finite {all(finite)}: {ok}; peak memory (max_memory_allocated, this run) "
         f"{res['peak_bytes'] / 2**30:.2f} GiB [{card}]")
@@ -3420,7 +3404,7 @@ def cross_phase(torch, registry, card):
         toks[backend], vlm[f"decode_{backend}"], good = decode_run(
             torch, arch, packs[backend], run, batch, 128, 16, card, f"vlm_{backend}",
             want_prefill=VISION_FORWARD_LAUNCHES if backend == "kernel" else 0,
-            want_step=VISION_DECODE_LAUNCHES if backend == "kernel" else 0, profile=backend == "kernel")
+            want_step=VISION_DECODE_LAUNCHES if backend == "kernel" else 0)
         ok &= good
         fused_total += vlm[f"decode_{backend}"]["fused_launches"]
     ok &= same_tokens(toks["kernel"], toks["ref"], "vlm greedy tokens (64-token prompt + 16 steps), kernel == ref")
@@ -3523,7 +3507,7 @@ def cross_phase(torch, registry, card):
             torch, arch, packs[backend], run, batch, max_seq, 16, card, f"whisper_{label}",
             want_prefill=WHISPER_SERVE_PREFILL_LAUNCHES if kernel else 0,
             want_step=WHISPER_SERVE_DECODE_LAUNCHES if kernel else 0,
-            want_flash=WHISPER_SERVE_FLASH if impl == "flash" else 0, profile=label == "kernel")
+            want_flash=WHISPER_SERVE_FLASH if impl == "flash" else 0)
         ok &= good
         fused_total += wres[f"decode_{label}"]["fused_launches"]
         flash_total += wres[f"decode_{label}"]["flash_launches"]
@@ -4033,7 +4017,7 @@ def recurrent_phase(torch, registry, card):
         for label, backend, dpu, steps in (("greedy", "kernel", ideal_dpu(), 8), ("greedy_ref", "ref", ideal_dpu(), 8),
                                            ("smwa", "kernel", smwa_dpu(), 5)):
             reqs, lc, st, good = legacy_moe_serve(
-                torch, arch, params, dpu, backend, prompts, card, f"{name} {label}", profile=False,
+                torch, arch, params, dpu, backend, prompts, card, f"{name} {label}",
                 per_forward=launches, new_tokens=steps)
             ok &= good
             fused_total += lc["photonic_gemm_fused"]
@@ -4054,6 +4038,213 @@ def recurrent_phase(torch, registry, card):
     return ok, res, fused_total, flash_total
 
 
+# The tooling phase's dry-run cells: (arch, shape, flags).  xlstm-350m runs
+# its decode step: its prefill at 32,768 tokens steps the sLSTM once a token
+# eagerly, ~7.5 million fake ops, far past the phase's two minutes.
+DRY_CELLS = [
+    ("qwen2-0.5b", "decode_32k", ()),
+    ("qwen2-0.5b", "train_4k", ("--photonic", "--dp-shardmap")),
+    ("xlstm-350m", "decode_32k", ()),
+]
+TOOLING_ROWS = 4  # the tooling phase's paged server: four decode rows
+
+
+def start_dry_runs():
+    """Each of :data:`DRY_CELLS` in a subprocess (``python -m
+    repro_torch.launch.dryrun ... --device cuda``, fake CUDA tensors on a
+    fake 256-rank group) under the launch profile's ``child_env``, all
+    started together.  Returns [(cell, process, out dir)]."""
+    from repro_torch.launch import profile as launch_profile
+
+    out = ROOT / "chiprun_out" / "dryrun"
+    out.mkdir(parents=True, exist_ok=True)
+    env = launch_profile.child_env()
+    env["PYTHONPATH"] = os.pathsep.join(filter(None, [str(ROOT / "src"), env.get("PYTHONPATH")]))
+    procs = []
+    for arch, shape, flags in DRY_CELLS:
+        cmd = [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch", arch, "--shape", shape, "--mesh",
+               "single", "--device", "cuda", "--out", str(out), "--force", *flags]
+        procs.append(((arch, shape, flags), subprocess.Popen(cmd, env=env, stdout=subprocess.DEVNULL,
+                                                             stderr=subprocess.PIPE, text=True), out))
+    return procs
+
+
+def finish_dry_runs(procs, card, timeout):
+    """Wait for :func:`start_dry_runs`' cells and log each one's bytes,
+    FLOPs, collectives and whether its peak fits one 80 GB rank.  Gates:
+    each cell exits 0 with ``ok`` (its ladder identity exact).  Returns
+    (ok, cells)."""
+    from repro_torch.launch.dryrun import _cell_path
+
+    ok, cells = True, []
+    deadline = time.perf_counter() + timeout
+    for (arch, shape, flags), proc, out in procs:
+        try:
+            _, err = proc.communicate(timeout=max(1.0, deadline - time.perf_counter()))
+        except subprocess.TimeoutExpired:
+            proc.kill()
+            _, err = proc.communicate()
+            log(f"  dry run {arch} x {shape}: killed after {timeout} s")
+        variant = "photonic" if "--photonic" in flags else "base"
+        path = _cell_path(out, arch, shape, "single", variant)
+        cell = json.loads(path.read_text()) if path.exists() else {"ok": False, "error": (err or "")[-2000:]}
+        good = proc.returncode == 0 and cell.get("ok") is True
+        ok &= good
+        cell["flags"] = list(flags)
+        cells.append(cell)
+        if "flops_per_device" not in cell:
+            log(f"  dry run {arch} x {shape} x single {' '.join(flags)}: FAILED (exit {proc.returncode}): "
+                f"{cell.get('error', '')[-1500:]}")
+            continue
+        coll = {k: v for k, v in cell.items() if k.startswith(("bytes_", "count_"))}
+        log(f"  dry run {arch} x {shape} x single {' '.join(flags)} (fake cuda, world {cell['world']}): trace "
+            f"{cell['trace_s']} s; arguments {cell['argument_size_in_bytes'] / 1e9:.3f} GB, temp "
+            f"{cell['temp_size_in_bytes'] / 1e9:.3f} GB, peak {cell['peak_size_in_bytes'] / 1e9:.3f} GB a rank "
+            f"(fits 80 GB: {cell['fits_device']}), output {cell['output_size_in_bytes'] / 1e9:.3f} GB; "
+            f"{cell['flops_per_device']} FLOPs a rank (ladder {cell['flops_per_device_exact']}, exact "
+            f"{cell['ladder_identity_holds']}); GEMM traffic {cell['matmul_traffic_bytes'] / 1e9:.3f} GB; "
+            f"collectives {coll}; wire {cell['total_wire_bytes'] / 1e9:.3f} GB; fallbacks "
+            f"{len(cell['sharding_fallbacks'])}: {good}")
+    return ok, cells
+
+
+def fake_vs_real(torch, registry, card):
+    """Phase 9 (f): the dry run's accounting (``dryrun.account``) on phase 7
+    (a)'s qwen2-0.5b training step (4 x 1024 tokens, TP = 1, ideal channel)
+    run for real on the card and under fake CUDA tensors.  Both sides use
+    the ``ref`` backend: a fake tensor cannot reach the ctypes kernel, and
+    ``FlopCounterMode`` does not see inside it.  Gates: FLOPs, argument
+    bytes and GEMM traffic equal exactly, and the same aten op stream (the
+    ops in order with their shapes and dtypes, ``aten_op_stream_sha256``);
+    a count of each op that differs is printed.  The fake peak (arguments + temp) against the real
+    ``max_memory_allocated`` over what was allocated before is printed, not
+    gated.  Returns (ok, result)."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+
+    from repro_torch.data.pipeline import SyntheticTokens, make_global_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import init_params
+    from repro_torch.models.registry import ShapeSpec
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import build_train_step
+
+    arch = registry.get("qwen2-0.5b")
+    cfg = dataclasses.replace(arch.config, photonic=ideal_dpu(), photonic_backend="ref")
+    data, opt = _train_inputs(arch)
+    step = build_train_step(lambda p, b: arch.loss(p, b, cfg), opt)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    params = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
+    args = (params, adamw.init(params), make_global_batch(SyntheticTokens(data), 0, "cuda"))
+    t0 = time.perf_counter()
+    real = dryrun.account(step, args)
+    torch.cuda.synchronize()
+    real["wall_s"] = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    del params, args
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    with FakeTensorMode(allow_non_fake_inputs=True):
+        fp = dryrun.fake_params(arch.param_defs(cfg), cfg, "cuda")
+        shape = ShapeSpec("phase7", data.seq_len, data.global_batch, "train")
+        fake = dryrun.account(step, (fp, adamw.init(fp), dryrun.materialize(arch.train_batch_spec(cfg, shape)[0],
+                                                                           "cuda")))
+    fake["wall_s"] = time.perf_counter() - t0
+    same = {k: fake[k] == real[k] for k in ("flops_per_device", "argument_size_in_bytes", "matmul_traffic_bytes",
+                                             "aten_op_stream_sha256")}
+    ok = all(same.values())
+    counts = {k: (real["aten_op_counts"].get(k, 0), fake["aten_op_counts"].get(k, 0))
+              for k in set(real["aten_op_counts"]) | set(fake["aten_op_counts"])}
+    differ = {k: v for k, v in counts.items() if v[0] != v[1]}
+    ratio = fake["peak_size_in_bytes"] / peak
+    log(f"  (f) phase 7 (a)'s training step (ref backend), real on the card: {real['flops_per_device']} FLOPs, "
+        f"arguments {real['argument_size_in_bytes']} B, GEMM traffic {real['matmul_traffic_bytes']} B, "
+        f"{real['aten_ops']} aten ops, {real['wall_s']:.2f} s; fake: {fake['flops_per_device']} FLOPs, arguments "
+        f"{fake['argument_size_in_bytes']} B, GEMM traffic {fake['matmul_traffic_bytes']} B, {fake['aten_ops']} "
+        f"aten ops, {fake['wall_s']:.2f} s; equal: {same}; ops whose counts differ (real, fake): "
+        f"{differ or 'none'}: {ok}")
+    log(f"  (f) peak: fake arguments + temp {fake['peak_size_in_bytes'] / 2**30:.3f} GiB against the real "
+        f"max_memory_allocated {peak / 2**30:.3f} GiB over what was allocated before: ratio {ratio:.4f} "
+        f"(not gated) [{card}]")
+    return ok, dict(real=real, fake=fake, equal=same, counts_differ=differ, real_peak_bytes=peak, peak_ratio=ratio)
+
+
+def tooling_phase(torch, registry, card):
+    """Phase 9: the tooling tier on the card (module docstring).  Returns
+    (ok, result, fused launches)."""
+    from repro_torch.analysis.contracts import ContractViolation, min_weight_size
+    from repro_torch.kernels.photonic_gemm import kernel as K
+    from repro_torch.models.common import init_params
+    from repro_torch.serving import Request, Scheduler, ServingConfig
+
+    ok, res = True, {}
+    arch = registry.get("qwen2-0.5b")
+    n_layers = arch.config.num_layers
+    cfg = dataclasses.replace(arch.config, photonic=ideal_dpu(), photonic_backend="kernel")
+    params = init_params(arch.config, 0, device="cuda")
+    sch = Scheduler(arch, cfg, params, ServingConfig(batch_size=TOOLING_ROWS, max_seq=128, block_size=16,
+                                                     chunk_tokens=64))
+    rng = np.random.default_rng(0)
+    reqs = [Request(uid=i, prompt=rng.integers(0, arch.config.vocab_size, n).astype(np.int32), max_new_tokens=16)
+            for i, n in enumerate((16, 40, 64, 24))]
+    for r in reqs:
+        sch.submit(r)
+    while not all(r.output for r in reqs):
+        sch.step()
+    torch.cuda.synchronize()
+    K.reset_launches()
+    min_w = min_weight_size(arch.param_defs(cfg))
+    # (b) the weight-stationary contract on the live prepacked decode step
+    checker = sch.decode_checker()
+    torch.cuda.synchronize()
+    try:
+        checker.assert_zero_weight_rounds(min_w)
+        zero = True
+    except ContractViolation as e:
+        log(f"  (b) {e}")
+        zero = False
+    launches = checker.launches["photonic_gemm_fused"]
+    traffic = checker.matmul_traffic_bytes()
+    # (d) one decode step of the same server under the profiler
+    summary = profiled(torch, sch.step, "tooling_decode")
+    d_ok = summary["photonic_launches"] == 6 * n_layers and summary["flash_launches"] == 0
+    # (b) without prepacking, the same step quantizes every weight
+    packed = sch.params
+    sch.params = params
+    rounds = sch.decode_checker().weight_round_ops(min_w)
+    sch.params = packed
+    torch.cuda.synchronize()
+    b_ok = zero and launches == 6 * n_layers and rounds > 0
+    busy = summary["device_busy_ms"]
+    log(f"  (b) decode_checker on qwen2-0.5b's paged decode step (4 rows, prepacked, kernel backend): "
+        f"assert_zero_weight_rounds({min_w}) {'held' if zero else 'FAILED'}; fused launches {launches} == "
+        f"{6 * n_layers}; GEMM traffic {traffic} B against the step's device time {busy:.3f} ms (torch "
+        f"profiler, (d)): {traffic / (busy * 1e-3) / 1e9 if busy else float('nan'):.1f} GB/s; without "
+        f"prepacking {rounds} weight rounds > 0: {b_ok} [{card}]")
+    share = "not measured" if summary["busy_share"] is None else f"{summary['busy_share']:.1%}"
+    log(f"  (d) dispatch_summary of one decode step: {summary['launch_calls']} cudaLaunchKernel calls, "
+        f"{summary['device_events']} device events, busy {busy:.3f} of {summary['wall_ms']:.3f} ms "
+        f"({share}), photonic "
+        f"launches {summary['photonic_launches']} == {6 * n_layers} (the serve phase's 6 x 24 a forward), "
+        f"flash {summary['flash_launches']} == 0 (chunked attention): {d_ok} [{card}]")
+    ok &= b_ok and d_ok
+    res["decode"] = dict(zero_weight_rounds=zero, fused_launches=launches, matmul_traffic_bytes=traffic,
+                         unpacked_weight_rounds=rounds, dispatch=summary)
+    fused = K.LAUNCHES["photonic_gemm_fused"]  # (b) twice and (d): 3 x 144
+    del sch, params, packed
+    torch.cuda.empty_cache()
+    # (f) the dry run's accounting against a real step
+    f_ok, res["fake_vs_real"] = fake_vs_real(torch, registry, card)
+    ok &= f_ok
+    # (e) the dry-run cells, started after the card work so that no host
+    # time above shares the CPU with them
+    e_ok, res["dry_runs"] = finish_dry_runs(start_dry_runs(), card, timeout=240)
+    ok &= e_ok
+    return ok, res, fused
+
+
 def main() -> int:
     import torch
 
@@ -4065,6 +4256,9 @@ def main() -> int:
     if sys.argv[1:3] in (["--phase", "tp"], ["--phase", "tp-train"]) and len(sys.argv) == 4:
         return child(sys.argv[2], sys.argv[3])
     setup(torch)
+    from repro_torch.launch import profile as launch_profile
+
+    profile_desc = launch_profile.apply()
     from repro_torch.kernels.flash_attention import kernel as F
     from repro_torch.kernels.photonic_gemm import kernel as K
     from repro_torch.models import registry
@@ -4074,6 +4268,7 @@ def main() -> int:
     all_ok = True
     with Phase("device"):
         log(f"  card: {card}")
+        log(f"  launch profile (repro_torch.launch.profile.apply): {json.dumps(profile_desc)}")
         log(f"  torch {torch.__version__}, CUDA {torch.version.cuda}, "
             f"device {torch.cuda.get_device_name(0)} x {torch.cuda.device_count()}")
         log(f"  CUBLAS_WORKSPACE_CONFIG in this process: {os.environ.get('CUBLAS_WORKSPACE_CONFIG')!r}")
@@ -4263,7 +4458,7 @@ def main() -> int:
             ("ideal", ideal, "kernel"), ("smwa", smwa, "kernel"), ("ideal_ref", ideal, "ref"),
         ):
             reqs, launches, forwards, done, finite, st = serve(
-                torch, arch, params, dpu, backend, prompts, card, label, profile=label == "ideal"
+                torch, arch, params, dpu, backend, prompts, card, label
             )
             expect = 6 * n_layers * forwards if backend == "kernel" else 0
             ok = (done and finite and launches["photonic_gemm_fused"] == expect
@@ -4361,6 +4556,10 @@ def main() -> int:
         analytic_ok, analytic, ops_launches = analytic_phase(torch, K, chans, gen, ops_out, records, card)
         all_ok &= analytic_ok
 
+    with Phase("tooling"):
+        tooling_ok, tooling, tooling_launches = tooling_phase(torch, registry, card)
+        all_ok &= tooling_ok
+
     if not all_ok:
         log("chip_smoke: FAILED")
         return 1
@@ -4385,15 +4584,16 @@ def main() -> int:
                       + int8["int8_three_sites"][1]["photonic_gemm_fused"]
                       + train_launches["photonic_gemm_fused"]
                       + sum(v[1]["photonic_gemm_fused"] for v in dense.values()) + deepseek_launches
-                      + moe_launches),
+                      + moe_launches + tooling_launches),
             max_abs_err=max(x["max_abs_err"] for x in fused_rows),
             ms=layer_sum(fused_rows, "ms"), plain_ms=layer_sum(fused_rows, "plain_ms"),
             bound_ms=fused_bound[0], bound_by=op_or_bytes(fused_bound[1]),
             library_ms=None, case="six qwen2-0.5b sites, R=64, ideal channel, int8 x; launches from "
                                   "the ideal and SMWA serve runs, the two int8 kernel serve runs, the "
                                   "train() run, the granite-3-8b and qwen2-1.5b serve runs, the "
-                                  "deepseek-67b lm_logits and serve runs, and the moe phase's "
-                                  "deepseek-v2-lite-16b and phi3.5-moe lm_logits and LegacyEngine runs",
+                                  "deepseek-67b lm_logits and serve runs, the moe phase's "
+                                  "deepseek-v2-lite-16b and phi3.5-moe lm_logits and LegacyEngine runs, "
+                                  "and the tooling phase's checked and profiled decode steps",
         ),
         dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,
@@ -4555,7 +4755,8 @@ def main() -> int:
          "train_families": {"kernel_rows": fam_rows, "sums": fam_sums, **fam},
          "analytic": {"ops_rows": ops_out, **analytic},
          "tp": {"kernel_rows": tp_rows, "sums": tp_sums, **tp_res},
-         "tp_train": {"kernel_rows": tpt_rows, "sums": tpt_sums, **tpt_res}}, indent=1))
+         "tp_train": {"kernel_rows": tpt_rows, "sums": tpt_sums, **tpt_res}, "tooling": tooling,
+         "launch_profile": profile_desc}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)
     print(json.dumps({"ok": True, "device": {

@@ -1,2 +1,6 @@
-"""`repro_torch.analysis` — runtime contract checks (the port's counterpart
-of `repro.analysis.contracts`)."""
+"""`repro_torch.analysis` — contract checks over recorded runs (the port's
+counterpart of `repro.analysis.contracts`)."""
+
+from repro_torch.analysis.contracts import ContractChecker, ContractViolation
+
+__all__ = ["ContractChecker", "ContractViolation"]

@@ -44,6 +44,9 @@ NEG = -1e30
 
 # Launches since the last reset_launches(); only the CUDA path counts.
 LAUNCHES = {"flash_attention": 0}
+# Callables ``rec(name, q, k, v, out)`` told of every launch (the contract
+# checker's launch record); empty unless a checker is recording.
+LAUNCH_RECORDERS: list = []
 
 
 def reset_launches() -> None:
@@ -214,4 +217,6 @@ def flash_attention_fwd(
     if rc != 0:
         raise RuntimeError(f"flash_attention launch failed with code {rc}")
     LAUNCHES["flash_attention"] += 1
+    for rec in LAUNCH_RECORDERS:
+        rec("flash_attention", q, k, v, out)
     return out if width == hd else out[..., :hd]

@@ -68,6 +68,9 @@ SMEM_LIMIT = 227 * 1024 - 128  # dynamic shared memory a CTA may take (H100)
 # Launches per kernel since the last reset_launches(); only the CUDA path
 # counts (the twin is not a launch).
 LAUNCHES = {"photonic_gemm_fused": 0, "photonic_gemm": 0}
+# Callables ``rec(name, x, wq, out, rows)`` told of every launch (the
+# contract checker's launch record); empty unless a checker is recording.
+LAUNCH_RECORDERS: list = []
 
 
 def reset_launches() -> None:
@@ -487,6 +490,8 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with code {rc}")
     LAUNCHES[name] += 1
+    for rec in LAUNCH_RECORDERS:
+        rec(name, x, wq, out, rows)
     return out
 
 

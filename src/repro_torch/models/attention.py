@@ -23,7 +23,7 @@ from typing import Any, Dict, Optional, Tuple
 import torch
 
 from repro_torch.core.dpu import quantize_symmetric
-from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def
+from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def, with_logical
 from repro_torch.serving import kv_cache as kvc
 
 NEG = -1e30
@@ -210,6 +210,9 @@ def gqa_attention(
     q, k, v = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
+    q = with_logical(q, ("batch", None, "heads", None))
+    k = with_logical(k, ("batch", None, "kv_heads", None))
+    v = with_logical(v, ("batch", None, "kv_heads", None))
     out = _attend(q, k, v, cfg, causal=causal, q_offset=q_offset)
     out = out.reshape(*x.shape[:2], -1)
     return dense(params["wo"], out, cfg, site="attn.wo", layer=layer)
@@ -261,6 +264,8 @@ def gqa_decode(
     at = min(max(pos, 0), s_max - 1)
     for name, row in rows.items():
         cache[name][:, at] = row.to(cache[name].dtype)
+    with_logical(cache["k"], ("batch", "kv_seq", "kv_heads", None))
+    with_logical(cache["v"], ("batch", "kv_seq", "kv_heads", None))
     kf, vf = _kv_view(cache, cfg)
     kf = _repeat_kv(kf, h // kv)
     vf = _repeat_kv(vf, h // kv)
@@ -523,6 +528,8 @@ def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
     nope, rope, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     pos = int(pos)
     q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
+    c = with_logical(c, ("batch", "kv_seq", None))
+    kr = with_logical(kr, ("batch", "kv_seq", None))
     f32 = torch.float32
     w_uk = _mla_up_weight(params["wuk"]).to(f32).reshape(r, h, nope)
     w_uv = _mla_up_weight(params["wuv"]).to(f32).reshape(r, h, vd)
@@ -548,6 +555,8 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, layer=None):
     b = x.shape[0]
     pos = int(pos)
     q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
+    c = with_logical(c, ("batch", "kv_seq", None))
+    kr = with_logical(kr, ("batch", "kv_seq", None))
     k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
     q = torch.cat([q_nope, q_rope], dim=-1)
     qf = q.to(torch.float32) * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5

@@ -21,6 +21,7 @@ import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.dpu import DPUConfig, quantize_symmetric
+from repro_torch.runtime.sharding import logical_constraint
 
 
 @dataclasses.dataclass(frozen=True)
@@ -392,6 +393,13 @@ def stack_states(states) -> Dict[str, torch.Tensor]:
     return {k: torch.stack([s[k] for s in states]) for k in states[0]}
 
 
+def zeros_of(defs: Dict[str, Any], device) -> Dict[str, torch.Tensor]:
+    """Zeros for a dict of cache-def ``(shape, axes, dtype)`` leaves: the
+    stacked states of a scan over zero layers, as the reference's
+    zero-length ``lax.scan`` returns them."""
+    return {k: torch.zeros(shape, dtype=dt, device=device) for k, (shape, _, dt) in defs.items()}
+
+
 def rmsnorm_def(d: int) -> Dict[str, P]:
     return {"scale": P((d,), (None,), init="ones")}
 
@@ -567,7 +575,7 @@ def _stacked_contexts(*cms):
 # ---------------------------------------------------------------------------
 def with_logical(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
     """Reference: ``repro.models.common:with_logical``
-    (:func:`repro_torch.runtime.sharding.logical_constraint`)."""
-    from repro_torch.runtime.sharding import logical_constraint
-
+    (:func:`repro_torch.runtime.sharding.logical_constraint`: ``x``
+    unchanged; inside a ``use_rules`` scope the spec's divisibility
+    fallbacks are recorded)."""
     return logical_constraint(x, axes)

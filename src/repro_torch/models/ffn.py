@@ -17,7 +17,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels.photonic_gemm.epilogue import EpilogueSpec
-from repro_torch.models.common import P, ModelConfig, dense, qdense_def
+from repro_torch.models.common import P, ModelConfig, dense, qdense_def, with_logical
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
@@ -112,10 +112,12 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig, layer=None) -> Tuple[torch.Te
         used = used + mask.sum(dim=1)
 
     xin = torch.einsum("btec,btd->becd", dispatch, x)  # (B, E, C, D)
+    xin = with_logical(xin, ("batch", "experts", None, None))
     h = torch.einsum("becd,edf->becf", xin, params["wi"].to(x.dtype))
     u, g = torch.chunk(h, 2, dim=-1)
     h = u * F.silu(g)
     out_e = torch.einsum("becf,efd->becd", h, params["wo"].to(x.dtype))
+    out_e = with_logical(out_e, ("batch", "experts", None, None))
     out = torch.einsum("btec,becd->btd", combine.to(x.dtype), out_e)
 
     if cfg.num_shared_experts:

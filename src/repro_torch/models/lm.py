@@ -192,7 +192,9 @@ def self_block(params, x: torch.Tensor, cfg: ModelConfig, positions, layer=None)
         a = attn.mla_attention(params["attn"], h, cfg, positions=positions, layer=layer)
     else:
         a = attn.gqa_attention(params["attn"], h, cfg, positions=positions, layer=layer)
-    x, aux = _ffn(params, x + a, cfg, layer)
+    x = cm.with_logical(x + a, ("batch", "seq_sp", None))
+    x, aux = _ffn(params, x, cfg, layer)
+    x = cm.with_logical(x, ("batch", "seq_sp", None))
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
@@ -202,7 +204,8 @@ def cross_block(params, x: torch.Tensor, memory_kv, cfg: ModelConfig, layer=None
     h = cm.rmsnorm(params["ln1"], x, cfg.norm_eps)
     x = x + attn.cross_attention(params["attn"], h, memory_kv, cfg, gated=True, layer=layer)
     h = cm.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    return x + torch.tanh(params["gate_ffn"].to(x.dtype)) * ffn.mlp(params["ffn"], h, cfg, layer=layer)
+    x = x + torch.tanh(params["gate_ffn"].to(x.dtype)) * ffn.mlp(params["ffn"], h, cfg, layer=layer)
+    return cm.with_logical(x, ("batch", "seq_sp", None))
 
 
 def _remat_body(p, idx, x, positions, cfg):
@@ -223,6 +226,7 @@ def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig, vision: Optional[t
     vision = _vision(vision, cfg)
     t = tokens.shape[1]
     x = cm.embed(params["embed"], tokens, cfg)
+    x = cm.with_logical(x, ("batch", "seq_sp", None))
     positions = torch.arange(t, device=tokens.device)
     zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
     aux_first, aux = zero, zero
@@ -259,7 +263,7 @@ def _layer_prefill(p, x, cfg, positions, max_seq, layer=None):
     h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
     prefill = attn.mla_prefill if cfg.mla else attn.gqa_prefill
     a, cache = prefill(p["attn"], h, cfg, positions=positions, max_seq=max_seq, layer=layer)
-    return _ffn_residual(p, x + a, cfg, layer), cache
+    return cm.with_logical(_ffn_residual(p, x + a, cfg, layer), ("batch", "seq_sp", None)), cache
 
 
 def _layer_decode(p, x, cache, pos, cfg, layer=None):
@@ -298,9 +302,15 @@ def lm_prefill(
             caches["first"] = c
         else:
             layer_caches.append(c)
-    caches["layers"] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
+    empty = lm_cache_def(cfg, tokens.shape[0], max_seq, x.dtype)  # the reference's zero-length scans
+    if layer_caches:
+        caches["layers"] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
+    else:
+        caches["layers"] = cm.zeros_of(empty["layers"], x.device)
     if cross_kvs:
         caches["cross_kv"] = tuple(torch.stack(side) for side in zip(*cross_kvs))
+    elif cfg.cross_attn_every:
+        caches["cross_kv"] = tuple(torch.zeros(s, dtype=dt, device=x.device) for s, _, dt in empty["cross_kv"])
     caches["pos"] = t
     return _head(params, x[:, -1:, :], cfg), caches
 
@@ -354,7 +364,7 @@ def lm_prefill_chunk(
             p["attn"], h, _layer_pool(kv_pool, idx), block_table, t0, cfg,
             t_full=t_full, block_size=block_size, positions=positions, layer=idx,
         )
-        x = _ffn_residual(p, x + a, cfg, idx)
+        x = cm.with_logical(_ffn_residual(p, x + a, cfg, idx), ("batch", "seq_sp", None))
     logits = _head(params, x[:, -1:, :], cfg) if with_logits else None
     return logits, kv_pool
 

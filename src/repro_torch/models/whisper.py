@@ -59,7 +59,8 @@ def _enc_body(p, x, positions, cfg):
     h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
     x = x + attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=False)
     h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + ffn.mlp(p["ffn"], h, cfg)
+    x = x + ffn.mlp(p["ffn"], h, cfg)
+    return cm.with_logical(x, ("batch", "seq_sp", None))
 
 
 def encode(params, audio_embed: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -69,10 +70,12 @@ def encode(params, audio_embed: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     ``repro.models.whisper:encode``."""
     positions = torch.arange(audio_embed.shape[1], device=audio_embed.device)
     body = cm.apply_remat(_enc_body, cfg)
-    x = audio_embed
+    x = cm.with_logical(audio_embed, ("batch", "seq_sp", None))
     for p in params["enc_layers"]:
         x = body(p, x, positions, cfg)
-    return cm.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    x = cm.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    # replicated over "model" once: every decoder layer's cross K/V reads it
+    return cm.with_logical(x, ("batch", None, None))
 
 
 def _dec_block(p, x, enc_kv, cfg: ModelConfig, positions):
@@ -82,7 +85,8 @@ def _dec_block(p, x, enc_kv, cfg: ModelConfig, positions):
     h = cm.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
     x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
     h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    return x + ffn.mlp(p["ffn"], h, cfg)
+    x = x + ffn.mlp(p["ffn"], h, cfg)
+    return cm.with_logical(x, ("batch", "seq_sp", None))
 
 
 def whisper_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -133,11 +137,16 @@ def whisper_prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
         cross_kvs.append(kv_cross)
     x = cm.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = cm.dense(params["lm_head"], x, cfg, site="lm_head")
-    cache = {
-        "self": {k: torch.stack([c[k] for c in self_caches]) for k in self_caches[0]},
-        "cross": tuple(torch.stack(side) for side in zip(*cross_kvs)),
-        "pos": t,
-    }
+    if self_caches:
+        cache = {
+            "self": {k: torch.stack([c[k] for c in self_caches]) for k in self_caches[0]},
+            "cross": tuple(torch.stack(side) for side in zip(*cross_kvs)),
+        }
+    else:  # no decoder layers: the reference's zero-length scan
+        empty = whisper_cache_def(cfg, tokens.shape[0], max_seq, enc.shape[1], enc.dtype)
+        cache = {"self": cm.zeros_of(empty["self"], x.device),
+                 "cross": tuple(torch.zeros(s, dtype=dt, device=x.device) for s, _, dt in empty["cross"])}
+    cache["pos"] = t
     return logits, cache
 
 

@@ -294,10 +294,11 @@ def xlstm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
     mLSTM block under ``apply_remat``, as the reference's group scan has
     it.  Reference: ``repro.models.xlstm:xlstm_logits``."""
     x = cm.embed(params["embed"], tokens, cfg)
+    x = cm.with_logical(x, ("batch", None, None))
     blk = cm.apply_remat(lambda p, x: mlstm_block(p, x, cfg), cfg)
     for mparams, sparams in zip(params["mlstm"], params["slstm"]):
         for p in mparams:
-            x = blk(p, x)
+            x = cm.with_logical(blk(p, x), ("batch", None, None))
         x = slstm_block(sparams, x, cfg)
     logits = _head(params, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
@@ -325,7 +326,12 @@ def xlstm_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int =
         msts.append(cm.stack_states(group))
         x, st = slstm_prefill(sparams, x, cfg)
         ssts.append(st)
-    cache = {"mlstm": cm.stack_states(msts), "slstm": cm.stack_states(ssts), "pos": tokens.shape[1]}
+    if ssts:
+        cache = {"mlstm": cm.stack_states(msts), "slstm": cm.stack_states(ssts)}
+    else:  # no groups: the reference's zero-length scans
+        empty = xlstm_cache_def(cfg, tokens.shape[0], 0, x.dtype)
+        cache = {k: cm.zeros_of(empty[k], x.device) for k in ("mlstm", "slstm")}
+    cache["pos"] = tokens.shape[1]
     return _head(params, x[:, -1:], cfg), cache
 
 

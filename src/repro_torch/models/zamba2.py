@@ -71,12 +71,13 @@ def zamba2_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
     Mamba2 block under ``apply_remat``, as the reference's scan has it.
     Reference: ``repro.models.zamba2:zamba2_logits``."""
     x = cm.embed(params["embed"], tokens, cfg)
+    x = cm.with_logical(x, ("batch", "seq_sp", None))
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     mblk = cm.apply_remat(lambda p, x: ssm.mamba_block(p, x, cfg), cfg)
     for group in params["mamba"]:
         for p in group:
-            x = mblk(p, x)
-        x = _shared_block(params["shared"], x, cfg, positions)
+            x = cm.with_logical(mblk(p, x), ("batch", "seq_sp", None))
+        x = cm.with_logical(_shared_block(params["shared"], x, cfg, positions), ("batch", "seq_sp", None))
     logits = _head(params, x, cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -106,7 +107,12 @@ def zamba2_prefill(params, tokens: torch.Tensor, cfg: ModelConfig, max_seq: int)
         a, kv = attn.gqa_prefill(shared["attn"], h, cfg, positions=positions, max_seq=max_seq)
         x = _shared_ffn(shared, x + a, cfg)
         attn_caches.append(kv)
-    cache = {"mamba": cm.stack_states(mamba_states), "attn": cm.stack_states(attn_caches), "pos": t}
+    if attn_caches:
+        cache = {"mamba": cm.stack_states(mamba_states), "attn": cm.stack_states(attn_caches)}
+    else:  # no groups: the reference's zero-length scans
+        empty = zamba2_cache_def(cfg, tokens.shape[0], max_seq, x.dtype)
+        cache = {k: cm.zeros_of(empty[k], x.device) for k in ("mamba", "attn")}
+    cache["pos"] = t
     return _head(params, x[:, -1:], cfg), cache
 
 

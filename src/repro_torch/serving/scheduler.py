@@ -344,15 +344,20 @@ class Scheduler:
         return requests
 
     # -- contract access -----------------------------------------------------
-    def decode_weight_rounds(self) -> int:
-        """``aten.round`` calls on weight-shaped tensors in one decode step
-        with the live state (all rows active, on a copy of the pool) — the
-        weight-stationary contract.  Reference:
-        ``repro.serving.scheduler:Scheduler.decode_checker`` with
-        ``assert_zero_weight_rounds``."""
-        from repro_torch.analysis.contracts import WeightRoundCounter, weight_shapes
+    def decode_checker(self, label: str = "paged_decode"):
+        """A :class:`~repro_torch.analysis.contracts.ContractChecker` over one
+        decode step with the live state (all rows active, on a copy of the
+        pool), recorded as it runs on the scheduler's device.  Reference:
+        ``repro.serving.scheduler:Scheduler.decode_checker``."""
+        from repro_torch.analysis.contracts import ContractChecker
 
         pool = {k: v.clone() for k, v in self.kv_pool.items()}
-        with WeightRoundCounter(weight_shapes(self.params)) as counter:
-            self._decode_call(pool, np.ones((self.cfg.batch_size,), bool))
-        return counter.count
+        return ContractChecker.record(self._decode_call, pool, np.ones((self.cfg.batch_size,), bool), label=label)
+
+    def decode_weight_rounds(self) -> int:
+        """``round`` ops over inputs as large as the model's smallest routed
+        weight in one decode step (:meth:`decode_checker`): the
+        weight-stationary contract, zero on prepacked params."""
+        from repro_torch.analysis.contracts import min_weight_size
+
+        return self.decode_checker().weight_round_ops(min_weight_size(self.arch.param_defs(self.model_cfg)))

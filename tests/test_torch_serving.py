@@ -30,7 +30,7 @@ from repro.serving import Scheduler as JScheduler  # noqa: E402
 from repro.serving import ServingConfig as JServingConfig  # noqa: E402
 from repro.serving import kv_cache as jkvc  # noqa: E402
 from repro.serving.scheduler import prepack_serving_params as jprepack  # noqa: E402
-from repro_torch.analysis.contracts import WeightRoundCounter, weight_shapes  # noqa: E402
+from repro_torch.analysis.contracts import ContractChecker  # noqa: E402
 from repro_torch.core.dpu import DPUConfig as TDPU  # noqa: E402
 from repro_torch.models import lm as tlm  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
@@ -194,13 +194,13 @@ def test_decode_does_zero_weight_shaped_rounds(jparams):
     ts = TScheduler(TA, tc, _tparams(jparams, tc), TServingConfig(**SC), device="cpu")
     ts.run([TRequest(uid=0, prompt=_prompts([6])[0], max_new_tokens=2)])
     assert ts.decode_weight_rounds() == 0
-    # Positive control: per-call weight quantization is seen by the counter.
+    # Positive control: per-call weight quantization is seen by the checker.
     eng = PhotonicEngine(dpu=tc.photonic, backend="kernel")
     w = torch.randn(64, 48)
-    with WeightRoundCounter({(64, 48)}) as counter:
-        eng.matmul_float(torch.randn(3, 64), w, site="attn.wq")
-    assert counter.count == 1
-    assert (64, 48) in weight_shapes({"a": pack_dense({"w": w}, eng)})
+    checker = ContractChecker.record(eng.matmul_float, torch.randn(3, 64), w, site="attn.wq")
+    assert checker.weight_round_ops(64 * 48) == 1
+    packed = pack_dense({"w": w}, eng)["w"]
+    assert ContractChecker.record(eng.matmul, torch.randn(3, 64), packed, site="attn.wq").weight_round_ops(64 * 48) == 0
 
 
 def test_chunked_prefill_equals_one_shot_on_the_float_path(jparams):
