@@ -16,8 +16,8 @@ from typing import Any, Dict, Tuple
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels.photonic_gemm.epilogue import EpilogueSpec
 from repro_torch.models.common import P, ModelConfig, dense, qdense_def, with_logical
+from repro_torch.photonic import EpilogueSpec
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
