@@ -398,7 +398,7 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    under fake CUDA tensors: FLOPs, argument bytes, GEMM traffic and the
    aten op stream equal exactly, the fake peak against
    ``max_memory_allocated`` printed as a ratio.  (e) Then, after the card
-   work so that none of its host time shares the CPU, the three dry-run
+   work so that none of its host time shares the CPU, the dry-run
    cells of ``DRY_CELLS``, each a subprocess started together (``python -m
    repro_torch.launch.dryrun ... --device cuda``: fake CUDA tensors on a
    fake 256-rank group, the production (16, 16) mesh): qwen2-0.5b x
@@ -407,7 +407,35 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    token, millions of fake ops past the phase's time).  Each exits 0 with
    ``ok`` (its ladder identity exact), with its bytes, FLOPs, collectives
    and whether it fits one 80 GB rank printed; the JSONs land in
-   ``chiprun_out/dryrun/``.  (c) runs in the tp phase's ranks.
+   ``chiprun_out/dryrun/``.  (c) runs in the tp phase's ranks.  Since the
+   placement slice the cells hold what one device of the reference's
+   program holds along the names the port places (rows over "data", KV
+   heads over "model", ZeRO-1 moments), and a fourth cell, qwen2-0.5b x
+   train_4k with ZeRO-1 moments, runs beside them.
+10. placement (``repro_torch.runtime.sharding.placement``), in a child
+   process (``chip_smoke.py --phase placement``) that spawns four ranks on
+   the one card over ``gloo`` with CUDA tensors as the (data 2, model 2)
+   mesh, deterministic mode: (a) qwen2-0.5b at full width (24 layers, 14 q
+   / 2 KV heads, 7 / 1 a rank, ``attn.wo``'s K_local 448), ideal and SMWA
+   with its noise key, TP over "model" on the kernel backend: a prefill of
+   ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT`` tokens and
+   ``PLACEMENT_STEPS`` decode steps, the replicated program against the
+   placed one (rows over "data", heads over "model"): logits bitwise on
+   every rank, the placed run's ``photonic_gemm`` (``fused=0``) launches
+   and int32 all-reduces 144 a forward, its GEMM rows never gathered
+   (``ROW_GATHERS["tp_rows"] == 0``), one scale ``MAX`` all-reduce a GEMM,
+   its cache leaves 2 rows and 1 KV head; (b) ``train(mesh=(2, 2),
+   tp_axis="model")`` at ``TP_TRAIN_GRID_LAYERS`` of 24 layers, phase 7's
+   data (4 x 1024 tokens), ``PLACEMENT_TRAIN_STEPS`` steps with the rows
+   placed against as many replicated (``place_rows=False``): losses within
+   ``rtol=1e-3``, every parameter within ``2 x steps x lr`` plus one bf16
+   rounding of its value, peak memory a rank printed.  Then in this
+   process (c): the tooling phase's qwen2-0.5b x decode_32k and x train_4k
+   (ZeRO-1) cells, their arguments, temp, peak and FLOPs a rank beside the
+   reference's recorded decode cell (``REFERENCE_DECODE_CELL``; the
+   reference records no train_4k cell); gates on the decode cell: it fits
+   80 GB, its cache a rank is the cache's global bytes / 256, its
+   arguments at most the reference's plus its ``param_bytes``.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -562,6 +590,13 @@ TRAIN_STEPS = 3
 TP_TRAIN_ROWS = (TRAIN_ROWS, TRAIN_ROWS // 2)  # phase 7c's rows per GEMM: TP = 2, and a data rank of DP 2 x TP 2
 TP_TRAIN_GRID_LAYERS = 4  # phase 7c (c): qwen2-0.5b cut to 4 of 24 layers, four ranks on the one card
 TP_TRAIN_GRID_STEPS = 2
+# Phase 10 (placement): the four-rank decode's rows, prompt, cache and steps.
+PLACEMENT_ROWS, PLACEMENT_PROMPT, PLACEMENT_MAX_SEQ, PLACEMENT_STEPS = 4, 16, 32, 8
+PLACEMENT_TRAIN_STEPS = 2
+# The reference's qwen2-0.5b x decode_32k x single cell, as its
+# tests/test_dryrun_integration.py records it (results/dryrun/, not committed).
+REFERENCE_DECODE_CELL = dict(argument_size_in_bytes=1677959972, temp_size_in_bytes=4298902480,
+                             flops_per_device_exact=3851878928)
 # The train-families phase: the fused launches of one training step, the
 # forward's and then the recompute of the blocks that run under remat
 # "full" in the backward.  xlstm-350m recomputes its 21 mLSTM blocks (the
@@ -1994,7 +2029,8 @@ def setup(torch) -> None:
 
 def child(phase: str, arg=None) -> int:
     """``chip_smoke.py --phase train``, ``--phase train-families``,
-    ``--phase tp TOKENS`` or ``--phase tp-train PHASE7``: the phase alone, in a process whose environment
+    ``--phase placement``, ``--phase tp TOKENS`` or ``--phase tp-train
+    PHASE7``: the phase alone, in a process whose environment
     sets ``CUBLAS_WORKSPACE_CONFIG`` (cuBLAS's reproducible workspaces,
     which the deterministic mode needs) before CUDA starts.  The kernels
     were built by the parent; the last line of stdout is the phase's result
@@ -2020,6 +2056,8 @@ def child(phase: str, arg=None) -> int:
         ok, res, launches = tp_child(json.loads(arg))
     elif phase == "tp-train":
         ok, res, launches = tp_train_child(json.loads(arg))
+    elif phase == "placement":
+        ok, res, launches = placement_child()
     else:
         ok, res, launches = train_families_phase(torch, registry, card_line())
     print(json.dumps({"ok": ok, "result": res, "launches": launches}))
@@ -2583,7 +2621,8 @@ def tp_train_grid_rank(rank, world, tp1, ckpt_dir):
     """One rank of phase 7c (c): qwen2-0.5b at full width cut to
     ``TP_TRAIN_GRID_LAYERS`` of its 24 layers (four ranks share the card and
     the run's time limit), on the ("data", "model") 2 x 2 mesh.  (c1)
-    ``train(mesh=, tp_axis="model")`` for ``TP_TRAIN_GRID_STEPS`` steps,
+    ``train(mesh=, tp_axis="model", place_rows=False)`` (the replicated
+    program; phase 10 (b) places the rows) for ``TP_TRAIN_GRID_STEPS`` steps,
     held to ``tp1`` (TP = 1 at the same depth); (c2) one
     ``make_dp_train_step(tp_axis="model")`` step; (c3) the same with
     ``compress_grads=True``.  Returns this rank's results and gates."""
@@ -2615,7 +2654,7 @@ def tp_train_grid_rank(rank, world, tp1, ckpt_dir):
     with _SaveCounter() as saves:
         res = train(arch=arch, model_cfg=cfg, data_cfg=data,
                     train_cfg=TrainConfig(steps=TP_TRAIN_GRID_STEPS, ckpt_every=1000, ckpt_dir=ckpt_dir, log_every=1),
-                    opt_cfg=opt, mesh=mesh, tp_axis="model", log=say, device="cuda")
+                    opt_cfg=opt, mesh=mesh, tp_axis="model", place_rows=False, log=say, device="cuda")
     counts = _counts(K)
     fp = _fingerprint(res["params"])
     secs = res["step_seconds"]
@@ -2755,6 +2794,219 @@ def tp_train_child(phase7):
                 + sum(r[k]["counts"]["photonic_gemm"] for r in grid for k in ("c1", "c2", "c3"))}
     return (ok and same and grid_ok and grid_same, {"backend": backend, "pair": pair, "tp1_grid": tp1, "grid": grid},
             launches)
+
+
+def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
+    """Phase 10 (a): a prefill and decode steps of ``cfg`` on ``mesh`` under
+    TP over "model", the rows and heads placed when ``place`` (the token
+    blocks cut from the global ones, the logits gathered).  Returns (the
+    global logits of each call, the cache leaves' shapes, seconds)."""
+    from repro_torch.photonic import sharded
+    from repro_torch.runtime import sharding as shd
+
+    sizes = {"batch": PLACEMENT_ROWS, "heads": cfg.n_q_heads, "kv_heads": cfg.num_kv_heads}
+    tok_axes, logit_axes = ("batch", None), ("batch", None, None)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as scopes:
+        scopes.enter_context(shd.use_rules(mesh))
+        scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
+        if place:
+            scopes.enter_context(shd.placement(mesh, sizes))
+            prompt = shd.place_tree(prompt, tok_axes)
+        with torch.no_grad():
+            logits, cache = arch.prefill(params, {"tokens": prompt}, cfg, PLACEMENT_MAX_SEQ)
+            out = [logits]
+            for t in steps:
+                logits, cache = arch.decode(params, shd.place_tree(t, tok_axes) if place else t, cache, cfg)
+                out.append(logits)
+        if place:
+            out = [shd.gather_tree(x, logit_axes) for x in out]
+    torch.cuda.synchronize()
+    return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, time.perf_counter() - t0
+
+
+def placement_rank(rank, world, ckpt_dir):
+    """One rank of phase 10 (module docstring, (a) and (b)).  Returns this
+    rank's results and gates."""
+    import torch.distributed as dist
+
+    torch, K, say = _tp_train_rank_setup(rank)
+    from repro_torch.analysis import contracts
+    from repro_torch.launch.mesh import build_mesh
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+    from repro_torch.optim import adamw
+    from repro_torch.runtime.train_loop import TrainConfig, train
+
+    card = card_line()
+    mesh = build_mesh((2, 2), ("data", "model"))
+    coords = (mesh.get_local_rank("data"), mesh.get_local_rank("model"))
+    say(f"backend {dist.get_backend()} (CUDA tensors), mesh {mesh.mesh_dim_names} {tuple(mesh.mesh.shape)}, "
+        f"coordinate (data {coords[0]}, model {coords[1]})")
+    arch = registry.get("qwen2-0.5b")
+    rng = np.random.default_rng(11)
+    prompt = torch.from_numpy(rng.integers(0, arch.config.vocab_size, (PLACEMENT_ROWS, PLACEMENT_PROMPT))).cuda()
+    steps = torch.from_numpy(rng.integers(0, arch.config.vocab_size, (PLACEMENT_STEPS, PLACEMENT_ROWS, 1))).cuda()
+    forwards = 1 + PLACEMENT_STEPS
+    gemms = 6 * arch.config.num_layers * forwards
+    out, gates = {"rank": rank, "coords": coords}, {}
+    # (a) the four-rank decode, replicated and placed, ideal and SMWA
+    for name, dpu in (("ideal", ideal_dpu()), ("SMWA", smwa_dpu())):
+        cfg = dataclasses.replace(arch.config.pad_for_mesh(2), photonic=dpu, photonic_backend="kernel")
+        params = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
+        runs = {}
+        for label, place in (("replicated", False), ("placed", True)):
+            _reset_counts(torch, K)
+            logits, cache, secs = _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place)
+            counts = dict(_counts(K), outputs=contracts.ROW_GATHERS["outputs"],
+                          amax=contracts.SCALE_REDUCTIONS["amax"], heads=contracts.HEAD_GATHERS["heads"])
+            runs[label] = dict(logits=logits, cache=cache, seconds=secs, counts=counts,
+                               max_memory_allocated=torch.cuda.max_memory_allocated())
+        rep, placed = runs["replicated"], runs["placed"]
+        same = all(torch.equal(a, b) for a, b in zip(rep["logits"], placed["logits"]))
+        worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(rep["logits"], placed["logits"]))
+        finite = all(bool(torch.isfinite(x).all()) for x in placed["logits"])
+        fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in placed["logits"])).hexdigest()[:16]
+        c = placed["counts"]
+        gates[f"(a) {name} logits bitwise the replicated program's"] = same and finite
+        gates[f"(a) {name} launches, all-reduces, no row gathers, scale reductions"] = (
+            (c["photonic_gemm"], c["photonic_gemm_fused"], c["all_reduces"], c["row_gathers"], c["amax"],
+             c["outputs"], c["heads"]) == (gemms, 0, gemms, 0, gemms, forwards, 0))
+        half = (arch.config.num_layers, PLACEMENT_ROWS // 2, PLACEMENT_MAX_SEQ, 1, cfg.hd)
+        gates[f"(a) {name} cache leaves a rank"] = placed["cache"] == {"k": half, "v": half}
+        out[name] = dict(same=same, max_abs=worst, fingerprint=fp, cache=placed["cache"],
+                         **{f"{k}_{m}": v[m] for k, v in runs.items() for m in ("seconds", "counts",
+                                                                                "max_memory_allocated")})
+        say(f"(a) {name}: qwen2-0.5b prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} + {PLACEMENT_STEPS} decode steps, "
+            f"placed (rows over data, 7 q / 1 KV heads a rank) against replicated: logits bitwise {same} (max |d| "
+            f"{worst}), sha256 {fp}; placed {placed['seconds']:.2f} s, replicated {rep['seconds']:.2f} s; placed "
+            f"counts {c} (want photonic_gemm {gemms}, fused 0, all-reduces {gemms}, row gathers 0, amax {gemms}, "
+            f"outputs {forwards}); replicated counts {rep['counts']}; cache {placed['cache']} (replicated "
+            f"{rep['cache']}); max_memory_allocated placed {placed['max_memory_allocated'] / 2**30:.2f} GiB, "
+            f"replicated {rep['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+        del params, runs, rep, placed
+        torch.cuda.empty_cache()
+    # (b) train(mesh=) with the rows placed against the replicated program
+    data, opt = _train_inputs(arch)
+    cfg = dataclasses.replace(arch.config, num_layers=TP_TRAIN_GRID_LAYERS, photonic=ideal_dpu(),
+                              photonic_backend="kernel")
+    runs = {}
+    for label, place in (("replicated", False), ("placed", True)):
+        _reset_counts(torch, K)
+        res = train(arch=arch, model_cfg=cfg, data_cfg=data,
+                    train_cfg=TrainConfig(steps=PLACEMENT_TRAIN_STEPS, ckpt_every=1000,
+                                          ckpt_dir=os.path.join(ckpt_dir, label), log_every=100),
+                    opt_cfg=opt, mesh=mesh, tp_axis="model", place_rows=place, log=lambda m: None, device="cuda")
+        runs[label] = dict(losses=res["losses"], params=_leaves(res["params"]), step_seconds=res["step_seconds"],
+                           counts=_counts(K), max_memory_allocated=torch.cuda.max_memory_allocated())
+        del res
+    rep, placed = runs["replicated"], runs["placed"]
+    lrs = [float(adamw.schedule_lr(opt, torch.tensor(i + 1))) for i in range(PLACEMENT_TRAIN_STEPS)]
+    bound = 2 * sum(lrs)
+    worst, within = 0.0, True
+    for a, b in zip(placed["params"], rep["params"]):
+        d = (a.float() - b.float()).abs()
+        ulp = (b.float().abs() * 2.0**-7).clamp_min(2.0**-133)
+        worst = max(worst, float(d.max()))
+        within &= bool((d <= bound + ulp).all())
+    loss_ok = all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(placed["losses"], rep["losses"]))
+    gates["(b) losses within rtol 1e-3 of the replicated run"] = loss_ok
+    gates["(b) parameters within 2 x steps x lr + one bf16 rounding"] = within
+    gates["(b) no row gathers when placed"] = placed["counts"]["row_gathers"] == 0
+    out["train"] = dict(losses=placed["losses"], replicated_losses=rep["losses"], max_abs_param=worst, bound=bound,
+                        step_seconds=placed["step_seconds"], replicated_step_seconds=rep["step_seconds"],
+                        counts=placed["counts"], replicated_counts=rep["counts"],
+                        max_memory_allocated=placed["max_memory_allocated"],
+                        replicated_max_memory_allocated=rep["max_memory_allocated"])
+    say(f"(b) train(mesh=(2, 2), tp_axis='model') at {TP_TRAIN_GRID_LAYERS} layers, {PLACEMENT_TRAIN_STEPS} steps of "
+        f"{data.global_batch} x {data.seq_len}: placed losses {placed['losses']} against replicated {rep['losses']}; "
+        f"max |p_placed - p_replicated| {worst:.4g} (bound 2 x sum lr = {bound:.4g} + a bf16 rounding); steps "
+        f"placed {[round(x, 3) for x in placed['step_seconds']]} s, replicated "
+        f"{[round(x, 3) for x in rep['step_seconds']]} s; row gathers placed {placed['counts']['row_gathers']}, "
+        f"replicated {rep['counts']['row_gathers']}; peak memory a rank placed "
+        f"{placed['max_memory_allocated'] / 2**30:.2f} GiB, replicated {rep['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"[{card}]")
+    out["gates"] = gates
+    for k, v in gates.items():
+        say(f"{k}: {v}")
+    return out
+
+
+def placement_child():
+    """``chip_smoke.py --phase placement``: phase 10 (a) and (b) on four
+    ranks (:func:`placement_rank`).  Gates: each rank's own, and the ranks'
+    logits and losses equal.  Returns (ok, result, launches summed over the
+    ranks)."""
+    from repro_torch.launch.mesh import spawn
+
+    log("  placement: backend gloo, CUDA tensors, four ranks sharing the card as the (data 2, model 2) mesh")
+    ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_placement_ckpt_")
+    try:
+        ranks = spawn(placement_rank, 4, backend="gloo", device="cuda", args=(ckpt_dir,), timeout=600)
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
+    ok = all(all(r["gates"].values()) for r in ranks)
+    same = all(r[c]["fingerprint"] == ranks[0][c]["fingerprint"] for r in ranks for c in ("ideal", "SMWA")) and all(
+        r["train"]["losses"] == ranks[0]["train"]["losses"] for r in ranks)
+    log(f"  placement (a)/(b): every rank's gates {ok}; ranks agree (logits, losses) {same}")
+    launches = {"photonic_gemm": sum(r[c][f"{k}_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA")
+                                     for k in ("replicated", "placed"))
+                + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))}
+    return ok and same, {"ranks": ranks}, launches
+
+
+def placement_cells(cells, registry, card):
+    """Phase 10 (c): the tooling phase's qwen2-0.5b x decode_32k and x
+    train_4k (ZeRO-1) cells beside the reference's recorded decode cell.
+    Returns (ok, result)."""
+    from repro_torch._tree import tree_items
+
+    ok, res = True, {}
+    ref = REFERENCE_DECODE_CELL
+    ref_peak = ref["argument_size_in_bytes"] + ref["temp_size_in_bytes"]
+    for shape in ("decode_32k", "train_4k"):
+        cell = next((c for c in cells if c.get("arch") == "qwen2-0.5b" and c.get("shape") == shape
+                     and not c.get("flags")), None)
+        if cell is None or "flops_per_device" not in cell:
+            log(f"  (c) qwen2-0.5b x {shape}: no cell")
+            ok = False
+            continue
+        keep = ("argument_size_in_bytes", "temp_size_in_bytes", "peak_size_in_bytes", "flops_per_device",
+                "param_bytes", "cache_bytes", "optimizer_state_bytes", "fits_device", "replicated_by_port_bytes",
+                "placed", "zero1")
+        res[shape] = {k: cell.get(k) for k in keep}
+        if shape == "decode_32k":
+            arch = registry.get("qwen2-0.5b")
+            cfg = arch.config.pad_for_mesh(16)
+            (_, _), (cache, _) = arch.decode_specs(cfg, registry.SHAPES[shape])
+            global_cache = sum(s.nbytes for s in tree_items(cache).values() if s.shape)
+            ratios = dict(arguments=cell["argument_size_in_bytes"] / ref["argument_size_in_bytes"],
+                          temp=cell["temp_size_in_bytes"] / ref["temp_size_in_bytes"],
+                          peak=cell["peak_size_in_bytes"] / ref_peak,
+                          flops=cell["flops_per_device"] / ref["flops_per_device_exact"])
+            gates = {"fits 80 GB": cell["fits_device"] is True,
+                     "cache a rank = global / 256": cell["cache_bytes"] - 4 == global_cache // 256,
+                     "arguments <= reference + param_bytes":
+                         cell["argument_size_in_bytes"] <= ref["argument_size_in_bytes"] + cell["param_bytes"]}
+            ok &= all(gates.values())
+            res[shape].update(ratios=ratios, gates=gates, global_cache_bytes=global_cache)
+            log(f"  (c) qwen2-0.5b x decode_32k x single (placed: {cell['placed']}): arguments "
+                f"{cell['argument_size_in_bytes']} B ({ratios['arguments']:.3f} x the reference's "
+                f"{ref['argument_size_in_bytes']}; params {cell['param_bytes']} B whole on every rank), cache "
+                f"{cell['cache_bytes'] - 4} B = {global_cache} / 256, temp {cell['temp_size_in_bytes']} B "
+                f"({ratios['temp']:.3f} x {ref['temp_size_in_bytes']}), peak {cell['peak_size_in_bytes']} B "
+                f"({ratios['peak']:.3f} x the reference's arguments + temp {ref_peak}), FLOPs a rank "
+                f"{cell['flops_per_device']} ({ratios['flops']:.3f} x {ref['flops_per_device_exact']}); still "
+                f"replicated by the port: {cell['replicated_by_port_bytes']}; gates {gates} [{card}]")
+        else:
+            log(f"  (c) qwen2-0.5b x train_4k x single (ZeRO-1 {cell['zero1']}, placed: {cell['placed']}): arguments "
+                f"{cell['argument_size_in_bytes']} B (params {cell['param_bytes']} B, optimizer state "
+                f"{cell['optimizer_state_bytes']} B), temp {cell['temp_size_in_bytes']} B, peak "
+                f"{cell['peak_size_in_bytes']} B (fits 80 GB: {cell['fits_device']}), FLOPs a rank "
+                f"{cell['flops_per_device']}; the reference records no train_4k cell, so no ratio; still replicated "
+                f"by the port: {cell['replicated_by_port_bytes']} [{card}]")
+    return ok, res
 
 
 def sliced_serve_phase(torch, arch, params, prompts, unsliced_ideal, card):
@@ -4045,6 +4297,7 @@ DRY_CELLS = [
     ("qwen2-0.5b", "decode_32k", ()),
     ("qwen2-0.5b", "train_4k", ("--photonic", "--dp-shardmap")),
     ("xlstm-350m", "decode_32k", ()),
+    ("qwen2-0.5b", "train_4k", ()),
 ]
 TOOLING_ROWS = 4  # the tooling phase's paged server: four decode rows
 
@@ -4251,7 +4504,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 2
-    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"]):
+    if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"], ["placement"]):
         return child(sys.argv[2])
     if sys.argv[1:3] in (["--phase", "tp"], ["--phase", "tp-train"]) and len(sys.argv) == 4:
         return child(sys.argv[2], sys.argv[3])
@@ -4560,6 +4813,12 @@ def main() -> int:
         tooling_ok, tooling, tooling_launches = tooling_phase(torch, registry, card)
         all_ok &= tooling_ok
 
+    with Phase("placement"):
+        place_ok, placement, place_launches = run_child(card, "placement", timeout=400)
+        all_ok &= place_ok
+        cells_ok, placement["cells"] = placement_cells(tooling.get("dry_runs", []), registry, card)
+        all_ok &= cells_ok
+
     if not all_ok:
         log("chip_smoke: FAILED")
         return 1
@@ -4742,6 +5001,21 @@ def main() -> int:
              "the shard's int cores; launches from the tp-train phase's runs (TP = 2 train() and SMWA step, the "
              "DP 2 x TP 2 train() and DP steps), every rank",
     ))
+    # The placement phase's row: one shard of two of a qwen2-0.5b layer's
+    # six unfused GEMMs at R = 4, ideal channel (the tp phase's timing; the
+    # placed decode runs 2 rows a rank, 4 in prefill x 16 tokens); launches
+    # from phase 10's placed and replicated decode and train() runs, every rank.
+    sm = tp_sums["qwen2-0.5b ideal R=4"]
+    kernels.append(dict(
+        name="photonic_gemm", route="cuda", source=FUSED_SRC,
+        replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=place_launches["photonic_gemm"],
+        max_abs_err=sm["max_abs_err"], ms=sm["ms"], plain_ms=sm["plain_ms"], bound_ms=sm["bound_ms"],
+        bound_by=op_or_bytes(sm["bound_by"]), library_ms=sm["library_ms"],
+        case=f"placement: one shard of {TP_SHARDS} of a qwen2-0.5b layer's six sites (K_local 448 / 2432), R=4, "
+             "ideal channel, shard_local_engine.int_gemm(shard=i) (timed in the tp phase); library: torch._int_mm "
+             "of the shard's int cores; launches from phase 10's four ranks: the placed and replicated prefill + "
+             "decode runs, ideal and SMWA, and the placed and replicated train() runs",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(
@@ -4756,6 +5030,7 @@ def main() -> int:
          "analytic": {"ops_rows": ops_out, **analytic},
          "tp": {"kernel_rows": tp_rows, "sums": tp_sums, **tp_res},
          "tp_train": {"kernel_rows": tpt_rows, "sums": tpt_sums, **tpt_res}, "tooling": tooling,
+         "placement": {**placement, "launches": place_launches},
          "launch_profile": profile_desc}, indent=1, default=str))
     print(json.dumps({"kernels": kernels}))
     print(card)

@@ -27,7 +27,15 @@ HLO, and :meth:`~ContractChecker.collective_summary` /
 all-reduce it issues, the forward counterpart of the reference
 ``ContractChecker``'s "one psum per routed GEMM".  :data:`ROW_GATHERS`
 counts the mesh-mode GEMMs whose rows split over the data axes and were
-gathered back (``repro_torch.photonic.sharded``): one a GEMM.
+gathered back (``repro_torch.photonic.sharded``, ``"tp_rows"``: one a
+GEMM; none on a step under ``repro_torch.runtime.sharding.placement``,
+whose rows are local already), and the placed outputs gathered into the
+replicated value the reference's ``out_shardings`` ask for
+(``"outputs"``: one a dimension gathered).  Under a placement,
+:data:`SCALE_REDUCTIONS` counts the routed GEMMs whose activation scale
+is a ``MAX`` all-reduce of local abs-maxima, and :data:`HEAD_GATHERS` the
+attention outputs whose heads were gathered over ``model`` before a
+``wo`` that cannot take its K block (the digital path).
 """
 
 from __future__ import annotations
@@ -39,12 +47,15 @@ from repro_torch.launch import hlo_analysis
 
 
 ALL_REDUCES = {"psum_int_gemm": 0}
-ROW_GATHERS = {"tp_rows": 0}
+ROW_GATHERS = {"tp_rows": 0, "outputs": 0}
+SCALE_REDUCTIONS = {"amax": 0}
+HEAD_GATHERS = {"heads": 0}
 
 
 def reset_all_reduces() -> None:
-    """Zero :data:`ALL_REDUCES` and :data:`ROW_GATHERS`."""
-    for counts in (ALL_REDUCES, ROW_GATHERS):
+    """Zero :data:`ALL_REDUCES`, :data:`ROW_GATHERS`,
+    :data:`SCALE_REDUCTIONS` and :data:`HEAD_GATHERS`."""
+    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS):
         for name in counts:
             counts[name] = 0
 

@@ -30,10 +30,20 @@ tensors at the production shape:
   identity fails is not ``ok`` (that family's per-layer work depends on the
   layer's index).
 
-This is the port's program, not the reference's GSPMD one: activations,
-and without ``--photonic`` the weights' use, are replicated on every rank
-(each rank holds the parameters and the global batch, as ``train(mesh=)``
-does), so bytes and FLOPs differ from the reference's cells by design.
+Each rank holds what the reference's per-device program holds along the
+logical names the port places (``repro_torch.runtime.sharding.
+placement``): its rows of the batch, token and cache over the data axes,
+and in prefill and decode its KV heads of GQA attention and of the cache
+over ``model`` (the step runs on those blocks, and a decode step gathers
+its logits, which the reference's ``out_shardings`` replicate); a train
+step's optimizer moments are ZeRO-1 blocks over the data axes (the
+reference's ``zero1_axes``), its update running on those blocks and
+all-gathering the parameters, unless ``--no-zero1``.  The parameters stay
+whole on every rank, and so does any other dimension the reference places
+(the params' ``heads`` / ``d_ff`` / ``vocab`` / ``experts`` / ``inner``
+axes, ``kv_seq``): the report lists each such leaf under
+``replicated_by_port`` with the bytes the rank holds and the reference's,
+and gives ``param_bytes``.
 
 The ``fake`` backend comes from ``torch.testing._internal.distributed.
 fake_pg`` (the one torch ships; internal API).  ``--device`` defaults to
@@ -199,23 +209,36 @@ def cell_config(arch, mesh, *, photonic: bool, photonic_scope: str, photonic_org
     return cfg
 
 
-def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress: bool = False) -> Callable:
+def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress: bool = False,
+               zero1: bool = True) -> Callable:
     """The step function of one cell at config ``cfg``, as the port runs
     it (built outside the ``FakeTensorMode``: the DP step reads the mesh's
-    rank tensor when it is made)."""
+    rank tensor when it is made), under the cell's placement; its inputs
+    are :func:`build_args`' blocks.  The train step is the reference dry
+    run's: the mean loss and gradients over every rank's rows, then the
+    ZeRO-1 update (``adamw.update(shards=)``) unless ``zero1`` is false.
+    The decode step gathers its logits over the rows, as the reference's
+    ``out_shardings=(None, cache_sh)`` replicates them."""
     import torch
 
-    from repro_torch.models.common import engine_from_model_config
+    from repro_torch.models.common import axes_tree, engine_from_model_config
     from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+
+    sizes = arch.placement_sizes(cfg, shape)
 
     def scoped(fn):
-        """``fn`` under the TP scope a photonic cell's GEMMs K-shard in."""
-        if engine_from_model_config(cfg) is None:
-            return fn
-        from repro_torch.photonic import sharded
+        """``fn`` under the cell's placement and, for a photonic cell, the
+        TP scope its GEMMs K-shard in."""
+        tp = engine_from_model_config(cfg) is not None
 
         def run(*a):
-            with sharded.tensor_parallel(mesh, "model"):
+            with contextlib.ExitStack() as scopes:
+                scopes.enter_context(shd.placement(mesh, sizes, cfg.logical_rules))
+                if tp:
+                    from repro_torch.photonic import sharded
+
+                    scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
                 return fn(*a)
 
         return run
@@ -232,7 +255,11 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
             return make_dp_train_step(loss_fn, opt_cfg, mesh, compress_grads=dp_compress)
         from repro_torch.runtime.train_loop import build_train_step
 
-        return scoped(build_train_step(loss_fn, opt_cfg))
+        def train_step(params, opt_state, batch):
+            shards = adamw.zero1(params, axes_tree(arch.param_defs(cfg)), mesh, cfg.logical_rules) if zero1 else None
+            return build_train_step(loss_fn, opt_cfg, zero1=shards)(params, opt_state, batch)
+
+        return scoped(train_step)
     if shape.kind == "prefill":
         def prefill_step(p, b):
             with torch.no_grad():
@@ -242,25 +269,71 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
 
     def serve_step(p, t, c):
         with torch.no_grad():
-            return arch.decode(p, t, c, cfg)
+            logits, cache = arch.decode(p, t, c, cfg)
+            return shd.gather_tree(logits, ("batch", None, None)), cache
 
     return scoped(serve_step)
 
 
-def build_args(arch, cfg, shape, device: str) -> tuple:
+def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False, zero1: bool = True) -> tuple:
     """The fake inputs of one cell's step (call inside a
-    ``FakeTensorMode``): parameters, and the optimizer state and batch, the
-    batch, or the token and cache."""
+    ``FakeTensorMode``), this rank's blocks: parameters, and the optimizer
+    state (ZeRO-1 moments unless ``zero1`` is false) and batch rows, the
+    batch rows, or the token and cache rows and KV heads.  The DP step
+    (``dp_shardmap``) takes the global batch and replicated moments, as the
+    reference's ``shard_map`` step does."""
+    from repro_torch.models.common import axes_tree
     from repro_torch.optim import adamw
 
     params = fake_params(arch.param_defs(cfg), cfg, device)
+    placed = None if dp_shardmap else mesh
     if shape.kind == "train":
-        return params, adamw.init(params), materialize(arch.train_batch_spec(cfg, shape)[0], device)
+        shards = adamw.zero1(params, axes_tree(arch.param_defs(cfg)), mesh, cfg.logical_rules) \
+            if zero1 and not dp_shardmap else None
+        return (params, adamw.init(params, shards),
+                materialize(arch.train_batch_spec(cfg, shape, mesh=placed)[0], device))
     if shape.kind == "prefill":
-        return params, materialize(arch.prefill_batch_spec(cfg, shape)[0], device)
-    (tok, _), (cache, _) = arch.decode_specs(cfg, shape)
+        return params, materialize(arch.prefill_batch_spec(cfg, shape, mesh=mesh)[0], device)
+    (tok, _), (cache, _) = arch.decode_specs(cfg, shape, mesh=mesh)
     max_seq = shape.seq_len // cfg.decoder_ratio if arch.family == "audio" else shape.seq_len
     return params, materialize(tok, device), materialize(cache, device, host_position=max_seq - 1)
+
+
+def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero1: bool = True) -> list:
+    """``sharding.replicated_by_port`` over the cell's argument leaves: the
+    parameters (the port places none of their axes), the moments of a train
+    step (placed along ``zero1`` only), and the batch, token and cache
+    (placed along the cell's placed names)."""
+    from repro_torch._tree import tree_items
+    from repro_torch.models.common import _DTYPES, axes_tree
+    from repro_torch.runtime import sharding as shd
+
+    rules = cfg.logical_rules
+    defs = arch.param_defs(cfg)
+    pdefs = tree_items(defs)
+    paxes = shd._axes_items(axes_tree(defs), pdefs)
+    groups = [({f"params/{k}": (p.shape, paxes[k], (_DTYPES[p.dtype] if p.dtype else cfg.param_dtype).itemsize)
+                for k, p in pdefs.items()}, ())]
+    dp_step = dp_shardmap and shape.kind == "train"
+    names = () if dp_step else tuple(shd.placed_parts(arch.placement_sizes(cfg, shape), mesh, rules))
+    if shape.kind == "train":
+        spec, axes = arch.train_batch_spec(cfg, shape)
+        if zero1 and not dp_step:
+            dp = math.prod(shd.mesh_axis_sizes(mesh).get(a, 1) for a in ("pod", "data"))
+            maxes = shd._axes_items(shd.zero1_axes(axes_tree(defs), defs, dp), pdefs)
+        else:
+            maxes = paxes
+        for m in ("mu", "nu"):
+            groups.append(({f"opt/{m}/{k}": (p.shape, maxes[k], 4) for k, p in pdefs.items()}, ("zero1",)))
+    elif shape.kind == "prefill":
+        spec, axes = arch.prefill_batch_spec(cfg, shape)
+    else:
+        (tok, tok_axes), (cache, cache_axes) = arch.decode_specs(cfg, shape)
+        spec, axes = {"token": tok, "cache": cache}, {"token": tok_axes, "cache": cache_axes}
+    items = tree_items(spec)
+    iaxes = shd._axes_items(axes, items)
+    groups.append(({f"inputs/{k}": (s.shape, iaxes[k], s.dtype.itemsize) for k, s in items.items()}, names))
+    return [gap for leaves, placed in groups for gap in shd.replicated_by_port(leaves, mesh, placed, rules)]
 
 
 def run_cell(
@@ -276,6 +349,7 @@ def run_cell(
     variant: str = "base",
     dp_shardmap: bool = False,
     dp_compress: bool = False,
+    zero1: bool = True,
     config=None,
     shape=None,
 ) -> dict:
@@ -305,20 +379,37 @@ def run_cell(
             "num_kv_heads_effective": cfg.num_kv_heads,
             "param_count": sum(math.prod(p.shape) for p in tree_leaves(arch.param_defs(cfg))),
             "photonic_engine": None if eng is None else eng.describe().to_dict(),
-            "dp_shardmap": dp_shardmap, "dp_compress": dp_compress,
+            "dp_shardmap": dp_shardmap, "dp_compress": dp_compress, "zero1": zero1 and shape.kind == "train"
+            and not dp_shardmap,
         }
+        placed = {} if shape.kind == "train" and dp_shardmap else shd.placed_parts(
+            arch.placement_sizes(cfg, shape), mesh, cfg.logical_rules)
+        out["placed"] = {k: v if isinstance(v, str) else list(v) for k, v in placed.items()}
 
         def measure(mcfg):
-            step = build_step(arch, mcfg, shape, mesh, dp_shardmap=dp_shardmap, dp_compress=dp_compress)
+            step = build_step(arch, mcfg, shape, mesh, dp_shardmap=dp_shardmap, dp_compress=dp_compress,
+                              zero1=zero1)
             with FakeTensorMode(allow_non_fake_inputs=True):
-                args = build_args(arch, mcfg, shape, device)
+                args = build_args(arch, mcfg, shape, mesh, device, dp_shardmap=dp_shardmap, zero1=zero1)
                 with shd.use_rules(mesh, mcfg.logical_rules):
                     res = account(step, args)
                     fallbacks = shd.fallback_log()
+                res["param_bytes"] = tree_bytes(args[0])
+                if shape.kind == "train":
+                    res["optimizer_state_bytes"] = tree_bytes(args[1])
+                elif shape.kind == "decode":
+                    res["cache_bytes"] = tree_bytes(args[2])
             return res, fallbacks
 
         res, fallbacks = measure(cfg)
         out.update(res)
+        gap = replicated_leaves(arch, cfg, shape, mesh, dp_shardmap=dp_shardmap, zero1=zero1)
+        out["replicated_by_port"] = gap
+        by_name = collections.defaultdict(lambda: [0, 0])
+        for g in gap:
+            by_name[g["logical"]][0] += g["bytes"]
+            by_name[g["logical"]][1] += g["reference_bytes"]
+        out["replicated_by_port_bytes"] = {k: {"bytes": v[0], "reference_bytes": v[1]} for k, v in by_name.items()}
         out["sharding_fallbacks"] = [
             {"shape": list(s), "logical": n, "mesh_axis": a if isinstance(a, str) else list(a), "dim": d,
              "axis_size": z}
@@ -422,8 +513,7 @@ def main(argv=None) -> int:
     ap.add_argument("--dp-shardmap", action="store_true", help="the DP train step (replicated params)")
     ap.add_argument("--dp-compress", action="store_true", help="int8 ring gradient all-reduce (with --dp-shardmap)")
     ap.add_argument("--no-zero1", action="store_true",
-                    help="rejected: the port's train step keeps optimizer moments replicated, so there is "
-                         "no ZeRO-1 to turn off (ROADMAP Queue 3 item 16)")
+                    help="replicated optimizer moments in the train step (default: ZeRO-1 over the data axes)")
     ap.add_argument("--force", action="store_true")
     ap.add_argument("--variant", default=None)
     ap.add_argument("--override", action="append", default=[], help="config overrides, e.g. --override remat=false")
@@ -431,9 +521,6 @@ def main(argv=None) -> int:
                     help="device of the fake tensors (cuda needs a card)")
     ap.add_argument("--out", default=str(RESULTS_DIR), help="directory of the cell JSONs")
     args = ap.parse_args(argv)
-    if args.no_zero1:
-        ap.error("--no-zero1: the port's train step keeps optimizer moments replicated, so there is no "
-                 "ZeRO-1 to turn off (ROADMAP Queue 3 item 16)")
     out_dir = Path(args.out)
     if args.sweep:
         _check_device(args.device)
@@ -455,7 +542,7 @@ def main(argv=None) -> int:
         out = run_cell(
             args.arch, args.shape, args.mesh, device=args.device, photonic=args.photonic,
             photonic_scope=args.photonic_scope, photonic_org=args.photonic_org, overrides=overrides or None,
-            variant=variant, dp_shardmap=args.dp_shardmap, dp_compress=args.dp_compress,
+            variant=variant, dp_shardmap=args.dp_shardmap, dp_compress=args.dp_compress, zero1=not args.no_zero1,
         )
     except Exception:
         out = {"arch": args.arch, "shape": args.shape, "mesh": args.mesh, "variant": variant, "ok": False,

@@ -14,6 +14,13 @@ them.  A fused ``wqkv`` bank (:func:`repro_torch.photonic.fuse_qkv_params`)
 runs the Q/K/V projections as one GEMM, and ``kv_cache_int8`` stores the
 KV cache as int8 with one f32 scale per (token, KV head) on the one-shot
 and paged paths.
+
+Under a placement of the KV heads over ``model``
+(:func:`repro_torch.runtime.sharding.placement`, prefill and decode) the
+GQA functions keep this rank's KV heads and the q heads that read them
+(:func:`_local_heads`), their dense caches hold those heads, and
+``attn.wo`` takes the local heads as its K block (``dense(k_local=
+"heads")``).  MLA keeps its heads whole; its caches are placed by rows.
 """
 
 from __future__ import annotations
@@ -24,6 +31,7 @@ import torch
 
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def, with_logical
+from repro_torch.runtime.sharding import block
 from repro_torch.serving import kv_cache as kvc
 
 NEG = -1e30
@@ -124,6 +132,19 @@ def chunked_attention(
     return out.transpose(1, 2).to(q.dtype)  # (B, Tq, H, hdv)
 
 
+def _local_heads(q: Optional[torch.Tensor], *kv: torch.Tensor):
+    """``(q, *kv)`` (heads on dimension 2) cut to this rank's block of the
+    placed KV heads and the contiguous block of q heads that reads them
+    (q head ``h`` reads KV head ``h // n_rep``, and the placement cuts both
+    into the same number of blocks); as they are where heads are not
+    placed.  ``q`` may be ``None`` (cross-attention's memory K/V)."""
+    kb = block("kv_heads")
+    if kb is None:
+        return (q, *kv)
+    qh = None if q is None else block("heads").take(q, 2)
+    return (qh, *(kb.take(t, 2) for t in kv))
+
+
 def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
     b, t, _ = x.shape
     return x.reshape(b, t, n, -1)
@@ -207,7 +228,7 @@ def gqa_attention(
 ) -> torch.Tensor:
     """Full-sequence self-attention.  Reference:
     ``repro.models.attention:gqa_attention``."""
-    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
+    q, k, v = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = with_logical(q, ("batch", None, "heads", None))
@@ -215,7 +236,7 @@ def gqa_attention(
     v = with_logical(v, ("batch", None, "kv_heads", None))
     out = _attend(q, k, v, cfg, causal=causal, q_offset=q_offset)
     out = out.reshape(*x.shape[:2], -1)
-    return dense(params["wo"], out, cfg, site="attn.wo", layer=layer)
+    return dense(params["wo"], out, cfg, site="attn.wo", layer=layer, k_local="heads")
 
 
 def gqa_prefill(
@@ -225,11 +246,11 @@ def gqa_prefill(
     cache padded to ``max_seq`` rows (int8 with its scales under
     ``kv_cache_int8``).  Reference: ``repro.models.attention:gqa_prefill``."""
     b, t, _ = x.shape
-    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
+    q, k, v = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, cfg, causal=True)
-    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
     cache = {
         name: torch.nn.functional.pad(r, (0, 0) * (r.dim() - 2) + (0, max_seq - t))
         for name, r in _kv_rows(k, v, cfg).items()
@@ -255,7 +276,7 @@ def gqa_decode(
     h, kv = cfg.n_q_heads, cfg.num_kv_heads
     b = x.shape[0]
     pos = int(pos)
-    q, k1, v1 = _qkv_proj(params, x, cfg, layer=layer)
+    q, k1, v1 = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k1 = apply_rope(k1, posv, cfg.rope_theta)
@@ -276,7 +297,7 @@ def gqa_decode(
     p = torch.softmax(s, dim=-1)
     out = torch.einsum("bhqs,bshd->bqhd", p, vf)
     out = dense(
-        params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer
+        params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer, k_local="heads"
     )
     return out, {name: cache[name] for name in rows}
 
@@ -377,10 +398,10 @@ def cross_attention(
     chunked online softmax whatever ``attn_impl`` says, as in the
     reference.  Reference: ``repro.models.attention:cross_attention``."""
     b, t, _ = x.shape
-    q = _split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer), cfg.n_q_heads)
+    q, = _local_heads(_split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer), cfg.n_q_heads))
     k, v = memory_kv
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg))
-    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
     if gated:
         out = torch.tanh(params["gate"].to(out.dtype)) * out
     return out
@@ -389,11 +410,12 @@ def cross_attention(
 def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig, layer=None):
     """The memory's cross-attention K/V ``(B, S, KV, hd)`` each, through
     ``attn.wk`` / ``attn.wv`` (in the memory's dtype: an f32 memory gives
-    f32 K/V).  Reference: ``repro.models.attention:cross_kv``."""
+    f32 K/V), this rank's KV heads where they are placed.  Reference:
+    ``repro.models.attention:cross_kv``."""
     kv = cfg.num_kv_heads
     k = _split_heads(dense(params["wk"], memory, cfg, site="attn.wk", layer=layer), kv)
     v = _split_heads(dense(params["wv"], memory, cfg, site="attn.wv", layer=layer), kv)
-    return k, v
+    return _local_heads(None, k, v)[1:]
 
 
 # ---------------------------------------------------------------------------

@@ -296,6 +296,7 @@ def dense(
     slicing: Any = None,
     activation: Optional[str] = None,
     prng_key: Any = None,
+    k_local: Optional[str] = None,
 ) -> torch.Tensor:
     """Linear layer; routes through the photonic engine when enabled.
     Reference: ``repro.models.common:dense``.  Bias and activation ride
@@ -308,9 +309,17 @@ def dense(
     (:func:`repro_torch.photonic.sharded.tensor_parallel` / ``manual_tp``)
     routed GEMMs K-shard over the mesh axis: shard-local channel at
     ``N_local``, (site, layer, shard)-folded noise, an int32 all-reduce —
-    bitwise the single-device path under an ideal channel."""
+    bitwise the single-device path under an ideal channel.
+
+    ``k_local`` names the logical dimension (``"heads"``) whose placement
+    (:func:`repro_torch.runtime.sharding.placement`) cuts ``x``'s last
+    dimension: a tensor-parallel GEMM whose K shard is that block takes it
+    as it is; any other path gathers it first (counted in
+    ``contracts.HEAD_GATHERS``), so the values are the replicated
+    program's."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
     from repro_torch.photonic import sharded as tp
+    from repro_torch.runtime.sharding import block, gather_block
 
     if epilogue is not None:
         if activation is not None:
@@ -323,6 +332,14 @@ def dense(
     bias = params.get("b")
     ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
     eng = engine_from_model_config(cfg)
+    kb = None if k_local is None else block(k_local)
+    if kb is not None:
+        y = tp.maybe_tp_matmul(
+            eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing, k_block=kb,
+        )
+        if y is not None:
+            return y
+        x = gather_block(x, k_local, x.dim() - 1)
     y = tp.maybe_tp_matmul(
         eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing,
     )
@@ -424,10 +441,17 @@ def embed(params, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Logits head, tied to the embedding table or not (digital, as in the
-    reference).  Reference: ``repro.models.common:unembed``."""
-    if "table" in params:
-        return x @ params["table"].to(x.dtype).T
-    return x @ params["w"].to(x.dtype)
+    reference).  Reference: ``repro.models.common:unembed``.  The product
+    runs batched over ``x``'s leading dimension (one ``bmm`` entry a batch
+    row, the weight expanded, not copied), so a row's logits do not depend
+    on how many rows run beside it: a BLAS folds a plain ``x @ w`` into
+    one GEMM whose kernel, and so whose rounding, changes with the row
+    count, and a rank holding its block of the rows (``runtime.sharding.
+    placement``) must get the replicated program's logits bit for bit."""
+    w = params["table"].to(x.dtype).T if "table" in params else params["w"].to(x.dtype)
+    if x.dim() < 3:
+        return x @ w
+    return torch.matmul(x, w.expand(*x.shape[:-2], *w.shape))
 
 
 def rope_freqs(head_dim: int, theta: float, device=None) -> torch.Tensor:
@@ -532,32 +556,34 @@ def apply_remat(fn, cfg: ModelConfig):
     policies give the same losses and gradients bit for bit.  Without
     autograd (no grad mode) the call runs as it is, as ``jax.checkpoint``
     outside a differentiation does.  The recompute runs under the
-    tensor-parallel scope of the forward call (the scope is thread-local and
-    autograd recomputes on its own thread on the card), as the reference's
-    recompute replays the traced, sharded forward.  Reference:
-    ``repro.models.common:apply_remat``."""
+    tensor-parallel scope and placement of the forward call (both are
+    thread-local and autograd recomputes on its own thread on the card), as
+    the reference's recompute replays the traced, sharded forward.
+    Reference: ``repro.models.common:apply_remat``."""
     if not cfg.remat:
         return fn
     from repro_torch.photonic.sharded import current_tp, reenter
+    from repro_torch.runtime import sharding as shd
 
-    def contexts(tp):
+    def contexts(tp, pl):
         if cfg.remat_policy == "dots":
             from torch.utils.checkpoint import create_selective_checkpoint_contexts
 
             fwd, rec = create_selective_checkpoint_contexts(_dots_policy)
         else:
             fwd, rec = contextlib.nullcontext(), contextlib.nullcontext()
-        return fwd, _stacked_contexts(rec, reenter(tp))
+        return fwd, _stacked_contexts(rec, reenter(tp), shd.reenter(pl))
 
     def remat(*args):
         if not torch.is_grad_enabled():
             return fn(*args)
         # The recompute runs in the backward, on autograd's device thread on
-        # the card: it re-enters the forward's tensor-parallel scope, so its
-        # GEMMs K-shard and issue their collectives as the forward's did.
-        tp = current_tp()
+        # the card: it re-enters the forward's tensor-parallel scope and
+        # placement, so its GEMMs K-shard, take the same scales and issue
+        # their collectives as the forward's did.
+        tp, pl = current_tp(), shd.current_placement()
         return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False,
-                                                 context_fn=functools.partial(contexts, tp))
+                                                 context_fn=functools.partial(contexts, tp, pl))
 
     return remat
 
@@ -576,6 +602,7 @@ def _stacked_contexts(*cms):
 def with_logical(x: torch.Tensor, axes: Tuple[Optional[str], ...]) -> torch.Tensor:
     """Reference: ``repro.models.common:with_logical``
     (:func:`repro_torch.runtime.sharding.logical_constraint`: ``x``
-    unchanged; inside a ``use_rules`` scope the spec's divisibility
-    fallbacks are recorded)."""
+    unchanged; under a placement its placed dimensions are checked to be
+    this rank's blocks; inside a ``use_rules`` scope the spec's
+    divisibility fallbacks are recorded)."""
     return logical_constraint(x, axes)

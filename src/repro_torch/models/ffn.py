@@ -18,6 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import P, ModelConfig, dense, qdense_def, with_logical
 from repro_torch.photonic import EpilogueSpec
+from repro_torch.runtime.sharding import mean_over_rows
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
@@ -123,8 +124,11 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig, layer=None) -> Tuple[torch.Te
     if cfg.num_shared_experts:
         out = out + mlp(params["shared"], x, cfg, layer=layer, site="ffn.shared")
 
-    # Switch-style load-balancing loss: E * sum_e f_e * p_e.
-    frac = torch.mean((topi[..., 0, None] == experts).to(torch.float32), dim=(0, 1))
+    # Switch-style load-balancing loss: E * sum_e f_e * p_e.  With placed
+    # rows f is the mean over every rank's rows and p this rank's: the
+    # step's mean of the ranks' losses is then the global aux, and its
+    # gradient (through p) the global one.
+    frac = mean_over_rows(torch.mean((topi[..., 0, None] == experts).to(torch.float32), dim=(0, 1)))
     prob = torch.mean(gates, dim=(0, 1))
     aux = e * torch.sum(frac * prob)
     return out, aux

@@ -15,7 +15,9 @@ input shapes the dry run sweeps), ``Arch.ladder`` (the layer ladder whose
 rungs sum to the whole model's cost) and ``train_batch_spec`` /
 ``prefill_batch_spec`` / ``decode_specs``, which return
 :class:`TensorSpec` leaves (the port's ``jax.ShapeDtypeStruct``) with
-the same logical-axes trees.
+the same logical-axes trees.  Given a ``mesh``, the three spec methods
+return this rank's blocks along the logical names the port places
+(:meth:`Arch.placement_sizes`): local shapes from the same axes.
 """
 
 from __future__ import annotations
@@ -125,10 +127,41 @@ class Arch:
             ("l1", {**u, "num_layers": 1}, float(L)),
         ]
 
+    # ---- placement -------------------------------------------------------------
+    def placement_sizes(self, cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, int]:
+        """The global sizes of the logical names the port places for one
+        step of ``shape`` (``repro_torch.runtime.sharding.placement``): the
+        batch rows always; the q and KV heads in prefill and decode, for
+        the families with GQA attention (MLA and the xLSTM stack keep their
+        heads whole)."""
+        sizes = {"batch": shape.global_batch}
+        if shape.kind != "train" and self.family != "ssm" and not cfg.mla:
+            sizes.update(heads=cfg.n_q_heads, kv_heads=cfg.num_kv_heads)
+        return sizes
+
+    def _placed(self, cfg, shape, mesh, specs, axes):
+        """``specs`` as this rank's blocks on ``mesh`` (unchanged without
+        one)."""
+        if mesh is None:
+            return specs
+        from repro_torch.runtime import sharding as shd
+
+        names = tuple(shd.placed_parts(self.placement_sizes(cfg, shape), mesh, cfg.logical_rules))
+
+        def local(spec, ax):
+            ours, _ = shd.port_spec(spec.shape, ax, mesh, names, cfg.logical_rules)
+            return TensorSpec(shd.local_shape(spec.shape, ours, mesh), spec.dtype)
+
+        return _zip_specs(specs, axes, local)
+
     # ---- input specs ----------------------------------------------------------
-    def train_batch_spec(self, cfg: ModelConfig, shape: ShapeSpec):
-        """``(spec, axes)`` of a training batch.  Reference:
-        ``repro.models.registry:Arch.train_batch_spec``."""
+    def train_batch_spec(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):
+        """``(spec, axes)`` of a training batch; with ``mesh``, this rank's
+        rows.  Reference: ``repro.models.registry:Arch.train_batch_spec``."""
+        spec, axes = self._global_batch_spec(cfg, shape)
+        return self._placed(cfg, shape, mesh, spec, axes), axes
+
+    def _global_batch_spec(self, cfg: ModelConfig, shape: ShapeSpec):
         b, t = shape.global_batch, shape.seq_len
         tok = TensorSpec((b, t), torch.int32)
         spec = {"tokens": tok, "labels": tok}
@@ -150,22 +183,26 @@ class Arch:
             }
         return spec, axes
 
-    def prefill_batch_spec(self, cfg: ModelConfig, shape: ShapeSpec):
-        """Reference: ``repro.models.registry:Arch.prefill_batch_spec``."""
-        spec, axes = self.train_batch_spec(cfg, shape)
+    def prefill_batch_spec(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):
+        """With ``mesh``, this rank's rows.  Reference:
+        ``repro.models.registry:Arch.prefill_batch_spec``."""
+        spec, axes = self._global_batch_spec(cfg, shape)
         spec.pop("labels", None)
         axes.pop("labels", None)
-        return spec, axes
+        return self._placed(cfg, shape, mesh, spec, axes), axes
 
-    def decode_specs(self, cfg: ModelConfig, shape: ShapeSpec):
+    def decode_specs(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):
         """``((token spec, axes), (cache spec, cache axes))`` for one decode
-        step.  Reference: ``repro.models.registry:Arch.decode_specs``."""
+        step; with ``mesh``, this rank's rows and KV heads.  Reference:
+        ``repro.models.registry:Arch.decode_specs``."""
         b = shape.global_batch
         max_seq = shape.seq_len if self.family != "audio" else shape.seq_len // cfg.decoder_ratio
         cache = self.cache_def(cfg, b, max_seq, {"enc_seq": shape.seq_len}, cfg.compute_dtype)
-        tok = TensorSpec((b, 1), torch.int32)
-        return (tok, ("batch", None)), (_map_cache(cache, lambda leaf: TensorSpec(leaf[0], leaf[2])),
-                                         _map_cache(cache, lambda leaf: leaf[1]))
+        tok, tok_axes = TensorSpec((b, 1), torch.int32), ("batch", None)
+        cache_spec = _map_cache(cache, lambda leaf: TensorSpec(leaf[0], leaf[2]))
+        cache_axes = _map_cache(cache, lambda leaf: leaf[1])
+        return ((self._placed(cfg, shape, mesh, tok, tok_axes), tok_axes),
+                (self._placed(cfg, shape, mesh, cache_spec, cache_axes), cache_axes))
 
 
 def _is_cache_leaf(x) -> bool:
@@ -180,6 +217,16 @@ def _map_cache(node, fn):
     if isinstance(node, dict):
         return {k: _map_cache(v, fn) for k, v in node.items()}
     return tuple(_map_cache(v, fn) for v in node)
+
+
+def _zip_specs(specs, axes, fn):
+    """``fn(spec, axes)`` over a tree of :class:`TensorSpec` leaves and its
+    axes tree (dicts and tuples kept)."""
+    if isinstance(specs, TensorSpec):
+        return fn(specs, axes)
+    if isinstance(specs, dict):
+        return {k: _zip_specs(v, axes[k], fn) for k, v in specs.items()}
+    return tuple(_zip_specs(v, a, fn) for v, a in zip(specs, axes))
 
 
 def _lm_loss(params, batch, cfg):

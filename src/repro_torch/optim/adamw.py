@@ -6,6 +6,13 @@ and the decay differently).  The moments are f32 whatever the parameter
 dtype, so bf16 parameters keep f32 statistics; the step counter is a 0-dim
 int32 tensor on the parameters' device, and the schedule is computed from
 it in f32 tensor ops as the reference computes it from its array.
+
+ZeRO-1 (:class:`Zero1`, the reference dry run's train step,
+``repro.launch.dryrun``): each moment leaf holds this rank's block along
+the dimension ``zero1_axes`` names, and :func:`update` runs the
+elementwise step on the matching blocks of the gradient and parameter,
+then all-gathers the updated parameter over the data axes.  Given the same
+gradient it is bitwise the replicated update.
 """
 
 from __future__ import annotations
@@ -16,7 +23,7 @@ from typing import Any, NamedTuple, Optional, Tuple
 
 import torch
 
-from repro_torch._tree import tree_leaves, tree_map, tree_unflatten
+from repro_torch._tree import tree_items, tree_leaves, tree_map, tree_unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -43,16 +50,66 @@ class OptState(NamedTuple):
     nu: Any
 
 
-def init(params: Any) -> OptState:
-    """Zero f32 moments shaped like ``params``, step 0.  Reference:
-    ``repro.optim.adamw:init``."""
-    dev = tree_leaves(params)[0].device
+@dataclasses.dataclass(frozen=True)
+class Zero1:
+    """The ZeRO-1 layout of the moments: ``dims`` is a tree like the
+    params holding the dimension each leaf's moments split along (``None``:
+    replicated) into ``count`` blocks over the mesh axes ``part`` of
+    ``mesh`` (a ``DeviceMesh``, or an ``AbstractMesh`` for shapes alone)."""
 
-    def zeros(p):
-        return torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+    dims: Any
+    part: Any
+    count: int
+    mesh: Any
+
+    def take(self, t: torch.Tensor, dim: Optional[int]) -> torch.Tensor:
+        """This rank's block of ``t`` along ``dim``."""
+        if dim is None:
+            return t
+        from repro_torch.runtime.sharding import local_block
+
+        n = t.shape[dim] // self.count
+        return t.narrow(dim, local_block(self.part, self.mesh)[0] * n, n)
+
+
+def zero1(params: Any, param_axes: Any, mesh, rules=None) -> Zero1:
+    """The :class:`Zero1` layout of ``params`` on ``mesh``: moments by
+    ``zero1_axes`` over the data degree, through :func:`opt_state_axes`,
+    placed along their ``"zero1"`` dimension only (the port keeps the
+    params' own axes replicated).  Reference: the moment shardings of
+    ``repro.launch.dryrun``'s train step."""
+    from repro_torch.runtime import sharding as shd
+
+    sizes = shd.mesh_axis_sizes(mesh)
+    dp = math.prod(sizes.get(a, 1) for a in ("pod", "data"))
+    moments = opt_state_axes(shd.zero1_axes(param_axes, params, dp)).mu
+    items = tree_items(params)
+    axes = shd._axes_items(moments, items)
+    dims, part = [], None
+    for key, p in items.items():
+        spec, _ = shd.port_spec(tuple(p.shape), axes[key], mesh, ("zero1",), rules)
+        d = next((i for i, a in enumerate(spec) if a is not None), None)
+        if d is not None:
+            part = spec[d]
+        dims.append(d)
+    count = 1 if part is None else math.prod(sizes[a] for a in (part if isinstance(part, tuple) else (part,)))
+    return Zero1(tree_unflatten(params, dims), part, count, mesh)
+
+
+def init(params: Any, shards: Optional[Zero1] = None) -> OptState:
+    """Zero f32 moments shaped like ``params`` (with ``shards``, like this
+    rank's block of each), step 0.  Reference: ``repro.optim.adamw:init``."""
+    dev = tree_leaves(params)[0].device
+    dims = tree_map(lambda p: None, params) if shards is None else shards.dims
+
+    def zeros(p, d):
+        shape = list(p.shape)
+        if d is not None:
+            shape[d] //= shards.count
+        return torch.zeros(shape, dtype=torch.float32, device=p.device)
 
     return OptState(
-        torch.zeros((), dtype=torch.int32, device=dev), tree_map(zeros, params), tree_map(zeros, params)
+        torch.zeros((), dtype=torch.int32, device=dev), tree_map(zeros, params, dims), tree_map(zeros, params, dims)
     )
 
 
@@ -85,10 +142,13 @@ def global_norm(tree: Any) -> torch.Tensor:
 
 
 def update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: OptState
+    cfg: AdamWConfig, params: Any, grads: Any, state: OptState, *, shards: Optional[Zero1] = None
 ) -> Tuple[Any, OptState, dict]:
     """One AdamW step; returns ``(new_params, new_state, {"lr",
-    "grad_norm"})``.  Reference: ``repro.optim.adamw:update``."""
+    "grad_norm"})``.  Reference: ``repro.optim.adamw:update``.  With
+    ``shards`` the moments are this rank's blocks (module docstring): the
+    norm is the whole gradient's, the step runs on the blocks, and each
+    updated block is all-gathered over ``shards.part``."""
     gnorm = global_norm(grads)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
@@ -109,12 +169,21 @@ def update(
         delta = mhat / (torch.sqrt(vhat) + cfg.eps) + cfg.weight_decay * p.to(torch.float32)
         return (p.to(torch.float32) - lr * delta).to(p.dtype), mu, nu
 
-    out = [
-        upd(p, g, m, n)
-        for p, g, m, n in zip(
-            tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
-        )
-    ]
+    if shards is None:
+        out = [
+            upd(p, g, m, n)
+            for p, g, m, n in zip(
+                tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu), tree_leaves(state.nu)
+            )
+        ]
+    else:
+        from repro_torch.runtime.sharding import all_gather_over
+
+        out = []
+        for p, g, m, n, d in zip(tree_leaves(params), tree_leaves(grads), tree_leaves(state.mu),
+                                 tree_leaves(state.nu), tree_leaves(shards.dims)):
+            new, m, n = upd(shards.take(p, d), shards.take(g, d), m, n)
+            out.append((new if d is None else all_gather_over(new, shards.part, shards.mesh, d), m, n))
     new_p = tree_unflatten(params, [o[0] for o in out])
     new_mu = tree_unflatten(params, [o[1] for o in out])
     new_nu = tree_unflatten(params, [o[2] for o in out])

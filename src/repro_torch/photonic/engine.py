@@ -683,13 +683,21 @@ def _stream_gemm(
     ``repro.photonic.engine:_stream_gemm``: f32 activations defer their
     rounding (scale computed here), other dtypes quantize up front.
     ``pack`` is the prepacked weight ``wq`` belongs to: its logical shape,
-    tiling, content word and plane cache."""
+    tiling, content word and plane cache.  Under a placement of the rows
+    (``repro_torch.runtime.sharding.placement``) ``x`` holds this rank's
+    rows and the scale is the abs-max over every rank's
+    (:func:`~repro_torch.runtime.sharding.activation_amax`); the noise
+    tiles are then the local rows', as the tensor-parallel path draws
+    them."""
+    from repro_torch.runtime.sharding import activation_amax
+
     lead = x.shape[:-1]
     xr = x.reshape(-1, x.shape[-1])
+    amax = activation_amax(xr)
     if xr.dtype == torch.float32:
-        xs, sx = xr, quant_scale(xr, eng.dpu.operand_bits)
+        xs, sx = xr, quant_scale(xr, eng.dpu.operand_bits, amax=amax)
     else:
-        xs, sx = quantize_symmetric(xr, eng.dpu.operand_bits)
+        xs, sx = quantize_symmetric(xr, eng.dpu.operand_bits, amax=amax)
     cols = wq.shape[1] if pack is None else pack.c
     y = eng.int_gemm(
         xs,

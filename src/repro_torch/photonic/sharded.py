@@ -41,6 +41,18 @@ rebuilds the replicated output (counted in
 rows replicate.  The straight-through backward stays the dense one on the
 replicated operands.
 
+Under a :func:`~repro_torch.runtime.sharding.placement` of the rows the
+operand already is this rank's row block: it is not split again and
+nothing is gathered, and its scale is the local abs-max all-reduced with
+``MAX`` over the data axes
+(:func:`~repro_torch.runtime.sharding.activation_amax`), so the tiles,
+noise ids and scale are those of the split above.  An operand whose K is
+placed too (``k_block``: attention's local heads into ``attn.wo``, whose
+K_local = heads x hd / tp is exactly this rank's K shard) is not sliced
+again either, and the scale's ``MAX`` runs over ``model`` as well.  The
+backward of a placed operand gives this rank's rows' share of ``dw`` and
+``db``, which the training step all-reduces over the data axes.
+
 Contracts (``tests/test_torch_sharded.py``, ``tests/test_torch_train_tp.py``):
 an ideal channel makes the K-sharded output bitwise the unsharded one, rows
 split or not; each shard's channel is ``build_channel_model`` at its
@@ -205,15 +217,17 @@ def _row_sharding(tp: TPContext, rows: int):
     """The mesh axes a mesh-mode GEMM's rows split over, with this rank's
     block index and the block count: every axis but the TP axis, row-major;
     ``None`` (replicate) in manual mode, with no such axis of more than one
-    rank, or when the block count does not divide ``rows``.  Reference:
+    rank, when the block count does not divide ``rows``, or when the rows
+    are placed (this rank's already).  Reference:
     ``repro.photonic.sharded:_row_sharding``."""
-    if tp.manual:
+    from repro_torch.runtime.sharding import block, local_block
+
+    if tp.manual or block("batch") is not None:
         return None
     mesh = tp.mesh
     dp_axes = tuple(a for a in mesh.mesh_dim_names if a != tp.axis)
     if not dp_axes:
         return None
-    from repro_torch.runtime.sharding import local_block
 
     index, count = local_block(dp_axes, mesh)
     if count == 1 or rows % count:
@@ -225,25 +239,30 @@ def _gather_rows(out: torch.Tensor, tp: TPContext, dp_axes) -> torch.Tensor:
     """This rank's row block of a GEMM's sum, gathered over ``dp_axes``
     (innermost first, so the blocks land row-major) into the replicated
     output.  Adds one to ``ROW_GATHERS["tp_rows"]``."""
-    for axis in reversed(dp_axes):
-        group = tp.mesh.get_group(axis)
-        blocks = [torch.empty_like(out) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(blocks, out, group=group)
-        out = torch.cat(blocks, dim=0)
+    from repro_torch.runtime.sharding import all_gather_over
+
+    out = all_gather_over(out, dp_axes, tp.mesh, 0)
     ROW_GATHERS["tp_rows"] += 1
     return out
 
 
-def _local_x(x: torch.Tensor, bits: int, i: int, k_local: int, rows=None):
+def _local_x(x: torch.Tensor, bits: int, i: int, k_local: int, rows=None, k_block=None):
     """``x`` as rows quantized at its global abs-max (the scale every rank
-    derives, bitwise the unsharded one), sliced to rank ``i``'s K block and,
-    with ``rows`` (:func:`_row_sharding`), to this rank's row block; with
-    that scale."""
-    xq, sx = quantize_symmetric(x.reshape(-1, x.shape[-1]), bits)
+    derives, bitwise the unsharded one), sliced to rank ``i``'s K block
+    (unless ``k_block`` says it holds that block already) and, with ``rows``
+    (:func:`_row_sharding`), to this rank's row block; with that scale.
+    Placed rows and a placed K take the abs-max from
+    :func:`~repro_torch.runtime.sharding.activation_amax`."""
+    from repro_torch.runtime.sharding import activation_amax
+
+    x2 = x.reshape(-1, x.shape[-1])
+    xq, sx = quantize_symmetric(x2, bits, amax=activation_amax(x2, k_block))
     if rows is not None:
         _, index, count = rows
         r = xq.shape[0] // count
         xq = xq[index * r : (index + 1) * r]
+    if k_block is not None:
+        return xq.contiguous(), sx
     return xq[:, i * k_local : (i + 1) * k_local].contiguous(), sx
 
 
@@ -265,15 +284,15 @@ class _TPFloatMatmul(torch.autograd.Function):
     the dense straight-through one of the unsharded ``matmul_float``."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, tp, fold, prng_key, x, w, bias):
-        ctx.spec = spec
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, x, w, bias):
+        ctx.spec, ctx.k_block = spec, k_block
         ctx.save_for_backward(x, w, bias)
         bits = eng.dpu.operand_bits
         k, c = w.shape
         size, i = tp.size(), tp.rank()
         k_local = k // size
-        rows = _row_sharding(tp, x.numel() // k)
-        xl, sx = _local_x(x, bits, i, k_local, rows)
+        rows = _row_sharding(tp, x.numel() // x.shape[-1])
+        xl, sx = _local_x(x, bits, i, k_local, rows, k_block)
         wq, sw = quantize_symmetric(w, bits, axis=0)
         wl = wq[i * k_local : (i + 1) * k_local].contiguous()
         out = _tp_int_gemm(eng, xl, wl, tp, rows, site=site, fold=fold, prng_key=prng_key)
@@ -282,11 +301,13 @@ class _TPFloatMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.k_block is not None:
+            raise NotImplementedError("a K-placed operand (local heads) runs in prefill and decode only")
         x, w, bias = ctx.saved_tensors
         wf = w.to(torch.float32)
         dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
         dw = (x2.T @ g2).to(w.dtype)
-        return None, None, None, None, None, None, dx, dw, db
+        return None, None, None, None, None, None, None, dx, dw, db
 
 
 class _TPPackedMatmul(torch.autograd.Function):
@@ -299,13 +320,13 @@ class _TPPackedMatmul(torch.autograd.Function):
     scale gets zeros."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, tp, fold, prng_key, packed, x, w_scale, bias):
-        ctx.spec, ctx.packed, ctx.tp = spec, packed, tp
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, packed, x, w_scale, bias):
+        ctx.spec, ctx.packed, ctx.tp, ctx.k_block = spec, packed, tp, k_block
         ctx.save_for_backward(x, w_scale, bias)
         size, i = tp.size(), tp.rank()
         k_local = packed.k // size
-        rows = _row_sharding(tp, x.numel() // packed.k)
-        xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local, rows)
+        rows = _row_sharding(tp, x.numel() // x.shape[-1])
+        xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local, rows, k_block)
         view = packed.local(i, size)
         out = _tp_int_gemm(
             eng, xl, view.wq, tp, rows, site=site, fold=fold, prng_key=prng_key,
@@ -316,6 +337,8 @@ class _TPPackedMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        if ctx.k_block is not None:
+            raise NotImplementedError("a K-placed operand (local heads) runs in prefill and decode only")
         x, w_scale, bias = ctx.saved_tensors
         p, tp = ctx.packed, ctx.tp
         wf = p.dequant()
@@ -324,7 +347,7 @@ class _TPPackedMatmul(torch.autograd.Function):
             dist.all_gather(blocks, wf.contiguous(), group=tp.process_group())
             wf = torch.cat(blocks, dim=0)
         dx, _, _, db = _ste_grads(ctx.spec, g, x, wf, bias)
-        return None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
+        return None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +366,7 @@ def maybe_tp_matmul(
     slicing=None,
     bias: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
+    k_block=None,
 ) -> Optional[torch.Tensor]:
     """The tensor-parallel product for ``models.common.dense``, or ``None``
     when TP does not apply (no active context, degree 1, a site the policy
@@ -351,12 +375,19 @@ def maybe_tp_matmul(
     ``epilogue=`` is applied after the all-reduce (the legacy ``bias=`` /
     ``activation=`` keywords are its shims); ``slicing`` overrides the
     engine's bit-slicing mode and rides into every shard-local pass.
-    Reference: ``repro.photonic.sharded:maybe_tp_matmul``."""
+    ``k_block`` (a :class:`~repro_torch.runtime.sharding.Block`) says that
+    ``x``'s last dimension is this rank's block of K; it is taken only when
+    that block is this rank's K shard of the TP axis (``None`` otherwise,
+    and the caller gathers K first).  Reference:
+    ``repro.photonic.sharded:maybe_tp_matmul``."""
     tp = current_tp()
     if tp is None or engine is None or not engine.routes(site):
         return None
     size = tp.size()
     if size <= 1:
+        return None
+    if k_block is not None and (tp.manual or k_block.part != tp.axis or k_block.count != size
+                                or k_block.index != tp.rank()):
         return None
     spec, bias = as_epilogue(epilogue, bias=bias, activation=activation)
     if slicing is not None:
@@ -369,7 +400,7 @@ def maybe_tp_matmul(
     elif getattr(cfg, "photonic_scope", "weights") == "weights":
         if w.shape[0] % size:
             return None
-        return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, x, w, bias)
+        return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, x, w, bias)
     else:
         return None
     if packed.k % size:
@@ -381,4 +412,4 @@ def maybe_tp_matmul(
             return None
     elif packed.shards not in (1, size):
         return None
-    return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, packed, x, packed.w_scale, bias)
+    return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, packed, x, packed.w_scale, bias)

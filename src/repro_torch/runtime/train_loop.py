@@ -19,16 +19,30 @@ functions), and ``adamw.update`` applies it.
 
 With ``mesh=`` (a :class:`DeviceMesh` over every rank of the default
 process group) the loop runs SPMD: every rank calls :func:`train` with the
-same arguments and holds the params replicated; ``use_rules(mesh)`` is
-active across the run, and with ``tp_axis=`` and a photonic engine every
-routed GEMM K-shards over that axis (``tensor_parallel``), its rows split
-over the other axes, so the values are the unsharded step's.  The
-single-controller reference has no ranks to keep in step; the port keeps
-three rules: only rank 0 writes checkpoints, and every rank waits at a
-barrier before it looks for the latest one; the preemption flag and the
-simulated failure are agreed across ranks (``all_reduce(MAX)``) before the
-checkpoint decision, so no rank leaves while the others wait in a
-collective; every rank's batch is the one global batch.
+same arguments and holds the params and optimizer state replicated;
+``use_rules(mesh)`` is active across the run, as the reference's
+``train(mesh=)`` enters it, and with ``tp_axis=`` and a photonic engine
+every routed GEMM K-shards over that axis (``tensor_parallel``).  The
+batch rows are placed over the data axes, as the reference's
+``("batch", ...)`` constraints place them (``placement``, the global
+batch's ``"batch"`` resolved on the mesh): each rank's batch is its rows of
+the one global batch (``make_global_batch(sharding=)``), the step runs on
+them, the loss it reports is the global mean (the ranks' means summed in
+one ``all_reduce`` and divided by their count, equal blocks) and the
+gradients are the global mean's, summed the same way before the update;
+``microbatches`` split the local rows.  Summed over ranks, the gradient is
+the replicated step's in another order, so a placed run is not bitwise the
+replicated one (``tests/test_torch_placement.py`` states the tolerance).
+``place_rows=False`` runs the replicated program instead: every rank's
+batch is the one global batch, and the routed GEMMs split their rows over
+the data axes and gather them back, so the values are the unsharded
+step's.  A batch the data degree does not divide is not placed (recorded
+in ``fallback_log``).  The single-controller reference has no ranks to
+keep in step; the port keeps three rules: only rank 0 writes checkpoints,
+and every rank waits at a barrier before it looks for the latest one; the
+preemption flag and the simulated failure are agreed across ranks
+(``all_reduce(MAX)``) before the checkpoint decision, so no rank leaves
+while the others wait in a collective.
 """
 
 from __future__ import annotations
@@ -50,6 +64,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
 from repro_torch.models.common import engine_from_model_config, init_params
 from repro_torch.optim import adamw
+from repro_torch.runtime import sharding as shd
 
 
 @dataclasses.dataclass
@@ -94,12 +109,34 @@ def _value_and_grad(loss_fn: Callable, params: Any, batch: Any):
     return loss.detach(), tree_unflatten(params, grads)
 
 
-def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches: int = 1):
+def _mean_over_rows(loss: torch.Tensor, grads: Any):
+    """The loss and gradients of this rank's rows as the global mean's,
+    under a placement of the rows (one ``all_reduce`` of the flattened f32
+    gradients and the loss); unchanged otherwise."""
+    if shd.block("batch") is None:
+        return loss, grads
+    leaves = list(tree_items(grads).values())
+    flat = torch.cat([g.reshape(-1).to(torch.float32) for g in leaves] + [loss.reshape(1).to(torch.float32)])
+    shd.mean_over_rows(flat)
+    out, at = [], 0
+    for g in leaves:
+        # a fresh tensor each, not a view into the buffer: a CPU reduction's
+        # order (the update's gradient norm) depends on the data's alignment
+        out.append(torch.empty_like(g).copy_(flat[at: at + g.numel()].reshape(g.shape)))
+        at += g.numel()
+    return flat[at].to(loss.dtype), tree_unflatten(grads, out)
+
+
+def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches: int = 1, *, zero1=None):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
     Reference: ``repro.runtime.train_loop:build_train_step``: with
     ``microbatches > 1`` the batch splits on its leading axis, the f32
     gradient sum is divided by the count, and the loss reported is the
-    last microbatch's (the reference's scan carry)."""
+    last microbatch's (the reference's scan carry).  Under a placement of
+    the rows (module docstring) the batch is this rank's rows and the loss
+    and gradients become the global mean's before the update; ``zero1``
+    (:class:`~repro_torch.optim.adamw.Zero1`) runs the update on this
+    rank's block of each leaf (``adamw.update(shards=)``)."""
 
     def step(params, opt_state, batch):
         if microbatches == 1:
@@ -107,11 +144,14 @@ def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches
         else:
             mbs = {k: v.reshape(microbatches, -1, *v.shape[1:]) for k, v in batch.items()}
             gsum = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32, device=p.device), params)
-            for i in range(microbatches):
-                loss, g = _value_and_grad(loss_fn, params, {k: v[i] for k, v in mbs.items()})
-                gsum = tree_map(torch.add, gsum, g)
+            b = shd.block("batch")
+            with shd.resized("batch", b.size // microbatches if b is not None else 0):
+                for i in range(microbatches):
+                    loss, g = _value_and_grad(loss_fn, params, {k: v[i] for k, v in mbs.items()})
+                    gsum = tree_map(torch.add, gsum, g)
             grads = tree_map(lambda g: g / microbatches, gsum)
-        params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state)
+        loss, grads = _mean_over_rows(loss, grads)
+        params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state, shards=zero1)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -155,6 +195,7 @@ def train(
     opt_cfg: Optional[adamw.AdamWConfig] = None,
     mesh=None,
     tp_axis: Optional[str] = None,
+    place_rows: bool = True,
     fail_at_step: Optional[int] = None,  # test hook: a simulated crash
     log: Callable[[str], None] = print,
     device=None,
@@ -163,13 +204,12 @@ def train(
     otherwise), alone or as one rank of ``mesh`` (module docstring), with
     routed GEMMs K-sharded over ``tp_axis`` (a ``ValueError`` names an axis
     the mesh lacks; ``tp_axis`` without a mesh changes nothing, as in the
-    reference).  Reference: ``repro.runtime.train_loop:train``.  Returns
+    reference), the batch rows placed over the data axes unless
+    ``place_rows=False``.  Reference: ``repro.runtime.train_loop:train``.  Returns
     the final params and optimizer state, the losses, the straggler events,
     the final step and whether the run was preempted, as the reference
     does, plus each step's seconds (``step_seconds``) and the seconds the
     loop spent blocked in checkpointing (``checkpoint_seconds``)."""
-    from repro_torch.runtime import sharding as shd
-
     if mesh is not None and tp_axis is not None and tp_axis not in shd.mesh_axis_sizes(mesh):
         raise ValueError(f"tp_axis {tp_axis!r} not in mesh axes {tuple(shd.mesh_axis_sizes(mesh))}")
     writer = mesh is None or dist.get_rank() == 0
@@ -221,8 +261,13 @@ def train(
     # and are entered last before the try, so `finally` always leaves them
     # (a leaked thread-local scope would re-route every later dense()).
     scopes = contextlib.ExitStack()
+    rows = None
     if mesh is not None:
         scopes.enter_context(shd.use_rules(mesh))
+        if place_rows:
+            scopes.enter_context(shd.placement(mesh, {"batch": data_cfg.global_batch}))
+            b = shd.block("batch")
+            rows = None if b is None else shd.NamedSharding(mesh, (b.part,))
         if tp_axis is not None and photonic_engine is not None:
             from repro_torch.photonic import sharded as tp_sharded
 
@@ -233,7 +278,7 @@ def train(
             if _agreed(fail_at_step is not None and step == fail_at_step, mesh):
                 raise RuntimeError(f"simulated node failure at step {step}")
             t0 = time.time()
-            batch = make_global_batch(stream, step, dev)
+            batch = make_global_batch(stream, step, dev, sharding=rows)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt = time.time() - t0

@@ -61,7 +61,8 @@ def _train(arch, cfg, d, mesh=None, tp_axis=None, steps=3, **kw):
     return train(
         arch=arch, model_cfg=cfg, data_cfg=DataConfig(vocab_size=cfg.vocab_size, **DATA),
         train_cfg=TrainConfig(steps=steps, ckpt_every=kw.pop("ckpt_every", 1000), ckpt_dir=str(d), log_every=100,
-                              async_checkpoint=kw.pop("async_checkpoint", True)),
+                              async_checkpoint=kw.pop("async_checkpoint", True),
+                              microbatches=kw.pop("microbatches", 1)),
         opt_cfg=AdamWConfig(**OPT), mesh=mesh, tp_axis=tp_axis, log=lambda m: None, device="cpu", **kw,
     )
 
@@ -229,8 +230,9 @@ def row_gemms(mesh):
 
 def grid_suite(rank, world, root):
     """A group of four on the (2, 2) ("data", "model") mesh: row-sharded
-    TP GEMMs; ``train(mesh=, tp_axis="model")`` against the unsharded
-    ``train()``; the DP step with TP, plain and int8-compressed."""
+    TP GEMMs; ``train(mesh=, tp_axis="model", place_rows=False)`` (the
+    replicated program) against the unsharded ``train()``; the DP step
+    with TP, plain and int8-compressed."""
     from repro_torch.launch import mesh as M
 
     mesh = M.build_mesh((2, 2), ("data", "model"), device="cpu")
@@ -238,7 +240,7 @@ def grid_suite(rank, world, root):
     arch, cfg = smoke()
     base = _train(arch, cfg, os.path.join(root, f"unsharded{rank}"), steps=2)
     (tp, n_ar, n_rg), saves = _saves(lambda: _counted_train(arch, cfg, os.path.join(root, "tp"), mesh, "model",
-                                                            steps=2))
+                                                            steps=2, place_rows=False))
     out["train"] = dict(base_losses=base["losses"], base_params=_leaves(base["params"]), losses=tp["losses"],
                         params=_leaves(tp["params"]), all_reduces=n_ar, row_gathers=n_rg, saves=saves)
     out["dp"] = dp_step_run(mesh, "model")

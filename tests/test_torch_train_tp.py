@@ -35,8 +35,10 @@ twin here).  Held here:
   .int_gemm(shard=i)`` summed over the shards on that block's rows (the
   reference's row-local draws), within ``tests/test_torch_sharded.py``'s
   noisy tier (at most 0.1% of outputs off, each by at most two top-pass
-  LSBs per shard); ``train(mesh=(2, 2), tp_axis="model")`` bitwise the
-  unsharded ``train()`` with one row gather per all-reduce.
+  LSBs per shard); ``train(mesh=(2, 2), tp_axis="model",
+  place_rows=False)``, the replicated program, bitwise the unsharded
+  ``train()`` with one row gather per all-reduce (the placed rows are
+  held in ``tests/test_torch_placement.py``).
 """
 
 import dataclasses
