@@ -298,9 +298,12 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    (a) two ranks, the ("data", "model") 1 x 2 mesh, qwen2-0.5b at full
    width and all 24 layers, ideal, kernel backend,
    ``train(mesh=, tp_axis="model")`` for 3 steps of 4 x 1024 tokens into a
-   shared temporary directory: losses and final parameters bitwise phase 7
-   (a)'s, ranks equal, per step 288 unfused launches and 288 all-reduces
-   (6 x 24 x 2 with remat) and no fused launch, exactly one checkpoint,
+   shared temporary directory, the heads placed over "model" since the
+   parameter-placement slice: losses and final parameters bitwise phase 7
+   (a)'s, ranks equal, per step 432 unfused launches and 144 all-reduces
+   (with remat, 24 x 2 x (two shard launches for each of ``wq`` / ``wk`` /
+   ``wv``, column-parallel, and one launch and all-reduce for each of the
+   three K-sharded sites)) and no fused launch, exactly one checkpoint,
    written by rank 0; s/step (median of steps 2-3), tokens/s, peak memory
    per rank, the checkpoint's blocking seconds.  (b) SMWA (``noise_seed=0``)
    at TP = 2: one ``build_train_step`` under ``tensor_parallel``, loss and
@@ -410,32 +413,52 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``chiprun_out/dryrun/``.  (c) runs in the tp phase's ranks.  Since the
    placement slice the cells hold what one device of the reference's
    program holds along the names the port places (rows over "data", KV
-   heads over "model", ZeRO-1 moments), and a fourth cell, qwen2-0.5b x
-   train_4k with ZeRO-1 moments, runs beside them.
-10. placement (``repro_torch.runtime.sharding.placement``), in a child
-   process (``chip_smoke.py --phase placement``) that spawns four ranks on
-   the one card over ``gloo`` with CUDA tensors as the (data 2, model 2)
-   mesh, deterministic mode: (a) qwen2-0.5b at full width (24 layers, 14 q
-   / 2 KV heads, 7 / 1 a rank, ``attn.wo``'s K_local 448), ideal and SMWA
-   with its noise key, TP over "model" on the kernel backend: a prefill of
-   ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT`` tokens and
-   ``PLACEMENT_STEPS`` decode steps, the replicated program against the
-   placed one (rows over "data", heads over "model"): logits bitwise on
-   every rank, the placed run's ``photonic_gemm`` (``fused=0``) launches
-   and int32 all-reduces 144 a forward, its GEMM rows never gathered
+   heads over "model", ZeRO-1 moments, and the dense decoders' parameters
+   by their ``param_axes``), and a fourth cell, qwen2-0.5b x train_4k with
+   ZeRO-1 moments, runs beside them.
+10. placement (``repro_torch.runtime.sharding.placement``).  First in this
+   process (a'): the kernel at a global column origin
+   (``PhotonicEngine.int_gemm(columns=, w_word=)``, ``COLUMN_BLOCKS``:
+   qwen2-0.5b's ``attn.wq`` block of 448 columns from 448 and ``attn.wk``
+   block of 64 from 64, neither a multiple of ``tile_c``), ideal and SMWA
+   under the key, ``fused`` 0 and 1, R = 4: each block's launch bitwise
+   those columns of the whole weight's launch, and held to its twin.  Then
+   a child process (``chip_smoke.py --phase placement``) that spawns four
+   ranks on the one card over ``gloo`` with CUDA tensors as the (data 2,
+   model 2) mesh, deterministic mode: (a) qwen2-0.5b at full width (24
+   layers, 14 q / 2 KV heads, 7 / 1 a rank, ``attn.wo``'s K_local 448),
+   ideal and SMWA with its noise key, TP over "model" on the kernel
+   backend: a prefill of ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT`` tokens
+   and ``PLACEMENT_STEPS`` decode steps, the replicated program against
+   the placed one (rows over "data", heads over "model", the parameters
+   whole): logits bitwise on every rank, ``attn.wq`` / ``wk`` / ``wv``
+   column-parallel (two shard passes each on the rank's columns), the
+   placed run's ``photonic_gemm`` (``fused=0``) launches 216 and int32
+   all-reduces 72 a forward, its GEMM rows never gathered
    (``ROW_GATHERS["tp_rows"] == 0``), one scale ``MAX`` all-reduce a GEMM,
-   its cache leaves 2 rows and 1 KV head; (b) ``train(mesh=(2, 2),
-   tp_axis="model")`` at ``TP_TRAIN_GRID_LAYERS`` of 24 layers, phase 7's
-   data (4 x 1024 tokens), ``PLACEMENT_TRAIN_STEPS`` steps with the rows
-   placed against as many replicated (``place_rows=False``): losses within
-   ``rtol=1e-3``, every parameter within ``2 x steps x lr`` plus one bf16
-   rounding of its value, peak memory a rank printed.  Then in this
-   process (c): the tooling phase's qwen2-0.5b x decode_32k and x train_4k
-   (ZeRO-1) cells, their arguments, temp, peak and FLOPs a rank beside the
-   reference's recorded decode cell (``REFERENCE_DECODE_CELL``; the
-   reference records no train_4k cell); gates on the decode cell: it fits
-   80 GB, its cache a rank is the cache's global bytes / 256, its
-   arguments at most the reference's plus its ``param_bytes``.
+   its cache leaves 2 rows and 1 KV head; and against the run with the
+   parameters placed too (``place_params``: heads, KV heads, ``d_ff`` and
+   vocab over "model"): logits bitwise, or within one bf16 ulp where the
+   tied digital head's column block rounds otherwise (the gate says
+   which), 288 launches and 48 int32 all-reduces a forward (the row-
+   parallel ``attn.wo`` and ``ffn.wo``), parameter bytes a rank about half
+   the whole; (b) ``train(mesh=(2, 2), tp_axis="model")`` at
+   ``TP_TRAIN_GRID_LAYERS`` of 24 layers, phase 7's data (4 x 1024
+   tokens), ``PLACEMENT_TRAIN_STEPS`` steps with the rows and heads placed
+   (the parameters whole) against as many replicated
+   (``place_rows=False``): losses within ``rtol=1e-3``, every parameter
+   within ``2 x steps x lr`` plus one bf16 rounding of its value, peak
+   memory a rank printed; (b') the dry run's train step
+   (``dryrun.build_step``: the parameters placed, ZeRO-1 moments) run for
+   real at the same depth and data against the replicated step, with the
+   same gates.  Then in this process (c): the tooling phase's qwen2-0.5b x
+   decode_32k and x train_4k (ZeRO-1) cells, their arguments, temp, peak
+   and FLOPs a rank beside the reference's recorded decode cell
+   (``REFERENCE_DECODE_CELL``; the reference records no train_4k cell);
+   gates: the decode cell fits 80 GB, its cache a rank is the cache's
+   global bytes / 256, its arguments the reference's to the byte; both
+   cells hold nothing whole where the reference places it, and train_4k
+   fits 80 GB.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -2527,7 +2550,9 @@ def tp_train_pair_rank(rank, world, phase7, ckpt_dir):
     layers (bf16, ``init_params`` seed 0, phase 7's data and AdamW) on the
     ("data", "model") 1 x 2 mesh of two ranks sharing the card.  (a)
     ``train(mesh=, tp_axis="model")`` for phase 7's 3 steps into the shared
-    ``ckpt_dir``, ideal channel, kernel backend; (b) one ``build_train_step``
+    ``ckpt_dir``, ideal channel, kernel backend, the heads placed over
+    "model" (``attn.wq`` / ``wk`` / ``wv`` column-parallel; bitwise phase 7
+    (a) all the same); (b) one ``build_train_step``
     under ``tensor_parallel`` on the SMWA channel.  Returns this rank's
     results and gates."""
     import torch.distributed as dist
@@ -2551,7 +2576,10 @@ def tp_train_pair_rank(rank, world, phase7, ckpt_dir):
     tokens = data.global_batch * data.seq_len
     cfg = dataclasses.replace(arch.config, photonic=ideal_dpu(), photonic_backend="kernel")
     out, gates = {"rank": rank}, {}
-    per_step = 6 * n_layers * 2  # the six sites of every layer, forward and the remat recompute
+    # (a) places the heads (train(mesh=)): wq / wk / wv column-parallel, two shard launches each and no
+    # all-reduce; wo, ffn.wi, ffn.wo K-sharded, a launch and an all-reduce each; forward and remat recompute
+    per_step, reduces = 9 * n_layers * 2, 3 * n_layers * 2
+    k_sharded = 6 * n_layers * 2  # (b), nothing placed: all six sites K-sharded
 
     # (a) the entry point: train() on the mesh.
     _reset_counts(torch, K)
@@ -2576,15 +2604,15 @@ def tp_train_pair_rank(rank, world, phase7, ckpt_dir):
     gates["(a) final params bitwise phase 7 (a)'s"] = fp == phase7["fingerprint"]
     gates["(a) launches and collectives"] = (
         (counts["photonic_gemm"], counts["all_reduces"], counts["photonic_gemm_fused"], counts["row_gathers"])
-        == (per_step * TRAIN_STEPS, per_step * TRAIN_STEPS, 0, 0))
+        == (per_step * TRAIN_STEPS, reduces * TRAIN_STEPS, 0, 0))
     gates["(a) one checkpoint, by rank 0"] = (written == [f"step_{TRAIN_STEPS:08d}"]
                                               and saves.n == (1 if rank == 0 else 0))
     say(f"(a) train(mesh=(1, {world}), tp_axis='model'): {per:.4f} s/step (median of steps 2-{TRAIN_STEPS}; all "
         f"{[round(x, 4) for x in secs]}), {tokens / per:.1f} tokens/s, max_memory_allocated {peak / 2**30:.2f} GiB, "
         f"wall {wall:.3f} s; losses {res['losses']} (phase 7 (a) {phase7['losses']}); params sha256 {fp} (phase 7 "
         f"{phase7['fingerprint']}); photonic_gemm {counts['photonic_gemm']}, all-reduces {counts['all_reduces']}, "
-        f"row gathers {counts['row_gathers']}, fused {counts['photonic_gemm_fused']} (want {per_step}/step unfused "
-        f"= all-reduces); checkpoint saves {saves.n}, on disk {written} ({size / 1e9:.3f} GB), loop blocked "
+        f"row gathers {counts['row_gathers']}, fused {counts['photonic_gemm_fused']} (want {per_step}/step unfused, "
+        f"{reduces} all-reduces); checkpoint saves {saves.n}, on disk {written} ({size / 1e9:.3f} GB), loop blocked "
         f"{res['checkpoint_seconds']:.3f} s [{card}]")
     loss_a0 = res["losses"][0]
     del res
@@ -2607,7 +2635,7 @@ def tp_train_pair_rank(rank, world, phase7, ckpt_dir):
                     max_memory_allocated=torch.cuda.max_memory_allocated())
     gates["(b) SMWA loss and grad norm finite, launches"] = (
         bool(np.isfinite(loss) and np.isfinite(norm))
-        and (counts["photonic_gemm"], counts["all_reduces"], counts["photonic_gemm_fused"]) == (per_step, per_step, 0))
+        and (counts["photonic_gemm"], counts["all_reduces"], counts["photonic_gemm_fused"]) == (k_sharded, k_sharded, 0))
     say(f"(b) SMWA step under tensor_parallel: loss {loss!r}, grad norm {norm!r}, |loss - loss_a| "
         f"{abs(loss - loss_a0):.6g}, {dt:.3f} s, photonic_gemm {counts['photonic_gemm']}, all-reduces "
         f"{counts['all_reduces']} [{card}]")
@@ -2796,16 +2824,130 @@ def tp_train_child(phase7):
             launches)
 
 
+# Phase 10 (a'): qwen2-0.5b's column blocks on a 2-way "model" axis whose
+# global column origin is not a multiple of tile_c: attn.wq's second block
+# (448 columns from 448) and attn.wk's (64 from 64).  (site, K, C, origin, width)
+COLUMN_BLOCKS = [("attn.wq", 896, 896, 448, 448), ("attn.wk", 896, 128, 64, 64)]
+
+
+def column_origin_rows(torch, K, chans, key, rows_out, card):
+    """Phase 10 (a'): the kernel at a global column origin, through
+    ``PhotonicEngine.int_gemm(columns=, w_word=)`` on the kernel backend:
+    for each of ``COLUMN_BLOCKS``, ideal and SMWA under ``key``, ``fused``
+    0 (int8 x) and 1 (f32 x, bias epilogue), R = 4: the block's launch
+    against those columns of the whole weight's launch (gate: bitwise, the
+    noise ids and content word being the whole's), and against the block
+    call with the kernel swapped for its twin on the card (bitwise ideal;
+    under noise one-LSB roundings at <= 0.1% of elements, as the tp rows).
+    Per case a row: the block's launch alone (CUDA graph of the recorded
+    call), the twin call (host-timed once), ``torch._int_mm`` of the
+    block's int core (rows padded to 32) and the block's bound.  Returns
+    ok."""
+    import repro_torch.photonic.engine as E
+    from repro_torch.core.dpu import quantize_symmetric
+    from repro_torch.kernels.photonic_gemm.epilogue import EpilogueArgs, EpilogueSpec
+    from repro_torch.noise.stages import tweak_word
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(28)
+    ok, r = True, 4
+    kernels = {0: "photonic_gemm", 1: "photonic_gemm_fused"}
+    for name in ("ideal", "SMWA"):
+        eng = E.PhotonicEngine(dpu=chans[name], backend="kernel")
+        for site, k, c, origin, width in COLUMN_BLOCKS:
+            x = torch.randn(r, k, generator=gen, device=dev)
+            w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand(c, generator=gen, device=dev) * 1e-3 + 1e-3
+            b = torch.randn(c, generator=gen, device=dev)
+            xq, sx = quantize_symmetric(x, 8)
+            cols = slice(origin, origin + width)
+            block = w[:, cols].contiguous()
+            for fused in (0, 1):
+                kw = dict(site=site, fold=3, prng_key=key if name == "SMWA" else None)
+
+                def call(weight, sel, **extra):
+                    ep = EpilogueArgs(EpilogueSpec(bias=True), sx, ws[sel], b[sel]) if fused else None
+                    return eng.int_gemm(x if fused else xq, weight, epilogue=ep, **kw, **extra)
+
+                attr = kernels[fused]
+                kernel, calls = getattr(E, attr), []
+
+                def record(*a, **k_):
+                    calls.append((a, k_))
+                    return kernel(*a, **k_)
+
+                def twin(*a, rows=None, **st):
+                    return (K.photonic_gemm_fused_twin if fused else K.photonic_gemm_twin)(*a, **st)
+
+                whole = call(w, slice(None))
+                try:
+                    setattr(E, attr, record)
+                    got = call(block, cols, columns=(origin, c), w_word=tweak_word(w))
+                    setattr(E, attr, twin)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    plain = call(block, cols, columns=(origin, c), w_word=tweak_word(w))
+                    torch.cuda.synchronize()
+                    t_ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    setattr(E, attr, kernel)
+                same = torch.equal(got, whole[:, cols])
+                diff = (got.double() - plain.double()).abs()
+                err = float(diff.max())
+                # int32 sums bitwise; an f32 epilogue to f32 rounding; under noise, one-LSB
+                # roundings of the Box-Muller draws at <= 0.1% of elements
+                off = diff > (1e-6 * (1.0 + plain.double().abs()) if fused else 0.0)
+                twin_ok = float(off.double().mean()) <= 1e-3 if name != "ideal" else not bool(off.any())
+                (a, k_), = calls
+                k_ms = graph_ms(lambda: kernel(*a, **k_))
+                xi = torch.zeros((32, k), dtype=torch.int8, device=dev)
+                xi[:r] = xq
+                lib_ms = graph_ms(lambda: torch._int_mm(xi, block))
+                stages, _ = E.kernel_stages(eng.dpu, r, k, width)
+                passes, xdots = passes_of(eng.dpu, stages)
+                draws = r * width * -(-k // stages["n_chunk"]) * passes if stages["noise_sigma"] > 0 else 0
+                parts = bound_ms(r, k, width, 4 if fused else 1, passes, xdots, bool(fused), bool(fused), draws)
+                b_ms, b_by = bound_of([parts])
+                ok &= same and twin_ok
+                rows_out.append(dict(site=site, channel=name, fused=fused, R=r, K=k, C=c, origin=origin,
+                                     width=width, same_as_whole=same, max_abs_err=err, twin_ok=twin_ok,
+                                     ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
+                                     parts=parts))
+                log(f"  (a') {site} {name:5s} fused={fused}: columns [{origin}, {origin + width}) of {c} at "
+                    f"c_origin {origin}: bitwise the whole launch's {same}; against the twin max |d| {err} "
+                    f"({'ok' if twin_ok else 'FAILED'}); kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm "
+                    f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) [{card}]")
+    return ok
+
+
+def _ulps(torch, got, want):
+    """The largest ``|got - want|`` in units of the last place of ``want``'s
+    dtype (bf16 or f32) at ``want``'s magnitude."""
+    bits = {torch.bfloat16: 8, torch.float32: 24}[want.dtype]
+    w = want.float()
+    _, e = torch.frexp(w)
+    ulp = torch.ldexp(torch.ones_like(w), e - bits).clamp_min(2.0**-126)
+    return float(((got.float() - w).abs() / ulp).max())
+
+
 def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
     """Phase 10 (a): a prefill and decode steps of ``cfg`` on ``mesh`` under
-    TP over "model", the rows and heads placed when ``place`` (the token
-    blocks cut from the global ones, the logits gathered).  Returns (the
-    global logits of each call, the cache leaves' shapes, seconds)."""
+    TP over "model"; ``place`` "heads": the rows and heads placed (the
+    parameters whole), "params": the rows, heads, ``d_ff`` and vocab
+    placed and the parameters cut to this rank's blocks
+    (``place_params``); the token blocks cut from the global ones, the
+    logits gathered.  Returns (the global logits of each call, the cache
+    leaves' shapes, seconds, the parameter bytes the rank held)."""
+    from repro_torch.models.common import axes_tree
+    from repro_torch.models.registry import ShapeSpec
     from repro_torch.photonic import sharded
     from repro_torch.runtime import sharding as shd
 
-    sizes = {"batch": PLACEMENT_ROWS, "heads": cfg.n_q_heads, "kv_heads": cfg.num_kv_heads}
-    tok_axes, logit_axes = ("batch", None), ("batch", None, None)
+    if place == "params":
+        sizes = arch.placement_sizes(cfg, ShapeSpec("decode", PLACEMENT_MAX_SEQ, PLACEMENT_ROWS, "decode"))
+    else:
+        sizes = {"batch": PLACEMENT_ROWS, "heads": cfg.n_q_heads, "kv_heads": cfg.num_kv_heads}
+    tok_axes, logit_axes = ("batch", None), ("batch", None, "vocab")
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as scopes:
@@ -2814,6 +2956,9 @@ def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
         if place:
             scopes.enter_context(shd.placement(mesh, sizes))
             prompt = shd.place_tree(prompt, tok_axes)
+            if place == "params":
+                params = shd.place_params(params, axes_tree(arch.param_defs(cfg)))
+        held = sum(t.numel() * t.element_size() for t in _leaves(params))
         with torch.no_grad():
             logits, cache = arch.prefill(params, {"tokens": prompt}, cfg, PLACEMENT_MAX_SEQ)
             out = [logits]
@@ -2823,7 +2968,7 @@ def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
         if place:
             out = [shd.gather_tree(x, logit_axes) for x in out]
     torch.cuda.synchronize()
-    return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, time.perf_counter() - t0
+    return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, time.perf_counter() - t0, held
 
 
 def placement_rank(rank, world, ckpt_dir):
@@ -2856,36 +3001,59 @@ def placement_rank(rank, world, ckpt_dir):
         cfg = dataclasses.replace(arch.config.pad_for_mesh(2), photonic=dpu, photonic_backend="kernel")
         params = init_params(cfg, 0, "cuda", defs=arch.param_defs(cfg))
         runs = {}
-        for label, place in (("replicated", False), ("placed", True)):
+        for label, place in (("replicated", None), ("placed", "heads"), ("params", "params")):
             _reset_counts(torch, K)
-            logits, cache, secs = _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place)
+            logits, cache, secs, held = _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place)
             counts = dict(_counts(K), outputs=contracts.ROW_GATHERS["outputs"],
-                          amax=contracts.SCALE_REDUCTIONS["amax"], heads=contracts.HEAD_GATHERS["heads"])
-            runs[label] = dict(logits=logits, cache=cache, seconds=secs, counts=counts,
+                          amax=contracts.SCALE_REDUCTIONS["amax"], heads=contracts.HEAD_GATHERS["heads"],
+                          **{f"param_{k}": v for k, v in contracts.PARAM_REDUCES.items()})
+            runs[label] = dict(logits=logits, cache=cache, seconds=secs, counts=counts, param_bytes=held,
                                max_memory_allocated=torch.cuda.max_memory_allocated())
-        rep, placed = runs["replicated"], runs["placed"]
+        rep, placed, pp = runs["replicated"], runs["placed"], runs["params"]
         same = all(torch.equal(a, b) for a, b in zip(rep["logits"], placed["logits"]))
         worst = max(float((a.float() - b.float()).abs().max()) for a, b in zip(rep["logits"], placed["logits"]))
-        finite = all(bool(torch.isfinite(x).all()) for x in placed["logits"])
+        finite = all(bool(torch.isfinite(x).all()) for x in placed["logits"] + pp["logits"])
         fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in placed["logits"])).hexdigest()[:16]
-        c = placed["counts"]
+        fpp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in pp["logits"])).hexdigest()[:16]
+        # placed parameters: the hidden states are the photonic GEMMs', bitwise; the tied digital head
+        # runs on the rank's vocab rows, a column block of cuBLAS's product: bitwise or within one ulp
+        p_same = all(torch.equal(a, b) for a, b in zip(rep["logits"], pp["logits"]))
+        p_ulps = max(_ulps(torch, b, a) for a, b in zip(rep["logits"], pp["logits"]))
+        c, cp = placed["counts"], pp["counts"]
+        layers = arch.config.num_layers
         gates[f"(a) {name} logits bitwise the replicated program's"] = same and finite
         gates[f"(a) {name} launches, all-reduces, no row gathers, scale reductions"] = (
             (c["photonic_gemm"], c["photonic_gemm_fused"], c["all_reduces"], c["row_gathers"], c["amax"],
-             c["outputs"], c["heads"]) == (gemms, 0, gemms, 0, gemms, forwards, 0))
-        half = (arch.config.num_layers, PLACEMENT_ROWS // 2, PLACEMENT_MAX_SEQ, 1, cfg.hd)
-        gates[f"(a) {name} cache leaves a rank"] = placed["cache"] == {"k": half, "v": half}
-        out[name] = dict(same=same, max_abs=worst, fingerprint=fp, cache=placed["cache"],
-                         **{f"{k}_{m}": v[m] for k, v in runs.items() for m in ("seconds", "counts",
+             c["outputs"], c["heads"]) == (9 * layers * forwards, 0, 3 * layers * forwards, 0, gemms, forwards, 0))
+        half = (layers, PLACEMENT_ROWS // 2, PLACEMENT_MAX_SEQ, 1, cfg.hd)
+        gates[f"(a) {name} cache leaves a rank"] = placed["cache"] == {"k": half, "v": half} == pp["cache"]
+        gates[f"(a) {name} placed parameters: logits {'bitwise' if p_same else 'within one bf16 ulp of'} the "
+              f"replicated program's"] = p_same or p_ulps <= 1.0
+        gates[f"(a) {name} placed parameters: launches, all-reduces, gathers"] = (
+            (cp["photonic_gemm"], cp["photonic_gemm_fused"], cp["all_reduces"], cp["row_gathers"], cp["amax"],
+             cp["outputs"], cp["heads"]) == (12 * layers * forwards, 0, 2 * layers * forwards, 0, gemms,
+                                             2 * forwards, 0))
+        gates[f"(a) {name} placed parameters: bytes a rank about half the whole"] = (
+            0.45 < pp["param_bytes"] / rep["param_bytes"] < 0.55)
+        out[name] = dict(same=same, max_abs=worst, fingerprint=fp, cache=placed["cache"], params_same=p_same,
+                         params_ulps=p_ulps, params_fingerprint=fpp,
+                         **{f"{k}_{m}": v[m] for k, v in runs.items() for m in ("seconds", "counts", "param_bytes",
                                                                                 "max_memory_allocated")})
         say(f"(a) {name}: qwen2-0.5b prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} + {PLACEMENT_STEPS} decode steps, "
-            f"placed (rows over data, 7 q / 1 KV heads a rank) against replicated: logits bitwise {same} (max |d| "
-            f"{worst}), sha256 {fp}; placed {placed['seconds']:.2f} s, replicated {rep['seconds']:.2f} s; placed "
-            f"counts {c} (want photonic_gemm {gemms}, fused 0, all-reduces {gemms}, row gathers 0, amax {gemms}, "
-            f"outputs {forwards}); replicated counts {rep['counts']}; cache {placed['cache']} (replicated "
-            f"{rep['cache']}); max_memory_allocated placed {placed['max_memory_allocated'] / 2**30:.2f} GiB, "
-            f"replicated {rep['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
-        del params, runs, rep, placed
+            f"placed (rows over data, 7 q / 1 KV heads a rank, parameters whole) against replicated: logits bitwise "
+            f"{same} (max |d| {worst}), sha256 {fp}; placed {placed['seconds']:.2f} s, replicated "
+            f"{rep['seconds']:.2f} s; placed counts {c} (want photonic_gemm {9 * layers * forwards}, fused 0, "
+            f"all-reduces {3 * layers * forwards}, row gathers 0, amax {gemms}, outputs {forwards}); replicated counts "
+            f"{rep['counts']}; cache {placed['cache']} (replicated {rep['cache']}); max_memory_allocated placed "
+            f"{placed['max_memory_allocated'] / 2**30:.2f} GiB, replicated {rep['max_memory_allocated'] / 2**30:.2f} "
+            f"GiB [{card}]")
+        say(f"(a) {name}: parameters placed too (heads, KV heads, d_ff, vocab over model): logits bitwise {p_same}, "
+            f"{p_ulps:.3g} bf16 ulps at most from the replicated program's, sha256 {fpp}; {pp['seconds']:.2f} s; "
+            f"counts {cp} (want photonic_gemm {12 * layers * forwards}, all-reduces {2 * layers * forwards}, "
+            f"outputs {2 * forwards}); parameter bytes a rank {pp['param_bytes']} against {rep['param_bytes']} "
+            f"whole ({pp['param_bytes'] / rep['param_bytes']:.4f}); max_memory_allocated "
+            f"{pp['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+        del params, runs, rep, placed, pp
         torch.cuda.empty_cache()
     # (b) train(mesh=) with the rows placed against the replicated program
     data, opt = _train_inputs(arch)
@@ -2920,17 +3088,97 @@ def placement_rank(rank, world, ckpt_dir):
                         max_memory_allocated=placed["max_memory_allocated"],
                         replicated_max_memory_allocated=rep["max_memory_allocated"])
     say(f"(b) train(mesh=(2, 2), tp_axis='model') at {TP_TRAIN_GRID_LAYERS} layers, {PLACEMENT_TRAIN_STEPS} steps of "
-        f"{data.global_batch} x {data.seq_len}: placed losses {placed['losses']} against replicated {rep['losses']}; "
+        f"{data.global_batch} x {data.seq_len}: placed (rows and heads; parameters whole) losses {placed['losses']} against replicated {rep['losses']}; "
         f"max |p_placed - p_replicated| {worst:.4g} (bound 2 x sum lr = {bound:.4g} + a bf16 rounding); steps "
         f"placed {[round(x, 3) for x in placed['step_seconds']]} s, replicated "
         f"{[round(x, 3) for x in rep['step_seconds']]} s; row gathers placed {placed['counts']['row_gathers']}, "
         f"replicated {rep['counts']['row_gathers']}; peak memory a rank placed "
         f"{placed['max_memory_allocated'] / 2**30:.2f} GiB, replicated {rep['max_memory_allocated'] / 2**30:.2f} GiB "
         f"[{card}]")
+    del runs, rep, placed
+    torch.cuda.empty_cache()
+    out["dry_train"] = _placement_dry_train(torch, K, arch, cfg, data, mesh, gates, say, card)
     out["gates"] = gates
     for k, v in gates.items():
         say(f"{k}: {v}")
     return out
+
+
+def _placement_dry_train(torch, K, arch, cfg, data, mesh, gates, say, card):
+    """Phase 10 (b'): the dry run's train step (``dryrun.build_step``: the
+    parameters placed by their ``param_axes``, ZeRO-1 moments over "data",
+    the gradient norm over the placed leaves, TP over "model") run for real
+    on ``cfg`` for ``PLACEMENT_TRAIN_STEPS`` steps of phase 7's data,
+    against the replicated step (``build_train_step`` on whole parameters
+    and the whole batch, every rank the same) with the dry run's optimizer
+    settings: losses within ``rtol=1e-3``, every parameter block within
+    ``2 x steps x lr`` plus one bf16 rounding of its value."""
+    from repro_torch.analysis import contracts
+    from repro_torch.data.pipeline import SyntheticTokens, make_global_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.models.common import axes_tree, init_params
+    from repro_torch.models.registry import ShapeSpec
+    from repro_torch.optim import adamw
+    from repro_torch.runtime import sharding as shd
+    from repro_torch.runtime.train_loop import build_train_step
+
+    shape = ShapeSpec("train", data.seq_len, data.global_batch, "train")
+    defs = arch.param_defs(cfg)
+    axes = axes_tree(defs)
+    opt = adamw.AdamWConfig()  # the dry run's train step's
+    stream = SyntheticTokens(data)
+    batches = [make_global_batch(stream, i, "cuda") for i in range(PLACEMENT_TRAIN_STEPS)]
+    params = init_params(cfg, 0, "cuda", defs=defs)
+    _reset_counts(torch, K)
+    step = build_train_step(lambda p, b: arch.loss(p, b, cfg), opt)
+    p_rep, s_rep, rep_losses, rep_secs = params, adamw.init(params), [], []
+    for b in batches:
+        t0 = time.perf_counter()
+        p_rep, s_rep, m = step(p_rep, s_rep, b)
+        rep_losses.append(float(m["loss"]))
+        rep_secs.append(time.perf_counter() - t0)
+    rep_mem = torch.cuda.max_memory_allocated()
+    del s_rep
+    _reset_counts(torch, K)
+    placed_step = dryrun.build_step(arch, cfg, shape, mesh)
+    batch_axes = {"tokens": ("batch", None), "labels": ("batch", None)}
+    with shd.use_rules(mesh):
+        with shd.placement(mesh, arch.placement_sizes(cfg, shape)):
+            p = shd.place_params(params, axes)
+            want = shd.place_params(p_rep, axes)
+            local = [shd.place_tree(b, batch_axes) for b in batches]
+        held = sum(t.numel() * t.element_size() for t in _leaves(p))
+        del params, p_rep
+        torch.cuda.empty_cache()
+        s = adamw.init(p, adamw.zero1(defs, axes, mesh))
+        losses, secs = [], []
+        for b in local:
+            t0 = time.perf_counter()
+            p, s, m = placed_step(p, s, b)
+            losses.append(float(m["loss"]))
+            secs.append(time.perf_counter() - t0)
+    counts = dict(_counts(K), **{f"param_{k}": v for k, v in contracts.PARAM_REDUCES.items()})
+    lrs = [float(adamw.schedule_lr(opt, torch.tensor(i + 1))) for i in range(PLACEMENT_TRAIN_STEPS)]
+    bound = 2 * sum(lrs)
+    worst, within = 0.0, True
+    for a, b in zip(_leaves(p), _leaves(want)):
+        d = (a.float() - b.float()).abs()
+        ulp = (b.float().abs() * 2.0**-7).clamp_min(2.0**-133)
+        worst = max(worst, float(d.max()))
+        within &= bool((d <= bound + ulp).all())
+    loss_ok = all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(losses, rep_losses))
+    gates["(b') the dry run's placed train step: losses within rtol 1e-3 of the replicated step"] = loss_ok
+    gates["(b') the dry run's placed train step: parameter blocks within 2 x steps x lr + one bf16 rounding"] = within
+    res = dict(losses=losses, replicated_losses=rep_losses, max_abs_param=worst, bound=bound, step_seconds=secs,
+               replicated_step_seconds=rep_secs, counts=counts, param_bytes=held,
+               max_memory_allocated=torch.cuda.max_memory_allocated(), replicated_max_memory_allocated=rep_mem)
+    say(f"(b') the dry run's train step on placed parameters (heads, KV heads, d_ff, vocab over model; ZeRO-1 over "
+        f"data) at {cfg.num_layers} layers, {PLACEMENT_TRAIN_STEPS} steps of {data.global_batch} x {data.seq_len}: "
+        f"losses {losses} against the replicated step's {rep_losses}; max |p - p_replicated| {worst:.4g} (bound "
+        f"{bound:.4g} + a bf16 rounding); steps {[round(x, 3) for x in secs]} s, replicated "
+        f"{[round(x, 3) for x in rep_secs]} s; counts {counts}; parameter bytes a rank {held}; peak memory a rank "
+        f"{res['max_memory_allocated'] / 2**30:.2f} GiB, replicated {rep_mem / 2**30:.2f} GiB [{card}]")
+    return res
 
 
 def placement_child():
@@ -2947,12 +3195,17 @@ def placement_child():
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     ok = all(all(r["gates"].values()) for r in ranks)
-    same = all(r[c]["fingerprint"] == ranks[0][c]["fingerprint"] for r in ranks for c in ("ideal", "SMWA")) and all(
-        r["train"]["losses"] == ranks[0]["train"]["losses"] for r in ranks)
-    log(f"  placement (a)/(b): every rank's gates {ok}; ranks agree (logits, losses) {same}")
+    same = all(r[c][f] == ranks[0][c][f] for r in ranks for c in ("ideal", "SMWA")
+               for f in ("fingerprint", "params_fingerprint")) and all(
+        r[t]["losses"] == ranks[0][t]["losses"] for r in ranks for t in ("train", "dry_train"))
+    log(f"  placement (a)/(b)/(b'): every rank's gates {ok}; ranks agree (logits, losses) {same}")
     launches = {"photonic_gemm": sum(r[c][f"{k}_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA")
-                                     for k in ("replicated", "placed"))
-                + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))}
+                                     for k in ("replicated", "placed", "params"))
+                + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))
+                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks),
+                # the column-parallel launches alone: the placed-parameter decode runs and the dry run's step
+                "column_parallel": sum(r[c]["params_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA"))
+                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks)}
     return ok and same, {"ranks": ranks}, launches
 
 
@@ -2987,25 +3240,30 @@ def placement_cells(cells, registry, card):
                           flops=cell["flops_per_device"] / ref["flops_per_device_exact"])
             gates = {"fits 80 GB": cell["fits_device"] is True,
                      "cache a rank = global / 256": cell["cache_bytes"] - 4 == global_cache // 256,
-                     "arguments <= reference + param_bytes":
-                         cell["argument_size_in_bytes"] <= ref["argument_size_in_bytes"] + cell["param_bytes"]}
+                     "arguments = the reference's to the byte":
+                         cell["argument_size_in_bytes"] == ref["argument_size_in_bytes"],
+                     "nothing held whole where the reference places it": cell["replicated_by_port_bytes"] == {}}
             ok &= all(gates.values())
             res[shape].update(ratios=ratios, gates=gates, global_cache_bytes=global_cache)
             log(f"  (c) qwen2-0.5b x decode_32k x single (placed: {cell['placed']}): arguments "
                 f"{cell['argument_size_in_bytes']} B ({ratios['arguments']:.3f} x the reference's "
-                f"{ref['argument_size_in_bytes']}; params {cell['param_bytes']} B whole on every rank), cache "
+                f"{ref['argument_size_in_bytes']}; params {cell['param_bytes']} B, this rank's blocks), cache "
                 f"{cell['cache_bytes'] - 4} B = {global_cache} / 256, temp {cell['temp_size_in_bytes']} B "
                 f"({ratios['temp']:.3f} x {ref['temp_size_in_bytes']}), peak {cell['peak_size_in_bytes']} B "
                 f"({ratios['peak']:.3f} x the reference's arguments + temp {ref_peak}), FLOPs a rank "
                 f"{cell['flops_per_device']} ({ratios['flops']:.3f} x {ref['flops_per_device_exact']}); still "
                 f"replicated by the port: {cell['replicated_by_port_bytes']}; gates {gates} [{card}]")
         else:
+            gates = {"fits 80 GB": cell["fits_device"] is True,
+                     "nothing held whole where the reference places it": cell["replicated_by_port_bytes"] == {}}
+            ok &= all(gates.values())
+            res[shape]["gates"] = gates
             log(f"  (c) qwen2-0.5b x train_4k x single (ZeRO-1 {cell['zero1']}, placed: {cell['placed']}): arguments "
                 f"{cell['argument_size_in_bytes']} B (params {cell['param_bytes']} B, optimizer state "
                 f"{cell['optimizer_state_bytes']} B), temp {cell['temp_size_in_bytes']} B, peak "
                 f"{cell['peak_size_in_bytes']} B (fits 80 GB: {cell['fits_device']}), FLOPs a rank "
                 f"{cell['flops_per_device']}; the reference records no train_4k cell, so no ratio; still replicated "
-                f"by the port: {cell['replicated_by_port_bytes']} [{card}]")
+                f"by the port: {cell['replicated_by_port_bytes']}; gates {gates} [{card}]")
     return ok, res
 
 
@@ -4814,7 +5072,10 @@ def main() -> int:
         all_ok &= tooling_ok
 
     with Phase("placement"):
+        col_rows = []
+        all_ok &= column_origin_rows(torch, K, chans, key, col_rows, card)
         place_ok, placement, place_launches = run_child(card, "placement", timeout=400)
+        placement["column_origin_rows"] = col_rows
         all_ok &= place_ok
         cells_ok, placement["cells"] = placement_cells(tooling.get("dry_runs", []), registry, card)
         all_ok &= cells_ok
@@ -5015,6 +5276,23 @@ def main() -> int:
              "ideal channel, shard_local_engine.int_gemm(shard=i) (timed in the tp phase); library: torch._int_mm "
              "of the shard's int cores; launches from phase 10's four ranks: the placed and replicated prefill + "
              "decode runs, ideal and SMWA, and the placed and replicated train() runs",
+    ))
+    # The placement phase's column-origin row: this rank's blocks of
+    # qwen2-0.5b's attn.wq (448 columns from 448) and attn.wk (64 from 64) at
+    # R = 4, unfused, ideal channel, each at its global column origin;
+    # launches from phase 10's column-parallel runs (the placed-parameter
+    # prefill + decode runs and the dry run's placed train step), every rank.
+    blk = [x for x in col_rows if x["channel"] == "ideal" and x["fused"] == 0]
+    bm, bb = bound_of([x["parts"] for x in blk])
+    kernels.append(dict(
+        name="photonic_gemm", route="cuda", source=FUSED_SRC,
+        replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=place_launches["column_parallel"],
+        max_abs_err=max(x["max_abs_err"] for x in blk), ms=layer_sum(blk, "ms"), plain_ms=layer_sum(blk, "plain_ms"),
+        bound_ms=bm, bound_by=op_or_bytes(bb), library_ms=layer_sum(blk, "library_ms"),
+        case="column-parallel: a rank's column blocks of qwen2-0.5b's attn.wq (448 from c_origin 448) and attn.wk "
+             "(64 from c_origin 64), R=4, K=896, ideal channel, PhotonicEngine.int_gemm(columns=); library: "
+             "torch._int_mm of the blocks' int cores; launches from phase 10's column-parallel runs (placed-"
+             "parameter prefill + decode, ideal and SMWA, and the dry run's placed train step), every rank",
     ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)

@@ -35,7 +35,18 @@ replicated value the reference's ``out_shardings`` ask for
 :data:`SCALE_REDUCTIONS` counts the routed GEMMs whose activation scale
 is a ``MAX`` all-reduce of local abs-maxima, and :data:`HEAD_GATHERS` the
 attention outputs whose heads were gathered over ``model`` before a
-``wo`` that cannot take its K block (the digital path).
+``wo`` that cannot take its K block (the digital path on whole weights).
+Where the parameters are placed too (``runtime.sharding.place_params``),
+:data:`PARAM_REDUCES` counts the SUM all-reduces of the two GEMM forms
+over ``model``: ``"column_input"``, the backward of a column-parallel
+GEMM's input (``sharding.copy_to_model``); ``"row_output"``, the forward
+of a float row-parallel GEMM's partial products
+(``sharding.reduce_from_model``; a routed one sums its int32 partials in
+``psum_int_gemm`` instead); ``"vocab"``, the vocab-parallel embedding
+lookup and the loss's sums; ``"weight_words"``, the noise-stream content
+words of a column block's whole weight (one a noisy column-parallel
+GEMM); ``"weight_scale"``, the per-column abs-max of a K-placed weight
+(one a routed row-parallel GEMM on a placed float weight).
 """
 
 from __future__ import annotations
@@ -50,12 +61,14 @@ ALL_REDUCES = {"psum_int_gemm": 0}
 ROW_GATHERS = {"tp_rows": 0, "outputs": 0}
 SCALE_REDUCTIONS = {"amax": 0}
 HEAD_GATHERS = {"heads": 0}
+PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0}
 
 
 def reset_all_reduces() -> None:
     """Zero :data:`ALL_REDUCES`, :data:`ROW_GATHERS`,
-    :data:`SCALE_REDUCTIONS` and :data:`HEAD_GATHERS`."""
-    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS):
+    :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS` and
+    :data:`PARAM_REDUCES`."""
+    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES):
         for name in counts:
             counts[name] = 0
 

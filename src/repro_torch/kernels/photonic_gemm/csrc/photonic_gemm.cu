@@ -29,7 +29,11 @@
 // logical (tile_r, tile_c) output tile (i, j) and K-tile kk, per-chunk seed
 // fold_seed(tile_seed, si*S+ti, g) with g the chunk index inside the K-tile,
 // and element counter row_in_tile * tile_c + col_in_tile; chunks at or past
-// valid_chunks (pure K padding) draw no noise.
+// valid_chunks (pure K padding) draw no noise.  A launch may be a rank's
+// column block of a wider weight: column c is then column c_origin + c of
+// the whole (any c_origin), in logical tile (c_origin + c) / tile_c, so a
+// CTA's 128 columns may straddle two logical tiles and it derives both
+// tiles' seeds; w_scale and bias stay indexed by the launch's own columns.
 //
 // Bound on this card: at decode (R = 4 live rows) the call is bound by bytes
 // (the int8 weight, read once); under a noisy channel by the Box-Muller
@@ -86,7 +90,7 @@
 
 namespace {
 
-constexpr int kTileC = 128;   // a CTA's columns; the logical tile_c is a multiple, so a CTA lies in one logical tile
+constexpr int kTileC = 128;   // a CTA's columns; the logical tile_c is a multiple, so a CTA meets at most two logical tiles
 constexpr int kMaxN = 256;    // longest chunk
 constexpr int kKStep = 64;    // K step of the ideal path (its split unit)
 constexpr int kStages = 4;    // cp.async ring depth, ideal path
@@ -120,6 +124,7 @@ struct Params {
   int n_units;       // K steps (ideal) or chunks (slice path)
   int n_split;       // CTAs per output tile along K
   int npad;          // slice path: chunk padded to the mma depth
+  int c_origin;      // the launch's column 0 is column c_origin of the whole weight (noise ids)
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -404,7 +409,7 @@ __device__ void ideal_path(const Params& p, unsigned char* smem, int row0, int c
 // Returns the [BN][kAccStride] tile of the CTA's sums in shared memory.
 template <int BN, int WN>
 __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int col0, int live, int u0, int u1,
-                           uint32_t i_tile, uint32_t j_tile) {
+                           uint32_t i_tile) {
   using S = Shape<BN, WN>;
   constexpr bool kCompact = BN == 8;  // decode: half the fragment rows are dead
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -428,6 +433,11 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
   const int chunks = p.tile_k / n;
   const uint32_t seed = p.seed != nullptr ? *p.seed : 0u;
   const int live_elems = live * kTileC;
+  // The CTA's columns in the whole weight: [gc0, gc0 + 128), logical tile
+  // j_lo up to local column c_cut, j_lo + 1 from there (c_cut >= 128: one tile).
+  const uint32_t gc0 = (uint32_t)(p.c_origin + col0);
+  const uint32_t j_lo = gc0 / (uint32_t)p.tile_c;
+  const int c_cut = (int)((j_lo + 1u) * (uint32_t)p.tile_c - gc0);
 
   auto load = [&](int u, int stage) {
     const uint32_t dst = raw0 + stage * n * kTileC;
@@ -515,9 +525,12 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
         const int pass = si * ns + ti;
         const unsigned char* xs = xsl + si * BN * sxs;
         const bool noisy = p.sigma > 0.0f && (p.valid_chunks < 0 || u < p.valid_chunks);
-        const uint32_t base = noisy
-            ? fold1(fold1(fold1(fold1(fold1(seed, i_tile, 0u), j_tile, 1u), (uint32_t)kk, 2u), (uint32_t)pass, 0u), (uint32_t)gl, 1u)
-            : 0u;
+        auto chunk_seed = [&](uint32_t j_tile) -> uint32_t {
+          return fold1(fold1(fold1(fold1(fold1(seed, i_tile, 0u), j_tile, 1u), (uint32_t)kk, 2u), (uint32_t)pass, 0u),
+                       (uint32_t)gl, 1u);
+        };
+        const uint32_t base_lo = noisy ? chunk_seed(j_lo) : 0u;
+        const uint32_t base_hi = noisy && c_cut < kTileC ? chunk_seed(j_lo + 1u) : base_lo;
         const int shift = p.slice_bits * (si + ti);
         // psum -> float chain (crosstalk, filter, noise) -> rint -> ADC -> shifted into acc.
         auto chain = [&](int psum, int xdot, int row, int col) -> int {
@@ -530,8 +543,8 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
             }
             if (p.use_filter) a = __fmul_rn(a, p.filter_scale);
             if (noisy) {
-              const uint32_t ctr = (uint32_t)((row0 + row) % p.tile_r) * (uint32_t)p.tile_c + (uint32_t)((col0 + col) % p.tile_c);
-              a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(base, ctr)));
+              const uint32_t ctr = (uint32_t)((row0 + row) % p.tile_r) * (uint32_t)p.tile_c + (gc0 + (uint32_t)col) % (uint32_t)p.tile_c;
+              a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(col < c_cut ? base_lo : base_hi, ctr)));
             }
             psum = (int)rintf(a);
           }
@@ -675,7 +688,7 @@ __global__ void __launch_bounds__(Shape<BN, WN>::kThreads) photonic_gemm_kernel(
     acc = reinterpret_cast<const int*>(smem);
   } else {
     // BN divides tile_r, so the CTA's rows lie in one logical row tile.
-    acc = slice_path<BN, WN>(p, smem, row0, col0, live, u0, u1, (uint32_t)(row0 / p.tile_r), (uint32_t)(col0 / p.tile_c));
+    acc = slice_path<BN, WN>(p, smem, row0, col0, live, u0, u1, (uint32_t)(row0 / p.tile_r));
   }
   __syncthreads();
   finish<BN, WN>(p, acc, tile, row0, col0, live);
@@ -703,14 +716,15 @@ int launch(const Params& p, int row_tiles, int bytes, cudaStream_t stream) {
 // `tickets` (one int32 per output tile) must be zero and are left zero;
 // they may be null when n_split == 1.  Returns 0 on a clean launch, a
 // negative code for arguments the kernel does not take, or the value of
-// cudaGetLastError() after the launch.
+// cudaGetLastError() after the launch.  `c_origin` (>= 0) is the column of
+// the whole weight that the launch's column 0 is, for the noise ids.
 extern "C" int photonic_gemm_launch(
     const void* x, int x_f32, const void* w, const void* x_scale, const void* w_scale,
     const void* bias, const void* seed, void* out, int fused,
     int R, int K, int C, int live_rows, int tile_r, int tile_c, int tile_k, int n_chunk,
     int slice_bits, int num_slices, int operand_bits, int adc_bits,
     float sigma, int use_filter, float filter_scale, float eps_im, float eps_cw,
-    int valid_chunks, int activation, int bn, int ideal, int n_split,
+    int valid_chunks, int activation, int bn, int ideal, int n_split, int c_origin,
     void* ws_acc, void* tickets, void* stream) {
   if (tile_c < kTileC || tile_c % kTileC != 0 || C % tile_c != 0) return -1;
   if (tile_r % 8 != 0 || R % tile_r != 0 || live_rows < 1 || live_rows > R) return -2;
@@ -726,6 +740,7 @@ extern "C" int photonic_gemm_launch(
   const int n_units = ideal ? K / kKStep : K / n_chunk;
   if (n_split < 1 || n_split > n_units) return -10;
   if (n_split > 1 && (ws_acc == nullptr || tickets == nullptr)) return -11;
+  if (c_origin < 0 || c_origin > 0x7fffffff - C) return -13;
   Params p;
   p.x = x;
   p.x_f32 = x_f32;
@@ -761,6 +776,7 @@ extern "C" int photonic_gemm_launch(
   p.n_units = n_units;
   p.n_split = n_split;
   p.npad = (n_chunk + 31) & ~31;
+  p.c_origin = c_origin;
   const int row_tiles = (live_rows + bn - 1) / bn;
   int bytes;
   if (ideal) {

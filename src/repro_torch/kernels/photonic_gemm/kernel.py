@@ -25,6 +25,9 @@ source note says what bounds it on the card.
   chunk seed ``fold_seed(tile_seed, pass, g)``, element counter
   ``row_in_tile * tile_c + col_in_tile``, ``valid_chunks`` masking), as
   Pallas interpret mode does for the reference, vectorized over tiles.
+  A ``c_origin`` makes the operand the columns from there of a wider
+  weight: column ``c`` takes the ids of column ``c_origin + c`` of the
+  whole (a rank's column block under a placement).
 * :data:`LIBRARY` builds the CUDA source with ``nvcc`` at first use into
   ``build/repro_torch/`` (keyed by a hash of the source and flags) and
   binds its plain C entry point with ``ctypes``
@@ -116,10 +119,12 @@ def _accumulate_twin(
 ) -> torch.Tensor:
     """The reference ``_accumulate`` summed over the whole K grid axis, for
     every logical tile at once; int64 ``(R, C)``.  ``w`` may be the columns
-    from ``col0`` (a multiple of ``tile_c``) of a wider weight: the noise
-    stream ids are those of the whole.  A call whose per-chunk psum array
-    would pass ``_TWIN_BLOCK`` elements runs in column blocks of whole
-    tiles (columns are independent, so the values are the same)."""
+    from ``col0`` (any column) of a wider weight: the noise stream ids are
+    those of the whole (column ``c`` of ``w`` is column ``col0 + c`` there,
+    in logical tile ``(col0 + c) // tile_c`` at ``(col0 + c) % tile_c``).
+    A call whose per-chunk psum array would pass ``_TWIN_BLOCK`` elements
+    runs in column blocks (columns are independent, so the values are the
+    same)."""
     analog = _analog(noise_sigma, filter_alpha, intermod_eps, crossweight_eps)
     if not analog and adc_bits is None:
         # Ideal ADC: the shift-added slice passes equal the exact product.
@@ -143,16 +148,17 @@ def _accumulate_twin(
 
     if noise_sigma > 0.0:
         rows = torch.arange(r, device=dev)
-        cols = torch.arange(c, device=dev)
         g = torch.arange(g_tot, device=dev)
+        gcols = col0 + torch.arange(c, device=dev)  # the columns' ids in the whole weight
+        j0 = col0 // tile_c
         ii = torch.arange(r // tile_r, device=dev)[:, None, None]
-        jj = (torch.arange(c // tile_c, device=dev) + col0 // tile_c)[None, :, None]
+        jj = torch.arange(j0, (col0 + c - 1) // tile_c + 1, device=dev)[None, :, None]
         kk = torch.arange(k // tile_k, device=dev)[None, None, :]
         tile_seed = fold_seed(seed, ii, jj, kk)  # (I, J, KK)
         # Each global chunk g sits in K-tile g // chunks, at g % chunks there.
         chunk_tile = tile_seed[:, :, g // chunks].permute(2, 0, 1)  # (G, I, J)
         g_local = (g % chunks)[:, None, None]
-        ctr = ((rows % tile_r)[:, None] * tile_c + (cols % tile_c)[None, :])[None]
+        ctr = ((rows % tile_r)[:, None] * tile_c + (gcols % tile_c)[None, :])[None]
         live = None
         if valid_chunks is not None:
             live = (g < valid_chunks).to(torch.float32)[:, None, None]
@@ -177,7 +183,7 @@ def _accumulate_twin(
                 if noise_sigma > 0.0:
                     base = fold_seed(chunk_tile, si * num_slices + t, g_local)
                     base = base.index_select(1, rows // tile_r)  # (G, R, J)
-                    base = base.index_select(2, cols // tile_c)  # (G, R, C)
+                    base = base.index_select(2, gcols // tile_c - j0)  # (G, R, C)
                     z = gaussian_from_ctr(base, ctr)
                     if live is not None:
                         z = z * live
@@ -216,6 +222,7 @@ def photonic_gemm_twin(
     tile_r: int = 128,
     tile_c: int = 128,
     tile_k: int = 512,
+    c_origin: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`photonic_gemm`; int32 ``(R, C)``.
     Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``."""
@@ -229,7 +236,7 @@ def photonic_gemm_twin(
         n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
         filter_alpha=filter_alpha, intermod_eps=intermod_eps,
         crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
-        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin,
     )
     return acc.to(torch.int32)
 
@@ -256,6 +263,7 @@ def photonic_gemm_fused_twin(
     tile_r: int = 128,
     tile_c: int = 128,
     tile_k: int = 512,
+    c_origin: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`photonic_gemm_fused`; f32 ``(R, C)``.
     Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``."""
@@ -274,7 +282,7 @@ def photonic_gemm_fused_twin(
         n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
         filter_alpha=filter_alpha, intermod_eps=intermod_eps,
         crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
-        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin,
     ).to(torch.int32)
     spec = EpilogueSpec(bias=bias is not None, activation=activation)
     return apply_epilogue(acc, xs, w_scale.reshape(-1), bias, spec)
@@ -400,6 +408,7 @@ def _bind(lib) -> None:
         i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
         f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
         i, i, i, i, i,  # valid_chunks, activation, bn, ideal, n_split
+        i,  # c_origin
         vp, vp, vp,  # ws_acc, tickets, stream
     ]
     fn.restype = ctypes.c_int
@@ -447,7 +456,7 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, operand_bits,
             activation, slice_bits, num_slices, n_chunk, adc_bits, noise_sigma,
             filter_alpha, intermod_eps, crossweight_eps, valid_chunks, tile_r,
-            tile_c, tile_k):
+            tile_c, tile_k, c_origin):
     r, k = x.shape
     c = wq.shape[1]
     rows = r if rows is None else int(rows)
@@ -459,6 +468,8 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
         raise ValueError(f"the CUDA kernel takes n_chunk <= {MAX_CHUNK}, got {n_chunk}")
     if not 1 <= rows <= r:
         raise ValueError(f"rows={rows} live rows outside [1, {r}]")
+    if not 0 <= c_origin < 2**31 - c:
+        raise ValueError(f"c_origin={c_origin} outside [0, 2^31 - {c})")
     for t, nm in ((x, "x"), (wq, "wq"), (out, "out")):
         if t.data_ptr() % 16:
             raise ValueError(f"{nm} must be 16-byte aligned")
@@ -485,7 +496,7 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
         float(noise_sigma), int(filter_alpha > 0.0), float(1.0 - filter_alpha),
         float(intermod_eps), float(crossweight_eps),
         -1 if valid_chunks is None else valid_chunks, ACTIVATION_CODES[activation],
-        plan.bn, int(plan.ideal), plan.n_split, _data_ptr(ws_acc), _data_ptr(tickets), stream,
+        plan.bn, int(plan.ideal), plan.n_split, int(c_origin), _data_ptr(ws_acc), _data_ptr(tickets), stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with code {rc}")
@@ -513,15 +524,19 @@ def photonic_gemm(
     tile_c: int = 128,
     tile_k: int = 512,
     rows: Optional[int] = None,
+    c_origin: int = 0,
 ) -> torch.Tensor:
     """Integer photonic GEMM, int8 x int8 -> int32 ``(R, C)``.  Reference:
     ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``.  ``rows``:
-    the live rows the CUDA kernel computes (default all)."""
+    the live rows the CUDA kernel computes (default all).  ``c_origin``:
+    ``wq`` is the columns from ``c_origin`` (any column) of a wider weight,
+    whose noise-stream ids its columns keep (a rank's column block)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
         intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
         valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+        c_origin=c_origin,
     )
     if xq.device.type == "cpu":
         return photonic_gemm_twin(xq, wq, seed, **stages)
@@ -562,16 +577,20 @@ def photonic_gemm_fused(
     tile_c: int = 128,
     tile_k: int = 512,
     rows: Optional[int] = None,
+    c_origin: int = 0,
 ) -> torch.Tensor:
     """The fused hot path, [quantize] -> integer GEMM -> epilogue, f32
     ``(R, C)``.  Reference:
     ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``.
-    ``rows``: the live rows the CUDA kernel computes (default all)."""
+    ``rows``: the live rows the CUDA kernel computes (default all);
+    ``c_origin`` as in :func:`photonic_gemm` (``w_scale`` and ``bias`` are
+    ``wq``'s own columns)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
         intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
         valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
+        c_origin=c_origin,
     )
     if x.device.type == "cpu":
         return photonic_gemm_fused_twin(

@@ -14,7 +14,7 @@ tensors at the production shape:
   ``arch.prefill`` for prefill shapes; ``arch.decode`` on the
   ``decode_specs`` cache for decode shapes;
 * parameter leaves are fake tensors made from
-  ``arch.param_defs(cfg.pad_for_mesh(model))``; ``--photonic`` routes the
+  ``arch.param_specs(cfg.pad_for_mesh(model), shape, mesh)``; ``--photonic`` routes the
   weight GEMMs through ``DPUConfig(SMWA, bits=4, datarate_gs=5.0)`` on the
   ``ref`` backend (a fake tensor cannot reach a ctypes kernel, whose
   wrapper raises on one);
@@ -37,13 +37,21 @@ and in prefill and decode its KV heads of GQA attention and of the cache
 over ``model`` (the step runs on those blocks, and a decode step gathers
 its logits, which the reference's ``out_shardings`` replicate); a train
 step's optimizer moments are ZeRO-1 blocks over the data axes (the
-reference's ``zero1_axes``), its update running on those blocks and
-all-gathering the parameters, unless ``--no-zero1``.  The parameters stay
-whole on every rank, and so does any other dimension the reference places
-(the params' ``heads`` / ``d_ff`` / ``vocab`` / ``experts`` / ``inner``
-axes, ``kv_seq``): the report lists each such leaf under
-``replicated_by_port`` with the bytes the rank holds and the reference's,
-and gives ``param_bytes``.
+reference's ``zero1_axes``, derived from the global shapes), its update
+running on those blocks and all-gathering the parameters, unless
+``--no-zero1``.  The dense GQA decoders (qwen2, granite, deepseek-67b)
+hold their parameters as the reference's ``in_shardings`` place them,
+each leaf by its ``param_axes`` (``heads``, ``kv_heads``, ``d_ff``,
+``vocab`` over ``model``), in prefill, decode and train steps alike: every
+GEMM computes its block (column-parallel ``wq`` / ``wk`` / ``wv`` /
+``ffn.wi`` / ``lm_head``, row-parallel ``wo`` / ``ffn.wo``), the
+embedding and the loss are vocab-parallel, the decode step gathers its
+logits over ``model`` too, and the gradient norm sums placed leaves over
+``model``.  Every other family holds its parameters whole, and any other
+dimension the reference places stays whole (the params' ``experts`` /
+``inner`` / ``mamba_heads`` axes, MLA's heads, ``kv_seq``): the report
+lists each such leaf under ``replicated_by_port`` with the bytes the rank
+holds and the reference's, and gives ``param_bytes`` (the rank's).
 
 The ``fake`` backend comes from ``torch.testing._internal.distributed.
 fake_pg`` (the one torch ships; internal API).  ``--device`` defaults to
@@ -127,7 +135,7 @@ def tree_bytes(tree) -> int:
 
 def fake_params(defs, cfg, device: str):
     """Fake parameter leaves from a definition tree (call inside a
-    ``FakeTensorMode``): each ``P`` at its shape and dtype."""
+    ``FakeTensorMode``): each ``P`` at its shape and dtype, whole."""
     import torch
 
     from repro_torch.models.common import _DTYPES
@@ -216,9 +224,11 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
     rank tensor when it is made), under the cell's placement; its inputs
     are :func:`build_args`' blocks.  The train step is the reference dry
     run's: the mean loss and gradients over every rank's rows, then the
-    ZeRO-1 update (``adamw.update(shards=)``) unless ``zero1`` is false.
-    The decode step gathers its logits over the rows, as the reference's
-    ``out_shardings=(None, cache_sh)`` replicates them."""
+    ZeRO-1 update (``adamw.update(shards=)``, its layout from the global
+    parameter shapes) unless ``zero1`` is false, the gradient norm summing
+    placed parameter leaves over ``model`` (``adamw.Placed``).  The decode
+    step gathers its logits over the rows and the vocab, as the
+    reference's ``out_shardings=(None, cache_sh)`` replicates them."""
     import torch
 
     from repro_torch.models.common import axes_tree, engine_from_model_config
@@ -255,9 +265,13 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
             return make_dp_train_step(loss_fn, opt_cfg, mesh, compress_grads=dp_compress)
         from repro_torch.runtime.train_loop import build_train_step
 
+        defs = arch.param_defs(cfg)
+
         def train_step(params, opt_state, batch):
-            shards = adamw.zero1(params, axes_tree(arch.param_defs(cfg)), mesh, cfg.logical_rules) if zero1 else None
-            return build_train_step(loss_fn, opt_cfg, zero1=shards)(params, opt_state, batch)
+            shards = adamw.zero1(defs, axes_tree(defs), mesh, cfg.logical_rules) if zero1 else None
+            placed = adamw.Placed(shd.placed_leaf_parts(defs, axes_tree(defs), cfg.logical_rules), mesh) \
+                if arch.places_params(cfg) else None
+            return build_train_step(loss_fn, opt_cfg, zero1=shards, placed=placed)(params, opt_state, batch)
 
         return scoped(train_step)
     if shape.kind == "prefill":
@@ -270,26 +284,27 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
     def serve_step(p, t, c):
         with torch.no_grad():
             logits, cache = arch.decode(p, t, c, cfg)
-            return shd.gather_tree(logits, ("batch", None, None)), cache
+            return shd.gather_tree(logits, ("batch", None, "vocab")), cache
 
     return scoped(serve_step)
 
 
 def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False, zero1: bool = True) -> tuple:
     """The fake inputs of one cell's step (call inside a
-    ``FakeTensorMode``), this rank's blocks: parameters, and the optimizer
-    state (ZeRO-1 moments unless ``zero1`` is false) and batch rows, the
-    batch rows, or the token and cache rows and KV heads.  The DP step
-    (``dp_shardmap``) takes the global batch and replicated moments, as the
-    reference's ``shard_map`` step does."""
+    ``FakeTensorMode``), this rank's blocks: parameters (placed by their
+    ``param_axes`` for the dense GQA decoders), and the optimizer state
+    (ZeRO-1 moments unless ``zero1`` is false) and batch rows, the batch
+    rows, or the token and cache rows and KV heads.  The DP step
+    (``dp_shardmap``) takes whole parameters, the global batch and
+    replicated moments, as the reference's ``shard_map`` step does."""
     from repro_torch.models.common import axes_tree
     from repro_torch.optim import adamw
 
-    params = fake_params(arch.param_defs(cfg), cfg, device)
-    placed = None if dp_shardmap else mesh
+    placed = None if dp_shardmap and shape.kind == "train" else mesh
+    params = materialize(arch.param_specs(cfg, shape, placed)[0], device)
     if shape.kind == "train":
-        shards = adamw.zero1(params, axes_tree(arch.param_defs(cfg)), mesh, cfg.logical_rules) \
-            if zero1 and not dp_shardmap else None
+        defs = arch.param_defs(cfg)
+        shards = adamw.zero1(defs, axes_tree(defs), mesh, cfg.logical_rules) if zero1 and not dp_shardmap else None
         return (params, adamw.init(params, shards),
                 materialize(arch.train_batch_spec(cfg, shape, mesh=placed)[0], device))
     if shape.kind == "prefill":
@@ -301,9 +316,10 @@ def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False
 
 def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero1: bool = True) -> list:
     """``sharding.replicated_by_port`` over the cell's argument leaves: the
-    parameters (the port places none of their axes), the moments of a train
-    step (placed along ``zero1`` only), and the batch, token and cache
-    (placed along the cell's placed names)."""
+    parameters (placed along the cell's placed names for the dense GQA
+    decoders, along none elsewhere), the moments of a train step (placed
+    along ``zero1`` only), and the batch, token and cache (placed along the
+    cell's placed names)."""
     from repro_torch._tree import tree_items
     from repro_torch.models.common import _DTYPES, axes_tree
     from repro_torch.runtime import sharding as shd
@@ -312,10 +328,11 @@ def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero
     defs = arch.param_defs(cfg)
     pdefs = tree_items(defs)
     paxes = shd._axes_items(axes_tree(defs), pdefs)
-    groups = [({f"params/{k}": (p.shape, paxes[k], (_DTYPES[p.dtype] if p.dtype else cfg.param_dtype).itemsize)
-                for k, p in pdefs.items()}, ())]
     dp_step = dp_shardmap and shape.kind == "train"
     names = () if dp_step else tuple(shd.placed_parts(arch.placement_sizes(cfg, shape), mesh, rules))
+    pnames = names if arch.places_params(cfg) else ()
+    groups = [({f"params/{k}": (p.shape, paxes[k], (_DTYPES[p.dtype] if p.dtype else cfg.param_dtype).itemsize)
+                for k, p in pdefs.items()}, pnames)]
     if shape.kind == "train":
         spec, axes = arch.train_batch_spec(cfg, shape)
         if zero1 and not dp_step:
@@ -324,7 +341,7 @@ def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero
         else:
             maxes = paxes
         for m in ("mu", "nu"):
-            groups.append(({f"opt/{m}/{k}": (p.shape, maxes[k], 4) for k, p in pdefs.items()}, ("zero1",)))
+            groups.append(({f"opt/{m}/{k}": (p.shape, maxes[k], 4) for k, p in pdefs.items()}, ("zero1",) + pnames))
     elif shape.kind == "prefill":
         spec, axes = arch.prefill_batch_spec(cfg, shape)
     else:

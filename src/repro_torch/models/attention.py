@@ -16,11 +16,15 @@ KV cache as int8 with one f32 scale per (token, KV head) on the one-shot
 and paged paths.
 
 Under a placement of the KV heads over ``model``
-(:func:`repro_torch.runtime.sharding.placement`, prefill and decode) the
-GQA functions keep this rank's KV heads and the q heads that read them
-(:func:`_local_heads`), their dense caches hold those heads, and
-``attn.wo`` takes the local heads as its K block (``dense(k_local=
-"heads")``).  MLA keeps its heads whole; its caches are placed by rows.
+(:func:`repro_torch.runtime.sharding.placement`: prefill and decode, and
+for the dense family training) the GQA functions compute only this rank's
+KV heads and the q heads that read them: ``attn.wq`` / ``wk`` / ``wv``
+(or a fused ``wqkv``) are column-parallel over the heads (``dense(columns=
+...)``, on the weights' blocks where the parameters are placed, else on the
+rank's columns of whole weights), so no computed column is thrown away.
+The dense caches hold those heads, and ``attn.wo`` takes the local heads as
+its K block (``dense(k_local="heads")``).  MLA keeps its heads whole; its
+caches are placed by rows.
 """
 
 from __future__ import annotations
@@ -31,7 +35,6 @@ import torch
 
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def, with_logical
-from repro_torch.runtime.sharding import block
 from repro_torch.serving import kv_cache as kvc
 
 NEG = -1e30
@@ -132,38 +135,39 @@ def chunked_attention(
     return out.transpose(1, 2).to(q.dtype)  # (B, Tq, H, hdv)
 
 
-def _local_heads(q: Optional[torch.Tensor], *kv: torch.Tensor):
-    """``(q, *kv)`` (heads on dimension 2) cut to this rank's block of the
-    placed KV heads and the contiguous block of q heads that reads them
-    (q head ``h`` reads KV head ``h // n_rep``, and the placement cuts both
-    into the same number of blocks); as they are where heads are not
-    placed.  ``q`` may be ``None`` (cross-attention's memory K/V)."""
-    kb = block("kv_heads")
-    if kb is None:
-        return (q, *kv)
-    qh = None if q is None else block("heads").take(q, 2)
-    return (qh, *(kb.take(t, 2) for t in kv))
-
-
-def _split_heads(x: torch.Tensor, n: int) -> torch.Tensor:
+def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
+    """``(B, T, n * hd)`` as ``(B, T, n, hd)``: ``n`` the heads the columns
+    hold (this rank's under a placement of the heads)."""
     b, t, _ = x.shape
-    return x.reshape(b, t, n, -1)
+    return x.reshape(b, t, -1, hd)
+
+
+def _q_columns(cfg: ModelConfig):
+    return (("heads", cfg.n_q_heads * cfg.hd),)
+
+
+def _kv_columns(cfg: ModelConfig):
+    return (("kv_heads", cfg.num_kv_heads * cfg.hd),)
 
 
 def _qkv_proj(params, x, cfg: ModelConfig, *, layer=None):
     """Q/K/V projections, head-split, RoPE not yet applied: one GEMM at
     site "attn.wqkv" when the dict holds a fused ``wqkv`` bank (its output
-    columns split back here), else three.  Reference:
-    ``repro.models.attention:_qkv_proj``."""
+    columns split back here), else three; each column-parallel over the
+    heads where they are placed, so the heads are this rank's (q head ``h``
+    reads KV head ``h // n_rep``, and the placement cuts both into the same
+    number of blocks).  Reference: ``repro.models.attention:_qkv_proj``."""
     h, kv, hd = cfg.n_q_heads, cfg.num_kv_heads, cfg.hd
     if "wqkv" in params:
-        y = dense(params["wqkv"], x, cfg, site="attn.wqkv", layer=layer)
-        yq, yk, yv = torch.split(y, (h * hd, kv * hd, kv * hd), dim=-1)
+        y = dense(params["wqkv"], x, cfg, site="attn.wqkv", layer=layer,
+                  columns=_q_columns(cfg) + _kv_columns(cfg) * 2)
+        blocks = (h + 2 * kv) * hd // y.shape[-1]  # 1, or this rank's share of the columns
+        yq, yk, yv = torch.split(y, (h * hd // blocks, kv * hd // blocks, kv * hd // blocks), dim=-1)
     else:
-        yq = dense(params["wq"], x, cfg, site="attn.wq", layer=layer)
-        yk = dense(params["wk"], x, cfg, site="attn.wk", layer=layer)
-        yv = dense(params["wv"], x, cfg, site="attn.wv", layer=layer)
-    return _split_heads(yq, h), _split_heads(yk, kv), _split_heads(yv, kv)
+        yq = dense(params["wq"], x, cfg, site="attn.wq", layer=layer, columns=_q_columns(cfg))
+        yk = dense(params["wk"], x, cfg, site="attn.wk", layer=layer, columns=_kv_columns(cfg))
+        yv = dense(params["wv"], x, cfg, site="attn.wv", layer=layer, columns=_kv_columns(cfg))
+    return _split_heads(yq, hd), _split_heads(yk, hd), _split_heads(yv, hd)
 
 
 def _quantize_kv(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -228,7 +232,7 @@ def gqa_attention(
 ) -> torch.Tensor:
     """Full-sequence self-attention.  Reference:
     ``repro.models.attention:gqa_attention``."""
-    q, k, v = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
+    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     q = with_logical(q, ("batch", None, "heads", None))
@@ -246,7 +250,7 @@ def gqa_prefill(
     cache padded to ``max_seq`` rows (int8 with its scales under
     ``kv_cache_int8``).  Reference: ``repro.models.attention:gqa_prefill``."""
     b, t, _ = x.shape
-    q, k, v = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
+    q, k, v = _qkv_proj(params, x, cfg, layer=layer)
     q = apply_rope(q, positions, cfg.rope_theta)
     k = apply_rope(k, positions, cfg.rope_theta)
     out = _attend(q, k, v, cfg, causal=True)
@@ -276,7 +280,7 @@ def gqa_decode(
     h, kv = cfg.n_q_heads, cfg.num_kv_heads
     b = x.shape[0]
     pos = int(pos)
-    q, k1, v1 = _local_heads(*_qkv_proj(params, x, cfg, layer=layer))
+    q, k1, v1 = _qkv_proj(params, x, cfg, layer=layer)
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q = apply_rope(q, posv, cfg.rope_theta)
     k1 = apply_rope(k1, posv, cfg.rope_theta)
@@ -398,7 +402,7 @@ def cross_attention(
     chunked online softmax whatever ``attn_impl`` says, as in the
     reference.  Reference: ``repro.models.attention:cross_attention``."""
     b, t, _ = x.shape
-    q, = _local_heads(_split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer), cfg.n_q_heads))
+    q = _split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer, columns=_q_columns(cfg)), cfg.hd)
     k, v = memory_kv
     out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg))
     out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
@@ -412,10 +416,9 @@ def cross_kv(params, memory: torch.Tensor, cfg: ModelConfig, layer=None):
     ``attn.wk`` / ``attn.wv`` (in the memory's dtype: an f32 memory gives
     f32 K/V), this rank's KV heads where they are placed.  Reference:
     ``repro.models.attention:cross_kv``."""
-    kv = cfg.num_kv_heads
-    k = _split_heads(dense(params["wk"], memory, cfg, site="attn.wk", layer=layer), kv)
-    v = _split_heads(dense(params["wv"], memory, cfg, site="attn.wv", layer=layer), kv)
-    return _local_heads(None, k, v)[1:]
+    k = _split_heads(dense(params["wk"], memory, cfg, site="attn.wk", layer=layer, columns=_kv_columns(cfg)), cfg.hd)
+    v = _split_heads(dense(params["wv"], memory, cfg, site="attn.wv", layer=layer, columns=_kv_columns(cfg)), cfg.hd)
+    return k, v
 
 
 # ---------------------------------------------------------------------------

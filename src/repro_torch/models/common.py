@@ -297,6 +297,7 @@ def dense(
     activation: Optional[str] = None,
     prng_key: Any = None,
     k_local: Optional[str] = None,
+    columns: Optional[Tuple[Tuple[str, int], ...]] = None,
 ) -> torch.Tensor:
     """Linear layer; routes through the photonic engine when enabled.
     Reference: ``repro.models.common:dense``.  Bias and activation ride
@@ -311,15 +312,29 @@ def dense(
     ``N_local``, (site, layer, shard)-folded noise, an int32 all-reduce —
     bitwise the single-device path under an ideal channel.
 
-    ``k_local`` names the logical dimension (``"heads"``) whose placement
-    (:func:`repro_torch.runtime.sharding.placement`) cuts ``x``'s last
-    dimension: a tensor-parallel GEMM whose K shard is that block takes it
-    as it is; any other path gathers it first (counted in
+    ``k_local`` names the logical dimension (``"heads"``, ``"d_ff"``) whose
+    placement (:func:`repro_torch.runtime.sharding.placement`) cuts ``x``'s
+    last dimension: a tensor-parallel GEMM whose K shard is that block
+    takes it as it is (against the weight's K rows, or the rank's K rows
+    of a whole weight: row-parallel); the digital path on a placed weight
+    sums its partial products over the mesh axes
+    (:func:`~repro_torch.runtime.sharding.reduce_from_model`, then the
+    epilogue); any other path gathers ``x`` first (counted in
     ``contracts.HEAD_GATHERS``), so the values are the replicated
-    program's."""
+    program's.
+
+    ``columns`` lays out the weight's output columns as parts ``(logical
+    name, global width)`` (``(("heads", h * hd),)``; SwiGLU's ``wi``
+    ``(("d_ff", f), ("d_ff", f))``): where the placement cuts them
+    (:func:`~repro_torch.runtime.sharding.column_layout`) the GEMM is
+    column-parallel (:func:`repro_torch.photonic.sharded.column_matmul`)
+    and returns this rank's columns; ``params`` may hold them (a placed
+    weight) or the whole weight (``train(mesh=)``, whose parameters stay
+    whole).  A form that does not apply runs on whole columns (a placed
+    weight gathered first) and keeps this rank's."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
     from repro_torch.photonic import sharded as tp
-    from repro_torch.runtime.sharding import block, gather_block
+    from repro_torch.runtime.sharding import block, column_layout, gather_block, gather_rows, reduce_from_model
 
     if epilogue is not None:
         if activation is not None:
@@ -332,6 +347,24 @@ def dense(
     bias = params.get("b")
     ep = Epilogue(EpilogueSpec(bias=bias is not None, activation=activation), bias)
     eng = engine_from_model_config(cfg)
+    kw = dict(site=site, layer=layer, slicing=slicing, prng_key=prng_key)
+    layout = None if columns is None else column_layout(columns)
+    if layout is not None:
+        routed = eng
+        if routed is None and "w_scale" in params:
+            from repro_torch.photonic.engine import engine_for
+
+            routed = engine_for(DPUConfig(), cfg.photonic_backend)
+        if routed is not None and not routed.routes(site):
+            routed = None
+        y = tp.column_matmul(routed, layout, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep,
+                             slicing=slicing)
+        if y is not None:
+            return y
+        w = params["w"]
+        if isinstance(w, torch.Tensor) and w.shape[-1] != layout.total:
+            params = {k: layout.gather(v) for k, v in params.items()}
+        return layout.take(dense(params, x, cfg, epilogue=epilogue, activation=activation, **kw))
     kb = None if k_local is None else block(k_local)
     if kb is not None:
         y = tp.maybe_tp_matmul(
@@ -339,6 +372,12 @@ def dense(
         )
         if y is not None:
             return y
+        w = params["w"]
+        if isinstance(w, torch.Tensor) and w.shape[-2] == x.shape[-1]:  # the weight's K rows (placed)
+            if "w_scale" not in params and (eng is None or not eng.routes(site)):
+                # digital: the partial products summed over the K axes, then the epilogue
+                return _digital_epilogue(reduce_from_model(x @ w.to(x.dtype), kb.part), ep)
+            params = {**params, "w": gather_rows(w, kb)}
         x = gather_block(x, k_local, x.dim() - 1)
     y = tp.maybe_tp_matmul(
         eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing,
@@ -434,9 +473,31 @@ def embed_def(vocab: int, d: int) -> Dict[str, P]:
     return {"table": P((vocab, d), ("vocab", None), init="embed")}
 
 
+def _vocab_rows(table: torch.Tensor):
+    """The active placement's vocab :class:`~repro_torch.runtime.sharding.
+    Block` when ``table`` holds this rank's rows of it, else ``None``."""
+    from repro_torch.runtime.sharding import block
+
+    b = block("vocab")
+    return b if b is not None and table.shape[0] == b.local else None
+
+
 def embed(params, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """Reference: ``repro.models.common:embed``."""
-    return params["table"].to(cfg.compute_dtype)[ids]
+    """Reference: ``repro.models.common:embed``.  A table placed over the
+    vocab (this rank's rows, ``runtime.sharding.place_params``) is read by
+    a masked lookup, then an all-reduce SUM over its mesh axes in f32, exact
+    because one rank holds each row and the others add zeros."""
+    table = params["table"]
+    b = _vocab_rows(table)
+    if b is None:
+        return table.to(cfg.compute_dtype)[ids]
+    from repro_torch.runtime.sharding import reduce_from_model
+
+    local = ids - b.index * b.local
+    mine = (local >= 0) & (local < b.local)
+    rows = table.to(cfg.compute_dtype)[torch.where(mine, local, torch.zeros_like(local))].to(torch.float32)
+    rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
+    return reduce_from_model(rows, b.part, "vocab").to(cfg.compute_dtype)
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -447,7 +508,16 @@ def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     on how many rows run beside it: a BLAS folds a plain ``x @ w`` into
     one GEMM whose kernel, and so whose rounding, changes with the row
     count, and a rank holding its block of the rows (``runtime.sharding.
-    placement``) must get the replicated program's logits bit for bit."""
+    placement``) must get the replicated program's logits bit for bit.  A
+    table placed over the vocab gives this rank's vocab block of the
+    logits (the reference's ``vocab``-sharded head), its input's gradient
+    summed over the vocab's mesh axes (a column-parallel GEMM)."""
+    if "table" in params:
+        b = _vocab_rows(params["table"])
+        if b is not None:
+            from repro_torch.runtime.sharding import copy_to_model
+
+            x = copy_to_model(x, b.part)
     w = params["table"].to(x.dtype).T if "table" in params else params["w"].to(x.dtype)
     if x.dim() < 3:
         return x @ w
@@ -519,7 +589,17 @@ def softmax_cross_entropy(
     true_vocab: int,
 ) -> torch.Tensor:
     """Mean cross-entropy in f32, padded vocab columns masked to ``-1e30``.
-    Reference: ``repro.models.common:softmax_cross_entropy``."""
+    Reference: ``repro.models.common:softmax_cross_entropy``.  Under a
+    placement of the vocab, ``logits`` of this rank's vocab block are
+    vocab-parallel: the padded columns masked by their global index, the
+    row max a ``MAX`` all-reduce (a shift, no gradient), the sum of
+    ``exp`` a SUM all-reduce, the gold logit from the rank that holds its
+    column (a SUM of it and zeros)."""
+    from repro_torch.runtime.sharding import block
+
+    b = block("vocab")
+    if b is not None and logits.shape[-1] == b.local:
+        return _vocab_parallel_cross_entropy(logits, labels, true_vocab, b)
     v = logits.shape[-1]
     logits = logits.to(torch.float32)
     if v > true_vocab:
@@ -527,6 +607,24 @@ def softmax_cross_entropy(
         logits = torch.where(col < true_vocab, logits, torch.full((), -1e30, device=logits.device))
     lse = torch.logsumexp(logits, dim=-1)
     gold = torch.gather(logits, -1, labels[..., None].to(torch.int64))[..., 0]
+    return torch.mean(lse - gold)
+
+
+def _vocab_parallel_cross_entropy(logits, labels, true_vocab: int, b) -> torch.Tensor:
+    """:func:`softmax_cross_entropy` of this rank's vocab block ``b``."""
+    from repro_torch.runtime.sharding import max_over, reduce_from_model
+
+    v0 = b.index * b.local
+    logits = logits.to(torch.float32)
+    if b.size > true_vocab:
+        col = v0 + torch.arange(b.local, device=logits.device)
+        logits = torch.where(col < true_vocab, logits, torch.full((), -1e30, device=logits.device))
+    m = max_over(torch.amax(logits, dim=-1).detach(), b.part)
+    lse = torch.log(reduce_from_model(torch.sum(torch.exp(logits - m[..., None]), dim=-1), b.part, "vocab")) + m
+    local = labels.to(torch.int64) - v0
+    mine = (local >= 0) & (local < b.local)
+    gold = torch.gather(logits, -1, torch.where(mine, local, torch.zeros_like(local))[..., None])[..., 0]
+    gold = reduce_from_model(torch.where(mine, gold, torch.zeros((), device=gold.device)), b.part, "vocab")
     return torch.mean(lse - gold)
 
 

@@ -18,7 +18,7 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import P, ModelConfig, dense, qdense_def, with_logical
 from repro_torch.photonic import EpilogueSpec
-from repro_torch.runtime.sharding import mean_over_rows
+from repro_torch.runtime.sharding import block, mean_over_rows
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
@@ -34,17 +34,29 @@ def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
 def mlp(params, x: torch.Tensor, cfg: ModelConfig, layer=None, site="ffn") -> torch.Tensor:
     """Reference: ``repro.models.ffn:mlp``.  SwiGLU splits the GEMM output
     before gating, so its split and ``silu`` are digital; gelu rides the
-    fused epilogue."""
+    fused epilogue.
+
+    Under a placement of ``"d_ff"`` over ``model`` (the dense family's
+    placed parameters) ``wi`` is column-parallel and ``wo`` row-parallel
+    over ``d_ff``, and the hidden activation is this rank's block.
+    SwiGLU's ``wi`` is ``[u | g]`` on one ``d_ff``-named axis of width
+    ``2f``, so a contiguous block of it would give half the ranks only
+    ``u``: a rank holds its block of ``u`` and its block of ``g`` (the same
+    bytes a rank as the reference's spec; the reference's GSPMD reshards
+    the ``2f`` axis around the split instead), the two halves' columns at
+    global origins ``c0`` and ``f + c0``."""
+    placed = block("d_ff")
+    cols = None if placed is None else (("d_ff", placed.size),) * (2 if cfg.ffn_act == "swiglu" else 1)
     if cfg.ffn_act == "swiglu":
-        h = dense(params["wi"], x, cfg, site=f"{site}.wi", layer=layer)
+        h = dense(params["wi"], x, cfg, site=f"{site}.wi", layer=layer, columns=cols)
         u, g = torch.chunk(h, 2, dim=-1)
         h = u * F.silu(g)
     else:
         h = dense(
             params["wi"], x, cfg, site=f"{site}.wi", layer=layer,
-            epilogue=EpilogueSpec(activation="gelu"),
+            epilogue=EpilogueSpec(activation="gelu"), columns=cols,
         )
-    return dense(params["wo"], h, cfg, site=f"{site}.wo", layer=layer)
+    return dense(params["wo"], h, cfg, site=f"{site}.wo", layer=layer, k_local="d_ff")
 
 
 def moe_def(cfg: ModelConfig) -> Dict[str, Any]:

@@ -20,6 +20,13 @@ first: the one-shot cache (GQA ``(layers, batch, max_seq, kv, hd)``, MLA
 batchless ``pos``, the paged pool ``(layers, num_blocks, block_size, kv,
 hd)``.  Both are updated in place by decode (the reference returns new
 ones; the port saves the copy).
+
+Under a :func:`repro_torch.runtime.sharding.placement` of the dense
+family's parameters (``heads``, ``kv_heads``, ``d_ff``, ``vocab`` over
+``model``) every GEMM computes this rank's block: the embedding is a
+vocab-parallel lookup, the logits are this rank's vocab block (gathered by
+the caller where the reference replicates them), and the loss is
+vocab-parallel.
 """
 
 from __future__ import annotations
@@ -160,11 +167,14 @@ def _layer_pool(kv_pool: Dict[str, torch.Tensor], i: int) -> Dict[str, torch.Ten
 def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """Final norm and logits.  Reference: ``repro.models.lm:_paged_head``
     (the same tail closes ``lm_logits``, ``lm_prefill`` and ``lm_decode``).
-    The tied head is the digital ``x @ table.T``."""
+    The tied head is the digital ``x @ table.T``.  Under a placement of the
+    vocab the logits are this rank's vocab block: the tied head reads the
+    table's placed rows, the untied ``lm_head`` is column-parallel over the
+    vocab (and :func:`lm_loss` vocab-parallel)."""
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
     if cfg.tie_embeddings:
         return cm.unembed(params["embed"], x, cfg)
-    return cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    return cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
 
 
 def _ffn(p, x, cfg, idx):

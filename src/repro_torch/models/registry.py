@@ -128,16 +128,45 @@ class Arch:
         ]
 
     # ---- placement -------------------------------------------------------------
-    def placement_sizes(self, cfg: ModelConfig, shape: ShapeSpec) -> Dict[str, int]:
+    def places_params(self, cfg: ModelConfig) -> bool:
+        """Whether the port places this arch's parameters by their
+        ``param_axes`` (the dense GQA decoders; every other family holds
+        them whole)."""
+        return self.family == "dense" and not cfg.mla
+
+    def placement_sizes(self, cfg: ModelConfig, shape: ShapeSpec, *, params: bool = True) -> Dict[str, int]:
         """The global sizes of the logical names the port places for one
         step of ``shape`` (``repro_torch.runtime.sharding.placement``): the
         batch rows always; the q and KV heads in prefill and decode, for
         the families with GQA attention (MLA and the xLSTM stack keep their
-        heads whole)."""
+        heads whole), and in training for the dense GQA decoders; for
+        those, with ``params``, ``d_ff`` and ``vocab`` too, the step then
+        taking the parameters placed (``sharding.place_params``).
+        ``train(mesh=)`` asks for rows and heads only (``params=False``):
+        its parameters stay whole, as the reference's ``train()`` keeps
+        them."""
         sizes = {"batch": shape.global_batch}
-        if shape.kind != "train" and self.family != "ssm" and not cfg.mla:
+        dense = self.places_params(cfg)
+        if (shape.kind != "train" or dense) and self.family != "ssm" and not cfg.mla:
             sizes.update(heads=cfg.n_q_heads, kv_heads=cfg.num_kv_heads)
+        if dense and params:
+            sizes.update(d_ff=cfg.d_ff, vocab=cfg.n_vocab)
         return sizes
+
+    def param_specs(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):
+        """``(spec, axes)`` of the parameters; with ``mesh``, this rank's
+        blocks in a step of ``shape`` (the whole tree where the arch holds
+        its parameters whole).  Reference: the ``param_axes`` shardings of
+        ``repro.launch.dryrun``."""
+        from repro_torch._tree import tree_map
+        from repro_torch.models.common import _DTYPES, axes_tree
+
+        defs = self.param_defs(cfg)
+        spec = tree_map(lambda p: TensorSpec(p.shape, _DTYPES[p.dtype] if p.dtype else cfg.param_dtype), defs)
+        axes = axes_tree(defs)
+        if not self.places_params(cfg):
+            return spec, axes
+        return self._placed(cfg, shape, mesh, spec, axes), axes
 
     def _placed(self, cfg, shape, mesh, specs, axes):
         """``specs`` as this rank's blocks on ``mesh`` (unchanged without
@@ -226,7 +255,8 @@ def _zip_specs(specs, axes, fn):
         return fn(specs, axes)
     if isinstance(specs, dict):
         return {k: _zip_specs(v, axes[k], fn) for k, v in specs.items()}
-    return tuple(_zip_specs(v, a, fn) for v, a in zip(specs, axes))
+    out = [_zip_specs(v, a, fn) for v, a in zip(specs, axes)]
+    return out if isinstance(specs, list) else tuple(out)
 
 
 def _lm_loss(params, batch, cfg):

@@ -12,7 +12,7 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Dict, Optional
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -353,11 +353,15 @@ def analog_pass_psums(
     w_chunks: torch.Tensor,  # (G, N, C) int — one weight slice, chunked
     channel: ChannelModel,
     seed: stages.UInt,  # uint32 stream seed (stages.fold_seed output)
+    columns: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """One slice-pair optical pass through the full signal chain; int32
     per-chunk psums ``(R, G, C)``.  Reference:
     ``repro.noise.channel:analog_pass_psums`` (crosstalk -> filter ->
-    detector noise -> ADC, each stage one f32 op as there)."""
+    detector noise -> ADC, each stage one f32 op as there).  ``columns =
+    (origin, total)``: ``w_chunks`` is the columns from ``origin`` of a
+    ``total``-column weight, and the noise counters are the whole ``(R, G,
+    total)`` array's."""
     dev = x_chunks.device
     xs = x_chunks.permute(1, 0, 2)  # (G, R, N)
     psum = int_dot(xs, w_chunks).permute(1, 0, 2)  # (R, G, C)
@@ -370,7 +374,13 @@ def analog_pass_psums(
         w_nb = stages.neighbor_sum(w_chunks, axis=1)
         cw = int_dot(xs, w_nb).permute(1, 0, 2).to(torch.float32)
         a = a + stages.f32(channel.crossweight_eps, dev) * cw
-    return apply_channel_psum(a, channel, seed, differentiable=False)
+    ctr = None
+    if columns is not None:
+        r, g, c = a.shape
+        origin, total = columns
+        rg = torch.arange(r * g, dtype=torch.int64, device=dev).reshape(r, g, 1)
+        ctr = rg * total + origin + torch.arange(c, dtype=torch.int64, device=dev)
+    return apply_channel_psum(a, channel, seed, differentiable=False, ctr=ctr)
 
 
 def apply_channel_psum(
@@ -379,13 +389,15 @@ def apply_channel_psum(
     seed: stages.UInt,
     *,
     differentiable: bool = True,
+    ctr: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The post-accumulation stages alone (filter -> detector noise -> ADC)
     on a float psum array: differentiable by default (the ADC rounds
-    straight through), the int32 ADC output with ``differentiable=False``.
+    straight through), the int32 ADC output with ``differentiable=False``;
+    ``ctr``: the noise's element counters (default the row-major index).
     Reference: ``repro.noise.channel:apply_channel_psum``."""
     if channel.filter_alpha > 0.0:
         a = stages.filter_truncation(a, channel.filter_alpha)
     if channel.detector_sigma_lsb > 0.0:
-        a = stages.detector_noise(a, channel.detector_sigma_lsb, seed)
+        a = stages.detector_noise(a, channel.detector_sigma_lsb, seed, ctr)
     return stages.adc_quantize(a, channel.adc_bits, differentiable=differentiable)

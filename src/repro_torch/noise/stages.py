@@ -200,12 +200,16 @@ def filter_truncation(a: torch.Tensor, alpha: float) -> torch.Tensor:
     return a * f32(1.0 - alpha, a.device)
 
 
-def detector_noise(a: torch.Tensor, sigma: float, base: UInt) -> torch.Tensor:
+def detector_noise(a: torch.Tensor, sigma: float, base: UInt, ctr: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Additive detector noise, ``sigma`` psum LSBs of the counter-based
-    normal stream ``base`` over ``a``'s row-major index.  The draw does not
-    depend on ``a``, so the gradient passes through exactly.  Reference:
+    normal stream ``base`` over ``a``'s row-major index (or the element
+    counters ``ctr``, broadcastable to ``a``).  The draw does not depend on
+    ``a``, so the gradient passes through exactly.  Reference:
     ``repro.noise.stages:detector_noise``."""
     if sigma <= 0.0:
         return a
-    z = gaussian_from_counter(base, tuple(a.shape), device=a.device)
+    if ctr is None:
+        z = gaussian_from_counter(base, tuple(a.shape), device=a.device)
+    else:
+        z = gaussian_from_ctr(base, ctr & U32)
     return a + f32(sigma, a.device) * z

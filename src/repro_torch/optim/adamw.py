@@ -13,6 +13,11 @@ the dimension ``zero1_axes`` names, and :func:`update` runs the
 elementwise step on the matching blocks of the gradient and parameter,
 then all-gathers the updated parameter over the data axes.  Given the same
 gradient it is bitwise the replicated update.
+
+Placed parameters (:class:`Placed`, the dry run's train step on the dense
+decoders' blocks): a leaf that is this rank's block contributes its
+squares to the gradient norm summed over the mesh axes it is placed over,
+a leaf held whole contributes them once.
 """
 
 from __future__ import annotations
@@ -72,11 +77,25 @@ class Zero1:
         return t.narrow(dim, local_block(self.part, self.mesh)[0] * n, n)
 
 
+@dataclasses.dataclass(frozen=True)
+class Placed:
+    """Which parameter leaves are this rank's blocks: ``parts`` is a tree
+    like the params of the comma-joined mesh axes each leaf is placed over
+    (``""``: held whole; ``sharding.placed_leaf_parts``) on ``mesh``."""
+
+    parts: Any
+    mesh: Any
+
+
 def zero1(params: Any, param_axes: Any, mesh, rules=None) -> Zero1:
     """The :class:`Zero1` layout of ``params`` on ``mesh``: moments by
     ``zero1_axes`` over the data degree, through :func:`opt_state_axes`,
     placed along their ``"zero1"`` dimension only (the port keeps the
-    params' own axes replicated).  Reference: the moment shardings of
+    params' own axes replicated).  ``params`` gives the *global* shapes
+    (tensors or definitions): a rank holding blocks of placed parameters
+    passes their definitions, so the axes are derived as the reference
+    derives them, and the block of each leaf splits along the same
+    (unplaced) dimension.  Reference: the moment shardings of
     ``repro.launch.dryrun``'s train step."""
     from repro_torch.runtime import sharding as shd
 
@@ -135,21 +154,37 @@ def schedule_lr(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * decay
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, placed: Optional[Placed] = None) -> torch.Tensor:
     """sqrt of the sum of squares of every leaf, in f32.  Reference:
-    ``repro.optim.adamw:global_norm``."""
-    return torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2) for x in tree_leaves(tree)))
+    ``repro.optim.adamw:global_norm``.  With ``placed``, a leaf that is
+    this rank's block adds its squares summed over the mesh axes it is
+    placed over (one SUM all-reduce for each set of axes)."""
+    if placed is None:
+        return torch.sqrt(sum(torch.sum(x.to(torch.float32) ** 2) for x in tree_leaves(tree)))
+    from repro_torch.runtime.sharding import all_reduce_over
+
+    whole, blocks = [], {}
+    for x, part in zip(tree_leaves(tree), tree_leaves(placed.parts)):
+        sq = torch.sum(x.to(torch.float32) ** 2)
+        (blocks.setdefault(part, []) if part else whole).append(sq)
+    total = sum(whole)
+    for part, sqs in blocks.items():
+        total = total + all_reduce_over(sum(sqs).reshape(1), tuple(part.split(",")), placed.mesh).reshape(())
+    return torch.sqrt(total)
 
 
 def update(
-    cfg: AdamWConfig, params: Any, grads: Any, state: OptState, *, shards: Optional[Zero1] = None
+    cfg: AdamWConfig, params: Any, grads: Any, state: OptState, *, shards: Optional[Zero1] = None,
+    placed: Optional[Placed] = None,
 ) -> Tuple[Any, OptState, dict]:
     """One AdamW step; returns ``(new_params, new_state, {"lr",
     "grad_norm"})``.  Reference: ``repro.optim.adamw:update``.  With
     ``shards`` the moments are this rank's blocks (module docstring): the
     norm is the whole gradient's, the step runs on the blocks, and each
-    updated block is all-gathered over ``shards.part``."""
-    gnorm = global_norm(grads)
+    updated block is all-gathered over ``shards.part``.  With ``placed``
+    the parameters it names are this rank's blocks, and the norm is still
+    the whole gradient's (:func:`global_norm`)."""
+    gnorm = global_norm(grads, placed)
     if cfg.clip_norm is not None:
         scale = torch.clamp(cfg.clip_norm / torch.clamp(gnorm, min=1e-9), max=1.0)
         grads = tree_map(lambda g: g * scale.to(g.dtype), grads)

@@ -401,6 +401,8 @@ class PhotonicEngine:
         slicing=None,
         pack=None,
         prng_key=None,
+        columns: Optional[Tuple[int, int]] = None,
+        w_word: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Integer GEMM through the DPU datapath; int32 ``(R, C)``, or f32
         with ``epilogue`` (the fused hot path; ``xq`` may then be a float
@@ -414,9 +416,20 @@ class PhotonicEngine:
         :class:`~repro_torch.photonic.packing.PackedDense` that ``wq``
         belongs to, whose precomputed content word (and, sliced, cached
         weight planes) the noise stream uses instead of hashing ``wq``.
-        Reference: ``repro.photonic.engine:PhotonicEngine.int_gemm``."""
+        Reference: ``repro.photonic.engine:PhotonicEngine.int_gemm``.
+
+        ``columns = (origin, total)`` makes ``wq`` the columns from
+        ``origin`` of a ``total``-column weight (a rank's column block under
+        a placement): every backend draws its columns' noise as the whole
+        weight's GEMM draws those columns, and ``w_word`` is then the whole
+        weight's content word (:func:`~repro_torch.noise.stages.
+        tweak_word`, summed over the blocks), which the stream folds in
+        place of ``wq``'s own.  A bit-sliced call takes no ``columns`` (its
+        planes' content words would be the whole weight's planes')."""
         mode = self.slicing if slicing is None else resolve_slicing(slicing)
         if mode is not None and self.backend != "exact":
+            if columns is not None:
+                raise ValueError("a bit-sliced GEMM runs on whole columns: columns= is not taken")
             return self._sliced_int_gemm(
                 mode, xq, wq, site=site, fold=fold, shard=shard, logical_kc=logical_kc,
                 tile_r=tile_r, tile_c=tile_c, epilogue=epilogue, pack=pack, prng_key=prng_key,
@@ -440,9 +453,10 @@ class PhotonicEngine:
             acc = exact_int_gemm(xq, wq[:k, :c])
             return acc if epilogue is None else _finish(acc, epilogue)
 
+        if pack is not None:
+            w_word = pack.w_word
         seed = (
-            self.stream_seed(site, fold, xq, wq, w_word=None if pack is None else pack.w_word,
-                             prng_key=prng_key, plane=plane, shard=shard)
+            self.stream_seed(site, fold, xq, wq, w_word=w_word, prng_key=prng_key, plane=plane, shard=shard)
             if noisy
             else None
         )
@@ -457,10 +471,12 @@ class PhotonicEngine:
                 adc_bits=adc_bits,
                 channel=channel,
                 seed=seed,
+                columns=columns,
             )
             return acc if epilogue is None else _finish(acc, epilogue)
 
         r = xq.shape[0]
+        c_origin = 0 if columns is None else int(columns[0])
         stages, (rp, kp, cp) = kernel_stages(
             cfg, r, k, c, tiling, tile_r=tile_r, tile_c=tile_c
         )
@@ -468,7 +484,7 @@ class PhotonicEngine:
         if tuple(wq.shape) != (kp, cp):
             wq = F.pad(wq[:k, :c], (0, cp - c, 0, kp - k)).contiguous()
         if epilogue is None:
-            return photonic_gemm(xp, wq, seed, rows=r, **stages)[:r, :c]
+            return photonic_gemm(xp, wq, seed, rows=r, c_origin=c_origin, **stages)[:r, :c]
         ws = F.pad(epilogue.w_scale.to(torch.float32).reshape(-1), (0, cp - c))
         bias = epilogue.bias
         if bias is not None:
@@ -483,6 +499,7 @@ class PhotonicEngine:
             operand_bits=cfg.operand_bits,
             activation=epilogue.spec.activation,
             rows=r,
+            c_origin=c_origin,
             **stages,
         )
         return out[:r, :c]
@@ -678,6 +695,8 @@ def _stream_gemm(
     prng_key=None,
     *,
     pack=None,
+    columns=None,
+    w_word=None,
 ):
     """One forward through the fused hot path.  Reference:
     ``repro.photonic.engine:_stream_gemm``: f32 activations defer their
@@ -688,7 +707,8 @@ def _stream_gemm(
     rows and the scale is the abs-max over every rank's
     (:func:`~repro_torch.runtime.sharding.activation_amax`); the noise
     tiles are then the local rows', as the tensor-parallel path draws
-    them."""
+    them.  ``columns`` / ``w_word`` go to :meth:`PhotonicEngine.int_gemm`
+    (``wq`` a column block of a wider weight)."""
     from repro_torch.runtime.sharding import activation_amax
 
     lead = x.shape[:-1]
@@ -709,6 +729,8 @@ def _stream_gemm(
         epilogue=EpilogueArgs(spec, sx, w_scale, bias),
         pack=pack,
         prng_key=prng_key,
+        columns=columns,
+        w_word=w_word,
     )
     return y.reshape(*lead, cols).to(x.dtype)
 

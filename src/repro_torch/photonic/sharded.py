@@ -53,6 +53,25 @@ again either, and the scale's ``MAX`` runs over ``model`` as well.  The
 backward of a placed operand gives this rank's rows' share of ``dw`` and
 ``db``, which the training step all-reduces over the data axes.
 
+Where the weight is placed too (``sharding.place_params``: ``heads``,
+``kv_heads``, ``d_ff``, ``vocab`` over ``model``), a routed GEMM takes one
+of the two forms of the reference's partitioning:
+
+* row-parallel (``attn.wo``, ``ffn.wo``: K placed): the K block above
+  against this rank's K rows of the weight, whose per-column scale is the
+  whole weight's (a ``MAX`` all-reduce of local column abs-maxima), the
+  int32 partials summed in the same ``psum_int_gemm``;
+* column-parallel (:func:`column_matmul`: ``wq`` / ``wk`` / ``wv``,
+  ``ffn.wi``, ``lm_head``, their columns placed): the rank holds its
+  column block whole in K and runs every K shard of the TP program
+  itself, each at its shard-local fan-in with shard ``s``'s stream and the
+  block's global column origin (``c_origin``; the noise ids and content
+  words are the whole weight's), summing the int32 partials locally (exact
+  in any order, no all-reduce).  Its columns are bitwise the TP program's.
+  It also takes the rank's columns of a whole weight (``train(mesh=)``,
+  whose parameters stay whole); the backward then gathers the output
+  gradient over ``model`` and is the replicated program's, bit for bit.
+
 Contracts (``tests/test_torch_sharded.py``, ``tests/test_torch_train_tp.py``):
 an ideal channel makes the K-sharded output bitwise the unsharded one, rows
 split or not; each shard's channel is ``build_channel_model`` at its
@@ -276,38 +295,82 @@ def _tp_int_gemm(eng, xl, wl, tp: TPContext, rows, **kw) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 # STE autograd wrappers
 # ---------------------------------------------------------------------------
+def _k_placed_grads(ctx, g, x, wf, bias):
+    """``(dx, g2, x2, db)`` of a routed GEMM whose operand is this rank's K
+    block (``ctx.k_block``): ``wf`` the f32 K rows of the weight that rank
+    holds (a placed weight: ``dx`` is this block's), or the whole weight,
+    whose ``dx`` is computed whole and cut to the block (so it is the
+    replicated program's bit for bit) and whose ``x2`` is gathered whole
+    over the K axes for ``dw``."""
+    kb, spec = ctx.k_block, ctx.spec
+    if spec.activation is not None:
+        raise NotImplementedError("a row-parallel GEMM takes no activation in its epilogue")
+    g2 = g.reshape(-1, g.shape[-1]).to(torch.float32)
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    db = None if bias is None else g2.sum(dim=0).to(bias.dtype)
+    if wf.shape[0] == x2.shape[1]:
+        return (g2 @ wf.T).reshape(x.shape).to(x.dtype), g2, x2, db
+    from repro_torch.runtime.sharding import all_gather_over
+
+    dx = dataclasses.replace(kb, size=wf.shape[0]).take(g2 @ wf.T, 1).reshape(x.shape).to(x.dtype)
+    return dx, g2, all_gather_over(x2, kb.part, ctx.tp.mesh, 1), db
+
+
 class _TPFloatMatmul(torch.autograd.Function):
     """A float weight K-sharded per call.  Reference:
     ``repro.photonic.sharded:_tp_float_matmul``: the weight quantized per
     column at its global abs-max, each rank's K block of both operands
     through :func:`psum_int_gemm`, the epilogue on the sum; the backward is
-    the dense straight-through one of the unsharded ``matmul_float``."""
+    the dense straight-through one of the unsharded ``matmul_float``.  With
+    ``k_block`` the operand is this rank's K block, and ``w`` the whole
+    weight or its K rows (a placed weight, whose per-column abs-max is
+    then all-reduced with ``MAX`` over the K axes)."""
 
     @staticmethod
     def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, x, w, bias):
-        ctx.spec, ctx.k_block = spec, k_block
+        ctx.spec, ctx.k_block, ctx.tp = spec, k_block, tp
         ctx.save_for_backward(x, w, bias)
         bits = eng.dpu.operand_bits
-        k, c = w.shape
         size, i = tp.size(), tp.rank()
-        k_local = k // size
+        placed = k_block is not None and w.shape[0] == x.shape[-1]
+        k_local = w.shape[0] if placed else w.shape[0] // size
+        c = w.shape[1]
         rows = _row_sharding(tp, x.numel() // x.shape[-1])
         xl, sx = _local_x(x, bits, i, k_local, rows, k_block)
-        wq, sw = quantize_symmetric(w, bits, axis=0)
-        wl = wq[i * k_local : (i + 1) * k_local].contiguous()
+        if placed:
+            wq, sw = quantize_symmetric(w, bits, axis=0, amax=_column_amax(w, k_block, tp))
+            wl = wq
+        else:
+            wq, sw = quantize_symmetric(w, bits, axis=0)
+            wl = wq[i * k_local : (i + 1) * k_local].contiguous()
         out = _tp_int_gemm(eng, xl, wl, tp, rows, site=site, fold=fold, prng_key=prng_key)
         y = apply_epilogue(out, sx, sw.to(torch.float32), bias, spec)
         return y.reshape(*x.shape[:-1], c).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.k_block is not None:
-            raise NotImplementedError("a K-placed operand (local heads) runs in prefill and decode only")
         x, w, bias = ctx.saved_tensors
         wf = w.to(torch.float32)
-        dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        if ctx.k_block is not None:
+            dx, g2, x2, db = _k_placed_grads(ctx, g, x, wf, bias)
+        else:
+            dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
         dw = (x2.T @ g2).to(w.dtype)
         return None, None, None, None, None, None, None, dx, dw, db
+
+
+def _column_amax(w: torch.Tensor, k_block, tp: TPContext) -> torch.Tensor:
+    """The per-column abs-max of a weight whose K rows this rank holds,
+    over every rank's rows (``MAX`` all-reduce over the K axes, exact), in
+    ``w``'s dtype and ``keepdim`` shape, as ``quantize_symmetric(axis=0)``
+    takes it.  Adds one to ``PARAM_REDUCES["weight_scale"]``."""
+    from repro_torch.analysis.contracts import PARAM_REDUCES
+    from repro_torch.runtime.sharding import all_reduce_over
+
+    amax = torch.amax(torch.abs(w), dim=0, keepdim=True).to(torch.float32)
+    all_reduce_over(amax, k_block.part, tp.mesh, dist.ReduceOp.MAX)
+    PARAM_REDUCES["weight_scale"] += 1
+    return amax.to(w.dtype)
 
 
 class _TPPackedMatmul(torch.autograd.Function):
@@ -324,10 +387,13 @@ class _TPPackedMatmul(torch.autograd.Function):
         ctx.spec, ctx.packed, ctx.tp, ctx.k_block = spec, packed, tp, k_block
         ctx.save_for_backward(x, w_scale, bias)
         size, i = tp.size(), tp.rank()
-        k_local = packed.k // size
+        # A K-placed operand against a bank of its K rows (a placed int8
+        # weight): the bank is this rank's block as it is.
+        placed = k_block is not None and packed.shards == 1 and packed.k == x.shape[-1]
+        k_local = packed.k if placed else packed.k // size
         rows = _row_sharding(tp, x.numel() // x.shape[-1])
         xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local, rows, k_block)
-        view = packed.local(i, size)
+        view = packed if placed else packed.local(i, size)
         out = _tp_int_gemm(
             eng, xl, view.wq, tp, rows, site=site, fold=fold, prng_key=prng_key,
             logical_kc=(k_local, packed.c), tiling=view.tiling, pack=view,
@@ -337,11 +403,12 @@ class _TPPackedMatmul(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        if ctx.k_block is not None:
-            raise NotImplementedError("a K-placed operand (local heads) runs in prefill and decode only")
         x, w_scale, bias = ctx.saved_tensors
         p, tp = ctx.packed, ctx.tp
         wf = p.dequant()
+        if ctx.k_block is not None:
+            dx, _, _, db = _k_placed_grads(ctx, g, x, wf, bias)
+            return None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
         if p.shard is not None:
             blocks = [torch.empty_like(wf) for _ in range(tp.size())]
             dist.all_gather(blocks, wf.contiguous(), group=tp.process_group())
@@ -393,17 +460,19 @@ def maybe_tp_matmul(
     if slicing is not None:
         engine = engine.with_slicing(slicing)
     w = params["w"]
+    # a weight of this rank's K rows (placed) counts as its whole K here
+    k_whole = size if k_block is not None and not isinstance(w, PackedDense) and w.shape[-2] == x.shape[-1] else 1
     if isinstance(w, PackedDense):
         packed = w
     elif "w_scale" in params:
         packed = PackedDense(w, params["w_scale"], w.shape[-2], w.shape[-1])
     elif getattr(cfg, "photonic_scope", "weights") == "weights":
-        if w.shape[0] % size:
+        if (w.shape[0] * k_whole) % size:
             return None
         return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, x, w, bias)
     else:
         return None
-    if packed.k % size:
+    if (packed.k * k_whole) % size:
         return None
     if packed.tiling is not None:
         # Tile-padded banks shard only in the layout they were packed for:
@@ -413,3 +482,144 @@ def maybe_tp_matmul(
     elif packed.shards not in (1, size):
         return None
     return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, packed, x, packed.w_scale, bias)
+
+
+# ---------------------------------------------------------------------------
+# Column-parallel GEMMs (a placed weight's columns)
+# ---------------------------------------------------------------------------
+def _shard_words(wq: torch.Tensor, shards: int, layout) -> torch.Tensor:
+    """The content word (``tweak_word``) of each of ``shards`` K blocks of
+    the whole weight, from this rank's columns ``wq``: the words add, so
+    the ranks' column words summed over ``layout.part`` (an exact int64
+    all-reduce) are the whole weight's, mod 2^32.  Adds one to
+    ``PARAM_REDUCES["weight_words"]``."""
+    from repro_torch.analysis.contracts import PARAM_REDUCES
+    from repro_torch.noise.stages import U32, tweak_words
+    from repro_torch.runtime.sharding import all_reduce_over
+
+    words = tweak_words(wq.reshape(shards, wq.shape[0] // shards, wq.shape[1]))
+    all_reduce_over(words, layout.part, layout.mesh)
+    PARAM_REDUCES["weight_words"] += 1
+    return words & U32
+
+
+def _column_passes(eng, tp, layout, x, wq, sw, bias, spec, site, fold, prng_key):
+    """The forward of :class:`_ColumnMatmul` on this rank's columns ``wq``
+    (int8, whole in K) and their scales: without a TP scope, the fused
+    stream of the single-device program at each segment's column origin;
+    under one, every K shard of the TP program (shard-local engine, shard
+    ``s``'s stream, the TP program's row blocks) at each segment's origin,
+    the int32 partials summed here, then the epilogue."""
+    from repro_torch.photonic.engine import _stream_gemm
+
+    k = wq.shape[0]
+    if tp is None:
+        words = _shard_words(wq, 1, layout)[0] if eng.noisy else None
+        biases = layout.split(bias) if bias is not None else [None] * len(layout.segments)
+        ys = [_stream_gemm(eng, site, spec, x, wseg, sseg, bseg, fold, prng_key, columns=(o, layout.total),
+                           w_word=words)
+              for (o, _), wseg, sseg, bseg in zip(layout.segments, layout.split(wq), layout.split(sw), biases)]
+        return torch.cat(ys, dim=-1) if len(ys) > 1 else ys[0]
+    size = tp.size()
+    k_local = k // size
+    local = shard_local_engine(eng, k_local)
+    rows = _row_sharding(tp, x.numel() // x.shape[-1])
+    xq, sx = _local_x(x, eng.dpu.operand_bits, 0, k, None, None)
+    blocks = [xq] if rows is None else list(xq.chunk(rows[2], dim=0))
+    words = _shard_words(wq, size, layout) if local.noisy else None
+    outs = []
+    for (o, _), wseg in zip(layout.segments, layout.split(wq)):
+        acc = None
+        for s in range(size):
+            ws = wseg[s * k_local : (s + 1) * k_local].contiguous()
+            part = torch.cat([
+                local.int_gemm(xb[:, s * k_local : (s + 1) * k_local].contiguous(), ws, site=site, fold=fold,
+                               shard=s, prng_key=prng_key, columns=(o, layout.total),
+                               w_word=None if words is None else words[s])
+                for xb in blocks], dim=0)
+            acc = part if acc is None else acc + part
+        outs.append(acc)
+    out = torch.cat(outs, dim=-1) if len(outs) > 1 else outs[0]
+    y = apply_epilogue(out, sx, sw.to(torch.float32), bias, spec)
+    return y.reshape(*x.shape[:-1], out.shape[-1]).to(x.dtype)
+
+
+class _ColumnMatmul(torch.autograd.Function):
+    """A column-parallel GEMM (:func:`column_matmul`), routed (``eng``) or
+    digital (``eng`` None: ``x @ w`` and the epilogue, as
+    ``_digital_reference`` spells it).  ``w`` is this rank's columns
+    (``whole`` false) or the whole weight, whose columns the forward takes;
+    float, or int8 with its per-column ``w_scale`` (frozen: no gradient,
+    zeros for the scale).  Backward, straight through: on a
+    placed weight ``dx`` from this rank's columns (summed over ``model`` by
+    the caller's ``copy_to_model``), ``dw`` and ``db`` its blocks; on a
+    whole one the output gradient gathered over ``model`` and the
+    replicated program's ``dx``, ``dw`` and ``db``."""
+
+    @staticmethod
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, layout, whole, x, w, w_scale, bias):
+        ctx.spec, ctx.layout, ctx.whole = spec, layout, whole
+        ctx.save_for_backward(x, w, w_scale, bias)
+        cols = layout.take if whole else (lambda t: t)
+        wb = cols(w)
+        if eng is None:
+            from repro_torch.photonic.engine import _digital_reference
+
+            wf = wb if w_scale is None else wb.to(torch.float32) * cols(w_scale).to(torch.float32)[None, :]
+            return _digital_reference(x, wf.to(x.dtype), None if bias is None else cols(bias), spec)
+        if w_scale is None:
+            wq, sw = quantize_symmetric(wb, eng.dpu.operand_bits, axis=0)
+            sw = sw.reshape(-1)
+        else:
+            wq, sw = wb, cols(w_scale)
+        return _column_passes(eng, tp, layout, x, wq.contiguous(), sw, None if bias is None else cols(bias), spec,
+                              site, fold, prng_key)
+
+    @staticmethod
+    def backward(ctx, g):
+        x, w, w_scale, bias = ctx.saved_tensors
+        wf = w.to(torch.float32) if w_scale is None else w.to(torch.float32) * w_scale.to(torch.float32)[None, :]
+        if ctx.whole:
+            g = ctx.layout.gather(g)
+        dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
+        dw = None if w_scale is not None else (x2.T @ g2).to(w.dtype)
+        dws = None if w_scale is None else torch.zeros_like(w_scale)
+        return None, None, None, None, None, None, None, None, dx, dw, dws, db
+
+
+def column_matmul(engine: Optional[PhotonicEngine], layout, params: dict, x: torch.Tensor, cfg, *, site=None,
+                  fold=None, prng_key=None, epilogue=None, slicing=None) -> Optional[torch.Tensor]:
+    """The column-parallel product for ``models.common.dense`` under a
+    placement of the weight's columns (``layout``, a
+    :class:`~repro_torch.runtime.sharding.ColumnLayout`): this rank's
+    output columns, routed through ``engine`` bitwise the TP program's (or,
+    without a TP scope, the single-device program's) — module docstring —
+    or digital with ``engine`` None.  ``params["w"]`` is this rank's
+    columns or the whole weight.  ``None`` when the form does not apply (a
+    prepacked bank, a bit-sliced engine, manual TP, a K the TP degree does
+    not divide, an int8 scope without ``w_scale``); the caller then runs
+    the GEMM on whole columns."""
+    w = params["w"]
+    if isinstance(w, PackedDense) or w.shape[-1] not in (layout.local, layout.total):
+        return None
+    w_scale = params.get("w_scale")
+    tp = None
+    if engine is not None:
+        if slicing is not None:
+            engine = engine.with_slicing(slicing)
+        if engine.slicing is not None:
+            return None
+        tp = current_tp()
+        if tp is not None and tp.size() <= 1:
+            tp = None
+        if tp is not None and (tp.manual or w.shape[0] % tp.size()):
+            return None
+        if w_scale is None and getattr(cfg, "photonic_scope", "weights") != "weights":
+            return None
+    spec, bias = as_epilogue(epilogue)
+    whole = w.shape[-1] == layout.total and layout.total != layout.local
+    if not whole:
+        from repro_torch.runtime.sharding import copy_to_model
+
+        x = copy_to_model(x, layout.part)
+    return _ColumnMatmul.apply(engine, site, spec, tp, fold, prng_key, layout, whole, x, w, w_scale, bias)

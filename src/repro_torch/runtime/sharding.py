@@ -22,18 +22,27 @@ still resolves the spec and records fallbacks exactly as the reference
 does.  Under a :func:`placement` a step's inputs are this rank's blocks
 (:func:`local_block`) along the logical dimensions the port places, the
 ones the reference's per-device program holds in blocks (``"batch"`` over
-the data axes; ``"heads"`` / ``"kv_heads"`` over ``model`` in prefill and
-decode): :func:`place_tree` cuts them from global tensors,
-:func:`gather_tree` rebuilds an output the reference replicates, and
-:func:`logical_constraint` raises on a placed dimension that does not have
-its block size.  Every other logical name stays replicated
-(:func:`replicated_by_port` lists them).
+the data axes; ``"heads"`` / ``"kv_heads"`` over ``model``, and for the
+dense GQA decoders ``"d_ff"`` / ``"vocab"`` over ``model``):
+:func:`place_tree` cuts them from global tensors, :func:`place_params`
+cuts a parameter tree by its ``param_axes``, :func:`gather_tree` rebuilds
+an output the reference replicates, and :func:`logical_constraint` raises
+on a placed dimension that does not have its block size.  Every other
+logical name stays replicated (:func:`replicated_by_port` lists them).
+
+A GEMM whose weight columns are placed runs column-parallel
+(:class:`ColumnLayout`: this rank computes its block of the output
+columns; the input's gradient meets in :func:`copy_to_model`'s backward
+all-reduce), and one whose K is placed runs row-parallel (its partial
+products meet in :func:`reduce_from_model`'s forward all-reduce), the two
+forms of the reference's GSPMD partitioning of a placed weight.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import math
 import threading
 from typing import Any, Dict, Optional, Sequence, Tuple, Union
@@ -327,7 +336,7 @@ def local_block(spec_part: Optional[AxisName], mesh) -> Tuple[int, int]:
 # Placement: this rank's blocks of the values the reference places
 # ---------------------------------------------------------------------------
 # The logical names the port places; every other name stays replicated.
-PLACED = ("batch", "heads", "kv_heads")
+PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab")
 
 
 def _names(part: AxisName) -> Tuple[str, ...]:
@@ -461,18 +470,176 @@ def all_gather_over(t, part: AxisName, mesh, dim: int):
     return t
 
 
-def gather_block(x, name: str, dim: int):
-    """``x``'s dimension ``dim``, this rank's block of the placed logical
-    ``name``, gathered into the global dimension.  Adds one to
-    ``ROW_GATHERS["outputs"]`` (rows) or ``HEAD_GATHERS["heads"]``."""
+@functools.lru_cache(maxsize=None)
+def _collectives():
+    """The autograd functions of the placed GEMMs' collectives (made at
+    first use: this module imports ``torch`` lazily)."""
+    from torch.autograd import Function
+
+    class Gather(Function):
+        """All-gather over ``part`` along ``dim``; the backward takes this
+        rank's block of the gradient (every rank computes the same
+        downstream values, so its block is the whole gradient's)."""
+
+        @staticmethod
+        def forward(ctx, x, b, mesh, dim):
+            ctx.b, ctx.dim = b, dim
+            return all_gather_over(x, b.part, mesh, dim)
+
+        @staticmethod
+        def backward(ctx, g):
+            return ctx.b.take(g, ctx.dim).contiguous(), None, None, None
+
+    class CopyToModel(Function):
+        """The column-parallel input: the identity forward; the backward
+        all-reduces the gradient (each rank's, from its columns alone) with
+        SUM over ``part``."""
+
+        @staticmethod
+        def forward(ctx, x, part, mesh):
+            ctx.part, ctx.mesh = part, mesh
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            from repro_torch.analysis import contracts
+
+            g = all_reduce_over(g.contiguous().clone(), ctx.part, ctx.mesh)
+            contracts.PARAM_REDUCES["column_input"] += 1
+            return g, None, None
+
+    class ReduceFromModel(Function):
+        """The row-parallel output: partial sums all-reduced with SUM over
+        ``part`` in the forward; the identity backward (every rank's share
+        of the sum takes the whole gradient)."""
+
+        @staticmethod
+        def forward(ctx, x, part, mesh, what):
+            from repro_torch.analysis import contracts
+
+            out = all_reduce_over(x.contiguous().clone(), part, mesh)
+            contracts.PARAM_REDUCES[what] += 1
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return g, None, None, None
+
+    return Gather, CopyToModel, ReduceFromModel
+
+
+def copy_to_model(x, part: AxisName):
+    """``x`` as a column-parallel GEMM's input over the mesh axes ``part``:
+    unchanged, its gradient all-reduced with SUM over ``part`` in the
+    backward (one ``PARAM_REDUCES["column_input"]`` each)."""
+    return _collectives()[1].apply(x, part, _CTX.placement.mesh)
+
+
+def reduce_from_model(x, part: AxisName, what: str = "row_output"):
+    """``x``, this rank's partial sum, all-reduced with SUM over ``part``
+    (one ``PARAM_REDUCES[what]``): a row-parallel GEMM's output
+    (``"row_output"``) or a vocab-parallel lookup or loss term
+    (``"vocab"``); the gradient passes through unchanged."""
+    return _collectives()[2].apply(x, part, _CTX.placement.mesh, what)
+
+
+def max_over(t, part: AxisName):
+    """A copy of ``t`` all-reduced with ``MAX`` over ``part`` (no
+    gradient); one ``PARAM_REDUCES["vocab"]``."""
+    import torch.distributed as dist
+
     from repro_torch.analysis import contracts
 
-    out = all_gather_over(x, block(name).part, _CTX.placement.mesh, dim)
-    if name == "batch":
+    out = all_reduce_over(t.detach().contiguous().clone(), part, _CTX.placement.mesh, dist.ReduceOp.MAX)
+    contracts.PARAM_REDUCES["vocab"] += 1
+    return out
+
+
+def gather_block(x, name: str, dim: int):
+    """``x``'s dimension ``dim``, this rank's block of the placed logical
+    ``name``, gathered into the global dimension (differentiable: the
+    backward takes this rank's block).  Adds one to
+    ``ROW_GATHERS["outputs"]`` (rows, or the vocab of the logits) or
+    ``HEAD_GATHERS["heads"]``."""
+    from repro_torch.analysis import contracts
+
+    out = _gather(x, block(name), dim)
+    if name in ("batch", "vocab"):
         contracts.ROW_GATHERS["outputs"] += 1
     else:
         contracts.HEAD_GATHERS["heads"] += 1
     return out
+
+
+def _gather(x, b: Block, dim: int):
+    return _collectives()[0].apply(x, b, _CTX.placement.mesh, dim)
+
+
+def gather_rows(w, b: Block):
+    """A weight's K rows (this rank's block along ``b``'s mesh axes)
+    gathered into the whole weight, differentiably (the backward takes this
+    rank's rows), for a path that needs the weight whole."""
+    return _gather(w, dataclasses.replace(b, size=w.shape[0] * b.count), 0)
+
+
+@dataclasses.dataclass(frozen=True)
+class ColumnLayout:
+    """The output columns this rank computes of a GEMM whose weight's
+    columns are parts ``(logical name, global width)`` laid side by side,
+    each cut by its name's :class:`Block` (a SwiGLU ``wi`` is two
+    ``"d_ff"`` parts, ``[u | g]``; a fused ``wqkv`` is ``"heads"``,
+    ``"kv_heads"``, ``"kv_heads"``): ``segments`` are ``(global origin,
+    width)`` in local order, ``total`` the global width, ``part`` the mesh
+    axes every part's blocks lie over."""
+
+    segments: Tuple[Tuple[int, int], ...]
+    total: int
+    part: AxisName
+    mesh: Any
+
+    @property
+    def local(self) -> int:
+        return sum(w for _, w in self.segments)
+
+    def take(self, t, dim: int = -1):
+        """This rank's columns of a whole tensor along ``dim``."""
+        import torch
+
+        pieces = [t.narrow(dim, o, w) for o, w in self.segments]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+    def split(self, t, dim: int = -1) -> list:
+        """A tensor of this rank's columns cut into its segments."""
+        return list(t.split([w for _, w in self.segments], dim))
+
+    def gather(self, t, dim: int = -1):
+        """The whole tensor from every rank's columns along ``dim``: each
+        segment all-gathered over :attr:`part` (blocks in rank order),
+        the parts side by side."""
+        import torch
+
+        pieces = [all_gather_over(s, self.part, self.mesh, dim % t.dim()) for s in self.split(t, dim)]
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
+
+
+def column_layout(parts: Sequence[Tuple[str, int]]) -> Optional[ColumnLayout]:
+    """The :class:`ColumnLayout` of a weight whose columns are ``parts``
+    under the active placement, or ``None`` when not every part's name is
+    placed over the same mesh axes in as many blocks (the GEMM then runs on
+    whole columns)."""
+    blocks = [block(name) for name, _ in parts]
+    if not blocks or any(b is None for b in blocks):
+        return None
+    if len({(b.part, b.count, b.index) for b in blocks}) != 1:
+        return None
+    segments, start = [], 0
+    for (_, width), b in zip(parts, blocks):
+        if width % b.count:
+            return None
+        w = width // b.count
+        segments.append((start + b.index * w, w))
+        start += width
+    return ColumnLayout(tuple(segments), start, blocks[0].part, _CTX.placement.mesh)
 
 
 def activation_amax(x, k_block: Optional[Block] = None):
@@ -532,6 +699,68 @@ def _over_placed(tree: Any, axes: Any, fn) -> Any:
 def place_tree(tree: Any, axes: Any) -> Any:
     """This rank's blocks (copies) of a tree of global tensors."""
     return _over_placed(tree, axes, lambda t, name, d: block(name).take(t, d).contiguous().clone())
+
+
+def _param_block(b: Block, name: str, n: int) -> Tuple[Block, int]:
+    """``(the block of one part, parts)`` of a parameter dimension of ``n``
+    named ``name``, placed by ``b``: SwiGLU's ``wi`` is ``[u | g]`` on one
+    ``"d_ff"`` dimension of twice the placed width, and a rank holds its
+    block of each half; any other dimension is one part, cut in ``b.count``
+    blocks."""
+    halves = 2 if name == "d_ff" and n == 2 * b.size else 1
+    return dataclasses.replace(b, size=n // halves), halves
+
+
+def _param_parts(shape: Sequence[int], axes: Sequence[Optional[str]], rules=None) -> Dict[int, Tuple[str, Block]]:
+    """``{dim: (logical name, Block)}`` of a parameter leaf's dimensions the
+    active placement places: its name is placed and the leaf's own
+    :func:`resolve_spec` maps the dimension (one that does not divide falls
+    back to replication there, recorded, and stays whole)."""
+    pl = _CTX.placement
+    if pl is None or not any(name in pl.blocks for name in axes):
+        return {}
+    spec = resolve_spec(tuple(shape), tuple(axes), pl.mesh, rules)
+    return {d: (name, pl.blocks[name]) for d, name in enumerate(axes)
+            if name in pl.blocks and d < len(spec) and spec[d] is not None}
+
+
+def place_params(params: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = None) -> Any:
+    """This rank's blocks (copies) of a parameter tree of global tensors
+    along the placed logical names of its ``param_axes``, as the
+    reference's ``in_shardings`` hold them (:func:`_param_parts`;
+    SwiGLU's ``wi`` as :func:`_param_block` says).  Leaves that are not
+    tensors (a prepacked bank) stay whole.  Reference: the parameter
+    shardings of ``repro.launch.dryrun`` (``tree_shardings(mesh, params,
+    param_axes)``)."""
+    import torch
+
+    items = tree_items(params)
+    ax = _axes_items(axes, items)
+    out = []
+    for key, t in items.items():
+        if isinstance(t, torch.Tensor):
+            for d, (name, b) in _param_parts(t.shape, ax[key], rules).items():
+                pb, halves = _param_block(b, name, t.shape[d])
+                t = torch.cat([pb.take(h, d) for h in t.chunk(halves, d)], d) if halves > 1 else pb.take(t, d)
+            t = t.contiguous().clone()
+        out.append(t)
+    return tree_unflatten(params, out)
+
+
+def placed_leaf_parts(shapes: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = None) -> Any:
+    """For each leaf of a parameter tree (global ``.shape``s: tensors or
+    definitions), the mesh axes its block is placed over under the active
+    placement, comma-joined (``""`` for a leaf held whole): a placed leaf's
+    gradient norm sums over them (``adamw.Placed``)."""
+    items = tree_items(shapes)
+    ax = _axes_items(axes, items)
+    out = []
+    for key, s in items.items():
+        names: Tuple[str, ...] = ()
+        for _, (_, b) in _param_parts(s.shape, ax[key], rules).items():
+            names += tuple(a for a in _names(b.part) if a not in names)
+        out.append(",".join(names))
+    return tree_unflatten(shapes, out)
 
 
 def gather_tree(tree: Any, axes: Any) -> Any:

@@ -30,9 +30,19 @@ the one global batch (``make_global_batch(sharding=)``), the step runs on
 them, the loss it reports is the global mean (the ranks' means summed in
 one ``all_reduce`` and divided by their count, equal blocks) and the
 gradients are the global mean's, summed the same way before the update;
-``microbatches`` split the local rows.  Summed over ranks, the gradient is
-the replicated step's in another order, so a placed run is not bitwise the
-replicated one (``tests/test_torch_placement.py`` states the tolerance).
+``microbatches`` split the local rows.  For the dense GQA decoders the q
+and KV heads are placed over ``model`` as well, as the reference's
+``train()`` places its activations at its ``with_sharding_constraint``
+sites (``arch.placement_sizes(..., params=False)``): the attention runs on
+this rank's heads, ``attn.wq`` / ``wk`` / ``wv`` column-parallel and
+``attn.wo`` row-parallel on the rank's blocks of the whole weights, whose
+gradients come out whole on every rank (the column-parallel backward
+gathers its output gradient over ``model``; the row-parallel one its
+input); the parameters themselves stay whole, as the reference's
+``train()`` never places them (ROADMAP Queue 3 item 16).  Summed over
+ranks, the gradient is the replicated step's in another order, so a
+placed run is not bitwise the replicated one
+(``tests/test_torch_placement.py`` states the tolerance).
 ``place_rows=False`` runs the replicated program instead: every rank's
 batch is the one global batch, and the routed GEMMs split their rows over
 the data axes and gather them back, so the values are the unsharded
@@ -127,7 +137,8 @@ def _mean_over_rows(loss: torch.Tensor, grads: Any):
     return flat[at].to(loss.dtype), tree_unflatten(grads, out)
 
 
-def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches: int = 1, *, zero1=None):
+def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches: int = 1, *, zero1=None,
+                     placed=None):
     """``(params, opt_state, batch) -> (params, opt_state, metrics)``.
     Reference: ``repro.runtime.train_loop:build_train_step``: with
     ``microbatches > 1`` the batch splits on its leading axis, the f32
@@ -136,7 +147,11 @@ def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches
     the rows (module docstring) the batch is this rank's rows and the loss
     and gradients become the global mean's before the update; ``zero1``
     (:class:`~repro_torch.optim.adamw.Zero1`) runs the update on this
-    rank's block of each leaf (``adamw.update(shards=)``)."""
+    rank's block of each leaf (``adamw.update(shards=)``).  ``placed``
+    (:class:`~repro_torch.optim.adamw.Placed`) says which parameter leaves
+    are this rank's blocks (the dry run's step on placed parameters): each
+    block's gradient is its own, and the gradient norm sums the squares of
+    placed leaves over ``model`` and counts whole leaves once."""
 
     def step(params, opt_state, batch):
         if microbatches == 1:
@@ -151,7 +166,7 @@ def build_train_step(loss_fn: Callable, opt_cfg: adamw.AdamWConfig, microbatches
                     gsum = tree_map(torch.add, gsum, g)
             grads = tree_map(lambda g: g / microbatches, gsum)
         loss, grads = _mean_over_rows(loss, grads)
-        params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state, shards=zero1)
+        params, opt_state, metrics = adamw.update(opt_cfg, params, grads, opt_state, shards=zero1, placed=placed)
         metrics["loss"] = loss
         return params, opt_state, metrics
 
@@ -204,8 +219,8 @@ def train(
     otherwise), alone or as one rank of ``mesh`` (module docstring), with
     routed GEMMs K-sharded over ``tp_axis`` (a ``ValueError`` names an axis
     the mesh lacks; ``tp_axis`` without a mesh changes nothing, as in the
-    reference), the batch rows placed over the data axes unless
-    ``place_rows=False``.  Reference: ``repro.runtime.train_loop:train``.  Returns
+    reference), the batch rows (and, for the dense GQA decoders, the q and
+    KV heads) placed over the mesh unless ``place_rows=False``.  Reference: ``repro.runtime.train_loop:train``.  Returns
     the final params and optimizer state, the losses, the straggler events,
     the final step and whether the run was preempted, as the reference
     does, plus each step's seconds (``step_seconds``) and the seconds the
@@ -265,7 +280,10 @@ def train(
     if mesh is not None:
         scopes.enter_context(shd.use_rules(mesh))
         if place_rows:
-            scopes.enter_context(shd.placement(mesh, {"batch": data_cfg.global_batch}))
+            from repro_torch.models.registry import ShapeSpec
+
+            shape = ShapeSpec("train", data_cfg.seq_len, data_cfg.global_batch, "train")
+            scopes.enter_context(shd.placement(mesh, arch.placement_sizes(model_cfg, shape, params=False)))
             b = shd.block("batch")
             rows = None if b is None else shd.NamedSharding(mesh, (b.part,))
         if tp_axis is not None and photonic_engine is not None:

@@ -9,9 +9,10 @@ Held here:
   ``tests/test_dryrun_integration.py`` asserts), ``num_kv_heads_effective``
   and ``param_count`` those of the reference's
   ``param_defs(config.pad_for_mesh(16))``, ``argument_size_in_bytes`` the
-  sum of the rank's leaves (every parameter, its block of the token and
-  cache, 8 of the 128 rows and 1 of the 16 KV heads, and the 4-byte
-  position the decode reads on the host), the ladder identity exact, the
+  sum of the rank's leaves (its block of every parameter by its
+  ``param_axes``, its block of the token and cache, 8 of the 128 rows and
+  1 of the 16 KV heads, and the 4-byte position the decode reads on the
+  host), the reference's 1,677,959,972 B, the ladder identity exact, the
   peak within one 80 GB rank;
 * the ladder identity ``flops = sum(coeff x rung flops)`` exactly, in
   integers, for one arch of each family at its smoke config and a small
@@ -21,8 +22,9 @@ Held here:
   recompute) never runs there; the gap is exactly ``encoder_layers x`` that
   layer's backward, measured from two cells with a decoder;
 * without ``--device cpu`` and without a card, the dry run raises;
-* ``--no-zero1`` is accepted: the train step's moments are then
-  replicated, as they are ZeRO-1 blocks without it.
+* ``--no-zero1`` is accepted: the train step's moments are then the
+  rank's parameter blocks whole along ``zero1``, as they are ZeRO-1 blocks
+  without it.
 
 The zero-layer prefills the dry run's ``zero`` rung found broken are held
 in ``tests/test_torch_tooling.py``.
@@ -44,8 +46,10 @@ jax = pytest.importorskip("jax")
 from repro.models import registry as jreg  # noqa: E402
 from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.models import registry as treg  # noqa: E402
-from repro_torch.models.common import P, _DTYPES  # noqa: E402
+from repro_torch._tree import tree_items  # noqa: E402
+from repro_torch.models.common import P  # noqa: E402
 from repro_torch.models.registry import ShapeSpec  # noqa: E402
+from repro_torch.runtime import sharding as tshd  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -82,14 +86,15 @@ def test_decode_cell_on_a_fake_256_rank_mesh(tmp_path):
     jcfg = jarch.config.pad_for_mesh(16)
     assert cell["num_kv_heads_effective"] == jcfg.num_kv_heads
     assert cell["param_count"] == _ref_param_count(jarch.param_defs(jcfg))
-    # the rank's leaves: every parameter, and its rows and KV heads of the token and the cache
+    # the rank's leaves: its block of every parameter (heads, KV heads, d_ff and vocab over "model"),
+    # and its rows and KV heads of the token and the cache: the reference's arguments to the byte
     arch = treg.get("qwen2-0.5b")
     cfg = arch.config.pad_for_mesh(16)
-    want = sum(math.prod(p.shape) * (_DTYPES[p.dtype] if p.dtype else cfg.param_dtype).itemsize
-               for p in _leaves(arch.param_defs(cfg)))
+    blocks, _ = arch.param_specs(cfg, treg.SHAPES["decode_32k"], mesh=tshd.abstract_mesh((16, 16), ("data", "model")))
+    want = sum(s.nbytes for s in tree_items(blocks).values())
     (tok, _), (cache, _) = arch.decode_specs(cfg, treg.SHAPES["decode_32k"])
     want += tok.nbytes // 16 + sum(leaf.nbytes for leaf in cache["layers"].values()) // 256 + 4  # pos, on the host
-    assert cell["argument_size_in_bytes"] == want
+    assert cell["argument_size_in_bytes"] == want == 1677959972
     assert cell["ladder_identity_holds"] and cell["flops_per_device_exact"] == cell["flops_per_device"]
     assert cell["flops_per_device"] > 0 and cell["matmul_traffic_bytes"] > 0
     assert cell["fits_device"] is True  # 8 rows and 1 KV head of the 32k cache fit one 80 GB rank
@@ -144,5 +149,9 @@ def test_no_zero1_is_rejected(tmp_path):
     (path,) = tmp_path.iterdir()
     cell = json.loads(path.read_text())
     assert cell["ok"] and cell["zero1"] is False
-    assert cell["optimizer_state_bytes"] == 2 * 4 * cell["param_count"] + 4  # f32 mu and nu whole, the int32 step
+    # f32 mu and nu of the rank's parameter blocks (the embedding's vocab over "model"), the int32 step
+    arch = treg.get("qwen2-0.5b")
+    cfg = dataclasses.replace(arch.config.pad_for_mesh(16), num_layers=0)
+    blocks, _ = arch.param_specs(cfg, treg.SHAPES["train_4k"], mesh=tshd.abstract_mesh((16, 16), ("data", "model")))
+    assert cell["optimizer_state_bytes"] == 2 * 4 * sum(math.prod(s.shape) for s in tree_items(blocks).values()) + 4
 

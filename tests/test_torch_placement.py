@@ -17,8 +17,10 @@ dry run's train step.  Held here:
   ideal channel and under SMWA with its noise key (``noise_seed``), and on
   ideal bitwise TP = 1 (no mesh at all); the placed run gathers no GEMM's
   rows (``ROW_GATHERS["tp_rows"] == 0``), takes every routed GEMM's scale
-  from one ``MAX`` all-reduce and gathers only the logits; its cache leaves
-  hold 2 rows and 1 KV head.  With no engine (digital) the same holds, the
+  from one ``MAX`` all-reduce, runs ``attn.wq`` / ``wk`` / ``wv``
+  column-parallel on its heads' columns of the whole weights (no int32
+  all-reduce: half the replicated program's) and gathers only the logits;
+  its cache leaves hold 2 rows and 1 KV head.  With no engine (digital) the same holds, the
   heads gathered over "model" before each ``attn.wo``;
 * (b) for every batch, token, cache and moment leaf of the smoke configs of
   a dense, an MLA, two recurrent and the audio family, on the abstract
@@ -27,7 +29,9 @@ dry run's train step.  Held here:
   places, the port's block has the reference's shard size; along every
   other dimension the reference places, the port holds the whole dimension
   and the dry run's ``replicated_by_port`` names the leaf and the logical
-  name (``kv_seq`` at one row, the params' own axes on the moments);
+  name (``kv_seq`` at one row; the params' own axes on the moments of the
+  families that hold their parameters whole, the dense decoders' moments
+  being their parameter blocks);
 * (c) ``train(mesh=(2, 2), tp_axis="model")`` with placed rows, ideal
   channel, two steps: the losses within ``rtol=1e-5`` and every parameter
   within ``atol=1e-5`` of the replicated run (``place_rows=False``; the
@@ -41,8 +45,10 @@ dry run's train step.  Held here:
   same gradients bitwise the replicated update, the moments this rank's
   blocks of the replicated ones;
 * (e) a placed dry-run cell at smoke size on the fake 256-rank mesh reports
-  ``param_bytes`` and ``replicated_by_port``, its cache a rank 1/256 of the
-  global cache; ``--no-zero1`` gives replicated moments.
+  ``param_bytes`` (the rank's parameter blocks, heads, KV heads, ``d_ff``
+  and vocab over ``model``) and an empty ``replicated_by_port``, its cache
+  a rank 1/256 of the global cache; ``--no-zero1`` gives moments whole
+  along ``zero1``, as the reference's ``zero1=False`` holds them.
 """
 
 import dataclasses
@@ -102,7 +108,9 @@ def test_a_placed_step_gathers_no_gemm_rows(decode):
         for channel in ("ideal", "SMWA"):
             res = r[channel]
             assert res["replicated_counts"] == dict(psum=gemms, tp_rows=gemms, outputs=0, amax=0, heads=0)
-            assert res["placed_counts"] == dict(psum=gemms, tp_rows=0, outputs=1 + ranks.STEPS, amax=gemms, heads=0)
+            # wq / wk / wv column-parallel over the placed heads: only wo, ffn.wi, ffn.wo K-shard
+            assert res["placed_counts"] == dict(psum=gemms // 2, tp_rows=0, outputs=1 + ranks.STEPS, amax=gemms,
+                                                heads=0)
             data, model = r["coords"]
             assert res["blocks"] == {"batch": (("data",), data, 2, ranks.BATCH), "heads": ("model", model, 2, 8),
                                      "kv_heads": ("model", model, 2, 2)}
@@ -179,6 +187,7 @@ def test_local_blocks_are_the_references_shards(name, mesh_name):
         tshape = treg.ShapeSpec(f"{kind}{batch}", 64, batch, kind)
         jshape = jreg.ShapeSpec(f"{kind}{batch}", 64, batch, kind)
         placed = set(tshd.placed_parts(tarch.placement_sizes(cfg, tshape), tmesh))
+        param_names = placed if tarch.places_params(cfg) else set()
         gaps = {(g["leaf"].split("/", 1)[1], g["logical"]) for g in
                 dryrun.replicated_leaves(tarch, cfg, tshape, tmesh)}
         if kind == "decode":
@@ -208,9 +217,11 @@ def test_local_blocks_are_the_references_shards(name, mesh_name):
                        dryrun.replicated_leaves(tarch, cfg, tshape, tmesh) if g["leaf"].startswith("opt/mu/")}
         ref = [(tuple(p.shape), a) for p, a in zip(tree_items(defs).values(), _axes_list(moment_axes, defs))]
         glob = [(k, tuple(p.shape)) for k, p in tree_items(defs).items()]
+        # the moments are the rank's parameter blocks (the dense decoders' placed axes) split along zero1
+        blocks = tree_items(tarch.param_specs(cfg, tshape, mesh=tmesh)[0]).values()
         loc = [tuple(n // shards.count if d == dim else n for d, n in enumerate(p.shape))
-               for p, dim in zip(tree_items(defs).values(), tree_items(shards.dims).values())]
-        _check_leaves(f"{name} moments", ref, glob, loc, {"zero1"}, moment_gaps, sizes, jmesh)
+               for p, dim in zip(blocks, tree_items(shards.dims).values())]
+        _check_leaves(f"{name} moments", ref, glob, loc, {"zero1"} | param_names, moment_gaps, sizes, jmesh)
         split = any(dim is not None for dim in tree_items(shards.dims).values())
         assert shards.count == (dp if split else 1)
 
@@ -284,39 +295,47 @@ def _cell(kind, **kw):
                            shape=treg.ShapeSpec(f"smoke_{kind}", 16, 32, kind), **kw)
 
 
+PLACED_DENSE = {"batch": ["data"], "heads": "model", "kv_heads": "model", "d_ff": "model", "vocab": "model"}
+
+
+def _block_bytes(arch, cfg, kind):
+    """The bytes of this rank's parameter blocks on the (16, 16) mesh."""
+    shape = treg.ShapeSpec(f"smoke_{kind}", 16, 32, kind)
+    specs, _ = arch.param_specs(cfg, shape, mesh=tshd.abstract_mesh((16, 16), ("data", "model")))
+    return [s.nbytes for s in tree_items(specs).values()]
+
+
 def test_a_placed_decode_cell_reports_what_the_port_still_replicates():
     cell = _cell("decode")
-    assert cell["ok"] and cell["placed"] == {"batch": ["data"], "heads": "model", "kv_heads": "model"}
+    assert cell["ok"] and cell["placed"] == PLACED_DENSE
     arch = treg.get("qwen2-0.5b")
     cfg = _config().pad_for_mesh(16)
     (_, _), (cache, _) = arch.decode_specs(cfg, treg.ShapeSpec("s", 16, 32, "decode"))
     global_cache = sum(s.nbytes for s in tree_items(cache).values() if s.shape)
     assert cell["cache_bytes"] == global_cache // 256 + 4  # and the position, an int32 on the host
-    params = sum(math.prod(p.shape) * 4 for p in tree_items(arch.param_defs(cfg)).values())
-    assert cell["param_bytes"] == params
+    params = sum(_block_bytes(arch, cfg, "decode"))
+    whole = sum(math.prod(p.shape) * 4 for p in tree_items(arch.param_defs(cfg)).values())
+    assert cell["param_bytes"] == params and 16 * params < 1.1 * whole  # the norms stay whole
     assert cell["argument_size_in_bytes"] == params + cell["cache_bytes"] + 32 // 16 * 4
-    gaps = cell["replicated_by_port"]
-    assert {g["logical"] for g in gaps} == {"heads", "kv_heads", "d_ff", "vocab"}
-    assert all(g["leaf"].startswith("params/") and g["bytes"] == 16 * g["reference_bytes"] for g in gaps)
+    assert cell["replicated_by_port"] == [] and cell["replicated_by_port_bytes"] == {}  # the params are placed
     assert cell["fits_device"] and cell["sharding_fallbacks"] == []
 
 
 @pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "no_zero1"])
 def test_a_placed_train_cell_holds_zero1_moments_unless_asked_not_to(zero1):
     cell = _cell("train", zero1=zero1)
-    assert cell["ok"] and cell["zero1"] is zero1 and cell["placed"] == {"batch": ["data"]}
+    assert cell["ok"] and cell["zero1"] is zero1 and cell["placed"] == PLACED_DENSE
     arch = treg.get("qwen2-0.5b")
     cfg = _config().pad_for_mesh(16)
     defs = arch.param_defs(cfg)
     shards = adamw.zero1(defs, axes_tree(defs), tshd.abstract_mesh((16, 16), ("data", "model")))
-    whole = sum(math.prod(p.shape) * 4 for p in tree_items(defs).values())
+    blocks = _block_bytes(arch, cfg, "train")  # f32 parameters: a moment block has the parameter block's bytes
     if zero1:
-        want = sum(math.prod(p.shape) * 4 // (16 if d is not None else 1)
-                   for p, d in zip(tree_items(defs).values(), tree_items(shards.dims).values()))
-        assert want < whole
+        want = sum(n // (16 if d is not None else 1) for n, d in zip(blocks, tree_items(shards.dims).values()))
+        assert want < sum(blocks)
     else:
-        want = whole
+        want = sum(blocks)
     assert cell["optimizer_state_bytes"] == 2 * want + 4  # mu, nu and the int32 step
-    moment_gaps = [g for g in cell["replicated_by_port"] if g["leaf"].startswith("opt/")]
-    assert moment_gaps and all(g["bytes"] > g["reference_bytes"] for g in moment_gaps)
+    # the moments by the parameters' axes (and zero1, unless --no-zero1), as the reference's
+    assert cell["replicated_by_port"] == []
 
