@@ -420,7 +420,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    process (a'): the kernel at a global column origin
    (``PhotonicEngine.int_gemm(columns=, w_word=)``, ``COLUMN_BLOCKS``:
    qwen2-0.5b's ``attn.wq`` block of 448 columns from 448 and ``attn.wk``
-   block of 64 from 64, neither a multiple of ``tile_c``), ideal and SMWA
+   block of 64 from 64, neither a multiple of ``tile_c``; deepseek-v2-lite's
+   layer-0 ``ffn.wi`` halves, 5,472 columns from 5,472 and from 10,944, and
+   MLA ``attn.wq`` block of 1,536 from 1,536, at K = 2,048), ideal and SMWA
    under the key, ``fused`` 0 and 1, R = 4: each block's launch bitwise
    those columns of the whole weight's launch, and held to its twin.  Then
    a child process (``chip_smoke.py --phase placement``) that spawns four
@@ -451,14 +453,34 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    memory a rank printed; (b') the dry run's train step
    (``dryrun.build_step``: the parameters placed, ZeRO-1 moments) run for
    real at the same depth and data against the replicated step, with the
-   same gates.  Then in this process (c): the tooling phase's qwen2-0.5b x
-   decode_32k and x train_4k (ZeRO-1) cells, their arguments, temp, peak
-   and FLOPs a rank beside the reference's recorded decode cell
-   (``REFERENCE_DECODE_CELL``; the reference records no train_4k cell);
-   gates: the decode cell fits 80 GB, its cache a rank is the cache's
-   global bytes / 256, its arguments the reference's to the byte; both
-   cells hold nothing whole where the reference places it, and train_4k
-   fits 80 GB.
+   same gates; (d) the MoE decoders at full width (``PLACEMENT_MOE``:
+   deepseek-v2-lite at 3 of 27 layers, its dense layer 0 and two MoE
+   layers of 32 experts a rank, ideal and SMWA, expanded and absorbed
+   decode; phi3.5-moe at 2 of 32 layers, 8 experts a rank, ideal), a
+   prefill of ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT`` tokens and
+   ``PLACEMENT_MOE_STEPS`` decode steps, the replicated program against
+   everything placed (rows, heads, ``d_ff``, vocab and experts: the MoE
+   expert-parallel, its partial combines summed over "model"): every
+   routed GEMM of the placed run, called again on this rank's block of
+   the replicated program's input to it, bitwise this rank's block of its
+   output, ideal and SMWA (the first GEMM whose own input a digital op
+   upstream rounded otherwise is printed), ideal logits within 2^-5 of
+   their largest (the bf16 MoE bar: the combine sums in another order),
+   the reductions of a placed forward, parameter bytes a rank about half
+   the whole; two negative controls on deepseek-v2-lite expanded: one
+   rank's partial combine dropped fails the logits gate, every column
+   origin moved one block fails the SMWA replay; launches a forward,
+   all-reduces, parameter bytes, peak memory a rank and the SMWA logits'
+   distance from the ideal runs printed.  Then in this process (c): the tooling
+   phase's qwen2-0.5b x decode_32k and x train_4k (ZeRO-1) cells, their
+   arguments, temp, peak and FLOPs a rank beside the reference's recorded
+   decode cell (``REFERENCE_DECODE_CELL``; the reference records no
+   train_4k cell); gates: the decode cell fits 80 GB, its cache a rank is
+   the cache's global bytes / 256, its arguments the reference's to the
+   byte; both cells hold nothing whole where the reference places it, and
+   train_4k fits 80 GB; and the phi3.5-moe and deepseek-v2-lite x
+   decode_32k cells (``MOE_CELLS``): each fits 80 GB and holds nothing
+   whole where the reference places it.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -471,6 +493,7 @@ import contextlib
 import dataclasses
 import hashlib
 import json
+import math
 import os
 import shutil
 import statistics
@@ -616,6 +639,16 @@ TP_TRAIN_GRID_STEPS = 2
 # Phase 10 (placement): the four-rank decode's rows, prompt, cache and steps.
 PLACEMENT_ROWS, PLACEMENT_PROMPT, PLACEMENT_MAX_SEQ, PLACEMENT_STEPS = 4, 16, 32, 8
 PLACEMENT_TRAIN_STEPS = 2
+# Phase 10 (d): the MoE decoders at full width on the four ranks, cut in
+# depth (arch, layers, cases): deepseek-v2-lite's dense layer 0 and two MoE
+# layers (32 of 64 experts a rank), phi3.5-moe's first two layers (8 of 16
+# experts a rank); each case (label, channel, absorbed decode).
+PLACEMENT_MOE = [
+    ("deepseek-v2-lite-16b", 3, [("ideal", "ideal", False), ("SMWA", "SMWA", False),
+                                 ("ideal absorbed", "ideal", True), ("SMWA absorbed", "SMWA", True)]),
+    ("phi3.5-moe-42b-a6.6b", 2, [("ideal", "ideal", False)]),
+]
+PLACEMENT_MOE_STEPS = 4
 # The reference's qwen2-0.5b x decode_32k x single cell, as its
 # tests/test_dryrun_integration.py records it (results/dryrun/, not committed).
 REFERENCE_DECODE_CELL = dict(argument_size_in_bytes=1677959972, temp_size_in_bytes=4298902480,
@@ -2824,10 +2857,17 @@ def tp_train_child(phase7):
             launches)
 
 
-# Phase 10 (a'): qwen2-0.5b's column blocks on a 2-way "model" axis whose
-# global column origin is not a multiple of tile_c: attn.wq's second block
-# (448 columns from 448) and attn.wk's (64 from 64).  (site, K, C, origin, width)
-COLUMN_BLOCKS = [("attn.wq", 896, 896, 448, 448), ("attn.wk", 896, 128, 64, 64)]
+# Phase 10 (a'): column blocks of a 2-way "model" axis, each at its global
+# column origin: qwen2-0.5b's attn.wq second block (448 columns from 448)
+# and attn.wk's (64 from 64), neither origin a multiple of tile_c; and (d)'s
+# deepseek-v2-lite: layer 0's SwiGLU ffn.wi ([u | g], 2 x 10,944 columns),
+# rank 1's u block (5,472 from 5,472) and rank 0's g block (5,472 from
+# 10,944), and MLA's attn.wq second head block (8 heads x 192, 1,536 from
+# 1,536).  (model, site, K, C, origin, width)
+COLUMN_BLOCKS = [("qwen2-0.5b", "attn.wq", 896, 896, 448, 448), ("qwen2-0.5b", "attn.wk", 896, 128, 64, 64),
+                 ("deepseek-v2-lite-16b", "ffn.wi", 2048, 21888, 5472, 5472),
+                 ("deepseek-v2-lite-16b", "ffn.wi", 2048, 21888, 10944, 5472),
+                 ("deepseek-v2-lite-16b", "attn.wq", 2048, 3072, 1536, 1536)]
 
 
 def column_origin_rows(torch, K, chans, key, rows_out, card):
@@ -2854,7 +2894,7 @@ def column_origin_rows(torch, K, chans, key, rows_out, card):
     kernels = {0: "photonic_gemm", 1: "photonic_gemm_fused"}
     for name in ("ideal", "SMWA"):
         eng = E.PhotonicEngine(dpu=chans[name], backend="kernel")
-        for site, k, c, origin, width in COLUMN_BLOCKS:
+        for model, site, k, c, origin, width in COLUMN_BLOCKS:
             x = torch.randn(r, k, generator=gen, device=dev)
             w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
             ws = torch.rand(c, generator=gen, device=dev) * 1e-3 + 1e-3
@@ -2909,11 +2949,11 @@ def column_origin_rows(torch, K, chans, key, rows_out, card):
                 parts = bound_ms(r, k, width, 4 if fused else 1, passes, xdots, bool(fused), bool(fused), draws)
                 b_ms, b_by = bound_of([parts])
                 ok &= same and twin_ok
-                rows_out.append(dict(site=site, channel=name, fused=fused, R=r, K=k, C=c, origin=origin,
+                rows_out.append(dict(model=model, site=site, channel=name, fused=fused, R=r, K=k, C=c, origin=origin,
                                      width=width, same_as_whole=same, max_abs_err=err, twin_ok=twin_ok,
                                      ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms, bound_by=b_by,
                                      parts=parts))
-                log(f"  (a') {site} {name:5s} fused={fused}: columns [{origin}, {origin + width}) of {c} at "
+                log(f"  (a') {model} {site} {name:5s} fused={fused}: columns [{origin}, {origin + width}) of {c} at "
                     f"c_origin {origin}: bitwise the whole launch's {same}; against the twin max |d| {err} "
                     f"({'ok' if twin_ok else 'FAILED'}); kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, _int_mm "
                     f"{lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) [{card}]")
@@ -2930,15 +2970,19 @@ def _ulps(torch, got, want):
     return float(((got.float() - w).abs() / ulp).max())
 
 
-def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
-    """Phase 10 (a): a prefill and decode steps of ``cfg`` on ``mesh`` under
-    TP over "model"; ``place`` "heads": the rows and heads placed (the
-    parameters whole), "params": the rows, heads, ``d_ff`` and vocab
-    placed and the parameters cut to this rank's blocks
-    (``place_params``); the token blocks cut from the global ones, the
-    logits gathered.  Returns (the global logits of each call, the cache
-    leaves' shapes, seconds, the parameter bytes the rank held)."""
-    from repro_torch.models.common import axes_tree
+def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place, log=None, after=None):
+    """Phase 10 (a) and (d): a prefill and decode steps of ``cfg`` on
+    ``mesh`` under TP over "model"; ``place`` "heads": the rows and heads
+    placed (the parameters whole), "params": every name the arch places
+    (``placement_sizes``: the rows, heads, ``d_ff``, vocab, and experts)
+    and the parameters cut to this rank's blocks (``place_params``); the
+    token blocks cut from the global ones, the logits gathered.  ``log``
+    gets every GEMM of the forwards (``models.common.recording``) and a
+    ``None`` before each forward; ``after()`` runs last, in the run's
+    placement and TP scopes, untimed.  Returns (the global logits of each
+    call, the cache leaves' shapes, seconds, the parameter bytes the rank
+    held)."""
+    from repro_torch.models.common import axes_tree, recording
     from repro_torch.models.registry import ShapeSpec
     from repro_torch.photonic import sharded
     from repro_torch.runtime import sharding as shd
@@ -2959,21 +3003,27 @@ def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place):
             if place == "params":
                 params = shd.place_params(params, axes_tree(arch.param_defs(cfg)))
         held = sum(t.numel() * t.element_size() for t in _leaves(params))
-        with torch.no_grad():
+        mark = (lambda: None) if log is None else (lambda: log.append(None))
+        with torch.no_grad(), (contextlib.nullcontext() if log is None else recording(log)):
+            mark()
             logits, cache = arch.prefill(params, {"tokens": prompt}, cfg, PLACEMENT_MAX_SEQ)
             out = [logits]
             for t in steps:
+                mark()
                 logits, cache = arch.decode(params, shd.place_tree(t, tok_axes) if place else t, cache, cfg)
                 out.append(logits)
         if place:
             out = [shd.gather_tree(x, logit_axes) for x in out]
-    torch.cuda.synchronize()
-    return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, time.perf_counter() - t0, held
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if after is not None:
+            after()
+    return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, secs, held
 
 
 def placement_rank(rank, world, ckpt_dir):
-    """One rank of phase 10 (module docstring, (a) and (b)).  Returns this
-    rank's results and gates."""
+    """One rank of phase 10 (module docstring, (a), (b), (b') and (d)).
+    Returns this rank's results and gates."""
     import torch.distributed as dist
 
     torch, K, say = _tp_train_rank_setup(rank)
@@ -3098,6 +3148,9 @@ def placement_rank(rank, world, ckpt_dir):
     del runs, rep, placed
     torch.cuda.empty_cache()
     out["dry_train"] = _placement_dry_train(torch, K, arch, cfg, data, mesh, gates, say, card)
+    del data
+    torch.cuda.empty_cache()
+    out["moe"] = placement_moe(torch, K, mesh, gates, say, card)
     out["gates"] = gates
     for k, v in gates.items():
         say(f"{k}: {v}")
@@ -3181,9 +3234,253 @@ def _placement_dry_train(torch, K, arch, cfg, data, mesh, gates, say, card):
     return res
 
 
+def _replay_gemms(torch, rep_log, placed_log, cfg, shift=False):
+    """Phase 10 (d), in the placed run's scopes: every routed GEMM of the
+    placed run called again on this rank's block (rows, and K where it is
+    placed) of the replicated run's input to it, against this rank's rows
+    and columns of the replicated run's output.  The activation scale is a
+    ``MAX`` over every rank's block, a row-parallel GEMM sums every K block
+    and the noise ids are the whole weight's, so the GEMM gives the
+    replicated program's output bit for bit only if each of its forms
+    (column-parallel at its column origin, row-parallel, K-sharded) is
+    right, whatever the digital ops upstream rounded.  ``shift``: each
+    column segment's origin moved one block on (the negative control).
+    Returns (sites checked, bitwise count, mismatches as (forward, site,
+    layer, max |d|), the first GEMM whose own input differed from the
+    replicated program's as (forward, site, layer, max |d|))."""
+    from repro_torch.models.common import dense, engine_from_model_config
+    from repro_torch.runtime import sharding as shd
+
+    def mine(t, rows, segments=None, kb=None):
+        if rows is not None:
+            t = t.narrow(0, rows[0] * rows[1], rows[1])
+        if segments is not None:
+            t = torch.cat([t.narrow(-1, o, w) for o, w in segments], dim=-1)
+        if kb is not None:
+            n = t.shape[-1] // kb[1]
+            t = t.narrow(-1, kb[0] * n, n)
+        return t
+
+    if len(rep_log) != len(placed_log):
+        return [], 0, [("calls", len(rep_log), len(placed_log))], None
+    eng, layout_of = engine_from_model_config(cfg), shd.column_layout
+
+    def shifted(parts):
+        lay = layout_of(parts)
+        return lay if lay is None else dataclasses.replace(
+            lay, segments=tuple(((o + w) % lay.total, w) for o, w in lay.segments))
+
+    checked, same, bad, first, forward = set(), 0, [], None, -1
+    try:
+        if shift:
+            shd.column_layout = shifted
+        for rep, got in zip(rep_log, placed_log):
+            if rep is None or got is None:
+                forward += 1
+                if rep is not got:
+                    bad.append(("forward boundary", forward))
+                continue
+            if (rep.site, rep.layer) != (got.site, got.layer):
+                bad.append((forward, got.site, got.layer, "another call"))
+                continue
+            if not eng.routes(got.site):
+                continue
+            x = mine(rep.x, got.rows, kb=got.k_block)
+            if first is None and not (x.shape == got.x.shape and torch.equal(x, got.x)):
+                first = (forward, got.site, got.layer,
+                         float((x.float() - got.x.float()).abs().max()) if x.shape == got.x.shape else None)
+            with torch.no_grad():
+                y = dense(got.params, x, cfg, **got.kwargs)
+            want = mine(rep.y, got.rows, got.segments)
+            checked.add(f"{got.site}@{got.layer}")
+            if want.shape == y.shape and torch.equal(want, y):
+                same += 1
+            else:
+                bad.append((forward, got.site, got.layer,
+                            float((y.float() - want.float()).abs().max()) if want.shape == y.shape else None))
+    finally:
+        shd.column_layout = layout_of
+    return sorted(checked), same, bad, first
+
+
+def _moe_forward_counts(name, absorbed):
+    """Phase 10 (d): what one placed forward of ``PLACEMENT_MOE``'s cut
+    reduces (deepseek-v2-lite: 3 layers, the first dense; phi3.5-moe: 2 MoE
+    layers): psums of the row-parallel GEMMs and of ``wdkv`` (whole, K-sharded
+    as in the TP program), routed GEMMs (one scale ``MAX`` each), content
+    words of the noisy column-parallel GEMMs, weight-scale ``MAX``es of the
+    row-parallel ones, expert combines; for the prefill and for a decode step."""
+    if name.startswith("deepseek"):
+        # wq wdkv wuk wuv wo + (ffn.wi ffn.wo | shared wi wo) a layer, lm_head; absorbed decode: no wuk / wuv
+        routed, cols = 22, 13
+        return dict(psum=9, routed=(routed, routed - (6 if absorbed else 0)), cols=(cols, cols - (6 if absorbed else 0)),
+                    rows=6, moe=2)
+    return dict(psum=2, routed=(9, 9), cols=(7, 7), rows=2, moe=2)  # wq wk wv wo a layer, lm_head
+
+
+@contextlib.contextmanager
+def _dropped_combine(torch):
+    """Phase 10 (d)'s negative control: the expert-parallel MoE with the
+    partial combine of the ranks at "model" index 1 zeroed before the sum,
+    as a lost or skipped partial would leave it."""
+    from repro_torch.models import ffn
+    from repro_torch.runtime import sharding as shd
+
+    inner = ffn.reduce_from_model
+
+    def dropped(x, part, what="row_output"):
+        if what == "expert_combine" and shd.block("experts").index == 1:
+            x = torch.zeros_like(x)
+        return inner(x, part, what)
+
+    ffn.reduce_from_model = dropped
+    try:
+        yield
+    finally:
+        ffn.reduce_from_model = inner
+
+
+def placement_moe(torch, K, mesh, gates, say, card):
+    """Phase 10 (d): for each of ``PLACEMENT_MOE`` at full width (its depth
+    cut), a prefill of ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT`` tokens and
+    ``PLACEMENT_MOE_STEPS`` decode steps under TP over "model" on the kernel
+    backend, the replicated program (whole parameters, nothing placed)
+    against everything placed (rows, heads, ``d_ff``, vocab and experts;
+    ``place_params``).  Gates: every routed GEMM of the placed run, called
+    again on this rank's block of the replicated program's input to it,
+    gives this rank's block of its output bit for bit
+    (:func:`_replay_gemms`: the column-parallel, row-parallel and K-sharded
+    forms, ideal and SMWA; the first GEMM whose own input a digital op
+    upstream rounded otherwise is printed: on the card a batched product's
+    kernel follows its batch count, which placed rows and heads halve);
+    ideal: the logits within 2^-5 of their largest (the port's bf16 MoE
+    bar: the combine sums in another order); the placed run's reductions,
+    no GEMM row gathered, parameter bytes a rank about half the whole.
+    SMWA logits are not gated end to end: a GEMM whose int8 input moved
+    by one code draws another noise stream (its activation word is folded
+    into the seed), so the placed and replicated runs part after the first
+    such GEMM; their distance from their ideal runs is printed.  Negative
+    controls, on deepseek-v2-lite expanded: ideal, a placed run with one
+    rank's partial combine dropped (:func:`_dropped_combine`) must fail the
+    logits gate; SMWA, the replay with every column origin one block on
+    must fail the replay gate.  Returns the results."""
+    from repro_torch.analysis import contracts
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+
+    def rms(a, b):
+        return math.sqrt(sum(float(((x.float() - y.float()) ** 2).sum()) for x, y in zip(a, b))
+                         / sum(x.numel() for x in a))
+
+    def worst_of(a, b):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+    res = {}
+    for name, layers, cases in PLACEMENT_MOE:
+        arch = registry.get(name)
+        base = dataclasses.replace(arch.config, num_layers=layers).pad_for_mesh(2)
+        rng = np.random.default_rng(13)
+        prompt = torch.from_numpy(rng.integers(0, base.vocab_size, (PLACEMENT_ROWS, PLACEMENT_PROMPT))).cuda()
+        steps = torch.from_numpy(rng.integers(0, base.vocab_size, (PLACEMENT_MOE_STEPS, PLACEMENT_ROWS, 1))).cuda()
+        params = init_params(base, 0, "cuda", defs=arch.param_defs(base))
+        forwards = 1 + PLACEMENT_MOE_STEPS
+        ideal = {}
+        for label, channel, absorbed in cases:
+            cfg = dataclasses.replace(base, photonic=ideal_dpu() if channel == "ideal" else smwa_dpu(),
+                                      photonic_backend="kernel", mla_absorb=absorbed)
+            noisy = channel != "ideal"
+            control = name.startswith("deepseek") and not absorbed
+            runs = {}
+            for run, place in (("replicated", None), ("placed", "params")):
+                _reset_counts(torch, K)
+                log, snap = [], {}
+
+                def after(run=run, log=log, snap=snap):
+                    snap["counts"] = dict(_counts(K), outputs=contracts.ROW_GATHERS["outputs"],
+                                          amax=contracts.SCALE_REDUCTIONS["amax"],
+                                          heads=contracts.HEAD_GATHERS["heads"],
+                                          **{f"param_{k}": v for k, v in contracts.PARAM_REDUCES.items()})
+                    snap["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+                    if run == "placed":
+                        snap["replay"] = _replay_gemms(torch, runs["replicated"]["log"], log, cfg)
+                        if control and noisy:
+                            snap["shifted"] = _replay_gemms(torch, runs["replicated"]["log"], log, cfg, shift=True)
+
+                logits, cache, secs, held = _placement_decode(torch, arch, cfg, params, prompt, steps, mesh,
+                                                              place, log=log, after=after)
+                runs[run] = dict(logits=logits, log=log, seconds=secs, param_bytes=held, **snap)
+            rep, pp = runs["replicated"], runs["placed"]
+            checked, same, bad, first = pp["replay"]
+            worst = worst_of(rep["logits"], pp["logits"])
+            scale = max(float(a.float().abs().max()) for a in rep["logits"])
+            agree = float(sum(int((a.argmax(-1) == b.argmax(-1)).sum()) for a, b in zip(rep["logits"], pp["logits"]))
+                          / (forwards * PLACEMENT_ROWS))
+            finite = all(bool(torch.isfinite(x).all()) for x in pp["logits"])
+            fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in pp["logits"])).hexdigest()[:16]
+            want = _moe_forward_counts(name, absorbed)
+            c = pp["counts"]
+            routed = want["routed"][0] + PLACEMENT_MOE_STEPS * want["routed"][1]
+            cols = want["cols"][0] + PLACEMENT_MOE_STEPS * want["cols"][1]
+            got_counts = (c["photonic_gemm_fused"], c["all_reduces"], c["row_gathers"], c["amax"], c["outputs"],
+                          c["heads"], c["param_weight_words"], c["param_weight_scale"], c["param_expert_combine"])
+            want_counts = (0, want["psum"] * forwards, 0, routed, 2 * forwards, 0, cols if noisy else 0,
+                           want["rows"] * forwards, want["moe"] * forwards)
+            key = f"(d) {name} at {layers} layers, {label}"
+            control_res = None
+            if noisy:
+                ref = ideal[absorbed]
+                noise = (rms(pp["logits"], ref["placed"]), rms(rep["logits"], ref["replicated"]))
+                if control:
+                    s_checked, s_same, s_bad, _ = pp["shifted"]
+                    control_res = dict(shifted_same=s_same, shifted_bad=len(s_bad), shifted_first_bad=s_bad[:2])
+                    gates[f"{key}: negative control, every column origin one block on: the replay gate fails"] = (
+                        len(s_bad) > 0)
+            else:
+                ideal[absorbed] = dict(placed=pp["logits"], replicated=rep["logits"])
+                noise = None
+                gates[f"{key}: logits within 2^-5 of their largest of the replicated program's"] = (
+                    finite and worst <= 2.0**-5 * scale)
+                if control:
+                    with _dropped_combine(torch):
+                        dropped, _, _, _ = _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, "params")
+                    control_res = dict(dropped_worst=worst_of(rep["logits"], dropped))
+                    gates[f"{key}: negative control, one rank's partial combine dropped: the logits gate fails"] = (
+                        control_res["dropped_worst"] > 2.0**-5 * scale)
+            gates[f"{key}: every routed GEMM, replayed on the replicated program's input, bitwise its output"] = (
+                not bad and same > 0)
+            gates[f"{key}: fused launches, psums, row gathers, scale MAXes, gathers, content words, weight "
+                  f"scales, expert combines"] = got_counts == want_counts
+            gates[f"{key}: parameter bytes a rank about half the whole"] = 0.45 < pp["param_bytes"] / rep["param_bytes"] < 0.55
+            res[f"{name} {label}"] = dict(
+                max_abs=worst, scale=scale, argmax_agree=agree, noise_rms=noise, fingerprint=fp, gemms_checked=checked,
+                gemms_same=same, gemms_bad=bad[:8], first_input_difference=first, control=control_res, counts=c,
+                replicated_counts=rep["counts"], seconds=pp["seconds"], replicated_seconds=rep["seconds"],
+                param_bytes=pp["param_bytes"], replicated_param_bytes=rep["param_bytes"],
+                max_memory_allocated=pp["max_memory_allocated"],
+                replicated_max_memory_allocated=rep["max_memory_allocated"],
+                launches_a_forward=c["photonic_gemm"] / forwards)
+            say(f"{key}: prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} + {PLACEMENT_MOE_STEPS} decode steps, placed "
+                f"(rows, heads, d_ff, vocab, experts over model) against replicated: max |d logits| {worst:.4g} of "
+                f"{scale:.4g} (ideal bar 2^-5 x), greedy tokens agree {agree:.3f}, noise rms placed / replicated "
+                f"{noise}, sha256 {fp}; routed GEMMs replayed on the replicated program's input: {same} bitwise "
+                f"({len(checked)} sites), mismatches {bad[:4]}; first GEMM whose own input differs (forward, site, "
+                f"layer, max |d|): {first}; negative control {control_res}; placed counts {c} (want "
+                f"{dict(zip(('fused', 'psum', 'tp_rows', 'amax', 'outputs', 'heads', 'words', 'scales', 'combines'), want_counts))}); "
+                f"photonic_gemm launches {c['photonic_gemm'] / forwards:.1f} a forward (replicated "
+                f"{rep['counts']['photonic_gemm'] / forwards:.1f}); {pp['seconds']:.2f} s placed, "
+                f"{rep['seconds']:.2f} s replicated; parameter bytes a rank {pp['param_bytes']} against "
+                f"{rep['param_bytes']} whole ({pp['param_bytes'] / rep['param_bytes']:.4f}); max_memory_allocated "
+                f"placed {pp['max_memory_allocated'] / 2**30:.2f} GiB, replicated "
+                f"{rep['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+            del runs, rep, pp
+        del params, ideal
+        torch.cuda.empty_cache()
+    return res
+
+
 def placement_child():
-    """``chip_smoke.py --phase placement``: phase 10 (a) and (b) on four
-    ranks (:func:`placement_rank`).  Gates: each rank's own, and the ranks'
+    """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b') and (d)
+    on four ranks (:func:`placement_rank`).  Gates: each rank's own, and the ranks'
     logits and losses equal.  Returns (ok, result, launches summed over the
     ranks)."""
     from repro_torch.launch.mesh import spawn
@@ -3191,31 +3488,63 @@ def placement_child():
     log("  placement: backend gloo, CUDA tensors, four ranks sharing the card as the (data 2, model 2) mesh")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_placement_ckpt_")
     try:
-        ranks = spawn(placement_rank, 4, backend="gloo", device="cuda", args=(ckpt_dir,), timeout=600)
+        ranks = spawn(placement_rank, 4, backend="gloo", device="cuda", args=(ckpt_dir,), timeout=650)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     ok = all(all(r["gates"].values()) for r in ranks)
     same = all(r[c][f] == ranks[0][c][f] for r in ranks for c in ("ideal", "SMWA")
                for f in ("fingerprint", "params_fingerprint")) and all(
-        r[t]["losses"] == ranks[0][t]["losses"] for r in ranks for t in ("train", "dry_train"))
-    log(f"  placement (a)/(b)/(b'): every rank's gates {ok}; ranks agree (logits, losses) {same}")
+        r[t]["losses"] == ranks[0][t]["losses"] for r in ranks for t in ("train", "dry_train")) and all(
+        r["moe"][k]["fingerprint"] == ranks[0]["moe"][k]["fingerprint"] for r in ranks for k in ranks[0]["moe"])
+    log(f"  placement (a)/(b)/(b')/(d): every rank's gates {ok}; ranks agree (logits, losses) {same}")
     launches = {"photonic_gemm": sum(r[c][f"{k}_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA")
                                      for k in ("replicated", "placed", "params"))
                 + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))
-                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks),
-                # the column-parallel launches alone: the placed-parameter decode runs and the dry run's step
+                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks)
+                + sum(m[k]["photonic_gemm"] for r in ranks for m in r["moe"].values()
+                      for k in ("counts", "replicated_counts")),
+                # the column-parallel runs' launches alone: qwen2-0.5b's placed-parameter decode runs and the
+                # dry run's step; (d)'s placed MoE decoders
                 "column_parallel": sum(r[c]["params_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA"))
-                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks)}
+                + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks),
+                "moe_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks for m in r["moe"].values())}
     return ok and same, {"ranks": ranks}, launches
+
+
+# Phase 10 (c): the MoE decoders' decode cells.
+MOE_CELLS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
 
 
 def placement_cells(cells, registry, card):
     """Phase 10 (c): the tooling phase's qwen2-0.5b x decode_32k and x
-    train_4k (ZeRO-1) cells beside the reference's recorded decode cell.
-    Returns (ok, result)."""
+    train_4k (ZeRO-1) cells beside the reference's recorded decode cell,
+    and the MoE decoders' decode_32k cells (``MOE_CELLS``: their
+    parameters placed, experts included; gates: they fit 80 GB and hold
+    nothing whole where the reference places it).  Returns (ok, result)."""
     from repro_torch._tree import tree_items
 
     ok, res = True, {}
+    for name in MOE_CELLS:
+        cell = next((c for c in cells if c.get("arch") == name and c.get("shape") == "decode_32k"), None)
+        if cell is None or "flops_per_device" not in cell:
+            log(f"  (c) {name} x decode_32k: no cell")
+            ok = False
+            continue
+        arch = registry.get(name)
+        cfg = arch.config.pad_for_mesh(16)
+        whole = sum(s.nbytes for s in tree_items(arch.param_specs(cfg, registry.SHAPES["decode_32k"])[0]).values())
+        gates = {"fits 80 GB": cell["fits_device"] is True,
+                 "nothing held whole where the reference places it": cell["replicated_by_port_bytes"] == {}}
+        ok &= all(gates.values())
+        res[f"{name} decode_32k"] = dict(
+            {k: cell.get(k) for k in ("argument_size_in_bytes", "temp_size_in_bytes", "peak_size_in_bytes",
+                                      "flops_per_device", "param_bytes", "cache_bytes", "fits_device", "placed")},
+            whole_param_bytes=whole, gates=gates)
+        log(f"  (c) {name} x decode_32k x single (placed: {cell['placed']}): arguments "
+            f"{cell['argument_size_in_bytes']} B (params {cell['param_bytes']} B a rank, of {whole} B whole; cache "
+            f"{cell['cache_bytes']} B), temp {cell['temp_size_in_bytes']} B, peak {cell['peak_size_in_bytes']} B "
+            f"(fits 80 GB: {cell['fits_device']}), FLOPs a rank {cell['flops_per_device']}; still replicated by the "
+            f"port: {cell['replicated_by_port_bytes']}; gates {gates} [{card}]")
     ref = REFERENCE_DECODE_CELL
     ref_peak = ref["argument_size_in_bytes"] + ref["temp_size_in_bytes"]
     for shape in ("decode_32k", "train_4k"):
@@ -4556,6 +4885,8 @@ DRY_CELLS = [
     ("qwen2-0.5b", "train_4k", ("--photonic", "--dp-shardmap")),
     ("xlstm-350m", "decode_32k", ()),
     ("qwen2-0.5b", "train_4k", ()),
+    ("phi3.5-moe-42b-a6.6b", "decode_32k", ()),
+    ("deepseek-v2-lite-16b", "decode_32k", ()),
 ]
 TOOLING_ROWS = 4  # the tooling phase's paged server: four decode rows
 
@@ -5074,7 +5405,7 @@ def main() -> int:
     with Phase("placement"):
         col_rows = []
         all_ok &= column_origin_rows(torch, K, chans, key, col_rows, card)
-        place_ok, placement, place_launches = run_child(card, "placement", timeout=400)
+        place_ok, placement, place_launches = run_child(card, "placement", timeout=700)
         placement["column_origin_rows"] = col_rows
         all_ok &= place_ok
         cells_ok, placement["cells"] = placement_cells(tooling.get("dry_runs", []), registry, card)
@@ -5275,25 +5606,37 @@ def main() -> int:
         case=f"placement: one shard of {TP_SHARDS} of a qwen2-0.5b layer's six sites (K_local 448 / 2432), R=4, "
              "ideal channel, shard_local_engine.int_gemm(shard=i) (timed in the tp phase); library: torch._int_mm "
              "of the shard's int cores; launches from phase 10's four ranks: the placed and replicated prefill + "
-             "decode runs, ideal and SMWA, and the placed and replicated train() runs",
+             "decode runs, ideal and SMWA, the placed and replicated train() runs, and (d)'s MoE decoders at full "
+             "width (deepseek-v2-lite, phi3.5-moe) placed and replicated",
     ))
-    # The placement phase's column-origin row: this rank's blocks of
-    # qwen2-0.5b's attn.wq (448 columns from 448) and attn.wk (64 from 64) at
-    # R = 4, unfused, ideal channel, each at its global column origin;
-    # launches from phase 10's column-parallel runs (the placed-parameter
-    # prefill + decode runs and the dry run's placed train step), every rank.
-    blk = [x for x in col_rows if x["channel"] == "ideal" and x["fused"] == 0]
-    bm, bb = bound_of([x["parts"] for x in blk])
-    kernels.append(dict(
-        name="photonic_gemm", route="cuda", source=FUSED_SRC,
-        replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=place_launches["column_parallel"],
-        max_abs_err=max(x["max_abs_err"] for x in blk), ms=layer_sum(blk, "ms"), plain_ms=layer_sum(blk, "plain_ms"),
-        bound_ms=bm, bound_by=op_or_bytes(bb), library_ms=layer_sum(blk, "library_ms"),
-        case="column-parallel: a rank's column blocks of qwen2-0.5b's attn.wq (448 from c_origin 448) and attn.wk "
+    # The placement phase's column-origin rows: a rank's column blocks at R = 4,
+    # unfused, ideal channel, each at its global column origin; qwen2-0.5b's
+    # attn.wq (448 columns from 448) and attn.wk (64 from 64), launches from
+    # phase 10's qwen2-0.5b column-parallel runs (the placed-parameter prefill
+    # + decode runs and the dry run's placed train step); deepseek-v2-lite's
+    # ffn.wi halves and attn.wq head block, launches from (d)'s placed MoE
+    # decoders; every rank.
+    for model, launches, case in (
+            ("qwen2-0.5b", place_launches["column_parallel"],
+             "column-parallel: a rank's column blocks of qwen2-0.5b's attn.wq (448 from c_origin 448) and attn.wk "
              "(64 from c_origin 64), R=4, K=896, ideal channel, PhotonicEngine.int_gemm(columns=); library: "
              "torch._int_mm of the blocks' int cores; launches from phase 10's column-parallel runs (placed-"
-             "parameter prefill + decode, ideal and SMWA, and the dry run's placed train step), every rank",
-    ))
+             "parameter prefill + decode, ideal and SMWA, and the dry run's placed train step), every rank"),
+            ("deepseek-v2-lite-16b", place_launches["moe_column_parallel"],
+             "column-parallel, MoE decoders: a rank's column blocks of deepseek-v2-lite's layer-0 ffn.wi (u 5472 "
+             "from c_origin 5472, g 5472 from c_origin 10944) and MLA attn.wq (1536 from c_origin 1536), R=4, "
+             "K=2048, ideal channel, PhotonicEngine.int_gemm(columns=); library: torch._int_mm of the blocks' int "
+             "cores; launches from (d)'s placed deepseek-v2-lite and phi3.5-moe prefill + decode runs (ideal and "
+             "SMWA, expanded and absorbed), every rank")):
+        blk = [x for x in col_rows if x["model"] == model and x["channel"] == "ideal" and x["fused"] == 0]
+        bm, bb = bound_of([x["parts"] for x in blk])
+        kernels.append(dict(
+            name="photonic_gemm", route="cuda", source=FUSED_SRC,
+            replaces="src/repro/kernels/photonic_gemm/kernel.py:319", launches=launches,
+            max_abs_err=max(x["max_abs_err"] for x in blk), ms=layer_sum(blk, "ms"),
+            plain_ms=layer_sum(blk, "plain_ms"), bound_ms=bm, bound_by=op_or_bytes(bb),
+            library_ms=layer_sum(blk, "library_ms"), case=case,
+        ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(

@@ -46,7 +46,10 @@ of a float row-parallel GEMM's partial products
 lookup and the loss's sums; ``"weight_words"``, the noise-stream content
 words of a column block's whole weight (one a noisy column-parallel
 GEMM); ``"weight_scale"``, the per-column abs-max of a K-placed weight
-(one a routed row-parallel GEMM on a placed float weight).
+(one a routed row-parallel GEMM on a placed float weight);
+``"expert_combine"``, the forward sum of the ranks' partial combines of an
+expert-parallel MoE (one a MoE layer); ``"expert_input"``, the backward of
+its experts' input and gate values (one a MoE layer).
 """
 
 from __future__ import annotations
@@ -61,7 +64,8 @@ ALL_REDUCES = {"psum_int_gemm": 0}
 ROW_GATHERS = {"tp_rows": 0, "outputs": 0}
 SCALE_REDUCTIONS = {"amax": 0}
 HEAD_GATHERS = {"heads": 0}
-PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0}
+PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0,
+                 "expert_combine": 0, "expert_input": 0}
 
 
 def reset_all_reduces() -> None:

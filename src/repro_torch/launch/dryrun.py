@@ -40,18 +40,22 @@ step's optimizer moments are ZeRO-1 blocks over the data axes (the
 reference's ``zero1_axes``, derived from the global shapes), its update
 running on those blocks and all-gathering the parameters, unless
 ``--no-zero1``.  The dense GQA decoders (qwen2, granite, deepseek-67b)
-hold their parameters as the reference's ``in_shardings`` place them,
-each leaf by its ``param_axes`` (``heads``, ``kv_heads``, ``d_ff``,
-``vocab`` over ``model``), in prefill, decode and train steps alike: every
-GEMM computes its block (column-parallel ``wq`` / ``wk`` / ``wv`` /
-``ffn.wi`` / ``lm_head``, row-parallel ``wo`` / ``ffn.wo``), the
-embedding and the loss are vocab-parallel, the decode step gathers its
-logits over ``model`` too, and the gradient norm sums placed leaves over
-``model``.  Every other family holds its parameters whole, and any other
-dimension the reference places stays whole (the params' ``experts`` /
-``inner`` / ``mamba_heads`` axes, MLA's heads, ``kv_seq``): the report
-lists each such leaf under ``replicated_by_port`` with the bytes the rank
-holds and the reference's, and gives ``param_bytes`` (the rank's).
+and the MoE decoders (phi3.5-moe, deepseek-v2-lite) hold their parameters
+as the reference's ``in_shardings`` place them, each leaf by its
+``param_axes`` (``heads`` — MLA's too —, ``kv_heads``, ``d_ff``, ``vocab``,
+``experts`` over ``model``), in prefill, decode and train steps alike:
+every GEMM computes its block (column-parallel ``wq`` / ``wk`` / ``wv`` /
+MLA's ``wuk`` / ``wuv`` / ``ffn.wi`` / the shared experts' ``wi`` /
+``lm_head``, row-parallel ``wo`` / ``ffn.wo``), the MoE is
+expert-parallel (a rank runs its block of the experts on their slots, the
+partial combines summed over ``model``), the embedding and the loss are
+vocab-parallel, the decode step gathers its logits over ``model`` too,
+and the gradient norm sums placed leaves over ``model``.  Every other
+family holds its parameters whole, and any other dimension the reference
+places stays whole (the params' ``inner`` / ``mamba_heads`` axes, the
+vision and audio families' parameters, ``kv_seq``): the report lists each
+such leaf under ``replicated_by_port`` with the bytes the rank holds and
+the reference's, and gives ``param_bytes`` (the rank's).
 
 The ``fake`` backend comes from ``torch.testing._internal.distributed.
 fake_pg`` (the one torch ships; internal API).  ``--device`` defaults to
@@ -292,7 +296,7 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
 def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False, zero1: bool = True) -> tuple:
     """The fake inputs of one cell's step (call inside a
     ``FakeTensorMode``), this rank's blocks: parameters (placed by their
-    ``param_axes`` for the dense GQA decoders), and the optimizer state
+    ``param_axes`` for the dense GQA and MoE decoders), and the optimizer state
     (ZeRO-1 moments unless ``zero1`` is false) and batch rows, the batch
     rows, or the token and cache rows and KV heads.  The DP step
     (``dp_shardmap``) takes whole parameters, the global batch and
@@ -317,7 +321,7 @@ def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False
 def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero1: bool = True) -> list:
     """``sharding.replicated_by_port`` over the cell's argument leaves: the
     parameters (placed along the cell's placed names for the dense GQA
-    decoders, along none elsewhere), the moments of a train step (placed
+    and MoE decoders, along none elsewhere), the moments of a train step (placed
     along ``zero1`` only), and the batch, token and cache (placed along the
     cell's placed names)."""
     from repro_torch._tree import tree_items

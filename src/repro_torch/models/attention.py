@@ -23,8 +23,11 @@ KV heads and the q heads that read them: ``attn.wq`` / ``wk`` / ``wv``
 ...)``, on the weights' blocks where the parameters are placed, else on the
 rank's columns of whole weights), so no computed column is thrown away.
 The dense caches hold those heads, and ``attn.wo`` takes the local heads as
-its K block (``dense(k_local="heads")``).  MLA keeps its heads whole; its
-caches are placed by rows.
+its K block (``dense(k_local="heads")``).  MLA places its heads only with
+its parameters (the MoE decoders' placement): ``wq`` / ``wuk`` / ``wuv``
+are then column-parallel over the heads and ``wo`` row-parallel, while
+``wdkv`` stays whole, so every rank of ``model`` writes the same latent
+cache, placed by rows alone.
 """
 
 from __future__ import annotations
@@ -35,6 +38,7 @@ import torch
 
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def, with_logical
+from repro_torch.runtime.sharding import block, copy_to_model
 from repro_torch.serving import kv_cache as kvc
 
 NEG = -1e30
@@ -451,7 +455,8 @@ def mla_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[str
 
 def _mla_up_weight(p: Dict[str, Any]) -> torch.Tensor:
     """Float view of an MLA up-projection weight for the absorbed-decode
-    products, dequantizing a prepacked or int8-stored layout.  Reference:
+    products, dequantizing a prepacked or int8-stored layout (an int8
+    block with its ``w_scale`` block alike).  Reference:
     ``repro.models.attention:_mla_up_weight``."""
     from repro_torch.photonic.packing import PackedDense
 
@@ -463,13 +468,17 @@ def _mla_up_weight(p: Dict[str, Any]) -> torch.Tensor:
     return w
 
 
+def _mla_columns(cfg: ModelConfig, per_head: int):
+    return (("heads", cfg.n_q_heads * per_head),)
+
+
 def _mla_qkv(params, x, cfg: ModelConfig, positions, layer=None):
     """``(q_nope, q_rope, c_kv, k_rope)``, RoPE applied; ``k_rope`` is one
     head ``(B, T, 1, rope)``.  Reference: ``repro.models.attention:_mla_qkv``."""
-    h = cfg.n_q_heads
     nope, rope = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim
     b, t, _ = x.shape
-    q = dense(params["wq"], x, cfg, site="attn.wq", layer=layer).reshape(b, t, h, nope + rope)
+    q = dense(params["wq"], x, cfg, site="attn.wq", layer=layer, columns=_mla_columns(cfg, nope + rope))
+    q = q.reshape(b, t, -1, nope + rope)  # this rank's heads where they are placed
     q_nope, q_rope = q[..., :nope], q[..., nope:]
     q_rope = apply_rope(q_rope, positions, cfg.rope_theta)
     dkv = dense(params["wdkv"], x, cfg, site="attn.wdkv", layer=layer)  # (B, T, r + rope)
@@ -480,12 +489,19 @@ def _mla_qkv(params, x, cfg: ModelConfig, positions, layer=None):
 
 def _mla_expand_kv(params, c_kv, k_rope, cfg: ModelConfig, layer=None):
     """Per-head K (nope up-projection beside the shared RoPE key) and V
-    from the latent rows.  Reference: ``repro.models.attention:_mla_expand_kv``."""
-    h = cfg.n_q_heads
+    from the latent rows, this rank's heads where they are placed (``wuk``
+    / ``wuv`` column-parallel at the block's column origin).  Reference:
+    ``repro.models.attention:_mla_expand_kv``."""
     nope, vd = cfg.qk_nope_head_dim, cfg.v_head_dim
     b, t, _ = c_kv.shape
-    k_nope = dense(params["wuk"], c_kv, cfg, site="attn.wuk", layer=layer).reshape(b, t, h, nope)
-    v = dense(params["wuv"], c_kv, cfg, site="attn.wuv", layer=layer).reshape(b, t, h, vd)
+    k_nope = dense(params["wuk"], c_kv, cfg, site="attn.wuk", layer=layer, columns=_mla_columns(cfg, nope))
+    k_nope = k_nope.reshape(b, t, -1, nope)
+    v = dense(params["wuv"], c_kv, cfg, site="attn.wuv", layer=layer, columns=_mla_columns(cfg, vd))
+    v = v.reshape(b, t, -1, vd)
+    h = k_nope.shape[2]
+    heads = block("heads")
+    if heads is not None:  # the shared RoPE key meets this rank's heads only: its gradient sums over theirs
+        k_rope = copy_to_model(k_rope, heads.part)
     k = torch.cat([k_nope, k_rope.expand(b, t, h, k_rope.shape[-1])], dim=-1)
     return k, v
 
@@ -499,7 +515,7 @@ def _mla_core(params, x, cfg: ModelConfig, positions, causal: bool, layer):
     out = chunked_attention(
         q, k, v, causal=causal, scale=scale, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg)
     )
-    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer)
+    out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
     return out, c_kv, k_rope
 
 
@@ -549,15 +565,15 @@ def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
     ``repro.models.attention:mla_decode_absorbed``.  The cache is updated
     in place; the returned dict holds the same tensors."""
     b = x.shape[0]
-    h = cfg.n_q_heads
     nope, rope, vd, r = cfg.qk_nope_head_dim, cfg.qk_rope_head_dim, cfg.v_head_dim, cfg.kv_lora_rank
     pos = int(pos)
     q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
     c = with_logical(c, ("batch", "kv_seq", None))
     kr = with_logical(kr, ("batch", "kv_seq", None))
     f32 = torch.float32
-    w_uk = _mla_up_weight(params["wuk"]).to(f32).reshape(r, h, nope)
-    w_uv = _mla_up_weight(params["wuv"]).to(f32).reshape(r, h, vd)
+    # (r, heads, .): this rank's heads where they are placed
+    w_uk = _mla_up_weight(params["wuk"]).to(f32).reshape(r, -1, nope)
+    w_uv = _mla_up_weight(params["wuv"]).to(f32).reshape(r, -1, vd)
     q_abs = torch.einsum("bqhn,rhn->bqhr", q_nope.to(f32), w_uk)
     cf = c.to(f32)
     s_nope = torch.einsum("bqhr,bsr->bhqs", q_abs, cf)
@@ -565,7 +581,8 @@ def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
     p = _decode_softmax((s_nope + s_rope) * (nope + rope) ** -0.5, pos)
     ctx = torch.einsum("bhqs,bsr->bqhr", p, cf)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
-    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer)
+    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer,
+                k_local="heads")
     return out, {"c_kv": c, "k_rope": kr}
 
 
@@ -587,5 +604,6 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, layer=None):
     qf = q.to(torch.float32) * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     p = _decode_softmax(torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32)), pos)
     out = torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32))
-    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer)
+    out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer,
+                k_local="heads")
     return out, {"c_kv": c, "k_rope": kr}

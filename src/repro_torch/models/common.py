@@ -14,7 +14,7 @@ import contextlib
 import dataclasses
 import functools
 import math
-from typing import Any, Dict, Optional, Tuple, Union
+from typing import Any, Dict, NamedTuple, Optional, Tuple, Union
 
 import torch
 import torch.utils.checkpoint
@@ -285,6 +285,71 @@ def engine_from_model_config(cfg: ModelConfig):
     )
 
 
+class GemmRecord(NamedTuple):
+    """One ``dense`` call under :func:`recording`: its site and layer, copies
+    of its input and output, its ``params`` and keywords (to call it again),
+    and where the placement put it: the global ``(origin, width)`` column
+    segments of a column-parallel GEMM, ``(index, local)`` of the placed
+    rows, ``(index, count)`` of the placed K (``k_local``), each or None;
+    ``reduces``, ``contracts.PARAM_REDUCES`` as it stood."""
+
+    site: Optional[str]
+    layer: Any
+    x: torch.Tensor
+    y: torch.Tensor
+    params: Dict[str, Any]
+    kwargs: Dict[str, Any]
+    segments: Optional[Tuple[Tuple[int, int], ...]]
+    rows: Optional[Tuple[int, int]]
+    k_block: Optional[Tuple[int, int]]
+    reduces: Dict[str, int]
+
+
+_RECORDING: list = []  # the logs of the open recording() scopes
+_DEPTH = [0]
+
+
+@contextlib.contextmanager
+def recording(log: list):
+    """Every ``dense`` call the model makes in this scope appends a
+    :class:`GemmRecord` to ``log``; a call ``dense`` makes of itself is not
+    recorded."""
+    _RECORDING.append(log)
+    try:
+        yield log
+    finally:
+        _RECORDING.remove(log)
+
+
+def _recorded(fn):
+    @functools.wraps(fn)
+    def call(params, x, cfg, **kw):
+        if not _RECORDING:
+            return fn(params, x, cfg, **kw)
+        _DEPTH[0] += 1
+        try:
+            y = fn(params, x, cfg, **kw)
+        finally:
+            _DEPTH[0] -= 1
+        if _DEPTH[0] == 0:
+            from repro_torch.analysis import contracts
+            from repro_torch.runtime.sharding import block, column_layout
+
+            cols, k_local = kw.get("columns"), kw.get("k_local")
+            layout = None if cols is None else column_layout(cols)
+            rows, kb = block("batch"), None if k_local is None else block(k_local)
+            rec = GemmRecord(kw.get("site"), kw.get("layer"), x.detach().clone(), y.detach().clone(), params, kw,
+                             None if layout is None else layout.segments,
+                             None if rows is None else (rows.index, rows.local),
+                             None if kb is None else (kb.index, kb.count), dict(contracts.PARAM_REDUCES))
+            for log in _RECORDING:
+                log.append(rec)
+        return y
+
+    return call
+
+
+@_recorded
 def dense(
     params: Dict[str, Any],
     x: torch.Tensor,

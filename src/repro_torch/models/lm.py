@@ -21,11 +21,13 @@ batchless ``pos``, the paged pool ``(layers, num_blocks, block_size, kv,
 hd)``.  Both are updated in place by decode (the reference returns new
 ones; the port saves the copy).
 
-Under a :func:`repro_torch.runtime.sharding.placement` of the dense
-family's parameters (``heads``, ``kv_heads``, ``d_ff``, ``vocab`` over
-``model``) every GEMM computes this rank's block: the embedding is a
-vocab-parallel lookup, the logits are this rank's vocab block (gathered by
-the caller where the reference replicates them), and the loss is
+Under a :func:`repro_torch.runtime.sharding.placement` of the parameters
+(the dense GQA and MoE decoders': ``heads``, ``kv_heads``, ``d_ff``,
+``vocab``, ``experts`` over ``model``) every GEMM computes this rank's
+block, in DeepSeek-V2's unstacked first block as in the list: the embedding
+is a vocab-parallel lookup, the MoE layers are expert-parallel
+(``ffn.moe``), the logits are this rank's vocab block (gathered by the
+caller where the reference replicates them), and the loss is
 vocab-parallel.
 """
 

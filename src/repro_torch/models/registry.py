@@ -130,27 +130,35 @@ class Arch:
     # ---- placement -------------------------------------------------------------
     def places_params(self, cfg: ModelConfig) -> bool:
         """Whether the port places this arch's parameters by their
-        ``param_axes`` (the dense GQA decoders; every other family holds
-        them whole)."""
-        return self.family == "dense" and not cfg.mla
+        ``param_axes``: the dense GQA decoders (qwen2, granite,
+        deepseek-67b) and the MoE decoders (phi3.5-moe's GQA heads and
+        experts; deepseek-v2-lite's MLA heads, experts, shared experts and
+        dense first layer); every other family holds them whole."""
+        return (self.family == "dense" and not cfg.mla) or self.family == "moe"
 
     def placement_sizes(self, cfg: ModelConfig, shape: ShapeSpec, *, params: bool = True) -> Dict[str, int]:
         """The global sizes of the logical names the port places for one
         step of ``shape`` (``repro_torch.runtime.sharding.placement``): the
-        batch rows always; the q and KV heads in prefill and decode, for
-        the families with GQA attention (MLA and the xLSTM stack keep their
-        heads whole), and in training for the dense GQA decoders; for
-        those, with ``params``, ``d_ff`` and ``vocab`` too, the step then
-        taking the parameters placed (``sharding.place_params``).
-        ``train(mesh=)`` asks for rows and heads only (``params=False``):
-        its parameters stay whole, as the reference's ``train()`` keeps
-        them."""
+        batch rows always; the q and KV heads of GQA attention in prefill
+        and decode (the xLSTM stack keeps its heads whole), and in training
+        for the dense GQA decoders.  Where the arch places its parameters
+        and ``params`` is set, the step takes them placed
+        (``sharding.place_params``) by ``heads`` (MLA's alone: its latent
+        cache has no head axis), ``d_ff``, ``vocab`` and ``experts``, in
+        training too.  ``train(mesh=)`` asks for rows and heads only
+        (``params=False``; the MoE decoders' rows alone): its parameters
+        stay whole, as the reference's ``train()`` keeps them."""
         sizes = {"batch": shape.global_batch}
-        dense = self.places_params(cfg)
-        if (shape.kind != "train" or dense) and self.family != "ssm" and not cfg.mla:
+        placed = self.places_params(cfg) and params
+        dense = self.family == "dense" and not cfg.mla
+        if (shape.kind != "train" or dense or placed) and self.family != "ssm" and not cfg.mla:
             sizes.update(heads=cfg.n_q_heads, kv_heads=cfg.num_kv_heads)
-        if dense and params:
+        if placed:
+            if cfg.mla:
+                sizes.update(heads=cfg.n_q_heads)
             sizes.update(d_ff=cfg.d_ff, vocab=cfg.n_vocab)
+            if cfg.num_experts:
+                sizes.update(experts=cfg.num_experts)
         return sizes
 
     def param_specs(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):

@@ -15,7 +15,8 @@ then all-gathers the updated parameter over the data axes.  Given the same
 gradient it is bitwise the replicated update.
 
 Placed parameters (:class:`Placed`, the dry run's train step on the dense
-decoders' blocks): a leaf that is this rank's block contributes its
+and MoE decoders' blocks, expert stacks included): a leaf that is this
+rank's block contributes its
 squares to the gradient norm summed over the mesh axes it is placed over,
 a leaf held whole contributes them once.
 """

@@ -54,15 +54,18 @@ backward of a placed operand gives this rank's rows' share of ``dw`` and
 ``db``, which the training step all-reduces over the data axes.
 
 Where the weight is placed too (``sharding.place_params``: ``heads``,
-``kv_heads``, ``d_ff``, ``vocab`` over ``model``), a routed GEMM takes one
-of the two forms of the reference's partitioning:
+``kv_heads``, ``d_ff``, ``vocab`` over ``model``; the routed experts are
+digital ``einsum``s, outside this module), a routed GEMM takes one of the
+two forms of the reference's partitioning:
 
 * row-parallel (``attn.wo``, ``ffn.wo``: K placed): the K block above
   against this rank's K rows of the weight, whose per-column scale is the
   whole weight's (a ``MAX`` all-reduce of local column abs-maxima), the
   int32 partials summed in the same ``psum_int_gemm``;
 * column-parallel (:func:`column_matmul`: ``wq`` / ``wk`` / ``wv``,
-  ``ffn.wi``, ``lm_head``, their columns placed): the rank holds its
+  MLA's ``wq`` / ``wuk`` / ``wuv``, ``ffn.wi`` and the shared experts'
+  ``wi``, ``lm_head``, their columns placed, at widths ``tile_c`` need not
+  divide): the rank holds its
   column block whole in K and runs every K shard of the TP program
   itself, each at its shard-local fan-in with shard ``s``'s stream and the
   block's global column origin (``c_origin``; the noise ids and content

@@ -22,8 +22,10 @@ still resolves the spec and records fallbacks exactly as the reference
 does.  Under a :func:`placement` a step's inputs are this rank's blocks
 (:func:`local_block`) along the logical dimensions the port places, the
 ones the reference's per-device program holds in blocks (``"batch"`` over
-the data axes; ``"heads"`` / ``"kv_heads"`` over ``model``, and for the
-dense GQA decoders ``"d_ff"`` / ``"vocab"`` over ``model``):
+the data axes; ``"heads"`` / ``"kv_heads"`` over ``model``, and where
+the parameters are placed (the dense GQA decoders and the MoE decoders,
+MLA's ``"heads"`` included) ``"d_ff"`` / ``"vocab"`` / ``"experts"`` over
+``model``):
 :func:`place_tree` cuts them from global tensors, :func:`place_params`
 cuts a parameter tree by its ``param_axes``, :func:`gather_tree` rebuilds
 an output the reference replicates, and :func:`logical_constraint` raises
@@ -35,7 +37,11 @@ A GEMM whose weight columns are placed runs column-parallel
 columns; the input's gradient meets in :func:`copy_to_model`'s backward
 all-reduce), and one whose K is placed runs row-parallel (its partial
 products meet in :func:`reduce_from_model`'s forward all-reduce), the two
-forms of the reference's GSPMD partitioning of a placed weight.
+forms of the reference's GSPMD partitioning of a placed weight.  An expert
+stack placed over ``"experts"`` (the leading dimension of the MoE's
+``wi`` / ``wo``) is the third, expert parallelism: a rank runs its experts
+on their slots and the partial combines meet in the same forward
+all-reduce.
 """
 
 from __future__ import annotations
@@ -336,7 +342,7 @@ def local_block(spec_part: Optional[AxisName], mesh) -> Tuple[int, int]:
 # Placement: this rank's blocks of the values the reference places
 # ---------------------------------------------------------------------------
 # The logical names the port places; every other name stays replicated.
-PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab")
+PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab", "experts")
 
 
 def _names(part: AxisName) -> Tuple[str, ...]:
@@ -376,7 +382,8 @@ def placed_parts(sizes: Dict[str, int], mesh, rules: Optional[Dict[str, AxisName
     that resolve to replication are left out.  Heads and KV heads are
     placed together or not at all: the GQA map reads q head ``h`` from KV
     head ``h // n_rep``, so a rank's q heads read its KV heads only when the
-    same axes cut both into the same number of blocks."""
+    same axes cut both into the same number of blocks (MLA, which has no
+    KV heads, places its ``heads`` alone)."""
     unknown = set(sizes) - set(PLACED)
     if unknown:
         raise ValueError(f"the port places {PLACED}, not {sorted(unknown)}")
@@ -385,7 +392,7 @@ def placed_parts(sizes: Dict[str, int], mesh, rules: Optional[Dict[str, AxisName
         spec = resolve_spec((int(size),), (name,), mesh, rules)
         if spec:
             out[name] = spec[0]
-    if "heads" in sizes or "kv_heads" in sizes:
+    if "heads" in sizes and "kv_heads" in sizes:
         if out.get("heads") != out.get("kv_heads"):
             out.pop("heads", None)
             out.pop("kv_heads", None)
@@ -496,8 +503,8 @@ def _collectives():
         SUM over ``part``."""
 
         @staticmethod
-        def forward(ctx, x, part, mesh):
-            ctx.part, ctx.mesh = part, mesh
+        def forward(ctx, x, part, mesh, what):
+            ctx.part, ctx.mesh, ctx.what = part, mesh, what
             return x.view_as(x)
 
         @staticmethod
@@ -505,8 +512,8 @@ def _collectives():
             from repro_torch.analysis import contracts
 
             g = all_reduce_over(g.contiguous().clone(), ctx.part, ctx.mesh)
-            contracts.PARAM_REDUCES["column_input"] += 1
-            return g, None, None
+            contracts.PARAM_REDUCES[ctx.what] += 1
+            return g, None, None, None
 
     class ReduceFromModel(Function):
         """The row-parallel output: partial sums all-reduced with SUM over
@@ -528,18 +535,20 @@ def _collectives():
     return Gather, CopyToModel, ReduceFromModel
 
 
-def copy_to_model(x, part: AxisName):
-    """``x`` as a column-parallel GEMM's input over the mesh axes ``part``:
-    unchanged, its gradient all-reduced with SUM over ``part`` in the
-    backward (one ``PARAM_REDUCES["column_input"]`` each)."""
-    return _collectives()[1].apply(x, part, _CTX.placement.mesh)
+def copy_to_model(x, part: AxisName, what: str = "column_input"):
+    """``x`` as the input of a computation split over the mesh axes
+    ``part`` (a column-parallel GEMM, ``"column_input"``; a rank's experts,
+    ``"expert_input"``): unchanged, its gradient all-reduced with SUM over
+    ``part`` in the backward (one ``PARAM_REDUCES[what]`` each)."""
+    return _collectives()[1].apply(x, part, _CTX.placement.mesh, what)
 
 
 def reduce_from_model(x, part: AxisName, what: str = "row_output"):
     """``x``, this rank's partial sum, all-reduced with SUM over ``part``
     (one ``PARAM_REDUCES[what]``): a row-parallel GEMM's output
-    (``"row_output"``) or a vocab-parallel lookup or loss term
-    (``"vocab"``); the gradient passes through unchanged."""
+    (``"row_output"``), a vocab-parallel lookup or loss term
+    (``"vocab"``) or the expert-parallel MoE's combine
+    (``"expert_combine"``); the gradient passes through unchanged."""
     return _collectives()[2].apply(x, part, _CTX.placement.mesh, what)
 
 
@@ -563,7 +572,8 @@ def gather_block(x, name: str, dim: int):
     ``HEAD_GATHERS["heads"]``."""
     from repro_torch.analysis import contracts
 
-    out = _gather(x, block(name), dim)
+    b = block(name)
+    out = _gather(x, dataclasses.replace(b, size=x.shape[dim] * b.count), dim)
     if name in ("batch", "vocab"):
         contracts.ROW_GATHERS["outputs"] += 1
     else:
@@ -701,14 +711,16 @@ def place_tree(tree: Any, axes: Any) -> Any:
     return _over_placed(tree, axes, lambda t, name, d: block(name).take(t, d).contiguous().clone())
 
 
-def _param_block(b: Block, name: str, n: int) -> Tuple[Block, int]:
-    """``(the block of one part, parts)`` of a parameter dimension of ``n``
-    named ``name``, placed by ``b``: SwiGLU's ``wi`` is ``[u | g]`` on one
-    ``"d_ff"`` dimension of twice the placed width, and a rank holds its
-    block of each half; any other dimension is one part, cut in ``b.count``
-    blocks."""
-    halves = 2 if name == "d_ff" and n == 2 * b.size else 1
-    return dataclasses.replace(b, size=n // halves), halves
+def _swiglu_halves(items: Dict[str, Any], key: str, name: str, n: int) -> int:
+    """2 for the ``"d_ff"`` dimension of a SwiGLU ``wi`` leaf, ``[u | g]``
+    (its width twice the rows of the sibling ``wo``: the dense FFN's, the
+    shared experts', DeepSeek-V2's first layer's), of which a rank holds a
+    block of each half; 1 for any other dimension, cut in one piece."""
+    head, sep, _ = key.rpartition("wi/")
+    if name != "d_ff" or not sep or (head and not head.endswith("/")):
+        return 1
+    wo = getattr(items.get(head + "wo/w"), "shape", None)
+    return 2 if wo is not None and n == 2 * wo[0] else 1
 
 
 def _param_parts(shape: Sequence[int], axes: Sequence[Optional[str]], rules=None) -> Dict[int, Tuple[str, Block]]:
@@ -728,7 +740,8 @@ def place_params(params: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = 
     """This rank's blocks (copies) of a parameter tree of global tensors
     along the placed logical names of its ``param_axes``, as the
     reference's ``in_shardings`` hold them (:func:`_param_parts`;
-    SwiGLU's ``wi`` as :func:`_param_block` says).  Leaves that are not
+    SwiGLU's ``wi`` as :func:`_swiglu_halves` says; an expert stack by its
+    leading ``"experts"`` dimension).  Leaves that are not
     tensors (a prepacked bank) stay whole.  Reference: the parameter
     shardings of ``repro.launch.dryrun`` (``tree_shardings(mesh, params,
     param_axes)``)."""
@@ -740,7 +753,8 @@ def place_params(params: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = 
     for key, t in items.items():
         if isinstance(t, torch.Tensor):
             for d, (name, b) in _param_parts(t.shape, ax[key], rules).items():
-                pb, halves = _param_block(b, name, t.shape[d])
+                halves = _swiglu_halves(items, key, name, t.shape[d])
+                pb = dataclasses.replace(b, size=t.shape[d] // halves)
                 t = torch.cat([pb.take(h, d) for h in t.chunk(halves, d)], d) if halves > 1 else pb.take(t, d)
             t = t.contiguous().clone()
         out.append(t)

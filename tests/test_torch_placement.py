@@ -142,7 +142,7 @@ def test_a_global_sized_dimension_under_a_placement_raises():
 # (b) local block shapes against the reference's resolve_spec
 # ---------------------------------------------------------------------------
 MESHES = {"16x16": ((16, 16), ("data", "model")), "2x16x16": ((2, 16, 16), ("pod", "data", "model"))}
-FAMILIES = ["qwen2-0.5b", "deepseek-v2-lite-16b", "xlstm-350m", "zamba2-2.7b", "whisper-medium"]
+FAMILIES = ["qwen2-0.5b", "deepseek-v2-lite-16b", "phi3.5-moe-42b-a6.6b", "xlstm-350m", "zamba2-2.7b", "whisper-medium"]
 SHAPES = [("train", 64), ("prefill", 64), ("decode", 64), ("decode", 2), ("decode", 1)]
 
 

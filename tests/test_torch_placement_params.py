@@ -143,7 +143,7 @@ def test_a_placed_forward_reduces_only_its_row_parallel_gemms(serve, channel):
         assert res["placed_counts"] == dict(
             psum=2 * LAYERS * FORWARDS, amax=6 * LAYERS * FORWARDS, outputs=2 * FORWARDS, tp_rows=0, heads=0,
             column_input=0, row_output=0, vocab=FORWARDS, weight_words=4 * LAYERS * FORWARDS if noisy else 0,
-            weight_scale=2 * LAYERS * FORWARDS)
+            weight_scale=2 * LAYERS * FORWARDS, expert_combine=0, expert_input=0)
         full = (LAYERS, BATCH, MAX_SEQ, 2, 8)
         assert res["replicated_cache"] == {"k": full, "v": full}
         assert res["placed_cache"] == {"k": (LAYERS, 2, MAX_SEQ, 1, 8), "v": (LAYERS, 2, MAX_SEQ, 1, 8)}
