@@ -217,9 +217,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``kernel`` and ``ref`` (tokens equal; 61 launches a prefill, 57 a decode
    step) and 4 steps
    under SMWA (``noise_seed=0``: logits finite).  whisper-medium at full
-   width with 12 + 12 of its 24 + 24 layers (cut for the run's
+   width with 8 + 8 of its 24 + 24 layers (cut for the run's
    limit): ``whisper_logits`` with audio (4, 1500, 1024) in f32 and
-   bf16 and 375 decoder tokens on ``kernel`` and ``ref`` (193 launches, the
+   bf16 and 375 decoder tokens on ``kernel`` and ``ref`` (129 launches, the
    bf16 floor), and with ``attn_impl="flash"`` against chunked (24 flash
    launches) under the oneshot phase's gate: the witness, chunked at
    flash's key block (``attn_chunk=128``) against chunked, measures how far
@@ -227,8 +227,8 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    flash may be no further than max(2e-2, 2 x the witness's) with argmax
    disagreement <= max(1%, 2 x the witness's); ``arch.prefill`` of 4 x 4 tokens then 16 greedy decode steps
    at max_seq 375 on ``kernel``, ``ref`` and kernel with flash (tokens of
-   the first two equal; 193 launches a prefill, 97 a decode step, flash
-   24 a prefill).  Each model prints prefill seconds, decode ms/step and
+   the first two equal; 129 launches a prefill, 65 a decode step, flash
+   16 a prefill).  Each model prints prefill seconds, decode ms/step and
    peak memory.
 6f. recurrent: the ssm and hybrid families.  Kernel rows, each bitwise
    its twin (noise included) with its time, bound and the ``_int_mm``
@@ -471,16 +471,38 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    rank's partial combine dropped fails the logits gate, every column
    origin moved one block fails the SMWA replay; launches a forward,
    all-reduces, parameter bytes, peak memory a rank and the SMWA logits'
-   distance from the ideal runs printed.  Then in this process (c): the tooling
+   distance from the ideal runs printed; (e) the recurrent, audio and
+   vision families at full width (``PLACEMENT_FAMILIES``: xlstm-350m at one
+   group of 8 of 24 layers, ideal and keyed SMWA; zamba2-2.7b at one group,
+   6 Mamba2 layers and one shared-block invocation, ideal and keyed SMWA;
+   whisper-medium at 2 + 2 of 24 + 24 layers against 64 encoder frames a
+   row; llama-3.2-vision-90b at one group, 4 self layers and 1 cross layer
+   against its 1,600 patches; the zero-initialized gates and biases drawn
+   from a seeded normal), a prefill of ``PLACEMENT_ROWS`` x
+   ``PLACEMENT_PROMPT`` tokens and ``PLACEMENT_FAMILY_STEPS`` decode steps,
+   the replicated program against everything placed (rows; ``inner`` and
+   ``mamba_heads``; heads, KV heads, ``d_ff`` and vocab over "model"), the
+   replicated run's tree freed before the placed run and the ranks drawing
+   and placing their trees in turn: every routed GEMM replayed on each
+   rank's block of the replicated run's input bitwise, ideal logits within
+   2^-5 of their largest (bitwise printed), the recurrent gathers and sums
+   of a placed forward (``contracts.RECURRENT_COLLECTIVES``), parameter
+   bytes a rank about half the whole, the recurrent states a rank about
+   half the rows' share, the four ranks' summed peak within 80 GB; two
+   negative controls that must fail the logits gate (zamba2-2.7b with the
+   model ranks' ``a_log`` / ``dt_bias`` blocks swapped, xlstm-350m with the
+   row-parallel ``down``'s all-reduce dropped); launches a forward,
+   all-reduces, peak memory a rank and the seconds of each run printed.
+   Then in this process (c): the tooling
    phase's qwen2-0.5b x decode_32k and x train_4k (ZeRO-1) cells, their
    arguments, temp, peak and FLOPs a rank beside the reference's recorded
    decode cell (``REFERENCE_DECODE_CELL``; the reference records no
    train_4k cell); gates: the decode cell fits 80 GB, its cache a rank is
    the cache's global bytes / 256, its arguments the reference's to the
    byte; both cells hold nothing whole where the reference places it, and
-   train_4k fits 80 GB; and the phi3.5-moe and deepseek-v2-lite x
-   decode_32k cells (``MOE_CELLS``): each fits 80 GB and holds nothing
-   whole where the reference places it.
+   train_4k fits 80 GB; and the phi3.5-moe, deepseek-v2-lite, zamba2-2.7b
+   and llama-3.2-vision-90b x decode_32k cells (``PLACED_CELLS``): each
+   fits 80 GB and holds nothing whole where the reference places it.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -491,6 +513,7 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import gc
 import hashlib
 import json
 import math
@@ -591,7 +614,7 @@ WHISPER_HEAD = ("lm_head", 1024, 51865)
 WHISPER_ENC_ROWS = 4 * 1500
 WHISPER_PREFILL_LAUNCHES = 24 * 6 + 24 * 10 + 1  # encoder 6 a layer, decoder 10 (cross K/V included), head
 WHISPER_DECODE_LAUNCHES = 24 * 8 + 1  # a decode step: the cross K/V are read from the cache
-WHISPER_SERVE_LAYERS = 12  # the cross phase's whisper-medium: 12 + 12 of its 24 + 24 layers (the run's limit)
+WHISPER_SERVE_LAYERS = 8  # the cross phase's whisper-medium: 8 + 8 of its 24 + 24 layers (the run's limit)
 WHISPER_SERVE_PREFILL_LAUNCHES = WHISPER_SERVE_LAYERS * 6 + WHISPER_SERVE_LAYERS * 10 + 1
 WHISPER_SERVE_DECODE_LAUNCHES = WHISPER_SERVE_LAYERS * 8 + 1
 WHISPER_SERVE_FLASH = 2 * WHISPER_SERVE_LAYERS  # a flash forward: every encoder and decoder self-attention
@@ -637,7 +660,7 @@ TP_TRAIN_ROWS = (TRAIN_ROWS, TRAIN_ROWS // 2)  # phase 7c's rows per GEMM: TP = 
 TP_TRAIN_GRID_LAYERS = 4  # phase 7c (c): qwen2-0.5b cut to 4 of 24 layers, four ranks on the one card
 TP_TRAIN_GRID_STEPS = 2
 # Phase 10 (placement): the four-rank decode's rows, prompt, cache and steps.
-PLACEMENT_ROWS, PLACEMENT_PROMPT, PLACEMENT_MAX_SEQ, PLACEMENT_STEPS = 4, 16, 32, 8
+PLACEMENT_ROWS, PLACEMENT_PROMPT, PLACEMENT_MAX_SEQ, PLACEMENT_STEPS = 4, 16, 32, 4  # steps cut from 8 for the run's limit
 PLACEMENT_TRAIN_STEPS = 2
 # Phase 10 (d): the MoE decoders at full width on the four ranks, cut in
 # depth (arch, layers, cases): deepseek-v2-lite's dense layer 0 and two MoE
@@ -2863,11 +2886,29 @@ def tp_train_child(phase7):
 # deepseek-v2-lite: layer 0's SwiGLU ffn.wi ([u | g], 2 x 10,944 columns),
 # rank 1's u block (5,472 from 5,472) and rank 0's g block (5,472 from
 # 10,944), and MLA's attn.wq second head block (8 heads x 192, 1,536 from
-# 1,536).  (model, site, K, C, origin, width)
+# 1,536); and (e)'s: zamba2-2.7b's Mamba2 in_proj ([z | x | B C | dt], 2 x
+# 5,120 + 128 + 80 columns), rank 1's block of each part (z 2,560 from
+# 2,560, x 2,560 from 7,680, B C 64 from 10,304, dt 40 from 10,408);
+# xlstm-350m's mLSTM up ([xin | gate], 2 x 2,048), rank 1's xin block
+# (1,024 from 1,024) and rank 0's gate block (1,024 from 2,048), its wq's
+# key block of head 0 (256 from 256), and the sLSTM wx ([i | f | z | o], 4
+# x 1,024), rank 1's block of each quarter (512 from 512, 1,536, 2,560 and
+# 3,584).  (model, site, K, C, origin, width)
 COLUMN_BLOCKS = [("qwen2-0.5b", "attn.wq", 896, 896, 448, 448), ("qwen2-0.5b", "attn.wk", 896, 128, 64, 64),
                  ("deepseek-v2-lite-16b", "ffn.wi", 2048, 21888, 5472, 5472),
                  ("deepseek-v2-lite-16b", "ffn.wi", 2048, 21888, 10944, 5472),
-                 ("deepseek-v2-lite-16b", "attn.wq", 2048, 3072, 1536, 1536)]
+                 ("deepseek-v2-lite-16b", "attn.wq", 2048, 3072, 1536, 1536),
+                 ("zamba2-2.7b", "in_proj", 2560, 10448, 2560, 2560),
+                 ("zamba2-2.7b", "in_proj", 2560, 10448, 7680, 2560),
+                 ("zamba2-2.7b", "in_proj", 2560, 10448, 10304, 64),
+                 ("zamba2-2.7b", "in_proj", 2560, 10448, 10408, 40),
+                 ("xlstm-350m", "up", 1024, 4096, 1024, 1024),
+                 ("xlstm-350m", "up", 1024, 4096, 2048, 1024),
+                 ("xlstm-350m", "wq", 2048, 2048, 256, 256),
+                 ("xlstm-350m", "wx", 1024, 4096, 512, 512),
+                 ("xlstm-350m", "wx", 1024, 4096, 1536, 512),
+                 ("xlstm-350m", "wx", 1024, 4096, 2560, 512),
+                 ("xlstm-350m", "wx", 1024, 4096, 3584, 512)]
 
 
 def column_origin_rows(torch, K, chans, key, rows_out, card):
@@ -3022,7 +3063,7 @@ def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place, log=
 
 
 def placement_rank(rank, world, ckpt_dir):
-    """One rank of phase 10 (module docstring, (a), (b), (b') and (d)).
+    """One rank of phase 10 (module docstring, (a), (b), (b'), (d) and (e)).
     Returns this rank's results and gates."""
     import torch.distributed as dist
 
@@ -3151,6 +3192,7 @@ def placement_rank(rank, world, ckpt_dir):
     del data
     torch.cuda.empty_cache()
     out["moe"] = placement_moe(torch, K, mesh, gates, say, card)
+    out["families"] = placement_families(torch, K, mesh, gates, say, card)
     out["gates"] = gates
     for k, v in gates.items():
         say(f"{k}: {v}")
@@ -3478,11 +3520,371 @@ def placement_moe(torch, K, mesh, gates, say, card):
     return res
 
 
+# Phase 10 (e): the recurrent, audio and vision families at full width on
+# the four ranks, cut in depth: (arch, config overrides, channels).
+# xlstm-350m at one group (7 mLSTM + 1 sLSTM of 24 layers; 2 of 4 heads'
+# key blocks and 1,024 of 2,048 inner a rank); zamba2-2.7b at one group (6
+# Mamba2 layers and one shared-block invocation of 54 + 9; 40 of 80 Mamba2
+# heads a rank); whisper-medium at 2 + 2 of 24 + 24 layers; llama-3.2-vision-90b
+# at one group (4 self layers and 1 cross layer of 100).
+PLACEMENT_FAMILIES = [
+    ("xlstm-350m", dict(num_layers=8), ("ideal", "SMWA")),
+    ("zamba2-2.7b", dict(num_layers=6), ("ideal", "SMWA")),
+    ("whisper-medium", dict(encoder_layers=2, num_layers=2), ("ideal",)),
+    ("llama-3.2-vision-90b", dict(num_layers=5), ("ideal",)),
+]
+PLACEMENT_FAMILY_STEPS = 4
+PLACEMENT_AUDIO_FRAMES = 64  # whisper's encoder frames a row
+# The leaves that initialize to zeros or ones and would hide a placement
+# fault (a gate at zero makes a cross layer the identity; zero mLSTM gates
+# and Mamba2 biases make every head alike): drawn here (_family_params).
+PLACEMENT_SEEDED = ("wi/w", "wf/w", "conv_b", "a_log", "dt_bias", "d_skip", "gate", "gate_ffn")
+
+
+def _family_params(torch, arch, cfg):
+    """``cfg``'s whole parameters on the card, drawn from one seeded stream
+    in chunks of 2^26 elements straight into the parameter dtype (no f32
+    copy of a whole leaf: llama-3.2-vision-90b's embedding is 3.9 GiB in
+    f32): fan-in-scaled normals, 0.02 normals for embeddings, zeros and
+    ones by each definition's ``init``; the :data:`PLACEMENT_SEEDED`
+    leaves drawn instead, vectors from N(0, 0.5^2), the mLSTM gates'
+    matrices fan-in-scaled as every other weight; and the sLSTM's ``r`` at
+    std ``1/sqrt(dh)``, as the train-families phase scales it (ROADMAP
+    Queue 3 item 12).  At full width the published ``r`` (std 0.5, eight
+    times that) and gates at std 0.5 over a fan-in of 2,048 make
+    xlstm-350m chaotic: on the CPU a relative change of 2^-20 in its
+    embedding moved its f32 logits by 0.41–1.70 over a prefill and four
+    decode steps, against 8e-5–2e-4 with both drawn so."""
+    from repro_torch.models.common import _DTYPES, P
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+
+    def make(path, p):
+        dt = _DTYPES[p.dtype] if p.dtype else cfg.param_dtype
+        if path.endswith(PLACEMENT_SEEDED) and "/ffn/" not in path:
+            scale = 0.5 if len(p.shape) == 1 else 1.0 / math.sqrt(p.shape[p.fan_axis])
+        elif path.endswith("/r") and arch.family == "ssm":
+            scale = 1.0 / math.sqrt(p.shape[1])
+        elif p.init in ("zeros", "ones"):
+            return (torch.zeros if p.init == "zeros" else torch.ones)(p.shape, dtype=dt, device="cuda")
+        else:
+            scale = 0.02 if p.init in ("embed", "normal") else 1.0 / math.sqrt(max(p.shape[p.fan_axis], 1))
+        t = torch.empty(p.shape, dtype=dt, device="cuda")
+        flat, step = t.view(-1), 1 << 26
+        for i in range(0, flat.numel(), step):
+            n = min(step, flat.numel() - i)
+            flat[i:i + n] = (torch.randn(n, generator=gen, device="cuda") * scale).to(dt)
+        return t
+
+    def walk(node, path):
+        if isinstance(node, P):
+            return make(path, node)
+        if isinstance(node, dict):
+            return {k: walk(node[k], f"{path}/{k}") for k in sorted(node)}
+        return [walk(v, f"{path}/{i}") for i, v in enumerate(node)]
+
+    return walk(arch.param_defs(cfg), "")
+
+
+def _in_turns(torch, fn):
+    """``fn()`` on each of the four ranks in turn (barriers between), so
+    that the transient memory of one call is on the card at a time
+    (llama-3.2-vision-90b's group is 12.8 GB whole, its embedding drawn in
+    f32 first)."""
+    import torch.distributed as dist
+
+    out = None
+    for turn in range(dist.get_world_size()):
+        dist.barrier()
+        if turn == dist.get_rank():
+            out = fn()
+            torch.cuda.empty_cache()
+    dist.barrier()
+    return out
+
+
+def _placed_params(torch, arch, cfg, mesh, sizes):
+    """This rank's blocks of ``cfg``'s parameters: ``place_params`` of a
+    tree :func:`_family_params` makes anew, the ranks in turn
+    (:func:`_in_turns`)."""
+    from repro_torch.models.common import axes_tree
+    from repro_torch.runtime import sharding as shd
+
+    def place():
+        with shd.placement(mesh, sizes):
+            return shd.place_params(_family_params(torch, arch, cfg), axes_tree(arch.param_defs(cfg)))
+
+    return _in_turns(torch, place)
+
+
+def _family_batch(torch, arch, cfg, rows):
+    """The prompt batch of phase 10 (e) (``tokens``; whisper's
+    ``audio_embed`` of :data:`PLACEMENT_AUDIO_FRAMES` frames, the vision
+    family's ``vision_seq`` patches, seeded, in the compute dtype), its
+    logical axes and the decode steps' tokens."""
+    rng = np.random.default_rng(17)
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, PLACEMENT_PROMPT))).cuda()
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (PLACEMENT_FAMILY_STEPS, rows, 1))).cuda()
+    batch, axes = {"tokens": prompt}, {"tokens": ("batch", None)}
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    memory = {"audio": ("audio_embed", PLACEMENT_AUDIO_FRAMES), "vlm": ("vision", cfg.vision_seq)}.get(arch.family)
+    if memory is not None:
+        batch[memory[0]] = torch.randn((rows, memory[1], cfg.d_model), generator=gen, device="cuda").to(
+            cfg.compute_dtype)
+        axes[memory[0]] = ("batch", None, None)
+    return batch, axes, steps
+
+
+def _family_decode(torch, arch, cfg, params, batch, batch_axes, steps, mesh, placed, log=None, after=None):
+    """Phase 10 (e): a prefill and decode steps under TP over "model";
+    ``placed``: every name the arch places (``placement_sizes``), ``params``
+    this rank's blocks, the batch cut to this rank's rows, the logits
+    gathered.  ``log`` gets every GEMM and a ``None`` before each forward;
+    ``after()`` runs last in the run's scopes, untimed.  Returns (the global
+    logits of each call, the recurrent states' bytes, seconds)."""
+    from repro_torch.models.common import recording
+    from repro_torch.models.registry import ShapeSpec
+    from repro_torch.photonic import sharded
+    from repro_torch.runtime import sharding as shd
+
+    tok_axes, logit_axes = ("batch", None), ("batch", None, "vocab")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as scopes:
+        scopes.enter_context(shd.use_rules(mesh))
+        scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
+        if placed:
+            shape = ShapeSpec("decode", PLACEMENT_MAX_SEQ, PLACEMENT_ROWS, "decode")
+            scopes.enter_context(shd.placement(mesh, arch.placement_sizes(cfg, shape)))
+            batch = shd.place_tree(batch, batch_axes)
+        mark = (lambda: None) if log is None else (lambda: log.append(None))
+        with torch.no_grad(), (contextlib.nullcontext() if log is None else recording(log)):
+            mark()
+            logits, cache = arch.prefill(params, batch, cfg, PLACEMENT_MAX_SEQ)
+            out = [logits]
+            for t in steps:
+                mark()
+                logits, cache = arch.decode(params, shd.place_tree(t, tok_axes) if placed else t, cache, cfg)
+                out.append(logits)
+        if placed:
+            out = [shd.gather_tree(x, logit_axes) for x in out]
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if after is not None:
+            after()
+    states = [t for k in ("mlstm", "slstm", "mamba") for t in cache.get(k, {}).values()]
+    return out, sum(t.numel() * t.element_size() for t in states), secs
+
+
+@contextlib.contextmanager
+def _dropped_down_reduce():
+    """Phase 10 (e)'s negative control on xlstm-350m: the row-parallel
+    ``down``'s int32 partial products kept on each rank, the all-reduce that
+    sums them over "model" skipped."""
+    import torch.distributed as dist
+
+    from repro_torch.photonic import sharded
+
+    inner = sharded.psum_int_gemm
+
+    def dropped(engine, xq, wq, *, group, site=None, **kw):
+        if site != "down":
+            return inner(engine, xq, wq, group=group, site=site, **kw)
+        k_local = int((kw.get("logical_kc") or tuple(wq.shape[-2:]))[0])
+        return sharded.shard_local_engine(engine, k_local).int_gemm(
+            xq, wq, site=site, shard=dist.get_rank(group), **kw).contiguous()
+
+    sharded.psum_int_gemm = dropped
+    try:
+        yield
+    finally:
+        sharded.psum_int_gemm = inner
+
+
+def _family_forward_counts(name, cfg):
+    """Phase 10 (e): the collectives of one placed forward of
+    :data:`PLACEMENT_FAMILIES`' cut: the recurrent gathers and sums
+    (``contracts.RECURRENT_COLLECTIVES``) a layer."""
+    if name.startswith("xlstm"):
+        groups, per = cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+        return dict(xin=groups * per, parts=groups * (per + 1), state_sum=groups * per, norm=0)
+    if name.startswith("zamba2"):
+        return dict(xin=0, parts=cfg.num_layers, state_sum=0, norm=cfg.num_layers)
+    return dict(xin=0, parts=0, state_sum=0, norm=0)
+
+
+def placement_families(torch, K, mesh, gates, say, card):
+    """Phase 10 (e): for each of :data:`PLACEMENT_FAMILIES` at full width
+    (its depth cut), a prefill of ``PLACEMENT_ROWS`` x ``PLACEMENT_PROMPT``
+    tokens (whisper against ``PLACEMENT_AUDIO_FRAMES`` frames a row,
+    llama-3.2-vision against its 1,600 patches) and
+    ``PLACEMENT_FAMILY_STEPS`` decode steps under TP over "model" on the
+    kernel backend, the replicated program (whole parameters, nothing
+    placed) against everything placed (rows; ``inner`` and ``mamba_heads``
+    for xLSTM and Zamba2; heads, KV heads, ``d_ff`` and vocab).  The
+    replicated run's tree is freed before the placed run (the replay needs
+    its recorded activations only) and the ranks draw and place their trees
+    one at a time (:func:`_in_turns`).
+    Gates: every routed GEMM of the placed run, called again on this
+    rank's block of the replicated run's input, bitwise this rank's block
+    of its output (ideal and SMWA); ideal: the logits within 2^-5 of their
+    largest (bitwise where the placed program keeps the replicated one's
+    sums; the mLSTM state's partial readouts meet in an f32 SUM over
+    "model", another order); the recurrent collectives of a placed forward
+    and no GEMM row gathered; parameter bytes a rank about half the whole;
+    the recurrent states a rank about half the rows' share.  Negative
+    controls: zamba2-2.7b ideal with the two model ranks' ``a_log`` /
+    ``dt_bias`` blocks swapped, and xlstm-350m ideal with the row-parallel
+    ``down``'s all-reduce dropped, each must fail the logits gate.  Returns
+    the results."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import contracts
+    from repro_torch.models import registry
+    from repro_torch.models.registry import ShapeSpec
+
+    def worst_of(a, b):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+    shape = ShapeSpec("decode", PLACEMENT_MAX_SEQ, PLACEMENT_ROWS, "decode")
+    res = {}
+    for name, overrides, channels in PLACEMENT_FAMILIES:
+        gc.collect()
+        torch.cuda.empty_cache()
+        say(f"(e) {name}: {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated, "
+            f"{torch.cuda.memory_reserved() / 2**30:.2f} GiB reserved before it")
+        arch = registry.get(name)
+        base = dataclasses.replace(arch.config, **overrides).pad_for_mesh(2)
+        batch, batch_axes, steps = _family_batch(torch, arch, base, PLACEMENT_ROWS)
+        forwards = 1 + PLACEMENT_FAMILY_STEPS
+        sizes = arch.placement_sizes(base, shape)
+        for channel in channels:
+            cfg = dataclasses.replace(base, photonic=ideal_dpu() if channel == "ideal" else smwa_dpu(),
+                                      photonic_backend="kernel")
+            key = f"(e) {name} {channel}"
+            runs = {}
+            # the replicated run, its GEMM records kept without their (whole) parameters
+            stages, t0 = {}, time.perf_counter()
+            _reset_counts(torch, K)
+            params = _in_turns(torch, lambda: _family_params(torch, arch, cfg))
+            stages["draw"] = time.perf_counter() - t0
+            whole_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+            rep_log = []
+            logits, states, secs = _family_decode(torch, arch, cfg, params, batch, batch_axes, steps, mesh, False,
+                                                  log=rep_log)
+            rep_log = [r if r is None else r._replace(params=None) for r in rep_log]
+            runs["replicated"] = dict(logits=logits, states=states, seconds=secs, counts=_counts(K),
+                                      max_memory_allocated=torch.cuda.max_memory_allocated())
+            del params
+            stages["replicated"] = time.perf_counter() - t0 - stages["draw"]
+            # the placed run and the replay
+            _reset_counts(torch, K)
+            t1 = time.perf_counter()
+            placed = _placed_params(torch, arch, cfg, mesh, sizes)
+            stages["place"] = time.perf_counter() - t1
+            held = sum(t.numel() * t.element_size() for t in _leaves(placed))
+            # the ranks place in turn, one whole tree on the card at a time: this rank's placing peak, apart
+            placing_peak = torch.cuda.max_memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            log_, snap = [], {}
+
+            def after(log_=log_, snap=snap, cfg=cfg, rep_log=rep_log):
+                snap["counts"] = dict(_counts(K), outputs=contracts.ROW_GATHERS["outputs"],
+                                      amax=contracts.SCALE_REDUCTIONS["amax"],
+                                      **{f"recurrent_{k}": v for k, v in contracts.RECURRENT_COLLECTIVES.items()},
+                                      **{f"param_{k}": v for k, v in contracts.PARAM_REDUCES.items()})
+                snap["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+                snap["replay"] = _replay_gemms(torch, rep_log, log_, cfg)
+
+            t1 = time.perf_counter()
+            logits, states, secs = _family_decode(torch, arch, cfg, placed, batch, batch_axes, steps, mesh, True,
+                                                  log=log_, after=after)
+            stages["placed and replay"] = time.perf_counter() - t1
+            runs["placed"] = dict(logits=logits, states=states, seconds=secs, **snap)
+            del log_, rep_log
+            rep, pp = runs["replicated"], runs["placed"]
+            checked, same, bad, first = pp["replay"]
+            worst = worst_of(rep["logits"], pp["logits"])
+            scale = max(float(a.float().abs().max()) for a in rep["logits"])
+            bitwise = all(torch.equal(a, b) for a, b in zip(rep["logits"], pp["logits"]))
+            finite = all(bool(torch.isfinite(x).all()) for x in pp["logits"])
+            fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in pp["logits"])).hexdigest()[:16]
+            c = pp["counts"]
+            want = {k: v * forwards for k, v in _family_forward_counts(name, cfg).items()}
+            got = {k: c[f"recurrent_{k}"] for k in want}
+            control, t1 = None, time.perf_counter()
+            if channel == "ideal" and name.startswith(("zamba2", "xlstm")):
+                if name.startswith("zamba2"):
+                    # each rank takes the other model rank's blocks: one all-gather of each leaf over "model"
+                    model = mesh.get_group("model")
+                    for group in placed["mamba"]:
+                        for p in group:
+                            for leaf in ("a_log", "dt_bias"):
+                                both = [torch.empty_like(p[leaf]) for _ in range(2)]
+                                dist.all_gather(both, p[leaf].contiguous(), group=model)
+                                p[leaf] = both[1 - mesh.get_local_rank("model")]
+                    wrong, _, _ = _family_decode(torch, arch, cfg, placed, batch, batch_axes, steps, mesh, True)
+                    what = "the two model ranks' a_log / dt_bias blocks swapped"
+                else:
+                    with _dropped_down_reduce():
+                        wrong, _, _ = _family_decode(torch, arch, cfg, placed, batch, batch_axes, steps, mesh, True)
+                    what = "the row-parallel down's all-reduce dropped"
+                control = dict(what=what, worst=worst_of(rep["logits"], wrong))
+                stages["control"] = time.perf_counter() - t1
+                gates[f"{key}: negative control, {what}: the logits gate fails"] = control["worst"] > 2.0**-5 * scale
+            del placed
+            torch.cuda.empty_cache()
+            if channel == "ideal":
+                gates[f"{key}: logits within 2^-5 of their largest of the replicated program's"] = (
+                    finite and worst <= 2.0**-5 * scale)
+            gates[f"{key}: every routed GEMM, replayed on the replicated program's input, bitwise its output"] = (
+                not bad and same > 0)
+            gates[f"{key}: recurrent gathers and sums a forward, no GEMM row gathered, no fused launch"] = (
+                got == want and c["row_gathers"] == 0 and c["photonic_gemm_fused"] == 0)
+            gates[f"{key}: parameter bytes a rank about half the whole"] = 0.45 < held / whole_bytes < 0.55
+            state_ratio = None
+            if rep["states"]:
+                # the rows halve over "data" in both runs; "model" halves the placed states once more
+                state_ratio = pp["states"] / (rep["states"] / 2)
+                gates[f"{key}: recurrent state bytes a rank about half the rows' share"] = 0.45 < state_ratio < 0.56
+            per_forward = [float((x.float() - y.float()).abs().max()) for x, y in zip(rep["logits"], pp["logits"])]
+            res[f"{name} {channel}"] = dict(
+                max_abs=worst, per_forward=per_forward, scale=scale, bitwise=bitwise, fingerprint=fp, gemms_checked=checked, gemms_same=same,
+                gemms_bad=bad[:8], first_input_difference=first, control=control, counts=c,
+                replicated_counts=rep["counts"], recurrent=got, seconds=pp["seconds"],
+                replicated_seconds=rep["seconds"], param_bytes=held, whole_param_bytes=whole_bytes,
+                state_bytes=pp["states"], replicated_state_bytes=rep["states"], state_ratio=state_ratio,
+                max_memory_allocated=pp["max_memory_allocated"],
+                replicated_max_memory_allocated=rep["max_memory_allocated"], placing_peak=placing_peak,
+                stage_seconds=stages,
+                launches_a_forward=c["photonic_gemm"] / forwards)
+            say(f"{key}: prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} + {PLACEMENT_FAMILY_STEPS} decode steps, "
+                f"placed ({', '.join(sorted(sizes))}) against replicated: max |d logits| {worst:.4g} of {scale:.4g} "
+                f"(bitwise {bitwise}; ideal bar 2^-5 x; each forward {[round(x, 5) for x in per_forward]}), sha256 "
+                f"{fp}; routed GEMMs replayed on the replicated "
+                f"program's input: {same} bitwise ({len(checked)} sites), mismatches {bad[:4]}; first GEMM whose own "
+                f"input differs (forward, site, layer, max |d|): {first}; negative control {control}; recurrent "
+                f"collectives {got} (want {want}); photonic_gemm launches {c['photonic_gemm'] / forwards:.1f} a "
+                f"forward (replicated {rep['counts']['photonic_gemm'] / forwards:.1f}), int32 all-reduces "
+                f"{c['all_reduces']}; {pp['seconds']:.2f} s placed, {rep['seconds']:.2f} s replicated; parameter "
+                f"bytes a rank {held} of {whole_bytes} whole ({held / whole_bytes:.4f}); recurrent state bytes a "
+                f"rank {pp['states']} against {rep['states']} replicated (ratio to the rows' share {state_ratio}); "
+                f"max_memory_allocated placed {pp['max_memory_allocated'] / 2**30:.2f} GiB, replicated "
+                f"{rep['max_memory_allocated'] / 2**30:.2f} GiB, placing (in turn) {placing_peak / 2**30:.2f} GiB; "
+                f"stage seconds {({k: round(v, 2) for k, v in stages.items()})} [{card}]")
+            del runs, rep, pp, after, snap
+        del batch, steps
+        torch.cuda.empty_cache()
+    dist.barrier()
+    return res
+
+
 def placement_child():
-    """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b') and (d)
-    on four ranks (:func:`placement_rank`).  Gates: each rank's own, and the ranks'
-    logits and losses equal.  Returns (ok, result, launches summed over the
-    ranks)."""
+    """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b'), (d) and
+    (e) on four ranks (:func:`placement_rank`).  Gates: each rank's own, the
+    ranks' logits and losses equal, and (e)'s four ranks' summed peak
+    memory within the card's 80 GB.  Returns (ok, result, launches summed
+    over the ranks)."""
     from repro_torch.launch.mesh import spawn
 
     log("  placement: backend gloo, CUDA tensors, four ranks sharing the card as the (data 2, model 2) mesh")
@@ -3495,8 +3897,17 @@ def placement_child():
     same = all(r[c][f] == ranks[0][c][f] for r in ranks for c in ("ideal", "SMWA")
                for f in ("fingerprint", "params_fingerprint")) and all(
         r[t]["losses"] == ranks[0][t]["losses"] for r in ranks for t in ("train", "dry_train")) and all(
-        r["moe"][k]["fingerprint"] == ranks[0]["moe"][k]["fingerprint"] for r in ranks for k in ranks[0]["moe"])
-    log(f"  placement (a)/(b)/(b')/(d): every rank's gates {ok}; ranks agree (logits, losses) {same}")
+        r["moe"][k]["fingerprint"] == ranks[0]["moe"][k]["fingerprint"] for r in ranks for k in ranks[0]["moe"]) and all(
+        r["families"][k]["fingerprint"] == ranks[0]["families"][k]["fingerprint"]
+        for r in ranks for k in ranks[0]["families"])
+    # the placed and replicated runs' peaks, summed over the ranks (each rank's placing peak comes in its own turn,
+    # the other ranks holding their blocks or nothing)
+    peaks = {k: sum(max(r["families"][k]["max_memory_allocated"], r["families"][k]["replicated_max_memory_allocated"])
+                    for r in ranks) for k in ranks[0]["families"]}
+    fits = all(v <= 80 * 10**9 for v in peaks.values())
+    log(f"  placement (a)/(b)/(b')/(d)/(e): every rank's gates {ok}; ranks agree (logits, losses) {same}; (e) the "
+        f"four ranks' summed peak max_memory_allocated {({k: round(v / 1e9, 3) for k, v in peaks.items()})} GB, "
+        f"within 80 GB: {fits}")
     launches = {"photonic_gemm": sum(r[c][f"{k}_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA")
                                      for k in ("replicated", "placed", "params"))
                 + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))
@@ -3507,24 +3918,30 @@ def placement_child():
                 # dry run's step; (d)'s placed MoE decoders
                 "column_parallel": sum(r[c]["params_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA"))
                 + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks),
-                "moe_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks for m in r["moe"].values())}
-    return ok and same, {"ranks": ranks}, launches
+                "moe_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks for m in r["moe"].values()),
+                "families_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks
+                                                for m in r["families"].values())}
+    launches["photonic_gemm"] += launches["families_column_parallel"] + sum(
+        m["replicated_counts"]["photonic_gemm"] for r in ranks for m in r["families"].values())
+    return ok and same and fits, {"ranks": ranks, "family_peaks": peaks}, launches
 
 
-# Phase 10 (c): the MoE decoders' decode cells.
-MOE_CELLS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b")
+# Phase 10 (c): the MoE decoders', zamba2-2.7b's and llama-3.2-vision-90b's
+# decode cells, their parameters placed.
+PLACED_CELLS = ("phi3.5-moe-42b-a6.6b", "deepseek-v2-lite-16b", "zamba2-2.7b", "llama-3.2-vision-90b")
 
 
 def placement_cells(cells, registry, card):
     """Phase 10 (c): the tooling phase's qwen2-0.5b x decode_32k and x
     train_4k (ZeRO-1) cells beside the reference's recorded decode cell,
-    and the MoE decoders' decode_32k cells (``MOE_CELLS``: their
-    parameters placed, experts included; gates: they fit 80 GB and hold
-    nothing whole where the reference places it).  Returns (ok, result)."""
+    and the decode_32k cells of ``PLACED_CELLS`` (the MoE decoders,
+    zamba2-2.7b and llama-3.2-vision-90b: their parameters placed; gates:
+    they fit 80 GB and hold nothing whole where the reference places
+    it).  Returns (ok, result)."""
     from repro_torch._tree import tree_items
 
     ok, res = True, {}
-    for name in MOE_CELLS:
+    for name in PLACED_CELLS:
         cell = next((c for c in cells if c.get("arch") == name and c.get("shape") == "decode_32k"), None)
         if cell is None or "flops_per_device" not in cell:
             log(f"  (c) {name} x decode_32k: no cell")
@@ -4263,7 +4680,7 @@ def cross_phase(torch, registry, card):
     del packed, params, vision, batch
     torch.cuda.empty_cache()
 
-    # -- whisper-medium, 12 + 12 of its 24 + 24 layers ---------------------------
+    # -- whisper-medium, 8 + 8 of its 24 + 24 layers -----------------------------
     arch = registry.get("whisper-medium")
     cfg = dataclasses.replace(arch.config, num_layers=WHISPER_SERVE_LAYERS, encoder_layers=WHISPER_SERVE_LAYERS)
     t0 = time.perf_counter()
@@ -4887,6 +5304,8 @@ DRY_CELLS = [
     ("qwen2-0.5b", "train_4k", ()),
     ("phi3.5-moe-42b-a6.6b", "decode_32k", ()),
     ("deepseek-v2-lite-16b", "decode_32k", ()),
+    ("zamba2-2.7b", "decode_32k", ()),
+    ("llama-3.2-vision-90b", "decode_32k", ()),
 ]
 TOOLING_ROWS = 4  # the tooling phase's paged server: four decode rows
 
@@ -5606,8 +6025,9 @@ def main() -> int:
         case=f"placement: one shard of {TP_SHARDS} of a qwen2-0.5b layer's six sites (K_local 448 / 2432), R=4, "
              "ideal channel, shard_local_engine.int_gemm(shard=i) (timed in the tp phase); library: torch._int_mm "
              "of the shard's int cores; launches from phase 10's four ranks: the placed and replicated prefill + "
-             "decode runs, ideal and SMWA, the placed and replicated train() runs, and (d)'s MoE decoders at full "
-             "width (deepseek-v2-lite, phi3.5-moe) placed and replicated",
+             "decode runs, ideal and SMWA, the placed and replicated train() runs, (d)'s MoE decoders at full "
+             "width (deepseek-v2-lite, phi3.5-moe) and (e)'s recurrent, audio and vision families at full width "
+             "(xlstm-350m, zamba2-2.7b, whisper-medium, llama-3.2-vision-90b), placed and replicated",
     ))
     # The placement phase's column-origin rows: a rank's column blocks at R = 4,
     # unfused, ideal channel, each at its global column origin; qwen2-0.5b's
@@ -5616,19 +6036,27 @@ def main() -> int:
     # + decode runs and the dry run's placed train step); deepseek-v2-lite's
     # ffn.wi halves and attn.wq head block, launches from (d)'s placed MoE
     # decoders; every rank.
-    for model, launches, case in (
-            ("qwen2-0.5b", place_launches["column_parallel"],
+    for models, launches, case in (
+            (("qwen2-0.5b",), place_launches["column_parallel"],
              "column-parallel: a rank's column blocks of qwen2-0.5b's attn.wq (448 from c_origin 448) and attn.wk "
              "(64 from c_origin 64), R=4, K=896, ideal channel, PhotonicEngine.int_gemm(columns=); library: "
              "torch._int_mm of the blocks' int cores; launches from phase 10's column-parallel runs (placed-"
              "parameter prefill + decode, ideal and SMWA, and the dry run's placed train step), every rank"),
-            ("deepseek-v2-lite-16b", place_launches["moe_column_parallel"],
+            (("deepseek-v2-lite-16b",), place_launches["moe_column_parallel"],
              "column-parallel, MoE decoders: a rank's column blocks of deepseek-v2-lite's layer-0 ffn.wi (u 5472 "
              "from c_origin 5472, g 5472 from c_origin 10944) and MLA attn.wq (1536 from c_origin 1536), R=4, "
              "K=2048, ideal channel, PhotonicEngine.int_gemm(columns=); library: torch._int_mm of the blocks' int "
              "cores; launches from (d)'s placed deepseek-v2-lite and phi3.5-moe prefill + decode runs (ideal and "
-             "SMWA, expanded and absorbed), every rank")):
-        blk = [x for x in col_rows if x["model"] == model and x["channel"] == "ideal" and x["fused"] == 0]
+             "SMWA, expanded and absorbed), every rank"),
+            (("zamba2-2.7b", "xlstm-350m"), place_launches["families_column_parallel"],
+             "column-parallel, recurrent families: a rank's column blocks of zamba2-2.7b's Mamba2 in_proj by its "
+             "parts (z 2560 from c_origin 2560, x 2560 from 7680, B C 64 from 10304, dt 40 from 10408; K=2560), "
+             "xlstm-350m's mLSTM up halves (xin 1024 from 1024, gate 1024 from 2048; K=1024), its wq key block of "
+             "head 0 (256 from 256; K=2048) and its sLSTM wx quarters (512 from 512, 1536, 2560, 3584; K=1024), "
+             "R=4, ideal channel, PhotonicEngine.int_gemm(columns=); library: torch._int_mm of the blocks' int "
+             "cores; launches from (e)'s placed xlstm-350m, zamba2-2.7b, whisper-medium and llama-3.2-vision-90b "
+             "prefill + decode runs (ideal, and SMWA for the recurrent two), every rank")):
+        blk = [x for x in col_rows if x["model"] in models and x["channel"] == "ideal" and x["fused"] == 0]
         bm, bb = bound_of([x["parts"] for x in blk])
         kernels.append(dict(
             name="photonic_gemm", route="cuda", source=FUSED_SRC,

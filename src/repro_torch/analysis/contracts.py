@@ -50,6 +50,20 @@ GEMM); ``"weight_scale"``, the per-column abs-max of a K-placed weight
 ``"expert_combine"``, the forward sum of the ranks' partial combines of an
 expert-parallel MoE (one a MoE layer); ``"expert_input"``, the backward of
 its experts' input and gate values (one a MoE layer).
+:data:`RECURRENT_COLLECTIVES` counts the collectives of the recurrent
+families' placed forms (``inner`` / ``mamba_heads`` over ``model``):
+``"xin"``, the all-gather of the mLSTM's ``xin`` columns that its
+``wq`` / ``wk`` / ``wv`` rows read whole (one an mLSTM layer);
+``"parts"``, the all-gathers of column parts every rank reads whole (the
+mLSTM's ``v``, the sLSTM's gate preacts, Mamba2's ``B`` / ``C``: one a
+layer); ``"state_sum"``, the mLSTM's f32 SUM of its partial readouts of
+the state placed on its key dimension (one an mLSTM layer); ``"norm"``,
+the all-gather of Mamba2's gated-norm input (one a Mamba2 layer); and
+``"split_input"``, the backward SUM of a replicated value that rank-split
+work reads (the mLSTM's gates and ``v``, Mamba2's ``B`` / ``C``, a norm's
+output ahead of a row-parallel GEMM).  The row-parallel ``down`` /
+``out_proj`` reduce as every row-parallel GEMM does (``psum_int_gemm``
+routed, ``PARAM_REDUCES["row_output"]`` digital).
 """
 
 from __future__ import annotations
@@ -66,15 +80,22 @@ SCALE_REDUCTIONS = {"amax": 0}
 HEAD_GATHERS = {"heads": 0}
 PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0,
                  "expert_combine": 0, "expert_input": 0}
+RECURRENT_COLLECTIVES = {"xin": 0, "parts": 0, "state_sum": 0, "norm": 0, "split_input": 0}
 
 
 def reset_all_reduces() -> None:
     """Zero :data:`ALL_REDUCES`, :data:`ROW_GATHERS`,
-    :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS` and
-    :data:`PARAM_REDUCES`."""
-    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES):
+    :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS`, :data:`PARAM_REDUCES`
+    and :data:`RECURRENT_COLLECTIVES`."""
+    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES, RECURRENT_COLLECTIVES):
         for name in counts:
             counts[name] = 0
+
+
+def count_collective(what: str) -> None:
+    """Add one to ``what``'s count: a key of :data:`PARAM_REDUCES` or of
+    :data:`RECURRENT_COLLECTIVES`."""
+    (PARAM_REDUCES if what in PARAM_REDUCES else RECURRENT_COLLECTIVES)[what] += 1
 
 
 def min_weight_size(defs: Any) -> int:

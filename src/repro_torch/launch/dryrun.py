@@ -39,23 +39,31 @@ its logits, which the reference's ``out_shardings`` replicate); a train
 step's optimizer moments are ZeRO-1 blocks over the data axes (the
 reference's ``zero1_axes``, derived from the global shapes), its update
 running on those blocks and all-gathering the parameters, unless
-``--no-zero1``.  The dense GQA decoders (qwen2, granite, deepseek-67b)
-and the MoE decoders (phi3.5-moe, deepseek-v2-lite) hold their parameters
-as the reference's ``in_shardings`` place them, each leaf by its
-``param_axes`` (``heads`` — MLA's too —, ``kv_heads``, ``d_ff``, ``vocab``,
-``experts`` over ``model``), in prefill, decode and train steps alike:
-every GEMM computes its block (column-parallel ``wq`` / ``wk`` / ``wv`` /
-MLA's ``wuk`` / ``wuv`` / ``ffn.wi`` / the shared experts' ``wi`` /
-``lm_head``, row-parallel ``wo`` / ``ffn.wo``), the MoE is
-expert-parallel (a rank runs its block of the experts on their slots, the
-partial combines summed over ``model``), the embedding and the loss are
-vocab-parallel, the decode step gathers its logits over ``model`` too,
-and the gradient norm sums placed leaves over ``model``.  Every other
-family holds its parameters whole, and any other dimension the reference
-places stays whole (the params' ``inner`` / ``mamba_heads`` axes, the
-vision and audio families' parameters, ``kv_seq``): the report lists each
-such leaf under ``replicated_by_port`` with the bytes the rank holds and
-the reference's, and gives ``param_bytes`` (the rank's).
+``--no-zero1``.  Every family holds its parameters as the reference's
+``in_shardings`` place them, each leaf by its ``param_axes``, in prefill,
+decode and train steps alike: the dense GQA decoders (qwen2, granite,
+deepseek-67b) and the MoE decoders (phi3.5-moe, deepseek-v2-lite) by
+``heads`` (MLA's too), ``kv_heads``, ``d_ff``, ``vocab`` and
+``experts``; whisper and llama-3.2-vision by their heads (the
+cross-attention's too), ``d_ff`` and ``vocab``; xLSTM and Zamba2 by
+``inner`` and ``mamba_heads`` (their projections, the mLSTM state's key
+dimension, the Mamba2 SSM and conv states) and Zamba2's shared block by
+its heads and ``d_ff``, over ``model``.  Every GEMM computes its block
+(column-parallel ``wq`` / ``wk`` / ``wv`` / MLA's ``wuk`` / ``wuv`` /
+``ffn.wi`` / the shared experts' ``wi`` / Mamba2's ``in_proj`` / the
+mLSTM's ``up`` / ``wq`` / ``wk`` / ``wv`` / the sLSTM's ``wx`` /
+``lm_head``, row-parallel ``wo`` / ``ffn.wo`` / ``out_proj`` /
+``down``), the MoE is expert-parallel (a rank runs its block of the
+experts on their slots, the partial combines summed over ``model``),
+the embedding and the loss are vocab-parallel, the decode step gathers
+its logits over ``model`` too, and the gradient norm sums placed leaves
+over ``model``.  Any dimension the reference places that the port does
+not (``kv_seq``, ``seq_sp``) stays whole: the report lists each such leaf
+under ``replicated_by_port`` with the bytes the rank holds and the
+reference's, and gives ``param_bytes`` (the rank's).  A column axis laid
+out in parts (SwiGLU's ``[u | g]``, Mamba2's ``[z | x | B C | dt]``) is
+held as a block of each part, the bytes of the reference's contiguous
+block.
 
 The ``fake`` backend comes from ``torch.testing._internal.distributed.
 fake_pg`` (the one torch ships; internal API).  ``--device`` defaults to
@@ -273,8 +281,7 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
 
         def train_step(params, opt_state, batch):
             shards = adamw.zero1(defs, axes_tree(defs), mesh, cfg.logical_rules) if zero1 else None
-            placed = adamw.Placed(shd.placed_leaf_parts(defs, axes_tree(defs), cfg.logical_rules), mesh) \
-                if arch.places_params(cfg) else None
+            placed = adamw.Placed(shd.placed_leaf_parts(defs, axes_tree(defs), cfg.logical_rules), mesh)
             return build_train_step(loss_fn, opt_cfg, zero1=shards, placed=placed)(params, opt_state, batch)
 
         return scoped(train_step)
@@ -296,7 +303,7 @@ def build_step(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, dp_compress
 def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False, zero1: bool = True) -> tuple:
     """The fake inputs of one cell's step (call inside a
     ``FakeTensorMode``), this rank's blocks: parameters (placed by their
-    ``param_axes`` for the dense GQA and MoE decoders), and the optimizer state
+    ``param_axes``), and the optimizer state
     (ZeRO-1 moments unless ``zero1`` is false) and batch rows, the batch
     rows, or the token and cache rows and KV heads.  The DP step
     (``dp_shardmap``) takes whole parameters, the global batch and
@@ -320,10 +327,9 @@ def build_args(arch, cfg, shape, mesh, device: str, *, dp_shardmap: bool = False
 
 def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero1: bool = True) -> list:
     """``sharding.replicated_by_port`` over the cell's argument leaves: the
-    parameters (placed along the cell's placed names for the dense GQA
-    and MoE decoders, along none elsewhere), the moments of a train step (placed
-    along ``zero1`` only), and the batch, token and cache (placed along the
-    cell's placed names)."""
+    parameters (placed along the cell's placed names), the moments of a
+    train step (placed along ``zero1`` and those names), and the batch,
+    token and cache (placed along the cell's placed names)."""
     from repro_torch._tree import tree_items
     from repro_torch.models.common import _DTYPES, axes_tree
     from repro_torch.runtime import sharding as shd
@@ -334,9 +340,8 @@ def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero
     paxes = shd._axes_items(axes_tree(defs), pdefs)
     dp_step = dp_shardmap and shape.kind == "train"
     names = () if dp_step else tuple(shd.placed_parts(arch.placement_sizes(cfg, shape), mesh, rules))
-    pnames = names if arch.places_params(cfg) else ()
     groups = [({f"params/{k}": (p.shape, paxes[k], (_DTYPES[p.dtype] if p.dtype else cfg.param_dtype).itemsize)
-                for k, p in pdefs.items()}, pnames)]
+                for k, p in pdefs.items()}, names)]
     if shape.kind == "train":
         spec, axes = arch.train_batch_spec(cfg, shape)
         if zero1 and not dp_step:
@@ -345,7 +350,7 @@ def replicated_leaves(arch, cfg, shape, mesh, *, dp_shardmap: bool = False, zero
         else:
             maxes = paxes
         for m in ("mu", "nu"):
-            groups.append(({f"opt/{m}/{k}": (p.shape, maxes[k], 4) for k, p in pdefs.items()}, ("zero1",) + pnames))
+            groups.append(({f"opt/{m}/{k}": (p.shape, maxes[k], 4) for k, p in pdefs.items()}, ("zero1",) + names))
     elif shape.kind == "prefill":
         spec, axes = arch.prefill_batch_spec(cfg, shape)
     else:

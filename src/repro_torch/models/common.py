@@ -21,7 +21,7 @@ import torch.utils.checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.core.dpu import DPUConfig, quantize_symmetric
-from repro_torch.runtime.sharding import logical_constraint
+from repro_torch.runtime.sharding import logical_constraint, parted
 
 
 @dataclasses.dataclass(frozen=True)
@@ -165,17 +165,24 @@ def _round_up(x: int, m: int) -> int:
 # ---------------------------------------------------------------------------
 @dataclasses.dataclass(frozen=True)
 class P:
-    """A parameter definition.  Reference: ``repro.models.common:P``."""
+    """A parameter definition.  Reference: ``repro.models.common:P``.
+    ``parts`` (the port's) declares the last dimension's layout: the
+    global widths of the column parts laid side by side in it, of which a
+    rank holds a block each where the dimension is placed
+    (``runtime.sharding.parted``); empty for one part."""
 
     shape: Tuple[int, ...]
     axes: Tuple[Optional[str], ...]
     init: str = "fan_in"  # fan_in | zeros | ones | embed | normal
     fan_axis: int = 0
     dtype: Optional[str] = None  # override param_dtype ("int8", "float32")
+    parts: Tuple[int, ...] = ()
 
     def __post_init__(self):
         if len(self.shape) != len(self.axes):
             raise ValueError(f"shape {self.shape} and axes {self.axes} disagree")
+        if self.parts and sum(self.parts) != self.shape[-1]:
+            raise ValueError(f"parts {self.parts} do not lay out the last dimension of {self.shape}")
 
 
 _DTYPES = {"int8": torch.int8, "float32": torch.float32}
@@ -234,9 +241,10 @@ def axes_tree(defs: Any) -> Any:
     """The logical-axis tree matching :func:`init_params`' output: each
     :class:`P` as its ``axes`` tuple, dicts and per-layer lists kept.
     Reference: ``repro.models.common:axes_tree`` (whose stacked layer
-    leaves carry one more leading ``None`` per stacking)."""
+    leaves carry one more leading ``None`` per stacking); a leaf with
+    ``parts`` as :class:`~repro_torch.runtime.sharding.Axes`."""
     if isinstance(defs, P):
-        return defs.axes
+        return parted(defs.axes, defs.parts) if defs.parts else defs.axes
     if isinstance(defs, list):
         return [axes_tree(v) for v in defs]
     return {k: axes_tree(v) for k, v in defs.items()}
@@ -249,24 +257,27 @@ def dense_def(
     bias: bool = False,
     init: str = "fan_in",
     quantized: bool = False,
+    parts: Tuple[int, ...] = (),
 ) -> Dict[str, P]:
-    """Reference: ``repro.models.common:dense_def``."""
+    """Reference: ``repro.models.common:dense_def``.  ``parts``: the
+    output columns' parts (:class:`P`), declared on every leaf with a
+    column axis."""
     if quantized:
         d: Dict[str, P] = {
-            "w": P((d_in, d_out), axes, init=init, dtype="int8"),
-            "w_scale": P((d_out,), (axes[1],), init="ones", dtype="float32"),
+            "w": P((d_in, d_out), axes, init=init, dtype="int8", parts=parts),
+            "w_scale": P((d_out,), (axes[1],), init="ones", dtype="float32", parts=parts),
         }
     else:
-        d = {"w": P((d_in, d_out), axes, init=init)}
+        d = {"w": P((d_in, d_out), axes, init=init, parts=parts)}
     if bias:
-        d["b"] = P((d_out,), (axes[1],), init="zeros")
+        d["b"] = P((d_out,), (axes[1],), init="zeros", parts=parts)
     return d
 
 
-def qdense_def(cfg: ModelConfig, d_in, d_out, axes, bias=False, init="fan_in"):
+def qdense_def(cfg: ModelConfig, d_in, d_out, axes, bias=False, init="fan_in", parts=()):
     """Reference: ``repro.models.common:qdense_def``."""
     quantized = cfg.photonic is not None and cfg.photonic_scope == "weights_int8"
-    return dense_def(d_in, d_out, axes, bias=bias, init=init, quantized=quantized)
+    return dense_def(d_in, d_out, axes, bias=bias, init=init, quantized=quantized, parts=parts)
 
 
 def engine_from_model_config(cfg: ModelConfig):

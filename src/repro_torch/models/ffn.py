@@ -30,9 +30,9 @@ from repro_torch.runtime.sharding import block, copy_to_model, mean_over_rows, r
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
     """Reference: ``repro.models.ffn:mlp_def``."""
     d, f = cfg.d_model, d_ff or cfg.d_ff
-    width = 2 * f if cfg.ffn_act == "swiglu" else f
+    swiglu = cfg.ffn_act == "swiglu"
     return {
-        "wi": qdense_def(cfg, d, width, (None, "d_ff")),
+        "wi": qdense_def(cfg, d, 2 * f if swiglu else f, (None, "d_ff"), parts=(f, f) if swiglu else ()),
         "wo": qdense_def(cfg, f, d, ("d_ff", None)),
     }
 

@@ -22,8 +22,9 @@ hd)``.  Both are updated in place by decode (the reference returns new
 ones; the port saves the copy).
 
 Under a :func:`repro_torch.runtime.sharding.placement` of the parameters
-(the dense GQA and MoE decoders': ``heads``, ``kv_heads``, ``d_ff``,
-``vocab``, ``experts`` over ``model``) every GEMM computes this rank's
+(``heads``, ``kv_heads``, ``d_ff``, ``vocab``, ``experts`` over
+``model``; llama-3.2-vision's cross layers too, their ``gate`` /
+``gate_ffn`` whole) every GEMM computes this rank's
 block, in DeepSeek-V2's unstacked first block as in the list: the embedding
 is a vocab-parallel lookup, the MoE layers are expert-parallel
 (``ffn.moe``), the logits are this rank's vocab block (gathered by the

@@ -128,37 +128,39 @@ class Arch:
         ]
 
     # ---- placement -------------------------------------------------------------
-    def places_params(self, cfg: ModelConfig) -> bool:
-        """Whether the port places this arch's parameters by their
-        ``param_axes``: the dense GQA decoders (qwen2, granite,
-        deepseek-67b) and the MoE decoders (phi3.5-moe's GQA heads and
-        experts; deepseek-v2-lite's MLA heads, experts, shared experts and
-        dense first layer); every other family holds them whole."""
-        return (self.family == "dense" and not cfg.mla) or self.family == "moe"
-
     def placement_sizes(self, cfg: ModelConfig, shape: ShapeSpec, *, params: bool = True) -> Dict[str, int]:
         """The global sizes of the logical names the port places for one
         step of ``shape`` (``repro_torch.runtime.sharding.placement``): the
         batch rows always; the q and KV heads of GQA attention in prefill
         and decode (the xLSTM stack keeps its heads whole), and in training
-        for the dense GQA decoders.  Where the arch places its parameters
-        and ``params`` is set, the step takes them placed
-        (``sharding.place_params``) by ``heads`` (MLA's alone: its latent
-        cache has no head axis), ``d_ff``, ``vocab`` and ``experts``, in
-        training too.  ``train(mesh=)`` asks for rows and heads only
-        (``params=False``; the MoE decoders' rows alone): its parameters
-        stay whole, as the reference's ``train()`` keeps them."""
+        for the dense GQA decoders.  With ``params`` the step takes the
+        parameters placed (``sharding.place_params``), in training too:
+        by ``heads`` (MLA's alone: its latent cache has no head axis),
+        ``kv_heads``, ``d_ff``, ``vocab`` and ``experts``, and for the
+        recurrent families by ``inner`` (the xLSTM and Mamba2 projections,
+        the mLSTM state's key dimension, the Mamba2 conv state) and
+        ``mamba_heads`` (Mamba2's heads and SSM state), Zamba2's shared
+        block by its heads and ``d_ff``.  ``train(mesh=)`` asks for rows
+        and heads only (``params=False``; the MoE and recurrent families'
+        rows alone): its parameters stay whole, as the reference's
+        ``train()`` keeps them."""
         sizes = {"batch": shape.global_batch}
-        placed = self.places_params(cfg) and params
         dense = self.family == "dense" and not cfg.mla
-        if (shape.kind != "train" or dense or placed) and self.family != "ssm" and not cfg.mla:
+        if (shape.kind != "train" or dense or params) and self.family != "ssm" and not cfg.mla:
             sizes.update(heads=cfg.n_q_heads, kv_heads=cfg.num_kv_heads)
-        if placed:
-            if cfg.mla:
-                sizes.update(heads=cfg.n_q_heads)
-            sizes.update(d_ff=cfg.d_ff, vocab=cfg.n_vocab)
-            if cfg.num_experts:
-                sizes.update(experts=cfg.num_experts)
+        if not params:
+            return sizes
+        if cfg.mla:
+            sizes.update(heads=cfg.n_q_heads)
+        sizes.update(vocab=cfg.n_vocab)
+        if cfg.d_ff:  # xLSTM has no MLP (d_ff 0)
+            sizes.update(d_ff=cfg.d_ff)
+        if cfg.num_experts:
+            sizes.update(experts=cfg.num_experts)
+        if self.family in ("ssm", "hybrid"):
+            sizes.update(inner=cfg.ssm_expand * cfg.d_model)
+        if self.family == "hybrid":
+            sizes.update(mamba_heads=cfg.ssm_expand * cfg.d_model // cfg.ssm_head_dim)
         return sizes
 
     def param_specs(self, cfg: ModelConfig, shape: ShapeSpec, mesh=None):
@@ -172,8 +174,6 @@ class Arch:
         defs = self.param_defs(cfg)
         spec = tree_map(lambda p: TensorSpec(p.shape, _DTYPES[p.dtype] if p.dtype else cfg.param_dtype), defs)
         axes = axes_tree(defs)
-        if not self.places_params(cfg):
-            return spec, axes
         return self._placed(cfg, shape, mesh, spec, axes), axes
 
     def _placed(self, cfg, shape, mesh, specs, axes):

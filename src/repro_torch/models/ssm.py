@@ -18,6 +18,20 @@ forward and makes its NaN gradient at ``ssm_chunk = 256`` finite.  The
 causal conv keeps both of the reference's spellings: prefill sums the W
 shifted products from the int 0, decode is an ``einsum`` over the window.
 No GEMM here passes ``layer=``, as in the reference.
+
+Under a placement of ``inner`` and ``mamba_heads`` over ``model``
+(placed parameters, ``runtime.sharding.place_params``) a rank runs its
+block of the heads, as the reference's ``param_axes`` and state axes hold
+them: ``in_proj`` is column-parallel by its parts ``[z | x | B C | dt]``
+(a block of each), the depthwise conv runs on the rank's channels of ``[x
+| B C]``, ``B`` and ``C`` (read by every head, one group) are gathered
+whole after it, the SSD runs on the rank's heads with its blocks of
+``a_log`` / ``dt_bias`` / ``d_skip``, and the gated norm's input is
+gathered whole (``out_norm`` normalizes over all of ``inner``: the
+gather keeps the replicated program's sums, where an all-reduced sum of
+squares would not) before ``out_proj`` runs row-parallel on the rank's
+block.  The decode state holds the rank's heads of ``ssm`` and its
+channels of ``conv``.
 """
 
 from __future__ import annotations
@@ -29,6 +43,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import P, ModelConfig, dense, qdense_def
+from repro_torch.runtime import sharding as shd
 
 
 def _inner(cfg: ModelConfig) -> int:
@@ -39,15 +54,29 @@ def _nheads(cfg: ModelConfig) -> int:
     return _inner(cfg) // cfg.ssm_head_dim
 
 
+def _in_parts(cfg: ModelConfig) -> Tuple[Tuple[str, int], ...]:
+    """``in_proj``'s output columns, ``[z | x | B C | dt]``, as ``(logical
+    name, global width)`` parts."""
+    inner, st = _inner(cfg), cfg.ssm_state_size
+    return (("inner", inner), ("inner", inner), ("inner", 2 * st), ("mamba_heads", _nheads(cfg)))
+
+
+def _conv_parts(cfg: ModelConfig) -> Tuple[int, int]:
+    """The conv channels' parts ``[x | B C]`` (global widths)."""
+    return _inner(cfg), 2 * cfg.ssm_state_size
+
+
 def mamba_def(cfg: ModelConfig) -> Dict[str, Any]:
-    """Reference: ``repro.models.ssm:mamba_def``."""
+    """Reference: ``repro.models.ssm:mamba_def`` (the port declares the
+    column parts of ``in_proj`` and the conv)."""
     d, inner, st, h = cfg.d_model, _inner(cfg), cfg.ssm_state_size, _nheads(cfg)
     conv_ch = inner + 2 * st
     return {
         "ln": cm.rmsnorm_def(d),
-        "in_proj": qdense_def(cfg, d, 2 * inner + 2 * st + h, (None, "inner")),
-        "conv_w": P((cfg.ssm_conv_width, conv_ch), (None, "inner")),
-        "conv_b": P((conv_ch,), ("inner",), init="zeros"),
+        "in_proj": qdense_def(cfg, d, 2 * inner + 2 * st + h, (None, "inner"),
+                              parts=tuple(w for _, w in _in_parts(cfg))),
+        "conv_w": P((cfg.ssm_conv_width, conv_ch), (None, "inner"), parts=_conv_parts(cfg)),
+        "conv_b": P((conv_ch,), ("inner",), init="zeros", parts=_conv_parts(cfg)),
         "a_log": P((h,), ("mamba_heads",), init="zeros"),
         "dt_bias": P((h,), ("mamba_heads",), init="zeros"),
         "d_skip": P((h,), ("mamba_heads",), init="ones"),
@@ -56,11 +85,44 @@ def mamba_def(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _blocks() -> int:
+    """How many blocks of the heads the placement cuts (1: whole)."""
+    b = shd.block("inner")
+    return 1 if b is None else b.count
+
+
 def _split_in(params, x, cfg: ModelConfig):
-    """Reference: ``repro.models.ssm:_split_in``."""
-    inner, st = _inner(cfg), cfg.ssm_state_size
-    u = dense(params["in_proj"], x, cfg, site="in_proj")
-    return u[..., :inner], u[..., inner : 2 * inner + 2 * st], u[..., 2 * inner + 2 * st :]
+    """``(z, xbc, dt)``: this rank's block of each under a placement of
+    ``inner``.  Reference: ``repro.models.ssm:_split_in``."""
+    n = _blocks()
+    inner, st = _inner(cfg) // n, 2 * cfg.ssm_state_size // n
+    u = dense(params["in_proj"], x, cfg, site="in_proj", columns=_in_parts(cfg))
+    return u[..., :inner], u[..., inner : 2 * inner + st], u[..., 2 * inner + st :]
+
+
+def _split_conv(xbc: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The conv's output as ``(x, B, C)``: ``x`` this rank's channels, ``B``
+    and ``C`` whole (gathered, then :func:`~repro_torch.runtime.sharding.
+    copy_to_model`, since every rank's heads read them)."""
+    n, st = _blocks(), cfg.ssm_state_size
+    xi, bc = xbc[..., : _inner(cfg) // n], xbc[..., _inner(cfg) // n :]
+    if n > 1:
+        bc = shd.copy_to_model(shd.gather_block(bc, "inner", bc.dim() - 1, "parts"), shd.block("inner").part,
+                               "split_input")
+    return xi, bc[..., :st], bc[..., st:]
+
+
+def _gated_out(params, y: torch.Tensor, z: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """``out_proj(rmsnorm(y * silu(z)))``: under a placement the norm's
+    input gathered whole, its output split to this rank's block for the
+    row-parallel ``out_proj``."""
+    g = y * F.silu(z)
+    if _blocks() == 1:
+        g = cm.rmsnorm(params["out_norm"], g, cfg.norm_eps)
+    else:
+        g = shd.split_block(cm.rmsnorm(params["out_norm"], shd.gather_block(g, "inner", g.dim() - 1, "norm"),
+                                       cfg.norm_eps), "inner")
+    return dense(params["out_proj"], g, cfg, site="out_proj", k_local="inner")
 
 
 def _causal_conv(params, xbc: torch.Tensor) -> torch.Tensor:
@@ -139,20 +201,17 @@ def _mamba_core(params, x: torch.Tensor, cfg: ModelConfig):
     """The full-sequence block up to its output: ``(x + out, final SSD
     state, pre-conv xbc)``.  ``mamba_block`` and ``mamba_prefill`` are
     this computation in the reference, spelled out twice there."""
-    inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
+    dh = cfg.ssm_head_dim
     f32 = torch.float32
     xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
     z, xbc_in, dt = _split_in(params, xn, cfg)
-    xbc = _causal_conv(params, xbc_in)
-    xi = xbc[..., :inner].reshape(*x.shape[:2], h, dh)
-    b_mat = xbc[..., inner : inner + st]
-    c_mat = xbc[..., inner + st :]
+    xi, b_mat, c_mat = _split_conv(_causal_conv(params, xbc_in), cfg)
+    xi = xi.reshape(*x.shape[:2], -1, dh)
     dt = cm.softplus(dt.to(f32) + params["dt_bias"].to(f32))
     y, s = _ssd_chunked(xi, b_mat, c_mat, dt, params["a_log"], cfg.ssm_chunk)
     y = y + params["d_skip"].to(f32)[None, None, :, None] * xi.to(f32)
-    y = y.reshape(*x.shape[:2], inner).to(x.dtype)
-    y = cm.rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
-    return x + dense(params["out_proj"], y, cfg, site="out_proj"), s, xbc_in
+    y = y.reshape(*x.shape[:2], -1).to(x.dtype)
+    return x + _gated_out(params, y, z, cfg), s, xbc_in
 
 
 def mamba_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
@@ -162,12 +221,14 @@ def mamba_block(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def mamba_state_def(cfg: ModelConfig, batch: int, dtype) -> Dict[str, Any]:
-    """Reference: ``repro.models.ssm:mamba_state_def``."""
+    """Reference: ``repro.models.ssm:mamba_state_def`` (the port declares
+    the conv state's channel parts ``[x | B C]``)."""
     inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
     conv_ch = inner + 2 * st
     return {
         "ssm": ((batch, h, dh, st), ("batch", "mamba_heads", None, None), torch.float32),
-        "conv": ((batch, cfg.ssm_conv_width - 1, conv_ch), ("batch", None, "inner"), dtype),
+        "conv": ((batch, cfg.ssm_conv_width - 1, conv_ch), shd.parted(("batch", None, "inner"), _conv_parts(cfg)),
+                 dtype),
     }
 
 
@@ -185,7 +246,7 @@ def mamba_decode(
     """One-token step, ``x`` ``(B, 1, D)``; returns the output and the new
     state (fresh tensors; the caller keeps them).  Reference:
     ``repro.models.ssm:mamba_decode``."""
-    inner, st, h, dh = _inner(cfg), cfg.ssm_state_size, _nheads(cfg), cfg.ssm_head_dim
+    dh = cfg.ssm_head_dim
     f32 = torch.float32
     xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
     z, xbc, dt = _split_in(params, xn, cfg)  # (B, 1, ...)
@@ -194,19 +255,16 @@ def mamba_decode(
     w = params["conv_w"].to(xbc.dtype)
     width = w.shape[0]
     conv_out = torch.einsum("bwc,wc->bc", conv_in[:, -width:, :], w)
-    xbc1 = F.silu(conv_out + params["conv_b"].to(xbc.dtype))  # (B, C)
-    xi = xbc1[:, :inner].reshape(-1, h, dh).to(f32)
-    b_v = xbc1[:, inner : inner + st].to(f32)
-    c_v = xbc1[:, inner + st :].to(f32)
+    xi, b_v, c_v = _split_conv(F.silu(conv_out + params["conv_b"].to(xbc.dtype)), cfg)  # (B, C)
+    xi = xi.reshape(xi.shape[0], -1, dh).to(f32)
+    b_v, c_v = b_v.to(f32), c_v.to(f32)
     dt1 = cm.softplus(dt[:, 0, :].to(f32) + params["dt_bias"].to(f32))  # (B, H)
     a = torch.exp(dt1 * -torch.exp(params["a_log"].to(f32)))  # (B, H)
     s = state["ssm"] * a[:, :, None, None] + torch.einsum("bh,bhd,bs->bhds", dt1, xi, b_v)
     y = torch.einsum("bhds,bs->bhd", s, c_v)
     y = y + params["d_skip"].to(f32)[None, :, None] * xi
-    y = y.reshape(-1, 1, inner).to(x.dtype)
-    y = cm.rmsnorm(params["out_norm"], y * F.silu(z), cfg.norm_eps)
-    out = dense(params["out_proj"], y, cfg, site="out_proj")
-    return x + out, {"ssm": s, "conv": new_conv}
+    y = y.reshape(-1, 1, xi.shape[1] * dh).to(x.dtype)
+    return x + _gated_out(params, y, z, cfg), {"ssm": s, "conv": new_conv}
 
 
 def ssd_reference(xh, b_mat, c_mat, dt, a_log):

@@ -11,6 +11,12 @@ layers (a reference quirk the port copies, not a fault of the port).  The
 encoder's residual stream stays in the embeddings' dtype (``encode`` never
 casts to ``compute_dtype``), so an f32 ``audio_embed`` gives f32 encoder
 activations and f32 cross K/V beside the decoder's bf16 queries.
+
+Placed (``runtime.sharding.place_params``), every attention and MLP takes
+the dense decoders' forms: column-parallel ``wq`` / ``wk`` / ``wv`` over
+the heads (the cross-attention's ``wk`` / ``wv`` write the rank's KV heads
+of the cross cache) and ``ffn.wi`` over ``d_ff``, row-parallel ``wo`` and
+``ffn.wo``, the embedding and head over the (padded) vocab.
 """
 
 from __future__ import annotations
@@ -101,7 +107,7 @@ def whisper_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     for p in params["dec_layers"]:
         x = body(p, x, attn.cross_kv(p["cross"], enc, cfg))
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 
@@ -136,7 +142,7 @@ def whisper_prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
         self_caches.append(kv_self)
         cross_kvs.append(kv_cross)
     x = cm.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
-    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
     if self_caches:
         cache = {
             "self": {k: torch.stack([c[k] for c in self_caches]) for k in self_caches[0]},
@@ -169,7 +175,7 @@ def whisper_decode(params, token: torch.Tensor, cache, cfg: ModelConfig):
         h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + ffn.mlp(p["ffn"], h, cfg)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    logits = cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
     return logits, {**cache, "pos": pos + 1}
 
 

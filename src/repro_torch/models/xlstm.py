@@ -22,6 +22,25 @@ in the reference: all mLSTM layers share one noise stream per site, and so
 do all sLSTM layers (a reference quirk the port copies, not a fault of the
 port).  Padding sentinels and the stabilizer's start are ``-1e30``, never
 ``-inf``.
+
+Under a placement of ``inner`` over ``model`` (placed parameters,
+``runtime.sharding.place_params``) a rank holds the reference's blocks:
+the mLSTM's ``up`` by halves ``[xin | gate]``, ``wq`` / ``wk`` / ``wv``
+by a block of each head's ``dh`` columns, ``down``'s rows; the sLSTM's
+``wx`` by quarters ``[i | f | z | o]`` and ``down``'s rows; the mLSTM
+state ``C`` / ``n`` on the key dimension ``d`` (the reference's state
+axes; the heads stay whole).  ``up`` is column-parallel and its ``xin``
+gathered once a layer, since ``wq`` / ``wk`` / ``wv`` read all of it
+(``wi`` / ``wf``, C = heads, run whole on every rank); ``q`` and ``k``
+are the rank's key block of every head, ``v`` is gathered whole, and
+every readout of the state (``q C``, ``q n``, the intra-chunk ``q k``)
+contracts over the placed key dimension: a rank computes its partial
+numerators and denominators and the ranks meet in one f32 SUM over
+``model`` a layer, whose order differs from the replicated program's
+sum over ``d`` (held within a tolerance, not bitwise).  The sLSTM's
+state has no placed axis: its gate preacts are gathered and the
+recurrence runs whole on every rank.  ``out_norm`` runs on whole values,
+then each rank takes its block for the row-parallel ``down``.
 """
 
 from __future__ import annotations
@@ -33,6 +52,7 @@ import torch.nn.functional as F
 
 from repro_torch.models import common as cm
 from repro_torch.models.common import P, ModelConfig, dense, dense_def, qdense_def
+from repro_torch.runtime import sharding as shd
 
 NEG = -1e30
 
@@ -50,6 +70,11 @@ def _groups(cfg: ModelConfig) -> Tuple[int, int]:
     return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
 
 
+def _split() -> Optional[shd.Block]:
+    """The placement's block of ``inner``, or ``None`` (whole)."""
+    return shd.block("inner")
+
+
 # ---------------------------------------------------------------------------
 # mLSTM
 # ---------------------------------------------------------------------------
@@ -57,12 +82,13 @@ def mlstm_def(cfg: ModelConfig) -> Dict[str, Any]:
     """Reference: ``repro.models.xlstm:mlstm_def``.  The gates ``wi`` and
     ``wf`` are plain ``dense_def`` (float under ``weights_int8`` too)."""
     d, inner, h = cfg.d_model, _inner(cfg), cfg.num_heads
+    heads = (_dh(cfg),) * h  # a rank holds a block of each head's columns
     return {
         "ln": cm.rmsnorm_def(d),
-        "up": qdense_def(cfg, d, 2 * inner, (None, "inner")),
-        "wq": qdense_def(cfg, inner, inner, (None, "inner")),
-        "wk": qdense_def(cfg, inner, inner, (None, "inner")),
-        "wv": qdense_def(cfg, inner, inner, (None, "inner")),
+        "up": qdense_def(cfg, d, 2 * inner, (None, "inner"), parts=(inner, inner)),
+        "wq": qdense_def(cfg, inner, inner, (None, "inner"), parts=heads),
+        "wk": qdense_def(cfg, inner, inner, (None, "inner"), parts=heads),
+        "wv": qdense_def(cfg, inner, inner, (None, "inner"), parts=heads),
         "wi": dense_def(inner, h, (None, None), init="zeros"),
         "wf": dense_def(inner, h, (None, None), init="zeros"),
         "out_norm": cm.rmsnorm_def(inner),
@@ -75,11 +101,20 @@ def _mlstm_chunked(
     li, lf,  # (B, T, H)  input-gate preact, log-forget
     chunk: int,
     state: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None,
+    split: Optional[shd.Block] = None,
 ):
     """Chunkwise mLSTM: ``(h (B, T, H, dh) f32, (C, n, m))``.  ``chunk =
     min(chunk, T)``; T is padded to a multiple of it, ``li`` with
-    ``-1e30``.  Reference: ``repro.models.xlstm:_mlstm_chunked``."""
-    b, t, h, dh = q.shape
+    ``-1e30``.  Reference: ``repro.models.xlstm:_mlstm_chunked``.
+
+    With ``split`` (the placement's block of ``inner``) ``q`` / ``k`` and
+    the state's ``C`` / ``n`` hold this rank's block of the key dimension
+    (``v`` whole): the partial numerators and denominators of every chunk
+    meet in one SUM over ``split.part`` after the loop (module
+    docstring), and the gate-derived weights they read pass
+    ``copy_to_model``, so their gradients sum every rank's partials."""
+    b, t, h, dk = q.shape
+    dh = v.shape[-1]
     chunk = min(chunk, t)
     pad = (-t) % chunk
     if pad:
@@ -92,13 +127,17 @@ def _mlstm_chunked(
     dev = q.device
     if state is None:
         state = (
-            torch.zeros((b, h, dh, dh), dtype=f32, device=dev),  # C
-            torch.zeros((b, h, dh), dtype=f32, device=dev),  # n
+            torch.zeros((b, h, dk, dh), dtype=f32, device=dev),  # C
+            torch.zeros((b, h, dk), dtype=f32, device=dev),  # n
             torch.full((b, h), NEG, dtype=f32, device=dev),  # m
         )
     c_prev, n_prev, m_prev = state
     tri = torch.tril(torch.ones((chunk, chunk), dtype=torch.bool, device=dev))
-    hs = []
+
+    def share(a):
+        return a if split is None else shd.copy_to_model(a, split.part, "split_input")
+
+    hs, nums, dens, ms = [], [], [], []
     for c0 in range(0, tp, chunk):
         sl = slice(c0, c0 + chunk)
         qc = q[:, sl].to(f32) * scale
@@ -111,35 +150,59 @@ def _mlstm_chunked(
         dmat = torch.where(tri[None, :, :, None], dmat, NEG)
         inter_w = bcum + m_prev[:, None, :]  # (B, L, H)
         m_t = torch.maximum(dmat.amax(dim=2), inter_w)  # (B, L, H)
-        dexp = torch.exp(dmat - m_t[:, :, None, :])
+        dexp = share(torch.exp(dmat - m_t[:, :, None, :]))
         s = torch.einsum("blhd,bshd->blsh", qc, kc) * dexp  # (B, L, S, H)
         num = torch.einsum("blsh,bshd->blhd", s, vc)
         den = s.sum(dim=2)  # (B, L, H)
-        wi = torch.exp(inter_w - m_t)  # (B, L, H)
+        wi = share(torch.exp(inter_w - m_t))  # (B, L, H)
         num = num + wi[..., None] * torch.einsum("blhd,bhde->blhe", qc, c_prev)
         den = den + wi * torch.einsum("blhd,bhd->blh", qc, n_prev)
-        hs.append(num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None])
+        if split is None:
+            hs.append(num / torch.maximum(torch.abs(den), torch.exp(-m_t))[..., None])
+        else:
+            nums.append(num)
+            dens.append(den)
+            ms.append(m_t)
         # chunk-end state
         btot = bcum[:, -1, :]  # (B, H)
         up_w = btot[:, None, :] - bcum + lic  # (B, L, H)
         m_next = torch.maximum(btot + m_prev, up_w.amax(dim=1))
-        wexp = torch.exp(up_w - m_next[:, None, :])
+        wexp = share(torch.exp(up_w - m_next[:, None, :]))
         c_new = torch.einsum("blh,blhd,blhe->bhde", wexp, kc, vc)
         n_new = torch.einsum("blh,blhd->bhd", wexp, kc)
-        decay = torch.exp(btot + m_prev - m_next)
+        decay = share(torch.exp(btot + m_prev - m_next))
         c_prev = decay[:, :, None, None] * c_prev + c_new
         n_prev = decay[:, :, None] * n_prev + n_new
         m_prev = m_next
+    if split is not None:
+        num, den = _readout_sum(torch.cat(nums, dim=1), torch.cat(dens, dim=1), split)
+        hs = [num / torch.maximum(torch.abs(den), torch.exp(-torch.cat(ms, dim=1)))[..., None]]
     return torch.cat(hs, dim=1)[:, :t], (c_prev, n_prev, m_prev)
 
 
+def _readout_sum(num: torch.Tensor, den: torch.Tensor, split: shd.Block):
+    """The ranks' partial numerators ``(..., dh)`` and denominators
+    ``(...)`` of a readout of the key-placed state, summed over
+    ``split.part`` in one f32 all-reduce (``RECURRENT_COLLECTIVES
+    ["state_sum"]``)."""
+    both = shd.reduce_from_model(torch.cat([num, den[..., None]], dim=-1), split.part, "state_sum")
+    return both[..., :-1], both[..., -1]
+
+
 def _mlstm_qkv_gates(params, xin, cfg: ModelConfig):
-    """Reference: ``repro.models.xlstm:_mlstm_qkv_gates``."""
+    """Reference: ``repro.models.xlstm:_mlstm_qkv_gates``.  Under a
+    placement of ``inner``, ``xin`` whole: ``q`` / ``k`` are this rank's
+    key block of every head (column-parallel by the heads' parts), ``v``
+    is gathered whole."""
     b, t, _ = xin.shape
     h, dh = cfg.num_heads, _dh(cfg)
-    q = dense(params["wq"], xin, cfg, site="wq").reshape(b, t, h, dh)
-    k = dense(params["wk"], xin, cfg, site="wk").reshape(b, t, h, dh)
-    v = dense(params["wv"], xin, cfg, site="wv").reshape(b, t, h, dh)
+    split, cols = _split(), (("inner", dh),) * h
+    q = dense(params["wq"], xin, cfg, site="wq", columns=cols).reshape(b, t, h, -1)
+    k = dense(params["wk"], xin, cfg, site="wk", columns=cols).reshape(b, t, h, -1)
+    v = dense(params["wv"], xin, cfg, site="wv", columns=cols)
+    if split is not None:
+        v = shd.copy_to_model(shd.gather_parts(v, "inner", (dh,) * h, "parts"), split.part, "split_input")
+    v = v.reshape(b, t, h, dh)
     li = dense(params["wi"], xin, cfg, site="wi").to(torch.float32)  # (B, T, H)
     lf = cm.log_sigmoid(dense(params["wf"], xin, cfg, site="wf").to(torch.float32))
     return q, k, v, li, lf
@@ -147,24 +210,29 @@ def _mlstm_qkv_gates(params, xin, cfg: ModelConfig):
 
 def _mlstm_in(params, x, cfg: ModelConfig):
     """The block's norm, up projection and split: ``(q, k, v, li, lf,
-    gate)``."""
+    gate)``; under a placement of ``inner`` ``up`` is column-parallel by
+    its halves, ``gate`` this rank's block and ``xin`` gathered whole."""
     xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
-    u = dense(params["up"], xn, cfg, site="up")
+    u = dense(params["up"], xn, cfg, site="up", columns=(("inner", _inner(cfg)),) * 2)
     xin, gate = torch.chunk(u, 2, dim=-1)
+    if _split() is not None:
+        xin = shd.gather_block(xin, "inner", xin.dim() - 1, "xin")
     return (*_mlstm_qkv_gates(params, xin, cfg), gate)
 
 
 def _mlstm_out(params, x, hs, gate, cfg: ModelConfig):
     hs = hs.reshape(*x.shape[:2], -1).to(x.dtype)
-    y = cm.rmsnorm(params["out_norm"], hs, cfg.norm_eps) * F.silu(gate)
-    return x + dense(params["down"], y, cfg, site="down")
+    y = cm.rmsnorm(params["out_norm"], hs, cfg.norm_eps)
+    if _split() is not None:
+        y = shd.split_block(y, "inner")
+    return x + dense(params["down"], y * F.silu(gate), cfg, site="down", k_local="inner")
 
 
 def mlstm_prefill(params, x, cfg: ModelConfig):
     """The full-sequence mLSTM block and its decode state ``{"C", "n",
     "m"}``.  Reference: ``repro.models.xlstm:mlstm_prefill``."""
     q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
-    hs, (c, n, m) = _mlstm_chunked(q, k, v, li, lf, cfg.ssm_chunk)
+    hs, (c, n, m) = _mlstm_chunked(q, k, v, li, lf, cfg.ssm_chunk, split=_split())
     return _mlstm_out(params, x, hs, gate, cfg), {"C": c, "n": n, "m": m}
 
 
@@ -180,7 +248,7 @@ def mlstm_decode(params, x, state, cfg: ModelConfig):
     dh = _dh(cfg)
     f32 = torch.float32
     q, k, v, li, lf, gate = _mlstm_in(params, x, cfg)
-    q1 = q[:, 0].to(f32) * (dh**-0.5)  # (B, H, dh)
+    q1 = q[:, 0].to(f32) * (dh**-0.5)  # (B, H, dh), this rank's key block under a placement
     k1, v1 = k[:, 0].to(f32), v[:, 0].to(f32)
     li1, lf1 = li[:, 0], lf[:, 0]  # (B, H)
     c_prev, n_prev, m_prev = state["C"], state["n"], state["m"]
@@ -190,7 +258,11 @@ def mlstm_decode(params, x, state, cfg: ModelConfig):
     c_t = fw[:, :, None, None] * c_prev + iw[:, :, None, None] * torch.einsum("bhd,bhe->bhde", k1, v1)
     n_t = fw[:, :, None] * n_prev + iw[:, :, None] * k1
     num = torch.einsum("bhd,bhde->bhe", q1, c_t)
-    den = torch.maximum(torch.abs(torch.einsum("bhd,bhd->bh", q1, n_t)), torch.exp(-m_t))
+    qn = torch.einsum("bhd,bhd->bh", q1, n_t)
+    split = _split()
+    if split is not None:
+        num, qn = _readout_sum(num, qn, split)
+    den = torch.maximum(torch.abs(qn), torch.exp(-m_t))
     hout = num / den[..., None]
     return _mlstm_out(params, x, hout[:, None], gate, cfg), {"C": c_t, "n": n_t, "m": m_t}
 
@@ -204,7 +276,7 @@ def slstm_def(cfg: ModelConfig) -> Dict[str, Any]:
     dh = d // h
     return {
         "ln": cm.rmsnorm_def(d),
-        "wx": qdense_def(cfg, d, 4 * d, (None, "inner")),
+        "wx": qdense_def(cfg, d, 4 * d, (None, "inner"), parts=(d,) * 4),  # [i | f | z | o]
         "r": P((h, dh, 4 * dh), (None, None, None)),  # block-diag recurrent
         "out_norm": cm.rmsnorm_def(d),
         "down": qdense_def(cfg, d, d, ("inner", None)),
@@ -247,11 +319,20 @@ def _slstm_init_state(b, d, device):
 
 
 def _slstm(params, x, cfg: ModelConfig, state):
+    """The sLSTM block; under a placement of ``inner`` ``wx`` is
+    column-parallel by its quarters, the preacts gathered whole and the
+    recurrence run whole on every rank, ``down`` row-parallel."""
+    d = cfg.d_model
+    split = _split()
     xn = cm.rmsnorm(params["ln"], x, cfg.norm_eps)
-    gx = dense(params["wx"], xn, cfg, site="wx")
+    gx = dense(params["wx"], xn, cfg, site="wx", columns=(("inner", d),) * 4)
+    if split is not None:
+        gx = shd.gather_parts(gx, "inner", (d,) * 4, "parts")
     hs, (c, n, m, h) = _slstm_scan(params, gx, cfg, state)
     y = cm.rmsnorm(params["out_norm"], hs.to(x.dtype), cfg.norm_eps)
-    return x + dense(params["down"], y, cfg, site="down"), {"c": c, "n": n, "m": m, "h": h}
+    if split is not None:
+        y = shd.split_block(y, "inner")
+    return x + dense(params["down"], y, cfg, site="down", k_local="inner"), {"c": c, "n": n, "m": m, "h": h}
 
 
 def slstm_prefill(params, x, cfg: ModelConfig):
@@ -286,7 +367,7 @@ def xlstm_def(cfg: ModelConfig) -> Dict[str, Any]:
 
 def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    return cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
 
 
 def xlstm_logits(params, tokens: torch.Tensor, cfg: ModelConfig):

@@ -15,6 +15,13 @@ batchless ``pos``, and decode updates them in place.  No GEMM here passes
 ``layer=``, exactly as in the reference: the Mamba2 layers share one noise
 stream per site, and the shared block's invocations share theirs (a
 reference quirk the port copies, not a fault of the port).
+
+Placed (``runtime.sharding.place_params``), the Mamba2 stack holds its
+``inner`` / ``mamba_heads`` blocks (``models.ssm``), the shared block its
+heads and ``d_ff`` (one weight set, placed once, read by every
+invocation: column-parallel ``wq`` / ``wk`` / ``wv`` / ``ffn.wi``,
+row-parallel ``wo`` / ``ffn.wo``), and the embedding and head their vocab
+blocks.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn, ssm
 from repro_torch.models.common import ModelConfig
+from repro_torch.runtime import sharding as shd
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -63,7 +71,7 @@ def _shared_ffn(params, x, cfg: ModelConfig):
 
 def _head(params, x, cfg: ModelConfig) -> torch.Tensor:
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    return cm.dense(params["lm_head"], x, cfg, site="lm_head")
+    return cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
 
 
 def zamba2_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
@@ -143,7 +151,7 @@ def zamba2_cache_def(cfg: ModelConfig, batch: int, max_seq: int, dtype) -> Dict[
     mstate = ssm.mamba_state_def(cfg, batch, dtype)
     acache = attn.gqa_cache_def(cfg, batch, max_seq, dtype)
     return {
-        "mamba": {k: ((g, per) + shape, (None, None) + axes, dt) for k, (shape, axes, dt) in mstate.items()},
+        "mamba": {k: ((g, per) + shape, shd.lead((None, None), axes), dt) for k, (shape, axes, dt) in mstate.items()},
         "attn": {k: ((g,) + shape, (None,) + axes, dt) for k, (shape, axes, dt) in acache.items()},
         "pos": ((), (), torch.int32),
     }

@@ -23,8 +23,8 @@ does.  Under a :func:`placement` a step's inputs are this rank's blocks
 (:func:`local_block`) along the logical dimensions the port places, the
 ones the reference's per-device program holds in blocks (``"batch"`` over
 the data axes; ``"heads"`` / ``"kv_heads"`` over ``model``, and where
-the parameters are placed (the dense GQA decoders and the MoE decoders,
-MLA's ``"heads"`` included) ``"d_ff"`` / ``"vocab"`` / ``"experts"`` over
+the parameters are placed (MLA's ``"heads"`` included) ``"d_ff"`` /
+``"vocab"`` / ``"experts"`` / ``"inner"`` / ``"mamba_heads"`` over
 ``model``):
 :func:`place_tree` cuts them from global tensors, :func:`place_params`
 cuts a parameter tree by its ``param_axes``, :func:`gather_tree` rebuilds
@@ -138,8 +138,47 @@ def _axes_items(axes: Any, like: Dict[str, Any]) -> Dict[str, Tuple]:
                 node = getattr(node, part)
             else:
                 node = node[int(part)] if isinstance(node, (list, tuple)) else node[part]
-        out[key] = tuple(node)
+        out[key] = node if isinstance(node, Axes) else tuple(node)
     return out
+
+
+class Axes(tuple):
+    """A leaf's logical axes whose last dimension is laid out in
+    :attr:`parts`: columns of several widths side by side (SwiGLU's ``wi``
+    ``[u | g]``, Mamba2's ``in_proj`` ``[z | x | B C | dt]``), each cut into
+    the blocks of the dimension's logical name, so a rank holds a block of
+    each part (:func:`place_params`, :func:`place_tree`).  It compares and
+    hashes as the plain tuple of names."""
+
+    parts: Tuple[int, ...] = ()
+
+
+def parted(axes: Sequence[Optional[str]], parts: Sequence[int]) -> Axes:
+    """``axes`` with the last dimension's column parts declared (their
+    global widths, in order)."""
+    out = Axes(axes)
+    out.parts = tuple(int(w) for w in parts)
+    return out
+
+
+def lead(prefix: Sequence[Optional[str]], axes: Sequence[Optional[str]]) -> Tuple[Optional[str], ...]:
+    """``prefix + axes`` (a stacked leaf's axes), the last dimension's
+    column parts kept."""
+    out = tuple(prefix) + tuple(axes)
+    parts = getattr(axes, "parts", ())
+    return parted(out, parts) if parts else out
+
+
+def _part_widths(axes: Sequence[Optional[str]], dim: int, size: int) -> Tuple[int, ...]:
+    """The global widths of the parts of dimension ``dim`` (of global
+    ``size``): the declared :attr:`Axes.parts` of the last dimension, else
+    one part."""
+    parts = getattr(axes, "parts", ())
+    if not parts or dim != len(axes) - 1:
+        return (size,)
+    if sum(parts) != size:
+        raise ValueError(f"parts {parts} do not lay out a dimension of {size}")
+    return parts
 
 
 class _Ctx(threading.local):
@@ -342,7 +381,7 @@ def local_block(spec_part: Optional[AxisName], mesh) -> Tuple[int, int]:
 # Placement: this rank's blocks of the values the reference places
 # ---------------------------------------------------------------------------
 # The logical names the port places; every other name stays replicated.
-PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab", "experts")
+PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab", "experts", "inner", "mamba_heads")
 
 
 def _names(part: AxisName) -> Tuple[str, ...]:
@@ -363,9 +402,22 @@ class Block:
     def local(self) -> int:
         return self.size // self.count
 
-    def take(self, x, dim: int):
-        """This rank's block of ``x``'s global dimension ``dim``."""
-        return x.narrow(dim, self.index * self.local, self.local)
+    def take(self, x, dim: int, widths: Sequence[int] = ()):
+        """This rank's block of ``x``'s global dimension ``dim`` or, with
+        ``widths`` (the global widths of its parts), of each part, the
+        blocks side by side."""
+        if not widths:
+            return x.narrow(dim, self.index * self.local, self.local)
+        import torch
+
+        pieces, start = [], 0
+        for w in widths:
+            if w % self.count:
+                raise ValueError(f"a part of {w} does not split into {self.count} blocks")
+            n = w // self.count
+            pieces.append(x.narrow(dim, start + self.index * n, n))
+            start += w
+        return pieces[0] if len(pieces) == 1 else torch.cat(pieces, dim)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -383,7 +435,9 @@ def placed_parts(sizes: Dict[str, int], mesh, rules: Optional[Dict[str, AxisName
     placed together or not at all: the GQA map reads q head ``h`` from KV
     head ``h // n_rep``, so a rank's q heads read its KV heads only when the
     same axes cut both into the same number of blocks (MLA, which has no
-    KV heads, places its ``heads`` alone)."""
+    KV heads, places its ``heads`` alone).  Mamba2's ``inner`` and
+    ``mamba_heads`` are placed together or not at all, for the same reason:
+    a rank's heads read its block of the ``inner`` channels."""
     unknown = set(sizes) - set(PLACED)
     if unknown:
         raise ValueError(f"the port places {PLACED}, not {sorted(unknown)}")
@@ -392,10 +446,10 @@ def placed_parts(sizes: Dict[str, int], mesh, rules: Optional[Dict[str, AxisName
         spec = resolve_spec((int(size),), (name,), mesh, rules)
         if spec:
             out[name] = spec[0]
-    if "heads" in sizes and "kv_heads" in sizes:
-        if out.get("heads") != out.get("kv_heads"):
-            out.pop("heads", None)
-            out.pop("kv_heads", None)
+    for a, b in (("heads", "kv_heads"), ("inner", "mamba_heads")):
+        if a in sizes and b in sizes and out.get(a) != out.get(b):
+            out.pop(a, None)
+            out.pop(b, None)
     return out
 
 
@@ -512,7 +566,7 @@ def _collectives():
             from repro_torch.analysis import contracts
 
             g = all_reduce_over(g.contiguous().clone(), ctx.part, ctx.mesh)
-            contracts.PARAM_REDUCES[ctx.what] += 1
+            contracts.count_collective(ctx.what)
             return g, None, None, None
 
     class ReduceFromModel(Function):
@@ -525,7 +579,7 @@ def _collectives():
             from repro_torch.analysis import contracts
 
             out = all_reduce_over(x.contiguous().clone(), part, mesh)
-            contracts.PARAM_REDUCES[what] += 1
+            contracts.count_collective(what)
             return out
 
         @staticmethod
@@ -538,17 +592,20 @@ def _collectives():
 def copy_to_model(x, part: AxisName, what: str = "column_input"):
     """``x`` as the input of a computation split over the mesh axes
     ``part`` (a column-parallel GEMM, ``"column_input"``; a rank's experts,
-    ``"expert_input"``): unchanged, its gradient all-reduced with SUM over
-    ``part`` in the backward (one ``PARAM_REDUCES[what]`` each)."""
+    ``"expert_input"``; a replicated value a recurrent layer's rank-split
+    work reads, ``"split_input"``): unchanged, its gradient all-reduced
+    with SUM over ``part`` in the backward (one
+    ``contracts.count_collective(what)`` each)."""
     return _collectives()[1].apply(x, part, _CTX.placement.mesh, what)
 
 
 def reduce_from_model(x, part: AxisName, what: str = "row_output"):
     """``x``, this rank's partial sum, all-reduced with SUM over ``part``
-    (one ``PARAM_REDUCES[what]``): a row-parallel GEMM's output
-    (``"row_output"``), a vocab-parallel lookup or loss term
-    (``"vocab"``) or the expert-parallel MoE's combine
-    (``"expert_combine"``); the gradient passes through unchanged."""
+    (one ``contracts.count_collective(what)``): a row-parallel GEMM's
+    output (``"row_output"``), a vocab-parallel lookup or loss term
+    (``"vocab"``), the expert-parallel MoE's combine
+    (``"expert_combine"``) or the mLSTM's partial readouts of its placed
+    state (``"state_sum"``); the gradient passes through unchanged."""
     return _collectives()[2].apply(x, part, _CTX.placement.mesh, what)
 
 
@@ -564,21 +621,52 @@ def max_over(t, part: AxisName):
     return out
 
 
-def gather_block(x, name: str, dim: int):
+def gather_block(x, name: str, dim: int, what: Optional[str] = None):
     """``x``'s dimension ``dim``, this rank's block of the placed logical
     ``name``, gathered into the global dimension (differentiable: the
-    backward takes this rank's block).  Adds one to
+    backward takes this rank's block, so every rank must compute the same
+    gradient of the result: a value it then splits again goes through
+    :func:`copy_to_model` first).  Adds one to
+    ``RECURRENT_COLLECTIVES[what]`` with ``what``, else to
     ``ROW_GATHERS["outputs"]`` (rows, or the vocab of the logits) or
     ``HEAD_GATHERS["heads"]``."""
     from repro_torch.analysis import contracts
 
     b = block(name)
     out = _gather(x, dataclasses.replace(b, size=x.shape[dim] * b.count), dim)
-    if name in ("batch", "vocab"):
+    if what is not None:
+        contracts.count_collective(what)
+    elif name in ("batch", "vocab"):
         contracts.ROW_GATHERS["outputs"] += 1
     else:
         contracts.HEAD_GATHERS["heads"] += 1
     return out
+
+
+def gather_parts(x, name: str, widths: Sequence[int], what: Optional[str] = None):
+    """:func:`gather_block` of ``x``'s last dimension laid out in parts of
+    global ``widths`` (this rank holds a block of each): each part gathered,
+    the parts side by side; counted once."""
+    import torch
+
+    b = block(name)
+    pieces = x.split([w // b.count for w in widths], dim=-1)
+    out = [_gather(p, dataclasses.replace(b, size=p.shape[-1] * b.count), x.dim() - 1) for p in pieces]
+    if what is not None:
+        from repro_torch.analysis import contracts
+
+        contracts.count_collective(what)
+    return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
+def split_block(x, name: str, what: str = "split_input"):
+    """This rank's block of ``name`` of ``x``'s last dimension, ``x`` a
+    value every rank computes whole (replicated work ahead of a
+    row-parallel GEMM): :func:`copy_to_model` first, so the gradient of
+    ``x`` sums every rank's block's."""
+    b = block(name)
+    x = copy_to_model(x, b.part, what)
+    return dataclasses.replace(b, size=x.shape[-1]).take(x, x.dim() - 1)
 
 
 def _gather(x, b: Block, dim: int):
@@ -688,9 +776,10 @@ def mean_over_rows(t):
 
 
 def _over_placed(tree: Any, axes: Any, fn) -> Any:
-    """``tree`` with ``fn(tensor, logical name, dim)`` applied along every
-    dimension the active placement places (``axes``: a matching tree of
-    logical-name tuples); other leaves (a host position) pass through."""
+    """``tree`` with ``fn(tensor, logical name, dim, leaf axes)`` applied
+    along every dimension the active placement places (``axes``: a
+    matching tree of logical-name tuples); other leaves (a host position)
+    pass through."""
     import torch
 
     blocks = _CTX.placement.blocks if _CTX.placement is not None else {}
@@ -701,26 +790,23 @@ def _over_placed(tree: Any, axes: Any, fn) -> Any:
         if isinstance(t, torch.Tensor):
             for d, name in enumerate(ax[key]):
                 if name in blocks:
-                    t = fn(t, name, d)
+                    t = fn(t, name, d, ax[key])
         out.append(t)
     return tree_unflatten(tree, out)
 
 
+def _take_global(t, name: str, d: int, axes) -> Any:
+    """This rank's block (a copy) of the global tensor ``t``'s dimension
+    ``d``, a block of each part where ``axes`` lays the dimension out in
+    parts; the block sized by the tensor (a logical name such as
+    ``"inner"`` names dimensions of several sizes)."""
+    b = dataclasses.replace(block(name), size=t.shape[d])
+    return b.take(t, d, _part_widths(axes, d, t.shape[d])).contiguous().clone()
+
+
 def place_tree(tree: Any, axes: Any) -> Any:
     """This rank's blocks (copies) of a tree of global tensors."""
-    return _over_placed(tree, axes, lambda t, name, d: block(name).take(t, d).contiguous().clone())
-
-
-def _swiglu_halves(items: Dict[str, Any], key: str, name: str, n: int) -> int:
-    """2 for the ``"d_ff"`` dimension of a SwiGLU ``wi`` leaf, ``[u | g]``
-    (its width twice the rows of the sibling ``wo``: the dense FFN's, the
-    shared experts', DeepSeek-V2's first layer's), of which a rank holds a
-    block of each half; 1 for any other dimension, cut in one piece."""
-    head, sep, _ = key.rpartition("wi/")
-    if name != "d_ff" or not sep or (head and not head.endswith("/")):
-        return 1
-    wo = getattr(items.get(head + "wo/w"), "shape", None)
-    return 2 if wo is not None and n == 2 * wo[0] else 1
+    return _over_placed(tree, axes, _take_global)
 
 
 def _param_parts(shape: Sequence[int], axes: Sequence[Optional[str]], rules=None) -> Dict[int, Tuple[str, Block]]:
@@ -739,11 +825,14 @@ def _param_parts(shape: Sequence[int], axes: Sequence[Optional[str]], rules=None
 def place_params(params: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = None) -> Any:
     """This rank's blocks (copies) of a parameter tree of global tensors
     along the placed logical names of its ``param_axes``, as the
-    reference's ``in_shardings`` hold them (:func:`_param_parts`;
-    SwiGLU's ``wi`` as :func:`_swiglu_halves` says; an expert stack by its
-    leading ``"experts"`` dimension).  Leaves that are not
-    tensors (a prepacked bank) stay whole.  Reference: the parameter
-    shardings of ``repro.launch.dryrun`` (``tree_shardings(mesh, params,
+    reference's ``in_shardings`` hold them (:func:`_param_parts`; a
+    dimension whose axes declare column parts (:class:`Axes`: SwiGLU's
+    ``wi``, Mamba2's ``in_proj`` and conv, the mLSTM's ``up`` and
+    ``wq`` / ``wk`` / ``wv``, the sLSTM's ``wx``) by a block of each part,
+    the bytes of the reference's contiguous block; an expert stack by its
+    leading ``"experts"`` dimension).  Leaves that are not tensors (a
+    prepacked bank) stay whole.  Reference: the parameter shardings of
+    ``repro.launch.dryrun`` (``tree_shardings(mesh, params,
     param_axes)``)."""
     import torch
 
@@ -753,9 +842,7 @@ def place_params(params: Any, axes: Any, rules: Optional[Dict[str, AxisName]] = 
     for key, t in items.items():
         if isinstance(t, torch.Tensor):
             for d, (name, b) in _param_parts(t.shape, ax[key], rules).items():
-                halves = _swiglu_halves(items, key, name, t.shape[d])
-                pb = dataclasses.replace(b, size=t.shape[d] // halves)
-                t = torch.cat([pb.take(h, d) for h in t.chunk(halves, d)], d) if halves > 1 else pb.take(t, d)
+                t = dataclasses.replace(b, size=t.shape[d]).take(t, d, _part_widths(ax[key], d, t.shape[d]))
             t = t.contiguous().clone()
         out.append(t)
     return tree_unflatten(params, out)
@@ -779,8 +866,15 @@ def placed_leaf_parts(shapes: Any, axes: Any, rules: Optional[Dict[str, AxisName
 
 def gather_tree(tree: Any, axes: Any) -> Any:
     """The global tensors of a tree of this rank's blocks: every placed
-    dimension all-gathered (:func:`gather_block`, counted)."""
-    return _over_placed(tree, axes, gather_block)
+    dimension all-gathered (:func:`gather_block`, counted; a dimension in
+    parts part by part)."""
+    def gather(t, name, d, axes):
+        parts = getattr(axes, "parts", ())
+        if parts and d == len(axes) - 1:
+            return gather_parts(t, name, parts)
+        return gather_block(t, name, d)
+
+    return _over_placed(tree, axes, gather)
 
 
 def port_spec(shape: Sequence[int], axes: Sequence[Optional[str]], mesh, names: Sequence[str],

@@ -187,7 +187,6 @@ def test_local_blocks_are_the_references_shards(name, mesh_name):
         tshape = treg.ShapeSpec(f"{kind}{batch}", 64, batch, kind)
         jshape = jreg.ShapeSpec(f"{kind}{batch}", 64, batch, kind)
         placed = set(tshd.placed_parts(tarch.placement_sizes(cfg, tshape), tmesh))
-        param_names = placed if tarch.places_params(cfg) else set()
         gaps = {(g["leaf"].split("/", 1)[1], g["logical"]) for g in
                 dryrun.replicated_leaves(tarch, cfg, tshape, tmesh)}
         if kind == "decode":
@@ -221,7 +220,7 @@ def test_local_blocks_are_the_references_shards(name, mesh_name):
         blocks = tree_items(tarch.param_specs(cfg, tshape, mesh=tmesh)[0]).values()
         loc = [tuple(n // shards.count if d == dim else n for d, n in enumerate(p.shape))
                for p, dim in zip(blocks, tree_items(shards.dims).values())]
-        _check_leaves(f"{name} moments", ref, glob, loc, {"zero1"} | param_names, moment_gaps, sizes, jmesh)
+        _check_leaves(f"{name} moments", ref, glob, loc, {"zero1"} | placed, moment_gaps, sizes, jmesh)
         split = any(dim is not None for dim in tree_items(shards.dims).values())
         assert shards.count == (dp if split else 1)
 

@@ -250,7 +250,7 @@ def test_swiglu_wi_is_placed_as_a_block_of_u_and_a_block_of_g(index):
     pl = tshd.Placement(mesh, {"d_ff": tshd.Block("model", index, 2, 4)})
     with tshd.reenter(pl):
         got = tshd.place_params({"wi": {"w": w}, "wo": {"w": wo}},
-                                {"wi": {"w": (None, "d_ff")}, "wo": {"w": ("d_ff", None)}})
+                                {"wi": {"w": tshd.parted((None, "d_ff"), (4, 4))}, "wo": {"w": ("d_ff", None)}})
     u, g = w[:, :4], w[:, 4:]
     want = torch.cat([u[:, 2 * index: 2 * index + 2], g[:, 2 * index: 2 * index + 2]], dim=1)
     torch.testing.assert_close(got["wi"]["w"], want, rtol=0, atol=0)
