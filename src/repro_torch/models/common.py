@@ -3,9 +3,10 @@
 Port of ``repro.models.common``.  Models are plain functions over nested
 dicts of tensors; a *definition tree* (nested dicts / per-layer lists of
 :class:`P`) carries each parameter's shape and init rule, and
-:func:`init_params` materializes it from a ``torch.Generator`` (the card
-has no JAX, so the port initializes its own weights; parity tests instead
-carry the reference's weights over with ``repro_torch.weights``).
+:func:`init_tree` materializes it from a threefry key, bit for bit the
+reference's ``init_tree`` (``repro_torch.prng`` draws what ``jax.random``
+draws, on the CPU and on the card); :func:`init_params` also takes a seed
+or a ``torch.Generator`` for a torch stream of the same shapes and rules.
 """
 
 from __future__ import annotations
@@ -190,26 +191,30 @@ _DTYPES = {"int8": torch.int8, "float32": torch.float32}
 
 def init_params(
     cfg: ModelConfig,
-    generator: Union[int, torch.Generator],
+    key: Union[int, torch.Generator, "np.ndarray", torch.Tensor],
     device=None,
     defs: Any = None,
 ) -> Any:
-    """Materialize ``defs`` (default: the defs of ``cfg.family``) from a
-    seeded generator on ``device`` (``cuda`` unless asked otherwise).
+    """Materialize ``defs`` (default: the defs of ``cfg.family``) on
+    ``device`` (``cuda`` unless asked otherwise) in ``cfg.param_dtype``.
 
-    Same init rules as ``repro.models.common:init_tree`` (fan-in-scaled
-    normals, 0.02 normals for embeddings, zeros, ones, uniform int8), drawn
-    from a torch stream: a different draw than ``jax.random``'s, so parity
-    tests carry reference weights over instead."""
+    A threefry key (a uint32 pair, as ``prng.PRNGKey`` / ``prng.fold_in``
+    make) draws with :func:`init_tree`: the reference's own weights, bit
+    for bit.  An int seed or a ``torch.Generator`` draws the same init
+    rules (fan-in-scaled normals, 0.02 normals for embeddings, zeros,
+    ones, uniform int8) from a torch stream instead: a different draw,
+    for code that needs some weights and no reference to match."""
     dev = resolve_device(device)
-    if not isinstance(generator, torch.Generator):
-        seed = int(generator)
-        generator = torch.Generator(device=dev)
-        generator.manual_seed(seed)
     if defs is None:
         from repro_torch.models import registry
 
         defs = registry.FAMILY_FNS[cfg.family][0](cfg)
+    if not isinstance(key, (int, torch.Generator)):
+        return init_tree(defs, key, cfg.param_dtype, dev)
+    generator = key
+    if not isinstance(generator, torch.Generator):
+        generator = torch.Generator(device=dev)
+        generator.manual_seed(int(key))
 
     def make(p: P) -> torch.Tensor:
         dt = _DTYPES[p.dtype] if p.dtype is not None else cfg.param_dtype
@@ -235,6 +240,111 @@ def init_params(
         raise TypeError(f"bad param def: {type(node)}")
 
     return walk(defs)
+
+
+def _stable_hash(s: str) -> int:
+    """FNV-1a of the UTF-8 bytes, 32-bit.  Reference:
+    ``repro.models.common:_stable_hash``."""
+    h = 2166136261
+    for ch in s.encode():
+        h = (h ^ ch) * 16777619 & 0xFFFFFFFF
+    return h
+
+
+def _draw(p: P, key, dtype, device) -> torch.Tensor:
+    """One leaf as the reference's ``init_tree`` draws it under ``key``."""
+    from repro_torch import prng
+
+    dt = _DTYPES[p.dtype] if p.dtype is not None else dtype
+    if dt == torch.int8:
+        return prng.randint(key, p.shape, -127, 128, torch.int32, device=device).to(dt)
+    if p.init == "zeros":
+        return torch.zeros(p.shape, dtype=dt, device=device)
+    if p.init == "ones":
+        return torch.ones(p.shape, dtype=dt, device=device)
+    z = prng.normal(key, p.shape, device=device)
+    if p.init in ("embed", "normal"):
+        return (z * torch.tensor(0.02, dtype=torch.float32, device=device)).to(dt)
+    fan = max(p.shape[p.fan_axis], 1)
+    return prng._div(z, torch.tensor(math.sqrt(fan), dtype=torch.float32, device=device)).to(dt)
+
+
+def init_tree(defs: Any, key, dtype: torch.dtype, device=None) -> Any:
+    """Materialize ``defs`` from the threefry ``key`` as the reference
+    does: a leaf's key folds the FNV-1a hash of each name on its path into
+    ``key``; int8 leaves draw ``randint(-127, 128)``, ``embed`` /
+    ``normal`` leaves ``0.02 * normal``, fan-in leaves ``normal /
+    sqrt(fan)``, each cast to its dtype.  A per-layer list is drawn as the
+    reference's stacked leaf (:func:`reference_defs`) and handed out a
+    layer at a time, one stacked leaf alive at once.  Reference:
+    ``repro.models.common:init_tree``."""
+    from repro_torch import prng
+
+    dev = resolve_device(device)
+    out = _skeleton(defs)
+    leaves = []
+
+    def walk(node, path):
+        if isinstance(node, P):
+            leaves.append((path, node))
+        else:
+            for name in sorted(node):
+                walk(node[name], path + (name,))
+
+    walk(reference_defs(defs), ())
+    for path, p in leaves:
+        sub = key
+        for name in path:
+            sub = prng.fold_in(sub, _stable_hash(name))
+        _place(out, defs, path, _draw(p, sub, dtype, dev))
+    return out
+
+
+def reference_defs(defs: Any) -> Any:
+    """``defs`` in the reference's layout: each per-layer list (or list of
+    lists) one stacked :class:`P` a leaf, as ``repro.models.lm:stack_defs``
+    builds it: a leading axis a list level, the fan axis shifted by as
+    many, the dtype override dropped."""
+    if isinstance(defs, P):
+        return defs
+    if isinstance(defs, dict):
+        return {k: reference_defs(v) for k, v in defs.items()}
+    if isinstance(defs, list):
+        return _stack_list([reference_defs(v) for v in defs])
+    raise TypeError(f"bad param def: {type(defs)}")
+
+
+def _stack_list(parts: list) -> Any:
+    first = parts[0]
+    if isinstance(first, dict):
+        return {k: _stack_list([q[k] for q in parts]) for k in first}
+    return P((len(parts),) + first.shape, (None,) + first.axes, first.init, first.fan_axis + 1)
+
+
+def _skeleton(defs: Any) -> Any:
+    if isinstance(defs, P):
+        return None
+    if isinstance(defs, list):
+        return [_skeleton(v) for v in defs]
+    return {k: _skeleton(defs[k]) for k in sorted(defs)}
+
+
+def _place(out: Any, node: Any, path: Tuple[str, ...], arr: torch.Tensor) -> None:
+    """Put the stacked leaf ``arr`` at ``path`` of ``out``, one copy a
+    layer along each list level of ``node`` (no layer holds the stacked
+    storage)."""
+    if isinstance(node, list):
+        for i, sub in enumerate(node):
+            if isinstance(sub, P):
+                out[i] = arr[i].clone()
+            else:
+                _place(out[i], sub, path, arr[i])
+        return
+    name, sub = path[0], node[path[0]]
+    if isinstance(sub, P):
+        out[name] = arr
+    else:
+        _place(out[name], sub, path[1:], arr)
 
 
 def axes_tree(defs: Any) -> Any:

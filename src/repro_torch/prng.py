@@ -2,9 +2,9 @@
 
 Port of the key discipline of ``jax.random`` (``jax._src.prng`` and
 ``jax._src.random``) that the reference threads through its noise streams
-and its samplers: ``PRNGKey``, ``fold_in``, ``split``, ``random_bits``,
-``uniform``, ``gumbel`` and ``categorical`` on the default
-``threefry2x32`` implementation.
+and its samplers and weight init: ``PRNGKey``, ``fold_in``, ``split``,
+``random_bits``, ``uniform``, ``normal``, ``randint``, ``gumbel`` and
+``categorical`` on the default ``threefry2x32`` implementation.
 
 A key is what ``jax.random.PRNGKey`` returns: two uint32 words, here a
 numpy ``uint32`` array of shape ``(..., 2)`` (``np.asarray`` of a raw JAX
@@ -17,15 +17,21 @@ after every add and rotated with shifts (torch has no usable uint32
 
 ``partitionable`` is JAX's ``jax_threefry_partitionable`` flag: ``True``
 (the default from JAX 0.5 on) counts bits with a 64-bit iota split into
-two words and makes ``split`` a vector of ``fold_in``s; ``False`` is the
+two words (drawn :data:`CHUNK` elements at a time) and makes ``split`` a
+vector of ``fold_in``s; ``False`` is the
 0.4.x scheme (one flat counter halved across the two words, 8/16-bit
 draws packed little-endian into 32-bit words).
+
+``normal`` reproduces the bits of XLA's CPU backend, the reference's
+platform: its own f32 ``log`` and ``log1p`` and the FMAs that LLVM
+contracts, spelled in IEEE operations that round alike on every device.
 """
 
 from __future__ import annotations
 
+import functools
 import math
-from typing import Sequence, Tuple, Union
+from typing import Callable, Sequence, Tuple, Union
 
 import numpy as np
 import torch
@@ -143,6 +149,73 @@ def _key_tensors(key: KeyLike, device) -> Tuple[UInt, UInt, Tuple[int, ...]]:
     return t[..., 0:1], t[..., 1:2], tuple(a.shape[:-1])
 
 
+# Elements a partitionable draw computes at once: its int64 and f64
+# temporaries stay near 32 MiB each whatever the draw's size.
+CHUNK = 1 << 22
+
+
+def _mapped(
+    keys: Sequence[KeyLike],
+    bit_width: int,
+    shape: Sequence[int],
+    dtype: torch.dtype,
+    fn: Callable[..., torch.Tensor],
+    *,
+    partitionable: bool,
+    device,
+) -> torch.Tensor:
+    """``fn`` of the ``bit_width``-bit words that each of ``keys`` draws
+    for ``shape`` (all keys of one batch shape), as a ``dtype`` tensor.
+    On the partitionable path the flat index range is drawn in pieces of
+    :data:`CHUNK` elements, each counter the 64-bit flat index split into
+    two words as ``jax._src.prng:iota_2x32_shape`` does; ``fn`` is
+    elementwise, so a chunked draw is bitwise the whole draw."""
+    if bit_width not in (8, 16, 32):
+        raise ValueError(f"bit_width must be 8, 16 or 32; got {bit_width}")
+    shape = tuple(int(s) for s in shape)
+    n = math.prod(shape)
+    if not partitionable:
+        return fn(*(_original_bits(k, bit_width, shape, device) for k in keys))
+    if n > 1 << 64:
+        raise NotImplementedError("random bits of more than 2^64 elements")
+    words = [_key_tensors(k, device) for k in keys]
+    batch = words[0][2]
+    mask = (1 << bit_width) - 1
+    out = torch.empty(batch + (n,), dtype=dtype, device=device)
+    for start in range(0, n, CHUNK):
+        stop = min(n, start + CHUNK)
+        out[..., start:stop] = fn(*(_block_bits(k1, k2, start, stop, device) & mask for k1, k2, _ in words))
+    return out.reshape(batch + shape)
+
+
+def _block_bits(k1: UInt, k2: UInt, start: int, stop: int, device) -> torch.Tensor:
+    """The partitionable path's 32-bit words of flat indices ``[start,
+    stop)``: the XOR of the two words of the block of each index, split
+    into a high and a low word (``jax._src.prng:iota_2x32_shape``)."""
+    i = torch.arange(start, stop, dtype=torch.int64, device=device)
+    b1, b2 = threefry2x32(k1, k2, i >> 32, i & U32)
+    return b1 ^ b2
+
+
+def _original_bits(key: KeyLike, bit_width: int, shape: Tuple[int, ...], device) -> torch.Tensor:
+    """The 0.4.x scheme: one flat counter halved across the two words,
+    8/16-bit draws packed little-endian into 32-bit words."""
+    k1, k2, batch = _key_tensors(key, device)
+    n = math.prod(shape)
+    per = 32 // bit_width
+    count = -(-n // per)
+    if count >= U32:
+        raise NotImplementedError("random bits of 2^32 - 1 words or more")
+    words = _threefry_2x32_flat(k1, k2, torch.arange(count, dtype=torch.int64, device=device))
+    if per == 1:
+        bits = words
+    else:
+        mask = (1 << bit_width) - 1
+        shifts = torch.arange(per, dtype=torch.int64, device=device) * bit_width
+        bits = ((words[..., :, None] >> shifts) & mask).flatten(-2)[..., :n]
+    return bits.reshape(*batch, *shape)
+
+
 def random_bits(
     key: KeyLike,
     bit_width: int,
@@ -156,35 +229,26 @@ def random_bits(
     (``(*B, 2)``) draws ``(*B, *shape)``, each key its own stream, as
     ``jax.vmap`` over the keys would.  Reference: ``jax._src.prng:
     threefry_random_bits``."""
-    if bit_width not in (8, 16, 32):
-        raise ValueError(f"bit_width must be 8, 16 or 32; got {bit_width}")
-    shape = tuple(int(s) for s in shape)
-    k1, k2, batch = _key_tensors(key, device)
-    n = math.prod(shape)
-    mask = (1 << bit_width) - 1
-    if partitionable:
-        if n >= 1 << 32:
-            raise NotImplementedError("random bits of 2^32 or more elements")
-        ctr = torch.arange(n, dtype=torch.int64, device=device)
-        b1, b2 = threefry2x32(k1, k2, torch.zeros_like(ctr), ctr)
-        bits = (b1 ^ b2) & mask
-    else:
-        per = 32 // bit_width
-        count = -(-n // per)
-        if count >= U32:
-            raise NotImplementedError("random bits of 2^32 - 1 words or more")
-        words = _threefry_2x32_flat(k1, k2, torch.arange(count, dtype=torch.int64, device=device))
-        if per == 1:
-            bits = words
-        else:
-            shifts = torch.arange(per, dtype=torch.int64, device=device) * bit_width
-            bits = ((words[..., :, None] >> shifts) & mask).flatten(-2)[..., :n]
-    return bits.reshape(*batch, *shape)
+    return _mapped([key], bit_width, shape, torch.int64, lambda b: b, partitionable=partitionable, device=device)
 
 
 def _bitcast_float(bits: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
     nbits = _FINFO[dtype][0]
     return bits.to(_INT_VIEW[nbits]).view(dtype)
+
+
+def _uniform_of(bits: torch.Tensor, rng_bits: int, dtype: torch.dtype, minval: float, maxval: float) -> torch.Tensor:
+    nbits, nmant = _FINFO[dtype]
+    one = int(torch.ones((), dtype=dtype).view(_INT_VIEW[nbits])) & ((1 << nbits) - 1)
+    floats = _bitcast_float((bits >> (rng_bits - nmant)) | one, dtype) - 1.0
+    lo = torch.full((), minval, dtype=dtype, device=floats.device)
+    hi = torch.full((), maxval, dtype=dtype, device=floats.device)
+    span = hi - lo
+    if dtype == torch.float32:
+        y = _fma(floats, span, lo)  # XLA contracts the f32 ``floats * span + lo``
+    else:
+        y = floats * span + lo  # 16-bit types round after each op
+    return torch.maximum(lo, y)
 
 
 def uniform(
@@ -206,19 +270,191 @@ def uniform(
         raise TypeError(f"uniform supports {sorted(map(str, _FINFO))}; got {dtype}")
     nbits, nmant = _FINFO[dtype]
     rng_bits = 8 if nmant < 8 else nbits
-    bits = random_bits(key, rng_bits, shape, partitionable=partitionable, device=device)
-    one = int(torch.ones((), dtype=dtype).view(_INT_VIEW[nbits])) & ((1 << nbits) - 1)
-    floats = _bitcast_float((bits >> (rng_bits - nmant)) | one, dtype) - 1.0
-    lo = torch.full((), minval, dtype=dtype, device=floats.device)
-    hi = torch.full((), maxval, dtype=dtype, device=floats.device)
-    span = hi - lo
-    if dtype == torch.float32:
-        # XLA contracts the f32 ``floats * span + lo`` into one fused
-        # multiply-add: the product exact in f64, then one rounding.
-        y = (floats.to(torch.float64) * span.to(torch.float64) + lo.to(torch.float64)).to(dtype)
-    else:
-        y = floats * span + lo  # 16-bit types round after each op
-    return torch.maximum(lo, y)
+    return _mapped([key], rng_bits, shape, dtype, lambda b: _uniform_of(b, rng_bits, dtype, minval, maxval),
+                   partitionable=partitionable, device=device)
+
+
+def _fma(a: torch.Tensor, b: torch.Tensor, c: Union[torch.Tensor, float]) -> torch.Tensor:
+    """``a * b + c`` in f32 with one rounding, as the FMA that LLVM
+    contracts an f32 multiply and add into (operands f32 values, in f32 or
+    already widened to f64).  The product is exact in f64;
+    the f64 sum is rounded to odd (its own rounding error, from TwoSum,
+    moves an even sum one f64 ulp towards the exact value), and an f64
+    value rounded to odd rounds to f32 as the exact value would (53 >= 24
+    + 2 bits)."""
+    p = a.double() * b.double()
+    c = (c if isinstance(c, torch.Tensor) else _f32(c, p)).double()
+    s = p + c
+    t = s - p
+    err = (p - (s - t)) + (c - t)
+    bits = s.view(torch.int64)
+    inexact_even = (err != 0) & ((bits & 1) == 0)
+    outward = (err > 0) == (s > 0)  # the exact value lies further from zero
+    step = torch.where(outward, 1, -1) * inexact_even
+    return (bits + step).view(torch.float64).float()
+
+
+@functools.lru_cache(maxsize=None)
+def _const(v: float, device: torch.device) -> torch.Tensor:
+    return torch.tensor(v, dtype=torch.float32, device=device)
+
+
+def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
+    """``v`` rounded to f32, a 0-dim tensor on ``like``'s device."""
+    return _const(float(v), like.device)
+
+
+_SQRT2 = float(np.float32(math.sqrt(2.0)))
+# XLA CPU's f32 log (Cephes' logf): the mantissa in [sqrt(1/2), sqrt(2)) as
+# 1 + f, a degree-9 polynomial in f evaluated in three interleaved strands,
+# and the exponent times ln 2 split into 0.693359375 - 2.12194440e-4.
+_LOG_P = ((0.07037683576345444, -0.11514610052108765, 0.11676998436450958),
+          (-0.12420140951871872, 0.14249323308467865, -0.16668057441711426),
+          (0.2000071406364441, -0.24999994039535522, 0.3333333134651184))
+_LOG_LN2 = (-0.00021219444170128554, 0.693359375)
+# XLA's log1p for |x| < sqrt(2) - 1: Cephes' rational x - x^2/2 + x^3 P(x)/Q(x).
+_LOG1P_Q = (15.062909126281738, 83.04756927490234, 221.7624053955078, 309.0987243652344,
+            216.42788696289062, 60.11865997314453)
+_LOG1P_P = (4.527000055531971e-05, 0.4985410273075104, 6.578732490539551, 29.91191864013672,
+            60.949668884277344, 57.11296463012695, 20.039552688598633)
+# Giles' single-precision erfinv: (w < 5, w >= 5) coefficient pairs, highest first.
+_ERF_INV = ((2.81022636e-08, -0.000200214257), (3.43273939e-07, 0.000100950558),
+            (-3.5233877e-06, 0.00134934322), (-4.39150654e-06, -0.00367342844),
+            (0.00021858087, 0.00573950773), (-0.00125372503, -0.0076224613),
+            (-0.00417768164, 0.00943887047), (0.246640727, 1.00167406), (1.50140941, 2.83297682))
+
+
+def _div(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """f32 ``a / b`` correctly rounded on every device: the f64 quotient
+    rounded once more loses nothing (53 >= 2 x 24 + 2 bits)."""
+    return (a.double() / b.double()).float()
+
+
+def _sqrt(a: torch.Tensor) -> torch.Tensor:
+    """f32 ``sqrt`` correctly rounded on every device (torch's vectorized
+    f32 ``sqrt`` on the CPU is not), by way of f64 as :func:`_div`."""
+    return torch.sqrt(a.double()).float()
+
+
+def _log(t: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log``, op for op as it compiles (x86-64 with FMA)."""
+    bits = torch.clamp_min(t, torch.finfo(torch.float32).tiny).view(torch.int32)
+    m = ((bits & 0x7FFFFF) | 0x3F000000).view(torch.float32)  # mantissa in [1/2, 1)
+    e = ((bits >> 23) - 127).float() + 1.0
+    low = m < _f32(0.7071067690849304, t)
+    f = (m - 1.0) + torch.where(low, m, torch.zeros_like(m))
+    e = torch.where(low, e - 1.0, e)
+    z = f * f
+    f3 = z * f
+    (a0, a1, a2), (b0, b1, b2), (c0, c1, c2) = _LOG_P
+    f64, f3_64 = f.double(), f3.double()
+    pa = _fma(_fma(f64, _f32(a0, t), a1), f64, a2)
+    pb = _fma(_fma(f64, _f32(b0, t), b1), f64, b2)
+    pc = _fma(_fma(f64, _f32(c0, t), c1), f64, c2)
+    q = _fma(f3_64, _fma(f3_64, pa, pb), pc)
+    r = _fma(q, f3_64, e * _f32(_LOG_LN2[0], t))
+    y = _fma(_f32(-0.5, t), z, f) + r
+    y = _fma(e, _f32(_LOG_LN2[1], t), y)
+    y = torch.where(t == 0, _f32(-math.inf, t), y)
+    return torch.where(t >= 0, y, _f32(math.nan, t))
+
+
+def _log1p(a: torch.Tensor) -> torch.Tensor:
+    """XLA CPU's f32 ``log-plus-one``: ``log(a + 1)``, or for
+    ``|a| < sqrt(2) - 1`` a Cephes rational, with the FMAs its compiled
+    code contracts."""
+    a2 = a * a
+    zero = a * 0.0
+    a64 = a.double()
+    den = zero + 1.0
+    for c in _LOG1P_Q:
+        den = _fma(den, a64, c)
+    num = zero + _f32(_LOG1P_P[0], a)
+    for c in _LOG1P_P[1:]:
+        num = _fma(num, a64, c)
+    v = _fma(a2, _f32(-0.5, a), (a * a2) * _div(num, den))
+    return torch.where(a.abs() < _f32(0.4142135679721832, a), a + v, _log(a + 1.0))
+
+
+def _erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """``lax.erf_inv`` of f32 ``x`` as XLA CPU computes it: Giles'
+    single-precision polynomial in ``w = -log1p(-x^2)``, each Horner step
+    one FMA, ``x * inf`` where ``|x| == 1``."""
+    lg = _log1p((-x) * x)
+    near = lg > _f32(-5.0, x)  # w < 5
+    w = torch.where(near, _f32(-2.5, x) - lg, _sqrt(-lg) - 3.0).double()
+    coef = [torch.where(near, _f32(c, x).double(), _f32(d, x).double()) for c, d in _ERF_INV]
+    p = _fma(coef[0], w, coef[1])
+    for c in coef[2:]:
+        p = _fma(w, p, c)
+    return x * torch.where(x.abs() == 1.0, _f32(math.inf, x), p)
+
+
+def normal(
+    key: KeyLike,
+    shape: Sequence[int] = (),
+    dtype: torch.dtype = torch.float32,
+    *,
+    partitionable: bool = True,
+    device=None,
+) -> torch.Tensor:
+    """Standard normal f32 draws: ``sqrt(2) * erf_inv(u)``, ``u`` uniform
+    on ``[nextafter(-1, 0), 1)``, bit for bit as XLA's CPU backend
+    computes them.  Reference: ``jax._src.random:_normal_real``."""
+    if dtype != torch.float32:
+        raise TypeError(f"normal draws float32; got {dtype}")
+    lo = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+
+    def fn(bits):
+        return _erf_inv(_uniform_of(bits, 32, torch.float32, lo, 1.0)) * _f32(_SQRT2, bits)
+
+    return _mapped([key], 32, shape, torch.float32, fn, partitionable=partitionable, device=device)
+
+
+def _urem(a: UInt, span: int) -> UInt:
+    """uint32 ``rem`` as XLA defines it: by zero, the dividend."""
+    return a % span if span else a
+
+
+def _mul32(a: torch.Tensor, b: int) -> torch.Tensor:
+    """uint32 ``a * b`` modulo 2^32 without overflowing int64: ``b`` in
+    16-bit halves."""
+    return (a * (b & 0xFFFF) + (((a * (b >> 16)) & 0xFFFF) << 16)) & U32
+
+
+def randint(
+    key: KeyLike,
+    shape: Sequence[int],
+    minval: int,
+    maxval: int,
+    dtype: torch.dtype = torch.int32,
+    *,
+    partitionable: bool = True,
+    device=None,
+) -> torch.Tensor:
+    """Integers in ``[minval, maxval)`` of ``shape``: two 32-bit words per
+    element under the two halves of ``split(key)``, folded into the span
+    by uint32 remainders (``2^32 % span`` as the square of
+    ``2^16 % span``), emulated in int64.  Reference:
+    ``jax._src.random:_randint``."""
+    if dtype != torch.int32:
+        raise TypeError(f"randint draws int32; got {dtype}")
+    info = torch.iinfo(dtype)
+    lo, hi = (min(max(int(v), info.min), info.max) for v in (minval, maxval))
+    span = (hi - lo) & U32
+    if hi <= lo:
+        span = 1
+    elif int(maxval) > info.max:
+        span = (span + 1) & U32
+    mult = _urem(_urem(1 << 16, span) ** 2 & U32, span)
+
+    def fn(high, low):
+        off = _urem((_mul32(_urem(high, span), mult) + _urem(low, span)) & U32, span)
+        v = (off + lo) & U32
+        return (v - ((v >> 31) << 32)).to(dtype)
+
+    k1, k2 = split(key, 2, partitionable=partitionable)
+    return _mapped([k1, k2], 32, shape, dtype, fn, partitionable=partitionable, device=device)
 
 
 def gumbel(

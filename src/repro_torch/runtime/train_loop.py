@@ -68,6 +68,7 @@ from typing import Any, Callable, Dict, Optional
 import torch
 import torch.distributed as dist
 
+from repro_torch import prng
 from repro_torch._device import resolve_device
 from repro_torch._tree import tree_items, tree_map, tree_unflatten
 from repro_torch.checkpoint import ckpt
@@ -246,7 +247,7 @@ def train(
     if mesh is not None:
         dist.barrier()  # rank 0's last checkpoint is on disk before anyone looks
     start = ckpt.latest_step(train_cfg.ckpt_dir)
-    params = init_params(model_cfg, train_cfg.seed, dev, defs=arch.param_defs(model_cfg))
+    params = init_params(model_cfg, prng.PRNGKey(train_cfg.seed), dev, defs=arch.param_defs(model_cfg))
     opt_state = adamw.init(params)
     step0 = 0
     if start is not None:

@@ -1,7 +1,7 @@
 """Carry the reference's parameters into the port.
 
-``repro`` initializes with ``jax.random``, which PyTorch cannot reproduce,
-so parity tests build parameters with the reference and hand them over as
+Parity tests that start from a tree the reference built (its weights,
+a training state, the int8 layout, a prepacked bank) hand it over as
 numpy arrays; :func:`params_from_jax` turns that tree (stacked layer axes
 included) into the port's layout, where ``layers`` (and the other stacks:
 llama-vision's ``cross``, whisper's ``enc_layers`` and ``dec_layers``,

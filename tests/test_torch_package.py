@@ -4,8 +4,8 @@
   module of ``repro`` — checked in a fresh interpreter, since this test
   session has both loaded — and no file under ``src/repro_torch`` imports
   either (AST scan);
-* entry points run on CUDA unless asked for the CPU and raise without a
-  CUDA device: they never fall back;
+* entry points, the examples among them, run on CUDA unless asked for
+  the CPU and raise without a CUDA device: they never fall back;
 * the kernel wrappers take the plain twin only for CPU tensors.
 """
 
@@ -82,6 +82,18 @@ def test_entry_points_default_to_cuda_and_raise_without_it():
     with pytest.raises(RuntimeError, match="device='cpu'"):
         Scheduler(arch, arch.smoke_config, params, ServingConfig())
     assert resolve_device("cpu") == torch.device("cpu")
+
+
+@pytest.mark.parametrize("name", ["quickstart", "serve_lm", "train_lm", "map_workload", "paper_repro"])
+def test_examples_default_to_cuda_and_raise_without_it(name, capsys):
+    if torch.cuda.is_available():
+        pytest.skip("checks the no-CUDA behaviour; a CUDA device is present")
+    import importlib
+
+    example = importlib.import_module(f"repro_torch.examples.{name}")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        example.main([])
+    assert capsys.readouterr().out == ""  # nothing printed before the device is resolved
 
 
 def test_wrappers_take_the_twin_only_for_cpu_tensors():

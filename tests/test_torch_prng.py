@@ -21,6 +21,7 @@ here from JAX, so they cannot drift.
 """
 
 import ast
+import hashlib
 from pathlib import Path
 
 import numpy as np
@@ -152,7 +153,10 @@ def _chip_smoke_constants() -> dict:
 
 
 def test_chip_smoke_known_answers_are_jax_s():
-    """The constants the card's keys phase checks, recomputed from JAX."""
+    """The constants the card's keys and init phases check, recomputed from
+    JAX.  The init digests draw the reference's ``init_tree`` of full-width
+    qwen2-0.5b (494,032,768 bf16 elements, about 1 GB held; about 10-20 s
+    on a CPU)."""
     c = _chip_smoke_constants()
     assert jax.config.jax_threefry_partitionable
     key = jax.random.PRNGKey(c["seed"])
@@ -177,3 +181,26 @@ def test_chip_smoke_known_answers_are_jax_s():
     tr = tr.to(torch.bfloat16) / torch.full((), 0.8, dtype=torch.bfloat16)
     keys = np.stack([prng.fold_in(prng.fold_in(tk, u), n) for u, n in c["uid_n"]])
     assert prng.categorical(keys, tr[None, :].expand(len(keys), -1)).tolist() == draws
+    # the weight init's draws: f32 normal bits, 2^20 of them hashed, int8 randint
+    n = c["n_bits"]
+    assert c["normal_f32_bits"] == _np(jax.random.normal(key, (n,))).view(np.uint32).astype(int).tolist()
+    assert c["normal_sha256"] == hashlib.sha256(_np(jax.random.normal(key, (c["n_normal"],))).tobytes()).hexdigest()
+    assert c["randint8"] == _np(jax.random.randint(key, (n,), -127, 128, jnp.int32).astype(jnp.int8)).astype(int).tolist()
+    assert (prng.normal(tk, (n,)).view(torch.int32).numpy().view(np.uint32).astype(int).tolist()
+            == c["normal_f32_bits"])
+    assert prng.randint(tk, (n,), -127, 128).to(torch.int8).tolist() == c["randint8"]
+    # each leaf of the reference's init_tree of full-width qwen2-0.5b under PRNGKey(0)
+    from repro.models import registry
+    from repro.models.common import init_tree
+
+    arch = registry.get("qwen2-0.5b")
+    tree = init_tree(arch.param_defs(arch.config), jax.random.PRNGKey(0), arch.config.param_dtype)
+    digests = {}
+    stack = [((), tree)]
+    while stack:
+        path, node = stack.pop()
+        if isinstance(node, dict):
+            stack.extend((path + (k,), v) for k, v in node.items())
+        else:
+            digests["/".join(path)] = hashlib.sha256(_np(node).view(np.uint8).tobytes()).hexdigest()
+    assert c["qwen2_init_sha256"] == digests

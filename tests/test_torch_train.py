@@ -292,11 +292,16 @@ def _port_train(d, tc, steps=3, **kw):
     )
 
 
-def test_train_matches_reference_losses(reference_run, jparams, tmp_path):
+@pytest.mark.parametrize("start", ["from_key", "from_checkpoint"])
+def test_train_matches_reference_losses(reference_run, jparams, tmp_path, start):
+    """From nothing, the port's ``train()`` draws the reference's weights
+    from ``PRNGKey(seed)`` itself; from a step-0 checkpoint of the
+    reference's ``init_tree`` it restores the same weights."""
     _, ref = reference_run
     _, tc = _cfgs(True)
-    tp = params_from_jax(_np_tree(jparams), tc, "cpu")  # the reference's train() inits from PRNGKey(0)
-    tckpt.save(tmp_path, 0, {"params": tp, "opt": topt.init(tp)})
+    if start == "from_checkpoint":
+        tp = params_from_jax(_np_tree(jparams), tc, "cpu")
+        tckpt.save(tmp_path, 0, {"params": tp, "opt": topt.init(tp)})
     out = _port_train(tmp_path, tc)
     assert out["final_step"] == 3 and len(out["step_seconds"]) == 3
     np.testing.assert_allclose(out["losses"], ref["losses"], rtol=1e-4)
