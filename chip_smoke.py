@@ -179,10 +179,10 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    2; then ``lm_logits`` at B = 2, T = 1000 under TP = 2 bitwise TP = 1's.  Prefill seconds and decode ms/step per run; whether the
    TP = 2 tokens equal the serve phase's (which prefills in chunks of 64
    tokens) is printed, not gated.
-6b. dense serve: granite-3-8b at full width with 8 of its 40 layers
+6b. dense serve: granite-3-8b at full width with 4 of its 40 layers
    (d=4096, 32/8 heads, hd=128, d_ff=12800, vocab 49155, bf16,
    ``init_params`` seed 0; cut from 40 to keep the run inside its limit,
-   first to 10, then to 8)
+   first to 10, then to 8, 6 and 4)
    on the paged ``Scheduler``, the serve phase's prompt lengths and 8 new
    tokens: ideal greedy on ``kernel`` and ``ref`` (tokens equal); ideal
    sampled at temperature 0.8 under the reference's keys (seed 0) twice
@@ -235,18 +235,18 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``kernel`` and ``ref`` (tokens equal; 61 launches a prefill, 57 a decode
    step) and 4 steps
    under SMWA (``noise_seed=0``: logits finite).  whisper-medium at full
-   width with 6 + 6 of its 24 + 24 layers (cut for the run's
-   limit, first to 8 + 8): ``whisper_logits`` with
+   width with 2 + 2 of its 24 + 24 layers (cut for the run's
+   limit, first to 8 + 8, then 6 + 6): ``whisper_logits`` with
    audio (4, 1500, 1024) in f32 and bf16 and 375 decoder tokens on
-   ``kernel`` and ``ref`` (97 launches, the bf16 floor), and with
-   ``attn_impl="flash"`` against chunked (12 flash launches) under the oneshot phase's gate: the witness, chunked at
+   ``kernel`` and ``ref`` (65 launches, the bf16 floor), and with
+   ``attn_impl="flash"`` against chunked (8 flash launches) under the oneshot phase's gate: the witness, chunked at
    flash's key block (``attn_chunk=128``) against chunked, measures how far
    the model carries a rounding difference of its attention cores, and
    flash may be no further than max(2e-2, 2 x the witness's) with argmax
    disagreement <= max(1%, 2 x the witness's); ``arch.prefill`` of 4 x 4 tokens then 16 greedy decode steps
    at max_seq 375 on ``kernel``, ``ref`` and kernel with flash (tokens of
-   the first two equal; 97 launches a prefill, 49 a decode step, flash
-   12 a prefill).  Each model prints prefill seconds, decode ms/step and
+   the first two equal; 65 launches a prefill, 33 a decode step, flash
+   8 a prefill).  Each model prints prefill seconds, decode ms/step and
    peak memory.
 6f. recurrent: the ssm and hybrid families.  Kernel rows, each bitwise
    its twin (noise included) with its time, bound and the ``_int_mm``
@@ -285,23 +285,23 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    synthetic tokens (``DataConfig(vocab_size=151936, seq_len=1024,
    global_batch=4, seed=0)``, ``AdamWConfig(lr=3e-4, warmup_steps=1,
    total_steps=3)``) with ``torch.use_deterministic_algorithms(True)``,
-   in five modes:
+   in four modes:
    (a) ideal channel, kernel backend, through ``runtime.train_loop.train``
    into a temporary checkpoint directory (the end-of-run checkpoint is
    timed, its size printed, and the directory removed): fused launches
    6 x 24 x 2 = 288 per step (forward and the recompute), flash 0; (b) the
    same on the ``exact`` backend: losses and final parameters bitwise equal
-   to (a)'s; (c) SMWA analog, ``noise_seed=0``: losses and grad norms
-   finite, the gap to (a) printed; (d) (a) with ``remat=False``: step-1
+   to (a)'s; (d) (a) with ``remat=False``: step-1
    loss bitwise equal to (a)'s, 144 launches a step; (e) (a) with
    ``remat_policy="dots"``: the step-1 loss and gradient norm bitwise
    (a)'s and (b)'s, 288 launches a step (the kernel is no product the
-   policy saves).  (b)-(e) call
+   policy saves).  (b), (d) and (e) call
    ``build_train_step`` on the same batches, each from a copy of one draw
    of train()'s first weights.  Per mode: seconds per step
    (median of steps 2-3), tokens/s and ``torch.cuda.max_memory_allocated``.
-   (c), (d) and (e) take one step, whose loss is all their gates read,
-   and (a) takes no profiled fourth step (all cut for the run's limit).
+   (d) and (e) take one step, whose loss is all their gates read, and
+   (a) takes no profiled fourth step; the SMWA step that was mode (c) is
+   gone (all cut for the run's limit: phases 7b and 7c train under SMWA).
 7c. tp train: tensor- and data-parallel training.  Kernel rows first, in
    this process: each shard's ``shard_local_engine(engine, K / 2)
    .int_gemm(shard=i)`` at qwen2-0.5b's six sites at R = 4096 (TP = 2
@@ -517,7 +517,30 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    negative controls that must fail the logits gate (zamba2-2.7b with the
    model ranks' ``a_log`` / ``dt_bias`` blocks swapped, xlstm-350m with the
    row-parallel ``down``'s all-reduce dropped); launches a forward,
-   all-reduces, peak memory a rank and the seconds of each run printed.
+   all-reduces, peak memory a rank and the seconds of each run printed;
+   zamba2-2.7b's and whisper-medium's runs (:data:`SEQ_FORWARD`) open with
+   the training forward's logits, and their forward and prefill run with
+   the residual's sequence placed too (``seq_sp``; whisper's 64 frames a
+   row come in as 32 a rank), under the same gates; (f) ``seq_sp``:
+   qwen2-0.5b's full-width prefill of ``PLACEMENT_ROWS`` x
+   ``PLACEMENT_PROMPT`` tokens with the rows, heads and ``seq_sp`` placed
+   (8 positions a rank), ideal and SMWA: logits bitwise (a)'s replicated
+   prefill, the residual at every constraint a rank's block (printed),
+   two sequence gathers a layer and one for the last position; and (b)'s
+   ``train(mesh=)`` run again with ``seq_sp`` placed against (b)'s placed
+   run (rows and heads alone) within (b)'s gates, bitwise printed, peak
+   memory a rank printed; (g) ``kv_seq``: one row, a prompt of
+   ``KV_SEQ_PROMPT`` tokens prefilled by every rank alone into a cache of
+   ``KV_SEQ_MAX`` positions, then ``PLACEMENT_STEPS`` decode steps writing
+   across the blocks' boundary, replicated against the rows (falling
+   back), heads and ``kv_seq`` placed (2,048 positions a rank over
+   "data", the decode softmax merged by a ``MAX`` and a SUM all-reduce):
+   qwen2-0.5b ideal and keyed SMWA, deepseek-v2-lite at 3 layers ideal,
+   expanded and absorbed; every routed GEMM replayed bitwise (the expanded
+   decode's ``wuk`` / ``wuv`` on the rank's latent rows), ideal logits
+   within 2^-5 of their largest, each cache leaf a rank of half the
+   positions, and the negative control with the row max's ``MAX`` skipped
+   failing the logits gate.
    Then in this process (c): the tooling
    phase's qwen2-0.5b x decode_32k and x train_4k (ZeRO-1) cells, their
    arguments, temp, peak and FLOPs a rank beside the reference's recorded
@@ -525,9 +548,11 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    train_4k cell); gates: the decode cell fits 80 GB, its cache a rank is
    the cache's global bytes / 256, its arguments the reference's to the
    byte; both cells hold nothing whole where the reference places it, and
-   train_4k fits 80 GB; and the phi3.5-moe, deepseek-v2-lite, zamba2-2.7b
+   train_4k fits 80 GB; the phi3.5-moe, deepseek-v2-lite, zamba2-2.7b
    and llama-3.2-vision-90b x decode_32k cells (``PLACED_CELLS``): each
-   fits 80 GB and holds nothing whole where the reference places it.
+   fits 80 GB and holds nothing whole where the reference places it; and
+   qwen2-0.5b x long_500k (one row: the cache by ``kv_seq`` over "data"):
+   it fits, its cache a rank is the global cache / 256, nothing whole.
 
 The last lines are the kernels JSON, the card's ``name, power.limit`` and
 ``{"ok": true, "device": {...}}``.  Exits non-zero without a CUDA device
@@ -577,9 +602,9 @@ GRANITE_SITES = [
     ("ffn.wo", 12800, 4096, False),
 ]
 DEEPSEEK_SITES = [("ffn.wo", 22016, 8192, False), ("lm_head", 8192, 102400, False)]
-# granite-3-8b serves 8 of its 40 layers (at full width), cut to keep the
+# granite-3-8b serves 4 of its 40 layers (at full width), cut to keep the
 # run inside its time limit.
-GRANITE_SERVE_LAYERS = 8
+GRANITE_SERVE_LAYERS = 4
 # (site, K, C, bias) — deepseek-v2-lite-16b: the MLA projections and the
 # shared experts of a MoE layer, then layer 0's dense FFN (d_ff = 10944);
 # the latent up-projections run over the padded cache in expanded decode,
@@ -639,7 +664,7 @@ WHISPER_HEAD = ("lm_head", 1024, 51865)
 WHISPER_ENC_ROWS = 4 * 1500
 WHISPER_PREFILL_LAUNCHES = 24 * 6 + 24 * 10 + 1  # encoder 6 a layer, decoder 10 (cross K/V included), head
 WHISPER_DECODE_LAUNCHES = 24 * 8 + 1  # a decode step: the cross K/V are read from the cache
-WHISPER_SERVE_LAYERS = 6  # the cross phase's whisper-medium: 6 + 6 of its 24 + 24 layers (the run's limit)
+WHISPER_SERVE_LAYERS = 2  # the cross phase's whisper-medium: 2 + 2 of its 24 + 24 layers (the run's limit)
 WHISPER_SERVE_PREFILL_LAUNCHES = WHISPER_SERVE_LAYERS * 6 + WHISPER_SERVE_LAYERS * 10 + 1
 WHISPER_SERVE_DECODE_LAUNCHES = WHISPER_SERVE_LAYERS * 8 + 1
 WHISPER_SERVE_FLASH = 2 * WHISPER_SERVE_LAYERS  # a flash forward: every encoder and decoder self-attention
@@ -697,6 +722,11 @@ PLACEMENT_MOE = [
     ("phi3.5-moe-42b-a6.6b", 2, [("ideal", "ideal", False)]),
 ]
 PLACEMENT_MOE_STEPS = 4
+# Phase 10 (g): one row decoding against a cache placed by kv_seq over "data"
+# (4,096 positions, 2,048 a rank): a prompt of 2,046, so that the decode
+# steps write across the blocks' boundary (the second block all masked at
+# first).
+KV_SEQ_MAX, KV_SEQ_PROMPT = 4096, 2046
 # The reference's qwen2-0.5b x decode_32k x single cell, as its
 # tests/test_dryrun_integration.py records it (results/dryrun/, not committed).
 REFERENCE_DECODE_CELL = dict(argument_size_in_bytes=1677959972, temp_size_in_bytes=4298902480,
@@ -1913,8 +1943,8 @@ def _fingerprint(tree) -> str:
     return hashlib.sha256(b"".join(digests)).hexdigest()[:16]
 
 
-def train_phase(torch, arch, ideal, smwa, card):
-    """Full-width training in five modes (module docstring, phase 7).
+def train_phase(torch, arch, ideal, card):
+    """Full-width training in four modes (module docstring, phase 7).
     Returns (ok, result dict, fused launches of the main-path run (a))."""
     from repro_torch import prng
     from repro_torch._tree import tree_map
@@ -2006,13 +2036,11 @@ def train_phase(torch, arch, ideal, smwa, card):
         res["a"]["fingerprint"] = fp_a
         del out
 
-        # (b) exact backend, (c) SMWA analog, (d) no remat, (e) remat_policy
-        # "dots": build_train_step on the same batches.
-        # (c), (d) and (e) take one step (their gates read no later one; cut
-        # for the run's limit).
+        # (b) exact backend, (d) no remat, (e) remat_policy "dots":
+        # build_train_step on the same batches.  (d) and (e) take one step
+        # (their gates read no later one; cut for the run's limit).
         for label, cfg, n in (
             ("b", dataclasses.replace(cfg_a, photonic_backend="exact"), TRAIN_STEPS),
-            ("c", dataclasses.replace(cfg_a, photonic=smwa), 1),
             ("d", dataclasses.replace(cfg_a, remat=False), 1),
             ("e", dataclasses.replace(cfg_a, remat_policy="dots"), 1),
         ):
@@ -2026,11 +2054,6 @@ def train_phase(torch, arch, ideal, smwa, card):
                 good = same and fp == fp_a and launches["photonic_gemm_fused"] == 0
                 log(f"  train b: losses bitwise equal to (a)'s: {same}; final params sha256 {fp} vs (a) "
                     f"{fp_a}: {good}")
-            elif label == "c":
-                good = (all(np.isfinite(losses)) and all(np.isfinite(norms))
-                        and launches["photonic_gemm_fused"] == 6 * n_layers * 2 * n)
-                log(f"  train c: losses and grad norms finite, {launches['photonic_gemm_fused']} fused "
-                    f"launches: {good}")
             elif label == "d":
                 good = (losses[0] == res["a"]["losses"][0]
                         and launches["photonic_gemm_fused"] == 6 * n_layers * n)
@@ -2363,7 +2386,7 @@ def child(phase: str, arg=None) -> int:
     K.LIBRARY.load()
     F.LIBRARY.load()
     if phase == "train":
-        ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), smwa_dpu(), card_line())
+        ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), card_line())
     elif phase == "tp":
         ok, res, launches = tp_child(json.loads(arg))
     elif phase == "tp-train":
@@ -3295,6 +3318,65 @@ def _placement_decode(torch, arch, cfg, params, prompt, steps, mesh, place, log=
     return out, {k: tuple(v.shape) for k, v in cache["layers"].items()}, secs, held
 
 
+def _without_seq(arch):
+    """``arch`` whose ``placement_sizes`` leaves ``seq_sp`` out (phase 10
+    (b)'s placed run, against which (f) holds the run with it)."""
+    from repro_torch.models.registry import Arch
+
+    class NoSeq(Arch):
+        def placement_sizes(self, cfg, shape, *, params=True):
+            return {k: v for k, v in Arch.placement_sizes(self, cfg, shape, params=params).items() if k != "seq_sp"}
+
+    return NoSeq(**{f.name: getattr(arch, f.name) for f in dataclasses.fields(arch)})
+
+
+@contextlib.contextmanager
+def _residual_log(log):
+    """Every ``("batch", "seq_sp", None)`` constraint in the scope appends
+    the shape of the residual it checks to ``log`` (phase 10 (f))."""
+    from repro_torch.models import common as cm
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.logical_constraint
+
+    def record(x, axes):
+        if tuple(axes) == shd.RESIDUAL:
+            log.append(tuple(x.shape))
+        return inner(x, axes)
+
+    cm.logical_constraint = shd.logical_constraint = record
+    try:
+        yield log
+    finally:
+        cm.logical_constraint = shd.logical_constraint = inner
+
+
+def _seq_prefill(torch, K, arch, cfg, params, prompt, mesh):
+    """Phase 10 (f): ``cfg``'s prefill of ``prompt`` on ``mesh`` under TP
+    over "model" with the rows, heads and ``seq_sp`` placed (the parameters
+    whole), the logits gathered; with the residual shapes its constraints
+    saw, the sequence collectives, the launches and the seconds."""
+    from repro_torch.analysis import contracts
+    from repro_torch.models.registry import ShapeSpec
+    from repro_torch.photonic import sharded
+    from repro_torch.runtime import sharding as shd
+
+    sizes = arch.placement_sizes(cfg, ShapeSpec("prefill", prompt.shape[1], prompt.shape[0], "prefill"), params=False)
+    residuals = []
+    _reset_counts(torch, K)
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as scopes, torch.no_grad():
+        scopes.enter_context(shd.use_rules(mesh))
+        scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
+        scopes.enter_context(shd.placement(mesh, sizes))
+        scopes.enter_context(_residual_log(residuals))
+        logits, _ = arch.prefill(params, {"tokens": shd.place_tree(prompt, ("batch", None))}, cfg, PLACEMENT_MAX_SEQ)
+        logits = shd.gather_tree(logits, ("batch", None, "vocab"))
+    torch.cuda.synchronize()
+    return dict(logits=logits, residuals=residuals, seq=dict(contracts.SEQ_COLLECTIVES), counts=_counts(K),
+                seconds=time.perf_counter() - t0, sizes=sizes)
+
+
 def placement_rank(rank, world, ckpt_dir):
     """One rank of phase 10 (module docstring, (a), (b), (b'), (d) and (e)).
     Returns this rank's results and gates."""
@@ -3377,6 +3459,22 @@ def placement_rank(rank, world, ckpt_dir):
             f"outputs {2 * forwards}); parameter bytes a rank {pp['param_bytes']} against {rep['param_bytes']} "
             f"whole ({pp['param_bytes'] / rep['param_bytes']:.4f}); max_memory_allocated "
             f"{pp['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+        # (f) the prefill with the residual's sequence placed too (seq_sp over "model"), against (a)'s replicated one
+        fs = _seq_prefill(torch, K, arch, cfg, params, prompt, mesh)
+        f_same = torch.equal(fs["logits"], rep["logits"][0]) and bool(torch.isfinite(fs["logits"]).all())
+        block = (PLACEMENT_ROWS // 2, PLACEMENT_PROMPT // 2, cfg.d_model)
+        gates[f"(f) {name} seq_sp prefill: logits bitwise the replicated program's"] = f_same
+        gates[f"(f) {name} seq_sp prefill: the residual between blocks a rank's block"] = (
+            fs["residuals"] == [block] * layers)
+        gates[f"(f) {name} seq_sp prefill: two sequence gathers a layer and one for the last position"] = (
+            fs["seq"] == dict(gather=2 * layers + 1, split_grad=0, kv_max=0, kv_sum=0))
+        out[name]["seq_prefill"] = dict(same=f_same, residual=fs["residuals"][:1], seq=fs["seq"],
+                                        counts=fs["counts"], seconds=fs["seconds"])
+        say(f"(f) {name}: qwen2-0.5b prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} with rows, heads and seq_sp placed "
+            f"({fs['sizes']}): logits bitwise (a)'s replicated prefill {f_same}; the residual between blocks "
+            f"{fs['residuals'][0] if fs['residuals'] else None} a rank at each of {len(fs['residuals'])} constraints "
+            f"(the whole is ({PLACEMENT_ROWS}, {PLACEMENT_PROMPT}, {cfg.d_model})); sequence collectives {fs['seq']}; "
+            f"counts {fs['counts']}; {fs['seconds']:.2f} s [{card}]")
         del params, runs, rep, placed, pp
         torch.cuda.empty_cache()
     # (b) train(mesh=) with the rows placed against the replicated program
@@ -3384,28 +3482,41 @@ def placement_rank(rank, world, ckpt_dir):
     cfg = dataclasses.replace(arch.config, num_layers=TP_TRAIN_GRID_LAYERS, photonic=ideal_dpu(),
                               photonic_backend="kernel")
     runs = {}
-    for label, place in (("replicated", False), ("placed", True)):
+    # (b) the rows and heads placed against the replicated run; (f) seq_sp placed too against (b)'s placed run
+    for label, place, a in (("replicated", False, arch), ("placed", True, _without_seq(arch)), ("seq", True, arch)):
         _reset_counts(torch, K)
-        res = train(arch=arch, model_cfg=cfg, data_cfg=data,
+        res = train(arch=a, model_cfg=cfg, data_cfg=data,
                     train_cfg=TrainConfig(steps=PLACEMENT_TRAIN_STEPS, ckpt_every=1000,
                                           ckpt_dir=os.path.join(ckpt_dir, label), log_every=100),
                     opt_cfg=opt, mesh=mesh, tp_axis="model", place_rows=place, log=lambda m: None, device="cuda")
         runs[label] = dict(losses=res["losses"], params=_leaves(res["params"]), step_seconds=res["step_seconds"],
-                           counts=_counts(K), max_memory_allocated=torch.cuda.max_memory_allocated())
+                           counts=dict(_counts(K), **{f"seq_{k}": v for k, v in contracts.SEQ_COLLECTIVES.items()}),
+                           max_memory_allocated=torch.cuda.max_memory_allocated())
         del res
-    rep, placed = runs["replicated"], runs["placed"]
+    rep, placed, seq = runs["replicated"], runs["placed"], runs["seq"]
     lrs = [float(adamw.schedule_lr(opt, torch.tensor(i + 1))) for i in range(PLACEMENT_TRAIN_STEPS)]
     bound = 2 * sum(lrs)
-    worst, within = 0.0, True
-    for a, b in zip(placed["params"], rep["params"]):
-        d = (a.float() - b.float()).abs()
-        ulp = (b.float().abs() * 2.0**-7).clamp_min(2.0**-133)
-        worst = max(worst, float(d.max()))
-        within &= bool((d <= bound + ulp).all())
-    loss_ok = all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(placed["losses"], rep["losses"]))
+
+    def within_of(got, want):
+        worst, within = 0.0, True
+        for a, b in zip(got["params"], want["params"]):
+            d = (a.float() - b.float()).abs()
+            ulp = (b.float().abs() * 2.0**-7).clamp_min(2.0**-133)
+            worst = max(worst, float(d.max()))
+            within &= bool((d <= bound + ulp).all())
+        return worst, within, all(abs(x - y) <= 1e-3 * abs(y) for x, y in zip(got["losses"], want["losses"]))
+
+    worst, within, loss_ok = within_of(placed, rep)
     gates["(b) losses within rtol 1e-3 of the replicated run"] = loss_ok
     gates["(b) parameters within 2 x steps x lr + one bf16 rounding"] = within
     gates["(b) no row gathers when placed"] = placed["counts"]["row_gathers"] == 0
+    s_worst, s_within, s_loss_ok = within_of(seq, placed)
+    s_bitwise = seq["losses"] == placed["losses"] and all(torch.equal(a, b) for a, b in zip(seq["params"],
+                                                                                             placed["params"]))
+    gates["(f) train with seq_sp placed: losses within rtol 1e-3 of (b)'s placed run"] = s_loss_ok
+    gates["(f) train with seq_sp placed: parameters within (b)'s bound of its placed run's"] = s_within
+    gates["(f) train with seq_sp placed: the residual gathered and its gradient's blocks gathered"] = (
+        seq["counts"]["seq_gather"] > 0 and seq["counts"]["seq_split_grad"] > 0 and seq["counts"]["row_gathers"] == 0)
     out["train"] = dict(losses=placed["losses"], replicated_losses=rep["losses"], max_abs_param=worst, bound=bound,
                         step_seconds=placed["step_seconds"], replicated_step_seconds=rep["step_seconds"],
                         counts=placed["counts"], replicated_counts=rep["counts"],
@@ -3419,13 +3530,23 @@ def placement_rank(rank, world, ckpt_dir):
         f"replicated {rep['counts']['row_gathers']}; peak memory a rank placed "
         f"{placed['max_memory_allocated'] / 2**30:.2f} GiB, replicated {rep['max_memory_allocated'] / 2**30:.2f} GiB "
         f"[{card}]")
-    del runs, rep, placed
+    out["train_seq"] = dict(losses=seq["losses"], max_abs_param=s_worst, bitwise=s_bitwise,
+                            step_seconds=seq["step_seconds"], counts=seq["counts"],
+                            max_memory_allocated=seq["max_memory_allocated"])
+    say(f"(f) train(mesh=(2, 2), tp_axis='model') at {TP_TRAIN_GRID_LAYERS} layers with seq_sp placed too (the "
+        f"residual {data.seq_len // 2} positions a rank between blocks): losses {seq['losses']} against (b)'s placed "
+        f"run's {placed['losses']}; max |p_seq - p_placed| {s_worst:.4g}, bitwise {s_bitwise}; steps "
+        f"{[round(x, 3) for x in seq['step_seconds']]} s; sequence gathers {seq['counts']['seq_gather']}, gradient "
+        f"gathers {seq['counts']['seq_split_grad']}; peak memory a rank {seq['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"against {placed['max_memory_allocated'] / 2**30:.2f} GiB without seq_sp [{card}]")
+    del runs, rep, placed, seq
     torch.cuda.empty_cache()
     out["dry_train"] = _placement_dry_train(torch, K, arch, cfg, data, mesh, gates, say, card)
     del data
     torch.cuda.empty_cache()
     out["moe"] = placement_moe(torch, K, mesh, gates, say, card)
     out["families"] = placement_families(torch, K, mesh, gates, say, card)
+    out["kv"] = placement_kv(torch, K, mesh, gates, say, card)
     out["gates"] = gates
     for k, v in gates.items():
         say(f"{k}: {v}")
@@ -3526,9 +3647,11 @@ def _replay_gemms(torch, rep_log, placed_log, cfg, shift=False):
     from repro_torch.models.common import dense, engine_from_model_config
     from repro_torch.runtime import sharding as shd
 
-    def mine(t, rows, segments=None, kb=None):
+    def mine(t, rows, segments=None, kb=None, seq=None):
         if rows is not None:
             t = t.narrow(0, rows[0] * rows[1], rows[1])
+        if seq is not None:  # an operand of a rank's cache block (kv_seq rows)
+            t = t.narrow(1, seq[0] * seq[1], seq[1])
         if segments is not None:
             t = torch.cat([t.narrow(-1, o, w) for o, w in segments], dim=-1)
         if kb is not None:
@@ -3560,13 +3683,13 @@ def _replay_gemms(torch, rep_log, placed_log, cfg, shift=False):
                 continue
             if not eng.routes(got.site):
                 continue
-            x = mine(rep.x, got.rows, kb=got.k_block)
+            x = mine(rep.x, got.rows, kb=got.k_block, seq=got.seq)
             if first is None and not (x.shape == got.x.shape and torch.equal(x, got.x)):
                 first = (forward, got.site, got.layer,
                          float((x.float() - got.x.float()).abs().max()) if x.shape == got.x.shape else None)
-            with torch.no_grad():
+            with torch.no_grad(), (shd.rows_over("kv_seq") if got.seq else contextlib.nullcontext()):
                 y = dense(got.params, x, cfg, **got.kwargs)
-            want = mine(rep.y, got.rows, got.segments)
+            want = mine(rep.y, got.rows, got.segments, seq=got.seq)
             checked.add(f"{got.site}@{got.layer}")
             if want.shape == y.shape and torch.equal(want, y):
                 same += 1
@@ -3753,6 +3876,189 @@ def placement_moe(torch, K, mesh, gates, say, card):
     return res
 
 
+@contextlib.contextmanager
+def _dropped_max():
+    """Phase 10 (g)'s negative control: the decode softmax's row max kept
+    rank-local, its ``MAX`` all-reduce over the ``kv_seq`` blocks
+    skipped."""
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.kv_merge
+
+    def merge(t, op):
+        return t if op == "max" else inner(t, op)
+
+    shd.kv_merge = merge
+    try:
+        yield
+    finally:
+        shd.kv_merge = inner
+
+
+def _kv_prefill(torch, arch, cfg, params, prompt):
+    """Phase 10 (g): one row's prefill of ``prompt`` into a cache of
+    ``KV_SEQ_MAX`` positions, every rank the whole program alone (no mesh
+    scope: no collective, the replicated and placed decode runs start from
+    the same cache)."""
+    with torch.no_grad():
+        _, cache = arch.prefill(params, {"tokens": prompt}, cfg, KV_SEQ_MAX)
+    return cache
+
+
+def _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, placed, log=None, after=None):
+    """Phase 10 (g): one row's decode ``steps`` on a copy of the prefill's
+    ``cache`` under TP over "model", the parameters whole; ``placed``: the
+    rows (which fall back), heads and ``kv_seq`` placed
+    (``placement_sizes(params=False)``), the cache cut to this rank's block
+    of positions and KV heads, the decode softmax merged across the blocks.
+    ``log`` / ``after`` as :func:`_placement_decode`'s.  Returns (the
+    logits of each step, the cache leaves' shapes, the sequence
+    collectives, seconds)."""
+    from repro_torch._tree import tree_map
+    from repro_torch.analysis import contracts
+    from repro_torch.models.common import recording
+    from repro_torch.models.registry import ShapeSpec
+    from repro_torch.photonic import sharded
+    from repro_torch.runtime import sharding as shd
+
+    shape = ShapeSpec("decode", KV_SEQ_MAX, 1, "decode")
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with contextlib.ExitStack() as scopes:
+        scopes.enter_context(shd.use_rules(mesh))
+        scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
+        if placed:
+            scopes.enter_context(shd.placement(mesh, arch.placement_sizes(cfg, shape, params=False)))
+            cache = shd.place_tree(cache, arch.decode_specs(cfg, shape)[1][1])
+        else:
+            cache = tree_map(lambda t: t.clone() if isinstance(t, torch.Tensor) else t, cache)
+        mark = (lambda: None) if log is None else (lambda: log.append(None))
+        out = []
+        with torch.no_grad(), (contextlib.nullcontext() if log is None else recording(log)):
+            for t in steps:
+                mark()
+                logits, cache = arch.decode(params, t, cache, cfg)
+                out.append(logits)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        seq = dict(contracts.SEQ_COLLECTIVES)
+        if after is not None:
+            after()
+    shapes = {f"{k}/{n}": tuple(v.shape) for k in ("layers", "first") for n, v in cache.get(k, {}).items()}
+    return out, shapes, seq, secs
+
+
+def placement_kv(torch, K, mesh, gates, say, card):
+    """Phase 10 (g): ``kv_seq``, one row's decode cache over "data".
+    qwen2-0.5b at full width, ideal and keyed SMWA, and deepseek-v2-lite at
+    (d)'s 3 layers, ideal, expanded and absorbed: a prefill of
+    ``KV_SEQ_PROMPT`` tokens into a cache of ``KV_SEQ_MAX`` positions (the
+    whole program on every rank, :func:`_kv_prefill`), then
+    ``PLACEMENT_STEPS`` decode steps writing positions 2,046-2,049 across
+    the blocks' boundary, the replicated program against the rows (one,
+    falling back), heads and ``kv_seq`` placed, both from that cache.
+    Gates: every routed GEMM of the placed steps replayed on this rank's
+    block of the replicated steps' input bitwise its output (an expanded
+    MLA decode's ``wuk`` / ``wuv`` on the rank's rows of the latent cache);
+    ideal logits within 2^-5 of their largest, and every run's within 1e-5
+    of it (the CPU tests' bar for the merge); one ``MAX`` and one SUM
+    all-reduce a decode attention; each cache leaf a rank of ``KV_SEQ_MAX /
+    2`` positions.  Negative control: qwen2-0.5b ideal with the row max's
+    ``MAX`` skipped (:func:`_dropped_max`; the second block is all masked
+    for the first two steps) must fail the logits gate.  Returns the
+    results."""
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+
+    def worst_of(a, b):
+        return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
+
+    res = {}
+    for name, layers, runs_of in (("qwen2-0.5b", None, (("ideal", False), ("SMWA", False))),
+                                  ("deepseek-v2-lite-16b", 3, (("ideal", False), ("ideal", True)))):
+        arch = registry.get(name)
+        base = (arch.config if layers is None else dataclasses.replace(arch.config, num_layers=layers)).pad_for_mesh(2)
+        params = init_params(base, 0, "cuda", defs=arch.param_defs(base))
+        rng = np.random.default_rng(KV_SEQ_PROMPT)
+        prompt = torch.from_numpy(rng.integers(0, base.vocab_size, (1, KV_SEQ_PROMPT))).cuda()
+        steps = torch.from_numpy(rng.integers(0, base.vocab_size, (PLACEMENT_STEPS, 1, 1))).cuda()
+        prefilled = {}
+        for channel, absorbed in runs_of:
+            cfg = dataclasses.replace(base, photonic=ideal_dpu() if channel == "ideal" else smwa_dpu(),
+                                      photonic_backend="kernel", mla_absorb=absorbed)
+            if channel not in prefilled:  # the prefill does not read mla_absorb
+                t0 = time.perf_counter()
+                prefilled[channel] = (_kv_prefill(torch, arch, cfg, params, prompt), time.perf_counter() - t0)
+            cache, prefill_s = prefilled[channel]
+            key = f"(g) {name}{'' if layers is None else f' at {layers} layers'} {channel}" + (
+                " absorbed" if absorbed else "")
+            runs = {}
+            for run in ("replicated", "placed"):
+                _reset_counts(torch, K)
+                log, snap = [], {}
+
+                def after(run=run, log=log, snap=snap, cfg=cfg):
+                    snap["counts"] = _counts(K)
+                    snap["max_memory_allocated"] = torch.cuda.max_memory_allocated()
+                    if run == "placed":
+                        snap["replay"] = _replay_gemms(torch, runs["replicated"]["log"], log, cfg)
+
+                logits, shapes, seq, secs = _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh,
+                                                       run == "placed", log=log, after=after)
+                runs[run] = dict(logits=logits, log=log, cache=shapes, seq=seq, seconds=secs, **snap)
+            rep, pp = runs["replicated"], runs["placed"]
+            checked, same, bad, first = pp["replay"]
+            worst = worst_of(rep["logits"], pp["logits"])
+            scale = max(float(a.float().abs().max()) for a in rep["logits"])
+            finite = all(bool(torch.isfinite(x).all()) for x in pp["logits"])
+            fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in pp["logits"])).hexdigest()[:16]
+            attn = cfg.num_layers * PLACEMENT_STEPS
+            halved = all(shape[1 if k.startswith("first/") else 2] == KV_SEQ_MAX // 2
+                         for k, shape in pp["cache"].items())
+            control = None
+            if (name, channel) == ("qwen2-0.5b", "ideal"):
+                with _dropped_max():
+                    wrong, _, _, _ = _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, True)
+                control = worst_of(rep["logits"], wrong)
+                gates[f"{key}: negative control, the row max's MAX skipped: the logits gate fails"] = (
+                    control > 2.0**-5 * scale)
+            if channel == "ideal":
+                gates[f"{key}: logits within 2^-5 of their largest of the replicated program's"] = (
+                    finite and worst <= 2.0**-5 * scale)
+            # the merge's own bar, as on the CPU: a write or a mask off by one position moves the logits by
+            # far less than 2^-5, but by far more than this
+            gates[f"{key}: logits within 1e-5 of their largest of the replicated program's"] = (
+                finite and worst <= 1e-5 * scale)
+            gates[f"{key}: every routed GEMM, replayed on the replicated program's input, bitwise its output"] = (
+                not bad and same > 0)
+            gates[f"{key}: one MAX and one SUM a decode attention, each cache leaf a rank of {KV_SEQ_MAX // 2} "
+                  f"positions"] = (pp["seq"] == dict(gather=0, split_grad=0, kv_max=attn, kv_sum=attn) and halved
+                                   and pp["counts"]["photonic_gemm_fused"] == 0)
+            res[key] = dict(max_abs=worst, scale=scale, fingerprint=fp, gemms_checked=checked, gemms_same=same,
+                            gemms_bad=bad[:8], first_input_difference=first, control=control, cache=pp["cache"],
+                            replicated_cache=rep["cache"], seq=pp["seq"], counts=pp["counts"],
+                            replicated_counts=rep["counts"], seconds=pp["seconds"],
+                            replicated_seconds=rep["seconds"], prefill_seconds=prefill_s,
+                            max_memory_allocated=pp["max_memory_allocated"],
+                            replicated_max_memory_allocated=rep["max_memory_allocated"])
+            say(f"{key}: one row, a prompt of {KV_SEQ_PROMPT} into a cache of {KV_SEQ_MAX} positions "
+                f"({KV_SEQ_MAX // 2} a rank of data; prefill {prefill_s:.2f} s, every rank alone), "
+                f"{PLACEMENT_STEPS} decode steps (positions {KV_SEQ_PROMPT}-{KV_SEQ_PROMPT + PLACEMENT_STEPS - 1}), "
+                f"heads and kv_seq placed against replicated: max |d logits| {worst:.4g} of {scale:.4g} "
+                f"({worst / scale:.3g} of the largest; ideal bar 2^-5), sha256 {fp}; routed GEMMs replayed on the "
+                f"replicated program's input: {same} bitwise ({len(checked)} sites), mismatches {bad[:4]}; first "
+                f"GEMM whose own input differs {first}; negative control (no MAX) max |d| {control}; cache leaves a "
+                f"rank {pp['cache']} (replicated {rep['cache']}); sequence collectives {pp['seq']}; counts "
+                f"{pp['counts']} (replicated {rep['counts']}); {pp['seconds']:.2f} s placed, "
+                f"{rep['seconds']:.2f} s replicated; max_memory_allocated placed "
+                f"{pp['max_memory_allocated'] / 2**30:.2f} GiB, replicated "
+                f"{rep['max_memory_allocated'] / 2**30:.2f} GiB [{card}]")
+            del runs, rep, pp
+        del params, prefilled
+        torch.cuda.empty_cache()
+    return res
+
+
 # Phase 10 (e): the recurrent, audio and vision families at full width on
 # the four ranks, cut in depth: (arch, config overrides, channels).
 # xlstm-350m at one group (7 mLSTM + 1 sLSTM of 24 layers; 2 of 4 heads'
@@ -3864,43 +4170,77 @@ def _family_batch(torch, arch, cfg, rows):
     if memory is not None:
         batch[memory[0]] = torch.randn((rows, memory[1], cfg.d_model), generator=gen, device="cuda").to(
             cfg.compute_dtype)
-        axes[memory[0]] = ("batch", None, None)
+        axes[memory[0]] = ("batch", "seq_sp" if arch.family == "audio" else None, None)  # the reference's axes
     return batch, axes, steps
 
 
+# Phase 10 (e)/(f): the families whose runs open with the training
+# forward's logits, its residual placed by seq_sp (zamba2-2.7b's Mamba2
+# layers and shared block, whisper-medium's encoder and decoder).
+SEQ_FORWARD = ("zamba2-2.7b", "whisper-medium")
+
+
+def _forward_logits(arch, params, batch, cfg):
+    """The training forward's logits of every position (no loss)."""
+    from repro_torch.models import whisper, zamba2
+
+    if arch.family == "audio":
+        return whisper.whisper_logits(params, batch, cfg)[0]
+    return zamba2.zamba2_logits(params, batch["tokens"], cfg)[0]
+
+
 def _family_decode(torch, arch, cfg, params, batch, batch_axes, steps, mesh, placed, log=None, after=None):
-    """Phase 10 (e): a prefill and decode steps under TP over "model";
-    ``placed``: every name the arch places (``placement_sizes``), ``params``
-    this rank's blocks, the batch cut to this rank's rows, the logits
-    gathered.  ``log`` gets every GEMM and a ``None`` before each forward;
-    ``after()`` runs last in the run's scopes, untimed.  Returns (the global
-    logits of each call, the recurrent states' bytes, seconds)."""
+    """Phase 10 (e): for :data:`SEQ_FORWARD`'s families the training
+    forward's logits first ((f)), then a prefill and decode steps, under TP
+    over "model"; ``placed``: every name the arch places
+    (``placement_sizes`` of each step's shape: the forward's and the
+    prefill's residual by ``seq_sp``, whisper's frames coming in by it),
+    ``params`` this rank's blocks, the batch cut to this rank's blocks, the
+    logits gathered.  ``log`` gets every GEMM and a ``None`` before each
+    forward; ``after()`` runs last in the decode steps' scopes, untimed.
+    Returns (the global logits of each call, the recurrent states' bytes,
+    seconds)."""
     from repro_torch.models.common import recording
     from repro_torch.models.registry import ShapeSpec
     from repro_torch.photonic import sharded
     from repro_torch.runtime import sharding as shd
 
     tok_axes, logit_axes = ("batch", None), ("batch", None, "vocab")
+    frames = batch["audio_embed"].shape[1] if "audio_embed" in batch else batch["tokens"].shape[1]
+
+    def step(kind):
+        """The placement of one step of ``kind`` (nothing unless ``placed``)."""
+        if not placed:
+            return contextlib.nullcontext()
+        seq = PLACEMENT_MAX_SEQ if kind == "decode" else frames
+        return shd.placement(mesh, arch.placement_sizes(cfg, ShapeSpec(kind, seq, PLACEMENT_ROWS, kind)))
+
+    def gathered(x):
+        return shd.gather_tree(x, logit_axes) if placed else x
+
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     with contextlib.ExitStack() as scopes:
         scopes.enter_context(shd.use_rules(mesh))
         scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
-        if placed:
-            shape = ShapeSpec("decode", PLACEMENT_MAX_SEQ, PLACEMENT_ROWS, "decode")
-            scopes.enter_context(shd.placement(mesh, arch.placement_sizes(cfg, shape)))
-            batch = shd.place_tree(batch, batch_axes)
         mark = (lambda: None) if log is None else (lambda: log.append(None))
+        out = []
         with torch.no_grad(), (contextlib.nullcontext() if log is None else recording(log)):
-            mark()
-            logits, cache = arch.prefill(params, batch, cfg, PLACEMENT_MAX_SEQ)
-            out = [logits]
+            if arch.name in SEQ_FORWARD:
+                with step("train"):
+                    mark()
+                    out.append(gathered(_forward_logits(
+                        arch, params, shd.place_tree(batch, batch_axes) if placed else batch, cfg)))
+            with step("prefill"):
+                mark()
+                logits, cache = arch.prefill(params, shd.place_tree(batch, batch_axes) if placed else batch, cfg,
+                                             PLACEMENT_MAX_SEQ)
+                out.append(gathered(logits))
+            scopes.enter_context(step("decode"))
             for t in steps:
                 mark()
                 logits, cache = arch.decode(params, shd.place_tree(t, tok_axes) if placed else t, cache, cfg)
-                out.append(logits)
-        if placed:
-            out = [shd.gather_tree(x, logit_axes) for x in out]
+                out.append(gathered(logits))
         torch.cuda.synchronize()
         secs = time.perf_counter() - t0
         if after is not None:
@@ -3989,7 +4329,7 @@ def placement_families(torch, K, mesh, gates, say, card):
         arch = registry.get(name)
         base = dataclasses.replace(arch.config, **overrides).pad_for_mesh(2)
         batch, batch_axes, steps = _family_batch(torch, arch, base, PLACEMENT_ROWS)
-        forwards = 1 + PLACEMENT_FAMILY_STEPS
+        forwards = 1 + PLACEMENT_FAMILY_STEPS + (name in SEQ_FORWARD)
         sizes = arch.placement_sizes(base, shape)
         for channel in channels:
             cfg = dataclasses.replace(base, photonic=ideal_dpu() if channel == "ideal" else smwa_dpu(),
@@ -4113,8 +4453,8 @@ def placement_families(torch, K, mesh, gates, say, card):
 
 
 def placement_child():
-    """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b'), (d) and
-    (e) on four ranks (:func:`placement_rank`).  Gates: each rank's own, the
+    """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b'), (d),
+    (e), (f) and (g) on four ranks (:func:`placement_rank`).  Gates: each rank's own, the
     ranks' logits and losses equal, and (e)'s four ranks' summed peak
     memory within the card's 80 GB.  Returns (ok, result, launches summed
     over the ranks)."""
@@ -4132,13 +4472,15 @@ def placement_child():
         r[t]["losses"] == ranks[0][t]["losses"] for r in ranks for t in ("train", "dry_train")) and all(
         r["moe"][k]["fingerprint"] == ranks[0]["moe"][k]["fingerprint"] for r in ranks for k in ranks[0]["moe"]) and all(
         r["families"][k]["fingerprint"] == ranks[0]["families"][k]["fingerprint"]
-        for r in ranks for k in ranks[0]["families"])
+        for r in ranks for k in ranks[0]["families"]) and all(
+        r["kv"][k]["fingerprint"] == ranks[0]["kv"][k]["fingerprint"] for r in ranks for k in ranks[0]["kv"]) and all(
+        r["train_seq"]["losses"] == ranks[0]["train_seq"]["losses"] for r in ranks)
     # the placed and replicated runs' peaks, summed over the ranks (each rank's placing peak comes in its own turn,
     # the other ranks holding their blocks or nothing)
     peaks = {k: sum(max(r["families"][k]["max_memory_allocated"], r["families"][k]["replicated_max_memory_allocated"])
                     for r in ranks) for k in ranks[0]["families"]}
     fits = all(v <= 80 * 10**9 for v in peaks.values())
-    log(f"  placement (a)/(b)/(b')/(d)/(e): every rank's gates {ok}; ranks agree (logits, losses) {same}; (e) the "
+    log(f"  placement (a)/(b)/(b')/(d)/(e)/(f)/(g): every rank's gates {ok}; ranks agree (logits, losses) {same}; (e) the "
         f"four ranks' summed peak max_memory_allocated {({k: round(v / 1e9, 3) for k, v in peaks.items()})} GB, "
         f"within 80 GB: {fits}")
     launches = {"photonic_gemm": sum(r[c][f"{k}_counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA")
@@ -4146,6 +4488,11 @@ def placement_child():
                 + sum(r["train"][k]["photonic_gemm"] for r in ranks for k in ("counts", "replicated_counts"))
                 + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks)
                 + sum(m[k]["photonic_gemm"] for r in ranks for m in r["moe"].values()
+                      for k in ("counts", "replicated_counts"))
+                # (f)'s seq_sp prefills and train() run, (g)'s kv_seq decode runs
+                + sum(r[c]["seq_prefill"]["counts"]["photonic_gemm"] for r in ranks for c in ("ideal", "SMWA"))
+                + sum(r["train_seq"]["counts"]["photonic_gemm"] for r in ranks)
+                + sum(m[k]["photonic_gemm"] for r in ranks for m in r["kv"].values()
                       for k in ("counts", "replicated_counts")),
                 # the column-parallel runs' launches alone: qwen2-0.5b's placed-parameter decode runs and the
                 # dry run's step; (d)'s placed MoE decoders
@@ -4170,7 +4517,9 @@ def placement_cells(cells, registry, card):
     and the decode_32k cells of ``PLACED_CELLS`` (the MoE decoders,
     zamba2-2.7b and llama-3.2-vision-90b: their parameters placed; gates:
     they fit 80 GB and hold nothing whole where the reference places
-    it).  Returns (ok, result)."""
+    it), and the qwen2-0.5b x long_500k cell (one row: the cache placed
+    by ``kv_seq`` over "data"; gates: it fits, its cache a rank is the
+    global cache / 256, nothing whole).  Returns (ok, result)."""
     from repro_torch._tree import tree_items
 
     ok, res = True, {}
@@ -4195,6 +4544,30 @@ def placement_cells(cells, registry, card):
             f"{cell['cache_bytes']} B), temp {cell['temp_size_in_bytes']} B, peak {cell['peak_size_in_bytes']} B "
             f"(fits 80 GB: {cell['fits_device']}), FLOPs a rank {cell['flops_per_device']}; still replicated by the "
             f"port: {cell['replicated_by_port_bytes']}; gates {gates} [{card}]")
+    cell = next((c for c in cells if c.get("arch") == "qwen2-0.5b" and c.get("shape") == "long_500k"), None)
+    if cell is None or "flops_per_device" not in cell:
+        log("  (c) qwen2-0.5b x long_500k: no cell")
+        ok = False
+    else:
+        arch = registry.get("qwen2-0.5b")
+        (_, _), (cache, _) = arch.decode_specs(arch.config.pad_for_mesh(16), registry.SHAPES["long_500k"])
+        global_cache = sum(s.nbytes for s in tree_items(cache).values() if s.shape)
+        gates = {"fits 80 GB": cell["fits_device"] is True,
+                 "cache a rank = global / 256 (positions over data, KV heads over model)":
+                     cell["cache_bytes"] - 4 == global_cache // 256,
+                 "nothing held whole where the reference places it": cell["replicated_by_port_bytes"] == {},
+                 "kv_seq over data": cell["placed"].get("kv_seq") == "data"}
+        ok &= all(gates.values())
+        res["long_500k"] = dict({k: cell.get(k) for k in ("argument_size_in_bytes", "temp_size_in_bytes",
+                                                         "peak_size_in_bytes", "cache_bytes", "placed",
+                                                         "seq_collectives")},
+                                global_cache_bytes=global_cache, gates=gates)
+        log(f"  (c) qwen2-0.5b x long_500k x single (one row, placed: {cell['placed']}): cache "
+            f"{cell['cache_bytes'] - 4} B a rank = {global_cache} / 256 ({global_cache // 16} B a rank before "
+            f"kv_seq), arguments {cell['argument_size_in_bytes']} B, temp {cell['temp_size_in_bytes']} B, peak "
+            f"{cell['peak_size_in_bytes']} B (fits 80 GB: {cell['fits_device']}); sequence collectives "
+            f"{cell['seq_collectives']}; still replicated by the port: {cell['replicated_by_port_bytes']}; gates "
+            f"{gates} [{card}]")
     ref = REFERENCE_DECODE_CELL
     ref_peak = ref["argument_size_in_bytes"] + ref["temp_size_in_bytes"]
     for shape in ("decode_32k", "train_4k"):
@@ -4913,7 +5286,7 @@ def cross_phase(torch, registry, card):
     del packed, params, vision, batch
     torch.cuda.empty_cache()
 
-    # -- whisper-medium, 6 + 6 of its 24 + 24 layers -----------------------------
+    # -- whisper-medium, 2 + 2 of its 24 + 24 layers -----------------------------
     arch = registry.get("whisper-medium")
     cfg = dataclasses.replace(arch.config, num_layers=WHISPER_SERVE_LAYERS, encoder_layers=WHISPER_SERVE_LAYERS)
     t0 = time.perf_counter()
@@ -5539,6 +5912,7 @@ DRY_CELLS = [
     ("deepseek-v2-lite-16b", "decode_32k", ()),
     ("zamba2-2.7b", "decode_32k", ()),
     ("llama-3.2-vision-90b", "decode_32k", ()),
+    ("qwen2-0.5b", "long_500k", ()),
 ]
 TOOLING_ROWS = 4  # the tooling phase's paged server: four decode rows
 

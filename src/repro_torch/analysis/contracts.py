@@ -64,6 +64,16 @@ work reads (the mLSTM's gates and ``v``, Mamba2's ``B`` / ``C``, a norm's
 output ahead of a row-parallel GEMM).  The row-parallel ``down`` /
 ``out_proj`` reduce as every row-parallel GEMM does (``psum_int_gemm``
 routed, ``PARAM_REDUCES["row_output"]`` digital).
+:data:`SEQ_COLLECTIVES` counts the collectives of the placed sequence
+axes (``runtime.sharding``): ``"gather"``, the all-gathers of the
+residual's ``seq_sp`` blocks where a block reads the whole sequence (two
+a decoder layer, one a Mamba2 layer, one before the head, one for a
+prefill's last position); ``"split_grad"``, the backward all-gathers of
+the residual's gradient where a block's output was cut to this rank's
+block; ``"kv_max"`` / ``"kv_sum"``, the decode softmax merged over the
+``kv_seq`` blocks of the cache (one ``MAX`` of the scores' row max and
+one SUM of the exp-sums and ``P @ V`` partials side by side, a decode
+attention).
 """
 
 from __future__ import annotations
@@ -81,13 +91,15 @@ HEAD_GATHERS = {"heads": 0}
 PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0,
                  "expert_combine": 0, "expert_input": 0}
 RECURRENT_COLLECTIVES = {"xin": 0, "parts": 0, "state_sum": 0, "norm": 0, "split_input": 0}
+SEQ_COLLECTIVES = {"gather": 0, "split_grad": 0, "kv_max": 0, "kv_sum": 0}
 
 
 def reset_all_reduces() -> None:
     """Zero :data:`ALL_REDUCES`, :data:`ROW_GATHERS`,
-    :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS`, :data:`PARAM_REDUCES`
-    and :data:`RECURRENT_COLLECTIVES`."""
-    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES, RECURRENT_COLLECTIVES):
+    :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS`, :data:`PARAM_REDUCES`,
+    :data:`RECURRENT_COLLECTIVES` and :data:`SEQ_COLLECTIVES`."""
+    for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES, RECURRENT_COLLECTIVES,
+                   SEQ_COLLECTIVES):
         for name in counts:
             counts[name] = 0
 

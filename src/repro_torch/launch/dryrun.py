@@ -57,10 +57,19 @@ mLSTM's ``up`` / ``wq`` / ``wk`` / ``wv`` / the sLSTM's ``wx`` /
 experts on their slots, the partial combines summed over ``model``),
 the embedding and the loss are vocab-parallel, the decode step gathers
 its logits over ``model`` too, and the gradient norm sums placed leaves
-over ``model``.  Any dimension the reference places that the port does
-not (``kv_seq``, ``seq_sp``) stays whole: the report lists each such leaf
-under ``replicated_by_port`` with the bytes the rank holds and the
-reference's, and gives ``param_bytes`` (the rank's).  A column axis laid
+over ``model``.  The sequence axes are placed as the reference places
+them: in prefill and train steps the residual stream between blocks is
+the rank's block of the sequence over ``model`` (``seq_sp``; whisper's
+``audio_embed`` comes in as that block), and in a decode step whose rows
+cannot take "data" (one row at ``long_500k``) every cache leaf is the
+rank's block of ``max_seq`` positions over "data" (``kv_seq``), the
+decode softmax merged across the blocks; the cell's ``seq_collectives``
+counts their gathers and merges (``contracts.SEQ_COLLECTIVES``), and the
+collective summary their wire bytes.  Any dimension the reference places
+that the port does not would stay whole: the report lists each such leaf
+under ``replicated_by_port`` (empty in every cell the port runs) with the
+bytes the rank holds and the reference's, and gives ``param_bytes`` (the
+rank's).  A column axis laid
 out in parts (SwiGLU's ``[u | g]``, Mamba2's ``[z | x | B C | dt]``) is
 held as a block of each part, the bytes of the reference's contiguous
 block.
@@ -384,6 +393,7 @@ def run_cell(
     Reference: ``repro.launch.dryrun:run_cell``."""
     from torch._subclasses.fake_tensor import FakeTensorMode
 
+    from repro_torch.analysis import contracts
     from repro_torch.launch.mesh import make_production_mesh
     from repro_torch.models import registry
     from repro_torch.models.common import engine_from_model_config
@@ -418,7 +428,9 @@ def run_cell(
             with FakeTensorMode(allow_non_fake_inputs=True):
                 args = build_args(arch, mcfg, shape, mesh, device, dp_shardmap=dp_shardmap, zero1=zero1)
                 with shd.use_rules(mesh, mcfg.logical_rules):
+                    contracts.reset_all_reduces()
                     res = account(step, args)
+                    res["seq_collectives"] = dict(contracts.SEQ_COLLECTIVES)
                     fallbacks = shd.fallback_log()
                 res["param_bytes"] = tree_bytes(args[0])
                 if shape.kind == "train":

@@ -28,16 +28,35 @@ its parameters (the MoE decoders' placement): ``wq`` / ``wuk`` / ``wuv``
 are then column-parallel over the heads and ``wo`` row-parallel, while
 ``wdkv`` stays whole, so every rank of ``model`` writes the same latent
 cache, placed by rows alone.
+
+Under a placement of ``"kv_seq"`` over "data" (a decode step whose one
+row cannot take "data": ``long_500k``) every dense cache leaf is this
+rank's block of ``max_seq`` positions, as the reference's ``(batch,
+kv_seq, ...)`` cache holds it: a prefill keeps its block of the padded
+cache, a decode step's new row is written by the rank that owns ``pos``
+(clamped as ``dynamic_update_slice`` clamps it), and the decode softmax
+is the one the reference's GSPMD partitions (:func:`_decode_attend`): each
+rank scores its positions under the ``kv_pos <= pos`` mask at ``-1e30``,
+the row max meets in a ``MAX`` all-reduce (exact, so ``exp(s - m)`` is
+elementwise the replicated program's), the exp-sums and ``P @ V``
+partials in one SUM all-reduce, and the output is normalized once.  The
+sums run in another order than the replicated softmax's, so the output
+is within rounding of it, not bitwise.  An expanded MLA decode routes
+this rank's latent rows through ``wuk`` / ``wuv`` (``sharding.rows_over``:
+their activation scale a ``MAX`` over the blocks); whisper's cross cache
+is a block of the encoder frames, merged the same way.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.models.common import P, ModelConfig, apply_rope, dense, qdense_def, with_logical
+from repro_torch.runtime import sharding as shd
 from repro_torch.runtime.sharding import block, copy_to_model
 from repro_torch.serving import kv_cache as kvc
 
@@ -97,9 +116,13 @@ def chunked_attention(
     chunk: int = 512,
     scale: Optional[float] = None,
     acc_dtype=torch.float32,
+    kv_blocks: bool = False,
 ) -> torch.Tensor:
     """Online-softmax attention over KV blocks of ``chunk`` rows.  Reference:
-    ``repro.models.attention:chunked_attention``."""
+    ``repro.models.attention:chunked_attention``.  ``kv_blocks``: ``k`` /
+    ``v`` are this rank's block of the placed ``"kv_seq"`` (non-causal: a
+    cross cache), the ranks' running max, exp-sums and accumulators merged
+    before the one normalization (:func:`_merge`)."""
     b, tq, h, hd = q.shape
     _, tk, kvh, hdv = v.shape
     n_rep = h // kvh
@@ -135,8 +158,58 @@ def chunked_attention(
         l_sum = l_sum * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + torch.matmul(p, vb.to(acc_dtype))
         m = m_new
+    if kv_blocks and block("kv_seq") is not None:
+        corr = torch.exp(m - shd.kv_merge(m.clone(), "max"))
+        acc, l_sum = _merge(acc * corr[..., None], l_sum * corr)
     out = acc / torch.clamp(l_sum[..., None], min=1e-30)
     return out.transpose(1, 2).to(q.dtype)  # (B, Tq, H, hdv)
+
+
+def _merge(acc: torch.Tensor, l_sum: torch.Tensor):
+    """``(acc, l_sum)`` summed over the placed ``"kv_seq"`` in one SUM
+    all-reduce, side by side."""
+    both = shd.kv_merge(torch.cat([acc.reshape(-1), l_sum.reshape(-1)]), "sum")
+    return both[: acc.numel()].reshape(acc.shape), both[acc.numel():].reshape(l_sum.shape)
+
+
+def _decode_attend(s: torch.Tensor, pos: int, spec: str, values: torch.Tensor) -> torch.Tensor:
+    """``einsum(spec, softmax(s), values)`` for decode scores ``s`` ``(B, H,
+    q, S)`` over the cache positions, masked to ``kv_pos <= pos`` at
+    ``-1e30``; ``spec`` gives ``(B, q, H, .)``.  Where ``"kv_seq"`` is
+    placed, ``S`` is this rank's block of positions and the softmax is
+    merged across the ranks (module docstring)."""
+    n = s.shape[-1]
+    kv_pos = shd.kv_origin(n) + torch.arange(n, device=s.device)
+    s = s.masked_fill(~(kv_pos <= pos)[None, None, None, :], NEG)
+    if block("kv_seq") is None:
+        return torch.einsum(spec, torch.softmax(s, dim=-1), values)
+    m = shd.kv_merge(s.amax(dim=-1), "max")
+    e = torch.exp(s - m[..., None])
+    acc, l_sum = _merge(torch.einsum(spec, e, values), e.sum(dim=-1))
+    return acc / l_sum.transpose(1, 2)[..., None]
+
+
+def cache_block(t: torch.Tensor) -> torch.Tensor:
+    """This rank's block of a cache leaf's positions (dimension 1) where
+    ``"kv_seq"`` is placed, sized by the leaf (whisper's cross cache holds
+    the encoder's frames); ``t`` as it is elsewhere."""
+    b = block("kv_seq")
+    if b is None:
+        return t
+    return dataclasses.replace(b, size=t.shape[1]).take(t, 1).contiguous()
+
+
+def _write_row(cache: Dict[str, torch.Tensor], rows: Dict[str, torch.Tensor], pos: int) -> None:
+    """Decode's new rows written into the cache in place at ``pos``
+    clamped into the global cache, as ``dynamic_update_slice`` clamps it,
+    by the rank that holds that position (every rank where ``"kv_seq"`` is
+    not placed)."""
+    n = next(iter(cache.values())).shape[1]
+    b = block("kv_seq")
+    at = min(max(pos, 0), n * (1 if b is None else b.count) - 1) - shd.kv_origin(n)
+    if 0 <= at < n:
+        for name, row in rows.items():
+            cache[name][:, at] = row.to(cache[name].dtype)
 
 
 def _split_heads(x: torch.Tensor, hd: int) -> torch.Tensor:
@@ -260,7 +333,7 @@ def gqa_prefill(
     out = _attend(q, k, v, cfg, causal=True)
     out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
     cache = {
-        name: torch.nn.functional.pad(r, (0, 0) * (r.dim() - 2) + (0, max_seq - t))
+        name: cache_block(torch.nn.functional.pad(r, (0, 0) * (r.dim() - 2) + (0, max_seq - t)))
         for name, r in _kv_rows(k, v, cfg).items()
     }
     return out, cache
@@ -280,7 +353,8 @@ def gqa_decode(
     K/V row (int8 with its scales under ``kv_cache_int8``) is written into
     ``cache`` in place (the reference returns an updated copy), at ``pos``
     clamped into the cache as ``dynamic_update_slice`` clamps it; the
-    returned dict holds the same tensors."""
+    returned dict holds the same tensors.  Where ``"kv_seq"`` is placed
+    the cache is this rank's block of positions (module docstring)."""
     h, kv = cfg.n_q_heads, cfg.num_kv_heads
     b = x.shape[0]
     pos = int(pos)
@@ -289,10 +363,7 @@ def gqa_decode(
     q = apply_rope(q, posv, cfg.rope_theta)
     k1 = apply_rope(k1, posv, cfg.rope_theta)
     rows = _kv_rows(k1[:, 0], v1[:, 0], cfg)
-    s_max = cache["k"].shape[1]
-    at = min(max(pos, 0), s_max - 1)
-    for name, row in rows.items():
-        cache[name][:, at] = row.to(cache[name].dtype)
+    _write_row(cache, rows, pos)
     with_logical(cache["k"], ("batch", "kv_seq", "kv_heads", None))
     with_logical(cache["v"], ("batch", "kv_seq", "kv_heads", None))
     kf, vf = _kv_view(cache, cfg)
@@ -300,10 +371,7 @@ def gqa_decode(
     vf = _repeat_kv(vf, h // kv)
     qf = q.to(torch.float32) * (cfg.hd**-0.5)
     s = torch.einsum("bqhd,bshd->bhqs", qf, kf)
-    kv_pos = torch.arange(s_max, device=x.device)
-    s = s.masked_fill(~(kv_pos <= pos)[None, None, None, :], NEG)
-    p = torch.softmax(s, dim=-1)
-    out = torch.einsum("bhqs,bshd->bqhd", p, vf)
+    out = _decode_attend(s, pos, "bhqs,bshd->bqhd", vf)
     out = dense(
         params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer, k_local="heads"
     )
@@ -400,15 +468,19 @@ def cross_attention(
     *,
     gated: bool = False,
     layer: Optional[int] = None,
+    kv_blocks: bool = False,
 ) -> torch.Tensor:
     """Q from ``x`` against the memory's K/V, non-causal, then ``attn.wo``;
     ``gated`` scales the output by ``tanh(gate)``.  The core stays the
     chunked online softmax whatever ``attn_impl`` says, as in the
-    reference.  Reference: ``repro.models.attention:cross_attention``."""
+    reference.  ``kv_blocks``: the memory is a cache leaf, this rank's
+    block of its frames where ``"kv_seq"`` is placed (whisper's decode).
+    Reference: ``repro.models.attention:cross_attention``."""
     b, t, _ = x.shape
     q = _split_heads(dense(params["wq"], x, cfg, site="attn.wq", layer=layer, columns=_q_columns(cfg)), cfg.hd)
     k, v = memory_kv
-    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg))
+    out = chunked_attention(q, k, v, causal=False, chunk=cfg.attn_chunk, acc_dtype=_acc_dtype(cfg),
+                            kv_blocks=kv_blocks)
     out = dense(params["wo"], out.reshape(b, t, -1), cfg, site="attn.wo", layer=layer, k_local="heads")
     if gated:
         out = torch.tanh(params["gate"].to(out.dtype)) * out
@@ -533,8 +605,8 @@ def mla_prefill(params, x, cfg: ModelConfig, *, positions, max_seq: int, layer=N
     out, c_kv, k_rope = _mla_core(params, x, cfg, positions, True, layer)
     pad = (0, 0, 0, max_seq - t)
     cache = {
-        "c_kv": torch.nn.functional.pad(c_kv, pad),
-        "k_rope": torch.nn.functional.pad(k_rope[:, :, 0, :], pad),
+        "c_kv": cache_block(torch.nn.functional.pad(c_kv, pad)),
+        "k_rope": cache_block(torch.nn.functional.pad(k_rope[:, :, 0, :], pad)),
     }
     return out, cache
 
@@ -542,19 +614,12 @@ def mla_prefill(params, x, cfg: ModelConfig, *, positions, max_seq: int, layer=N
 def _mla_cache_write(params, x, cache, pos: int, cfg: ModelConfig, layer):
     """The decode token's projections, its latent and RoPE-key rows written
     into ``cache`` in place at ``pos`` (clamped into the cache, as
-    ``dynamic_update_slice`` clamps it)."""
+    ``dynamic_update_slice`` clamps it, by the rank that holds it:
+    :func:`_write_row`)."""
     posv = torch.full((1,), pos, dtype=torch.int64, device=x.device)
     q_nope, q_rope, c_kv1, k_rope1 = _mla_qkv(params, x, cfg, posv, layer)
-    c, kr = cache["c_kv"], cache["k_rope"]
-    at = min(max(pos, 0), c.shape[1] - 1)
-    c[:, at] = c_kv1[:, 0].to(c.dtype)
-    kr[:, at] = k_rope1[:, 0, 0].to(kr.dtype)
-    return q_nope, q_rope, c, kr
-
-
-def _decode_softmax(s: torch.Tensor, pos: int) -> torch.Tensor:
-    kv_pos = torch.arange(s.shape[-1], device=s.device)
-    return torch.softmax(s.masked_fill(~(kv_pos <= pos)[None, None, None, :], NEG), dim=-1)
+    _write_row(cache, {"c_kv": c_kv1[:, 0], "k_rope": k_rope1[:, 0, 0]}, pos)
+    return q_nope, q_rope, cache["c_kv"], cache["k_rope"]
 
 
 def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
@@ -578,8 +643,7 @@ def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
     cf = c.to(f32)
     s_nope = torch.einsum("bqhr,bsr->bhqs", q_abs, cf)
     s_rope = torch.einsum("bqhe,bse->bhqs", q_rope.to(f32), kr.to(f32))
-    p = _decode_softmax((s_nope + s_rope) * (nope + rope) ** -0.5, pos)
-    ctx = torch.einsum("bhqs,bsr->bqhr", p, cf)
+    ctx = _decode_attend((s_nope + s_rope) * (nope + rope) ** -0.5, pos, "bhqs,bsr->bqhr", cf)
     out = torch.einsum("bqhr,rhv->bqhv", ctx, w_uv)
     out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer,
                 k_local="heads")
@@ -590,20 +654,34 @@ def mla_decode(params, x, cache, pos, cfg: ModelConfig, layer=None):
     """MLA decode against the compressed cache.  Without ``mla_absorb`` the
     up-projections re-expand every row of the padded cache (``B *
     max_seq`` rows through ``wuk`` and ``wuv``, padding included, so the
-    noise streams follow the reference's tiling).  Reference:
-    ``repro.models.attention:mla_decode``."""
+    noise streams follow the reference's tiling).  Where ``"kv_seq"`` is
+    placed a rank expands its block of the rows, their activation scale a
+    ``MAX`` over the blocks (``sharding.rows_over``); on a noisy channel
+    the rows' noise ids would need the block's global row origin in the
+    kernel, which it does not take yet (ROADMAP Queue 1 item 3b), and the
+    step raises.  Reference: ``repro.models.attention:mla_decode``."""
     if cfg.mla_absorb:
         return mla_decode_absorbed(params, x, cache, pos, cfg, layer)
     b = x.shape[0]
     pos = int(pos)
+    if block("kv_seq") is not None:
+        from repro_torch.models.common import engine_from_model_config
+
+        eng = engine_from_model_config(cfg)
+        if eng is not None and eng.routes("attn.wuk") and eng.dpu.effective_channel() is not None:
+            raise NotImplementedError(
+                "an expanded MLA decode over a kv_seq-placed cache on a noisy channel needs the cache block's row "
+                "origin in the photonic kernel's noise ids (ROADMAP Queue 1 item 3b); use mla_absorb=True, an "
+                "ideal channel, or a cache held whole")
     q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
     c = with_logical(c, ("batch", "kv_seq", None))
     kr = with_logical(kr, ("batch", "kv_seq", None))
-    k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
+    with shd.rows_over("kv_seq"):
+        k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
     q = torch.cat([q_nope, q_rope], dim=-1)
     qf = q.to(torch.float32) * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
-    p = _decode_softmax(torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32)), pos)
-    out = torch.einsum("bhqs,bshd->bqhd", p, v.to(torch.float32))
+    s = torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32))
+    out = _decode_attend(s, pos, "bhqs,bshd->bqhd", v.to(torch.float32))
     out = dense(params["wo"], out.reshape(b, 1, -1).to(x.dtype), cfg, site="attn.wo", layer=layer,
                 k_local="heads")
     return out, {"c_kv": c, "k_rope": kr}

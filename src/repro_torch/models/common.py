@@ -412,7 +412,9 @@ class GemmRecord(NamedTuple):
     and where the placement put it: the global ``(origin, width)`` column
     segments of a column-parallel GEMM, ``(index, local)`` of the placed
     rows, ``(index, count)`` of the placed K (``k_local``), each or None;
-    ``reduces``, ``contracts.PARAM_REDUCES`` as it stood."""
+    ``reduces``, ``contracts.PARAM_REDUCES`` as it stood; ``seq``, ``(index,
+    local)`` of the operand's second dimension where it is this rank's
+    block of the placed ``kv_seq`` (``sharding.rows_over``), else None."""
 
     site: Optional[str]
     layer: Any
@@ -424,6 +426,7 @@ class GemmRecord(NamedTuple):
     rows: Optional[Tuple[int, int]]
     k_block: Optional[Tuple[int, int]]
     reduces: Dict[str, int]
+    seq: Optional[Tuple[int, int]] = None
 
 
 _RECORDING: list = []  # the logs of the open recording() scopes
@@ -454,15 +457,18 @@ def _recorded(fn):
             _DEPTH[0] -= 1
         if _DEPTH[0] == 0:
             from repro_torch.analysis import contracts
-            from repro_torch.runtime.sharding import block, column_layout
+            from repro_torch.runtime.sharding import block, column_layout, row_blocks
 
             cols, k_local = kw.get("columns"), kw.get("k_local")
             layout = None if cols is None else column_layout(cols)
             rows, kb = block("batch"), None if k_local is None else block(k_local)
+            seq = block("kv_seq")
+            seq = seq if seq is not None and seq in row_blocks() else None
             rec = GemmRecord(kw.get("site"), kw.get("layer"), x.detach().clone(), y.detach().clone(), params, kw,
                              None if layout is None else layout.segments,
                              None if rows is None else (rows.index, rows.local),
-                             None if kb is None else (kb.index, kb.count), dict(contracts.PARAM_REDUCES))
+                             None if kb is None else (kb.index, kb.count), dict(contracts.PARAM_REDUCES),
+                             None if seq is None else (seq.index, x.shape[1]))
             for log in _RECORDING:
                 log.append(rec)
         return y
@@ -647,9 +653,11 @@ def rmsnorm_def(d: int) -> Dict[str, P]:
 
 
 def rmsnorm(params, x: torch.Tensor, eps: float) -> torch.Tensor:
-    """Reference: ``repro.models.common:rmsnorm``."""
+    """Reference: ``repro.models.common:rmsnorm``.  ``x32`` is a copy even
+    of an f32 ``x``, so ``x``'s gradient takes the norm's terms as one sum,
+    whether ``x`` is the residual or its gather over a placed ``"seq_sp"``."""
     dt = x.dtype
-    x32 = x.to(torch.float32)
+    x32 = x.to(torch.float32, copy=True)
     var = torch.mean(x32 * x32, dim=-1, keepdim=True)
     y = x32 * torch.rsqrt(var + eps)
     return (y * params["scale"].to(torch.float32)).to(dt)

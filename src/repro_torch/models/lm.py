@@ -30,6 +30,22 @@ is a vocab-parallel lookup, the MoE layers are expert-parallel
 (``ffn.moe``), the logits are this rank's vocab block (gathered by the
 caller where the reference replicates them), and the loss is
 vocab-parallel.
+
+Under a placement of ``"seq_sp"`` over ``model`` (prefill and training)
+the residual stream between blocks, and so what remat saves, is this
+rank's block of the sequence, as the reference's ``("batch", "seq_sp",
+None)`` constraints hold it: the embedding's output is cut to the block
+(``sharding.seq_scatter``), each block gathers it over the sequence
+before its norm, for the attention / MLA / MoE / MLP that read it whole
+(``sharding.seq_gather``, of the bf16 residual: their GEMMs keep the
+replicated program's operands, so their scales and noise streams are
+unchanged), and the block's output (after the row-parallel all-reduce)
+is cut back to the block for the residual add.  The head gathers the
+sequence (a vocab-parallel head reads it whole), and a prefill takes its
+last position from the last block's rank.  Every value is the replicated
+program's bit for bit: the gathers and cuts move floats, and norms and
+adds are per position.  A decode token's one position is not placed
+(``sharding.sequence(1)``).
 """
 
 from __future__ import annotations
@@ -42,6 +58,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn
 from repro_torch.models.common import P, ModelConfig
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import RESIDUAL
 from repro_torch.serving import kv_cache as kvc
 
 
@@ -182,12 +200,13 @@ def _head(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _ffn(p, x, cfg, idx):
     """The block's FFN residual and the MoE aux loss (None without
-    experts)."""
-    h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
+    experts); ``x`` this rank's block of the sequence where it is placed,
+    the FFN reading it whole."""
+    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
     if "router" in p["ffn"]:
         f, aux = ffn.moe(p["ffn"], h, cfg, layer=idx)
-        return x + f, aux
-    return x + ffn.mlp(p["ffn"], h, cfg, layer=idx), None
+        return x + shd.seq_scatter(f, None), aux
+    return x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg, layer=idx), None), None
 
 
 def _ffn_residual(p, x, cfg, idx):
@@ -200,25 +219,25 @@ def _ffn_residual(p, x, cfg, idx):
 def self_block(params, x: torch.Tensor, cfg: ModelConfig, positions, layer=None):
     """One decoder layer over the whole sequence; returns ``(x, aux)``, the
     aux loss 0 without experts.  Reference: ``repro.models.lm:self_block``."""
-    h = cm.rmsnorm(params["ln1"], x, cfg.norm_eps)
+    h = cm.rmsnorm(params["ln1"], shd.seq_gather(x), cfg.norm_eps)
     if cfg.mla:
         a = attn.mla_attention(params["attn"], h, cfg, positions=positions, layer=layer)
     else:
         a = attn.gqa_attention(params["attn"], h, cfg, positions=positions, layer=layer)
-    x = cm.with_logical(x + a, ("batch", "seq_sp", None))
+    x = cm.with_logical(x + shd.seq_scatter(a, None), RESIDUAL)
     x, aux = _ffn(params, x, cfg, layer)
-    x = cm.with_logical(x, ("batch", "seq_sp", None))
+    x = cm.with_logical(x, RESIDUAL)
     return x, torch.zeros((), dtype=torch.float32, device=x.device) if aux is None else aux
 
 
 def cross_block(params, x: torch.Tensor, memory_kv, cfg: ModelConfig, layer=None) -> torch.Tensor:
     """One gated cross-attention layer: ``x + cross_attention(gated)``, then
     ``x + tanh(gate_ffn) * mlp``.  Reference: ``repro.models.lm:cross_block``."""
-    h = cm.rmsnorm(params["ln1"], x, cfg.norm_eps)
-    x = x + attn.cross_attention(params["attn"], h, memory_kv, cfg, gated=True, layer=layer)
-    h = cm.rmsnorm(params["ln2"], x, cfg.norm_eps)
-    x = x + torch.tanh(params["gate_ffn"].to(x.dtype)) * ffn.mlp(params["ffn"], h, cfg, layer=layer)
-    return cm.with_logical(x, ("batch", "seq_sp", None))
+    h = cm.rmsnorm(params["ln1"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(attn.cross_attention(params["attn"], h, memory_kv, cfg, gated=True, layer=layer), None)
+    h = cm.rmsnorm(params["ln2"], shd.seq_gather(x), cfg.norm_eps)
+    f = torch.tanh(params["gate_ffn"].to(x.dtype)) * ffn.mlp(params["ffn"], h, cfg, layer=layer)
+    return cm.with_logical(x + shd.seq_scatter(f, None), RESIDUAL)
 
 
 def _remat_body(p, idx, x, positions, cfg):
@@ -238,25 +257,25 @@ def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig, vision: Optional[t
     first block's aux plus the list's, summed from 0 in layer order."""
     vision = _vision(vision, cfg)
     t = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens, cfg)
-    x = cm.with_logical(x, ("batch", "seq_sp", None))
-    positions = torch.arange(t, device=tokens.device)
-    zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
-    aux_first, aux = zero, zero
-    base = int(_has_first_block(cfg))
-    block = cm.apply_remat(_remat_body, cfg)
-    cross = cm.apply_remat(_remat_cross, cfg)
-    for kind, idx, p in _blocks(params, cfg):
-        if kind == "cross":
-            kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
-            x = cross(p, idx, x, kv, cfg)
-            continue
-        x, a = block(p, idx, x, positions, cfg)
-        if idx < base:
-            aux_first = aux_first + a
-        else:
-            aux = aux + a
-    return _head(params, x, cfg), aux_first + aux
+    with shd.sequence(t):
+        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg))
+        positions = torch.arange(t, device=tokens.device)
+        zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
+        aux_first, aux = zero, zero
+        base = int(_has_first_block(cfg))
+        block = cm.apply_remat(_remat_body, cfg)
+        cross = cm.apply_remat(_remat_cross, cfg)
+        for kind, idx, p in _blocks(params, cfg):
+            if kind == "cross":
+                kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
+                x = cross(p, idx, x, kv, cfg)
+                continue
+            x, a = block(p, idx, x, positions, cfg)
+            if idx < base:
+                aux_first = aux_first + a
+            else:
+                aux = aux + a
+        return _head(params, shd.seq_gather(x), cfg), aux_first + aux
 
 
 def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
@@ -273,10 +292,10 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.T
 # ---------------------------------------------------------------------------
 def _layer_prefill(p, x, cfg, positions, max_seq, layer=None):
     """Reference: ``repro.models.lm:_layer_prefill``."""
-    h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
+    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
     prefill = attn.mla_prefill if cfg.mla else attn.gqa_prefill
     a, cache = prefill(p["attn"], h, cfg, positions=positions, max_seq=max_seq, layer=layer)
-    return cm.with_logical(_ffn_residual(p, x + a, cfg, layer), ("batch", "seq_sp", None)), cache
+    return cm.with_logical(_ffn_residual(p, x + shd.seq_scatter(a, None), cfg, layer), RESIDUAL), cache
 
 
 def _layer_decode(p, x, cache, pos, cfg, layer=None):
@@ -299,22 +318,24 @@ def lm_prefill(
     Reference: ``repro.models.lm:lm_prefill``."""
     vision = _vision(vision, cfg)
     t = tokens.shape[1]
-    x = cm.embed(params["embed"], tokens, cfg)
-    positions = torch.arange(t, device=tokens.device)
-    caches: Dict[str, Any] = {}
-    layer_caches, cross_kvs = [], []
-    base = int(_has_first_block(cfg))
-    for kind, idx, p in _blocks(params, cfg):
-        if kind == "cross":
-            kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
-            x = cross_block(p, x, kv, cfg, layer=idx)
-            cross_kvs.append(kv)
-            continue
-        x, c = _layer_prefill(p, x, cfg, positions, max_seq, layer=idx)
-        if idx < base:
-            caches["first"] = c
-        else:
-            layer_caches.append(c)
+    with shd.sequence(t):
+        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
+        positions = torch.arange(t, device=tokens.device)
+        caches: Dict[str, Any] = {}
+        layer_caches, cross_kvs = [], []
+        base = int(_has_first_block(cfg))
+        for kind, idx, p in _blocks(params, cfg):
+            if kind == "cross":
+                kv = attn.cross_kv(p["attn"], vision, cfg, layer=idx)
+                x = cross_block(p, x, kv, cfg, layer=idx)
+                cross_kvs.append(kv)
+                continue
+            x, c = _layer_prefill(p, x, cfg, positions, max_seq, layer=idx)
+            if idx < base:
+                caches["first"] = c
+            else:
+                layer_caches.append(c)
+        x = shd.seq_last(x)
     empty = lm_cache_def(cfg, tokens.shape[0], max_seq, x.dtype)  # the reference's zero-length scans
     if layer_caches:
         caches["layers"] = {k: torch.stack([c[k] for c in layer_caches]) for k in layer_caches[0]}
@@ -325,7 +346,7 @@ def lm_prefill(
     elif cfg.cross_attn_every:
         caches["cross_kv"] = tuple(torch.zeros(s, dtype=dt, device=x.device) for s, _, dt in empty["cross_kv"])
     caches["pos"] = t
-    return _head(params, x[:, -1:, :], cfg), caches
+    return _head(params, x, cfg), caches
 
 
 def lm_decode(params, token: torch.Tensor, caches, cfg: ModelConfig):
@@ -335,18 +356,19 @@ def lm_decode(params, token: torch.Tensor, caches, cfg: ModelConfig):
     ``repro.models.lm:lm_decode``.  The cache tensors are updated in
     place; the returned dict is new, holding the same tensors."""
     pos = caches["pos"]
-    x = cm.embed(params["embed"], token, cfg)
     layers = caches["layers"]
     base = int(_has_first_block(cfg))
-    for kind, idx, p in _blocks(params, cfg):
-        if kind == "cross":
-            g = idx - cfg.num_layers
-            kv = (caches["cross_kv"][0][g], caches["cross_kv"][1][g])
-            x = cross_block(p, x, kv, cfg, layer=idx)
-            continue
-        cache = caches["first"] if idx < base else _layer_pool(layers, idx - base)
-        x, _ = _layer_decode(p, x, cache, pos, cfg, layer=idx)
-    return _head(params, x, cfg), {**caches, "pos": pos + 1}
+    with shd.sequence(token.shape[1]):
+        x = cm.embed(params["embed"], token, cfg)
+        for kind, idx, p in _blocks(params, cfg):
+            if kind == "cross":
+                g = idx - cfg.num_layers
+                kv = (caches["cross_kv"][0][g], caches["cross_kv"][1][g])
+                x = cross_block(p, x, kv, cfg, layer=idx)
+                continue
+            cache = caches["first"] if idx < base else _layer_pool(layers, idx - base)
+            x, _ = _layer_decode(p, x, cache, pos, cfg, layer=idx)
+        return _head(params, x, cfg), {**caches, "pos": pos + 1}
 
 
 # ---------------------------------------------------------------------------
@@ -377,7 +399,7 @@ def lm_prefill_chunk(
             p["attn"], h, _layer_pool(kv_pool, idx), block_table, t0, cfg,
             t_full=t_full, block_size=block_size, positions=positions, layer=idx,
         )
-        x = cm.with_logical(_ffn_residual(p, x + a, cfg, idx), ("batch", "seq_sp", None))
+        x = cm.with_logical(_ffn_residual(p, x + a, cfg, idx), RESIDUAL)
     logits = _head(params, x[:, -1:, :], cfg) if with_logits else None
     return logits, kv_pool
 

@@ -143,11 +143,21 @@ class Arch:
         block by its heads and ``d_ff``.  ``train(mesh=)`` asks for rows
         and heads only (``params=False``; the MoE and recurrent families'
         rows alone): its parameters stay whole, as the reference's
-        ``train()`` keeps them."""
+        ``train()`` keeps them.  The sequence axes: ``seq_sp``, the residual
+        stream's positions (the encoder's frames for whisper), in prefill
+        and training whatever ``params`` says (the reference's ``train()``
+        constrains the residual under its mesh too; xLSTM constrains no
+        sequence); ``kv_seq``, the decode cache's ``max_seq`` positions, in
+        decode (``placed_parts`` gives them "data" only where the rows do
+        not take it)."""
         sizes = {"batch": shape.global_batch}
         dense = self.family == "dense" and not cfg.mla
         if (shape.kind != "train" or dense or params) and self.family != "ssm" and not cfg.mla:
             sizes.update(heads=cfg.n_q_heads, kv_heads=cfg.num_kv_heads)
+        if shape.kind != "decode" and self.family != "ssm":
+            sizes.update(seq_sp=shape.seq_len)
+        if shape.kind == "decode" and self.family != "ssm":
+            sizes.update(kv_seq=shape.seq_len // cfg.decoder_ratio if self.family == "audio" else shape.seq_len)
         if not params:
             return sizes
         if cfg.mla:

@@ -17,6 +17,16 @@ the dense decoders' forms: column-parallel ``wq`` / ``wk`` / ``wv`` over
 the heads (the cross-attention's ``wk`` / ``wv`` write the rank's KV heads
 of the cross cache) and ``ffn.wi`` over ``d_ff``, row-parallel ``wo`` and
 ``ffn.wo``, the embedding and head over the (padded) vocab.
+
+Under a placement of ``"seq_sp"`` (prefill and training) ``audio_embed``
+comes in as this rank's block of the frames and the encoder's residual
+between layers is that block, as the reference's ``("batch", "seq_sp",
+None)`` constraints hold it: each layer gathers the frames where it reads
+them whole and cuts its output back (``lm``'s form).  The encoder output
+is gathered once, before the final norm (every decoder layer's cross K/V
+reads it whole).  The training decoder's residual is a block of its own
+``T_enc // decoder_ratio`` positions (``sharding.sequence``); the prefill's
+and decode's decoder stay whole, as the reference constrains neither.
 """
 
 from __future__ import annotations
@@ -29,6 +39,8 @@ from repro_torch.models import attention as attn
 from repro_torch.models import common as cm
 from repro_torch.models import ffn
 from repro_torch.models.common import ModelConfig
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import RESIDUAL
 
 
 def _enc_block_def(cfg: ModelConfig) -> Dict[str, Any]:
@@ -62,37 +74,40 @@ def whisper_def(cfg: ModelConfig) -> Dict[str, Any]:
 
 
 def _enc_body(p, x, positions, cfg):
-    h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=False)
-    h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    x = x + ffn.mlp(p["ffn"], h, cfg)
-    return cm.with_logical(x, ("batch", "seq_sp", None))
+    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=False), None)
+    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg), None)
+    return cm.with_logical(x, RESIDUAL)
 
 
 def encode(params, audio_embed: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     """The encoder over ``audio_embed`` ``(B, T_enc, D)``: non-causal
     self-attention (the flash kernel's core under ``attn_impl="flash"``)
-    and the gelu MLP, each layer under ``apply_remat``.  Reference:
-    ``repro.models.whisper:encode``."""
-    positions = torch.arange(audio_embed.shape[1], device=audio_embed.device)
+    and the gelu MLP, each layer under ``apply_remat``; ``audio_embed``
+    this rank's block of the frames where ``"seq_sp"`` is placed (the
+    output is whole).  Reference: ``repro.models.whisper:encode``."""
+    b = shd.block("seq_sp")
+    t = audio_embed.shape[1] * (1 if b is None else b.count)
+    positions = torch.arange(t, device=audio_embed.device)
     body = cm.apply_remat(_enc_body, cfg)
-    x = cm.with_logical(audio_embed, ("batch", "seq_sp", None))
+    x = cm.with_logical(audio_embed, RESIDUAL)
     for p in params["enc_layers"]:
         x = body(p, x, positions, cfg)
-    x = cm.rmsnorm(params["enc_norm"], x, cfg.norm_eps)
+    x = cm.rmsnorm(params["enc_norm"], shd.seq_gather(x), cfg.norm_eps)
     # replicated over "model" once: every decoder layer's cross K/V reads it
     return cm.with_logical(x, ("batch", None, None))
 
 
 def _dec_block(p, x, enc_kv, cfg: ModelConfig, positions):
     """Reference: ``repro.models.whisper:_dec_block``."""
-    h = cm.rmsnorm(p["ln1"], x, cfg.norm_eps)
-    x = x + attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=True)
-    h = cm.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-    x = x + attn.cross_attention(p["cross"], h, enc_kv, cfg)
-    h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
-    x = x + ffn.mlp(p["ffn"], h, cfg)
-    return cm.with_logical(x, ("batch", "seq_sp", None))
+    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=True), None)
+    h = cm.rmsnorm(p["ln_cross"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(attn.cross_attention(p["cross"], h, enc_kv, cfg), None)
+    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
+    x = x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg), None)
+    return cm.with_logical(x, RESIDUAL)
 
 
 def whisper_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
@@ -101,12 +116,13 @@ def whisper_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     ``repro.models.whisper:whisper_logits``."""
     enc = encode(params, batch["audio_embed"], cfg)
     tokens = batch["tokens"]
-    x = cm.embed(params["embed"], tokens, cfg)
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    body = cm.apply_remat(lambda p, x, kv: _dec_block(p, x, kv, cfg, positions), cfg)
-    for p in params["dec_layers"]:
-        x = body(p, x, attn.cross_kv(p["cross"], enc, cfg))
-    x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    with shd.sequence(tokens.shape[1]):
+        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        body = cm.apply_remat(lambda p, x, kv: _dec_block(p, x, kv, cfg, positions), cfg)
+        for p in params["dec_layers"]:
+            x = body(p, x, attn.cross_kv(p["cross"], enc, cfg))
+        x = cm.rmsnorm(params["final_norm"], shd.seq_gather(x), cfg.norm_eps)
     logits = cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
@@ -140,7 +156,7 @@ def whisper_prefill(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig, ma
         h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + ffn.mlp(p["ffn"], h, cfg)
         self_caches.append(kv_self)
-        cross_kvs.append(kv_cross)
+        cross_kvs.append(tuple(attn.cache_block(t) for t in kv_cross))
     x = cm.rmsnorm(params["final_norm"], x[:, -1:], cfg.norm_eps)
     logits = cm.dense(params["lm_head"], x, cfg, site="lm_head", columns=(("vocab", cfg.n_vocab),))
     if self_caches:
@@ -171,7 +187,7 @@ def whisper_decode(params, token: torch.Tensor, cache, cfg: ModelConfig):
         a, _ = attn.gqa_decode(p["attn"], h, kv_self, pos, cfg)
         x = x + a
         h = cm.rmsnorm(p["ln_cross"], x, cfg.norm_eps)
-        x = x + attn.cross_attention(p["cross"], h, (ck[i], cv[i]), cfg)
+        x = x + attn.cross_attention(p["cross"], h, (ck[i], cv[i]), cfg, kv_blocks=True)
         h = cm.rmsnorm(p["ln2"], x, cfg.norm_eps)
         x = x + ffn.mlp(p["ffn"], h, cfg)
     x = cm.rmsnorm(params["final_norm"], x, cfg.norm_eps)

@@ -21,7 +21,12 @@ Placed (``runtime.sharding.place_params``), the Mamba2 stack holds its
 heads and ``d_ff`` (one weight set, placed once, read by every
 invocation: column-parallel ``wq`` / ``wk`` / ``wv`` / ``ffn.wi``,
 row-parallel ``wo`` / ``ffn.wo``), and the embedding and head their vocab
-blocks.
+blocks.  Under a placement of ``"seq_sp"`` the training forward's
+residual between layers is this rank's block of the sequence, as the
+reference's constraints hold it: each Mamba2 layer and the shared block
+gather the sequence they scan and attend over whole and cut their output
+back (``lm``'s form), and the head gathers it.  The prefill, which the
+reference does not constrain, stays whole.
 """
 
 from __future__ import annotations
@@ -35,6 +40,7 @@ from repro_torch.models import common as cm
 from repro_torch.models import ffn, ssm
 from repro_torch.models.common import ModelConfig
 from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import RESIDUAL
 
 
 def _n_groups(cfg: ModelConfig) -> int:
@@ -78,15 +84,16 @@ def zamba2_logits(params, tokens: torch.Tensor, cfg: ModelConfig):
     """Logits of every position ``(B, T, V)`` and a zero aux loss; each
     Mamba2 block under ``apply_remat``, as the reference's scan has it.
     Reference: ``repro.models.zamba2:zamba2_logits``."""
-    x = cm.embed(params["embed"], tokens, cfg)
-    x = cm.with_logical(x, ("batch", "seq_sp", None))
-    positions = torch.arange(tokens.shape[1], device=tokens.device)
-    mblk = cm.apply_remat(lambda p, x: ssm.mamba_block(p, x, cfg), cfg)
-    for group in params["mamba"]:
-        for p in group:
-            x = cm.with_logical(mblk(p, x), ("batch", "seq_sp", None))
-        x = cm.with_logical(_shared_block(params["shared"], x, cfg, positions), ("batch", "seq_sp", None))
-    logits = _head(params, x, cfg)
+    with shd.sequence(tokens.shape[1]):
+        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg))
+        positions = torch.arange(tokens.shape[1], device=tokens.device)
+        mblk = cm.apply_remat(lambda p, x: shd.seq_scatter(ssm.mamba_block(p, shd.seq_gather(x), cfg), None), cfg)
+        for group in params["mamba"]:
+            for p in group:
+                x = cm.with_logical(mblk(p, x), RESIDUAL)
+            x = shd.seq_scatter(_shared_block(params["shared"], shd.seq_gather(x), cfg, positions), None)
+            x = cm.with_logical(x, RESIDUAL)
+        logits = _head(params, shd.seq_gather(x), cfg)
     return logits, torch.zeros((), dtype=torch.float32, device=logits.device)
 
 

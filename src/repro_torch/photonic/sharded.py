@@ -240,11 +240,11 @@ def _row_sharding(tp: TPContext, rows: int):
     block index and the block count: every axis but the TP axis, row-major;
     ``None`` (replicate) in manual mode, with no such axis of more than one
     rank, when the block count does not divide ``rows``, or when the rows
-    are placed (this rank's already).  Reference:
+    are placed (this rank's already: ``sharding.row_blocks``).  Reference:
     ``repro.photonic.sharded:_row_sharding``."""
-    from repro_torch.runtime.sharding import block, local_block
+    from repro_torch.runtime.sharding import local_block, row_blocks
 
-    if tp.manual or block("batch") is not None:
+    if tp.manual or row_blocks():
         return None
     mesh = tp.mesh
     dp_axes = tuple(a for a in mesh.mesh_dim_names if a != tp.axis)

@@ -25,12 +25,17 @@ ones the reference's per-device program holds in blocks (``"batch"`` over
 the data axes; ``"heads"`` / ``"kv_heads"`` over ``model``, and where
 the parameters are placed (MLA's ``"heads"`` included) ``"d_ff"`` /
 ``"vocab"`` / ``"experts"`` / ``"inner"`` / ``"mamba_heads"`` over
-``model``):
+``model``; the sequence axes, ``"seq_sp"`` (the residual stream between
+blocks, over ``model``: :func:`seq_gather` / :func:`seq_scatter`) and
+``"kv_seq"`` (a decode cache's positions, over the data axes where the
+rows do not take them: :func:`kv_merge` meets the decode softmax's
+partials)):
 :func:`place_tree` cuts them from global tensors, :func:`place_params`
 cuts a parameter tree by its ``param_axes``, :func:`gather_tree` rebuilds
 an output the reference replicates, and :func:`logical_constraint` raises
 on a placed dimension that does not have its block size.  Every other
-logical name stays replicated (:func:`replicated_by_port` lists them).
+logical name stays replicated (:func:`replicated_by_port` lists what the
+reference would place, nothing in any of the dry run's cells).
 
 A GEMM whose weight columns are placed runs column-parallel
 (:class:`ColumnLayout`: this rank computes its block of the output
@@ -187,6 +192,7 @@ class _Ctx(threading.local):
     fallbacks: list = []
     suspended: bool = False
     placement: Optional["Placement"] = None
+    rows: Tuple[str, ...] = ()
 
 
 _CTX = _Ctx()
@@ -381,7 +387,11 @@ def local_block(spec_part: Optional[AxisName], mesh) -> Tuple[int, int]:
 # Placement: this rank's blocks of the values the reference places
 # ---------------------------------------------------------------------------
 # The logical names the port places; every other name stays replicated.
-PLACED = ("batch", "heads", "kv_heads", "d_ff", "vocab", "experts", "inner", "mamba_heads")
+PLACED = ("batch", "seq_sp", "kv_seq", "heads", "kv_heads", "d_ff", "vocab", "experts", "inner", "mamba_heads")
+# The sequence axes, each resolved after the batch rows on the leaf that
+# carries both (the residual ``(batch, seq_sp, .)``, the cache ``(batch,
+# kv_seq, ...)``): a mesh axis the rows take is not theirs.
+_AFTER_ROWS = ("seq_sp", "kv_seq")
 
 
 def _names(part: AxisName) -> Tuple[str, ...]:
@@ -437,13 +447,22 @@ def placed_parts(sizes: Dict[str, int], mesh, rules: Optional[Dict[str, AxisName
     same axes cut both into the same number of blocks (MLA, which has no
     KV heads, places its ``heads`` alone).  Mamba2's ``inner`` and
     ``mamba_heads`` are placed together or not at all, for the same reason:
-    a rank's heads read its block of the ``inner`` channels."""
+    a rank's heads read its block of the ``inner`` channels.  The
+    sequence axes ``seq_sp`` and ``kv_seq`` are resolved jointly with
+    ``"batch"``, as the reference's ``resolve_spec`` resolves the leaf
+    that carries both: the cache's sequence takes "data" only where the
+    rows fall back (one row at ``long_500k``)."""
     unknown = set(sizes) - set(PLACED)
     if unknown:
         raise ValueError(f"the port places {PLACED}, not {sorted(unknown)}")
     out = {}
-    for name, size in sizes.items():
-        spec = resolve_spec((int(size),), (name,), mesh, rules)
+    for name in sorted(sizes, key=lambda n: n in _AFTER_ROWS):
+        if name in _AFTER_ROWS:  # the reference's axis-used-once rule on the leaf
+            used = set(_names(out["batch"])) if "batch" in out else set()
+            mapped = _filter_axis(mesh_axis_sizes(mesh), (rules or _CTX.rules or DEFAULT_RULES).get(name))
+            if mapped is None or used & set(_names(mapped)):
+                continue
+        spec = resolve_spec((int(sizes[name]),), (name,), mesh, rules)
         if spec:
             out[name] = spec[0]
     for a, b in (("heads", "kv_heads"), ("inner", "mamba_heads")):
@@ -479,6 +498,46 @@ def resized(name: str, size: int):
     if size % b.count:
         raise ValueError(f"{size} {name} do not split into {b.count} blocks")
     return reenter(Placement(pl.mesh, {**pl.blocks, name: dataclasses.replace(b, size=int(size))}))
+
+
+def sequence(t: int):
+    """The active placement with ``"seq_sp"`` sized ``t`` (a step's own
+    sequence: whisper's decoder runs at ``T_enc // decoder_ratio``, a
+    decode token at 1), as a context manager; where its blocks do not
+    divide ``t`` the sequence is not placed in the scope (the residual
+    stays whole, and its constraints record the reference's fallback).
+    Nothing changes where ``"seq_sp"`` is not placed."""
+    pl = _CTX.placement
+    if pl is None or "seq_sp" not in pl.blocks:
+        return reenter(pl)
+    b, blocks = pl.blocks["seq_sp"], dict(pl.blocks)
+    if t % b.count:
+        del blocks["seq_sp"]
+    else:
+        blocks["seq_sp"] = dataclasses.replace(b, size=int(t))
+    return reenter(Placement(pl.mesh, blocks))
+
+
+@contextlib.contextmanager
+def rows_over(name: str):
+    """A routed GEMM's operand rows in the scope are this rank's block of
+    the placed logical ``name`` as well as of the rows (``kv_seq``: an MLA
+    decode expanding its block of the latent cache): the activation scale
+    takes its ``MAX`` over ``name``'s mesh axes too, and a tensor-parallel
+    GEMM does not split the rows again.  Nothing changes where ``name`` is
+    not placed."""
+    prev = _CTX.rows
+    _CTX.rows = prev + ((name,) if block(name) is not None else ())
+    try:
+        yield
+    finally:
+        _CTX.rows = prev
+
+
+def row_blocks() -> Tuple[Block, ...]:
+    """The :class:`Block` s a routed GEMM's operand rows are placed over:
+    the rows' and those of :func:`rows_over`."""
+    return tuple(b for b in (block(n) for n in ("batch",) + _CTX.rows) if b is not None)
 
 
 def current_placement() -> Optional[Placement]:
@@ -586,7 +645,25 @@ def _collectives():
         def backward(ctx, g):
             return g, None, None, None
 
-    return Gather, CopyToModel, ReduceFromModel
+    class Split(Function):
+        """This rank's block of a value every rank holds whole (the
+        residual after a block); the backward all-gathers the blocks'
+        gradients over ``part`` (every rank's downstream gradient is its
+        block's alone), one ``SEQ_COLLECTIVES["split_grad"]``."""
+
+        @staticmethod
+        def forward(ctx, x, b, mesh, dim):
+            ctx.b, ctx.mesh, ctx.dim = b, mesh, dim
+            return b.take(x, dim).contiguous()
+
+        @staticmethod
+        def backward(ctx, g):
+            from repro_torch.analysis import contracts
+
+            contracts.SEQ_COLLECTIVES["split_grad"] += 1
+            return all_gather_over(g, ctx.b.part, ctx.mesh, ctx.dim), None, None, None
+
+    return Gather, CopyToModel, ReduceFromModel, Split
 
 
 def copy_to_model(x, part: AxisName, what: str = "column_input"):
@@ -657,6 +734,80 @@ def gather_parts(x, name: str, widths: Sequence[int], what: Optional[str] = None
 
         contracts.count_collective(what)
     return out[0] if len(out) == 1 else torch.cat(out, dim=-1)
+
+
+# ---------------------------------------------------------------------------
+# The sequence axes: the residual stream's block (seq_sp) and the decode
+# cache's (kv_seq)
+# ---------------------------------------------------------------------------
+RESIDUAL = ("batch", "seq_sp", None)
+
+
+def seq_gather(x):
+    """The residual ``x`` ``(B, T, D)``, this rank's block of the placed
+    ``"seq_sp"``, gathered into the whole sequence for a block that reads
+    it whole (attention, the Mamba2 scan, the MoE's dispatch, the
+    column-parallel GEMMs, whose scale and noise stream are the replicated
+    program's on whole operands); ``x`` as it is where the sequence is not
+    placed.  Differentiable (the backward takes this rank's block of a
+    gradient every rank computes whole).  One
+    ``SEQ_COLLECTIVES["gather"]``."""
+    b = block("seq_sp")
+    if b is None:
+        return x
+    if x.shape[1] != b.local:
+        raise ValueError(f"a {tuple(x.shape)} residual is not this rank's block {b.local} of {b.size} positions")
+    from repro_torch.analysis import contracts
+
+    contracts.SEQ_COLLECTIVES["gather"] += 1
+    return _gather(x, b, 1)
+
+
+def seq_scatter(x, axes: Optional[Sequence[Optional[str]]] = RESIDUAL):
+    """This rank's block of the placed ``"seq_sp"`` of ``x`` ``(B, T, D)``,
+    a value every rank holds whole (a block's output, the embedding), then
+    :func:`logical_constraint` to ``axes`` (``None``: no constraint, where
+    the reference has none).  The backward all-gathers the gradient
+    (:class:`Split`).  ``x`` as it is where the sequence is not placed."""
+    b = block("seq_sp")
+    if b is not None:
+        x = _collectives()[3].apply(x, b, _CTX.placement.mesh, 1)
+    return x if axes is None else logical_constraint(x, axes)
+
+
+def seq_last(x):
+    """The last position ``(B, 1, D)`` of the residual ``x``: where the
+    sequence is placed it lives on the last block's rank, and every rank's
+    last row is gathered (one ``SEQ_COLLECTIVES["gather"]``) to take it."""
+    b = block("seq_sp")
+    if b is None:
+        return x[:, -1:]
+    from repro_torch.analysis import contracts
+
+    contracts.SEQ_COLLECTIVES["gather"] += 1
+    return all_gather_over(x[:, -1:], b.part, _CTX.placement.mesh, 1)[:, -1:]
+
+
+def kv_origin(n: int) -> int:
+    """The global position of the first of this rank's ``n`` cache
+    positions: ``index * n`` where ``"kv_seq"`` is placed, else 0."""
+    b = block("kv_seq")
+    return 0 if b is None else b.index * n
+
+
+def kv_merge(t, op: str):
+    """``t``, a partial over this rank's cache positions, all-reduced over
+    the placed ``"kv_seq"``'s mesh axes (``op`` ``"max"``: the scores' row
+    max; ``"sum"``: the exp-sums and the ``P @ V`` partials), in place; one
+    ``SEQ_COLLECTIVES["kv_max" | "kv_sum"]``."""
+    import torch.distributed as dist
+
+    from repro_torch.analysis import contracts
+
+    b = block("kv_seq")
+    all_reduce_over(t, b.part, _CTX.placement.mesh, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
+    contracts.SEQ_COLLECTIVES[f"kv_{op}"] += 1
+    return t
 
 
 def split_block(x, name: str, what: str = "split_input"):
@@ -743,10 +894,10 @@ def column_layout(parts: Sequence[Tuple[str, int]]) -> Optional[ColumnLayout]:
 def activation_amax(x, k_block: Optional[Block] = None):
     """A routed GEMM's activation abs-max over the whole operand its rank
     holds a block of: the local ``max(|x|)`` all-reduced with ``MAX`` over
-    the mesh axes of the placed rows and, with ``k_block``, of the placed
-    K.  ``None`` when neither is placed (the local reduction is then the
-    global one).  Max is exact in any order, so the scale is bitwise the
-    replicated program's.  Reference: the ``pmax`` of
+    the mesh axes of the placed rows (:func:`row_blocks`) and, with
+    ``k_block``, of the placed K.  ``None`` when neither is placed (the
+    local reduction is then the global one).  Max is exact in any order,
+    so the scale is bitwise the replicated program's.  Reference: the ``pmax`` of
     ``repro.core.dpu:quantize_symmetric``'s ``amax=`` callers.  Adds one to
     ``SCALE_REDUCTIONS["amax"]``."""
     import torch
@@ -754,7 +905,7 @@ def activation_amax(x, k_block: Optional[Block] = None):
 
     from repro_torch.analysis import contracts
 
-    parts = [b.part for b in (block("batch"), k_block) if b is not None]
+    parts = [b.part for b in row_blocks() + (k_block,) if b is not None]
     if not parts:
         return None
     amax = torch.max(torch.abs(x)).to(torch.float32).reshape(1)

@@ -39,7 +39,12 @@ this rank's heads, ``attn.wq`` / ``wk`` / ``wv`` column-parallel and
 gradients come out whole on every rank (the column-parallel backward
 gathers its output gradient over ``model``; the row-parallel one its
 input); the parameters themselves stay whole, as the reference's
-``train()`` never places them (ROADMAP Queue 3 item 16).  Summed over
+``train()`` never places them (ROADMAP Queue 3 item 16).  The residual
+stream between blocks is placed too, by ``seq_sp`` over ``model`` (every
+family but xLSTM, as the reference's ``train()`` constrains it): each
+block gathers the sequence it reads whole and cuts its output back, its
+gradient's blocks gathered in the backward, so the gradients are the run
+without it bit for bit (``tests/test_torch_placement_seq.py``).  Summed over
 ranks, the gradient is the replicated step's in another order, so a
 placed run is not bitwise the replicated one
 (``tests/test_torch_placement.py`` states the tolerance).

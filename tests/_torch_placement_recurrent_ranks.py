@@ -88,7 +88,7 @@ def batch_of(arch, cfg, tokens, seed=5):
     if arch.family == "audio":
         batch["audio_embed"] = torch.from_numpy(rng.standard_normal((tokens.shape[0], ENC_SEQ, cfg.d_model))
                                                 .astype(np.float32))
-        axes["audio_embed"] = ("batch", None, None)
+        axes["audio_embed"] = ("batch", "seq_sp", None)  # the reference's axes: its frames go in by seq_sp
     if arch.family == "vlm":
         batch["vision"] = torch.from_numpy(rng.standard_normal((tokens.shape[0], cfg.vision_seq, cfg.d_model))
                                            .astype(np.float32))

@@ -29,9 +29,11 @@ dry run's train step.  Held here:
   places, the port's block has the reference's shard size; along every
   other dimension the reference places, the port holds the whole dimension
   and the dry run's ``replicated_by_port`` names the leaf and the logical
-  name (``kv_seq`` at one row; the params' own axes on the moments of the
-  families that hold their parameters whole, the dense decoders' moments
-  being their parameter blocks);
+  name (the params' own axes on the moments of the families that hold
+  their parameters whole, the dense decoders' moments being their
+  parameter blocks); the sequence axes are placed (``kv_seq`` over data at
+  one row or where the rows take "pod" alone, whisper's ``audio_embed``
+  by ``seq_sp``), ``tests/test_torch_placement_seq.py`` holding them;
 * (c) ``train(mesh=(2, 2), tp_axis="model")`` with placed rows, ideal
   channel, two steps: the losses within ``rtol=1e-5`` and every parameter
   within ``atol=1e-5`` of the replicated run (``place_rows=False``; the
@@ -204,7 +206,8 @@ def test_local_blocks_are_the_references_shards(name, mesh_name):
         port_local = [tuple(s.shape) for s in tree_items(loc).values()]
         _check_leaves(f"{name} {kind} B={batch}", ref, port_global, port_local, placed, gaps, sizes, jmesh)
         if (kind, batch) == ("decode", 1):
-            assert "batch" not in placed  # one row: the reference places kv_seq over data instead, checked above
+            assert "batch" not in placed  # one row: kv_seq takes data instead (xLSTM has no cache), checked above
+            assert ("kv_seq" in placed) == (tarch.family != "ssm")
         if kind != "train":
             continue
         # the moments: ZeRO-1 along the reference's zero1 dimension, every other axis whole
@@ -323,7 +326,8 @@ def test_a_placed_decode_cell_reports_what_the_port_still_replicates():
 @pytest.mark.parametrize("zero1", [True, False], ids=["zero1", "no_zero1"])
 def test_a_placed_train_cell_holds_zero1_moments_unless_asked_not_to(zero1):
     cell = _cell("train", zero1=zero1)
-    assert cell["ok"] and cell["zero1"] is zero1 and cell["placed"] == PLACED_DENSE
+    # a train step places the residual's sequence too (seq_sp over model)
+    assert cell["ok"] and cell["zero1"] is zero1 and cell["placed"] == {**PLACED_DENSE, "seq_sp": "model"}
     arch = treg.get("qwen2-0.5b")
     cfg = _config().pad_for_mesh(16)
     defs = arch.param_defs(cfg)
