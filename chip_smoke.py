@@ -449,7 +449,10 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    layer-0 ``ffn.wi`` halves, 5,472 columns from 5,472 and from 10,944, and
    MLA ``attn.wq`` block of 1,536 from 1,536, at K = 2,048), ideal and SMWA
    under the key, ``fused`` 0 and 1, R = 4: each block's launch bitwise
-   those columns of the whole weight's launch, and held to its twin.  Then
+   those columns of the whole weight's launch, and held to its twin; (a'')
+   the kernel at a global row origin (``int_gemm(rows=, x_word=)``,
+   ``ROW_BLOCKS``: deepseek-v2-lite's ``attn.wuk`` on 2,048 of 4,096 latent
+   rows from 2,048 and from 1,000, off the row tile), the same way.  Then
    a child process (``chip_smoke.py --phase placement``) that spawns four
    ranks on the one card over ``gloo`` with CUDA tensors as the (data 2,
    model 2) mesh, deterministic mode: (a) qwen2-0.5b at full width (24
@@ -526,7 +529,9 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    ``PLACEMENT_PROMPT`` tokens with the rows, heads and ``seq_sp`` placed
    (8 positions a rank), ideal and SMWA: logits bitwise (a)'s replicated
    prefill, the residual at every constraint a rank's block (printed),
-   two sequence gathers a layer and one for the last position; and (b)'s
+   two sequence gathers a layer and one for the last position, each
+   block's row-parallel output reduce-scattered over the sequence (two a
+   layer, no all-reduce of a block's output); and (b)'s
    ``train(mesh=)`` run again with ``seq_sp`` placed against (b)'s placed
    run (rows and heads alone) within (b)'s gates, bitwise printed, peak
    memory a rank printed; (g) ``kv_seq``: one row, a prompt of
@@ -536,11 +541,23 @@ Phases, in order (each prints its wall time; any failure exits non-zero):
    back), heads and ``kv_seq`` placed (2,048 positions a rank over
    "data", the decode softmax merged by a ``MAX`` and a SUM all-reduce):
    qwen2-0.5b ideal and keyed SMWA, deepseek-v2-lite at 3 layers ideal,
-   expanded and absorbed; every routed GEMM replayed bitwise (the expanded
+   expanded and absorbed, and keyed SMWA expanded without a TP scope (its
+   ``wuk`` / ``wuv`` on the fused kernel at the blocks' row origins, the
+   content word summed over the blocks); every prefill's cache alike on
+   the four ranks; every routed GEMM replayed bitwise (the expanded
    decode's ``wuk`` / ``wuv`` on the rank's latent rows), ideal logits
-   within 2^-5 of their largest, each cache leaf a rank of half the
-   positions, and the negative control with the row max's ``MAX`` skipped
-   failing the logits gate.
+   within 2^-5 of their largest and every run's within 1e-5, each cache
+   leaf a rank of half the positions, and the negative controls failing:
+   the row max's ``MAX`` skipped (the logits gate), the row origin forced
+   to 0 and the block's own content word (the SMWA replay of ``wuk`` /
+   ``wuv``); (h) ``STRESS_ITERS`` K-sharded SMWA GEMMs of a decode step,
+   each all-reduced over "model" and read at once: through the staged
+   helper (``runtime.collectives``) every sum its partials' and alike on
+   both model ranks, gloo's own CUDA path reported, and one rank's bumped
+   partial tripping the check.  ``--phase gloo-repro N`` runs the child,
+   then (g)'s qwen2-0.5b SMWA prefill and replicated decode ``N`` times on
+   the shipped kernel and on a variant without the slice path's barrier
+   between weight-slice passes (:func:`photonic_race_library`).
    Then in this process (c): the tooling
    phase's qwen2-0.5b x decode_32k and x train_4k (ZeRO-1) cells, their
    arguments, temp, peak and FLOPs a rank beside the reference's recorded
@@ -1487,6 +1504,27 @@ def p_term_libraries():
     return libs, shipped
 
 
+RACE_LINE = "      if constexpr (!kCompact) __syncthreads();\n"
+
+
+def photonic_race_library():
+    """The photonic source rebuilt without the slice path's barrier between
+    weight-slice passes on 64-row CTAs (ROADMAP Queue 3 item 22's cause):
+    a ``CudaLibrary`` with the shipped entry point, for ``--phase
+    gloo-repro``'s runs on the variant."""
+    from repro_torch.kernels._build import CudaLibrary, build_dir
+    from repro_torch.kernels.photonic_gemm import kernel as K
+
+    src = (ROOT / FUSED_SRC).read_text()
+    if src.count(RACE_LINE) != 1:
+        raise RuntimeError(f"{FUSED_SRC} has no single line {RACE_LINE!r}")
+    out = build_dir()
+    out.mkdir(parents=True, exist_ok=True)
+    path = out / "photonic_gemm_race.cu"
+    path.write_text(src.replace(RACE_LINE, ""))
+    return CudaLibrary(path, K._bind)
+
+
 def p_terms_phase(torch, F, variants, shipped, gen, card):
     """The bound against the bf16 terms of P, at the ``lm_logits`` shape
     and at the 16-token serve prompt (rows with 1..16 live keys): the twin
@@ -2385,6 +2423,8 @@ def child(phase: str, arg=None) -> int:
 
     K.LIBRARY.load()
     F.LIBRARY.load()
+    if phase == "gloo-repro":
+        photonic_race_library().build()
     if phase == "train":
         ok, res, launches = train_phase(torch, registry.get("qwen2-0.5b"), ideal_dpu(), card_line())
     elif phase == "tp":
@@ -2393,6 +2433,8 @@ def child(phase: str, arg=None) -> int:
         ok, res, launches = tp_train_child(json.loads(arg))
     elif phase == "placement":
         ok, res, launches = placement_child()
+    elif phase == "gloo-repro":
+        ok, res, launches = placement_child(repeat=int(arg))
     else:
         ok, res, launches = train_families_phase(torch, registry, card_line())
     print(json.dumps({"ok": ok, "result": res, "launches": launches}))
@@ -3257,6 +3299,99 @@ def column_origin_rows(torch, K, chans, key, rows_out, card):
     return ok
 
 
+# Phase 10 (a''): (model, site, K, C, rows of the whole operand, origin, rows):
+# deepseek-v2-lite's attn.wuk over the latent rows of a 4,096-position cache,
+# a rank's 2,048 from 2,048 (phase 10 (g)'s second block) and 2,048 from 1,000
+# (off the row tile of 128: its CTAs straddle two logical row tiles).
+ROW_BLOCKS = [("deepseek-v2-lite-16b", "attn.wuk", 512, 2048, 4096, 2048, 2048),
+              ("deepseek-v2-lite-16b", "attn.wuk", 512, 2048, 4096, 1000, 2048)]
+
+
+def row_origin_rows(torch, K, chans, key, rows_out, card):
+    """Phase 10 (a''): the kernel at a global row origin, through
+    ``PhotonicEngine.int_gemm(rows=, x_word=)`` on the kernel backend: for
+    each of ``ROW_BLOCKS``, ideal and SMWA under ``key``, ``fused`` 0 (int8
+    x) and 1 (f32 x, the quantize prologue): the block's launch against
+    those rows of the whole operand's launch (gate: bitwise, the noise ids
+    and content word being the whole's), and against the block call with
+    the kernel swapped for its twin on the card (bitwise ideal; under
+    noise one-LSB roundings at <= 0.1% of elements).  Per case a row: the
+    block's launch alone (CUDA graph of the recorded call), the twin call
+    (host-timed once), ``torch._int_mm`` of the block's int core and the
+    block's bound.  Returns ok."""
+    import repro_torch.photonic.engine as E
+    from repro_torch.core.dpu import quantize_symmetric, quantize_with_scale
+    from repro_torch.kernels.photonic_gemm.epilogue import EpilogueArgs, EpilogueSpec
+    from repro_torch.noise.stages import tweak_word
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(33)
+    ok = True
+    kernels = {0: "photonic_gemm", 1: "photonic_gemm_fused"}
+    for name in ("ideal", "SMWA"):
+        eng = E.PhotonicEngine(dpu=chans[name], backend="kernel")
+        for model, site, k, c, total, origin, n in ROW_BLOCKS:
+            x = torch.randn(total, k, generator=gen, device=dev)
+            w = torch.randint(-127, 128, (k, c), generator=gen, device=dev, dtype=torch.int8)
+            ws = torch.rand(c, generator=gen, device=dev) * 1e-3 + 1e-3
+            xq, sx = quantize_symmetric(x, 8)
+            sel = slice(origin, origin + n)
+            for fused in (0, 1):
+                kw = dict(site=site, fold=3, prng_key=key if name == "SMWA" else None)
+                word = tweak_word(quantize_with_scale(x, sx, 8) if fused else xq)
+
+                def call(rows_of, **extra):
+                    ep = EpilogueArgs(EpilogueSpec(bias=False), sx, ws, None) if fused else None
+                    return eng.int_gemm((x if fused else xq)[rows_of].contiguous(), w, epilogue=ep, **kw, **extra)
+
+                attr = kernels[fused]
+                kernel, calls = getattr(E, attr), []
+
+                def record(*a, **k_):
+                    calls.append((a, k_))
+                    return kernel(*a, **k_)
+
+                def twin(*a, rows=None, **st):
+                    return (K.photonic_gemm_fused_twin if fused else K.photonic_gemm_twin)(*a, **st)
+
+                whole = call(slice(None))
+                try:
+                    setattr(E, attr, record)
+                    got = call(sel, rows=(origin, total), x_word=word)
+                    setattr(E, attr, twin)
+                    torch.cuda.synchronize()
+                    t0 = time.perf_counter()
+                    plain = call(sel, rows=(origin, total), x_word=word)
+                    torch.cuda.synchronize()
+                    t_ms = (time.perf_counter() - t0) * 1e3
+                finally:
+                    setattr(E, attr, kernel)
+                same = torch.equal(got, whole[sel])
+                diff = (got.double() - plain.double()).abs()
+                err = float(diff.max())
+                off = diff > (1e-6 * (1.0 + plain.double().abs()) if fused else 0.0)
+                twin_ok = float(off.double().mean()) <= 1e-3 if name != "ideal" else not bool(off.any())
+                (a, k_), = calls
+                k_ms = graph_ms(lambda: kernel(*a, **k_))
+                block = xq[sel].contiguous()
+                lib_ms = graph_ms(lambda: torch._int_mm(block, w))
+                stages, _ = E.kernel_stages(eng.dpu, total, k, c)
+                passes, xdots = passes_of(eng.dpu, stages)
+                draws = n * c * -(-k // stages["n_chunk"]) * passes if stages["noise_sigma"] > 0 else 0
+                parts = bound_ms(n, k, c, 4 if fused else 1, passes, xdots, False, bool(fused), draws)
+                b_ms, b_by = bound_of([parts])
+                ok &= same and twin_ok
+                rows_out.append(dict(model=model, site=site, channel=name, fused=fused, R=n, K=k, C=c, origin=origin,
+                                     total_rows=total, tile_r=stages["tile_r"], same_as_whole=same, max_abs_err=err,
+                                     twin_ok=twin_ok, ms=k_ms, plain_ms=t_ms, library_ms=lib_ms, bound_ms=b_ms,
+                                     bound_by=b_by, parts=parts))
+                log(f"  (a'') {model} {site} {name:5s} fused={fused}: rows [{origin}, {origin + n}) of {total} at "
+                    f"r_origin {origin} (tile_r {stages['tile_r']}): bitwise the whole launch's {same}; against the "
+                    f"twin max |d| {err} ({'ok' if twin_ok else 'FAILED'}); kernel {k_ms:.4f} ms, twin {t_ms:.3f} ms, "
+                    f"_int_mm {lib_ms:.4f} ms, bound {b_ms:.5f} ms ({b_by}) [{card}]")
+    return ok
+
+
 def _ulps(torch, got, want):
     """The largest ``|got - want|`` in units of the last place of ``want``'s
     dtype (bf16 or f32) at ``want``'s magnitude."""
@@ -3351,6 +3486,13 @@ def _residual_log(log):
         cm.logical_constraint = shd.logical_constraint = inner
 
 
+def _seq_counts(**counts):
+    """``contracts.SEQ_COLLECTIVES`` with ``counts`` and every other key 0."""
+    from repro_torch.analysis import contracts
+
+    return {k: counts.get(k, 0) for k in contracts.SEQ_COLLECTIVES}
+
+
 def _seq_prefill(torch, K, arch, cfg, params, prompt, mesh):
     """Phase 10 (f): ``cfg``'s prefill of ``prompt`` on ``mesh`` under TP
     over "model" with the rows, heads and ``seq_sp`` placed (the parameters
@@ -3377,9 +3519,10 @@ def _seq_prefill(torch, K, arch, cfg, params, prompt, mesh):
                 seconds=time.perf_counter() - t0, sizes=sizes)
 
 
-def placement_rank(rank, world, ckpt_dir):
-    """One rank of phase 10 (module docstring, (a), (b), (b'), (d) and (e)).
-    Returns this rank's results and gates."""
+def placement_rank(rank, world, ckpt_dir, repeat=0):
+    """One rank of phase 10 (module docstring, (a), (b), (b'), (d), (e),
+    (f), (g) and (h)); with ``repeat``, then :func:`_kv_repeat`.  Returns
+    this rank's results and gates."""
     import torch.distributed as dist
 
     torch, K, say = _tp_train_rank_setup(rank)
@@ -3466,8 +3609,9 @@ def placement_rank(rank, world, ckpt_dir):
         gates[f"(f) {name} seq_sp prefill: logits bitwise the replicated program's"] = f_same
         gates[f"(f) {name} seq_sp prefill: the residual between blocks a rank's block"] = (
             fs["residuals"] == [block] * layers)
-        gates[f"(f) {name} seq_sp prefill: two sequence gathers a layer and one for the last position"] = (
-            fs["seq"] == dict(gather=2 * layers + 1, split_grad=0, kv_max=0, kv_sum=0))
+        gates[f"(f) {name} seq_sp prefill: two sequence gathers a layer and one for the last position, two "
+              f"reduce-scatters a layer (attn.wo, ffn.wo), no all-reduce of a block's output"] = (
+            fs["seq"] == _seq_counts(gather=2 * layers + 1, scatter=2 * layers))
         out[name]["seq_prefill"] = dict(same=f_same, residual=fs["residuals"][:1], seq=fs["seq"],
                                         counts=fs["counts"], seconds=fs["seconds"])
         say(f"(f) {name}: qwen2-0.5b prefill {PLACEMENT_ROWS} x {PLACEMENT_PROMPT} with rows, heads and seq_sp placed "
@@ -3515,8 +3659,10 @@ def placement_rank(rank, world, ckpt_dir):
                                                                                              placed["params"]))
     gates["(f) train with seq_sp placed: losses within rtol 1e-3 of (b)'s placed run"] = s_loss_ok
     gates["(f) train with seq_sp placed: parameters within (b)'s bound of its placed run's"] = s_within
-    gates["(f) train with seq_sp placed: the residual gathered and its gradient's blocks gathered"] = (
-        seq["counts"]["seq_gather"] > 0 and seq["counts"]["seq_split_grad"] > 0 and seq["counts"]["row_gathers"] == 0)
+    gates["(f) train with seq_sp placed: the residual gathered, the blocks' outputs reduce-scattered and their "
+          "gradients' blocks gathered"] = (
+        seq["counts"]["seq_gather"] > 0 and seq["counts"]["seq_split_grad"] > 0 and seq["counts"]["seq_scatter"] > 0
+        and seq["counts"]["row_gathers"] == 0)
     out["train"] = dict(losses=placed["losses"], replicated_losses=rep["losses"], max_abs_param=worst, bound=bound,
                         step_seconds=placed["step_seconds"], replicated_step_seconds=rep["step_seconds"],
                         counts=placed["counts"], replicated_counts=rep["counts"],
@@ -3537,7 +3683,7 @@ def placement_rank(rank, world, ckpt_dir):
         f"residual {data.seq_len // 2} positions a rank between blocks): losses {seq['losses']} against (b)'s placed "
         f"run's {placed['losses']}; max |p_seq - p_placed| {s_worst:.4g}, bitwise {s_bitwise}; steps "
         f"{[round(x, 3) for x in seq['step_seconds']]} s; sequence gathers {seq['counts']['seq_gather']}, gradient "
-        f"gathers {seq['counts']['seq_split_grad']}; peak memory a rank {seq['max_memory_allocated'] / 2**30:.2f} GiB "
+        f"gathers {seq['counts']['seq_split_grad']}, reduce-scatters {seq['counts']['seq_scatter']}; peak memory a rank {seq['max_memory_allocated'] / 2**30:.2f} GiB "
         f"against {placed['max_memory_allocated'] / 2**30:.2f} GiB without seq_sp [{card}]")
     del runs, rep, placed, seq
     torch.cuda.empty_cache()
@@ -3547,6 +3693,9 @@ def placement_rank(rank, world, ckpt_dir):
     out["moe"] = placement_moe(torch, K, mesh, gates, say, card)
     out["families"] = placement_families(torch, K, mesh, gates, say, card)
     out["kv"] = placement_kv(torch, K, mesh, gates, say, card)
+    out["stress"] = placement_stress(torch, mesh, gates, say, card)
+    if repeat:
+        out["repeat"] = _kv_repeat(torch, K, mesh, say, card, repeat)
     out["gates"] = gates
     for k, v in gates.items():
         say(f"{k}: {v}")
@@ -3724,18 +3873,18 @@ def _dropped_combine(torch):
     from repro_torch.models import ffn
     from repro_torch.runtime import sharding as shd
 
-    inner = ffn.reduce_from_model
+    inner = ffn.reduce_rows
 
     def dropped(x, part, what="row_output"):
         if what == "expert_combine" and shd.block("experts").index == 1:
             x = torch.zeros_like(x)
         return inner(x, part, what)
 
-    ffn.reduce_from_model = dropped
+    ffn.reduce_rows = dropped
     try:
         yield
     finally:
-        ffn.reduce_from_model = inner
+        ffn.reduce_rows = inner
 
 
 def placement_moe(torch, K, mesh, gates, say, card):
@@ -3905,9 +4054,10 @@ def _kv_prefill(torch, arch, cfg, params, prompt):
     return cache
 
 
-def _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, placed, log=None, after=None):
+def _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, placed, log=None, after=None, tp=True):
     """Phase 10 (g): one row's decode ``steps`` on a copy of the prefill's
-    ``cache`` under TP over "model", the parameters whole; ``placed``: the
+    ``cache`` under TP over "model" (with ``tp``; else every rank runs the
+    single-device program on its blocks), the parameters whole; ``placed``: the
     rows (which fall back), heads and ``kv_seq`` placed
     (``placement_sizes(params=False)``), the cache cut to this rank's block
     of positions and KV heads, the decode softmax merged across the blocks.
@@ -3926,7 +4076,8 @@ def _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, placed, log=None
     t0 = time.perf_counter()
     with contextlib.ExitStack() as scopes:
         scopes.enter_context(shd.use_rules(mesh))
-        scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
+        if tp:
+            scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
         if placed:
             scopes.enter_context(shd.placement(mesh, arch.placement_sizes(cfg, shape, params=False)))
             cache = shd.place_tree(cache, arch.decode_specs(cfg, shape)[1][1])
@@ -3948,10 +4099,53 @@ def _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, placed, log=None
     return out, shapes, seq, secs
 
 
+@contextlib.contextmanager
+def _origin_at_zero():
+    """Phase 10 (g)'s negative control: every block of a placed
+    ``kv_seq``'s rows drawn at row origin 0."""
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.row_segments
+
+    def zero(lead):
+        seg = inner(lead)
+        return seg if seg is None else ((0,) * len(seg[0]), seg[1])
+
+    shd.row_segments = zero
+    try:
+        yield
+    finally:
+        shd.row_segments = inner
+
+
+@contextlib.contextmanager
+def _block_word():
+    """Phase 10 (g)'s negative control: a block of a placed ``kv_seq``'s
+    rows draws with its own content word (no SUM over the blocks)."""
+    from repro_torch.noise.stages import U32
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.rows_word
+    shd.rows_word = lambda word: word & U32
+    try:
+        yield
+    finally:
+        shd.rows_word = inner
+
+
+# Phase 10 (g)'s runs: (arch, layers, ((channel, mla_absorb, TP over "model"), ...)).
+# deepseek-v2-lite's SMWA expanded run has no TP scope: the replicated
+# program then runs the latent rows whole, and a rank's block of them runs at
+# its global row origin with the whole operand's content word.
+KV_SEQ_RUNS = (("qwen2-0.5b", None, (("ideal", False, True), ("SMWA", False, True))),
+               ("deepseek-v2-lite-16b", 3, (("ideal", False, True), ("ideal", True, True), ("SMWA", False, False))))
+
+
 def placement_kv(torch, K, mesh, gates, say, card):
     """Phase 10 (g): ``kv_seq``, one row's decode cache over "data".
     qwen2-0.5b at full width, ideal and keyed SMWA, and deepseek-v2-lite at
-    (d)'s 3 layers, ideal, expanded and absorbed: a prefill of
+    (d)'s 3 layers, ideal, expanded and absorbed, and keyed SMWA expanded
+    without a TP scope (:data:`KV_SEQ_RUNS`): a prefill of
     ``KV_SEQ_PROMPT`` tokens into a cache of ``KV_SEQ_MAX`` positions (the
     whole program on every rank, :func:`_kv_prefill`), then
     ``PLACEMENT_STEPS`` decode steps writing positions 2,046-2,049 across
@@ -3965,17 +4159,25 @@ def placement_kv(torch, K, mesh, gates, say, card):
     all-reduce a decode attention; each cache leaf a rank of ``KV_SEQ_MAX /
     2`` positions.  Negative control: qwen2-0.5b ideal with the row max's
     ``MAX`` skipped (:func:`_dropped_max`; the second block is all masked
-    for the first two steps) must fail the logits gate.  Returns the
-    results."""
+    for the first two steps) must fail the logits gate.  deepseek-v2-lite
+    SMWA expanded, whose ``wuk`` / ``wuv`` run on the fused kernel at
+    their blocks' row origins (one SUM of the whole operand's content word
+    each): two more controls, whose replays must fail on ``wuk`` and
+    ``wuv`` (:func:`_origin_at_zero`, on the second block's ranks, the
+    first's origin being 0; :func:`_block_word`, on every rank).  Returns
+    the results."""
+    import torch.distributed as dist
+
     from repro_torch.models import registry
     from repro_torch.models.common import init_params
+    from repro_torch.runtime import collectives
 
     def worst_of(a, b):
         return max(float((x.float() - y.float()).abs().max()) for x, y in zip(a, b))
 
     res = {}
-    for name, layers, runs_of in (("qwen2-0.5b", None, (("ideal", False), ("SMWA", False))),
-                                  ("deepseek-v2-lite-16b", 3, (("ideal", False), ("ideal", True)))):
+    data = mesh.get_local_rank("data")
+    for name, layers, runs_of in KV_SEQ_RUNS:
         arch = registry.get(name)
         base = (arch.config if layers is None else dataclasses.replace(arch.config, num_layers=layers)).pad_for_mesh(2)
         params = init_params(base, 0, "cuda", defs=arch.param_defs(base))
@@ -3983,28 +4185,39 @@ def placement_kv(torch, K, mesh, gates, say, card):
         prompt = torch.from_numpy(rng.integers(0, base.vocab_size, (1, KV_SEQ_PROMPT))).cuda()
         steps = torch.from_numpy(rng.integers(0, base.vocab_size, (PLACEMENT_STEPS, 1, 1))).cuda()
         prefilled = {}
-        for channel, absorbed in runs_of:
+        for channel, absorbed, tp in runs_of:
             cfg = dataclasses.replace(base, photonic=ideal_dpu() if channel == "ideal" else smwa_dpu(),
                                       photonic_backend="kernel", mla_absorb=absorbed)
             if channel not in prefilled:  # the prefill does not read mla_absorb
                 t0 = time.perf_counter()
                 prefilled[channel] = (_kv_prefill(torch, arch, cfg, params, prompt), time.perf_counter() - t0)
+                # every rank runs the same prefill alone: its cache must be the same on all four (a 64-row CTA
+                # race in the kernel's slice path once made them differ, ROADMAP Queue 3 item 22)
+                ch = _tree_hash(torch, prefilled[channel][0]).cpu()
+                every = [torch.empty_like(ch) for _ in range(dist.get_world_size())]
+                collectives.all_gather(every, ch)
+                gates[f"(g) {name} {channel} prefill: the cache alike on the four ranks"] = all(
+                    torch.equal(every[0], c) for c in every)
             cache, prefill_s = prefilled[channel]
             key = f"(g) {name}{'' if layers is None else f' at {layers} layers'} {channel}" + (
-                " absorbed" if absorbed else "")
+                " absorbed" if absorbed else "") + ("" if tp else " without TP (row origins)")
             runs = {}
             for run in ("replicated", "placed"):
                 _reset_counts(torch, K)
                 log, snap = [], {}
 
-                def after(run=run, log=log, snap=snap, cfg=cfg):
+                def after(run=run, log=log, snap=snap, cfg=cfg, tp=tp):
                     snap["counts"] = _counts(K)
                     snap["max_memory_allocated"] = torch.cuda.max_memory_allocated()
                     if run == "placed":
                         snap["replay"] = _replay_gemms(torch, runs["replicated"]["log"], log, cfg)
+                        if not tp:
+                            for what, scope in (("origin_0", _origin_at_zero), ("block_word", _block_word)):
+                                with scope():
+                                    snap[what] = _replay_gemms(torch, runs["replicated"]["log"], log, cfg)
 
                 logits, shapes, seq, secs = _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh,
-                                                       run == "placed", log=log, after=after)
+                                                       run == "placed", log=log, after=after, tp=tp)
                 runs[run] = dict(logits=logits, log=log, cache=shapes, seq=seq, seconds=secs, **snap)
             rep, pp = runs["replicated"], runs["placed"]
             checked, same, bad, first = pp["replay"]
@@ -4031,14 +4244,27 @@ def placement_kv(torch, K, mesh, gates, say, card):
                 finite and worst <= 1e-5 * scale)
             gates[f"{key}: every routed GEMM, replayed on the replicated program's input, bitwise its output"] = (
                 not bad and same > 0)
+            words = 0 if tp else 2 * attn  # wuk's and wuv's content words summed over the blocks
             gates[f"{key}: one MAX and one SUM a decode attention, each cache leaf a rank of {KV_SEQ_MAX // 2} "
-                  f"positions"] = (pp["seq"] == dict(gather=0, split_grad=0, kv_max=attn, kv_sum=attn) and halved
-                                   and pp["counts"]["photonic_gemm_fused"] == 0)
+                  f"positions"] = (pp["seq"] == _seq_counts(kv_max=attn, kv_sum=attn, kv_word=words) and halved
+                                   and (pp["counts"]["photonic_gemm_fused"] == 0) == tp)
+            controls = {}
+            for what in ("origin_0", "block_word"):
+                if what in pp:
+                    wrong = sorted({b[1] for b in pp[what][2] if len(b) == 4 and b[1] in ("attn.wuk", "attn.wuv")})
+                    controls[what] = wrong
+                    if what == "origin_0" and data == 0:  # the first block's origin is 0: the control is the run
+                        gates[f"{key}: control, the row origin forced to 0: the first block's replay unchanged"] = (
+                            not pp[what][2])
+                    else:
+                        gates[f"{key}: negative control, "
+                              f"{'the row origin forced to 0' if what == 'origin_0' else 'the block content word'}: "
+                              f"wuk and wuv fail the replay"] = wrong == ["attn.wuk", "attn.wuv"]
             res[key] = dict(max_abs=worst, scale=scale, fingerprint=fp, gemms_checked=checked, gemms_same=same,
                             gemms_bad=bad[:8], first_input_difference=first, control=control, cache=pp["cache"],
                             replicated_cache=rep["cache"], seq=pp["seq"], counts=pp["counts"],
                             replicated_counts=rep["counts"], seconds=pp["seconds"],
-                            replicated_seconds=rep["seconds"], prefill_seconds=prefill_s,
+                            replicated_seconds=rep["seconds"], prefill_seconds=prefill_s, row_controls=controls,
                             max_memory_allocated=pp["max_memory_allocated"],
                             replicated_max_memory_allocated=rep["max_memory_allocated"])
             say(f"{key}: one row, a prompt of {KV_SEQ_PROMPT} into a cache of {KV_SEQ_MAX} positions "
@@ -4047,7 +4273,8 @@ def placement_kv(torch, K, mesh, gates, say, card):
                 f"heads and kv_seq placed against replicated: max |d logits| {worst:.4g} of {scale:.4g} "
                 f"({worst / scale:.3g} of the largest; ideal bar 2^-5), sha256 {fp}; routed GEMMs replayed on the "
                 f"replicated program's input: {same} bitwise ({len(checked)} sites), mismatches {bad[:4]}; first "
-                f"GEMM whose own input differs {first}; negative control (no MAX) max |d| {control}; cache leaves a "
+                f"GEMM whose own input differs {first}; negative control (no MAX) max |d| {control}; row-origin "
+                f"controls (sites whose replay failed) {controls}; cache leaves a "
                 f"rank {pp['cache']} (replicated {rep['cache']}); sequence collectives {pp['seq']}; counts "
                 f"{pp['counts']} (replicated {rep['counts']}); {pp['seconds']:.2f} s placed, "
                 f"{rep['seconds']:.2f} s replicated; max_memory_allocated placed "
@@ -4057,6 +4284,163 @@ def placement_kv(torch, K, mesh, gates, say, card):
         del params, prefilled
         torch.cuda.empty_cache()
     return res
+
+
+# Phase 10 (h): the all-reduce pattern of a K-sharded decode step, repeated
+# on small tensors (ROADMAP Queue 3 item 22).
+STRESS_ITERS = 300
+
+
+def _psum_stress(torch, mesh, reduce, bump=False):
+    """``STRESS_ITERS`` K-sharded GEMMs as one decode step runs them: each
+    rank's unfused SMWA launch on its K block (qwen2-0.5b's ``attn.wo``, R
+    = 1, K_local = 448, C = 896), its int32 partial summed over "model" by
+    ``reduce(out, group)`` and read at once by the next kernel; ``bump``:
+    the second model rank adds 1 to its partial after it was recorded (the
+    negative control).  Checked after the loop, on the host: every rank's
+    sum is the sum of the recorded partials, and the two model ranks hold
+    the same sums.  Returns (iterations whose sum differs from its
+    partials', iterations whose sums differ across the ranks, seconds)."""
+    from repro_torch.photonic import sharded
+    from repro_torch.photonic.engine import PhotonicEngine
+    from repro_torch.runtime import collectives
+
+    group, m = mesh.get_group("model"), mesh.get_local_rank("model")
+    local = sharded.shard_local_engine(PhotonicEngine(dpu=smwa_dpu(), backend="kernel"), 448)
+    gen = torch.Generator(device="cuda").manual_seed(41 + 7 * mesh.get_local_rank("data") + m)
+    partials, sums = [], []
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(STRESS_ITERS):
+        xq = torch.randint(-127, 128, (1, 448), generator=gen, device="cuda", dtype=torch.int8)
+        wq = torch.randint(-127, 128, (448, 896), generator=gen, device="cuda", dtype=torch.int8)
+        out = local.int_gemm(xq, wq, site="attn.wo", fold=i % 24, shard=m).contiguous()
+        partials.append(out.clone())
+        if bump and m == 1:
+            out += 1
+        reduce(out, group)
+        sums.append(out.to(torch.float64) * 0.5)  # the next kernel reads the sum at once
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    p, s = torch.stack(partials).cpu(), torch.stack(sums).cpu()
+    ps, ss = [torch.empty_like(p) for _ in range(2)], [torch.empty_like(s) for _ in range(2)]
+    collectives.all_gather(ps, p, group=group)
+    collectives.all_gather(ss, s, group=group)
+    want = (ps[0].to(torch.float64) + ps[1].to(torch.float64)) * 0.5
+    wrong = int((s != want).reshape(STRESS_ITERS, -1).any(dim=1).sum())
+    apart = int((ss[0] != ss[1]).reshape(STRESS_ITERS, -1).any(dim=1).sum())
+    return wrong, apart, secs
+
+
+def placement_stress(torch, mesh, gates, say, card):
+    """Phase 10 (h): :func:`_psum_stress` through the port's staged
+    all-reduce (``runtime.collectives``: CUDA tensors through host tensors
+    on gloo), gated at zero mismatches; through gloo's own path on the CUDA
+    tensors (``torch.distributed.all_reduce``, the port's path before the helper),
+    reported; and the staged path with one rank's partial bumped after it
+    was recorded, which must trip.  Returns the results."""
+    import torch.distributed as dist
+
+    from repro_torch.runtime import collectives
+
+    res = {}
+    for label, reduce, bump in (
+            ("staged", lambda t, g: collectives.all_reduce(t, group=g), False),
+            ("gloo_cuda", lambda t, g: dist.all_reduce(t, op=dist.ReduceOp.SUM, group=g), False),
+            ("control", lambda t, g: collectives.all_reduce(t, group=g), True)):
+        wrong, apart, secs = _psum_stress(torch, mesh, reduce, bump)
+        res[label] = dict(wrong=wrong, apart=apart, seconds=secs)
+    gates[f"(h) {STRESS_ITERS} staged all-reduces of K-sharded partials: every sum the partials', the ranks alike"] = (
+        res["staged"]["wrong"] == res["staged"]["apart"] == 0)
+    gates["(h) negative control, one rank's partial bumped: the check trips"] = res["control"]["wrong"] == STRESS_ITERS
+    say(f"(h) {STRESS_ITERS} K-sharded SMWA GEMMs (R=1, K_local 448, C 896) each all-reduced over model and read at "
+        f"once: staged through the host {res['staged']}; gloo on the CUDA tensors {res['gloo_cuda']}; control (one "
+        f"partial bumped) {res['control']} (wrong: sums unlike their partials'; apart: sums unlike across the model "
+        f"ranks) [{card}]")
+    return res
+
+
+def _tree_hash(torch, tree):
+    """A content hash of a tree's tensor leaves (int64 ``(2,)``: the sum and
+    a position-weighted sum of their bit patterns), on the device."""
+    from repro_torch._tree import tree_leaves
+
+    out = torch.zeros(2, dtype=torch.int64, device="cuda")
+    for t in tree_leaves(tree):
+        if isinstance(t, torch.Tensor):
+            v = t.contiguous().view(torch.int16 if t.element_size() == 2 else torch.int32).reshape(-1).to(torch.int64)
+            w = torch.arange(1, v.numel() + 1, device=v.device, dtype=torch.int64) * 2654435761 % 2**31
+            out += torch.stack([v.sum(), (v * w).sum()])
+    return out
+
+
+def _kv_repeat(torch, K, mesh, say, card, n):
+    """``--phase gloo-repro N``: after phase 10, (g)'s qwen2-0.5b SMWA
+    prefill (every rank alone) and replicated decode (TP over "model")
+    ``n`` times, on the shipped kernel (even runs) and on
+    :func:`photonic_race_library`'s variant without the 64-row CTAs'
+    barrier between weight-slice passes (odd runs).  Per run: the
+    prefill caches' content hashes compared across the four ranks (they
+    run the same program on the same inputs), the decode's K-sharded sums
+    compared across the model ranks (each sum's hash, taken at once) and
+    against the partials' (the hash is linear), and the logits'
+    fingerprint.  Returns the counts by kernel."""
+    import torch.distributed as dist
+
+    from repro_torch.models import registry
+    from repro_torch.models.common import init_params
+    from repro_torch.runtime import collectives
+
+    arch = registry.get("qwen2-0.5b")
+    base = arch.config.pad_for_mesh(2)
+    params = init_params(base, 0, "cuda", defs=arch.param_defs(base))
+    rng = np.random.default_rng(KV_SEQ_PROMPT)
+    prompt = torch.from_numpy(rng.integers(0, base.vocab_size, (1, KV_SEQ_PROMPT))).cuda()
+    steps = torch.from_numpy(rng.integers(0, base.vocab_size, (PLACEMENT_STEPS, 1, 1))).cuda()
+    cfg = dataclasses.replace(base, photonic=smwa_dpu(), photonic_backend="kernel")
+    group, staged, shipped = mesh.get_group("model"), collectives.all_reduce, K.LIBRARY
+    race = photonic_race_library()
+    race.load()
+    hashes = []
+
+    def reduce(t, op=None, group=None):
+        part = _tree_hash(torch, [t])
+        staged(t, op, group=group)
+        hashes.append(torch.cat([part, _tree_hash(torch, [t])]))
+        return t
+
+    res = {k: dict(runs=0, caches_unlike=0, sums_unlike=0, sums_off=0, fingerprints={}) for k in ("shipped", "race")}
+    t0 = time.perf_counter()
+    collectives.all_reduce = reduce
+    try:
+        for it in range(n):
+            label = "race" if it % 2 else "shipped"
+            K.LIBRARY = race if it % 2 else shipped
+            r = res[label]
+            r["runs"] += 1
+            cache = _kv_prefill(torch, arch, cfg, params, prompt)
+            ch = _tree_hash(torch, cache).cpu()
+            every = [torch.empty_like(ch) for _ in range(dist.get_world_size())]
+            collectives.all_gather(every, ch)
+            r["caches_unlike"] += int(any(not torch.equal(every[0], c) for c in every))
+            hashes.clear()
+            logits, _, _, _ = _kv_decode(torch, K, arch, cfg, params, cache, steps, mesh, False)
+            h = torch.stack(hashes).cpu()
+            both = [torch.empty_like(h) for _ in range(2)]
+            collectives.all_gather(both, h, group=group)
+            r["sums_unlike"] += int((both[0][:, 2:] != both[1][:, 2:]).any(dim=1).sum())
+            r["sums_off"] += int((h[:, 2:] != both[0][:, :2] + both[1][:, :2]).any(dim=1).sum())
+            fp = hashlib.sha256(b"".join(x.float().cpu().numpy().tobytes() for x in logits)).hexdigest()[:16]
+            r["fingerprints"][fp] = r["fingerprints"].get(fp, 0) + 1
+            del cache
+    finally:
+        collectives.all_reduce, K.LIBRARY = staged, shipped
+    secs = time.perf_counter() - t0
+    say(f"gloo-repro: (g)'s qwen2-0.5b SMWA prefill and replicated decode {n} times, staged all-reduces; on the "
+        f"shipped kernel {res['shipped']}; on the variant without the slice passes' barrier {res['race']} "
+        f"(caches_unlike: runs whose prefill caches differ across the four ranks; sums_unlike / sums_off: decode "
+        f"sums unlike across the model ranks / unlike their partials'); {secs:.1f} s [{card}]")
+    return dict(res, seconds=secs)
 
 
 # Phase 10 (e): the recurrent, audio and vision families at full width on
@@ -4263,6 +4647,7 @@ def _dropped_down_reduce():
     def dropped(engine, xq, wq, *, group, site=None, **kw):
         if site != "down":
             return inner(engine, xq, wq, group=group, site=site, **kw)
+        kw.pop("scatter", None)  # the down's output is not a sequence block's (xlstm places no seq_sp)
         k_local = int((kw.get("logical_kc") or tuple(wq.shape[-2:]))[0])
         return sharded.shard_local_engine(engine, k_local).int_gemm(
             xq, wq, site=site, shard=dist.get_rank(group), **kw).contiguous()
@@ -4452,9 +4837,11 @@ def placement_families(torch, K, mesh, gates, say, card):
     return res
 
 
-def placement_child():
+def placement_child(repeat=0):
     """``chip_smoke.py --phase placement``: phase 10 (a), (b), (b'), (d),
-    (e), (f) and (g) on four ranks (:func:`placement_rank`).  Gates: each rank's own, the
+    (e), (f), (g) and (h) on four ranks (:func:`placement_rank`); ``--phase
+    gloo-repro N`` the same, then (g)'s replicated SMWA decode ``N`` times
+    on gloo's own path (:func:`_kv_repeat`).  Gates: each rank's own, the
     ranks' logits and losses equal, and (e)'s four ranks' summed peak
     memory within the card's 80 GB.  Returns (ok, result, launches summed
     over the ranks)."""
@@ -4463,7 +4850,8 @@ def placement_child():
     log("  placement: backend gloo, CUDA tensors, four ranks sharing the card as the (data 2, model 2) mesh")
     ckpt_dir = tempfile.mkdtemp(prefix="chip_smoke_placement_ckpt_")
     try:
-        ranks = spawn(placement_rank, 4, backend="gloo", device="cuda", args=(ckpt_dir,), timeout=650)
+        ranks = spawn(placement_rank, 4, backend="gloo", device="cuda", args=(ckpt_dir, repeat),
+                      timeout=650 + 5 * repeat)
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
     ok = all(all(r["gates"].values()) for r in ranks)
@@ -4500,7 +4888,11 @@ def placement_child():
                 + sum(r["dry_train"]["counts"]["photonic_gemm"] for r in ranks),
                 "moe_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks for m in r["moe"].values()),
                 "families_column_parallel": sum(m["counts"]["photonic_gemm"] for r in ranks
-                                                for m in r["families"].values())}
+                                                for m in r["families"].values()),
+                # (g)'s runs without TP: every routed GEMM on the fused kernel, the placed run's wuk / wuv at
+                # their blocks' row origins
+                "row_origin_fused": sum(m["counts"]["photonic_gemm_fused"] for r in ranks
+                                        for k, m in r["kv"].items() if "row origins" in k)}
     launches["photonic_gemm"] += launches["families_column_parallel"] + sum(
         m["replicated_counts"]["photonic_gemm"] for r in ranks for m in r["families"].values())
     return ok and same and fits, {"ranks": ranks, "family_peaks": peaks}, launches
@@ -6122,7 +6514,7 @@ def main() -> int:
         return 2
     if sys.argv[1:2] == ["--phase"] and sys.argv[2:] in (["train"], ["train-families"], ["placement"]):
         return child(sys.argv[2])
-    if sys.argv[1:3] in (["--phase", "tp"], ["--phase", "tp-train"]) and len(sys.argv) == 4:
+    if sys.argv[1:3] in (["--phase", "tp"], ["--phase", "tp-train"], ["--phase", "gloo-repro"]) and len(sys.argv) == 4:
         return child(sys.argv[2], sys.argv[3])
     setup(torch)
     from repro_torch.launch import profile as launch_profile
@@ -6436,8 +6828,11 @@ def main() -> int:
     with Phase("placement"):
         col_rows = []
         all_ok &= column_origin_rows(torch, K, chans, key, col_rows, card)
+        row_rows = []
+        all_ok &= row_origin_rows(torch, K, chans, key, row_rows, card)
         place_ok, placement, place_launches = run_child(card, "placement", timeout=700)
         placement["column_origin_rows"] = col_rows
+        placement["row_origin_rows"] = row_rows
         all_ok &= place_ok
         cells_ok, placement["cells"] = placement_cells(tooling.get("dry_runs", []), registry, card)
         all_ok &= cells_ok
@@ -6678,6 +7073,22 @@ def main() -> int:
             plain_ms=layer_sum(blk, "plain_ms"), bound_ms=bm, bound_by=op_or_bytes(bb),
             library_ms=layer_sum(blk, "library_ms"), case=case,
         ))
+    # The placement phase's row-origin rows: a rank's 2,048 of deepseek-v2-lite's
+    # 4,096 latent rows through attn.wuk at r_origin 2048 and 1000, fused, keyed
+    # SMWA; launches from (g)'s runs without TP, every rank.
+    blk = [x for x in row_rows if x["channel"] == "SMWA" and x["fused"] == 1]
+    bm, bb = bound_of([x["parts"] for x in blk])
+    kernels.append(dict(
+        name="photonic_gemm_fused", route="cuda", source=FUSED_SRC,
+        replaces="src/repro/kernels/photonic_gemm/kernel.py:412", launches=place_launches["row_origin_fused"],
+        max_abs_err=max(x["max_abs_err"] for x in blk), ms=layer_sum(blk, "ms"), plain_ms=layer_sum(blk, "plain_ms"),
+        bound_ms=bm, bound_by=op_or_bytes(bb), library_ms=layer_sum(blk, "library_ms"),
+        case="row origin: a rank's 2,048 of deepseek-v2-lite's 4,096 latent cache rows through attn.wuk (K=512, "
+             "C=2048) at r_origin 2048 and 1000 (off the row tile), f32 x, keyed SMWA, "
+             "PhotonicEngine.int_gemm(rows=, x_word=); library: torch._int_mm of the blocks' int cores; launches "
+             "from phase 10 (g)'s deepseek-v2-lite SMWA expanded decode runs without TP (replicated and placed, "
+             "every routed GEMM fused; the placed run's wuk / wuv at their blocks' row origins), every rank",
+    ))
     out_dir = ROOT / "chiprun_out"
     out_dir.mkdir(exist_ok=True)
     (out_dir / "chip_smoke_rows.json").write_text(json.dumps(

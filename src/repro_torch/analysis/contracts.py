@@ -68,12 +68,22 @@ routed, ``PARAM_REDUCES["row_output"]`` digital).
 axes (``runtime.sharding``): ``"gather"``, the all-gathers of the
 residual's ``seq_sp`` blocks where a block reads the whole sequence (two
 a decoder layer, one a Mamba2 layer, one before the head, one for a
-prefill's last position); ``"split_grad"``, the backward all-gathers of
-the residual's gradient where a block's output was cut to this rank's
-block; ``"kv_max"`` / ``"kv_sum"``, the decode softmax merged over the
-``kv_seq`` blocks of the cache (one ``MAX`` of the scores' row max and
-one SUM of the exp-sums and ``P @ V`` partials side by side, a decode
-attention).
+prefill's last position; of a norm's output in the Megatron entry);
+``"split_grad"``, the backward all-gathers of the residual's gradient
+where a block's output was cut to this rank's block; ``"scatter"``, the
+reduce-scatters of a block's row-parallel output over the sequence (its
+psum or ``row_output`` / ``expert_combine`` / ``vocab`` sum, counted there
+too); ``"gather_grad"``, the backward reduce-scatters of a Megatron
+entry's partial input gradients; ``"norm_grad"``, the SUM of that entry's
+norm-parameter gradients; ``"kv_max"`` / ``"kv_sum"``, the decode softmax
+merged over the ``kv_seq`` blocks of the cache (one ``MAX`` of the
+scores' row max and one SUM of the exp-sums and ``P @ V`` partials side
+by side, a decode attention); ``"kv_word"``, the SUM of an expanded MLA
+decode's latent rows' content word over the blocks (one a noisy ``wuk``
+/ ``wuv`` at a row origin); ``"kv_rows"``, the all-gathers of the latent
+rows where an expanded MLA decode expands them whole.
+:data:`SEQ_WIRE_BYTES` holds the ring wire bytes a rank of each
+(:func:`count_seq`).
 """
 
 from __future__ import annotations
@@ -91,7 +101,9 @@ HEAD_GATHERS = {"heads": 0}
 PARAM_REDUCES = {"column_input": 0, "row_output": 0, "vocab": 0, "weight_words": 0, "weight_scale": 0,
                  "expert_combine": 0, "expert_input": 0}
 RECURRENT_COLLECTIVES = {"xin": 0, "parts": 0, "state_sum": 0, "norm": 0, "split_input": 0}
-SEQ_COLLECTIVES = {"gather": 0, "split_grad": 0, "kv_max": 0, "kv_sum": 0}
+SEQ_COLLECTIVES = {"gather": 0, "split_grad": 0, "scatter": 0, "gather_grad": 0, "norm_grad": 0, "kv_max": 0,
+                   "kv_sum": 0, "kv_word": 0, "kv_rows": 0}
+SEQ_WIRE_BYTES = dict.fromkeys(SEQ_COLLECTIVES, 0.0)
 
 
 def reset_all_reduces() -> None:
@@ -99,15 +111,26 @@ def reset_all_reduces() -> None:
     :data:`SCALE_REDUCTIONS`, :data:`HEAD_GATHERS`, :data:`PARAM_REDUCES`,
     :data:`RECURRENT_COLLECTIVES` and :data:`SEQ_COLLECTIVES`."""
     for counts in (ALL_REDUCES, ROW_GATHERS, SCALE_REDUCTIONS, HEAD_GATHERS, PARAM_REDUCES, RECURRENT_COLLECTIVES,
-                   SEQ_COLLECTIVES):
+                   SEQ_COLLECTIVES, SEQ_WIRE_BYTES):
         for name in counts:
             counts[name] = 0
 
 
+def count_seq(what: str, kind: str, out_bytes: int, group: int) -> None:
+    """Add one to ``SEQ_COLLECTIVES[what]`` and the collective's ring wire
+    bytes a rank (``hlo_analysis``'s formula: ``kind`` "all-gather",
+    "reduce-scatter" or "all-reduce", its output bytes, its group's size)
+    to ``SEQ_WIRE_BYTES[what]``."""
+    SEQ_COLLECTIVES[what] += 1
+    SEQ_WIRE_BYTES[what] += hlo_analysis._wire_bytes(kind, out_bytes, group)
+
+
 def count_collective(what: str) -> None:
-    """Add one to ``what``'s count: a key of :data:`PARAM_REDUCES` or of
-    :data:`RECURRENT_COLLECTIVES`."""
-    (PARAM_REDUCES if what in PARAM_REDUCES else RECURRENT_COLLECTIVES)[what] += 1
+    """Add one to ``what``'s count: a key of :data:`PARAM_REDUCES`, of
+    :data:`SEQ_COLLECTIVES` or of :data:`RECURRENT_COLLECTIVES`."""
+    counts = PARAM_REDUCES if what in PARAM_REDUCES else SEQ_COLLECTIVES if what in SEQ_COLLECTIVES else (
+        RECURRENT_COLLECTIVES)
+    counts[what] += 1
 
 
 def min_weight_size(defs: Any) -> int:

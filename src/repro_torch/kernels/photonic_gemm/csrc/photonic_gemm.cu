@@ -34,6 +34,12 @@
 // the whole (any c_origin), in logical tile (c_origin + c) / tile_c, so a
 // CTA's 128 columns may straddle two logical tiles and it derives both
 // tiles' seeds; w_scale and bias stay indexed by the launch's own columns.
+// Likewise a launch may be a block of a taller operand's rows: row r is
+// then row r_origin + r of the whole (any r_origin), in logical row tile
+// (r_origin + r) / tile_r at (r_origin + r) % tile_r, where tile_r is the
+// whole operand's; a CTA's rows may then straddle two logical row tiles,
+// and it derives the seeds of every (row tile, column tile) pair it meets.
+// At r_origin = 0 a CTA's rows lie in one row tile (BN divides tile_r).
 //
 // Bound on this card: at decode (R = 4 live rows) the call is bound by bytes
 // (the int8 weight, read once); under a noisy channel by the Box-Muller
@@ -125,6 +131,7 @@ struct Params {
   int n_split;       // CTAs per output tile along K
   int npad;          // slice path: chunk padded to the mma depth
   int c_origin;      // the launch's column 0 is column c_origin of the whole weight (noise ids)
+  int r_origin;      // the launch's row 0 is row r_origin of the whole operand (noise ids)
 };
 
 __device__ __forceinline__ uint32_t mix32(uint32_t x) {
@@ -408,8 +415,7 @@ __device__ void ideal_path(const Params& p, unsigned char* smem, int row0, int c
 // on the tensor cores, then the float chain, noise and ADC per element.
 // Returns the [BN][kAccStride] tile of the CTA's sums in shared memory.
 template <int BN, int WN>
-__device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int col0, int live, int u0, int u1,
-                           uint32_t i_tile) {
+__device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int col0, int live, int u0, int u1) {
   using S = Shape<BN, WN>;
   constexpr bool kCompact = BN == 8;  // decode: half the fragment rows are dead
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
@@ -438,6 +444,12 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
   const uint32_t gc0 = (uint32_t)(p.c_origin + col0);
   const uint32_t j_lo = gc0 / (uint32_t)p.tile_c;
   const int c_cut = (int)((j_lo + 1u) * (uint32_t)p.tile_c - gc0);
+  // The CTA's rows in the whole operand: [gr0, gr0 + BN), logical row tile
+  // i_lo up to local row r_cut, i_lo + 1 from there (r_cut >= BN: one tile).
+  const uint32_t gr0 = (uint32_t)(p.r_origin + row0);
+  const uint32_t i_lo = gr0 / (uint32_t)p.tile_r;
+  const int r_cut = (int)((i_lo + 1u) * (uint32_t)p.tile_r - gr0);
+  const bool r_two = r_cut < BN, c_two = c_cut < kTileC;
 
   auto load = [&](int u, int stage) {
     const uint32_t dst = raw0 + stage * n * kTileC;
@@ -525,12 +537,15 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
         const int pass = si * ns + ti;
         const unsigned char* xs = xsl + si * BN * sxs;
         const bool noisy = p.sigma > 0.0f && (p.valid_chunks < 0 || u < p.valid_chunks);
-        auto chunk_seed = [&](uint32_t j_tile) -> uint32_t {
+        auto chunk_seed = [&](uint32_t i_tile, uint32_t j_tile) -> uint32_t {
           return fold1(fold1(fold1(fold1(fold1(seed, i_tile, 0u), j_tile, 1u), (uint32_t)kk, 2u), (uint32_t)pass, 0u),
                        (uint32_t)gl, 1u);
         };
-        const uint32_t base_lo = noisy ? chunk_seed(j_lo) : 0u;
-        const uint32_t base_hi = noisy && c_cut < kTileC ? chunk_seed(j_lo + 1u) : base_lo;
+        // The seeds of the (row tile, column tile) pairs the CTA meets.
+        const uint32_t b00 = noisy ? chunk_seed(i_lo, j_lo) : 0u;
+        const uint32_t b01 = noisy && c_two ? chunk_seed(i_lo, j_lo + 1u) : b00;
+        const uint32_t b10 = noisy && r_two ? chunk_seed(i_lo + 1u, j_lo) : b00;
+        const uint32_t b11 = noisy && r_two && c_two ? chunk_seed(i_lo + 1u, j_lo + 1u) : (r_two ? b10 : b01);
         const int shift = p.slice_bits * (si + ti);
         // psum -> float chain (crosstalk, filter, noise) -> rint -> ADC -> shifted into acc.
         auto chain = [&](int psum, int xdot, int row, int col) -> int {
@@ -543,8 +558,10 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
             }
             if (p.use_filter) a = __fmul_rn(a, p.filter_scale);
             if (noisy) {
-              const uint32_t ctr = (uint32_t)((row0 + row) % p.tile_r) * (uint32_t)p.tile_c + (gc0 + (uint32_t)col) % (uint32_t)p.tile_c;
-              a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(col < c_cut ? base_lo : base_hi, ctr)));
+              const uint32_t ctr = ((gr0 + (uint32_t)row) % (uint32_t)p.tile_r) * (uint32_t)p.tile_c +
+                                   (gc0 + (uint32_t)col) % (uint32_t)p.tile_c;
+              const uint32_t base = row < r_cut ? (col < c_cut ? b00 : b01) : (col < c_cut ? b10 : b11);
+              a = __fadd_rn(a, __fmul_rn(p.sigma, gaussian(base, ctr)));
             }
             psum = (int)rintf(a);
           }
@@ -646,6 +663,9 @@ __device__ int* slice_path(const Params& p, unsigned char* smem, int row0, int c
           }
         }
       }
+      // Every warp is done reading slice ti's weight tiles before any writes
+      // slice ti + 1's over them (the compact path's per-pass barrier does this).
+      if constexpr (!kCompact) __syncthreads();
     }
   }
   cp_async_wait<0>();
@@ -687,8 +707,7 @@ __global__ void __launch_bounds__(Shape<BN, WN>::kThreads) photonic_gemm_kernel(
     ideal_path<BN, WN>(p, smem, row0, col0, live, u0, u1);
     acc = reinterpret_cast<const int*>(smem);
   } else {
-    // BN divides tile_r, so the CTA's rows lie in one logical row tile.
-    acc = slice_path<BN, WN>(p, smem, row0, col0, live, u0, u1, (uint32_t)(row0 / p.tile_r));
+    acc = slice_path<BN, WN>(p, smem, row0, col0, live, u0, u1);
   }
   __syncthreads();
   finish<BN, WN>(p, acc, tile, row0, col0, live);
@@ -717,14 +736,15 @@ int launch(const Params& p, int row_tiles, int bytes, cudaStream_t stream) {
 // they may be null when n_split == 1.  Returns 0 on a clean launch, a
 // negative code for arguments the kernel does not take, or the value of
 // cudaGetLastError() after the launch.  `c_origin` (>= 0) is the column of
-// the whole weight that the launch's column 0 is, for the noise ids.
+// the whole weight that the launch's column 0 is, and `r_origin` (>= 0) the
+// row of the whole operand that its row 0 is, for the noise ids.
 extern "C" int photonic_gemm_launch(
     const void* x, int x_f32, const void* w, const void* x_scale, const void* w_scale,
     const void* bias, const void* seed, void* out, int fused,
     int R, int K, int C, int live_rows, int tile_r, int tile_c, int tile_k, int n_chunk,
     int slice_bits, int num_slices, int operand_bits, int adc_bits,
     float sigma, int use_filter, float filter_scale, float eps_im, float eps_cw,
-    int valid_chunks, int activation, int bn, int ideal, int n_split, int c_origin,
+    int valid_chunks, int activation, int bn, int ideal, int n_split, int c_origin, int r_origin,
     void* ws_acc, void* tickets, void* stream) {
   if (tile_c < kTileC || tile_c % kTileC != 0 || C % tile_c != 0) return -1;
   if (tile_r % 8 != 0 || R % tile_r != 0 || live_rows < 1 || live_rows > R) return -2;
@@ -741,6 +761,7 @@ extern "C" int photonic_gemm_launch(
   if (n_split < 1 || n_split > n_units) return -10;
   if (n_split > 1 && (ws_acc == nullptr || tickets == nullptr)) return -11;
   if (c_origin < 0 || c_origin > 0x7fffffff - C) return -13;
+  if (r_origin < 0 || r_origin > 0x7fffffff - R) return -14;
   Params p;
   p.x = x;
   p.x_f32 = x_f32;
@@ -777,6 +798,7 @@ extern "C" int photonic_gemm_launch(
   p.n_split = n_split;
   p.npad = (n_chunk + 31) & ~31;
   p.c_origin = c_origin;
+  p.r_origin = r_origin;
   const int row_tiles = (live_rows + bn - 1) / bn;
   int bytes;
   if (ideal) {

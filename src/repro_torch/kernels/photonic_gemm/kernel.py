@@ -27,7 +27,9 @@ source note says what bounds it on the card.
   Pallas interpret mode does for the reference, vectorized over tiles.
   A ``c_origin`` makes the operand the columns from there of a wider
   weight: column ``c`` takes the ids of column ``c_origin + c`` of the
-  whole (a rank's column block under a placement).
+  whole (a rank's column block under a placement); an ``r_origin`` makes
+  the activation the rows from there of a taller one, whose ``tile_r`` the
+  call takes (a rank's block of a placed cache's rows).
 * :data:`LIBRARY` builds the CUDA source with ``nvcc`` at first use into
   ``build/repro_torch/`` (keyed by a hash of the source and flags) and
   binds its plain C entry point with ``ctypes``
@@ -116,12 +118,15 @@ def _accumulate_twin(
     tile_c: int,
     tile_k: int,
     col0: int = 0,
+    row0: int = 0,
 ) -> torch.Tensor:
     """The reference ``_accumulate`` summed over the whole K grid axis, for
     every logical tile at once; int64 ``(R, C)``.  ``w`` may be the columns
     from ``col0`` (any column) of a wider weight: the noise stream ids are
     those of the whole (column ``c`` of ``w`` is column ``col0 + c`` there,
-    in logical tile ``(col0 + c) // tile_c`` at ``(col0 + c) % tile_c``).
+    in logical tile ``(col0 + c) // tile_c`` at ``(col0 + c) % tile_c``);
+    ``x`` may be the rows from ``row0`` (any row) of a taller operand tiled
+    by ``tile_r``, row ``r`` then taking the ids of row ``row0 + r``.
     A call whose per-chunk psum array would pass ``_TWIN_BLOCK`` elements
     runs in column blocks (columns are independent, so the values are the
     same)."""
@@ -140,18 +145,18 @@ def _accumulate_twin(
                   noise_sigma=noise_sigma, filter_alpha=filter_alpha, intermod_eps=intermod_eps,
                   crossweight_eps=crossweight_eps, valid_chunks=valid_chunks, tile_r=tile_r,
                   tile_c=tile_c, tile_k=tile_k)
-        return torch.cat([_accumulate_twin(x, w[:, c0 : c0 + cb], seed, col0=col0 + c0, **kw)
+        return torch.cat([_accumulate_twin(x, w[:, c0 : c0 + cb], seed, col0=col0 + c0, row0=row0, **kw)
                           for c0 in range(0, c, cb)], dim=1)
     lim = 2 ** (adc_bits - 1) - 1 if adc_bits is not None else None
     x_sl = slice_decompose(x, slice_bits, num_slices)
     w_sl = slice_decompose(w, slice_bits, num_slices)
 
     if noise_sigma > 0.0:
-        rows = torch.arange(r, device=dev)
+        rows = row0 + torch.arange(r, device=dev)  # the rows' ids in the whole operand
         g = torch.arange(g_tot, device=dev)
         gcols = col0 + torch.arange(c, device=dev)  # the columns' ids in the whole weight
-        j0 = col0 // tile_c
-        ii = torch.arange(r // tile_r, device=dev)[:, None, None]
+        i0, j0 = row0 // tile_r, col0 // tile_c
+        ii = torch.arange(i0, (row0 + r - 1) // tile_r + 1, device=dev)[:, None, None]
         jj = torch.arange(j0, (col0 + c - 1) // tile_c + 1, device=dev)[None, :, None]
         kk = torch.arange(k // tile_k, device=dev)[None, None, :]
         tile_seed = fold_seed(seed, ii, jj, kk)  # (I, J, KK)
@@ -182,7 +187,7 @@ def _accumulate_twin(
                     a = a * f32(1.0 - filter_alpha, dev)
                 if noise_sigma > 0.0:
                     base = fold_seed(chunk_tile, si * num_slices + t, g_local)
-                    base = base.index_select(1, rows // tile_r)  # (G, R, J)
+                    base = base.index_select(1, rows // tile_r - i0)  # (G, R, J)
                     base = base.index_select(2, gcols // tile_c - j0)  # (G, R, C)
                     z = gaussian_from_ctr(base, ctr)
                     if live is not None:
@@ -223,6 +228,7 @@ def photonic_gemm_twin(
     tile_c: int = 128,
     tile_k: int = 512,
     c_origin: int = 0,
+    r_origin: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`photonic_gemm`; int32 ``(R, C)``.
     Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``."""
@@ -236,7 +242,7 @@ def photonic_gemm_twin(
         n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
         filter_alpha=filter_alpha, intermod_eps=intermod_eps,
         crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
-        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin, row0=r_origin,
     )
     return acc.to(torch.int32)
 
@@ -264,6 +270,7 @@ def photonic_gemm_fused_twin(
     tile_c: int = 128,
     tile_k: int = 512,
     c_origin: int = 0,
+    r_origin: int = 0,
 ) -> torch.Tensor:
     """Plain PyTorch version of :func:`photonic_gemm_fused`; f32 ``(R, C)``.
     Reference: ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``."""
@@ -282,7 +289,7 @@ def photonic_gemm_fused_twin(
         n_chunk=n_chunk, adc_bits=adc_bits, noise_sigma=noise_sigma,
         filter_alpha=filter_alpha, intermod_eps=intermod_eps,
         crossweight_eps=crossweight_eps, valid_chunks=valid_chunks,
-        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin,
+        tile_r=tile_r, tile_c=tile_c, tile_k=tile_k, col0=c_origin, row0=r_origin,
     ).to(torch.int32)
     spec = EpilogueSpec(bias=bias is not None, activation=activation)
     return apply_epilogue(acc, xs, w_scale.reshape(-1), bias, spec)
@@ -408,7 +415,7 @@ def _bind(lib) -> None:
         i, i, i, i,  # slice_bits, num_slices, operand_bits, adc_bits
         f, i, f, f, f,  # sigma, use_filter, filter_scale, eps_im, eps_cw
         i, i, i, i, i,  # valid_chunks, activation, bn, ideal, n_split
-        i,  # c_origin
+        i, i,  # c_origin, r_origin
         vp, vp, vp,  # ws_acc, tickets, stream
     ]
     fn.restype = ctypes.c_int
@@ -456,7 +463,7 @@ def _require(t: torch.Tensor, name: str, dtype, shape, device) -> None:
 def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, operand_bits,
             activation, slice_bits, num_slices, n_chunk, adc_bits, noise_sigma,
             filter_alpha, intermod_eps, crossweight_eps, valid_chunks, tile_r,
-            tile_c, tile_k, c_origin):
+            tile_c, tile_k, c_origin, r_origin):
     r, k = x.shape
     c = wq.shape[1]
     rows = r if rows is None else int(rows)
@@ -470,6 +477,8 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
         raise ValueError(f"rows={rows} live rows outside [1, {r}]")
     if not 0 <= c_origin < 2**31 - c:
         raise ValueError(f"c_origin={c_origin} outside [0, 2^31 - {c})")
+    if not 0 <= r_origin < 2**31 - r:
+        raise ValueError(f"r_origin={r_origin} outside [0, 2^31 - {r})")
     for t, nm in ((x, "x"), (wq, "wq"), (out, "out")):
         if t.data_ptr() % 16:
             raise ValueError(f"{nm} must be 16-byte aligned")
@@ -496,7 +505,8 @@ def _launch(name, fused, x, wq, x_scale, w_scale, bias, seed, out, rows, *, oper
         float(noise_sigma), int(filter_alpha > 0.0), float(1.0 - filter_alpha),
         float(intermod_eps), float(crossweight_eps),
         -1 if valid_chunks is None else valid_chunks, ACTIVATION_CODES[activation],
-        plan.bn, int(plan.ideal), plan.n_split, int(c_origin), _data_ptr(ws_acc), _data_ptr(tickets), stream,
+        plan.bn, int(plan.ideal), plan.n_split, int(c_origin), int(r_origin), _data_ptr(ws_acc), _data_ptr(tickets),
+        stream,
     )
     if rc != 0:
         raise RuntimeError(f"{name} launch failed with code {rc}")
@@ -525,18 +535,22 @@ def photonic_gemm(
     tile_k: int = 512,
     rows: Optional[int] = None,
     c_origin: int = 0,
+    r_origin: int = 0,
 ) -> torch.Tensor:
     """Integer photonic GEMM, int8 x int8 -> int32 ``(R, C)``.  Reference:
     ``repro.kernels.photonic_gemm.kernel:photonic_gemm_pallas``.  ``rows``:
     the live rows the CUDA kernel computes (default all).  ``c_origin``:
     ``wq`` is the columns from ``c_origin`` (any column) of a wider weight,
-    whose noise-stream ids its columns keep (a rank's column block)."""
+    whose noise-stream ids its columns keep (a rank's column block);
+    ``r_origin``: ``xq`` is the rows from ``r_origin`` (any row) of a
+    taller operand, whose ``tile_r`` this call takes and whose noise-stream
+    ids its rows keep (a rank's block of a placed cache's rows)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
         intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
         valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
-        c_origin=c_origin,
+        c_origin=c_origin, r_origin=r_origin,
     )
     if xq.device.type == "cpu":
         return photonic_gemm_twin(xq, wq, seed, **stages)
@@ -578,19 +592,20 @@ def photonic_gemm_fused(
     tile_k: int = 512,
     rows: Optional[int] = None,
     c_origin: int = 0,
+    r_origin: int = 0,
 ) -> torch.Tensor:
     """The fused hot path, [quantize] -> integer GEMM -> epilogue, f32
     ``(R, C)``.  Reference:
     ``repro.kernels.photonic_gemm.kernel:photonic_gemm_fused_pallas``.
     ``rows``: the live rows the CUDA kernel computes (default all);
-    ``c_origin`` as in :func:`photonic_gemm` (``w_scale`` and ``bias`` are
-    ``wq``'s own columns)."""
+    ``c_origin`` and ``r_origin`` as in :func:`photonic_gemm` (``w_scale``
+    and ``bias`` are ``wq``'s own columns)."""
     stages = dict(
         slice_bits=slice_bits, num_slices=num_slices, n_chunk=n_chunk,
         adc_bits=adc_bits, noise_sigma=noise_sigma, filter_alpha=filter_alpha,
         intermod_eps=intermod_eps, crossweight_eps=crossweight_eps,
         valid_chunks=valid_chunks, tile_r=tile_r, tile_c=tile_c, tile_k=tile_k,
-        c_origin=c_origin,
+        c_origin=c_origin, r_origin=r_origin,
     )
     if x.device.type == "cpu":
         return photonic_gemm_fused_twin(

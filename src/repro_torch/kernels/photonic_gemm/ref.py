@@ -40,11 +40,14 @@ def photonic_gemm_ref(
     channel: Optional[ChannelModel] = None,
     seed: Optional[UInt] = None,
     columns: Optional[Tuple[int, int]] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """Reference int32 GEMM through the DPU datapath.  Reference:
     ``repro.kernels.photonic_gemm.ref:photonic_gemm_ref``.  ``columns =
     (origin, total)``: ``wq`` is the columns from ``origin`` of a
-    ``total``-column weight, whose noise stream its columns keep."""
+    ``total``-column weight, whose noise stream its columns keep; ``rows =
+    (origin, total)`` likewise makes ``xq`` a block of a ``total``-row
+    operand's rows."""
     r, k = xq.shape
     _, c = wq.shape
     analog = channel is not None and channel.analog
@@ -70,7 +73,7 @@ def photonic_gemm_ref(
             shift = slice_bits * (si + ti)
             if analog:
                 pass_seed = fold_seed(seed if seed is not None else 0, si * num_slices + ti)
-                psum = analog_pass_psums(xs, ws, channel, pass_seed, columns)
+                psum = analog_pass_psums(xs, ws, channel, pass_seed, columns, rows)
                 out = out + (psum.to(torch.int64).sum(dim=1) << shift)
             else:
                 out = out + (_digital_pass(xs, ws, adc_bits) << shift)

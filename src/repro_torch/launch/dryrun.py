@@ -64,8 +64,11 @@ the rank's block of the sequence over ``model`` (``seq_sp``; whisper's
 cannot take "data" (one row at ``long_500k``) every cache leaf is the
 rank's block of ``max_seq`` positions over "data" (``kv_seq``), the
 decode softmax merged across the blocks; the cell's ``seq_collectives``
-counts their gathers and merges (``contracts.SEQ_COLLECTIVES``), and the
-collective summary their wire bytes.  Any dimension the reference places
+counts their gathers, reduce-scatters (a block's row-parallel output,
+and in the Megatron entry its input gradient) and merges
+(``contracts.SEQ_COLLECTIVES``), ``seq_wire_bytes`` their ring wire
+bytes a rank (``contracts.SEQ_WIRE_BYTES``), and the collective summary
+every collective's by kind.  Any dimension the reference places
 that the port does not would stay whole: the report lists each such leaf
 under ``replicated_by_port`` (empty in every cell the port runs) with the
 bytes the rank holds and the reference's, and gives ``param_bytes`` (the
@@ -431,6 +434,7 @@ def run_cell(
                     contracts.reset_all_reduces()
                     res = account(step, args)
                     res["seq_collectives"] = dict(contracts.SEQ_COLLECTIVES)
+                    res["seq_wire_bytes"] = dict(contracts.SEQ_WIRE_BYTES)
                     fallbacks = shd.fallback_log()
                 res["param_bytes"] = tree_bytes(args[0])
                 if shape.kind == "train":

@@ -52,6 +52,7 @@ C10D_KINDS = {
     "allgather_": "all-gather",
     "_allgather_base_": "all-gather",
     "_reduce_scatter_base_": "reduce-scatter",
+    "reduce_scatter_": "reduce-scatter",
     "send": "collective-permute",
     "recv_": "recv",
 }

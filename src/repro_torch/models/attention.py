@@ -43,8 +43,9 @@ partials in one SUM all-reduce, and the output is normalized once.  The
 sums run in another order than the replicated softmax's, so the output
 is within rounding of it, not bitwise.  An expanded MLA decode routes
 this rank's latent rows through ``wuk`` / ``wuv`` (``sharding.rows_over``:
-their activation scale a ``MAX`` over the blocks); whisper's cross cache
-is a block of the encoder frames, merged the same way.
+their activation scale a ``MAX`` over the blocks) in the form of the
+replicated program (:func:`mla_decode`); whisper's cross cache is a block
+of the encoder frames, merged the same way.
 """
 
 from __future__ import annotations
@@ -225,6 +226,16 @@ def _q_columns(cfg: ModelConfig):
 
 def _kv_columns(cfg: ModelConfig):
     return (("kv_heads", cfg.num_kv_heads * cfg.hd),)
+
+
+def columns_placed(params, cfg: ModelConfig) -> bool:
+    """Whether every GEMM that reads a GQA block's input is column-parallel
+    on this rank's columns of placed weights (``wq`` / ``wk`` / ``wv``, or
+    the fused ``wqkv``; heads and KV heads are placed together): the
+    Megatron entry of ``sharding.seq_block`` applies."""
+    if "wqkv" in params:
+        return shd.placed_columns(params["wqkv"]["w"], _q_columns(cfg) + _kv_columns(cfg) * 2)
+    return shd.placed_columns(params["wq"]["w"], _q_columns(cfg))
 
 
 def _qkv_proj(params, x, cfg: ModelConfig, *, layer=None):
@@ -650,34 +661,73 @@ def mla_decode_absorbed(params, x, cache, pos, cfg: ModelConfig, layer=None):
     return out, {"c_kv": c, "k_rope": kr}
 
 
+def _expands_whole(cfg: ModelConfig, rows: int) -> bool:
+    """Whether an expanded MLA decode over a ``kv_seq``-placed cache of
+    ``rows`` batch rows expands the gathered cache (the replicated
+    program's rows) and keeps its block of positions, where this rank's
+    block of the latent rows cannot draw the replicated program's noise by
+    itself (:func:`mla_decode`).  Only a noisy channel's ids depend on
+    where a row lies."""
+    from repro_torch.models.common import engine_from_model_config
+    from repro_torch.photonic import sharded
+
+    eng = engine_from_model_config(cfg)
+    if eng is None or not (eng.routes("attn.wuk") or eng.routes("attn.wuv")) or not eng.noisy:
+        return False
+    if eng.backend == "exact":
+        return False
+    if eng.slicing is not None or block("batch") is not None:
+        return True
+    tp = sharded.current_tp()
+    if tp is None or tp.size() <= 1:
+        return False
+    if tp.manual:
+        return True
+    data = tuple(a for a in tp.mesh.mesh_dim_names if a != tp.axis)
+    part = block("kv_seq").part
+    return rows != 1 or (part if isinstance(part, tuple) else (part,)) != data
+
+
 def mla_decode(params, x, cache, pos, cfg: ModelConfig, layer=None):
     """MLA decode against the compressed cache.  Without ``mla_absorb`` the
     up-projections re-expand every row of the padded cache (``B *
     max_seq`` rows through ``wuk`` and ``wuv``, padding included, so the
     noise streams follow the reference's tiling).  Where ``"kv_seq"`` is
     placed a rank expands its block of the rows, their activation scale a
-    ``MAX`` over the blocks (``sharding.rows_over``); on a noisy channel
-    the rows' noise ids would need the block's global row origin in the
-    kernel, which it does not take yet (ROADMAP Queue 1 item 3b), and the
-    step raises.  Reference: ``repro.models.attention:mla_decode``."""
+    ``MAX`` over the blocks (``sharding.rows_over``), in the form of the
+    program it replaces:
+
+    * without a tensor-parallel scope the replicated program runs the rows
+      whole: each batch row's block runs at its global row origin with the
+      whole operand's content word (``engine._stream_gemm``,
+      ``sharding.row_segments`` / ``rows_word``), one launch a batch row;
+    * under ``tensor_parallel(mesh)`` the replicated program splits the
+      ``B * max_seq`` rows over the mesh's other axes itself (the
+      reference's ``_row_sharding``), each block drawing with its own tiling
+      and content word: at one row over those axes (``long_500k``) this
+      rank's block is that block, and it runs as it is;
+    * elsewhere on a noisy channel (a TP row block that is not this rank's
+      positions, manual TP, a bit-sliced engine, placed batch rows: see
+      :func:`_expands_whole`) the rank gathers the latent rows over
+      ``kv_seq`` (two all-gathers, ``SEQ_COLLECTIVES["kv_rows"]``), expands
+      them as the replicated program does and keeps its positions.
+
+    Reference: ``repro.models.attention:mla_decode``."""
     if cfg.mla_absorb:
         return mla_decode_absorbed(params, x, cache, pos, cfg, layer)
     b = x.shape[0]
     pos = int(pos)
-    if block("kv_seq") is not None:
-        from repro_torch.models.common import engine_from_model_config
-
-        eng = engine_from_model_config(cfg)
-        if eng is not None and eng.routes("attn.wuk") and eng.dpu.effective_channel() is not None:
-            raise NotImplementedError(
-                "an expanded MLA decode over a kv_seq-placed cache on a noisy channel needs the cache block's row "
-                "origin in the photonic kernel's noise ids (ROADMAP Queue 1 item 3b); use mla_absorb=True, an "
-                "ideal channel, or a cache held whole")
     q_nope, q_rope, c, kr = _mla_cache_write(params, x, cache, pos, cfg, layer)
     c = with_logical(c, ("batch", "kv_seq", None))
     kr = with_logical(kr, ("batch", "kv_seq", None))
-    with shd.rows_over("kv_seq"):
-        k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
+    kv = block("kv_seq")
+    if kv is not None and _expands_whole(cfg, b):
+        cw, krw = (shd.gather_block(t, "kv_seq", 1, "kv_rows") for t in (c, kr))
+        k, v = (dataclasses.replace(kv, size=t.shape[1]).take(t, 1)
+                for t in _mla_expand_kv(params, cw, krw[:, :, None, :], cfg, layer))
+    else:
+        with shd.rows_over("kv_seq"):
+            k, v = _mla_expand_kv(params, c, kr[:, :, None, :], cfg, layer)
     q = torch.cat([q_nope, q_rope], dim=-1)
     qf = q.to(torch.float32) * (cfg.qk_nope_head_dim + cfg.qk_rope_head_dim) ** -0.5
     s = torch.einsum("bqhd,bshd->bhqs", qf, k.to(torch.float32))

@@ -526,7 +526,8 @@ def dense(
     weight gathered first) and keeps this rank's."""
     from repro_torch.photonic import Epilogue, EpilogueSpec
     from repro_torch.photonic import sharded as tp
-    from repro_torch.runtime.sharding import block, column_layout, gather_block, gather_rows, reduce_from_model
+    from repro_torch.runtime.sharding import (block, column_layout, gather_block, gather_rows, reduce_from_model,
+                                              reduce_rows, whole_input)
 
     if epilogue is not None:
         if activation is not None:
@@ -556,23 +557,28 @@ def dense(
         w = params["w"]
         if isinstance(w, torch.Tensor) and w.shape[-1] != layout.total:
             params = {k: layout.gather(v) for k, v in params.items()}
-        return layout.take(dense(params, x, cfg, epilogue=epilogue, activation=activation, **kw))
+        return layout.take(dense(params, whole_input(x), cfg, epilogue=epilogue, activation=activation, **kw))
     kb = None if k_local is None else block(k_local)
     if kb is not None:
         y = tp.maybe_tp_matmul(
             eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing, k_block=kb,
+            block_output=True,
         )
         if y is not None:
             return y
         w = params["w"]
         if isinstance(w, torch.Tensor) and w.shape[-2] == x.shape[-1]:  # the weight's K rows (placed)
             if "w_scale" not in params and (eng is None or not eng.routes(site)):
-                # digital: the partial products summed over the K axes, then the epilogue
-                return _digital_epilogue(reduce_from_model(x @ w.to(x.dtype), kb.part), ep)
+                # digital: the partial products summed over the K axes, then the epilogue (a bias, whose
+                # gradient must sum every position, on the whole sum)
+                y = x @ w.to(x.dtype)
+                return _digital_epilogue(reduce_rows(y, kb.part) if ep.bias is None else reduce_from_model(y, kb.part),
+                                         ep)
             params = {**params, "w": gather_rows(w, kb)}
         x = gather_block(x, k_local, x.dim() - 1)
     y = tp.maybe_tp_matmul(
         eng, params, x, cfg, site=site, fold=layer, prng_key=prng_key, epilogue=ep, slicing=slicing,
+        block_output=k_local is not None,
     )
     if y is not None:
         return y
@@ -685,13 +691,13 @@ def embed(params, ids: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
     b = _vocab_rows(table)
     if b is None:
         return table.to(cfg.compute_dtype)[ids]
-    from repro_torch.runtime.sharding import reduce_from_model
+    from repro_torch.runtime.sharding import reduce_rows
 
     local = ids - b.index * b.local
     mine = (local >= 0) & (local < b.local)
     rows = table.to(cfg.compute_dtype)[torch.where(mine, local, torch.zeros_like(local))].to(torch.float32)
     rows = torch.where(mine[..., None], rows, torch.zeros((), dtype=rows.dtype, device=rows.device))
-    return reduce_from_model(rows, b.part, "vocab").to(cfg.compute_dtype)
+    return reduce_rows(rows, b.part, "vocab").to(cfg.compute_dtype)
 
 
 def unembed(params, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:

@@ -24,7 +24,8 @@ import torch.nn.functional as F
 
 from repro_torch.models.common import P, ModelConfig, dense, qdense_def, with_logical
 from repro_torch.photonic import EpilogueSpec
-from repro_torch.runtime.sharding import block, copy_to_model, mean_over_rows, reduce_from_model
+from repro_torch.runtime import sharding as shd
+from repro_torch.runtime.sharding import block, copy_to_model, mean_over_rows, reduce_rows
 
 
 def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
@@ -35,6 +36,17 @@ def mlp_def(cfg: ModelConfig, d_ff: int | None = None) -> Dict[str, Any]:
         "wi": qdense_def(cfg, d, 2 * f if swiglu else f, (None, "d_ff"), parts=(f, f) if swiglu else ()),
         "wo": qdense_def(cfg, f, d, ("d_ff", None)),
     }
+
+
+def columns_placed(params, cfg: ModelConfig) -> bool:
+    """Whether :func:`mlp`'s ``wi``, the one GEMM that reads its input, is
+    column-parallel on this rank's columns of a placed weight (the
+    Megatron entry of ``sharding.seq_block``)."""
+    placed, wo = block("d_ff"), params["wo"]["w"]
+    if placed is None or not isinstance(wo, torch.Tensor):
+        return False
+    cols = (("d_ff", wo.shape[-2] * placed.count),) * (2 if cfg.ffn_act == "swiglu" else 1)
+    return shd.placed_columns(params["wi"]["w"], cols)
 
 
 def mlp(params, x: torch.Tensor, cfg: ModelConfig, layer=None, site="ffn") -> torch.Tensor:
@@ -191,9 +203,12 @@ def moe(params, x: torch.Tensor, cfg: ModelConfig, layer=None) -> Tuple[torch.Te
         out = torch.einsum("btec,becd->btd", combine.to(x.dtype), out_e)
     else:
         part = torch.einsum("btec,becd->btd", combine.to(x.dtype).to(torch.float32), out_e.to(torch.float32))
-        out = reduce_from_model(part, eb.part, "expert_combine").to(x.dtype)
+        out = reduce_rows(part, eb.part, "expert_combine").to(x.dtype)
 
     if shared is not None:
+        # inside a block's Megatron form either sum may be this rank's positions alone: cut the other
+        out, shared = (shd.seq_scatter(t, None) if t.shape[1] > min(out.shape[1], shared.shape[1]) else t
+                       for t in (out, shared))
         out = out + shared
 
     # Switch-style load-balancing loss: E * sum_e f_e * p_e.  With placed

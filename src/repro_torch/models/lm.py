@@ -35,17 +35,26 @@ Under a placement of ``"seq_sp"`` over ``model`` (prefill and training)
 the residual stream between blocks, and so what remat saves, is this
 rank's block of the sequence, as the reference's ``("batch", "seq_sp",
 None)`` constraints hold it: the embedding's output is cut to the block
-(``sharding.seq_scatter``), each block gathers it over the sequence
+(``sharding.seq_scatter``; a vocab-parallel lookup's sum reduce-scattered
+over the sequence), and each block runs in the Megatron form
+(``sharding.seq_block``): it gathers the residual over the sequence
 before its norm, for the attention / MLA / MoE / MLP that read it whole
-(``sharding.seq_gather``, of the bf16 residual: their GEMMs keep the
-replicated program's operands, so their scales and noise streams are
-unchanged), and the block's output (after the row-parallel all-reduce)
-is cut back to the block for the residual add.  The head gathers the
-sequence (a vocab-parallel head reads it whole), and a prefill takes its
-last position from the last block's rank.  Every value is the replicated
-program's bit for bit: the gathers and cuts move floats, and norms and
-adds are per position.  A decode token's one position is not placed
-(``sharding.sequence(1)``).
+(of the bf16 residual: their GEMMs keep the replicated program's
+operands, so their scales and noise streams are unchanged), and its
+row-parallel output comes out reduce-scattered over the sequence, this
+rank's block for the residual add (its gradient all-gathered).  Where
+every GEMM reading a GQA block's or an MLP's input is column-parallel on
+placed weights, the block normalizes its own positions and all-gathers
+the norm's output instead, whose backward reduce-scatters the GEMMs'
+partial input gradients (no all-reduce of each column input's gradient).
+The head gathers the sequence (a vocab-parallel head reads it whole),
+and a prefill takes its last position from the last block's rank.  The
+forward is the replicated program's bit for bit: the gathers move floats,
+an int32 sum is exact in any order and a float sum of two partials is
+one addition, and norms and adds are per position.  A decode token's one
+position is not placed (``sharding.sequence(1)``).  llama-3.2-vision's
+gated cross layers keep the whole block output before the cut (its
+gates' gradients sum every position).
 """
 
 from __future__ import annotations
@@ -202,11 +211,15 @@ def _ffn(p, x, cfg, idx):
     """The block's FFN residual and the MoE aux loss (None without
     experts); ``x`` this rank's block of the sequence where it is placed,
     the FFN reading it whole."""
-    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
-    if "router" in p["ffn"]:
-        f, aux = ffn.moe(p["ffn"], h, cfg, layer=idx)
-        return x + shd.seq_scatter(f, None), aux
-    return x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg, layer=idx), None), None
+    moe = "router" in p["ffn"]
+    with shd.seq_block(x, _norm(cfg), p["ln2"], not moe and ffn.columns_placed(p["ffn"], cfg)) as h:
+        f, aux = ffn.moe(p["ffn"], h, cfg, layer=idx) if moe else (ffn.mlp(p["ffn"], h, cfg, layer=idx), None)
+    return x + shd.seq_scatter(f, None), aux
+
+
+def _norm(cfg):
+    """The blocks' rmsnorm, ``(params, x) -> x`` (``sharding.seq_block``)."""
+    return lambda p, x: cm.rmsnorm(p, x, cfg.norm_eps)
 
 
 def _ffn_residual(p, x, cfg, idx):
@@ -219,11 +232,12 @@ def _ffn_residual(p, x, cfg, idx):
 def self_block(params, x: torch.Tensor, cfg: ModelConfig, positions, layer=None):
     """One decoder layer over the whole sequence; returns ``(x, aux)``, the
     aux loss 0 without experts.  Reference: ``repro.models.lm:self_block``."""
-    h = cm.rmsnorm(params["ln1"], shd.seq_gather(x), cfg.norm_eps)
-    if cfg.mla:
-        a = attn.mla_attention(params["attn"], h, cfg, positions=positions, layer=layer)
-    else:
-        a = attn.gqa_attention(params["attn"], h, cfg, positions=positions, layer=layer)
+    columns = not cfg.mla and attn.columns_placed(params["attn"], cfg)
+    with shd.seq_block(x, _norm(cfg), params["ln1"], columns) as h:
+        if cfg.mla:
+            a = attn.mla_attention(params["attn"], h, cfg, positions=positions, layer=layer)
+        else:
+            a = attn.gqa_attention(params["attn"], h, cfg, positions=positions, layer=layer)
     x = cm.with_logical(x + shd.seq_scatter(a, None), RESIDUAL)
     x, aux = _ffn(params, x, cfg, layer)
     x = cm.with_logical(x, RESIDUAL)
@@ -258,7 +272,8 @@ def lm_logits(params, tokens: torch.Tensor, cfg: ModelConfig, vision: Optional[t
     vision = _vision(vision, cfg)
     t = tokens.shape[1]
     with shd.sequence(t):
-        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg))
+        with shd.scattering():
+            x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg))
         positions = torch.arange(t, device=tokens.device)
         zero = torch.zeros((), dtype=torch.float32, device=tokens.device)
         aux_first, aux = zero, zero
@@ -292,9 +307,9 @@ def lm_loss(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.T
 # ---------------------------------------------------------------------------
 def _layer_prefill(p, x, cfg, positions, max_seq, layer=None):
     """Reference: ``repro.models.lm:_layer_prefill``."""
-    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
     prefill = attn.mla_prefill if cfg.mla else attn.gqa_prefill
-    a, cache = prefill(p["attn"], h, cfg, positions=positions, max_seq=max_seq, layer=layer)
+    with shd.seq_block(x, _norm(cfg), p["ln1"], not cfg.mla and attn.columns_placed(p["attn"], cfg)) as h:
+        a, cache = prefill(p["attn"], h, cfg, positions=positions, max_seq=max_seq, layer=layer)
     return cm.with_logical(_ffn_residual(p, x + shd.seq_scatter(a, None), cfg, layer), RESIDUAL), cache
 
 
@@ -319,7 +334,8 @@ def lm_prefill(
     vision = _vision(vision, cfg)
     t = tokens.shape[1]
     with shd.sequence(t):
-        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
+        with shd.scattering():
+            x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
         positions = torch.arange(t, device=tokens.device)
         caches: Dict[str, Any] = {}
         layer_caches, cross_kvs = [], []

@@ -73,11 +73,20 @@ def whisper_def(cfg: ModelConfig) -> Dict[str, Any]:
     }
 
 
+def _norm(cfg):
+    """The blocks' rmsnorm, ``(params, x) -> x`` (``sharding.seq_block``:
+    each block in the Megatron form where ``"seq_sp"`` is placed, as
+    ``models.lm``'s)."""
+    return lambda p, x: cm.rmsnorm(p, x, cfg.norm_eps)
+
+
 def _enc_body(p, x, positions, cfg):
-    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
-    x = x + shd.seq_scatter(attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=False), None)
-    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
-    x = x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg), None)
+    with shd.seq_block(x, _norm(cfg), p["ln1"], attn.columns_placed(p["attn"], cfg)) as h:
+        a = attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=False)
+    x = x + shd.seq_scatter(a, None)
+    with shd.seq_block(x, _norm(cfg), p["ln2"], ffn.columns_placed(p["ffn"], cfg)) as h:
+        f = ffn.mlp(p["ffn"], h, cfg)
+    x = x + shd.seq_scatter(f, None)
     return cm.with_logical(x, RESIDUAL)
 
 
@@ -101,12 +110,15 @@ def encode(params, audio_embed: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 def _dec_block(p, x, enc_kv, cfg: ModelConfig, positions):
     """Reference: ``repro.models.whisper:_dec_block``."""
-    h = cm.rmsnorm(p["ln1"], shd.seq_gather(x), cfg.norm_eps)
-    x = x + shd.seq_scatter(attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=True), None)
-    h = cm.rmsnorm(p["ln_cross"], shd.seq_gather(x), cfg.norm_eps)
-    x = x + shd.seq_scatter(attn.cross_attention(p["cross"], h, enc_kv, cfg), None)
-    h = cm.rmsnorm(p["ln2"], shd.seq_gather(x), cfg.norm_eps)
-    x = x + shd.seq_scatter(ffn.mlp(p["ffn"], h, cfg), None)
+    with shd.seq_block(x, _norm(cfg), p["ln1"], attn.columns_placed(p["attn"], cfg)) as h:
+        a = attn.gqa_attention(p["attn"], h, cfg, positions=positions, causal=True)
+    x = x + shd.seq_scatter(a, None)
+    with shd.seq_block(x, _norm(cfg), p["ln_cross"]) as h:
+        a = attn.cross_attention(p["cross"], h, enc_kv, cfg)
+    x = x + shd.seq_scatter(a, None)
+    with shd.seq_block(x, _norm(cfg), p["ln2"], ffn.columns_placed(p["ffn"], cfg)) as h:
+        f = ffn.mlp(p["ffn"], h, cfg)
+    x = x + shd.seq_scatter(f, None)
     return cm.with_logical(x, RESIDUAL)
 
 
@@ -117,7 +129,8 @@ def whisper_logits(params, batch: Dict[str, torch.Tensor], cfg: ModelConfig):
     enc = encode(params, batch["audio_embed"], cfg)
     tokens = batch["tokens"]
     with shd.sequence(tokens.shape[1]):
-        x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
+        with shd.scattering():
+            x = shd.seq_scatter(cm.embed(params["embed"], tokens, cfg), None)
         positions = torch.arange(tokens.shape[1], device=tokens.device)
         body = cm.apply_remat(lambda p, x, kv: _dec_block(p, x, kv, cfg, positions), cfg)
         for p in params["dec_layers"]:

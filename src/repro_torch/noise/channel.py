@@ -354,14 +354,16 @@ def analog_pass_psums(
     channel: ChannelModel,
     seed: stages.UInt,  # uint32 stream seed (stages.fold_seed output)
     columns: Optional[Tuple[int, int]] = None,
+    rows: Optional[Tuple[int, int]] = None,
 ) -> torch.Tensor:
     """One slice-pair optical pass through the full signal chain; int32
     per-chunk psums ``(R, G, C)``.  Reference:
     ``repro.noise.channel:analog_pass_psums`` (crosstalk -> filter ->
     detector noise -> ADC, each stage one f32 op as there).  ``columns =
     (origin, total)``: ``w_chunks`` is the columns from ``origin`` of a
-    ``total``-column weight, and the noise counters are the whole ``(R, G,
-    total)`` array's."""
+    ``total``-column weight; ``rows = (origin, total)``: ``x_chunks`` is
+    the rows from ``origin`` of a ``total``-row operand; the noise counters
+    are then the whole ``(R_total, G, C_total)`` array's."""
     dev = x_chunks.device
     xs = x_chunks.permute(1, 0, 2)  # (G, R, N)
     psum = int_dot(xs, w_chunks).permute(1, 0, 2)  # (R, G, C)
@@ -375,10 +377,11 @@ def analog_pass_psums(
         cw = int_dot(xs, w_nb).permute(1, 0, 2).to(torch.float32)
         a = a + stages.f32(channel.crossweight_eps, dev) * cw
     ctr = None
-    if columns is not None:
+    if columns is not None or rows is not None:
         r, g, c = a.shape
-        origin, total = columns
-        rg = torch.arange(r * g, dtype=torch.int64, device=dev).reshape(r, g, 1)
+        origin, total = (0, c) if columns is None else columns
+        r0 = 0 if rows is None else int(rows[0])
+        rg = torch.arange(r0 * g, (r0 + r) * g, dtype=torch.int64, device=dev).reshape(r, g, 1)
         ctr = rg * total + origin + torch.arange(c, dtype=torch.int64, device=dev)
     return apply_channel_psum(a, channel, seed, differentiable=False, ctr=ctr)
 

@@ -19,10 +19,10 @@ its own tree.
 * :func:`quantize_dequantize`, :func:`with_error_feedback` — the
   per-step residual carried into the next step's gradients.
 
-On a ``gloo`` group, CUDA tensors cross a point-to-point hop through pinned
-host buffers (gloo's send and receive read and write host memory): the
+Every collective and hop goes through :mod:`repro_torch.runtime.collectives`,
+which stages CUDA tensors through host tensors on a ``gloo`` group (the
 int8 payload and its f32 scale are copied to the host, exchanged, and
-copied back.  ``nccl`` groups exchange the CUDA tensors themselves.
+copied back); ``nccl`` groups exchange the CUDA tensors themselves.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._tree import tree_items, tree_map, tree_unflatten
+from repro_torch.runtime import collectives
 
 
 def _f32(v: float, like: torch.Tensor) -> torch.Tensor:
@@ -69,33 +70,12 @@ def compressed_psum(tree: Any, group=None) -> Any:
     def leaf(g):
         _, scale = _quantize(g)
         # The largest scale, so every rank dequantizes alike.
-        dist.all_reduce(scale, op=dist.ReduceOp.MAX, group=group)
+        collectives.all_reduce(scale, dist.ReduceOp.MAX, group=group)
         total = _codes(g, scale).to(torch.int32)
-        dist.all_reduce(total, op=dist.ReduceOp.SUM, group=group)
+        collectives.all_reduce(total, group=group)
         return (total.to(torch.float32) * scale).to(g.dtype)
 
     return tree_map(leaf, tree)
-
-
-def _hop(tensors, group, dst: int, src: int):
-    """Send ``tensors`` to group rank ``dst`` and receive as many (same
-    shapes and dtypes) from group rank ``src``; CUDA tensors on a ``gloo``
-    group through pinned host buffers."""
-    staged = dist.get_backend(group) == "gloo" and tensors[0].is_cuda
-    out = []
-    for t in tensors:
-        if staged:
-            send = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-            send.copy_(t)
-            recv = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
-        else:
-            send, recv = t.contiguous(), torch.empty_like(t)
-        ops = [dist.P2POp(dist.isend, send, dist.get_global_rank(group, dst), group),
-               dist.P2POp(dist.irecv, recv, dist.get_global_rank(group, src), group)]
-        for req in dist.batch_isend_irecv(ops):
-            req.wait()
-        out.append(recv.to(t.device) if staged else recv)
-    return out
 
 
 def ring_int8_allreduce(tree: Any, group=None) -> Any:
@@ -122,13 +102,13 @@ def ring_int8_allreduce(tree: Any, group=None) -> Any:
         acc = torch.cat([flat, flat.new_zeros(pad)]).reshape(n, -1)
         for s in range(n - 1):
             q, scale = _quantize(acc[(idx - s) % n])
-            q_recv, s_recv = _hop([q, scale], group, nxt, prv)
+            q_recv, s_recv = collectives.exchange([q, scale], group, nxt, prv)
             r = (idx - s - 1) % n
             acc[r] = acc[r] + q_recv.to(torch.float32) * s_recv
         # rank d now owns the fully reduced chunk (d + 1) % n
         for t in range(n - 1):
             q, scale = _quantize(acc[(idx + 1 - t) % n])
-            q_recv, s_recv = _hop([q, scale], group, nxt, prv)
+            q_recv, s_recv = collectives.exchange([q, scale], group, nxt, prv)
             acc[(idx - t) % n] = q_recv.to(torch.float32) * s_recv
         return acc.reshape(-1)[: g.numel()].reshape(g.shape).to(g.dtype)
 

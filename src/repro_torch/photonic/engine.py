@@ -368,6 +368,7 @@ class PhotonicEngine:
         wq: torch.Tensor,
         *,
         w_word: Optional[torch.Tensor] = None,
+        x_word: Optional[torch.Tensor] = None,
         prng_key=None,
         plane: Optional[int] = None,
         shard: Optional[int] = None,
@@ -378,10 +379,13 @@ class PhotonicEngine:
         of a K-sharded GEMM ``(SHARD_STREAM_TAG, shard)`` and for a plane
         pass ``(PLANE_STREAM_TAG, plane)`` folded on the host into
         ``prng_key`` (which wins) or ``noise_seed``, then the operands'
-        content words (``w_word`` is the prepacked weight's, if known).
-        ``shard=None, plane=None`` is the unsharded, unsliced stream."""
+        content words (``w_word`` is the prepacked weight's, if known;
+        ``x_word`` the whole activation's, when ``xq`` is a block of its
+        rows).  ``shard=None, plane=None`` is the unsharded, unsliced
+        stream."""
         seed = self._site_seed(site, fold, prng_key, plane, shard)
-        return fold_words(seed, tweak_word(xq), tweak_word(wq) if w_word is None else w_word)
+        return fold_words(seed, tweak_word(xq) if x_word is None else x_word,
+                          tweak_word(wq) if w_word is None else w_word)
 
     # -- integer datapath ----------------------------------------------------
     def int_gemm(
@@ -403,6 +407,8 @@ class PhotonicEngine:
         prng_key=None,
         columns: Optional[Tuple[int, int]] = None,
         w_word: Optional[torch.Tensor] = None,
+        rows: Optional[Tuple[int, int]] = None,
+        x_word: Optional[torch.Tensor] = None,
     ) -> torch.Tensor:
         """Integer GEMM through the DPU datapath; int32 ``(R, C)``, or f32
         with ``epilogue`` (the fused hot path; ``xq`` may then be a float
@@ -424,12 +430,17 @@ class PhotonicEngine:
         weight's GEMM draws those columns, and ``w_word`` is then the whole
         weight's content word (:func:`~repro_torch.noise.stages.
         tweak_word`, summed over the blocks), which the stream folds in
-        place of ``wq``'s own.  A bit-sliced call takes no ``columns`` (its
-        planes' content words would be the whole weight's planes')."""
+        place of ``wq``'s own.  ``rows = (origin, total)`` likewise makes
+        ``xq`` the rows from ``origin`` of a ``total``-row activation (a
+        rank's block of a placed cache's rows): its rows draw the whole
+        activation's noise (the kernel's tile rows from ``total``), and
+        ``x_word`` is then the whole activation's content word.  A
+        bit-sliced call takes neither (its planes' content words would be
+        the whole operands' planes')."""
         mode = self.slicing if slicing is None else resolve_slicing(slicing)
         if mode is not None and self.backend != "exact":
-            if columns is not None:
-                raise ValueError("a bit-sliced GEMM runs on whole columns: columns= is not taken")
+            if columns is not None or rows is not None:
+                raise ValueError("a bit-sliced GEMM runs on whole columns and rows: columns= / rows= are not taken")
             return self._sliced_int_gemm(
                 mode, xq, wq, site=site, fold=fold, shard=shard, logical_kc=logical_kc,
                 tile_r=tile_r, tile_c=tile_c, epilogue=epilogue, pack=pack, prng_key=prng_key,
@@ -456,7 +467,8 @@ class PhotonicEngine:
         if pack is not None:
             w_word = pack.w_word
         seed = (
-            self.stream_seed(site, fold, xq, wq, w_word=w_word, prng_key=prng_key, plane=plane, shard=shard)
+            self.stream_seed(site, fold, xq, wq, w_word=w_word, x_word=x_word, prng_key=prng_key, plane=plane,
+                             shard=shard)
             if noisy
             else None
         )
@@ -472,19 +484,23 @@ class PhotonicEngine:
                 channel=channel,
                 seed=seed,
                 columns=columns,
+                rows=rows,
             )
             return acc if epilogue is None else _finish(acc, epilogue)
 
         r = xq.shape[0]
         c_origin = 0 if columns is None else int(columns[0])
-        stages, (rp, kp, cp) = kernel_stages(
-            cfg, r, k, c, tiling, tile_r=tile_r, tile_c=tile_c
+        r_origin = 0 if rows is None else int(rows[0])
+        # the logical row tile is the whole activation's
+        stages, (_, kp, cp) = kernel_stages(
+            cfg, r if rows is None else int(rows[1]), k, c, tiling, tile_r=tile_r, tile_c=tile_c
         )
+        rp = _round_up(r, stages["tile_r"])
         xp = F.pad(xq, (0, kp - k, 0, rp - r)).contiguous()
         if tuple(wq.shape) != (kp, cp):
             wq = F.pad(wq[:k, :c], (0, cp - c, 0, kp - k)).contiguous()
         if epilogue is None:
-            return photonic_gemm(xp, wq, seed, rows=r, c_origin=c_origin, **stages)[:r, :c]
+            return photonic_gemm(xp, wq, seed, rows=r, c_origin=c_origin, r_origin=r_origin, **stages)[:r, :c]
         ws = F.pad(epilogue.w_scale.to(torch.float32).reshape(-1), (0, cp - c))
         bias = epilogue.bias
         if bias is not None:
@@ -500,6 +516,7 @@ class PhotonicEngine:
             activation=epilogue.spec.activation,
             rows=r,
             c_origin=c_origin,
+            r_origin=r_origin,
             **stages,
         )
         return out[:r, :c]
@@ -697,6 +714,8 @@ def _stream_gemm(
     pack=None,
     columns=None,
     w_word=None,
+    rows=None,
+    x_word=None,
 ):
     """One forward through the fused hot path.  Reference:
     ``repro.photonic.engine:_stream_gemm``: f32 activations defer their
@@ -707,9 +726,16 @@ def _stream_gemm(
     rows and the scale is the abs-max over every rank's
     (:func:`~repro_torch.runtime.sharding.activation_amax`); the noise
     tiles are then the local rows', as the tensor-parallel path draws
-    them.  ``columns`` / ``w_word`` go to :meth:`PhotonicEngine.int_gemm`
-    (``wq`` a column block of a wider weight)."""
-    from repro_torch.runtime.sharding import activation_amax
+    them.  ``columns`` / ``w_word`` and ``rows`` / ``x_word`` go to
+    :meth:`PhotonicEngine.int_gemm` (``wq`` a column block of a wider
+    weight, ``x`` a block of a taller activation's rows).  Where ``x``
+    ``(B, L, K)`` is this rank's block of a placed ``"kv_seq"``
+    (:func:`~repro_torch.runtime.sharding.row_segments`) on a noisy
+    channel, each of its ``B`` rows' ``L`` rows runs at its global row
+    origin with the whole activation's content word
+    (:func:`~repro_torch.runtime.sharding.rows_word`): the noise the
+    single-device program draws on the whole rows."""
+    from repro_torch.runtime.sharding import activation_amax, row_segments, rows_word
 
     lead = x.shape[:-1]
     xr = x.reshape(-1, x.shape[-1])
@@ -719,19 +745,20 @@ def _stream_gemm(
     else:
         xs, sx = quantize_symmetric(xr, eng.dpu.operand_bits, amax=amax)
     cols = wq.shape[1] if pack is None else pack.c
-    y = eng.int_gemm(
-        xs,
-        wq,
-        site=site,
-        fold=fold,
-        logical_kc=None if pack is None else (pack.k, pack.c),
-        tiling=None if pack is None else pack.tiling,
-        epilogue=EpilogueArgs(spec, sx, w_scale, bias),
-        pack=pack,
-        prng_key=prng_key,
-        columns=columns,
-        w_word=w_word,
-    )
+    kw = dict(site=site, fold=fold, logical_kc=None if pack is None else (pack.k, pack.c),
+              tiling=None if pack is None else pack.tiling, epilogue=EpilogueArgs(spec, sx, w_scale, bias), pack=pack,
+              prng_key=prng_key, columns=columns, w_word=w_word)
+    segments = row_segments(lead) if rows is None and eng.noisy and eng.backend != "exact" else None
+    if segments is None:
+        y = eng.int_gemm(xs, wq, rows=rows, x_word=x_word, **kw)
+    else:
+        origins, total = segments
+        if x_word is None:
+            xq = quantize_with_scale(xs, sx, eng.dpu.operand_bits) if xs.is_floating_point() else xs
+            x_word = rows_word(tweak_word(xq))
+        n = xs.shape[0] // len(origins)
+        y = torch.cat([eng.int_gemm(xs[i * n : (i + 1) * n], wq, rows=(o, total), x_word=x_word, **kw)
+                       for i, o in enumerate(origins)], dim=0)
     return y.reshape(*lead, cols).to(x.dtype)
 
 

@@ -14,11 +14,12 @@ The reference is single-controller: each routed GEMM wraps a
 group: every rank runs the whole model, replicated, on the same inputs and
 keys; at a routed GEMM a rank holds only its K block of the packed bank (or
 slices its K block of a float weight), runs the shard-local engine on the
-unfused kernel, and ``dist.all_reduce`` sums the int32 partials over the
-mesh's tensor-parallel axis; the replicated epilogue runs on the sum.  The
-activation's scale is its global abs-max, which every rank sees because
-the activation is replicated: the reference gets the same scale from a
-``pmax`` of local maxima, and max is exact in any order.
+unfused kernel, and an all-reduce (:mod:`repro_torch.runtime.collectives`)
+sums the int32 partials over the mesh's tensor-parallel axis; the
+replicated epilogue runs on the sum.  The activation's scale is its
+global abs-max, which every rank sees because the activation is
+replicated: the reference gets the same scale from a ``pmax`` of local
+maxima, and max is exact in any order.
 
 Modes (both dispatch from ``models.common.dense`` via
 :func:`maybe_tp_matmul`):
@@ -98,6 +99,7 @@ from repro_torch.core.dpu import quantize_symmetric
 from repro_torch.kernels.photonic_gemm.epilogue import apply_epilogue, as_epilogue
 from repro_torch.photonic.engine import PhotonicEngine, _ste_grads
 from repro_torch.photonic.packing import PackedDense
+from repro_torch.runtime import collectives
 
 
 # ---------------------------------------------------------------------------
@@ -206,6 +208,7 @@ def psum_int_gemm(
     logical_kc=None,
     tiling=None,
     pack: Optional[PackedDense] = None,
+    scatter=None,
 ) -> torch.Tensor:
     """Shard-local integer GEMM and a digital-domain int32 all-reduce over
     ``group`` (the mesh axis's process group): Summation.  The shard runs
@@ -214,7 +217,12 @@ def psum_int_gemm(
     exactly, so an ideal channel gives bitwise the unsharded result.
     ``pack`` is the unsharded view of this shard's block
     (:meth:`PackedDense.local`), whose content word and plane cache the
-    stream uses.  Adds one to ``ALL_REDUCES["psum_int_gemm"]``.  Reference:
+    stream uses.  Adds one to ``ALL_REDUCES["psum_int_gemm"]``.  With
+    ``scatter = (B, T)`` (the output's rows are ``(B, T)`` flattened, ``T``
+    the sequence placed over ``group``'s axis) the partials are
+    reduce-scattered over the sequence instead: this rank's ``T / n``
+    positions of each row, summed exactly (the psum's form, one
+    ``SEQ_COLLECTIVES["scatter"]`` too).  Reference:
     ``repro.photonic.sharded:psum_int_gemm`` (whose ``axis`` is the mesh
     axis bound in ``shard_map``)."""
     k_local = int((logical_kc or tuple(wq.shape[-2:]))[0])
@@ -230,9 +238,16 @@ def psum_int_gemm(
         tiling=tiling,
         pack=pack,
     ).contiguous()
-    dist.all_reduce(out, op=dist.ReduceOp.SUM, group=group)
     ALL_REDUCES["psum_int_gemm"] += 1
-    return out
+    if scatter is not None:
+        from repro_torch.analysis.contracts import count_seq
+
+        n = dist.get_world_size(group)
+        chunks = [c.contiguous() for c in out.view(*scatter, -1).chunk(n, dim=1)]
+        mine = collectives.reduce_scatter(torch.empty_like(chunks[0]), chunks, group=group)
+        count_seq("scatter", "reduce-scatter", mine.numel() * mine.element_size(), n)
+        return mine.reshape(-1, out.shape[-1])
+    return collectives.all_reduce(out, group=group)
 
 
 def _row_sharding(tp: TPContext, rows: int):
@@ -295,6 +310,29 @@ def _tp_int_gemm(eng, xl, wl, tp: TPContext, rows, **kw) -> torch.Tensor:
     return out if rows is None else _gather_rows(out, tp, rows[0])
 
 
+def _scatter_of(x: torch.Tensor, tp: TPContext, rows, block_output: bool):
+    """The ``"seq_sp"`` :class:`~repro_torch.runtime.sharding.Block` a
+    block's output GEMM (``block_output``) of operand ``x`` ``(B, T, K)``
+    reduces onto (``sharding.scatter_block``: inside a block's Megatron
+    form, the TP axis the sequence's, the rows not split here), else
+    ``None``."""
+    from repro_torch.runtime.sharding import scatter_block
+
+    if not block_output or rows is not None:
+        return None
+    return scatter_block(x.shape[:-1], tp.axis)
+
+
+def _scatter_grad(ctx, g):
+    """The output gradient whole along the sequence: a scattered output's
+    blocks all-gathered (``sharding.seq_grad_gather``)."""
+    if ctx.scatter is None:
+        return g
+    from repro_torch.runtime.sharding import seq_grad_gather
+
+    return seq_grad_gather(g.contiguous(), ctx.scatter, ctx.tp.mesh)
+
+
 # ---------------------------------------------------------------------------
 # STE autograd wrappers
 # ---------------------------------------------------------------------------
@@ -327,10 +365,13 @@ class _TPFloatMatmul(torch.autograd.Function):
     the dense straight-through one of the unsharded ``matmul_float``.  With
     ``k_block`` the operand is this rank's K block, and ``w`` the whole
     weight or its K rows (a placed weight, whose per-column abs-max is
-    then all-reduced with ``MAX`` over the K axes)."""
+    then all-reduced with ``MAX`` over the K axes).  Inside a block's
+    Megatron form the int32 partials are reduce-scattered over the
+    sequence (:func:`psum_int_gemm`'s ``scatter``) and the output is this
+    rank's positions; the backward gathers its gradient first."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, x, w, bias):
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, block_output, x, w, bias):
         ctx.spec, ctx.k_block, ctx.tp = spec, k_block, tp
         ctx.save_for_backward(x, w, bias)
         bits = eng.dpu.operand_bits
@@ -346,12 +387,16 @@ class _TPFloatMatmul(torch.autograd.Function):
         else:
             wq, sw = quantize_symmetric(w, bits, axis=0)
             wl = wq[i * k_local : (i + 1) * k_local].contiguous()
-        out = _tp_int_gemm(eng, xl, wl, tp, rows, site=site, fold=fold, prng_key=prng_key)
+        ctx.scatter = _scatter_of(x, tp, rows, block_output)
+        lead = x.shape[:-1] if ctx.scatter is None else (x.shape[0], ctx.scatter.local)
+        out = _tp_int_gemm(eng, xl, wl, tp, rows, site=site, fold=fold, prng_key=prng_key,
+                           scatter=None if ctx.scatter is None else tuple(x.shape[:-1]))
         y = apply_epilogue(out, sx, sw.to(torch.float32), bias, spec)
-        return y.reshape(*x.shape[:-1], c).to(x.dtype)
+        return y.reshape(*lead, c).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        g = _scatter_grad(ctx, g)
         x, w, bias = ctx.saved_tensors
         wf = w.to(torch.float32)
         if ctx.k_block is not None:
@@ -359,7 +404,7 @@ class _TPFloatMatmul(torch.autograd.Function):
         else:
             dx, g2, x2, db = _ste_grads(ctx.spec, g, x, wf, bias)
         dw = (x2.T @ g2).to(w.dtype)
-        return None, None, None, None, None, None, None, dx, dw, db
+        return None, None, None, None, None, None, None, None, dx, dw, db
 
 
 def _column_amax(w: torch.Tensor, k_block, tp: TPContext) -> torch.Tensor:
@@ -386,7 +431,7 @@ class _TPPackedMatmul(torch.autograd.Function):
     scale gets zeros."""
 
     @staticmethod
-    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, packed, x, w_scale, bias):
+    def forward(ctx, eng, site, spec, tp, fold, prng_key, k_block, block_output, packed, x, w_scale, bias):
         ctx.spec, ctx.packed, ctx.tp, ctx.k_block = spec, packed, tp, k_block
         ctx.save_for_backward(x, w_scale, bias)
         size, i = tp.size(), tp.rank()
@@ -397,27 +442,31 @@ class _TPPackedMatmul(torch.autograd.Function):
         rows = _row_sharding(tp, x.numel() // x.shape[-1])
         xl, sx = _local_x(x, eng.dpu.operand_bits, i, k_local, rows, k_block)
         view = packed if placed else packed.local(i, size)
+        ctx.scatter = _scatter_of(x, tp, rows, block_output)
+        lead = x.shape[:-1] if ctx.scatter is None else (x.shape[0], ctx.scatter.local)
         out = _tp_int_gemm(
             eng, xl, view.wq, tp, rows, site=site, fold=fold, prng_key=prng_key,
             logical_kc=(k_local, packed.c), tiling=view.tiling, pack=view,
+            scatter=None if ctx.scatter is None else tuple(x.shape[:-1]),
         )
         y = apply_epilogue(out, sx, w_scale.to(torch.float32), bias, spec)
-        return y.reshape(*x.shape[:-1], packed.c).to(x.dtype)
+        return y.reshape(*lead, packed.c).to(x.dtype)
 
     @staticmethod
     def backward(ctx, g):
+        g = _scatter_grad(ctx, g)
         x, w_scale, bias = ctx.saved_tensors
         p, tp = ctx.packed, ctx.tp
         wf = p.dequant()
         if ctx.k_block is not None:
             dx, _, _, db = _k_placed_grads(ctx, g, x, wf, bias)
-            return None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
+            return None, None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
         if p.shard is not None:
             blocks = [torch.empty_like(wf) for _ in range(tp.size())]
-            dist.all_gather(blocks, wf.contiguous(), group=tp.process_group())
+            collectives.all_gather(blocks, wf.contiguous(), group=tp.process_group())
             wf = torch.cat(blocks, dim=0)
         dx, _, _, db = _ste_grads(ctx.spec, g, x, wf, bias)
-        return None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
+        return None, None, None, None, None, None, None, None, None, dx, torch.zeros_like(w_scale), db
 
 
 # ---------------------------------------------------------------------------
@@ -437,6 +486,7 @@ def maybe_tp_matmul(
     bias: Optional[torch.Tensor] = None,
     activation: Optional[str] = None,
     k_block=None,
+    block_output: bool = False,
 ) -> Optional[torch.Tensor]:
     """The tensor-parallel product for ``models.common.dense``, or ``None``
     when TP does not apply (no active context, degree 1, a site the policy
@@ -448,7 +498,9 @@ def maybe_tp_matmul(
     ``k_block`` (a :class:`~repro_torch.runtime.sharding.Block`) says that
     ``x``'s last dimension is this rank's block of K; it is taken only when
     that block is this rank's K shard of the TP axis (``None`` otherwise,
-    and the caller gathers K first).  Reference:
+    and the caller gathers K first).  ``block_output``: the product is a
+    block's output (a ``wo``), which a ``sharding.seq_block`` scope
+    reduce-scatters over the sequence.  Reference:
     ``repro.photonic.sharded:maybe_tp_matmul``."""
     tp = current_tp()
     if tp is None or engine is None or not engine.routes(site):
@@ -472,7 +524,7 @@ def maybe_tp_matmul(
     elif getattr(cfg, "photonic_scope", "weights") == "weights":
         if (w.shape[0] * k_whole) % size:
             return None
-        return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, x, w, bias)
+        return _TPFloatMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, block_output, x, w, bias)
     else:
         return None
     if (packed.k * k_whole) % size:
@@ -484,7 +536,8 @@ def maybe_tp_matmul(
             return None
     elif packed.shards not in (1, size):
         return None
-    return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, packed, x, packed.w_scale, bias)
+    return _TPPackedMatmul.apply(engine, site, spec, tp, fold, prng_key, k_block, block_output, packed, x,
+                                 packed.w_scale, bias)
 
 
 # ---------------------------------------------------------------------------

@@ -26,6 +26,7 @@ from repro_torch._tree import tree_items, tree_unflatten
 from repro_torch.data.pipeline import local_rows
 from repro_torch.optim import adamw
 from repro_torch.optim.compress import ring_int8_allreduce
+from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shd
 
 
@@ -50,7 +51,7 @@ def _pmean(tree, group, n_dev: int):
     out = {}
     for dtype, keys in by_dtype.items():
         flat = torch.cat([items[k].reshape(-1) for k in keys])
-        dist.all_reduce(flat, op=dist.ReduceOp.SUM, group=group)
+        collectives.all_reduce(flat, group=group)
         at = 0
         for k in keys:
             g = items[k]

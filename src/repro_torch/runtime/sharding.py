@@ -193,6 +193,8 @@ class _Ctx(threading.local):
     suspended: bool = False
     placement: Optional["Placement"] = None
     rows: Tuple[str, ...] = ()
+    scatter: Optional["Block"] = None
+    partial: bool = False
 
 
 _CTX = _Ctx()
@@ -534,6 +536,35 @@ def rows_over(name: str):
         _CTX.rows = prev
 
 
+def row_segments(lead: Sequence[int]) -> Optional[Tuple[Tuple[int, ...], int]]:
+    """Where a routed GEMM's operand rows, of leading shape ``lead`` ``(B,
+    L)``, lie in the whole operand when they are this rank's block of the
+    placed ``"kv_seq"`` (:func:`rows_over`, the rows themselves not
+    placed): ``(origins, total)``, each of the ``B`` leading rows' ``L``
+    rows a span from its global row ``b * size + index * L`` of the ``B *
+    size`` whole rows.  ``None`` otherwise."""
+    b = block("kv_seq")
+    if b is None or "kv_seq" not in _CTX.rows or block("batch") is not None or len(lead) != 2 or lead[1] != b.local:
+        return None
+    return tuple(i * b.size + b.index * b.local for i in range(lead[0])), lead[0] * b.size
+
+
+def rows_word(word):
+    """The whole operand's content word (``noise.stages.tweak_word``, a sum
+    mod 2^32) from this rank's rows' ``word``: summed over the placed
+    ``"kv_seq"``'s mesh axes (an exact int64 SUM all-reduce), one
+    ``SEQ_COLLECTIVES["kv_word"]``."""
+    import torch
+
+    from repro_torch.analysis import contracts
+    from repro_torch.noise.stages import U32
+
+    b = block("kv_seq")
+    out = all_reduce_over(word.to(torch.int64).reshape(1).clone(), b.part, _CTX.placement.mesh)
+    contracts.count_seq("kv_word", "all-reduce", 8, b.count)
+    return out.reshape(()) & U32
+
+
 def row_blocks() -> Tuple[Block, ...]:
     """The :class:`Block` s a routed GEMM's operand rows are placed over:
     the rows' and those of :func:`rows_over`."""
@@ -567,10 +598,10 @@ def block(name: str) -> Optional[Block]:
 def all_reduce_over(t, part: AxisName, mesh, op=None):
     """``t`` all-reduced in place over the mesh axes ``part``, one axis
     after the other."""
-    import torch.distributed as dist
+    from repro_torch.runtime import collectives
 
     for a in _names(part):
-        dist.all_reduce(t, op=dist.ReduceOp.SUM if op is None else op, group=mesh.get_group(a))
+        collectives.all_reduce(t, op, group=mesh.get_group(a))
     return t
 
 
@@ -581,11 +612,13 @@ def all_gather_over(t, part: AxisName, mesh, dim: int):
     import torch
     import torch.distributed as dist
 
+    from repro_torch.runtime import collectives
+
     t = t.contiguous()
     for a in reversed(_names(part)):
         group = mesh.get_group(a)
         parts = [torch.empty_like(t) for _ in range(dist.get_world_size(group))]
-        dist.all_gather(parts, t, group=group)
+        collectives.all_gather(parts, t, group=group)
         t = torch.cat(parts, dim=dim)
     return t
 
@@ -625,7 +658,11 @@ def _collectives():
             from repro_torch.analysis import contracts
 
             g = all_reduce_over(g.contiguous().clone(), ctx.part, ctx.mesh)
-            contracts.count_collective(ctx.what)
+            if ctx.what in contracts.SEQ_COLLECTIVES:
+                n = math.prod(mesh_axis_sizes(ctx.mesh)[a] for a in _names(ctx.part))
+                contracts.count_seq(ctx.what, "all-reduce", _nbytes(g), n)
+            else:
+                contracts.count_collective(ctx.what)
             return g, None, None, None
 
     class ReduceFromModel(Function):
@@ -658,12 +695,98 @@ def _collectives():
 
         @staticmethod
         def backward(ctx, g):
+            return seq_grad_gather(g, ctx.b, ctx.mesh), None, None, None
+
+    class GatherSum(Function):
+        """The Megatron form's entry: all-gather over ``b.part`` along the
+        sequence; the backward reduce-scatters the gradient, each rank's a
+        partial sum (its column-parallel GEMMs' input gradients, not
+        all-reduced), one ``SEQ_COLLECTIVES["gather_grad"]``."""
+
+        @staticmethod
+        def forward(ctx, x, b, mesh):
+            ctx.b, ctx.mesh = b, mesh
+            return all_gather_over(x, b.part, mesh, 1)
+
+        @staticmethod
+        def backward(ctx, g):
             from repro_torch.analysis import contracts
 
-            contracts.SEQ_COLLECTIVES["split_grad"] += 1
-            return all_gather_over(g, ctx.b.part, ctx.mesh, ctx.dim), None, None, None
+            out = reduce_scatter_over(g, ctx.b.part, ctx.mesh, 1)
+            contracts.count_seq("gather_grad", "reduce-scatter", _nbytes(out), ctx.b.count)
+            return out, None, None
 
-    return Gather, CopyToModel, ReduceFromModel, Split
+    class ReduceScatter(Function):
+        """A row-parallel output's partial sums reduce-scattered over
+        ``b.part`` along the sequence (this rank's block of the sum),
+        counted as the sum it is (``contracts.count_collective(what)``)
+        and as one ``SEQ_COLLECTIVES["scatter"]``; the backward all-gathers
+        the gradient's blocks, one ``SEQ_COLLECTIVES["split_grad"]``."""
+
+        @staticmethod
+        def forward(ctx, x, b, mesh, what):
+            from repro_torch.analysis import contracts
+
+            ctx.b, ctx.mesh = b, mesh
+            contracts.count_collective(what)
+            out = reduce_scatter_over(x, b.part, mesh, 1)
+            contracts.count_seq("scatter", "reduce-scatter", _nbytes(out), b.count)
+            return out
+
+        @staticmethod
+        def backward(ctx, g):
+            return seq_grad_gather(g, ctx.b, ctx.mesh), None, None, None
+
+    class Share(Function):
+        """The identity forward; the backward keeps the gradient on the
+        first rank of ``b.part`` and gives the others zeros, so that a
+        gradient every rank computes whole enters a :class:`GatherSum`'s
+        reduce-scatter once."""
+
+        @staticmethod
+        def forward(ctx, x, b):
+            ctx.b = b
+            return x.view_as(x)
+
+        @staticmethod
+        def backward(ctx, g):
+            import torch
+
+            return (g if ctx.b.index == 0 else torch.zeros_like(g)), None
+
+    return Gather, CopyToModel, ReduceFromModel, Split, GatherSum, ReduceScatter, Share
+
+
+def reduce_scatter_over(t, part: AxisName, mesh, dim: int):
+    """This rank's block along ``dim`` of the SUM over the mesh axes
+    ``part`` of every rank's ``t``: one reduce-scatter per axis, the
+    outermost first (so the blocks are numbered row-major, as
+    :func:`local_block` numbers them)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.runtime import collectives
+
+    for a in _names(part):
+        group = mesh.get_group(a)
+        chunks = [c.contiguous() for c in t.chunk(dist.get_world_size(group), dim=dim)]
+        t = collectives.reduce_scatter(torch.empty_like(chunks[0]), chunks, group=group)
+    return t
+
+
+def seq_grad_gather(g, b: "Block", mesh):
+    """The gradient of a value cut to this rank's block ``b`` of the
+    sequence: every rank's block all-gathered along dimension 1, one
+    ``SEQ_COLLECTIVES["split_grad"]``."""
+    from repro_torch.analysis import contracts
+
+    out = all_gather_over(g, b.part, mesh, 1)
+    contracts.count_seq("split_grad", "all-gather", _nbytes(out), b.count)
+    return out
+
+
+def _nbytes(t) -> int:
+    return t.numel() * t.element_size()
 
 
 def copy_to_model(x, part: AxisName, what: str = "column_input"):
@@ -672,8 +795,113 @@ def copy_to_model(x, part: AxisName, what: str = "column_input"):
     ``"expert_input"``; a replicated value a recurrent layer's rank-split
     work reads, ``"split_input"``): unchanged, its gradient all-reduced
     with SUM over ``part`` in the backward (one
-    ``contracts.count_collective(what)`` each)."""
+    ``contracts.count_collective(what)`` each).  A column-parallel GEMM's
+    input inside :func:`seq_block`'s Megatron form keeps its partial
+    gradient: the block's entry reduce-scatters it."""
+    if what == "column_input" and _CTX.partial:
+        return x
     return _collectives()[1].apply(x, part, _CTX.placement.mesh, what)
+
+
+def whole_input(x):
+    """``x``, read whole by a GEMM that computes its gradient whole on
+    every rank (a column-parallel form that does not apply: a bit-sliced
+    engine, an int8 scope without ``w_scale``): inside :func:`seq_block`'s
+    Megatron form the gradient enters the entry's reduce-scatter from one
+    rank only (:class:`Share`); ``x`` as it is elsewhere."""
+    if not _CTX.partial:
+        return x
+    return _collectives()[6].apply(x, block("seq_sp"))
+
+
+def reduce_rows(x, part: AxisName, what: str = "row_output"):
+    """:func:`reduce_from_model` of a row-parallel output ``x`` ``(B, T,
+    .)``, or, inside :func:`seq_block` / :func:`scattering` where ``T`` is
+    the placed sequence and ``part`` its mesh axes, its reduce-scatter
+    over the sequence: this rank's block of the sum (the Megatron form;
+    :func:`seq_scatter` then takes it as it is)."""
+    b = scatter_block(x.shape[:-1], part)
+    if b is None:
+        return reduce_from_model(x, part, what)
+    return _collectives()[5].apply(x, b, _CTX.placement.mesh, what)
+
+
+def scatter_block(lead: Sequence[int], part: AxisName) -> Optional[Block]:
+    """The ``"seq_sp"`` block a row-parallel output of leading shape
+    ``lead`` reduces onto inside :func:`seq_block` / :func:`scattering`:
+    where ``lead`` is ``(B, T)`` with ``T`` the placed sequence and
+    ``part``, the mesh axes its partial sums meet over, the sequence's;
+    ``None`` elsewhere (the output is all-reduced whole)."""
+    b = _CTX.scatter
+    if b is None or len(lead) != 2 or lead[1] != b.size or _names(part) != _names(b.part):
+        return None
+    return b
+
+
+@contextlib.contextmanager
+def scattering():
+    """A scope whose row-parallel outputs over the placed sequence come
+    out reduce-scattered (:func:`reduce_rows`, the routed GEMMs of
+    ``photonic.sharded``): a value :func:`seq_scatter` then cuts (the
+    embedding's vocab-parallel lookup)."""
+    prev = _CTX.scatter
+    _CTX.scatter = block("seq_sp")
+    try:
+        yield
+    finally:
+        _CTX.scatter = prev
+
+
+@contextlib.contextmanager
+def seq_block(x, norm, params, columns: bool = False):
+    """A block over the residual ``x`` that reads it whole, in the
+    Megatron form where ``"seq_sp"`` is placed: yields the block's input,
+    ``norm(params, .)`` of the whole sequence, and in the scope the
+    block's row-parallel outputs come out reduce-scattered over the
+    sequence (:func:`scattering`; their backward all-gathers), so ``x +
+    seq_scatter(out)`` adds this rank's block.  The input is
+    ``norm(params, seq_gather(x))``, the residual gathered as
+    :func:`seq_gather` gathers it; with ``columns`` (every GEMM that reads
+    the input is column-parallel on this rank's columns of a placed
+    weight) the block normalizes its own positions and all-gathers the
+    result, whose backward reduce-scatters the GEMMs' partial input
+    gradients (:class:`GatherSum`) in place of their all-reduces
+    (:func:`copy_to_model`, :func:`whole_input`), and the norm's
+    parameters, read on a block of the positions, have their gradients
+    summed over the sequence's axes (``SEQ_COLLECTIVES["norm_grad"]``).
+    Where the sequence is not placed: ``norm(params, x)``, nothing else
+    changes."""
+    b = block("seq_sp")
+    if b is None:
+        yield norm(params, x)
+        return
+    prev = (_CTX.scatter, _CTX.partial)
+    _CTX.scatter, _CTX.partial = b, bool(columns)
+    try:
+        if columns:
+            from repro_torch.analysis import contracts
+
+            if x.shape[1] != b.local:
+                raise ValueError(f"a {tuple(x.shape)} residual is not this rank's block {b.local} of {b.size} positions")
+            mine = {k: copy_to_model(v, b.part, "norm_grad") for k, v in params.items()}
+            h = _collectives()[4].apply(norm(mine, x), b, _CTX.placement.mesh)
+            contracts.count_seq("gather", "all-gather", _nbytes(h), b.count)
+            yield h
+        else:
+            yield norm(params, seq_gather(x))
+    finally:
+        _CTX.scatter, _CTX.partial = prev
+
+
+def placed_columns(w, parts: Sequence[Tuple[str, int]]) -> bool:
+    """Whether ``w`` is this rank's columns of a weight whose columns are
+    ``parts`` placed by the active placement (:func:`column_layout`): a
+    GEMM on it is column-parallel with this rank's partial input
+    gradient."""
+    import torch
+
+    lay = column_layout(parts)
+    return lay is not None and isinstance(w, torch.Tensor) and w.shape[-1] == lay.local != lay.total
 
 
 def reduce_from_model(x, part: AxisName, what: str = "row_output"):
@@ -711,7 +939,9 @@ def gather_block(x, name: str, dim: int, what: Optional[str] = None):
 
     b = block(name)
     out = _gather(x, dataclasses.replace(b, size=x.shape[dim] * b.count), dim)
-    if what is not None:
+    if what in contracts.SEQ_COLLECTIVES:
+        contracts.count_seq(what, "all-gather", _nbytes(out), b.count)
+    elif what is not None:
         contracts.count_collective(what)
     elif name in ("batch", "vocab"):
         contracts.ROW_GATHERS["outputs"] += 1
@@ -759,8 +989,9 @@ def seq_gather(x):
         raise ValueError(f"a {tuple(x.shape)} residual is not this rank's block {b.local} of {b.size} positions")
     from repro_torch.analysis import contracts
 
-    contracts.SEQ_COLLECTIVES["gather"] += 1
-    return _gather(x, b, 1)
+    out = _gather(x, b, 1)
+    contracts.count_seq("gather", "all-gather", _nbytes(out), b.count)
+    return out
 
 
 def seq_scatter(x, axes: Optional[Sequence[Optional[str]]] = RESIDUAL):
@@ -768,9 +999,11 @@ def seq_scatter(x, axes: Optional[Sequence[Optional[str]]] = RESIDUAL):
     a value every rank holds whole (a block's output, the embedding), then
     :func:`logical_constraint` to ``axes`` (``None``: no constraint, where
     the reference has none).  The backward all-gathers the gradient
-    (:class:`Split`).  ``x`` as it is where the sequence is not placed."""
+    (:class:`Split`).  ``x`` as it is where the sequence is not placed,
+    and where it already is this rank's block (a row-parallel output
+    reduce-scattered in :func:`seq_block`)."""
     b = block("seq_sp")
-    if b is not None:
+    if b is not None and x.shape[1] != b.local:
         x = _collectives()[3].apply(x, b, _CTX.placement.mesh, 1)
     return x if axes is None else logical_constraint(x, axes)
 
@@ -784,8 +1017,9 @@ def seq_last(x):
         return x[:, -1:]
     from repro_torch.analysis import contracts
 
-    contracts.SEQ_COLLECTIVES["gather"] += 1
-    return all_gather_over(x[:, -1:], b.part, _CTX.placement.mesh, 1)[:, -1:]
+    out = all_gather_over(x[:, -1:], b.part, _CTX.placement.mesh, 1)
+    contracts.count_seq("gather", "all-gather", _nbytes(out), b.count)
+    return out[:, -1:]
 
 
 def kv_origin(n: int) -> int:
@@ -806,7 +1040,7 @@ def kv_merge(t, op: str):
 
     b = block("kv_seq")
     all_reduce_over(t, b.part, _CTX.placement.mesh, dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM)
-    contracts.SEQ_COLLECTIVES[f"kv_{op}"] += 1
+    contracts.count_seq(f"kv_{op}", "all-reduce", _nbytes(t), b.count)
     return t
 
 

@@ -80,6 +80,7 @@ from repro_torch.checkpoint import ckpt
 from repro_torch.data.pipeline import DataConfig, SyntheticTokens, make_global_batch
 from repro_torch.models.common import engine_from_model_config, init_params
 from repro_torch.optim import adamw
+from repro_torch.runtime import collectives
 from repro_torch.runtime import sharding as shd
 
 
@@ -203,7 +204,7 @@ def _agreed(flag: bool, mesh) -> bool:
     if mesh is None:
         return flag
     t = torch.tensor([int(flag)], dtype=torch.int32, device=mesh.device_type)
-    dist.all_reduce(t, op=dist.ReduceOp.MAX)
+    collectives.all_reduce(t, dist.ReduceOp.MAX)
     return bool(t.item())
 
 

@@ -27,6 +27,7 @@ ROWS, PROMPT = 4, 8  # (a): the prefill's 8 positions, 4 a rank of "model"
 ENC_SEQ, DEC_SEQ = 16, 4  # (c): whisper's frames and decoder tokens
 KV_MAX_SEQ, KV_STEPS = 32, 3  # (d): the cache's 32 positions, 16 a rank of "data"
 KV_PROMPTS = (20, 14)  # a prompt across both blocks; one whose decode steps cross the boundary at 16
+NOISY_LAYERS, NOISY_PROMPT, NOISY_STEPS = 2, 15, 2  # the noisy MLA decode: the first block and one MoE layer, 15-16
 QWEN, DEEPSEEK, WHISPER, ZAMBA = "qwen2-0.5b", "deepseek-v2-lite-16b", "whisper-medium", "zamba2-2.7b"
 
 
@@ -72,15 +73,15 @@ def residual_log(log):
 
 
 @contextlib.contextmanager
-def _scopes(mesh, cfg, sizes):
-    """The mesh's rules, TP over "model" where photonic, and the placement
-    of ``sizes`` (nothing placed with ``None``)."""
+def _scopes(mesh, cfg, sizes, tp=True):
+    """The mesh's rules, TP over "model" where photonic (and ``tp``), and
+    the placement of ``sizes`` (nothing placed with ``None``)."""
     from repro_torch.photonic import sharded
     from repro_torch.runtime import sharding as shd
 
     with contextlib.ExitStack() as scopes:
         scopes.enter_context(shd.use_rules(mesh))
-        if cfg.photonic is not None:
+        if cfg.photonic is not None and tp:
             scopes.enter_context(sharded.tensor_parallel(mesh, "model"))
         yield scopes.enter_context(shd.placement(mesh, sizes)) if sizes else None
 
@@ -202,39 +203,123 @@ def dropped_max():
         shd.kv_merge = inner
 
 
-def _decode(arch, cfg, params, prompt, steps, mesh, sizes):
+def _decode(arch, cfg, params, prompt, steps, mesh, sizes, tp=True, log=None, after=None):
     """The prefill's last logits and each decode step's (one row), and the
     cache leaves' shapes; the cache placed by ``kv_seq`` with ``sizes``
-    (whisper's cross cache by its ``ENC_SEQ`` frames)."""
+    (whisper's cross cache by its ``ENC_SEQ`` frames); TP over "model"
+    with ``tp``.  ``log`` gets every GEMM of the decode steps
+    (``models.common.recording``); ``after()`` runs last, in the run's
+    scopes."""
+    from repro_torch.models.common import recording
+
     batch = {"tokens": prompt}
     if arch.family == "audio":
         batch["audio_embed"] = _batch(arch, cfg, 1, prompt.shape[1], seed=3)[0]["audio_embed"]
     contracts.reset_all_reduces()
-    with _scopes(mesh, cfg, sizes), torch.no_grad():
+    with _scopes(mesh, cfg, sizes, tp), torch.no_grad():
         logits, cache = arch.prefill(params, batch, cfg, KV_MAX_SEQ)
         out = [logits]
-        for t in steps:
-            logits, cache = arch.decode(params, t, cache, cfg)
-            out.append(logits)
+        with contextlib.nullcontext() if log is None else recording(log):
+            for t in steps:
+                logits, cache = arch.decode(params, t, cache, cfg)
+                out.append(logits)
+        seq = dict(contracts.SEQ_COLLECTIVES)
+        if after is not None:
+            after()
     leaves = {f"{k}/{n}": tuple(v.shape) for k in ("layers", "first", "self") for n, v in cache.get(k, {}).items()}
     leaves.update({f"cross/{i}": tuple(v.shape) for i, v in enumerate(cache.get("cross", ()))})
-    return dict(logits=[_np(x) for x in out], cache=leaves, seq=dict(contracts.SEQ_COLLECTIVES))
+    return dict(logits=[_np(x) for x in out], cache=leaves, seq=seq)
 
 
-def _kv_sizes(arch, cfg):
-    """The one-row decode step's placement (rows, heads, ``kv_seq``): a
-    cache of ``KV_MAX_SEQ`` positions (whisper's decode shape names its
-    encoder frames, ``decoder_ratio`` times its decoder's)."""
+def replay(rep_log, placed_log, cfg):
+    """Every routed GEMM of the placed steps called again, in the placed
+    run's scopes, on this rank's block (rows, the ``kv_seq`` positions of
+    an expanded MLA decode's latent rows, K) of the replicated run's input
+    to it, against this rank's block of the replicated run's output (as
+    ``chip_smoke.py``'s phase 10 replays them).  Returns (GEMMs checked,
+    bitwise, the sites that were not)."""
+    from repro_torch.models.common import dense, engine_from_model_config
+    from repro_torch.runtime import sharding as shd
+
+    def mine(t, rows, segments=None, kb=None, seq=None):
+        if rows is not None:
+            t = t.narrow(0, rows[0] * rows[1], rows[1])
+        if seq is not None:
+            t = t.narrow(1, seq[0] * seq[1], seq[1])
+        if segments is not None:
+            t = torch.cat([t.narrow(-1, o, w) for o, w in segments], dim=-1)
+        if kb is not None:
+            n = t.shape[-1] // kb[1]
+            t = t.narrow(-1, kb[0] * n, n)
+        return t
+
+    eng = engine_from_model_config(cfg)
+    checked, same, bad = 0, 0, []
+    for rep, got in zip(rep_log, placed_log):
+        if not eng.routes(got.site):
+            continue
+        x = mine(rep.x, got.rows, kb=got.k_block, seq=got.seq)
+        with torch.no_grad(), (shd.rows_over("kv_seq") if got.seq else contextlib.nullcontext()):
+            y = dense(got.params, x, cfg, **got.kwargs)
+        want = mine(rep.y, got.rows, got.segments, seq=got.seq)
+        checked += 1
+        if want.shape == y.shape and torch.equal(want, y):
+            same += 1
+        else:
+            bad.append((got.site, got.layer))
+    return checked, same, bad
+
+
+@contextlib.contextmanager
+def origin_at_zero():
+    """Negative control: every block of a placed ``kv_seq``'s rows drawn at
+    row origin 0."""
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.row_segments
+
+    def zero(lead):
+        seg = inner(lead)
+        return seg if seg is None else ((0,) * len(seg[0]), seg[1])
+
+    shd.row_segments = zero
+    try:
+        yield
+    finally:
+        shd.row_segments = inner
+
+
+@contextlib.contextmanager
+def block_word():
+    """Negative control: the content word of a block of a placed
+    ``kv_seq``'s rows taken from the block alone (no SUM over the
+    blocks)."""
+    from repro_torch.noise.stages import U32
+    from repro_torch.runtime import sharding as shd
+
+    inner = shd.rows_word
+    shd.rows_word = lambda word: word & U32
+    try:
+        yield
+    finally:
+        shd.rows_word = inner
+
+
+def _kv_sizes(arch, cfg, rows=1):
+    """The decode step's placement (rows, heads, ``kv_seq``) at ``rows``
+    rows that "data" does not divide: a cache of ``KV_MAX_SEQ`` positions
+    (whisper's decode shape names its encoder frames, ``decoder_ratio``
+    times its decoder's)."""
     seq = KV_MAX_SEQ * (cfg.decoder_ratio if arch.family == "audio" else 1)
-    return arch.placement_sizes(cfg, _shape("decode", seq, 1), params=False)
+    return arch.placement_sizes(cfg, _shape("decode", seq, rows), params=False)
 
 
-def kv_inputs(cfg, t):
-    """One row's seeded prompt of ``t`` tokens and ``KV_STEPS`` decode
+def kv_inputs(cfg, t, rows=1):
+    """``rows`` seeded prompts of ``t`` tokens and ``KV_STEPS`` decode
     tokens (the test's reference logits read the same)."""
-    rng = np.random.default_rng(13 + t)
-    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (1, t)).astype(np.int64))
-    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (KV_STEPS, 1, 1)).astype(np.int64))
+    rng = np.random.default_rng(13 + t + 100 * (rows - 1))
+    prompt = torch.from_numpy(rng.integers(0, cfg.vocab_size, (rows, t)).astype(np.int64))
+    steps = torch.from_numpy(rng.integers(0, cfg.vocab_size, (KV_STEPS, rows, 1)).astype(np.int64))
     return prompt, steps
 
 
@@ -262,7 +347,7 @@ def kv_suite(mesh):
     placed) against the rows (which fall back), heads and ``kv_seq``
     placed; the second prompt's ideal qwen2 run again with the ``MAX``
     skipped (its first decode steps leave the second block all masked);
-    the expanded MLA decode under SMWA (it raises)."""
+    the expanded MLA decode under keyed SMWA (:func:`noisy_mla`)."""
 
     out = {}
     for name, channel, absorbed, prompts in kv_cases():
@@ -280,14 +365,51 @@ def kv_suite(mesh):
     arch, cfg = _cfg(QWEN, "ideal")
     with _scopes(mesh, cfg, _kv_sizes(arch, cfg)) as pl:
         out["blocks"] = {k: (b.part, b.index, b.count, b.size) for k, b in pl.blocks.items()}
-    arch, cfg = _cfg(DEEPSEEK, "SMWA")
+    out["smwa_expanded"] = noisy_mla(mesh)
+    return out
+
+
+def noisy_cases():
+    """``(backend, tp, rows)`` of the noisy expanded MLA decode: TP over
+    "model" (the replicated program splits the latent rows over "data"
+    itself: at one row a rank's block of the positions is its split; at
+    three the split cuts across the rows, and a rank gathers the latent
+    rows and expands them whole) or none (the replicated program runs them
+    whole, and each row's block runs at its row origin with the whole
+    operand's word; several rows' blocks, one launch each, are
+    ``tests/test_torch_row_origin.py``'s)."""
+    return [("kernel", True, 1), ("kernel", True, 3), ("kernel", False, 1), ("ref", False, 1)]
+
+
+def noisy_mla(mesh):
+    """deepseek-v2-lite's expanded MLA decode on seeded SMWA at
+    ``NOISY_LAYERS`` layers, a prompt of ``NOISY_PROMPT`` and
+    ``NOISY_STEPS`` steps across the blocks' boundary,
+    replicated against ``kv_seq`` placed, for each of :func:`noisy_cases`:
+    the logits, the sequence collectives, every routed GEMM of the placed
+    steps replayed on the replicated run's input; without TP on the
+    kernel backend the two negative controls' replays too."""
+    out = {}
+    arch, cfg = _cfg(DEEPSEEK, "SMWA", mla_absorb=False, num_layers=NOISY_LAYERS)
     params = _reference_init(arch, cfg)
-    prompt, steps = kv_inputs(cfg, KV_PROMPTS[1])
-    try:
-        _decode(arch, cfg, params, prompt, steps[:1], mesh, _kv_sizes(arch, cfg))
-        out["smwa_expanded"] = None
-    except NotImplementedError as e:
-        out["smwa_expanded"] = str(e)
+    for backend, tp, rows in noisy_cases():
+        cfg = dataclasses.replace(cfg, photonic_backend=backend)
+        prompt, steps = kv_inputs(cfg, NOISY_PROMPT, rows)
+        steps = steps[:NOISY_STEPS]
+        rep_log, placed_log, got = [], [], {}
+
+        def after():
+            got["replay"] = replay(rep_log, placed_log, cfg)
+            if backend == "kernel" and not tp and rows == 1:
+                with origin_at_zero():
+                    got["origin_0"] = replay(rep_log, placed_log, cfg)
+                with block_word():
+                    got["block_word"] = replay(rep_log, placed_log, cfg)
+
+        rep = _decode(arch, cfg, params, prompt, steps, mesh, None, tp=tp, log=rep_log)
+        placed = _decode(arch, cfg, params, prompt, steps, mesh, _kv_sizes(arch, cfg, rows), tp=tp, log=placed_log,
+                         after=after)
+        out[(backend, tp, rows)] = dict(replicated=rep, placed=placed, **got)
     return out
 
 

@@ -69,6 +69,13 @@ from repro_torch.models import registry as treg  # noqa: E402
 from repro_torch.runtime import sharding as tshd  # noqa: E402
 
 KV_ATOL = KV_RTOL = 1e-5  # digital: the merged softmax sums in another order
+
+
+def _seq(**counts):
+    """``contracts.SEQ_COLLECTIVES`` with ``counts`` and every other key 0."""
+    from repro_torch.analysis import contracts
+
+    return {k: counts.get(k, 0) for k in contracts.SEQ_COLLECTIVES}
 IDEAL_BAR = 1e-5  # the ideal channel's logits, of their largest magnitude
 CONTROL_BAR = 2.0**-5  # chip_smoke's phase 10 bar, which the control must miss
 
@@ -81,7 +88,7 @@ def _reference_params(name):
 
 @pytest.fixture(scope="module")
 def group(tmp_path_factory):
-    return spawn(ranks.suite, 4, backend="gloo", args=(str(tmp_path_factory.mktemp("seq")),), timeout=300)
+    return spawn(ranks.suite, 4, backend="gloo", args=(str(tmp_path_factory.mktemp("seq")),), timeout=600)
 
 
 # ---------------------------------------------------------------------------
@@ -126,7 +133,8 @@ def test_a_placed_prefill_gathers_twice_a_layer_and_once_for_its_last_position(g
     for r in group:
         for channel in ("ideal", "SMWA"):
             got = r["seq"][(ranks.QWEN, channel, "prefill")]["placed"]["seq"]
-            assert got == dict(gather=2 * cfg.num_layers + 1, split_grad=0, kv_max=0, kv_sum=0)
+            # the Megatron form: each layer's two blocks reduce-scatter their outputs (attention's wo, the MLP's wo)
+            assert got == _seq(gather=2 * cfg.num_layers + 1, scatter=2 * cfg.num_layers)
 
 
 # ---------------------------------------------------------------------------
@@ -143,8 +151,8 @@ def test_training_with_seq_sp_is_bitwise_the_run_without_it(group):
         for k, v in t["seq"]["params"].items():
             np.testing.assert_allclose(v, t["replicated"]["params"][k], rtol=0, atol=1e-5, err_msg=k)
         # a step: the forward's and the remat recompute's gathers, the backward's of every cut residual
-        assert t["seq"]["seq"] == dict(gather=2 * (4 * layers + 1), split_grad=2 * (2 * layers + 1), kv_max=0,
-                                       kv_sum=0)
+        assert t["seq"]["seq"] == _seq(gather=2 * (4 * layers + 1), split_grad=2 * (2 * layers + 1),
+                                       scatter=2 * 4 * layers)
         assert t["no_seq"]["seq"]["gather"] == 0
         np.testing.assert_array_equal(t["seq"]["params"]["embed/table"], group[0]["train"]["seq"]["params"]
                                       ["embed/table"])
@@ -177,8 +185,7 @@ def test_a_kv_seq_placed_decode_holds_its_bar(group, case):
                 worst = max(float(np.abs(a - b).max()) for a, b in zip(placed, rep))
                 assert worst <= IDEAL_BAR * largest, (t, worst, largest)
             attn = cfg.num_layers * (2 if name == ranks.WHISPER else 1)  # whisper: self- and cross-attention
-            assert res["placed"]["seq"] == dict(gather=0, split_grad=0, kv_max=attn * ranks.KV_STEPS,
-                                                kv_sum=attn * ranks.KV_STEPS)
+            assert res["placed"]["seq"] == _seq(kv_max=attn * ranks.KV_STEPS, kv_sum=attn * ranks.KV_STEPS)
             assert res["replicated"]["seq"]["kv_max"] == 0
             for key, shape in res["placed"]["cache"].items():
                 whole = res["replicated"]["cache"][key]
@@ -204,9 +211,39 @@ def test_the_row_max_must_meet_across_the_blocks(group):
         np.testing.assert_array_equal(control[0], rep[0])  # the prefill attends over its own K/V
 
 
-def test_an_expanded_mla_decode_on_a_noisy_channel_raises(group):
+@pytest.mark.parametrize("backend,tp,rows", ranks.noisy_cases(), ids=lambda v: str(v))
+def test_an_expanded_mla_decode_on_a_noisy_channel_is_the_replicated_programs(group, backend, tp, rows):
+    """deepseek-v2-lite's expanded decode over a ``kv_seq`` cache on seeded
+    SMWA: every routed GEMM of the placed steps, replayed on the replicated
+    run's input, is bitwise its output (``wuk`` / ``wuv`` on the rank's
+    block of the latent rows), and the logits hold the merge's bar.  Without
+    TP the blocks run at their row origins with the whole operand's word
+    (one SUM of the word a ``wuk`` / ``wuv``), and either control (origin
+    0 on the second block, the block's own word) breaks the replay of
+    both; under TP the
+    replicated program splits the rows over "data" as the cache is
+    placed at one row, and nothing is summed; at three rows its split
+    cuts across the rows, and the rank gathers its latent rows (two
+    all-gathers a layer and step) and expands them whole."""
     for r in group:
-        assert r["kv"]["smwa_expanded"] is not None and "3b" in r["kv"]["smwa_expanded"]
+        res = r["kv"]["smwa_expanded"][(backend, tp, rows)]
+        checked, same, bad = res["replay"]
+        assert checked == same > 0 and not bad
+        rep, placed = res["replicated"]["logits"], res["placed"]["logits"]
+        largest = max(float(np.abs(x).max()) for x in rep)
+        assert max(float(np.abs(a - b).max()) for a, b in zip(placed, rep)) <= IDEAL_BAR * largest
+        np.testing.assert_array_equal(placed[0], rep[0])  # the prefill attends over its own K/V
+        per = ranks.NOISY_LAYERS * ranks.NOISY_STEPS
+        assert res["placed"]["seq"] == _seq(kv_max=per, kv_sum=per, kv_word=0 if tp else 2 * per,
+                                            kv_rows=2 * per if tp and rows > 1 else 0)
+        for control in ("origin_0", "block_word"):
+            if control in res:
+                wrong = {site for site, _ in res[control][2]}
+                if control == "origin_0" and r["coords"][0] == 0:  # the first block's origin is 0
+                    assert not wrong
+                else:
+                    assert {"attn.wuk", "attn.wuv"} <= wrong, (control, res[control])
+        assert ("origin_0" in res) == (backend == "kernel" and not tp and rows == 1)
 
 
 def test_the_kv_seq_decode_is_the_references(group):
@@ -274,7 +311,7 @@ def test_the_dry_run_places_both_sequence_axes(kind, rows):
     if kind == "decode":
         assert cell["placed"]["kv_seq"] == "data" and "batch" not in cell["placed"]
         layers = _config().num_layers
-        assert seq == dict(gather=0, split_grad=0, kv_max=layers, kv_sum=layers)
+        assert seq == _seq(kv_max=layers, kv_sum=layers)
         arch, cfg = treg.get("qwen2-0.5b"), _config().pad_for_mesh(16)
         (_, _), (cache, _) = arch.decode_specs(cfg, treg.ShapeSpec("s", 16, rows, "decode"))
         whole = sum(s.nbytes for s in tree_items(cache).values() if s.shape)
@@ -283,4 +320,51 @@ def test_the_dry_run_places_both_sequence_axes(kind, rows):
         assert cell["placed"]["seq_sp"] == "model"
         assert seq["gather"] > 0 and seq["kv_max"] == 0
         assert (seq["split_grad"] > 0) == (kind == "train")
+        # the Megatron form: every block's output and the embedding's vocab-parallel sum reduce-scattered (the
+        # remat recompute, which stops once the backward's saved inputs are back, runs attention's again); in
+        # training each entry's input gradient too (the parameters placed), and no all-reduce of either
+        layers = _config().num_layers
+        assert seq["scatter"] == (3 if kind == "train" else 2) * layers + 1
+        assert seq["gather_grad"] == seq["norm_grad"] == (2 * layers if kind == "train" else 0)
+        wire = cell["seq_wire_bytes"]
+        assert wire["scatter"] > 0 and (wire["gather_grad"] > 0) == (kind == "train")
+        assert cell["bytes_reduce-scatter"] >= wire["scatter"] + wire["gather_grad"]
     assert cell["fits_device"]
+
+
+# ---------------------------------------------------------------------------
+# (f) every collective through one helper
+# ---------------------------------------------------------------------------
+COLLECTIVES = {"all_reduce", "all_gather", "all_gather_into_tensor", "reduce_scatter", "reduce_scatter_tensor",
+               "broadcast", "reduce", "gather", "scatter", "all_to_all", "all_to_all_single", "send", "recv",
+               "isend", "irecv", "batch_isend_irecv", "P2POp", "all_gather_object", "broadcast_object_list"}
+
+
+def test_every_collective_of_the_port_goes_through_the_staging_helper():
+    """An AST scan of ``src/repro_torch``: a ``torch.distributed`` data
+    collective (or a point-to-point op) is called, or imported by name, in
+    ``runtime/collectives.py`` alone, which stages CUDA tensors through the
+    host on a ``gloo`` group."""
+    import ast
+    from pathlib import Path
+
+    root = Path(__file__).resolve().parents[1] / "src" / "repro_torch"
+    helper = root / "runtime" / "collectives.py"
+    found, outside = set(), []
+    for path in sorted(root.rglob("*.py")):
+        tree = ast.parse(path.read_text(), filename=str(path))
+        aliases = {"dist"} | {a.asname or a.name for n in ast.walk(tree) if isinstance(n, ast.Import)
+                              for a in n.names if a.name == "torch.distributed"}
+        for node in ast.walk(tree):
+            name = None
+            if isinstance(node, ast.Attribute) and node.attr in COLLECTIVES and (
+                    isinstance(node.value, ast.Name) and node.value.id in aliases
+                    or ast.unparse(node.value) == "torch.distributed"):
+                name = node.attr
+            elif isinstance(node, ast.ImportFrom) and (node.module or "").startswith("torch.distributed"):
+                name = next((a.name for a in node.names if a.name in COLLECTIVES), None)
+            if name is not None:
+                (found.add(name) if path == helper else outside.append((str(path.relative_to(root)), node.lineno,
+                                                                         name)))
+    assert not outside, outside
+    assert {"all_reduce", "all_gather", "reduce_scatter", "batch_isend_irecv"} <= found
